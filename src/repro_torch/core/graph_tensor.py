@@ -1,0 +1,186 @@
+"""GraphTensor — the paper's §3.2 data structure (counterpart of
+`repro.core.graph_tensor`).
+
+The same fixed-capacity form as the reference: every node/edge set has a
+static capacity (array length) and a `sizes` vector giving the valid item
+count per graph component.  Host code (sampling, merge-and-pad) builds
+GraphTensors whose leaves are numpy arrays; `to_device` turns them into
+tensors on one device for the model.  `mask()` and `component_ids()`
+work on either form.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+Array = Any  # np.ndarray on the host, torch.Tensor on a device
+
+
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def _arange_lt_total(sizes, capacity: int):
+    """[capacity] bool: position < sizes.sum() (valid-item mask)."""
+    if _is_tensor(sizes):
+        return torch.arange(capacity, device=sizes.device) < sizes.sum()
+    return np.arange(capacity) < np.asarray(sizes).sum()
+
+
+def _component_ids(sizes, capacity: int):
+    """[capacity] component index per item; padding slots past the last
+    size map to len(sizes)."""
+    if _is_tensor(sizes):
+        bounds = torch.cumsum(sizes, 0)
+        pos = torch.arange(capacity, device=sizes.device, dtype=bounds.dtype)
+        return torch.searchsorted(bounds, pos, right=True)
+    bounds = np.cumsum(np.asarray(sizes))
+    return np.searchsorted(bounds, np.arange(capacity),
+                           side="right").astype(np.int32)
+
+
+@dataclasses.dataclass
+class Context:
+    """Per-component features. sizes[c] == 1 for real components, 0 for
+    padding components (doubles as the training-weight mask)."""
+
+    sizes: Array                      # [C] (1 = real, 0 = padding)
+    features: dict[str, Array]        # each [C, ...]
+
+    @property
+    def num_components(self) -> int:
+        return self.sizes.shape[0]
+
+    def __getitem__(self, name: str) -> Array:
+        return self.features[name]
+
+    def mask(self) -> Array:
+        return self.sizes > 0
+
+
+@dataclasses.dataclass
+class NodeSet:
+    sizes: Array                      # [C] valid nodes per component
+    features: dict[str, Array]        # each [capacity, ...]
+    capacity: int                     # static array length
+
+    @property
+    def total_size(self) -> Array:
+        return self.sizes.sum()
+
+    def __getitem__(self, name: str) -> Array:
+        return self.features[name]
+
+    def mask(self) -> Array:
+        """[capacity] bool — True for valid (non-padding) nodes."""
+        return _arange_lt_total(self.sizes, self.capacity)
+
+    def component_ids(self) -> Array:
+        """[capacity] component index per node."""
+        return _component_ids(self.sizes, self.capacity)
+
+
+@dataclasses.dataclass
+class Adjacency:
+    source: Array                     # [capacity] node indices
+    target: Array                     # [capacity] node indices
+    source_name: str
+    target_name: str
+
+
+@dataclasses.dataclass
+class EdgeSet:
+    sizes: Array                      # [C] valid edges per component
+    adjacency: Adjacency
+    features: dict[str, Array]
+    capacity: int
+
+    @property
+    def total_size(self) -> Array:
+        return self.sizes.sum()
+
+    def __getitem__(self, name: str) -> Array:
+        return self.features[name]
+
+    def mask(self) -> Array:
+        return _arange_lt_total(self.sizes, self.capacity)
+
+    def component_ids(self) -> Array:
+        return _component_ids(self.sizes, self.capacity)
+
+
+@dataclasses.dataclass
+class GraphTensor:
+    """A scalar GraphTensor (shape []) holding one merged batch of graphs
+    as components — the paper's canonical in-model representation."""
+
+    context: Context
+    node_sets: dict[str, NodeSet]
+    edge_sets: dict[str, EdgeSet]
+
+    @property
+    def num_components(self) -> int:
+        return self.context.num_components
+
+    def replace_features(
+            self,
+            context: Optional[Mapping[str, Array]] = None,
+            node_sets: Optional[Mapping[str, Mapping[str, Array]]] = None,
+            edge_sets: Optional[Mapping[str, Mapping[str, Array]]] = None,
+    ) -> "GraphTensor":
+        """New GraphTensor with some feature dicts replaced (paper §3.2)."""
+        new_ctx = self.context
+        if context is not None:
+            new_ctx = Context(self.context.sizes, dict(context))
+        new_ns = dict(self.node_sets)
+        for name, feats in (node_sets or {}).items():
+            old = new_ns[name]
+            new_ns[name] = NodeSet(old.sizes, dict(feats), old.capacity)
+        new_es = dict(self.edge_sets)
+        for name, feats in (edge_sets or {}).items():
+            old = new_es[name]
+            new_es[name] = EdgeSet(old.sizes, old.adjacency, dict(feats),
+                                   old.capacity)
+        return GraphTensor(new_ctx, new_ns, new_es)
+
+
+def _leaf_to_device(x, device) -> torch.Tensor:
+    """numpy leaf -> tensor on `device`.  Integer leaves (ids, sizes,
+    labels) become int64, torch's index type; the kernels take int32 ids
+    and the call sites that launch them narrow their own index vectors."""
+    arr = np.asarray(x)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if not (t.is_floating_point() or t.dtype == torch.bool):
+        t = t.to(torch.int64)
+    return t.to(device)
+
+
+def to_device(graph: GraphTensor, device) -> GraphTensor:
+    """Copy a host (numpy) GraphTensor onto `device` as tensors."""
+    def conv(d):
+        return {k: _leaf_to_device(v, device) for k, v in d.items()}
+
+    ctx = Context(_leaf_to_device(graph.context.sizes, device),
+                  conv(graph.context.features))
+    node_sets = {name: NodeSet(_leaf_to_device(ns.sizes, device),
+                               conv(ns.features), ns.capacity)
+                 for name, ns in graph.node_sets.items()}
+    edge_sets = {}
+    for name, es in graph.edge_sets.items():
+        adj = es.adjacency
+        edge_sets[name] = EdgeSet(
+            _leaf_to_device(es.sizes, device),
+            Adjacency(_leaf_to_device(adj.source, device),
+                      _leaf_to_device(adj.target, device),
+                      adj.source_name, adj.target_name),
+            conv(es.features), es.capacity)
+    return GraphTensor(ctx, node_sets, edge_sets)
+
+
+HIDDEN_STATE = "hidden_state"
+SOURCE = "source"
+TARGET = "target"
+CONTEXT = "context"

@@ -1,0 +1,161 @@
+"""Core trainable layers (counterpart of `repro.nn.layers` and the
+parameter handling of `repro.nn.module`).
+
+Layouts follow the reference so weights carry across as plain copies:
+`Linear.w` is ``[in, out]`` and `Linear.b` is ``[out]``.  Every module's
+parameter names, joined with dots, are the key paths of the reference's
+``split_params(module.init(key))[0]`` tree, which is what
+`load_jax_params` relies on.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Linear(nn.Module):
+    """Dense layer: y = x @ w (+ b), with w stored [in, out]."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, use_bias: bool = True):
+        super().__init__()
+        self.in_dim = in_dim
+        self.out_dim = out_dim
+        self.w = nn.Parameter(torch.zeros(in_dim, out_dim))
+        self.b = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Lecun-normal, truncated at two standard deviations (the
+        reference's default initializer); zero bias."""
+        std = math.sqrt(1.0 / max(1, self.in_dim)) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.w, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if self.b is not None:
+                self.b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.w.to(x.dtype))
+        if self.b is not None:
+            y = y + self.b.to(x.dtype)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in fp32 and cast back, eps 1e-5 (as the
+    reference writes it out; no fused library call)."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-5, use_bias: bool = True):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.scale.to(torch.float32)
+        if self.bias is not None:
+            y = y + self.bias.to(torch.float32)
+        return y.to(dtype)
+
+
+class Embedding(nn.Module):
+    """Id embedding.  Like the reference, the lookup returns bfloat16
+    unless the caller asks for another dtype."""
+
+    def __init__(self, vocab_size: int, dim: int):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.dim = dim
+        self.table = nn.Parameter(torch.zeros(vocab_size, dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.table.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, ids: torch.Tensor,
+                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        return self.table.to(dtype)[ids]
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation; torch's default is
+    # the erf form, so the approximation is named explicitly
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": _gelu_tanh,
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "identity": lambda x: x,
+    "sigmoid": torch.sigmoid,
+    "relu2": lambda x: torch.square(torch.relu(x)),
+}
+
+
+def init_params(module: nn.Module, seed: int) -> nn.Module:
+    """Draw every parameter of `module` from one seeded generator, layer
+    by layer in registration order (a pure function of the seed)."""
+    generator = torch.Generator().manual_seed(int(seed))
+    for sub in module.modules():
+        if isinstance(sub, (Linear, LayerNorm, Embedding)):
+            sub.reset_parameters(generator)
+    return module
+
+
+def _flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    """{dotted key path: leaf} for nested dicts/lists of arrays; list
+    items are keyed by index, as nn.ModuleList names its children."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out: dict[str, np.ndarray] = {}
+    for key, sub in items:
+        out.update(_flatten_tree(sub, f"{prefix}.{key}" if prefix
+                                 else str(key)))
+    return out
+
+
+def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy a reference parameter tree (the numpy leaves of
+    ``split_params(...)[0]``) into `module`, in place.
+
+    Raises ValueError when the key paths or shapes differ: a partial load
+    would leave randomly drawn weights behind and break parity quietly."""
+    leaves = _flatten_tree(tree)
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(leaves))
+    unexpected = sorted(set(leaves) - set(params))
+    if missing or unexpected:
+        raise ValueError(f"parameter trees differ: missing {missing}, "
+                         f"unexpected {unexpected}")
+    with torch.no_grad():
+        for name, p in params.items():
+            value = torch.from_numpy(np.array(leaves[name], np.float32))
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(value.shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(value.to(p.dtype))
+    return module

@@ -17,6 +17,10 @@ def pytest_configure(config):
         "markers",
         "timeout(seconds): per-test timeout (enforced by pytest-timeout "
         "when installed; tests carry structural deadlines regardless)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc (the PyTorch port's kernels); "
+        "skips elsewhere")
 
 
 def make_graph(n_users=4, n_items=6, n_purchased=7, n_friend=3, seed=0,
