@@ -5,16 +5,28 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from the sources in the checkout,
-holds each against its plain PyTorch version at the served shapes, then
-serves the full-width §8 OGBN-MAG model (init states -> 4-round
-vanilla_mpnn over all five edge sets, 128 wide -> root-node head)
-through `repro_torch.serve.gnn.GNNServer` on the card, and runs the
-mean-pooling variant of the same model, whose pooling is the
-`segment_pool` kernel.  Each phase prints one line; any failure exits
-non-zero.  The line before the last is a JSON record of every kernel
-(launches on the served path, error against the plain version, times on
-the card, bound); the last line is
+It builds the four hand-written CUDA kernels from the sources in the
+checkout (one `nvcc` per source, all in parallel) and holds each against
+its plain PyTorch version: `edge_mpnn` and `segment_pool` at the served
+shapes, `edge_mpnn_runs` and `segment_pool_runs` at the trained shapes,
+on sorted and unsorted ids.  Then it drives the port's two paths at the
+full width of the §8 OGBN-MAG model (init states -> 4-round vanilla_mpnn
+over all five edge sets, 128 wide, LayerNorm -> root-node head, 8
+classes):
+
+* serving: `repro_torch.serve.gnn.GNNServer` on the card, and the
+  mean-pooling variant of the same model (`[serve]`, `[mean]`);
+* training: `repro_torch.orchestration.trainer.Trainer` over a
+  `StoreProvider` of target-sorted 16-root batches, AdamW +
+  warmup-cosine, then an eval pass (`[train]`, `[train-mean]`), with the
+  gradients of step 1 and the per-step losses held to the same run
+  through the plain versions on the card.
+
+Each path is run with every kernel's launch count set to 0 just before
+it and read just after.  Each phase prints one line; any failure prints
+``FAIL:`` and exits non-zero.  The line before the last is a JSON record
+of every kernel (launches on its path, error against the plain version,
+times on the card, bound); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without a CUDA device, or without the `src/repro_torch` package next to
@@ -22,6 +34,8 @@ this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import statistics
@@ -46,11 +60,30 @@ ROUNDS = 4
 VOCAB = 4096
 MAX_BATCH = 8
 SEED = 0
+DEVICE = "cuda"
 
 # closed loop: one outstanding request per client, every root fresh; 500
 # requests, so p99 is a tail and not the single slowest request
 LOOP_CLIENTS = 4
 LOOP_REQUESTS = 125
+
+# training (examples/ogbn_mag_train.py: batch 16; lr 3e-3 over 600 steps
+# with the Trainer's warmup 50 and weight decay 1e-5), cut to 24 steps of
+# one epoch over 384 roots, then an eval pass over 64 held-out roots
+TRAIN_BATCH = 16
+TRAIN_STEPS = 24
+EVAL_ROOTS = 64
+TRAIN_LR = 3e-3
+TRAIN_TOTAL = 600
+MEAN_STEPS = 3
+# kernel path vs plain path on the card: fp32 atomics sum in another
+# order than index_add_, so gradients agree to a relative 1e-3 of each
+# parameter's largest gradient entry, losses on shared parameters to 1e-4,
+# and independent runs' losses to 1e-3 over their first PARITY_STEPS steps
+GRAD_RTOL = 1e-3
+LOSS_ATOL = 1e-3
+PARITY_STEPS = 5
+STEP_LOSS_ATOL = 1e-4
 
 
 def fail(message: str) -> None:
@@ -88,6 +121,14 @@ def time_ms(torch, fn, calls: int = 50, reps: int = 5,
 # phase 1: device
 # ---------------------------------------------------------------------------
 
+def full_fp32(torch) -> None:
+    """Every fp32 product in full fp32, as the kernels and the JAX
+    reference compute: no TF32 in matmuls or convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
 def device_phase(torch):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -97,9 +138,7 @@ def device_phase(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    full_fp32(torch)
     name = torch.cuda.get_device_name(0)
     phase("device", f"{name} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, TF32 off")
@@ -120,7 +159,8 @@ def build_phase():
                  for ln in rep["log"].splitlines() if "registers" in ln]
         phase("build", f"{name}: {rep['seconds']:.1f}s; "
               + " | ".join(usage))
-    phase("build", f"both kernels built in parallel in {seconds:.1f}s")
+    phase("build", f"{len(report)} kernels built in parallel in "
+          f"{seconds:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +176,37 @@ def _close(torch, name, got, want, rtol, atol) -> float:
         fail(f"{name}: max |kernel - plain| {err:.3e} exceeds rtol "
              f"{rtol} atol {atol}")
     return (got - want).abs().max().item()
+
+
+def _close_sum(torch, name, got, want, abs_sum, counts, rtol) -> float:
+    """`got` vs `want` where both are fp32 sums of `counts` terms per row
+    whose absolute values sum to `abs_sum`, taken in different orders
+    (tile runs and atomics vs index_add_).  Each order may be off by up
+    to n * 2**-24 * sum|terms| (recursive summation), so a row of n terms
+    is held to (rtol + 2 * n * 2**-24) * sum|terms| + 1e-6: rtol covers
+    the terms themselves (an FMA chain vs a library matmul).  The
+    training batches' padding edges form one run of thousands of edges
+    into the padding node, where a plain relative tolerance on the sum
+    would not hold for either order."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite output")
+    tol = (rtol + 2 * counts.float()[:, None] * 2.0 ** -24) * abs_sum + 1e-6
+    err = (got - want).abs()
+    if bool((err > tol).any()):
+        worst = int(torch.argmax((err - tol).max(1).values))
+        fail(f"{name}: max |kernel - plain| {err.max().item():.3e}; row "
+             f"{worst} ({int(counts[worst])} terms, sum|terms| "
+             f"{abs_sum[worst].max().item():.3e}) exceeds its tolerance")
+    return err.max().item()
+
+
+def _bound(nbytes: int, flops: int) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the card's memory
+    rate and fp32 operations over its fp32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernels_phase(torch):
@@ -188,18 +259,15 @@ def kernels_phase(torch):
     plain_ms = time_ms(torch, lambda: edge_mpnn_ref(
         h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt))
     isz = 4
-    nbytes = ((n_src * d + n_tgt * d + 2 * d * d + d + n_tgt * d) * isz
-              + 2 * e * 4)
-    flops = 2 * n_valid * (2 * d) * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    bound_ms, bound_by = _bound(
+        (n_src * d + n_tgt * d + 2 * d * d + d + n_tgt * d) * isz + 2 * e * 4,
+        2 * n_valid * (2 * d) * d)
     records["edge_mpnn"] = dict(
         name="edge_mpnn", route="cuda",
         source="src/repro_torch/kernels/edge_mpnn/edge_mpnn.cu",
         replaces="src/repro/kernels/edge_mpnn/kernel.py:182",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None)
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
     phase("kernels", f"edge_mpnn fp32/bf16 x relu/gelu/identity match the "
           f"plain version (fp32 max err {max(errs):.2e}); fp32 "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
@@ -239,16 +307,14 @@ def kernels_phase(torch):
     acc = torch.zeros(n_tgt + 1, d, device=dev)
     library_ms = time_ms(torch, lambda: acc.index_add_(0, safe, vals))
     # padding rows' values are never read
-    nbytes = n_valid * d * isz + e * 4 + n_tgt * d * isz
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, n_valid * d / PEAK_FP32_FLOPS
+    bound_ms, bound_by = _bound(n_valid * d * isz + e * 4 + n_tgt * d * isz,
+                                n_valid * d)
     records["segment_pool"] = dict(
         name="segment_pool", route="cuda",
         source="src/repro_torch/kernels/segment_pool/segment_pool.cu",
         replaces="src/repro/kernels/segment_pool/kernel.py:193",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms)
     phase("kernels", f"segment_pool: int sums bit-exact, max/min exact, "
           f"sum fp32 max err {err:.2e}, bf16 cast back; {n_empty} empty "
           f"segments; sum {ms:.4f} ms vs plain {plain_ms:.4f} ms vs "
@@ -280,25 +346,204 @@ def kernels_phase(torch):
     return records
 
 
+def runs_kernels_phase(torch, batch, records):
+    """The run kernels at the trained shape: the has_topic conv of the
+    first 16-root training batch (n_src papers, n_tgt fields, E edges,
+    128 wide), its targets sorted as the batcher emits them (padding
+    last), and the same edges in a seeded random order."""
+    from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn, edge_mpnn_runs
+    from repro_torch.kernels.edge_mpnn.ref import activate, edge_mpnn_ref
+    from repro_torch.kernels.registry import kernel_ids
+    from repro_torch.kernels.segment_pool.kernel import (segment_pool,
+                                                         segment_pool_runs)
+    from repro_torch.kernels.segment_pool.ref import segment_pool_ref
+
+    dev = torch.device(DEVICE)
+    es = batch.edge_sets["has_topic"]
+    n_src = batch.node_sets["paper"].capacity
+    n_tgt = batch.node_sets["field_of_study"].capacity
+    e, d = es.capacity, DIM
+    src = kernel_ids(es.adjacency.source)
+    tgt = kernel_ids(torch.where(es.mask(), es.adjacency.target,
+                                 torch.full_like(es.adjacency.target,
+                                                 n_tgt)))
+    if not bool((tgt[1:] >= tgt[:-1]).all()):
+        fail("training batch: has_topic targets are not sorted")
+    n_valid = int((tgt < n_tgt).sum())
+    n_runs = int(torch.unique(tgt[tgt < n_tgt]).numel())
+    rng = np.random.default_rng(SEED + 4)
+    perm = torch.from_numpy(rng.permutation(e)).to(dev)
+    layouts = {"sorted": (src, tgt), "unsorted": (src[perm], tgt[perm])}
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    h_src, h_tgt = normal(n_src, d), normal(n_tgt, d)
+    w, b = normal(2 * d, d, scale=(2 * d) ** -0.5), normal(d, scale=0.1)
+    counts = torch.bincount(tgt.long(), minlength=n_tgt + 1)[:n_tgt]
+
+    def message_sums(act, dtype=torch.float32, absolute=True):
+        """Per target row, the sum of (|)message(|) over its edges."""
+        x = torch.cat([h_src[src.long()], h_tgt[tgt.clamp(max=n_tgt - 1)
+                                                .long()]], dim=-1).to(dtype)
+        msg = activate(x @ w.to(dtype) + b.to(dtype), act)
+        msg = torch.where((tgt < n_tgt)[:, None], msg.abs() if absolute
+                          else msg, 0.0)
+        return torch.zeros(n_tgt + 1, d, dtype=dtype, device=dev).index_add_(
+            0, tgt.long(), msg)[:n_tgt]
+
+    # -- edge_mpnn_runs ------------------------------------------------------
+    errs = []
+    for act in ("relu", "gelu", "identity"):
+        abs_sum = message_sums(act)
+        for layout, (s_ids, t_ids) in layouts.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                args = [t.to(dtype) for t in (h_src, h_tgt, w, b)]
+                got = edge_mpnn_runs(args[0], args[1], s_ids, t_ids,
+                                     args[2], args[3], n_src=n_src,
+                                     n_tgt=n_tgt, activation=act)
+                want = edge_mpnn_ref(args[0], args[1], s_ids, t_ids,
+                                     args[2], args[3], n_src=n_src,
+                                     n_tgt=n_tgt, activation=act)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or got.shape != (n_tgt, d):
+                    fail(f"edge_mpnn_runs: got {got.dtype} "
+                         f"{tuple(got.shape)}")
+                name = f"edge_mpnn_runs[{layout}, {dtype}, {act}]"
+                if dtype == torch.float32:
+                    errs.append(_close_sum(torch, name, got, want, abs_sum,
+                                           counts, 1e-5))
+                else:  # the cast back to bf16 dominates
+                    _close(torch, name, got, want, 2e-2, 2e-2)
+    # which order sums closer to the exact value: both against fp64
+    exact = message_sums("relu", torch.float64, absolute=False)
+    kernel_err = (edge_mpnn_runs(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
+                                 n_tgt=n_tgt).double() - exact).abs().max()
+    plain_err = (edge_mpnn_ref(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
+                               n_tgt=n_tgt).double() - exact).abs().max()
+    ms = time_ms(torch, lambda: edge_mpnn_runs(
+        h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt))
+    plain_ms = time_ms(torch, lambda: edge_mpnn_ref(
+        h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt))
+    any_order_ms = time_ms(torch, lambda: edge_mpnn(
+        h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt))
+    isz = 4
+    bound_ms, bound_by = _bound(
+        (n_src * d + n_tgt * d + 2 * d * d + d + n_tgt * d) * isz + 2 * e * 4,
+        2 * n_valid * (2 * d) * d)
+    records["edge_mpnn_runs"] = dict(
+        name="edge_mpnn_runs", route="cuda",
+        source="src/repro_torch/kernels/edge_mpnn/edge_mpnn_runs.cu",
+        replaces="src/repro/kernels/edge_mpnn/kernel.py:129",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    phase("kernels", f"edge_mpnn_runs sorted+unsorted x fp32/bf16 x "
+          f"relu/gelu/identity match the plain version (fp32 max err "
+          f"{max(errs):.2e}, the padding node's {int(counts.max())}-edge "
+          f"run; vs fp64, relu: kernel {kernel_err.item():.2e}, plain "
+          f"{plain_err.item():.2e}); trained shape n_src {n_src} n_tgt {n_tgt} "
+          f"E {e} ({n_valid} valid, {n_runs} target runs): sorted fp32 "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms vs edge_mpnn "
+          f"{any_order_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    # -- segment_pool_runs ---------------------------------------------------
+    vals = normal(e, d)
+    ints = torch.from_numpy(rng.integers(-8, 8, (e, d)).astype(np.float32)
+                            ).to(dev)
+    abs_sum = segment_pool_ref(vals.abs(), tgt, n_segments=n_tgt)
+    err = 0.0
+    for layout, (_, t_ids) in layouts.items():
+        kw = dict(n_segments=n_tgt)
+        if not torch.equal(segment_pool_runs(ints, t_ids, **kw),
+                           segment_pool_ref(ints, t_ids, **kw)):
+            fail(f"segment_pool_runs[{layout}]: integer-valued fp32 sums "
+                 "are not bit-identical")
+        for reduce in ("max", "min"):
+            if not torch.equal(
+                    segment_pool_runs(vals, t_ids, reduce=reduce, **kw),
+                    segment_pool_ref(vals, t_ids, reduce=reduce, **kw)):
+                fail(f"segment_pool_runs[{layout}]: {reduce} differs from "
+                     "the plain version")
+        err = max(err, _close_sum(
+            torch, f"segment_pool_runs[{layout}, sum, fp32]",
+            segment_pool_runs(vals, t_ids, **kw),
+            segment_pool_ref(vals, t_ids, **kw), abs_sum, counts, 0.0))
+        vb = vals.to(torch.bfloat16)  # the cast back dominates
+        got = segment_pool_runs(vb, t_ids, **kw)
+        if got.dtype != torch.bfloat16:
+            fail(f"segment_pool_runs: bf16 input gave {got.dtype}")
+        _close(torch, f"segment_pool_runs[{layout}, sum, bf16]", got,
+               segment_pool_ref(vb, t_ids, **kw), 2e-2, 2e-2)
+    exact = torch.zeros(n_tgt + 1, d, dtype=torch.float64, device=dev
+                        ).index_add_(0, tgt.long(), vals.double())[:n_tgt]
+    kernel_err = (segment_pool_runs(vals, tgt, n_segments=n_tgt).double()
+                  - exact).abs().max()
+    plain_err = (segment_pool_ref(vals, tgt, n_segments=n_tgt).double()
+                 - exact).abs().max()
+    ms = time_ms(torch, lambda: segment_pool_runs(vals, tgt,
+                                                  n_segments=n_tgt))
+    plain_ms = time_ms(torch, lambda: segment_pool_ref(vals, tgt,
+                                                       n_segments=n_tgt))
+    any_order_ms = time_ms(torch, lambda: segment_pool(vals, tgt,
+                                                       n_segments=n_tgt))
+    safe = torch.where(tgt < n_tgt, tgt, n_tgt).long()
+    acc = torch.zeros(n_tgt + 1, d, device=dev)
+    library_ms = time_ms(torch, lambda: acc.index_add_(0, safe, vals))
+    bound_ms, bound_by = _bound(n_valid * d * isz + e * 4 + n_tgt * d * isz,
+                                n_valid * d)
+    records["segment_pool_runs"] = dict(
+        name="segment_pool_runs", route="cuda",
+        source="src/repro_torch/kernels/segment_pool/runs.cu",
+        replaces="src/repro/kernels/segment_pool/kernel.py:142",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms)
+    phase("kernels", f"segment_pool_runs sorted+unsorted: int sums "
+          f"bit-exact, max/min exact, sum fp32 max err {err:.2e} (vs "
+          f"fp64: kernel {kernel_err.item():.2e}, plain "
+          f"{plain_err.item():.2e}), bf16 cast back; sorted sum {ms:.4f} ms vs plain {plain_ms:.4f} ms "
+          f"vs segment_pool {any_order_ms:.4f} ms vs index_add_ "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    # -- widths past one tile, on sorted ids ---------------------------------
+    n_w, e_w = 300, 1000
+    src_w = torch.from_numpy(rng.integers(0, n_w, e_w).astype(np.int32)
+                             ).to(dev)
+    tgt_w = torch.from_numpy(np.sort(rng.integers(0, n_w + 5, e_w))
+                             .astype(np.int32)).to(dev)  # >= n_w: padding
+    h_w = normal(n_w, 256)
+    w_w, b_w = normal(512, 384, scale=512 ** -0.5), normal(384, scale=0.1)
+    mpnn_err = _close(
+        torch, "edge_mpnn_runs[fp32, 256+256 -> 384]",
+        edge_mpnn_runs(h_w, h_w, src_w, tgt_w, w_w, b_w, n_src=n_w,
+                       n_tgt=n_w),
+        edge_mpnn_ref(h_w, h_w, src_w, tgt_w, w_w, b_w, n_src=n_w,
+                      n_tgt=n_w), 1e-5, 1e-5)
+    v_w = normal(e_w, 640)
+    pool_err = _close(torch, "segment_pool_runs[sum, fp32, 640 wide]",
+                      segment_pool_runs(v_w, tgt_w, n_segments=n_w),
+                      segment_pool_ref(v_w, tgt_w, n_segments=n_w),
+                      1e-5, 1e-5)
+    phase("kernels", f"wide, sorted: edge_mpnn_runs 512 -> 384 (two column "
+          f"tiles) max err {mpnn_err:.2e}, segment_pool_runs 640 wide (three "
+          f"column tiles) max err {pool_err:.2e}")
+
+
 # ---------------------------------------------------------------------------
 # the served model
 # ---------------------------------------------------------------------------
 
-def build_model(torch, reduce_type: str):
-    """Init states -> vanilla_mpnn (5 edge sets, 4 rounds, 128/128,
-    LayerNorm) -> RootNodeMulticlassClassification head, with parameters
-    drawn from a seeded generator."""
+def model_parts(torch, reduce_type: str):
+    """(init states, gnn) of the §8 model: paper features -> hidden
+    states, fp32 id-embedding tables for the featureless node sets (ids %
+    4096), as §8 does; then vanilla_mpnn (5 edge sets, 4 rounds, 128/128,
+    LayerNorm)."""
     from repro_torch.core.graph_tensor import HIDDEN_STATE
     from repro_torch.core.models import vanilla_mpnn
     from repro_torch.core.schema import mag_schema
-    from repro_torch.nn.layers import Embedding, Linear, init_params
-    from repro_torch.orchestration.tasks import (
-        RootNodeMulticlassClassification)
+    from repro_torch.nn.layers import Embedding, Linear
 
     class InitStates(torch.nn.Module):
-        """Paper features -> hidden states; id-embedding tables (fp32)
-        for the featureless node sets (ids % 4096), as §8 does."""
-
         def __init__(self):
             super().__init__()
             self.paper = Linear(FEAT_DIM, DIM)
@@ -314,19 +559,30 @@ def build_model(torch, reduce_type: str):
                 ns[n] = {HIDDEN_STATE: table(ids, dtype=torch.float32)}
             return graph.replace_features(node_sets=ns)
 
+    schema = mag_schema()
+    edges = {k: (v.source, v.target) for k, v in schema.edge_sets.items()}
+    return InitStates(), vanilla_mpnn(
+        edges, {n: DIM for n in schema.node_sets}, message_dim=DIM,
+        hidden_dim=DIM, num_rounds=ROUNDS, use_layer_norm=True,
+        reduce_type=reduce_type)
+
+
+def root_task():
+    from repro_torch.orchestration.tasks import (
+        RootNodeMulticlassClassification)
+    return RootNodeMulticlassClassification("paper", N_CLASSES, DIM)
+
+
+def build_model(torch, reduce_type: str):
+    """The served model: init states -> gnn -> RootNodeMulticlass head,
+    with parameters drawn from a seeded generator."""
+    from repro_torch.nn.layers import init_params
+
     class Served(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            schema = mag_schema()
-            edges = {k: (v.source, v.target)
-                     for k, v in schema.edge_sets.items()}
-            self.task = RootNodeMulticlassClassification("paper", N_CLASSES,
-                                                         DIM)
-            self.init = InitStates()
-            self.gnn = vanilla_mpnn(edges, {n: DIM for n in schema.node_sets},
-                                    message_dim=DIM, hidden_dim=DIM,
-                                    num_rounds=ROUNDS, use_layer_norm=True,
-                                    reduce_type=reduce_type)
+            self.task = root_task()
+            self.init, self.gnn = model_parts(torch, reduce_type)
             self.head = self.task.head()
 
         def forward(self, graph):
@@ -381,6 +637,28 @@ def fresh_roots(rng, used: set, n: int, n_papers: int) -> list:
     return out
 
 
+def device_profile(torch, prof) -> tuple:
+    """(device busy ms, device kernel count, top kernels by device time)
+    of a torch.profiler run; device-side events only (CPU ops would count
+    twice)."""
+    by_kernel = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if getattr(ev, "device_type", None) == cuda and us > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            total, count = by_kernel.get(name, (0, 0))
+            by_kernel[name] = (total + us, count + ev.count)
+    busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+    n_kernels = sum(n for _, n in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    profile = (", ".join(f"{k[:48]} {us / 1e3:.3f} ms x{n}"
+                         for k, (us, n) in top)
+               if by_kernel else "profiler saw no device time")
+    return busy_ms, n_kernels, profile
+
+
 def breakdown(torch, server, model, store, spec, roots) -> str:
     """Where one rung-8 request batch spends its time: host stages on the
     host clock (each ending in a synchronize), the forward's device time
@@ -412,22 +690,8 @@ def breakdown(torch, server, model, store, spec, roots) -> str:
         with torch.profiler.profile(activities=acts) as prof:
             model(g).cpu()
             torch.cuda.synchronize()
-    by_kernel = {}  # device-side events only: CPU ops would count twice
-    cuda = torch.autograd.DeviceType.CUDA
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or 0
-        if getattr(ev, "device_type", None) == cuda and us > 0:
-            name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].split("::")[-1]
-            total, count = by_kernel.get(name, (0, 0))
-            by_kernel[name] = (total + us, count + ev.count)
-    busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
-    n_kernels = sum(n for _, n in by_kernel.values())
+    busy_ms, n_kernels, profile = device_profile(torch, prof)
     fwd_ms = (t5 - t4) * 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
-    profile = (", ".join(f"{k[:48]} {us / 1e3:.3f} ms x{n}"
-                         for k, (us, n) in top)
-               if by_kernel else "profiler saw no device time")
     return (f"rung {len(roots)}: sample {(t1 - t0) * 1e3:.2f} ms, "
             f"merge+pad {(t2 - t1) * 1e3:.2f} ms, to_device "
             f"{(t3 - t2) * 1e3:.2f} ms, forward wall {fwd_ms:.2f} ms "
@@ -435,6 +699,23 @@ def breakdown(torch, server, model, store, spec, roots) -> str:
             f"device busy {busy_ms:.3f} ms = "
             f"{100 * busy_ms / fwd_ms:.1f}% of the forward wall, "
             f"{n_kernels} device kernels; top: {profile}")
+
+
+def kernel_wrappers() -> tuple:
+    """The four kernel wrappers, each with its own launch count."""
+    from repro_torch.kernels.edge_mpnn import kernel as mpnn
+    from repro_torch.kernels.segment_pool import kernel as seg
+    return (mpnn.edge_mpnn, mpnn.edge_mpnn_runs, seg.segment_pool,
+            seg.segment_pool_runs)
+
+
+def zero_launches() -> None:
+    for fn in kernel_wrappers():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 
 
 def closed_loop(server, roots_per_client, timeout=120.0):
@@ -508,7 +789,7 @@ def serve_phase(torch, store, spec, card):
         rng = np.random.default_rng(SEED + 1)
         used = {0}
         n_papers = store.num_nodes["paper"]
-        edge_mpnn.launches = segment_pool.launches = 0
+        zero_launches()
         batches0 = server.stats.batches
         checks = []
         for n in (1, 2, 4, 8, 3, 8):
@@ -518,11 +799,15 @@ def serve_phase(torch, store, spec, card):
                    for _ in range(LOOP_CLIENTS)]
         latencies, errors, duration = closed_loop(server, clients)
         stats = server.stats
+        counts = read_launches()
         launches = edge_mpnn.launches
         pool_launches = segment_pool.launches
         batches = stats.batches - batches0
     finally:
         server.close()
+    if counts["edge_mpnn_runs"] or counts["segment_pool_runs"]:
+        fail(f"serving launched a run kernel: {counts} (its batches are "
+             "not sorted by target)")
     if errors or stats.failed:
         fail(f"{errors} client errors, {stats.failed} failed requests")
     if stats.steady_state_recompiles != 0:
@@ -557,7 +842,6 @@ def serve_phase(torch, store, spec, card):
 # ---------------------------------------------------------------------------
 
 def mean_phase(torch, store, spec):
-    from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn
     from repro_torch.kernels.segment_pool.kernel import segment_pool
     from repro_torch.serve.gnn import GNNServer
 
@@ -567,24 +851,26 @@ def mean_phase(torch, store, spec):
     rng = np.random.default_rng(SEED + 2)
     used = set()
     try:
-        edge_mpnn.launches = segment_pool.launches = 0
+        zero_launches()
         batches0 = server.stats.batches
         checks = []
         for n in (8, 5):
             roots = fresh_roots(rng, used, n, store.num_nodes["paper"])
             checks.append((roots, server.serve_sync(roots, timeout=120)))
         stats = server.stats
+        counts = read_launches()
         launches = segment_pool.launches
-        mpnn_launches = edge_mpnn.launches
         batches = stats.batches - batches0
     finally:
         server.close()
     if stats.failed or stats.steady_state_recompiles:
         fail(f"mean serve: {stats.failed} failed, "
              f"{stats.steady_state_recompiles} recompiles")
-    if launches != 5 * ROUNDS * batches or mpnn_launches:
-        fail(f"mean path: segment_pool launched {launches} times, edge_mpnn "
-             f"{mpnn_launches}, for {batches} batches")
+    if launches != 5 * ROUNDS * batches or any(
+            counts[k] for k in ("edge_mpnn", "edge_mpnn_runs",
+                                "segment_pool_runs")):
+        fail(f"mean path: launches {counts} for {batches} batches "
+             f"({5 * ROUNDS} segment_pool per forward expected)")
     max_err = max(check_logits("mean", got, plain_logits(
         torch, server, store, spec, roots), len(roots))
         for roots, got in checks)
@@ -592,6 +878,324 @@ def mean_phase(torch, store, spec):
           f"segment_pool launches {launches} ({5 * ROUNDS}/forward), "
           f"logits vs plain max err {max_err:.2e}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train the §8 model through the port's Trainer on the card
+# ---------------------------------------------------------------------------
+
+def train_setup(raw, spec):
+    """Seeded train and held-out roots, and the batch size constraints
+    profiled over their subgraphs (find_size_constraints, as the §8
+    example sizes its batches)."""
+    from repro_torch.data.batching import find_size_constraints
+    from repro_torch.data.sampling import sample_subgraph, seed_rng
+    rng = np.random.default_rng(SEED + 3)
+    n_train = TRAIN_STEPS * TRAIN_BATCH
+    roots = rng.choice(raw.num_nodes["paper"], n_train + EVAL_ROOTS,
+                       replace=False)
+    graphs = [sample_subgraph(raw, spec, int(r), seed_rng(0, int(r)))
+              for r in roots]
+    return (roots[:n_train], roots[n_train:],
+            find_size_constraints(graphs, TRAIN_BATCH))
+
+
+def provider(raw, spec, roots, sizes):
+    from repro_torch.orchestration.providers import StoreProvider
+    return StoreProvider(raw, spec, roots, batch_size=TRAIN_BATCH,
+                         sizes=sizes)
+
+
+def fresh_model(torch, reduce_type: str):
+    """The Trainer's model at step 0: TrainModel(init, gnn, head) drawn
+    with init_params(model, SEED), on the card."""
+    from repro_torch.nn.layers import init_params
+    from repro_torch.orchestration.trainer import TrainModel
+    init, gnn = model_parts(torch, reduce_type)
+    model = TrainModel(init, gnn, root_task().head())
+    return init_params(model, SEED).to(DEVICE)
+
+
+def grad_check(torch, reduce_type: str, batch, labels) -> tuple:
+    """Step 1's gradients, kernel path vs plain path, on one batch and one
+    set of parameters.  A parameter the loss reaches on one path must be
+    reached on the other (slice 1's kernels returned tensors with no
+    grad_fn, which would cut every conv off).  The loss reads only the
+    root papers, so the institution and field_of_study states, and every
+    node set's update in the last round but the papers', reach it on
+    neither path: they get the zero gradient `jax.grad` gives them, as in
+    the Trainer's step.  Every gradient must be finite and within
+    GRAD_RTOL of its largest plain entry.  Returns (worst relative error,
+    parameters, parameters the loss reaches, kernel loss, plain loss)."""
+    from repro_torch.core.graph_tensor import to_device
+    from repro_torch.kernels import registry
+    task = root_task()
+    model = fresh_model(torch, reduce_type)
+    params = dict(model.named_parameters())
+    g = to_device(batch, DEVICE)
+    lab = torch.as_tensor(labels).to(DEVICE)
+
+    def grads():
+        loss = task.loss_from_graph(model.head, model(g), lab)
+        return loss.item(), torch.autograd.grad(
+            loss, list(params.values()), allow_unused=True)
+
+    with registry.layout(sorted_by_target=True):
+        loss_k, g_k = grads()
+        with registry.plain_versions():
+            loss_p, g_p = grads()
+    worst, reached = 0.0, 0
+    for (name, p), a, b in zip(params.items(), g_k, g_p):
+        if (a is None) != (b is None):
+            fail(f"[{reduce_type}] {name}: the loss reaches it on the "
+                 f"{'plain' if a is None else 'kernel'} path only")
+        reached += a is not None
+        a = torch.zeros_like(p) if a is None else a
+        b = torch.zeros_like(p) if b is None else b
+        if not bool(torch.isfinite(a).all()):
+            fail(f"[{reduce_type}] {name}: non-finite gradient")
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if err > GRAD_RTOL * scale + 1e-7:
+            fail(f"[{reduce_type}] {name}: kernel gradient differs from the "
+                 f"plain one by {err:.3e} (largest plain entry "
+                 f"{scale:.3e}, rtol {GRAD_RTOL})")
+        if scale > 0:
+            worst = max(worst, err / scale)
+    return worst, len(params), reached, loss_k, loss_p
+
+
+def fit(torch, reduce_type, train, evaluation, steps, plain=False):
+    """One Trainer.fit from seed 0: AdamW + warmup-cosine, the §8
+    example's lr and schedule, on the card."""
+    from repro_torch.kernels import registry
+    from repro_torch.orchestration.trainer import Trainer
+    trainer = Trainer(learning_rate=TRAIN_LR, total_steps=TRAIN_TOTAL,
+                      max_steps=steps, seed=SEED, log_every=10 ** 6,
+                      device=DEVICE,
+                      eval_at="end" if evaluation is not None else "never")
+    with registry.plain_versions() if plain else contextlib.nullcontext():
+        return trainer.fit(lambda: model_parts(torch, reduce_type),
+                           root_task(), train, eval_provider=evaluation)
+
+
+def step_loop(torch, train) -> tuple:
+    """The Trainer's step written out, over the same stream from the same
+    draw, on the kernel path: each stage timed on the host clock, ending
+    in a synchronize (medians over the steps after the first), then one
+    more step under torch.profiler for the device's busy share.  After
+    each step's gradients, the same batch's loss is computed again through
+    the plain versions on the same parameters (outside the timed stages
+    and the profiled step), so the two paths are compared at every step
+    with no drift between them.  Returns (summary, largest per-step
+    |kernel - plain| loss gap)."""
+    from repro_torch.core.graph_tensor import to_device
+    from repro_torch.kernels import registry
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.train_loop import apply_updates, loss_and_grads
+    task = root_task()
+    model = fresh_model(torch, "sum")
+    params = dict(model.named_parameters())
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 50, TRAIN_TOTAL),
+                weight_decay=1e-5)
+    state = opt.init(params)
+
+    def loss_fn(graph, labels):
+        return task.loss_from_graph(model.head, model(graph), labels)
+
+    stream = itertools.chain.from_iterable(
+        train.epoch(e) for e in itertools.count())
+    gaps = []
+
+    def step(check_plain=True):
+        nonlocal state
+        t0 = time.perf_counter()
+        host = next(stream)
+        labels = task.labels(host)
+        t1 = time.perf_counter()
+        g = to_device(host, DEVICE)
+        lab = torch.as_tensor(labels).to(DEVICE)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss, grads = loss_and_grads(loss_fn, params, g, lab)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if check_plain:  # not timed
+            with registry.plain_versions(), torch.no_grad():
+                gaps.append(abs(loss.item() - loss_fn(g, lab).item()))
+        t3_plain = time.perf_counter()
+        state = apply_updates(opt, params, state, grads)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        return [1e3 * x for x in (t1 - t0, t2 - t1, t3 - t2, t4 - t3_plain)]
+
+    with registry.layout(sorted_by_target=True):
+        rows = [step() for _ in range(TRAIN_STEPS)][1:]
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step(check_plain=False)
+    med = [statistics.median(col) for col in zip(*rows)]
+    wall = sum(med)
+    busy_ms, n_kernels, profile = device_profile(torch, prof)
+    return (f"step {wall:.2f} ms = sample+batch {med[0]:.2f} + host->card "
+            f"{med[1]:.2f} + forward+backward {med[2]:.2f} + optimizer "
+            f"{med[3]:.2f} (medians of {len(rows)} steps); profiled step: "
+            f"device busy {busy_ms:.3f} ms = {100 * busy_ms / wall:.1f}% of "
+            f"the step, {n_kernels} device kernels; top: {profile}"), \
+        max(gaps)
+
+
+def cpu_loss(torch, batch, labels) -> float:
+    """Step 1's loss through the plain versions on the CPU: the same
+    parameters (drawn on the host) and the same batch as the card's."""
+    from repro_torch.core.graph_tensor import to_device
+    from repro_torch.nn.layers import init_params
+    from repro_torch.orchestration.trainer import TrainModel
+    task = root_task()
+    init, gnn = model_parts(torch, "sum")
+    model = init_params(TrainModel(init, gnn, task.head()), SEED)
+    with torch.no_grad():
+        return task.loss_from_graph(model.head, model(to_device(batch,
+                                                               "cpu")),
+                                    torch.as_tensor(labels)).item()
+
+
+def eval_plain(torch, params, evaluation) -> dict:
+    """`evaluate` over `evaluation` through the plain versions, with the
+    model's parameters set to `params` ({name: tensor})."""
+    from repro_torch.core.graph_tensor import to_device
+    from repro_torch.kernels import registry
+    from repro_torch.orchestration.evaluation import evaluate
+    from repro_torch.train.train_loop import make_graph_eval_step
+    task = root_task()
+    model = fresh_model(torch, "sum")
+    model.load_state_dict(params)
+    keys = task.metric_names()
+
+    def metric_fn(graph, labels):
+        pairs = task.metrics(model.head, model(graph), labels)
+        return tuple(x for k in keys for x in pairs[k])
+
+    with registry.plain_versions():
+        return evaluate(evaluation, task, make_graph_eval_step(metric_fn),
+                        lambda g, lab: (to_device(g, DEVICE),
+                                        torch.as_tensor(lab).to(DEVICE)),
+                        metric_keys=keys)
+
+
+def train_phase(torch, raw, spec, card, setup) -> int:
+    """Train the sum model: step-1 gradient check, the counted Trainer
+    run with its eval pass, the same run twice through the plain
+    versions, the eval pass on the trained parameters through the plain
+    versions, and the step loop (time split, same-parameter loss
+    parity).  Returns edge_mpnn_runs' launches."""
+    train_roots, eval_roots, sizes = setup
+    train = provider(raw, spec, train_roots, sizes)
+    evaluation = provider(raw, spec, eval_roots, sizes)
+    task = root_task()
+    first = next(iter(train.epoch(0)))
+    worst, n_params, reached, loss_k, _ = grad_check(torch, "sum", first,
+                                                     task.labels(first))
+    loss_cpu = cpu_loss(torch, first, task.labels(first))
+    if abs(loss_k - loss_cpu) > STEP_LOSS_ATOL:
+        fail(f"train: step-1 loss on the card {loss_k:.6f} vs the plain "
+             f"versions on the CPU {loss_cpu:.6f}")
+
+    zero_launches()
+    run = fit(torch, "sum", train, evaluation, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    eval_steps = evaluation.num_steps
+    forwards = run.step + eval_steps
+    if run.step != TRAIN_STEPS:
+        fail(f"train: {run.step} steps, expected {TRAIN_STEPS}")
+    if launches["edge_mpnn_runs"] != 5 * ROUNDS * forwards or any(
+            launches[k] for k in ("edge_mpnn", "segment_pool",
+                                  "segment_pool_runs")):
+        fail(f"train: launches {launches} for {forwards} forwards "
+             f"({5 * ROUNDS} edge_mpnn_runs per forward expected, no other "
+             "kernel)")
+    # independent runs part once a ReLU input within rounding of 0 flips
+    # sign on one path: its gradient jumps, and Adam scales the jump to a
+    # full lr-sized step.  So the trajectories are held together over the
+    # first PARITY_STEPS steps (warmup keeps lr small there), each step is
+    # held on shared parameters in step_loop, and the plain path's own
+    # run-to-run spread is measured beside them.
+    plain = fit(torch, "sum", train, None, TRAIN_STEPS, plain=True)
+    plain2 = fit(torch, "sum", train, None, TRAIN_STEPS, plain=True)
+    losses = np.asarray(run.metrics["train_losses"])
+    plain_losses = np.asarray(plain.metrics["train_losses"])
+    gaps = np.abs(losses - plain_losses)
+    spread = float(np.abs(plain_losses - np.asarray(
+        plain2.metrics["train_losses"])).max())
+    head_gap = float(gaps[:PARITY_STEPS].max())
+    if not np.isfinite(losses).all() or head_gap > LOSS_ATOL:
+        fail(f"train: the first {PARITY_STEPS} per-step losses differ from "
+             f"the plain run by {head_gap:.3e} (atol {LOSS_ATOL}): "
+             f"{losses.tolist()} vs {plain_losses.tolist()}")
+    acc, eval_loss = run.metrics["eval"]["accuracy"], run.metrics["eval"][
+        "loss"]
+    plain_eval = eval_plain(torch, run.metrics["params"], evaluation)
+    if not np.isfinite(eval_loss) or abs(eval_loss - plain_eval["loss"]) \
+            > STEP_LOSS_ATOL:
+        fail(f"train: eval {run.metrics['eval']} vs the plain versions on "
+             f"the same parameters {plain_eval}")
+    step_ms = 1e3 * statistics.median(run.metrics["step_seconds"][1:])
+    phase("train", f"{card}: {TRAIN_STEPS} steps x {TRAIN_BATCH} roots + "
+          f"eval {eval_steps} x {TRAIN_BATCH}; step-1 gradients of "
+          f"{n_params} parameters ({reached} reached by the loss on both "
+          f"paths) all finite, max rel err vs plain "
+          f"{worst:.2e} (rtol {GRAD_RTOL}); step-1 loss {loss_k:.6f} (CPU "
+          f"{loss_cpu:.6f}); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; independent runs, max |kernel - plain| over "
+          f"the first {PARITY_STEPS} steps {head_gap:.2e} (atol "
+          f"{LOSS_ATOL}), over all {TRAIN_STEPS} {gaps.max():.2e} (plain "
+          f"vs plain {spread:.2e}); eval accuracy {acc:.4f} loss "
+          f"{eval_loss:.4f} (plain on the same parameters "
+          f"{plain_eval['accuracy']:.4f} / {plain_eval['loss']:.4f}); "
+          f"launches {launches} = "
+          f"{launches['edge_mpnn_runs'] // forwards}/forward; Trainer step "
+          f"{step_ms:.2f} ms median = {1e3 * TRAIN_BATCH / step_ms:.1f} "
+          f"roots/s")
+    profile, step_gap = step_loop(torch, train)
+    if step_gap > STEP_LOSS_ATOL:
+        fail(f"train: on the same parameters, a step's kernel loss differs "
+             f"from the plain one by {step_gap:.3e} (atol {STEP_LOSS_ATOL})")
+    phase("train-profile", f"{profile}; same-parameter loss gap kernel vs "
+          f"plain over {TRAIN_STEPS} steps {step_gap:.2e} (atol "
+          f"{STEP_LOSS_ATOL})")
+    return launches["edge_mpnn_runs"]
+
+
+def train_mean_phase(torch, raw, spec, setup) -> int:
+    """A few steps of the mean-pooling model (the generic conv path,
+    pooled by segment_pool_runs on target-sorted ids), its step-1
+    gradients held to the plain path.  Returns segment_pool_runs'
+    launches."""
+    train_roots, _, sizes = setup
+    train = provider(raw, spec, train_roots, sizes)
+    first = next(iter(train.epoch(0)))
+    worst, n_params, reached, _, _ = grad_check(torch, "mean", first,
+                                                root_task().labels(first))
+    zero_launches()
+    run = fit(torch, "mean", train, None, MEAN_STEPS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["segment_pool_runs"] != 5 * ROUNDS * run.step or any(
+            launches[k] for k in ("edge_mpnn", "edge_mpnn_runs",
+                                  "segment_pool")):
+        fail(f"train-mean: launches {launches} for {run.step} steps "
+             f"({5 * ROUNDS} segment_pool_runs per forward expected)")
+    losses = run.metrics["train_losses"]
+    if not np.isfinite(losses).all():
+        fail(f"train-mean: losses {losses}")
+    phase("train-mean", f"{run.step} steps of the mean model: step-1 "
+          f"gradients of {n_params} parameters ({reached} reached) max rel "
+          f"err vs plain "
+          f"{worst:.2e}; losses {[round(x, 4) for x in losses]}; launches "
+          f"{launches} = {launches['segment_pool_runs'] // run.step}/forward")
+    return launches["segment_pool_runs"]
 
 
 def main() -> int:
@@ -605,6 +1209,7 @@ def main() -> int:
     build_phase()
     records = kernels_phase(torch)
 
+    from repro_torch.core.graph_tensor import to_device
     from repro_torch.data.synthetic import synthetic_mag
     from repro_torch.serve.cache import VersionedGraphStore
     t0 = time.perf_counter()
@@ -613,11 +1218,19 @@ def main() -> int:
                            n_classes=N_CLASSES, feat_dim=FEAT_DIM)
     store = VersionedGraphStore.wrap(raw)
     spec = section8_spec(store.schema)
-    phase("data", f"synthetic MAG, 20000 papers, in "
+    setup = train_setup(raw, spec)
+    phase("data", f"synthetic MAG, 20000 papers; {len(setup[0])} train and "
+          f"{len(setup[1])} eval roots profiled in "
           f"{time.perf_counter() - t0:.1f}s")
+    first = next(iter(provider(raw, spec, setup[0], setup[2]).epoch(0)))
+    runs_kernels_phase(torch, to_device(first, "cuda"), records)
 
     records["edge_mpnn"]["launches"] = serve_phase(torch, store, spec, card)
     records["segment_pool"]["launches"] = mean_phase(torch, store, spec)
+    records["edge_mpnn_runs"]["launches"] = train_phase(torch, raw, spec,
+                                                        card, setup)
+    records["segment_pool_runs"]["launches"] = train_mean_phase(
+        torch, raw, spec, setup)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

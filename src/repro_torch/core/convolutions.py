@@ -135,10 +135,11 @@ class SimpleConv(AnyToAnyConv):
 
     When the conv has the fused shape (node-to-node, sum-pooled, no edge
     feature, receiver state combined) it routes the whole
-    gather -> message MLP -> scatter round through the `edge_mpnn` kernel
-    via `repro_torch.kernels.registry`; otherwise (or when the registry
-    deems the call ineligible) it runs the generic broadcast/pool path,
-    whose pooling is the `segment_pool` kernel on the card.
+    gather -> message MLP -> scatter round through an `edge_mpnn` kernel
+    via `repro_torch.kernels.registry` (`edge_mpnn_runs` on target-sorted
+    batches); otherwise (or when the registry deems the call ineligible)
+    it runs the generic broadcast/pool path, whose pooling is a
+    `segment_pool` kernel on the card.
     """
 
     def __init__(self, units: int, in_dim: int, *, reduce_type: str = "sum",
@@ -183,7 +184,14 @@ class SimpleConv(AnyToAnyConv):
             return registry.Decision(False, "in_dim mismatch")
         # the same inputs registry.edge_mpnn re-checks in forward, so the
         # two decisions cannot diverge
-        return registry.edge_mpnn_decision(h_src, self.activation_name)
+        return registry.edge_mpnn_decision(h_src, self.activation_name,
+                                           self._sorted_hint())
+
+    def _sorted_hint(self):
+        """Batches sort edges by TARGET; a SOURCE receiver scatters by
+        source ids, which that sort leaves unsorted (None reads the
+        calling thread's `registry.layout()`)."""
+        return None if self.receiver_tag == TARGET else False
 
     def forward(self, graph: GraphTensor, edge_set_name: str):
         if not self.fused_decision(graph, edge_set_name).use_kernel:
@@ -203,7 +211,7 @@ class SimpleConv(AnyToAnyConv):
             h_src, h_tgt, sender_idx, tgt,
             self.message.w.to(h_src.dtype), self.message.b.to(h_src.dtype),
             n_src=graph.node_sets[sender_name].capacity, n_tgt=n_tgt,
-            activation=self.activation_name)
+            activation=self.activation_name, sorted_ids=self._sorted_hint())
 
     def convolve(self, *, sender_node_input, sender_edge_input,
                  receiver_input, broadcast_from_receiver, pool_to_receiver,

@@ -11,7 +11,7 @@ work on either form.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -147,6 +147,22 @@ class GraphTensor:
         return GraphTensor(new_ctx, new_ns, new_es)
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the current CUDA device when None.  Raises when None
+    is given and no CUDA device exists: the port never moves to the CPU
+    unless asked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _leaf_to_device(x, device) -> torch.Tensor:
     """numpy leaf -> tensor on `device`.  Integer leaves (ids, sizes,
     labels) become int64, torch's index type; the kernels take int32 ids
@@ -178,6 +194,93 @@ def to_device(graph: GraphTensor, device) -> GraphTensor:
                       adj.source_name, adj.target_name),
             conv(es.features), es.capacity)
     return GraphTensor(ctx, node_sets, edge_sets)
+
+
+# ---------------------------------------------------------------------------
+# Super-batch stacking (component groups on a leading axis)
+# ---------------------------------------------------------------------------
+#
+# A *stacked* GraphTensor carries `R` structurally identical padded graphs
+# ("component groups") on a leading axis: every leaf gains a [R, ...] leading
+# dim while the names and capacities stay per-group.  It is a transport
+# container; graph ops must not run on it directly — `unstack_graph`
+# restores scalar GraphTensors first.
+
+def _graph_structure(g: GraphTensor) -> tuple:
+    """Hashable structural fingerprint (set names, capacities, feature
+    keys, endpoint names) — the reference's stand-in for a treedef."""
+    return (
+        tuple(sorted(g.context.features)),
+        tuple((name, ns.capacity, tuple(sorted(ns.features)))
+              for name, ns in sorted(g.node_sets.items())),
+        tuple((name, es.capacity, tuple(sorted(es.features)),
+               es.adjacency.source_name, es.adjacency.target_name)
+              for name, es in sorted(g.edge_sets.items())),
+    )
+
+
+def _map_graphs(fn, graphs: Sequence[GraphTensor]) -> GraphTensor:
+    """Structural map over same-shaped GraphTensors, leaf by leaf — `fn`
+    receives one leaf per input graph, in input order."""
+    g0 = graphs[0]
+    ctx = Context(fn(*[g.context.sizes for g in graphs]),
+                  {k: fn(*[g.context.features[k] for g in graphs])
+                   for k in g0.context.features})
+    node_sets = {}
+    for name, ns0 in g0.node_sets.items():
+        sets = [g.node_sets[name] for g in graphs]
+        node_sets[name] = NodeSet(
+            fn(*[s.sizes for s in sets]),
+            {k: fn(*[s.features[k] for s in sets]) for k in ns0.features},
+            ns0.capacity)
+    edge_sets = {}
+    for name, es0 in g0.edge_sets.items():
+        sets = [g.edge_sets[name] for g in graphs]
+        adj = Adjacency(fn(*[s.adjacency.source for s in sets]),
+                        fn(*[s.adjacency.target for s in sets]),
+                        es0.adjacency.source_name,
+                        es0.adjacency.target_name)
+        edge_sets[name] = EdgeSet(
+            fn(*[s.sizes for s in sets]), adj,
+            {k: fn(*[s.features[k] for s in sets]) for k in es0.features},
+            es0.capacity)
+    return GraphTensor(ctx, node_sets, edge_sets)
+
+
+def stack_graphs(graphs: Sequence[GraphTensor]) -> GraphTensor:
+    """Stack structurally identical padded GraphTensors on a new leading
+    axis.  All inputs must share one structure (same set names,
+    capacities, feature keys) — i.e. be padded to the same
+    SizeConstraints."""
+    if not graphs:
+        raise ValueError("stack_graphs: empty sequence")
+    structures = {_graph_structure(g) for g in graphs}
+    if len(structures) != 1:
+        raise ValueError(
+            "stack_graphs: inputs are not structurally identical "
+            f"(got {len(structures)} distinct treedefs; pad every group to "
+            "the same SizeConstraints first)")
+
+    def _stack(*leaves):
+        if all(isinstance(x, np.ndarray) for x in leaves):
+            return np.stack(leaves)
+        return torch.stack([torch.as_tensor(x) for x in leaves])
+
+    return _map_graphs(_stack, graphs)
+
+
+def stack_size(graph: GraphTensor) -> Optional[int]:
+    """Number of stacked component groups, or None for a scalar
+    GraphTensor.  Discriminates on context.sizes rank ([C] vs [R, C])."""
+    ndim = getattr(graph.context.sizes, "ndim", 1)
+    return int(graph.context.sizes.shape[0]) if ndim == 2 else None
+
+
+def unstack_graph(graph: GraphTensor) -> list[GraphTensor]:
+    """Invert :func:`stack_graphs`: split the leading group axis back into
+    scalar GraphTensors (index, don't copy)."""
+    n = graph.context.sizes.shape[0]
+    return [_map_graphs(lambda x, i=i: x[i], [graph]) for i in range(n)]
 
 
 HIDDEN_STATE = "hidden_state"

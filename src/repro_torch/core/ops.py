@@ -6,9 +6,9 @@ on the fixed-capacity GraphTensor: padding items are masked out of every
 reduction by remapping their segment ids to `n_segments` (the registry
 contract: out-of-range ids are dropped, empty segments yield 0).  Every
 segment-shaped reduction routes through `repro_torch.kernels.registry`,
-which runs the CUDA `segment_pool` kernel on the card and the plain
-PyTorch version on the CPU.  The reference's model-axis feature split
-comes with the parallelism slice.
+which runs a CUDA `segment_pool` kernel on the card (the run variant on
+sorted ids) and the plain PyTorch version on the CPU.  The reference's
+model-axis feature split comes with the parallelism slice.
 """
 from __future__ import annotations
 
@@ -33,6 +33,13 @@ def _resolve_feature(piece, feature_name, feature_value):
     if (feature_name is None) == (feature_value is None):
         raise ValueError("exactly one of feature_name/feature_value required")
     return piece[feature_name] if feature_name is not None else feature_value
+
+
+def _sorted_hint(tag: str):
+    """The registry's layout hint for ids keyed by endpoint `tag`: None
+    (the calling thread's `registry.layout()`) for TARGET, False for
+    SOURCE, as the reference passes it (`core/ops.py:126-128,141`)."""
+    return None if tag == TARGET else False
 
 
 def _masked_ids(mask: torch.Tensor, idx: torch.Tensor,
@@ -71,7 +78,11 @@ def pool_edges_to_node(graph: GraphTensor, edge_set_name: str, tag: str,
     value = _resolve_feature(es, feature_name, feature_value)
     num_nodes = graph.node_sets[node_set_name].capacity
     seg_ids = _masked_ids(es.mask(), idx, num_nodes)
-    return registry.segment_reduce(value, seg_ids, num_nodes, reduce_type)
+    # batches sort edges by (component, target) and pad last, so
+    # TARGET-keyed ids are non-decreasing exactly when the calling
+    # thread's registry.layout() says so; SOURCE-keyed ids never are
+    return registry.segment_reduce(value, seg_ids, num_nodes, reduce_type,
+                                   sorted_ids=_sorted_hint(tag))
 
 
 def segment_softmax(graph: GraphTensor, edge_set_name: str, tag: str,
@@ -84,14 +95,16 @@ def segment_softmax(graph: GraphTensor, edge_set_name: str, tag: str,
     emask = es.mask()
     emask_b = emask.reshape(emask.shape + (1,) * (feature_value.ndim - 1))
     seg_ids = _masked_ids(emask, idx, num_nodes)
+    sorted_ids = _sorted_hint(tag)
     # max-shift for stability, then exp-sum — both registry reductions
     seg_max = registry.segment_reduce(feature_value, seg_ids, num_nodes,
-                                      "max")
+                                      "max", sorted_ids=sorted_ids)
     shifted = torch.where(emask_b, feature_value - seg_max[idx],
                           torch.full_like(feature_value, -torch.inf))
     exp = torch.where(emask_b, torch.exp(shifted),
                       torch.zeros_like(feature_value))
-    seg_sum = registry.segment_reduce(exp, seg_ids, num_nodes, "sum")
+    seg_sum = registry.segment_reduce(exp, seg_ids, num_nodes, "sum",
+                                      sorted_ids=sorted_ids)
     return exp / torch.clamp(seg_sum[idx], min=1e-37)
 
 
@@ -123,7 +136,10 @@ def _pool_items_to_context(piece, num_components, reduce_type, value):
     if reduce_type not in _REDUCE_TYPES:
         raise ValueError(f"unknown reduce_type {reduce_type!r}")
     comp = _masked_ids(piece.mask(), piece.component_ids(), num_components)
-    return registry.segment_reduce(value, comp, num_components, reduce_type)
+    # component ids are non-decreasing by construction and padding rows
+    # map to num_components at the end: context pooling is always sorted
+    return registry.segment_reduce(value, comp, num_components, reduce_type,
+                                   sorted_ids=True)
 
 
 def pool_nodes_to_context(graph: GraphTensor, node_set_name: str,

@@ -185,3 +185,22 @@ def _pad_leading(arr: np.ndarray, total: int, fill=0) -> np.ndarray:
         return arr[:total]
     pad_shape = (total - arr.shape[0],) + arr.shape[1:]
     return np.concatenate([arr, np.full(pad_shape, fill, arr.dtype)])
+
+
+def find_size_constraints(graphs: Sequence[GraphTensor], batch_size: int,
+                          *, slack: float = 1.1) -> SizeConstraints:
+    """Derive capacities covering any `batch_size` of the given graphs —
+    the dataset-profiling step the paper's Runner does before training."""
+    max_nodes = {n: 0 for n in graphs[0].node_sets}
+    max_edges = {n: 0 for n in graphs[0].edge_sets}
+    for g in graphs:
+        for n, ns in g.node_sets.items():
+            max_nodes[n] = max(max_nodes[n], ns.capacity)
+        for n, es in g.edge_sets.items():
+            max_edges[n] = max(max_edges[n], es.capacity)
+    return SizeConstraints(
+        total_num_components=batch_size + 1,
+        total_num_nodes={n: int(v * batch_size * slack) + 1
+                         for n, v in max_nodes.items()},
+        total_num_edges={n: int(v * batch_size * slack) + 1
+                         for n, v in max_edges.items()})

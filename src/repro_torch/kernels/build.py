@@ -24,12 +24,15 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_ext"
-COMMON_HEADER = KERNELS_DIR / "cuda_common.cuh"
 
 SOURCES = {
     "segment_pool": KERNELS_DIR / "segment_pool" / "segment_pool.cu",
+    "segment_pool_runs": KERNELS_DIR / "segment_pool" / "runs.cu",
     "edge_mpnn": KERNELS_DIR / "edge_mpnn" / "edge_mpnn.cu",
+    "edge_mpnn_runs": KERNELS_DIR / "edge_mpnn" / "edge_mpnn_runs.cu",
 }
+# every header a source may include (cuda_common.cuh, edge_tile.cuh)
+HEADERS = tuple(sorted(KERNELS_DIR.rglob("*.cuh")))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,9 +62,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel `name` is built: keyed by its sources and flags."""
+    """Where kernel `name` is built: keyed by its source, the headers and
+    the flags."""
     digest = hashlib.sha256()
-    for path in (SOURCES[name], COMMON_HEADER):
+    for path in (SOURCES[name], *HEADERS):
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

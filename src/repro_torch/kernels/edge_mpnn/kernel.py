@@ -1,12 +1,16 @@
-"""edge_mpnn: the wrapper of the hand-written Hopper kernel in
-`edge_mpnn.cu` (port of the Pallas kernel `edge_mpnn` in
+"""edge_mpnn and edge_mpnn_runs: the wrappers of the hand-written Hopper
+kernels in `edge_mpnn.cu` and `edge_mpnn_runs.cu` (ports of the Pallas
+kernels `edge_mpnn` and `edge_mpnn_runs` in
 src/repro/kernels/edge_mpnn/kernel.py).
 
-On a CUDA tensor the wrapper launches the kernel, at any message width —
-it checks device, dtype, shape and contiguity and raises on what the
-kernel does not take; on a CPU tensor it runs the plain version in
-`ref.py`.  `launches`
-counts kernel launches (plain-version calls are not counted).
+Both take the same arguments and compute the same function; the run
+variant scatters once per run of equal targets, which pays on
+target-sorted edges (the training batches).  On a CUDA tensor a wrapper
+launches its kernel, at any message width — it checks device, dtype,
+shape and contiguity and raises on what the kernel does not take; on a
+CPU tensor it runs the plain version in `ref.py`.  Each wrapper's
+`launches` counts its kernel launches (plain-version calls are not
+counted).
 """
 from __future__ import annotations
 
@@ -22,19 +26,68 @@ _ACT_CODES = {"relu": 0, "gelu": 1, "identity": 2}
 
 
 @functools.cache
-def _entry():
-    fn = build.load("edge_mpnn").edge_mpnn_launch
+def _entry(library: str):
+    fn = getattr(build.load(library), f"{library}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(name: str, t: torch.Tensor, ndim: int, device) -> None:
+def _check(library: str, name: str, t: torch.Tensor, ndim: int,
+           device) -> None:
     if t.ndim != ndim or not t.is_contiguous() or t.device != device:
-        raise ValueError(f"edge_mpnn kernel: {name} must be a contiguous "
+        raise ValueError(f"{library} kernel: {name} must be a contiguous "
                          f"{ndim}-D tensor on {device}, got shape "
                          f"{tuple(t.shape)} on {t.device}")
+
+
+def _run(library: str, h_src, h_tgt, src, tgt, w, b, n_src: int,
+         n_tgt: int, activation: str):
+    """Check the inputs and launch kernel `library`; returns (out,
+    launched)."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unsupported activation {activation!r}; "
+                         f"expected one of {ACTIVATIONS}")
+    if not h_src.is_cuda:
+        return edge_mpnn_ref(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
+                             n_tgt=n_tgt, activation=activation), False
+    device = h_src.device
+    for name, t, ndim in (("h_src", h_src, 2), ("h_tgt", h_tgt, 2),
+                          ("w", w, 2), ("b", b, 1), ("src", src, 1),
+                          ("tgt", tgt, 1)):
+        _check(library, name, t, ndim, device)
+    if len({h_src.dtype, h_tgt.dtype, w.dtype, b.dtype}) != 1:
+        raise TypeError(f"{library} kernel: h_src, h_tgt, w and b must "
+                        "share one dtype")
+    if src.dtype != torch.int32 or tgt.dtype != torch.int32 \
+            or src.shape != tgt.shape:
+        raise TypeError(f"{library} kernel: src/tgt must be int32 [E]")
+    ds, dt, m = h_src.shape[1], h_tgt.shape[1], w.shape[1]
+    if (h_src.shape[0] != n_src or h_tgt.shape[0] != n_tgt
+            or w.shape[0] != ds + dt or b.shape[0] != m):
+        raise ValueError(f"{library} kernel: inconsistent shapes")
+    if m == 0:
+        raise ValueError(f"{library} kernel: message width 0")
+    e = src.shape[0]
+    if e and n_src == 0:
+        raise ValueError(f"{library} kernel: edges with no source nodes")
+    # padding edges carry tgt = n_tgt, which must fit int32 as well
+    build.check_int32(library, edges=e, n_src=n_src, n_tgt=n_tgt + 1,
+                      width=ds + dt)
+    code = build.dtype_code(h_src)
+    out = torch.empty((n_tgt, m), dtype=h_src.dtype, device=device)
+    if out.numel() == 0:
+        return out, False  # nothing to launch
+    acc = out if out.dtype == torch.float32 else torch.empty(
+        (n_tgt, m), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _entry(library)(h_src.data_ptr(), h_tgt.data_ptr(), src.data_ptr(),
+                         tgt.data_ptr(), w.data_ptr(), b.data_ptr(),
+                         acc.data_ptr(), out.data_ptr(), e, n_src, n_tgt,
+                         ds, dt, m, code, _ACT_CODES[activation], stream)
+    build.check_launch(rc, library)
+    return out, True
 
 
 def edge_mpnn(h_src: torch.Tensor, h_tgt: torch.Tensor, src: torch.Tensor,
@@ -44,49 +97,26 @@ def edge_mpnn(h_src: torch.Tensor, h_tgt: torch.Tensor, src: torch.Tensor,
     """h_src [n_src, Ds], h_tgt [n_tgt, Dt], src/tgt [E] int32 (padding
     edges carry tgt >= n_tgt), w [Ds+Dt, M], b [M] -> [n_tgt, M] in the
     inputs' dtype."""
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unsupported activation {activation!r}; "
-                         f"expected one of {ACTIVATIONS}")
-    if not h_src.is_cuda:
-        return edge_mpnn_ref(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
-                             n_tgt=n_tgt, activation=activation)
-    device = h_src.device
-    for name, t, ndim in (("h_src", h_src, 2), ("h_tgt", h_tgt, 2),
-                          ("w", w, 2), ("b", b, 1), ("src", src, 1),
-                          ("tgt", tgt, 1)):
-        _check(name, t, ndim, device)
-    if len({h_src.dtype, h_tgt.dtype, w.dtype, b.dtype}) != 1:
-        raise TypeError("edge_mpnn kernel: h_src, h_tgt, w and b must share "
-                        "one dtype")
-    if src.dtype != torch.int32 or tgt.dtype != torch.int32 \
-            or src.shape != tgt.shape:
-        raise TypeError("edge_mpnn kernel: src/tgt must be int32 [E]")
-    ds, dt, m = h_src.shape[1], h_tgt.shape[1], w.shape[1]
-    if (h_src.shape[0] != n_src or h_tgt.shape[0] != n_tgt
-            or w.shape[0] != ds + dt or b.shape[0] != m):
-        raise ValueError("edge_mpnn kernel: inconsistent shapes")
-    if m == 0:
-        raise ValueError("edge_mpnn kernel: message width 0")
-    e = src.shape[0]
-    if e and n_src == 0:
-        raise ValueError("edge_mpnn kernel: edges with no source nodes")
-    # padding edges carry tgt = n_tgt, which must fit int32 as well
-    build.check_int32("edge_mpnn", edges=e, n_src=n_src, n_tgt=n_tgt + 1,
-                      width=ds + dt)
-    code = build.dtype_code(h_src)
-    out = torch.empty((n_tgt, m), dtype=h_src.dtype, device=device)
-    if out.numel() == 0:
-        return out  # nothing to launch
-    acc = out if out.dtype == torch.float32 else torch.empty(
-        (n_tgt, m), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _entry()(h_src.data_ptr(), h_tgt.data_ptr(), src.data_ptr(),
-                  tgt.data_ptr(), w.data_ptr(), b.data_ptr(),
-                  acc.data_ptr(), out.data_ptr(), e, n_src, n_tgt, ds, dt,
-                  m, code, _ACT_CODES[activation], stream)
-    build.check_launch(rc, "edge_mpnn")
-    edge_mpnn.launches += 1
+    out, launched = _run("edge_mpnn", h_src, h_tgt, src, tgt, w, b, n_src,
+                         n_tgt, activation)
+    if launched:
+        edge_mpnn.launches += 1
+    return out
+
+
+def edge_mpnn_runs(h_src: torch.Tensor, h_tgt: torch.Tensor,
+                   src: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor, *, n_src: int, n_tgt: int,
+                   activation: str = "relu") -> torch.Tensor:
+    """The run variant: same contract as `edge_mpnn`, one atomic per run
+    of equal targets in an edge tile.  Correct for any edge order; fastest
+    when tgt is sorted."""
+    out, launched = _run("edge_mpnn_runs", h_src, h_tgt, src, tgt, w, b,
+                         n_src, n_tgt, activation)
+    if launched:
+        edge_mpnn_runs.launches += 1
     return out
 
 
 edge_mpnn.launches = 0
+edge_mpnn_runs.launches = 0

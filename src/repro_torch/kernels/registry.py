@@ -3,18 +3,34 @@
 
 Every segment-shaped reduction in `repro_torch.core.ops` and the fused
 edge convolution in `repro_torch.core.convolutions` route through here,
-which decides per call whether the hand-written CUDA kernel or the plain
+which decides per call whether a hand-written CUDA kernel or the plain
 PyTorch version runs, and says why (`Decision.reason`, surfaced by
 `GraphUpdate.describe_dispatch`).
 
-Eligibility on Hopper is the tensor's device alone: a CUDA tensor runs
-the kernel, at any width and row count, and a CPU tensor takes the plain
+Eligibility on Hopper is the tensor's device alone: a CUDA tensor runs a
+kernel, at any width and row count, and a CPU tensor takes the plain
 version (that is how the CPU tests run).  On the card nothing falls back:
 what a kernel does not take (a non-float dtype, a count beyond int32)
 raises in its wrapper.  The reference's TPU VMEM model (segment caps,
 width caps, edge-block sizing) has no counterpart, since the GPU kernels
 accumulate in device memory with atomics.  `plain_versions()` routes the
 calling thread to the plain versions, for comparisons on the card.
+
+Within the kernel path the layout picks the variant, as the reference's
+dispatch does: ids that arrive sorted (``sorted_ids=True``, or ``None``
+inside ``layout(sorted_by_target=True)``, which the Trainer enters from
+the batches' layout bit) run the CSR-run kernel (`segment_pool_runs`,
+`edge_mpnn_runs`), any other order the any-order kernel of the first
+slice.  The hint is performance-only: every kernel is correct for any
+order.  Unlike the reference's trace-time global, `layout` and
+`plain_versions` are read per call and per thread, so a server's engine
+thread keeps the unsorted kernels while a training loop holds the hint.
+
+Every kernel call on the card goes through a `torch.autograd.Function`
+(`SegmentPoolFunction`, `EdgeMpnnFunction`) whose backward is the plain
+version's gradient, recomputed from the saved inputs — the counterpart of
+the reference's custom VJPs (`kernels/dispatch.py:391-440`).  Serving
+takes the same route under `torch.inference_mode()`.
 
 Contract shared by kernels and plain versions: ids outside
 ``[0, n_segments)`` mark padding rows, and empty segments yield 0 for
@@ -50,17 +66,37 @@ def plain_versions():
         _THREAD.plain = prev
 
 
+@contextlib.contextmanager
+def layout(sorted_by_target: bool = True):
+    """Within this block, the calling thread's TARGET-keyed reductions
+    report their ids as sorted (``sorted_ids=None`` reads this), so the
+    kernel path picks the CSR-run variants.  Other threads keep their
+    own hint (default: unsorted)."""
+    prev = layout_sorted_by_target()
+    _THREAD.sorted_by_target = bool(sorted_by_target)
+    try:
+        yield
+    finally:
+        _THREAD.sorted_by_target = prev
+
+
+def layout_sorted_by_target() -> bool:
+    return getattr(_THREAD, "sorted_by_target", False)
+
+
 @dataclasses.dataclass(frozen=True)
 class Decision:
-    """Outcome of an eligibility check: which path runs and why."""
+    """Outcome of an eligibility check: which path runs and why.
+    `kernel` names the kernel that runs ("" for the plain version)."""
     use_kernel: bool
     reason: str
+    kernel: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelEntry:
     name: str
-    kernel: Callable     # wrapper of the CUDA kernel
+    kernels: dict        # {kernel name: wrapper}: any-order and run variant
     reference: Callable  # plain PyTorch version, identical contract
     decide: Callable     # (...) -> Decision
 
@@ -76,32 +112,109 @@ def registry() -> dict[str, KernelEntry]:
     return dict(_REGISTRY)
 
 
-def _on_device(t: torch.Tensor, name: str) -> Decision:
-    """The one eligibility rule both kernels share: kernel `name` on a
-    CUDA tensor, the plain version anywhere else."""
+def _on_device(t: torch.Tensor, name: str,
+               sorted_ids: bool | None) -> Decision:
+    """The one eligibility rule both kernel families share: a kernel on
+    a CUDA tensor — `name`_runs on sorted ids, `name` otherwise — and the
+    plain version anywhere else."""
     if getattr(_THREAD, "plain", False):
         return Decision(False, "plain versions requested")
     if not t.is_cuda:
         return Decision(False, f"{t.device.type} tensor: plain version")
-    return Decision(True, f"kernel:{name}")
+    if sorted_ids is None:
+        sorted_ids = layout_sorted_by_target()
+    if sorted_ids:
+        return Decision(True, f"kernel:{name}_runs[sorted]", f"{name}_runs")
+    return Decision(True, f"kernel:{name}[unsorted]", name)
+
+
+# ---------------------------------------------------------------------------
+# Autograd: the kernels have no backward of their own.  As in the
+# reference, the forward runs the kernel and the backward is the plain
+# version's gradient, recomputed from the saved inputs (one plain forward
+# on the backward pass, no kernel launch).
+# ---------------------------------------------------------------------------
+
+class SegmentPoolFunction(torch.autograd.Function):
+    """``apply(values [E, D], seg_ids [E] int32, n_segments, reduce,
+    kernel)``: `kernel` (a wrapper of `segment_pool.kernel`) forward,
+    `segment_pool_ref`'s gradient backward.  Differentiable in `values`
+    only."""
+
+    @staticmethod
+    def forward(ctx, values, seg_ids, n_segments, reduce, kernel):
+        ctx.save_for_backward(values, seg_ids)
+        ctx.n_segments, ctx.reduce = n_segments, reduce
+        return kernel(values, seg_ids, n_segments=n_segments, reduce=reduce)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        values, seg_ids = ctx.saved_tensors
+        with torch.enable_grad():
+            v = values.detach().requires_grad_(True)
+            out = segment_pool_ref(v, seg_ids, n_segments=ctx.n_segments,
+                                   reduce=ctx.reduce)
+            (g,) = torch.autograd.grad(out, v, grad)
+        return g, None, None, None, None
+
+
+class EdgeMpnnFunction(torch.autograd.Function):
+    """``apply(h_src, h_tgt, w, b, src, tgt, n_src, n_tgt, activation,
+    kernel)``: `kernel` (a wrapper of `edge_mpnn.kernel`) forward,
+    `edge_mpnn_ref`'s gradient backward.  Differentiable in h_src, h_tgt,
+    w and b."""
+
+    @staticmethod
+    def forward(ctx, h_src, h_tgt, w, b, src, tgt, n_src, n_tgt, activation,
+                kernel):
+        ctx.save_for_backward(h_src, h_tgt, w, b, src, tgt)
+        ctx.n_src, ctx.n_tgt, ctx.activation = n_src, n_tgt, activation
+        return kernel(h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt,
+                      activation=activation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h_src, h_tgt, w, b, src, tgt = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:4]
+        grads = [None] * 4
+        if any(needs):
+            with torch.enable_grad():
+                xs = [x.detach().requires_grad_(need)
+                      for x, need in zip((h_src, h_tgt, w, b), needs)]
+                out = edge_mpnn_ref(xs[0], xs[1], src, tgt, xs[2], xs[3],
+                                    n_src=ctx.n_src, n_tgt=ctx.n_tgt,
+                                    activation=ctx.activation)
+                wanted = [i for i in range(4) if needs[i]]
+                got = torch.autograd.grad(out, [xs[i] for i in wanted],
+                                          grad, allow_unused=True)
+            for i, g in zip(wanted, got):
+                grads[i] = g if g is not None else torch.zeros_like(xs[i])
+        return (*grads, None, None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
 # segment_reduce: sum / mean / max / min over segments
 # ---------------------------------------------------------------------------
 
-def segment_reduce_decision(values: torch.Tensor) -> Decision:
-    return _on_device(values, "segment_pool")
+def segment_reduce_decision(values: torch.Tensor,
+                            sorted_ids: bool | None = None) -> Decision:
+    return _on_device(values, "segment_pool", sorted_ids)
 
 
 def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
-                   n_segments: int, reduce: str = "sum") -> torch.Tensor:
-    """Route one segment reduction to the CUDA kernel or the plain
+                   n_segments: int, reduce: str = "sum", *,
+                   sorted_ids: bool | None = None) -> torch.Tensor:
+    """Route one segment reduction to a CUDA kernel or the plain
     version.  values [E, ...]; seg_ids [E] with ids outside
     [0, n_segments) marking padding rows.  Returns [n_segments, ...];
-    empty segments yield 0; mean divides by max(count, 1) in fp32."""
+    empty segments yield 0; mean divides by max(count, 1) in fp32.
+    sorted_ids hints that seg_ids arrive non-decreasing (performance
+    only; None reads the calling thread's `layout()`)."""
     if reduce == "mean":
-        total = segment_reduce(values, seg_ids, n_segments, "sum")
+        total = segment_reduce(values, seg_ids, n_segments, "sum",
+                               sorted_ids=sorted_ids)
         cnt = segment_count(seg_ids, n_segments)
         cnt = cnt.reshape(cnt.shape + (1,) * (values.ndim - 1))
         out_dtype = (total.dtype if total.is_floating_point()
@@ -110,12 +223,13 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
         return (total.to(torch.float32)
                 / torch.clamp(cnt, min=1)).to(out_dtype)
     entry = _REGISTRY["segment_pool"]
-    if not entry.decide(values).use_kernel:
+    dec = entry.decide(values, sorted_ids)
+    if not dec.use_kernel:
         return entry.reference(values, seg_ids, n_segments=n_segments,
                                reduce=reduce)
     flat = values.reshape(values.shape[0], -1).contiguous()
-    out = entry.kernel(flat, kernel_ids(seg_ids), n_segments=n_segments,
-                       reduce=reduce)
+    out = SegmentPoolFunction.apply(flat, kernel_ids(seg_ids), n_segments,
+                                    reduce, entry.kernels[dec.kernel])
     return out.reshape((n_segments,) + values.shape[1:])
 
 
@@ -140,30 +254,40 @@ def kernel_ids(ids: torch.Tensor) -> torch.Tensor:
 # edge_mpnn: fused gather -> per-edge MLP message -> segment-sum
 # ---------------------------------------------------------------------------
 
-def edge_mpnn_decision(h_src: torch.Tensor,
-                       activation: str = "relu") -> Decision:
+def edge_mpnn_decision(h_src: torch.Tensor, activation: str = "relu",
+                       sorted_ids: bool | None = None) -> Decision:
     if activation not in ACTIVATIONS:
         return Decision(False, f"unsupported activation {activation!r}")
-    return _on_device(h_src, "edge_mpnn")
+    return _on_device(h_src, "edge_mpnn", sorted_ids)
 
 
 def edge_mpnn(h_src, h_tgt, src, tgt, w, b, *, n_src: int, n_tgt: int,
-              activation: str = "relu") -> torch.Tensor:
+              activation: str = "relu",
+              sorted_ids: bool | None = None) -> torch.Tensor:
     """Fused edge convolution (or its plain version on the CPU).
 
     h_src [n_src, Ds]; h_tgt [n_tgt, Dt]; src/tgt [E] with padding edges
-    carrying tgt >= n_tgt; w [Ds+Dt, M]; b [M].  Returns [n_tgt, M]."""
+    carrying tgt >= n_tgt; w [Ds+Dt, M]; b [M].  Returns [n_tgt, M].
+    sorted_ids hints that tgt arrives non-decreasing (performance only;
+    None reads the calling thread's `layout()`)."""
     entry = _REGISTRY["edge_mpnn"]
-    if not entry.decide(h_src, activation).use_kernel:
+    dec = entry.decide(h_src, activation, sorted_ids)
+    if not dec.use_kernel:
         return entry.reference(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
                                n_tgt=n_tgt, activation=activation)
-    return entry.kernel(h_src.contiguous(), h_tgt.contiguous(),
-                        kernel_ids(src), kernel_ids(tgt), w.contiguous(),
-                        b.contiguous(), n_src=n_src, n_tgt=n_tgt,
-                        activation=activation)
+    return EdgeMpnnFunction.apply(
+        h_src.contiguous(), h_tgt.contiguous(), w.contiguous(),
+        b.contiguous(), kernel_ids(src), kernel_ids(tgt), n_src, n_tgt,
+        activation, entry.kernels[dec.kernel])
 
 
-register(KernelEntry("segment_pool", _seg_kernel.segment_pool,
-                     segment_pool_ref, segment_reduce_decision))
-register(KernelEntry("edge_mpnn", _mpnn_kernel.edge_mpnn, edge_mpnn_ref,
-                     edge_mpnn_decision))
+register(KernelEntry(
+    "segment_pool",
+    {"segment_pool": _seg_kernel.segment_pool,
+     "segment_pool_runs": _seg_kernel.segment_pool_runs},
+    segment_pool_ref, segment_reduce_decision))
+register(KernelEntry(
+    "edge_mpnn",
+    {"edge_mpnn": _mpnn_kernel.edge_mpnn,
+     "edge_mpnn_runs": _mpnn_kernel.edge_mpnn_runs},
+    edge_mpnn_ref, edge_mpnn_decision))

@@ -13,7 +13,8 @@
 //     -1e30 (the reference's NEG_INF) as the identity; a result
 //     <= -5e29 (an empty segment) is mapped to 0.
 // Ids outside [0, N) mark padding rows and are dropped.  The result is
-// cast back to the input dtype.
+// cast back to the input dtype.  The encoding, init and finalize live in
+// cuda_common.cuh, shared with the run variant (runs.cu).
 //
 // Bound on this card: bytes.  One add per value element against ~2.5
 // bytes moved per element (bf16) or 4 (fp32); the work is reading values
@@ -28,30 +29,6 @@ namespace {
 
 using namespace repro_torch;
 
-constexpr float kNegInf = -1e30f;
-// reduce codes of kernel.py: 0 sum, 1 max, 2 min
-constexpr int kSum = 0;
-constexpr int kMin = 2;
-
-// Monotone float -> int map: a < b as floats iff enc(a) < enc(b) as ints.
-__device__ __forceinline__ int float_to_ordered(float f) {
-  int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float ordered_to_float(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
-
-__global__ void init_kernel(float* acc, int64_t n, int reduce) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  if (reduce == kSum)
-    acc[i] = 0.f;
-  else
-    reinterpret_cast<int*>(acc)[i] = float_to_ordered(kNegInf);
-}
-
 __global__ void scatter_kernel(const void* values, const int* seg_ids,
                                float* acc, int64_t e, int d, int n_segments,
                                int dtype, int reduce) {
@@ -62,28 +39,8 @@ __global__ void scatter_kernel(const void* values, const int* seg_ids,
   int seg = seg_ids[row];
   if (seg < 0 || seg >= n_segments) return;  // padding row: dropped
   float v = load_as_float(values, i, dtype);
-  int64_t o = static_cast<int64_t>(seg) * d + col;
-  if (reduce == kSum) {
-    atomicAdd(acc + o, v);
-  } else {
-    if (reduce == kMin) v = -v;
-    atomicMax(reinterpret_cast<int*>(acc) + o, float_to_ordered(v));
-  }
-}
-
-__global__ void finalize_kernel(const float* acc, void* out, int64_t n,
-                                int dtype, int reduce) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  float v;
-  if (reduce == kSum) {
-    v = acc[i];
-  } else {
-    v = ordered_to_float(reinterpret_cast<const int*>(acc)[i]);
-    if (v <= kNegInf * 0.5f) v = 0.f;  // empty segment
-    if (reduce == kMin) v = -v;
-  }
-  store_from_float(out, i, v, dtype);
+  if (reduce == kMin) v = -v;
+  pool_accumulate(acc, static_cast<int64_t>(seg) * d + col, v, reduce);
 }
 
 }  // namespace
@@ -98,12 +55,12 @@ extern "C" int segment_pool_launch(const void* values, const int* seg_ids,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n_out = static_cast<int64_t>(n_segments) * d;
   if (n_out == 0) return static_cast<int>(cudaGetLastError());
-  init_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(acc, n_out, reduce);
+  pool_init_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(acc, n_out, reduce);
   if (e > 0) {
     scatter_kernel<<<blocks_for(e * d), kThreads, 0, s>>>(
         values, seg_ids, acc, e, d, n_segments, dtype, reduce);
   }
-  finalize_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(acc, out, n_out,
-                                                         dtype, reduce);
+  pool_finalize_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(
+      acc, out, n_out, dtype, reduce);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,10 +40,11 @@ from typing import Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.graph_tensor import to_device
+from repro_torch.core.graph_tensor import resolve_device, to_device
 from repro_torch.data.batching import SizeConstraints
 from repro_torch.data.grouping import merge_and_pad
 from repro_torch.data.sampling import GraphStore, SamplingSpec
+from repro_torch.kernels import registry
 from repro_torch.serve.cache import MISSING, SubgraphCache, VersionedLRUCache
 
 
@@ -53,22 +54,6 @@ class ServeError(RuntimeError):
 
 class EngineClosed(ServeError):
     """The engine stopped (close() or crash) before serving the request."""
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the current CUDA device when None.  Raises when None
-    is given and no CUDA device exists: the port never moves to the CPU
-    unless asked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run the "
-                "plain PyTorch versions on the CPU")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +282,11 @@ class GNNServer:
 
     def run_batch(self, merged) -> np.ndarray:
         """One forward over a merged, padded host batch: copy to the
-        device, run the model without autograd, return host rows."""
-        with torch.inference_mode():
+        device, run the model without autograd, return host rows.  The
+        batches are not sorted by target, and the layout says so whatever
+        the calling thread holds (warmup runs on the constructor's)."""
+        with torch.inference_mode(), \
+                registry.layout(sorted_by_target=False):
             out = self._apply(to_device(merged, self.device))
             if out.dtype == torch.bfloat16:
                 out = out.to(torch.float32)  # numpy has no bfloat16

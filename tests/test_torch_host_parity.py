@@ -215,3 +215,163 @@ def test_to_device_index_types():
     ids = registry.kernel_ids(adj.target.flip(0))
     assert ids.dtype == torch.int32 and ids.is_contiguous()
     assert ids.tolist() == [1, 1]
+
+
+# ---------------------------------------------------------------------------
+# training-slice host copies: size profiling, batch planning, the batcher
+# and the store-backed provider
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sampled(stores):
+    """48 rooted subgraphs of the §8 spec, sampled by each package."""
+    (js, _), (ts, _) = stores
+    jspec = section8_spec(j_sampling, js.schema, 2)
+    tspec = section8_spec(t_sampling, ts.schema, 2)
+    jg = [j_sampling.sample_subgraph(js, jspec, r, j_sampling.seed_rng(0, r))
+          for r in range(48)]
+    tg = [t_sampling.sample_subgraph(ts, tspec, r, t_sampling.seed_rng(0, r))
+          for r in range(48)]
+    return jg, tg
+
+
+@pytest.mark.parametrize("batch_size,slack", [(4, 1.1), (16, 1.5)])
+def test_find_size_constraints_is_identical(sampled, batch_size, slack):
+    from repro.data.batching import find_size_constraints as j_find
+    from repro_torch.data.batching import find_size_constraints as t_find
+    jg, tg = sampled
+    assert dataclasses.astuple(j_find(jg, batch_size, slack=slack)) == \
+        dataclasses.astuple(t_find(tg, batch_size, slack=slack))
+
+
+@pytest.mark.parametrize("kw", [dict(batch_size=8),
+                                dict(batch_size=8, seed=3, rank=1, world=2),
+                                dict(batch_size=12, num_replicas=3)])
+def test_batch_plan_is_identical(kw):
+    jp, tp = j_grouping.BatchPlan(**kw), t_grouping.BatchPlan(**kw)
+    assert (jp.per_rank, jp.per_group) == (tp.per_rank, tp.per_group)
+    for epoch in (0, 1, 5):
+        jo, to = jp.order(epoch, 50), tp.order(epoch, 50)
+        np.testing.assert_array_equal(jo, to)
+        assert jp.num_steps(50) == tp.num_steps(50)
+        for step in range(jp.num_steps(50)):
+            np.testing.assert_array_equal(jp.step_indices(jo, step),
+                                          tp.step_indices(to, step))
+    np.testing.assert_array_equal(
+        j_grouping.epoch_rng(4, 2).integers(0, 1000, 8),
+        t_grouping.epoch_rng(4, 2).integers(0, 1000, 8))
+    for bad in (dict(batch_size=7, world=2), dict(batch_size=8,
+                                                  num_replicas=3)):
+        with pytest.raises(ValueError):
+            t_grouping.BatchPlan(**bad)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_step_size_constraints_are_identical(sampled, world):
+    from repro.data.batching import find_size_constraints as j_find
+    jg, _ = sampled
+    sizes = j_find(jg, 8)
+    for kw in (dict(batch_size=8, world=world),
+               dict(batch_size=8, world=world, num_replicas=2)):
+        assert dataclasses.astuple(j_grouping.step_size_constraints(
+            j_grouping.BatchPlan(**kw), sizes)) == \
+            dataclasses.astuple(t_grouping.step_size_constraints(
+                t_grouping.BatchPlan(**kw), sizes))
+
+
+@pytest.mark.parametrize("num_replicas", [None, 2])
+@pytest.mark.parametrize("sort", [True, False])
+def test_build_batch_and_stacking_are_identical(sampled, num_replicas,
+                                                sort):
+    from repro.core.graph_tensor import stack_size as j_stack_size
+    from repro.core.graph_tensor import unstack_graph as j_unstack
+    from repro.data.batching import find_size_constraints as j_find
+    jg, tg = sampled
+    kw = dict(batch_size=8, num_replicas=num_replicas,
+              edges_sorted_by_target=sort)
+    sizes = j_find(jg, 8 // (num_replicas or 1))
+    jb = j_grouping.build_batch(jg[:8], j_grouping.BatchPlan(**kw), sizes)
+    tb = t_grouping.build_batch(tg[:8], t_grouping.BatchPlan(**kw), sizes)
+    assert_graphs_identical(jb, tb)
+    assert j_stack_size(jb) == t_gt.stack_size(tb) == num_replicas
+    if num_replicas:
+        for a, b in zip(j_unstack(jb), t_gt.unstack_graph(tb)):
+            assert_graphs_identical(a, b)
+        assert_graphs_identical(
+            t_gt.stack_graphs(t_gt.unstack_graph(tb)), tb)
+    with pytest.raises(ValueError, match="expected 8 graphs"):
+        t_grouping.build_batch(tg[:7], t_grouping.BatchPlan(**kw), sizes)
+
+
+def test_stack_graphs_rejects_mismatched_structures(sampled):
+    from repro.data.batching import find_size_constraints as j_find
+    _, tg = sampled
+    a = t_grouping.merge_and_pad(tg[:2], j_find(tg, 2))
+    b = t_grouping.merge_and_pad(tg[:2], j_find(tg, 3))
+    with pytest.raises(ValueError, match="not structurally identical"):
+        t_gt.stack_graphs([a, b])
+    with pytest.raises(ValueError, match="empty"):
+        t_gt.stack_graphs([])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(seed=5, rank=1, world=2),
+                                dict(num_replicas=2,
+                                     edges_sorted_by_target=False)])
+def test_graph_batcher_and_providers_are_identical(stores, sampled, kw):
+    """GraphBatcher epochs (with a restart's start_step), and the
+    StoreProvider's sample-on-demand stream, array for array."""
+    from repro.data.batching import find_size_constraints as j_find
+    from repro.data.pipeline import GraphBatcher as JBatcher
+    from repro.orchestration.providers import StoreProvider as JStore
+    from repro_torch.data.pipeline import GraphBatcher as TBatcher
+    from repro_torch.orchestration.providers import StoreProvider as TStore
+    (js, _), (ts, _) = stores
+    jg, tg = sampled
+    sizes = j_find(jg, 8 // kw.get("num_replicas", 1))
+    jb, tb = JBatcher(jg, 8, sizes, **kw), TBatcher(tg, 8, sizes, **kw)
+    assert jb.num_steps == tb.num_steps == 6
+    for epoch, start in ((0, 0), (1, 4)):
+        got = list(tb.epoch(epoch, start_step=start))
+        want = list(jb.epoch(epoch, start_step=start))
+        assert len(got) == len(want) == 6 - start
+        for a, b in zip(want, got):
+            assert_graphs_identical(a, b)
+    roots = list(range(48))
+    jp = JStore(js, section8_spec(j_sampling, js.schema, 2), roots,
+                batch_size=8, sizes=sizes, **kw)
+    tp = TStore(ts, section8_spec(t_sampling, ts.schema, 2), roots,
+                batch_size=8, sizes=sizes, **kw)
+    assert jp.num_steps == tp.num_steps
+    assert tp.edges_sorted_by_target == kw.get("edges_sorted_by_target",
+                                               True)
+    for a, b in zip(jp.epoch(2, start_step=3), tp.epoch(2, start_step=3)):
+        assert_graphs_identical(a, b)
+    # the store stream is the batcher's stream over the same roots
+    for a, b in zip(tp.epoch(0), tb.epoch(0)):
+        assert_graphs_identical(a, b)
+
+
+def test_prefetch_reraises_and_joins_on_early_close():
+    """The copy keeps the reference's contract: a source error reaches the
+    consumer after the buffered items, and closing early joins the
+    worker thread instead of leaking it on a full queue."""
+    import threading
+    from repro_torch.data.pipeline import prefetch
+
+    def failing():
+        yield 1
+        yield 2
+        raise KeyError("boom")
+
+    got = []
+    with pytest.raises(KeyError, match="boom"):
+        for x in prefetch(failing(), depth=1):
+            got.append(x)
+    assert got == [1, 2]
+    before = threading.active_count()
+    it = prefetch(iter(range(10 ** 6)), depth=2)
+    assert next(it) == 0
+    it.close()
+    assert threading.active_count() == before
+    assert not any(t.name == "graph-prefetch" and t.is_alive()
+                   for t in threading.enumerate())
