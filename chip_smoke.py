@@ -5,14 +5,15 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the four hand-written CUDA kernels from the sources in the
+It builds the five hand-written CUDA kernels from the sources in the
 checkout (one `nvcc` per source, all in parallel) and holds each against
 its plain PyTorch version: `edge_mpnn` and `segment_pool` at the served
 shapes, `edge_mpnn_runs` and `segment_pool_runs` at the trained shapes,
-on sorted and unsorted ids.  Then it drives the port's two paths at the
-full width of the §8 OGBN-MAG model (init states -> 4-round vanilla_mpnn
-over all five edge sets, 128 wide, LayerNorm -> root-node head, 8
-classes):
+on sorted and unsorted ids, and `flash_attention` at the graph-attention
+shape of a training batch, the reference envelope's corner and an LM
+causal GQA prefill.  Then it drives the port's paths at the full width
+of the §8 OGBN-MAG model (init states -> 4-round vanilla_mpnn over all
+five edge sets, 128 wide, LayerNorm -> root-node head, 8 classes):
 
 * serving: `repro_torch.serve.gnn.GNNServer` on the card, and the
   mean-pooling variant of the same model (`[serve]`, `[mean]`);
@@ -20,7 +21,13 @@ classes):
   `StoreProvider` of target-sorted 16-root batches, AdamW +
   warmup-cosine, then an eval pass (`[train]`, `[train-mean]`), with the
   gradients of step 1 and the per-step losses held to the same run
-  through the plain versions on the card.
+  through the plain versions on the card;
+* graph attention: `repro_torch.orchestration.gat_flash_parity.run`
+  (`GraphSelfAttention` on the flash kernel) at the example's size and
+  over the paper states of a training batch (`[attention]`);
+* the model zoo: `rgcn`, `gcn`, `graph_sage`, `gatv2` and `hgt_like` on
+  a training batch, gradients held to the plain path, and `gatv2` and
+  `hgt_like` trained a few steps through the Trainer (`[zoo]`).
 
 Each path is run with every kernel's launch count set to 0 just before
 it and read just after.  Each phase prints one line; any failure prints
@@ -84,6 +91,17 @@ GRAD_RTOL = 1e-3
 LOSS_ATOL = 1e-3
 PARITY_STEPS = 5
 STEP_LOSS_ATOL = 1e-4
+
+# graph attention at full width: GraphSelfAttention(4 heads x 32) over the
+# 128-wide paper states; the zoo at the reference's defaults, two of its
+# models trained ZOO_STEPS steps on each path
+ATTN_HEADS = 4
+ATTN_PER_HEAD = 32
+ZOO_STEPS = 3
+# the LM prefill shape the flash kernel is also held at: qwen2.5-32b's
+# attention (src/repro/configs/qwen2_5_32b.py: 40 q heads, 8 kv heads,
+# d_model 5120 -> head width 128), batch 1, 2048 tokens, causal
+PREFILL = dict(b=1, s=2048, h=40, kh=8, d=128)
 
 
 def fail(message: str) -> None:
@@ -533,14 +551,17 @@ def runs_kernels_phase(torch, batch, records):
 # the served model
 # ---------------------------------------------------------------------------
 
-def model_parts(torch, reduce_type: str):
-    """(init states, gnn) of the §8 model: paper features -> hidden
-    states, fp32 id-embedding tables for the featureless node sets (ids %
-    4096), as §8 does; then vanilla_mpnn (5 edge sets, 4 rounds, 128/128,
-    LayerNorm)."""
-    from repro_torch.core.graph_tensor import HIDDEN_STATE
-    from repro_torch.core.models import vanilla_mpnn
+def mag_edges() -> dict:
     from repro_torch.core.schema import mag_schema
+    schema = mag_schema()
+    return {k: (v.source, v.target) for k, v in schema.edge_sets.items()}
+
+
+def init_states(torch):
+    """The §8 init states: paper features -> hidden states, fp32
+    id-embedding tables for the featureless node sets (ids % 4096), all
+    128 wide."""
+    from repro_torch.core.graph_tensor import HIDDEN_STATE
     from repro_torch.nn.layers import Embedding, Linear
 
     class InitStates(torch.nn.Module):
@@ -559,18 +580,25 @@ def model_parts(torch, reduce_type: str):
                 ns[n] = {HIDDEN_STATE: table(ids, dtype=torch.float32)}
             return graph.replace_features(node_sets=ns)
 
-    schema = mag_schema()
-    edges = {k: (v.source, v.target) for k, v in schema.edge_sets.items()}
-    return InitStates(), vanilla_mpnn(
-        edges, {n: DIM for n in schema.node_sets}, message_dim=DIM,
-        hidden_dim=DIM, num_rounds=ROUNDS, use_layer_norm=True,
-        reduce_type=reduce_type)
+    return InitStates()
 
 
-def root_task():
+def model_parts(torch, reduce_type: str):
+    """(init states, gnn) of the §8 model: `init_states`, then
+    vanilla_mpnn (5 edge sets, 4 rounds, 128/128, LayerNorm)."""
+    from repro_torch.core.models import vanilla_mpnn
+    edges = mag_edges()
+    dims = {n: DIM for n in ("author", "field_of_study", "institution",
+                             "paper")}
+    return init_states(torch), vanilla_mpnn(
+        edges, dims, message_dim=DIM, hidden_dim=DIM, num_rounds=ROUNDS,
+        use_layer_norm=True, reduce_type=reduce_type)
+
+
+def root_task(hidden: int = DIM):
     from repro_torch.orchestration.tasks import (
         RootNodeMulticlassClassification)
-    return RootNodeMulticlassClassification("paper", N_CLASSES, DIM)
+    return RootNodeMulticlassClassification("paper", N_CLASSES, hidden)
 
 
 def build_model(torch, reduce_type: str):
@@ -702,11 +730,12 @@ def breakdown(torch, server, model, store, spec, roots) -> str:
 
 
 def kernel_wrappers() -> tuple:
-    """The four kernel wrappers, each with its own launch count."""
+    """The five kernel wrappers, each with its own launch count."""
     from repro_torch.kernels.edge_mpnn import kernel as mpnn
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.segment_pool import kernel as seg
     return (mpnn.edge_mpnn, mpnn.edge_mpnn_runs, seg.segment_pool,
-            seg.segment_pool_runs)
+            seg.segment_pool_runs, flash.flash_attention)
 
 
 def zero_launches() -> None:
@@ -906,17 +935,21 @@ def provider(raw, spec, roots, sizes):
                          sizes=sizes)
 
 
-def fresh_model(torch, reduce_type: str):
+def fresh_model(torch, reduce_type: str = "sum", parts=None,
+                hidden: int = DIM):
     """The Trainer's model at step 0: TrainModel(init, gnn, head) drawn
-    with init_params(model, SEED), on the card."""
+    with init_params(model, SEED), on the card; (init, gnn) are `parts`,
+    or the §8 model with `reduce_type` pooling."""
     from repro_torch.nn.layers import init_params
     from repro_torch.orchestration.trainer import TrainModel
-    init, gnn = model_parts(torch, reduce_type)
-    model = TrainModel(init, gnn, root_task().head())
+    init, gnn = parts if parts is not None else model_parts(torch,
+                                                            reduce_type)
+    model = TrainModel(init, gnn, root_task(hidden).head())
     return init_params(model, SEED).to(DEVICE)
 
 
-def grad_check(torch, reduce_type: str, batch, labels) -> tuple:
+def grad_check(torch, reduce_type: str, batch, labels, parts=None,
+               hidden: int = DIM) -> tuple:
     """Step 1's gradients, kernel path vs plain path, on one batch and one
     set of parameters.  A parameter the loss reaches on one path must be
     reached on the other (slice 1's kernels returned tensors with no
@@ -925,12 +958,14 @@ def grad_check(torch, reduce_type: str, batch, labels) -> tuple:
     node set's update in the last round but the papers', reach it on
     neither path: they get the zero gradient `jax.grad` gives them, as in
     the Trainer's step.  Every gradient must be finite and within
-    GRAD_RTOL of its largest plain entry.  Returns (worst relative error,
+    GRAD_RTOL of its largest plain entry.  `parts` (init, gnn) with a
+    `hidden`-wide output replace the §8 model (`reduce_type` then only
+    names the model in messages).  Returns (worst relative error,
     parameters, parameters the loss reaches, kernel loss, plain loss)."""
     from repro_torch.core.graph_tensor import to_device
     from repro_torch.kernels import registry
-    task = root_task()
-    model = fresh_model(torch, reduce_type)
+    task = root_task(hidden)
+    model = fresh_model(torch, reduce_type, parts, hidden)
     params = dict(model.named_parameters())
     g = to_device(batch, DEVICE)
     lab = torch.as_tensor(labels).to(DEVICE)
@@ -965,18 +1000,23 @@ def grad_check(torch, reduce_type: str, batch, labels) -> tuple:
     return worst, len(params), reached, loss_k, loss_p
 
 
-def fit(torch, reduce_type, train, evaluation, steps, plain=False):
+def fit(torch, reduce_type, train, evaluation, steps, plain=False,
+        model_fn=None):
     """One Trainer.fit from seed 0: AdamW + warmup-cosine, the §8
-    example's lr and schedule, on the card."""
+    example's lr and schedule, on the card; the §8 model with
+    `reduce_type` pooling unless `model_fn` gives another (init, gnn)."""
     from repro_torch.kernels import registry
     from repro_torch.orchestration.trainer import Trainer
     trainer = Trainer(learning_rate=TRAIN_LR, total_steps=TRAIN_TOTAL,
                       max_steps=steps, seed=SEED, log_every=10 ** 6,
                       device=DEVICE,
                       eval_at="end" if evaluation is not None else "never")
+    if model_fn is None:
+        def model_fn():
+            return model_parts(torch, reduce_type)
     with registry.plain_versions() if plain else contextlib.nullcontext():
-        return trainer.fit(lambda: model_parts(torch, reduce_type),
-                           root_task(), train, eval_provider=evaluation)
+        return trainer.fit(model_fn, root_task(), train,
+                           eval_provider=evaluation)
 
 
 def step_loop(torch, train) -> tuple:
@@ -1198,6 +1238,293 @@ def train_mean_phase(torch, raw, spec, setup) -> int:
     return launches["segment_pool_runs"]
 
 
+# ---------------------------------------------------------------------------
+# flash_attention against its plain version at three shapes
+# ---------------------------------------------------------------------------
+
+def flash_shapes(torch, batch) -> dict:
+    """{label: (q, k, v, segments or None, causal)} in fp32, unit-scale
+    normal inputs from a seeded generator:
+    (a) GraphSelfAttention at the §8 width: the paper node set of the
+        first training batch as one sequence, its component ids as
+        segments (16 roots + the padding id), 4 heads x 32;
+    (b) the reference envelope's corner (kernels/dispatch.py:242-243):
+        4096 rows, 8 heads x 128, 16 components of 240 rows + 256 padding
+        rows on id 16;
+    (c) the causal GQA prefill of PREFILL (no segments)."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+
+    def qkv(b, s, h, kh, d):
+        return tuple(torch.randn(b, s, n, d, generator=g, device=DEVICE)
+                     for n in (h, kh, kh))
+
+    paper = batch.node_sets["paper"]
+    seg_a = paper.component_ids().to(torch.int32)[None]
+    seg_b = torch.clamp(torch.arange(4096, device=DEVICE) // 240,
+                        max=16).to(torch.int32)[None]
+    pre = PREFILL
+    return {
+        "a": (*qkv(1, paper.capacity, ATTN_HEADS, ATTN_HEADS, ATTN_PER_HEAD),
+              seg_a, False),
+        "b": (*qkv(1, 4096, 8, 8, 128), seg_b, False),
+        "c": (*qkv(pre["b"], pre["s"], pre["h"], pre["kh"], pre["d"]), None,
+              True),
+    }
+
+
+def flash_bound(torch, q, k, seg) -> tuple:
+    """(bound_ms, bound_by, allowed pairs) for fp32 inputs: 4 D flops per
+    (query, key) pair the mask allows, per head (sum of n_c^2 over the
+    segments of the one batch row, or S (S + 1) / 2 per batch row for the
+    causal shape); q, k, v and out read or written once, plus the
+    segment ids."""
+    b, s, h, d = q.shape
+    if seg is not None:
+        pairs = int((torch.bincount(seg.flatten().long()) ** 2).sum())
+    else:
+        pairs = b * s * (s + 1) // 2
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+    if seg is not None:
+        nbytes += 2 * seg.numel() * 4
+    bound_ms, bound_by = _bound(nbytes, 4 * d * h * pairs)
+    return bound_ms, bound_by, pairs
+
+
+def sdpa_call(torch, q, k, v, seg, causal):
+    """One torch.nn.functional.scaled_dot_product_attention call on the
+    same inputs ([B, H, S, D] layout, a boolean segment mask), timed as a
+    yardstick only: the port never calls it."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if seg is not None:
+        mask = seg[0][:, None] == seg[0][None, :]
+        return lambda: sdpa(qt, kt, vt, attn_mask=mask)
+    return lambda: sdpa(qt, kt, vt, is_causal=causal,
+                        enable_gqa=k.shape[2] != q.shape[2])
+
+
+def flash_kernels_phase(torch, batch, records):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    lines = []
+    for label, (q, k, v, seg, causal) in flash_shapes(torch, batch).items():
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            args = [x.to(dtype) for x in (q, k, v)]
+            got = flash_attention(*args, seg, causal=causal)
+            want = attention_ref(*args, seg, causal=causal)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != q.shape:
+                fail(f"flash_attention ({label}): got {got.dtype} "
+                     f"{tuple(got.shape)}")
+            err = _close(torch, f"flash_attention[({label}), {dtype}]", got,
+                         want, tol, tol)
+            if dtype == torch.float32:
+                fp32_err = err
+                for _ in range(2):
+                    if not torch.equal(flash_attention(*args, seg,
+                                                       causal=causal), got):
+                        fail(f"flash_attention ({label}): repeat launches "
+                             "are not bit-identical")
+        if label == "b":
+            # queries whose id no key has: the padding rows moved to 17
+            pad = seg == 16
+            q_seg = torch.where(pad, 17, seg).to(torch.int32)
+            got = flash_attention(q, k, v, q_seg, seg, causal=False)
+            if got[pad].abs().max().item() != 0:
+                fail("flash_attention (b): queries no key may reach must "
+                     "emit exact zeros")
+            _close(torch, "flash_attention[(b), unmatched queries]", got,
+                   attention_ref(q, k, v, q_seg, seg, causal=False),
+                   1e-5, 1e-5)
+        library = sdpa_call(torch, q, k, v, seg, causal)
+        lib_err = (library().transpose(1, 2) - attention_ref(
+            q, k, v, seg, causal=causal)).abs().max().item()
+        ms = time_ms(torch, lambda: flash_attention(q, k, v, seg,
+                                                    causal=causal))
+        plain_ms = time_ms(torch, lambda: attention_ref(q, k, v, seg,
+                                                        causal=causal))
+        library_ms = time_ms(torch, library)
+        bound_ms, bound_by, pairs = flash_bound(torch, q, k, seg)
+        b, s, h, d = q.shape
+        lines.append(
+            f"({label}) B {b} S {s} H {h} K {k.shape[2]} D {d}"
+            f"{' causal' if causal else ''}"
+            f"{f' {seg.unique().numel()} segments' if seg is not None else ''}"
+            f": {pairs} pairs, fp32 max err {fp32_err:.2e}; fp32 {ms:.4f} ms "
+            f"vs plain {plain_ms:.4f} ms vs SDPA {library_ms:.4f} ms (max "
+            f"err {lib_err:.2e}), bound {bound_ms:.4f} ms ({bound_by})")
+        if label == "a":  # the shape of the [attention] path
+            records["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/"
+                       "flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:79",
+                max_abs_err=fp32_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    for line in lines:
+        phase("kernels", f"flash_attention fp32/bf16 match the plain "
+              f"version, repeats bit-identical: {line}")
+
+
+# ---------------------------------------------------------------------------
+# graph attention: GraphSelfAttention on the flash kernel
+# ---------------------------------------------------------------------------
+
+def attention_phase(torch, states, card) -> int:
+    """`gat_flash_parity.run` on the card at the example's size (its
+    tolerances) and over the paper states of the first training batch at
+    full width (gradients by the [train] rule), one flash launch per
+    forward and none in the backward; then forward and forward+backward
+    times on each path.  Returns the flash launches of the two runs."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.nn.graph_attention import GraphSelfAttention
+    from repro_torch.nn.layers import init_params
+    from repro_torch.orchestration import gat_flash_parity
+
+    zero_launches()
+    small = gat_flash_parity.run(device=DEVICE)
+    full = gat_flash_parity.run(
+        device=DEVICE, graph=states, node_set="paper", in_dim=DIM,
+        num_heads=ATTN_HEADS, per_head_channels=ATTN_PER_HEAD, seed=SEED)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["flash_attention"] != 2 or any(
+            n for k, n in launches.items() if k != "flash_attention"):
+        fail(f"attention: launches {launches} for two forwards (1 "
+             "flash_attention each expected, no other kernel)")
+    for name, run in (("example", small), ("full width", full)):
+        if (run.forward_launches, run.backward_launches) != (1, 0):
+            fail(f"attention ({name}): {run.forward_launches} flash "
+                 f"launches in the forward, {run.backward_launches} in the "
+                 "backward (1 and 0 expected)")
+    try:
+        small.check()
+    except AssertionError as err:
+        fail(f"attention (example): kernel path vs plain path: {err}")
+    if abs(full.loss - full.plain_loss) > 1e-5 * abs(full.plain_loss) + 1e-6:
+        fail(f"attention (full width): loss {full.loss} vs plain "
+             f"{full.plain_loss}")
+    worst = 0.0
+    for name, g in full.grads.items():
+        want = full.plain_grads[name]
+        scale = want.abs().max().item()
+        err = (g - want).abs().max().item()
+        if not bool(torch.isfinite(g).all()) or \
+                err > GRAD_RTOL * scale + 1e-7:
+            fail(f"attention (full width): {name} gradient differs from the "
+                 f"plain one by {err:.3e} (largest plain entry {scale:.3e})")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+
+    module = init_params(GraphSelfAttention(ATTN_HEADS, ATTN_PER_HEAD, DIM),
+                         SEED).to(DEVICE)
+    params = list(module.parameters())
+
+    def forward():
+        with torch.no_grad():
+            module(states, "paper")
+
+    def forward_backward():
+        torch.autograd.grad(module(states, "paper").square().mean(), params)
+
+    times = {}
+    for path in ("kernel", "plain"):
+        with (registry.plain_versions() if path == "plain"
+              else contextlib.nullcontext()):
+            times[path] = (time_ms(torch, forward),
+                           time_ms(torch, forward_backward))
+    paper = states.node_sets["paper"]
+    phase("attention", f"{card}: gat_flash_parity at the example's size "
+          f"(96 rows, 4 x 8): loss {small.loss:.6f} vs plain "
+          f"{small.plain_loss:.6f}, gradients within rtol 1e-4 / atol 1e-5; "
+          f"full width ({paper.capacity} paper rows, "
+          f"{int(paper.component_ids().max()) + 1} segments, 4 x 32 over 128-wide "
+          f"states): loss {full.loss:.6f} vs plain {full.plain_loss:.6f}, "
+          f"gradients max rel err {worst:.2e} (rtol {GRAD_RTOL}); "
+          f"launches {launches['flash_attention']} (1 per forward, 0 per "
+          f"backward); full width forward {times['kernel'][0]:.4f} ms "
+          f"kernel vs {times['plain'][0]:.4f} ms plain, forward+backward "
+          f"{times['kernel'][1]:.4f} ms vs {times['plain'][1]:.4f} ms")
+    return launches["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+# the model zoo on a training batch
+# ---------------------------------------------------------------------------
+
+def zoo_models(torch) -> dict:
+    """{name: (model_fn, output width, segment_pool_runs per forward)} at
+    the reference's defaults over the §8 init states.  Per forward: a
+    mean or sum pool is one launch per conv, an attention conv three (the
+    segment softmax's max and sum over [E, H] scores, then the [E, H, C]
+    message sum); 5 convs a round over 2 rounds, gcn 1."""
+    from repro_torch.core import models
+    edges = mag_edges()
+    dims = {n: DIM for n in ("author", "field_of_study", "institution",
+                             "paper")}
+    return {
+        "rgcn": (lambda: (init_states(torch), models.rgcn(edges, dims)),
+                 128, 10),
+        "gcn": (lambda: (init_states(torch), models.gcn("cites", "paper",
+                                                        DIM)), 64, 2),
+        "graph_sage": (lambda: (init_states(torch),
+                                models.graph_sage(edges, dims)), 128, 10),
+        "gatv2": (lambda: (init_states(torch), models.gatv2(edges, dims)),
+                  128, 30),
+        "hgt_like": (lambda: (init_states(torch),
+                              models.hgt_like(edges, dims)), 128, 30),
+    }
+
+
+def zoo_phase(torch, raw, spec, setup) -> None:
+    """Each zoo model on the first 16-root training batch: its exact
+    segment_pool_runs launches per forward (no other kernel) and its
+    step-1 gradients against the plain path by the [train] rule; then
+    gatv2 and hgt_like trained ZOO_STEPS steps through the Trainer on
+    both paths, losses within LOSS_ATOL."""
+    train_roots, _, sizes = setup
+    train = provider(raw, spec, train_roots, sizes)
+    first = next(iter(train.epoch(0)))
+    labels = root_task().labels(first)
+    parts = []
+    for name, (model_fn, hidden, per_forward) in zoo_models(torch).items():
+        zero_launches()
+        worst, n_params, reached, _, _ = grad_check(
+            torch, name, first, labels, model_fn(), hidden)
+        launches = read_launches()
+        if launches["segment_pool_runs"] != per_forward or any(
+                n for k, n in launches.items() if k != "segment_pool_runs"):
+            fail(f"zoo {name}: launches {launches} for one forward "
+                 f"({per_forward} segment_pool_runs expected)")
+        parts.append(f"{name} {per_forward} launches/forward, {n_params} "
+                     f"parameters ({reached} reached), max rel err "
+                     f"{worst:.2e}")
+    trained = []
+    for name in ("hgt_like", "gatv2"):
+        model_fn, _, per_forward = zoo_models(torch)[name]
+        zero_launches()
+        run = fit(torch, name, train, None, ZOO_STEPS, model_fn=model_fn)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        plain = fit(torch, name, train, None, ZOO_STEPS, plain=True,
+                    model_fn=model_fn)
+        if launches["segment_pool_runs"] != per_forward * ZOO_STEPS:
+            fail(f"zoo {name}: {launches} over {ZOO_STEPS} Trainer steps "
+                 f"({per_forward} segment_pool_runs per forward expected)")
+        losses = np.asarray(run.metrics["train_losses"])
+        plain_losses = np.asarray(plain.metrics["train_losses"])
+        gap = float(np.abs(losses - plain_losses).max())
+        if run.step != ZOO_STEPS or not np.isfinite(losses).all() \
+                or gap > LOSS_ATOL:
+            fail(f"zoo {name}: Trainer losses {losses.tolist()} vs plain "
+                 f"{plain_losses.tolist()}")
+        step_ms = 1e3 * statistics.median(run.metrics["step_seconds"][1:])
+        trained.append(f"{name} {ZOO_STEPS} steps, losses "
+                       f"{[round(float(x), 4) for x in losses]}, max |kernel - "
+                       f"plain| {gap:.2e}, step {step_ms:.2f} ms")
+    phase("zoo", "; ".join(parts + trained))
+
+
 def main() -> int:
     import torch
     card, smi = device_phase(torch)
@@ -1222,8 +1549,10 @@ def main() -> int:
     phase("data", f"synthetic MAG, 20000 papers; {len(setup[0])} train and "
           f"{len(setup[1])} eval roots profiled in "
           f"{time.perf_counter() - t0:.1f}s")
-    first = next(iter(provider(raw, spec, setup[0], setup[2]).epoch(0)))
-    runs_kernels_phase(torch, to_device(first, "cuda"), records)
+    first = to_device(next(iter(provider(raw, spec, setup[0],
+                                         setup[2]).epoch(0))), DEVICE)
+    runs_kernels_phase(torch, first, records)
+    flash_kernels_phase(torch, first, records)
 
     records["edge_mpnn"]["launches"] = serve_phase(torch, store, spec, card)
     records["segment_pool"]["launches"] = mean_phase(torch, store, spec)
@@ -1231,6 +1560,12 @@ def main() -> int:
                                                         card, setup)
     records["segment_pool_runs"]["launches"] = train_mean_phase(
         torch, raw, spec, setup)
+    from repro_torch.nn.layers import init_params
+    with torch.no_grad():
+        states = init_params(init_states(torch), SEED).to(DEVICE)(first)
+    records["flash_attention"]["launches"] = attention_phase(torch, states,
+                                                             card)
+    zoo_phase(torch, raw, spec, setup)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

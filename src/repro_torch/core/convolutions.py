@@ -3,14 +3,16 @@
 
 `AnyToAnyConv` handles the broadcast/pool plumbing for every receiver
 kind (the edge set's SOURCE or TARGET node set, or the CONTEXT);
-`SimpleConv` is the paper's Fig. 7 `MyConv`.  A conv is called as
+`SimpleConv` is the paper's Fig. 7 `MyConv`; `GCNConv`, `SAGEConv`,
+`GATv2Conv` (paper Appendix A.4) and `MultiHeadAttentionConv` complete
+the reference's set, with its parameter names.  A conv is called as
 ``conv(graph, edge_set_name)`` and returns the pooled messages shaped
-like a feature of the receiver set.  The other convs of the reference
-come with a later slice.
+like a feature of the receiver set.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import ops
@@ -225,3 +227,147 @@ class SimpleConv(AnyToAnyConv):
             parts.append(broadcast_from_receiver(receiver_input))
         msg = self.act(self.message(torch.cat(parts, dim=-1)))
         return pool_to_receiver(msg, reduce_type=self.reduce_type)
+
+
+class GCNConv(AnyToAnyConv):
+    """Kipf & Welling graph convolution with 1/sqrt(d_u d_v) normalisation
+    (paper Eq. 4).  Self-loops are the caller's choice; degree counts
+    include only valid edges."""
+
+    def __init__(self, units: int, in_dim: int, *, use_bias: bool = False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.units = units
+        self.w = Linear(in_dim, units, use_bias=use_bias)
+
+    def forward(self, graph: GraphTensor, edge_set_name: str):
+        tag = self.receiver_tag
+        es = graph.edge_sets[edge_set_name]
+        sender_tag = _OTHER[tag]
+        h = graph.node_sets[es.adjacency.source_name
+                            if sender_tag == SOURCE else
+                            es.adjacency.target_name][HIDDEN_STATE]
+        wh = self.w(h)
+        deg_r = ops.node_degree(graph, edge_set_name, tag)
+        deg_s = ops.node_degree(graph, edge_set_name, sender_tag)
+        inv_r = torch.rsqrt(torch.clamp(deg_r, min=1).to(wh.dtype))
+        inv_s = torch.rsqrt(torch.clamp(deg_s, min=1).to(wh.dtype))
+        msg = ops.broadcast_node_to_edges(
+            graph, edge_set_name, sender_tag,
+            feature_value=wh * inv_s[:, None])
+        pooled = ops.pool_edges_to_node(graph, edge_set_name, tag, "sum",
+                                        feature_value=msg)
+        return pooled * inv_r[:, None]
+
+    def convolve(self, **kwargs):  # the unified entry is not used
+        raise NotImplementedError
+
+
+class SAGEConv(AnyToAnyConv):
+    """GraphSAGE aggregator (mean, or max over an MLP for "pool";
+    Hamilton et al.)."""
+
+    def __init__(self, units: int, in_dim: int, *, aggregator: str = "mean",
+                 hidden: int | None = None, **kwargs):
+        super().__init__(**kwargs)
+        self.aggregator = aggregator
+        self.w = Linear(in_dim, units, use_bias=False)
+        self.pool = (Linear(in_dim, hidden or in_dim)
+                     if aggregator == "pool" else None)
+
+    def convolve(self, *, sender_node_input, sender_edge_input,
+                 receiver_input, broadcast_from_receiver, pool_to_receiver,
+                 extra_receiver_ops, edge_mask):
+        msg = sender_node_input
+        if self.aggregator == "pool":
+            msg = torch.relu(self.pool(msg))
+            pooled = pool_to_receiver(msg, reduce_type="max")
+        else:
+            pooled = pool_to_receiver(msg, reduce_type="mean")
+        return self.w(pooled)
+
+
+class GATv2Conv(AnyToAnyConv):
+    """GATv2 attention conv (paper Appendix A.4): per head, logits
+    attn_logits . act(query(receiver) + value(sender)), softmax over each
+    receiver's edges, then the sum of the weighted values."""
+
+    def __init__(self, num_heads: int, per_head_channels: int, in_dim: int,
+                 *, edge_in_dim: int | None = None,
+                 attention_activation: str = "leaky_relu",
+                 activation: str = "relu", **kwargs):
+        super().__init__(**kwargs)
+        self.num_heads = num_heads
+        self.per_head = per_head_channels
+        out = num_heads * per_head_channels
+        self.w_query = Linear(in_dim, out)
+        self.attn_logits = nn.Parameter(
+            torch.zeros(num_heads, per_head_channels))
+        self.w_sender_node = (Linear(in_dim, out)
+                              if self.takes_sender_node_input else None)
+        self.w_sender_edge = (Linear(edge_in_dim or in_dim, out,
+                                     use_bias=False)
+                              if self.takes_sender_edge_input else None)
+        self.attention_activation = (
+            (lambda x: F.leaky_relu(x, 0.2))
+            if attention_activation == "leaky_relu"
+            else ACTIVATIONS[attention_activation])
+        self.act = ACTIVATIONS[activation]
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """attn_logits ~ N(0, 1) / sqrt(per_head_channels), as the
+        reference draws it (its Linears draw their own)."""
+        with torch.no_grad():
+            self.attn_logits.normal_(0.0, 1.0, generator=generator)
+            self.attn_logits.mul_(self.per_head ** -0.5)
+
+    def _split(self, t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(*t.shape[:-1], self.num_heads, self.per_head)
+
+    def convolve(self, *, sender_node_input, sender_edge_input,
+                 receiver_input, broadcast_from_receiver, pool_to_receiver,
+                 extra_receiver_ops, edge_mask):
+        query = broadcast_from_receiver(
+            self._split(self.w_query(receiver_input)))
+        value_terms = []
+        if sender_node_input is not None:
+            value_terms.append(self._split(
+                self.w_sender_node(sender_node_input)))
+        if sender_edge_input is not None:
+            value_terms.append(self._split(
+                self.w_sender_edge(sender_edge_input)))
+        value = sum(value_terms)
+        feats = self.attention_activation(query + value)
+        logits = torch.einsum("...hc,hc->...h", feats,
+                              self.attn_logits.to(feats.dtype))
+        coef = extra_receiver_ops["softmax"](logits)
+        pooled = pool_to_receiver(value * coef[..., None], reduce_type="sum")
+        return self.act(pooled.reshape(*pooled.shape[:-2], -1))
+
+
+class MultiHeadAttentionConv(AnyToAnyConv):
+    """Transformer-style dot-product attention on edges (paper §4.3)."""
+
+    def __init__(self, num_heads: int, per_head_channels: int, in_dim: int,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.num_heads = num_heads
+        self.per_head = per_head_channels
+        out = num_heads * per_head_channels
+        self.wq = Linear(in_dim, out, use_bias=False)
+        self.wk = Linear(in_dim, out, use_bias=False)
+        self.wv = Linear(in_dim, out, use_bias=False)
+
+    def _split(self, t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(*t.shape[:-1], self.num_heads, self.per_head)
+
+    def convolve(self, *, sender_node_input, sender_edge_input,
+                 receiver_input, broadcast_from_receiver, pool_to_receiver,
+                 extra_receiver_ops, edge_mask):
+        q = broadcast_from_receiver(self._split(self.wq(receiver_input)))
+        k = self._split(self.wk(sender_node_input))
+        v = self._split(self.wv(sender_node_input))
+        logits = (q * k).sum(-1) * (self.per_head ** -0.5)
+        coef = extra_receiver_ops["softmax"](logits)
+        pooled = pool_to_receiver(v * coef[..., None], reduce_type="sum")
+        return pooled.reshape(*pooled.shape[:-2], -1)

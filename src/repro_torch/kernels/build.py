@@ -30,6 +30,7 @@ SOURCES = {
     "segment_pool_runs": KERNELS_DIR / "segment_pool" / "runs.cu",
     "edge_mpnn": KERNELS_DIR / "edge_mpnn" / "edge_mpnn.cu",
     "edge_mpnn_runs": KERNELS_DIR / "edge_mpnn" / "edge_mpnn_runs.cu",
+    "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
 }
 # every header a source may include (cuda_common.cuh, edge_tile.cuh)
 HEADERS = tuple(sorted(KERNELS_DIR.rglob("*.cuh")))

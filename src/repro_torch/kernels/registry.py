@@ -27,10 +27,16 @@ order.  Unlike the reference's trace-time global, `layout` and
 thread keeps the unsorted kernels while a training loop holds the hint.
 
 Every kernel call on the card goes through a `torch.autograd.Function`
-(`SegmentPoolFunction`, `EdgeMpnnFunction`) whose backward is the plain
-version's gradient, recomputed from the saved inputs — the counterpart of
-the reference's custom VJPs (`kernels/dispatch.py:391-440`).  Serving
-takes the same route under `torch.inference_mode()`.
+(`SegmentPoolFunction`, `EdgeMpnnFunction`, `FlashAttentionFunction`)
+whose backward is the plain version's gradient, recomputed from the
+saved inputs — the counterpart of the reference's custom VJPs
+(`kernels/dispatch.py:391-440,697-713`).  Serving takes the same route
+under `torch.inference_mode()`.
+
+`graph_attention` runs one node set as a single segment-masked
+flash-attention sequence (the `GraphSelfAttention` conv).  It has no row
+cap (the reference's 4096-row cap is a VMEM limit) and needs no sentinel
+padding (the kernel masks its own ragged tiles).
 
 Contract shared by kernels and plain versions: ids outside
 ``[0, n_segments)`` mark padding rows, and empty segments yield 0 for
@@ -47,6 +53,8 @@ import torch
 
 from repro_torch.kernels.edge_mpnn import kernel as _mpnn_kernel
 from repro_torch.kernels.edge_mpnn.ref import ACTIVATIONS, edge_mpnn_ref
+from repro_torch.kernels.flash_attention import kernel as _flash_kernel
+from repro_torch.kernels.flash_attention.ref import segment_attention_ref
 from repro_torch.kernels.segment_pool import kernel as _seg_kernel
 from repro_torch.kernels.segment_pool.ref import segment_pool_ref
 
@@ -112,15 +120,23 @@ def registry() -> dict[str, KernelEntry]:
     return dict(_REGISTRY)
 
 
+def _plain_reason(t: torch.Tensor) -> str | None:
+    """Why the plain version runs for `t` (None: a kernel runs): the one
+    eligibility rule every kernel family shares."""
+    if getattr(_THREAD, "plain", False):
+        return "plain versions requested"
+    if not t.is_cuda:
+        return f"{t.device.type} tensor: plain version"
+    return None
+
+
 def _on_device(t: torch.Tensor, name: str,
                sorted_ids: bool | None) -> Decision:
-    """The one eligibility rule both kernel families share: a kernel on
-    a CUDA tensor — `name`_runs on sorted ids, `name` otherwise — and the
-    plain version anywhere else."""
-    if getattr(_THREAD, "plain", False):
-        return Decision(False, "plain versions requested")
-    if not t.is_cuda:
-        return Decision(False, f"{t.device.type} tensor: plain version")
+    """A kernel on a CUDA tensor — `name`_runs on sorted ids, `name`
+    otherwise — and the plain version anywhere else."""
+    reason = _plain_reason(t)
+    if reason is not None:
+        return Decision(False, reason)
     if sorted_ids is None:
         sorted_ids = layout_sorted_by_target()
     if sorted_ids:
@@ -192,6 +208,36 @@ class EdgeMpnnFunction(torch.autograd.Function):
             for i, g in zip(wanted, got):
                 grads[i] = g if g is not None else torch.zeros_like(xs[i])
         return (*grads, None, None, None, None, None, None)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``apply(q, k, v [N, H, D], segments [N] int32, kernel)``: `kernel`
+    (`flash_attention.kernel.flash_attention`) forward over the node set
+    as one segment-masked sequence, `segment_attention_ref`'s gradient
+    backward (the reference's custom VJP, `dispatch.py:697-713`; the TPU
+    kernel has no backward kernel either).  Differentiable in q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segments, kernel):
+        ctx.save_for_backward(q, k, v, segments)
+        seg = segments[None]
+        return kernel(q[None], k[None], v[None], seg, seg, causal=False)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, segments = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        grads = [None] * 3
+        if any(needs):
+            with torch.enable_grad():
+                xs = [x.detach().requires_grad_(need)
+                      for x, need in zip((q, k, v), needs)]
+                out = segment_attention_ref(*xs, segments)
+                wanted = [i for i in range(3) if needs[i]]
+                got = torch.autograd.grad(out, [xs[i] for i in wanted], grad)
+            for i, g in zip(wanted, got):
+                grads[i] = g
+        return (*grads, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +327,38 @@ def edge_mpnn(h_src, h_tgt, src, tgt, w, b, *, n_src: int, n_tgt: int,
         activation, entry.kernels[dec.kernel])
 
 
+# ---------------------------------------------------------------------------
+# graph_attention: within-component multi-head attention over a node set
+# ---------------------------------------------------------------------------
+
+def graph_attention_decision(q: torch.Tensor) -> Decision:
+    """The flash kernel on a CUDA tensor (at any row count; what it does
+    not take, a head width past 256 or a non-float dtype, raises in its
+    wrapper), the plain version anywhere else."""
+    reason = _plain_reason(q)
+    if reason is not None:
+        return Decision(False, reason)
+    return Decision(True, "kernel:flash_attention[segments]",
+                    "flash_attention")
+
+
+def graph_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    segments: torch.Tensor) -> torch.Tensor:
+    """Within-component softmax attention (or its plain version).
+
+    q/k/v: [N, H, D]; segments: [N] component ids, padding rows carrying
+    the one-past-last id (`component_ids()` gives this), so they attend
+    among themselves and downstream masks drop them.  Returns [N, H, D];
+    a row attends exactly to the rows of its own component."""
+    entry = _REGISTRY["graph_attention"]
+    dec = entry.decide(q)
+    if not dec.use_kernel:
+        return entry.reference(q, k, v, segments)
+    return FlashAttentionFunction.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), kernel_ids(segments),
+        entry.kernels[dec.kernel])
+
+
 register(KernelEntry(
     "segment_pool",
     {"segment_pool": _seg_kernel.segment_pool,
@@ -291,3 +369,7 @@ register(KernelEntry(
     {"edge_mpnn": _mpnn_kernel.edge_mpnn,
      "edge_mpnn_runs": _mpnn_kernel.edge_mpnn_runs},
     edge_mpnn_ref, edge_mpnn_decision))
+register(KernelEntry(
+    "graph_attention",
+    {"flash_attention": _flash_kernel.flash_attention},
+    segment_attention_ref, graph_attention_decision))

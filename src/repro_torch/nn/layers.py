@@ -114,10 +114,14 @@ ACTIVATIONS = {
 
 def init_params(module: nn.Module, seed: int) -> nn.Module:
     """Draw every parameter of `module` from one seeded generator, layer
-    by layer in registration order (a pure function of the seed)."""
+    by layer in registration order (a pure function of the seed).  Each
+    of the port's modules that owns parameters of its own (`Linear`,
+    `LayerNorm`, `Embedding`, `GATv2Conv`) draws them in its
+    ``reset_parameters(generator)``."""
     generator = torch.Generator().manual_seed(int(seed))
     for sub in module.modules():
-        if isinstance(sub, (Linear, LayerNorm, Embedding)):
+        if (type(sub).__module__.startswith("repro_torch.")
+                and hasattr(sub, "reset_parameters")):
             sub.reset_parameters(generator)
     return module
 

@@ -5,10 +5,11 @@ where there is no CUDA device (the kernels have no CPU mode).  On a
 machine with a card and no JAX, run ``PYTHONPATH=src python -m pytest -q
 --noconftest tests/test_torch_cuda.py`` (tests/conftest.py imports jax);
 chip_smoke.py makes the same checks at the served and trained shapes.
-Tolerances: fp32 rtol/atol 1e-5 (atomic sums run in varying order),
-bf16 2e-2; max/min and integer-valued sums exact; gradients of the
-autograd Functions against the plain versions' rtol 1e-5 (pooling) and
-1e-4 (edge_mpnn, whose backward recomputes a product).
+Tolerances: fp32 rtol/atol 1e-5 (atomic sums run in varying order; the
+flash kernel's online softmax reorders its sums), bf16 2e-2; max/min and
+integer-valued sums exact; gradients of the autograd Functions against
+the plain versions' rtol 1e-5 (pooling) and 1e-4 (edge_mpnn and flash
+attention, whose backwards recompute a product).
 """
 import pytest
 import torch
@@ -254,3 +255,124 @@ def test_cuda_forward_gives_every_parameter_a_gradient(cuda_device,
     for name, p in gnn.named_parameters():
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all(), name
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (graph attention slice)
+# ---------------------------------------------------------------------------
+
+def _qkv(g, b, sq, skv, h, kh, d, dtype, device):
+    q = torch.randn(b, sq, h, d, generator=g, device=device).to(dtype)
+    k = torch.randn(b, skv, kh, d, generator=g, device=device).to(dtype)
+    v = torch.randn(b, skv, kh, d, generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+def _flash_tol(dtype):
+    return 1e-5 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.parametrize("b,s,h,kh,d", [(1, 128, 4, 4, 32),
+                                        (2, 256, 8, 2, 64),
+                                        (1, 64, 2, 1, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda_device, b, s, h, kh, d, causal,
+                                    dtype):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v = _qkv(g, b, s, s, h, kh, d, dtype, cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype
+    tol = _flash_tol(dtype)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s", [1, 65, 1461])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_ragged_lengths_and_segments(cuda_device, s, causal):
+    """No length needs to be a tile multiple; segment and causal masks
+    apply together; queries whose id no key has are exact zeros."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v = _qkv(g, 2, s, s, 4, 2, 32, torch.float32, cuda_device)
+    seg = torch.sort(torch.randint(0, 5, (2, s), generator=g,
+                                   device=cuda_device,
+                                   dtype=torch.int32)).values
+    kv_seg = seg.clone()
+    kv_seg[:, -(s // 4 + 1):] = -2   # these keys match no query
+    q_seg = seg.clone()
+    q_seg[:, -(s // 8 + 1):] = -1    # these queries match no key
+    got = flash_attention(q, k, v, q_seg, kv_seg, causal=causal)
+    want = attention_ref(q, k, v, q_seg, kv_seg, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert not got[:, -(s // 8 + 1):].any()  # exact zeros
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 257])
+def test_flash_kernel_head_widths(cuda_device, d):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = _qkv(g, 1, 100, 100, 2, 1, d, torch.float32, cuda_device)
+    if d > 256:
+        with pytest.raises(ValueError, match="head width"):
+            flash_attention(q, k, v, causal=False)
+        return
+    torch.testing.assert_close(flash_attention(q, k, v, causal=False),
+                               attention_ref(q, k, v, causal=False),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_kernel_repeats_are_bit_identical_and_checks_inputs(
+        cuda_device):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v = _qkv(g, 1, 300, 300, 8, 2, 128, torch.float32, cuda_device)
+    seg = torch.sort(torch.randint(0, 3, (1, 300), generator=g,
+                                   device=cuda_device,
+                                   dtype=torch.int32)).values
+    first = flash_attention(q, k, v, seg, causal=False)
+    for _ in range(3):
+        assert torch.equal(flash_attention(q, k, v, seg, causal=False),
+                           first)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        flash_attention(q[:, :10], k, v, causal=True)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q[:, :, :3].contiguous(), k, v, causal=False)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, v, seg.long(), causal=False)
+    with pytest.raises(TypeError):
+        flash_attention(q.to(torch.int32), k.to(torch.int32),
+                        v.to(torch.int32), causal=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), k, v, causal=False)
+
+
+def test_flash_attention_function_gradient_is_the_plain_one(cuda_device):
+    """registry.graph_attention on the card: one launch forward, none
+    backward, and the plain version's gradients."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import segment_attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    n, h, d = 200, 4, 32
+    leaves = [torch.randn(n, h, d, generator=g, device=cuda_device
+                          ).requires_grad_(True) for _ in range(3)]
+    seg = torch.repeat_interleave(
+        torch.arange(5, device=cuda_device),
+        torch.tensor([50, 30, 70, 40, 10], device=cuda_device))
+    assert registry.graph_attention_decision(leaves[0]).use_kernel
+    before = flash_attention.launches
+    got = registry.graph_attention(*leaves, seg)
+    assert flash_attention.launches == before + 1
+    want = segment_attention_ref(*leaves, seg)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    got_grads = _grads(got, leaves, 14)
+    assert flash_attention.launches == before + 1  # backward: no launch
+    for a, c in zip(got_grads, _grads(want, leaves, 14)):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)

@@ -195,7 +195,8 @@ def test_registry_decisions_on_the_cpu():
         assert "plain versions requested" in \
             registry.segment_reduce_decision(x).reason
     assert "unsupported" in registry.edge_mpnn_decision(x, "tanh").reason
-    assert set(registry.registry()) == {"segment_pool", "edge_mpnn"}
+    assert set(registry.registry()) == {"segment_pool", "edge_mpnn",
+                                        "graph_attention"}
     counts = registry.segment_count(torch.tensor([0, 2, 2, 7, -1]), 3,
                                     dtype=torch.int32)
     assert counts.tolist() == [1, 0, 2] and counts.dtype == torch.int32
