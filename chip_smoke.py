@@ -33,7 +33,9 @@ Each path is run with every kernel's launch count set to 0 just before
 it and read just after.  Each phase prints one line; any failure prints
 ``FAIL:`` and exits non-zero.  The line before the last is a JSON record
 of every kernel (launches on its path, error against the plain version,
-times on the card, bound); the last line is
+times on the card, bound; for the two pooling kernels also host and
+device µs per call, device kernels per call, a second `index_add_`
+yardstick and the zoo's score shape); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without a CUDA device, or without the `src/repro_torch` package next to
@@ -42,6 +44,7 @@ this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -50,6 +53,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -133,6 +137,54 @@ def time_ms(torch, fn, calls: int = 50, reps: int = 5,
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def host_us(torch, fn, calls: int = 200, reps: int = 5,
+            warmup: int = 10) -> float:
+    """Host µs per call to enqueue `fn`: the host clock around `calls`
+    back-to-back calls with no synchronize among them (the device runs
+    behind and never makes the host wait, unless `fn` itself syncs); the
+    median of `reps` such runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_per_call(torch, fn, calls: int = 20) -> dict:
+    """The device work of one call of `fn`, from torch.profiler over
+    `calls` calls: device µs (kernels and memsets), and the kernels and
+    memsets it ran, per call, with the kernels' names."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us, kernels, memsets, names = 0.0, 0, 0, set()
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != cuda:
+            continue
+        us += getattr(ev, "self_device_time_total", 0) or 0
+        if "memset" in ev.key.lower():
+            memsets += ev.count
+        else:
+            kernels += ev.count
+            name = ev.key.replace("(anonymous namespace)::", "")
+            names.add(name.split("(")[0].split("<")[0].split("::")[-1]
+                      .removeprefix("void "))
+    return dict(device_us=us / calls, kernels=kernels / calls,
+                memsets=memsets / calls, names=sorted(names))
 
 
 # ---------------------------------------------------------------------------
@@ -227,24 +279,17 @@ def _bound(nbytes: int, flops: int) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernels_phase(torch):
-    """The has_topic conv at rung 8: n_src = 1224 papers, n_tgt = 4896
-    fields, E = 4896 edges, 128 wide; ~5% padding edges (tgt >= n_tgt),
-    and ~37% of the targets receive no edge."""
-    from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn
-    from repro_torch.kernels.edge_mpnn.ref import edge_mpnn_ref
-    from repro_torch.kernels.segment_pool.kernel import segment_pool
-    from repro_torch.kernels.segment_pool.ref import segment_pool_ref
-
-    dev = torch.device("cuda")
+def served_inputs(torch) -> types.SimpleNamespace:
+    """The has_topic conv at rung 8, drawn from seed SEED: n_src = 1224
+    papers, n_tgt = 4896 fields, E = 4896 edges, 128 wide; ~5% padding
+    edges (tgt >= n_tgt), and ~37% of the targets receive no edge.  `rng`
+    and `normal` carry on the same draw."""
+    dev = torch.device(DEVICE)
     n_src, n_tgt, e, d = 1224, 4896, 4896, DIM
     rng = np.random.default_rng(SEED)
     src = torch.from_numpy(rng.integers(0, n_src, e).astype(np.int32)).to(dev)
     tgt_np = rng.integers(0, n_tgt, e).astype(np.int32)
     tgt_np[rng.random(e) < 0.05] = n_tgt + 7  # padding edges
-    tgt = torch.from_numpy(tgt_np).to(dev)
-    n_valid = int((tgt_np < n_tgt).sum())
-    n_empty = n_tgt - len(np.unique(tgt_np[tgt_np < n_tgt]))
 
     def normal(*shape, scale=1.0):
         return torch.from_numpy(
@@ -252,6 +297,178 @@ def kernels_phase(torch):
 
     h_src, h_tgt = normal(n_src, d), normal(n_tgt, d)
     w, b = normal(2 * d, d, scale=(2 * d) ** -0.5), normal(d, scale=0.1)
+    vals = normal(e, d)
+    ints = torch.from_numpy(rng.integers(-8, 8, (e, d)).astype(np.float32)
+                            ).to(dev)
+    return types.SimpleNamespace(
+        rng=rng, normal=normal, n_src=n_src, n_tgt=n_tgt, e=e, d=d, src=src,
+        tgt=torch.from_numpy(tgt_np).to(dev),
+        n_valid=int((tgt_np < n_tgt).sum()),
+        n_empty=n_tgt - len(np.unique(tgt_np[tgt_np < n_tgt])),
+        h_src=h_src, h_tgt=h_tgt, w=w, b=b, vals=vals, ints=ints)
+
+
+def pool_launch_costs(torch, kernel, vals, ids, n, check=True) -> dict:
+    """One pooling kernel's launch costs at (vals, ids): host µs to
+    enqueue an fp32 sum, its device µs, kernels and memsets per call
+    (torch.profiler), and the device kernels per call of max, min and a
+    bf16 sum.  With `check`, fails unless an fp32 sum runs exactly one
+    kernel and at most one memset, and every other case one or two
+    kernels (the redesign's launch budget)."""
+    name = kernel.__name__
+    fn = functools.partial(kernel, vals, ids, n_segments=n)
+    dev = device_per_call(torch, fn)
+    by_case = {"sum fp32": dev["kernels"]}
+    for label, reduce, dtype in (("max fp32", "max", torch.float32),
+                                 ("min fp32", "min", torch.float32),
+                                 ("sum bf16", "sum", torch.bfloat16)):
+        by_case[label] = device_per_call(torch, functools.partial(
+            kernel, vals.to(dtype), ids, n_segments=n,
+            reduce=reduce))["kernels"]
+    if check:
+        if by_case["sum fp32"] != 1 or dev["memsets"] > 1:
+            fail(f"{name}: an fp32 sum ran {by_case['sum fp32']} device "
+                 f"kernels ({dev['names']}) and {dev['memsets']} memsets per "
+                 "call (1 kernel and at most 1 memset expected)")
+        for label, k in by_case.items():
+            if not 1 <= k <= 2:
+                fail(f"{name}: {label} ran {k} device kernels per call "
+                     "(1 or 2 expected)")
+    return dict(host_us=host_us(torch, fn), device_us=dev["device_us"],
+                device_kernels=dev["kernels"], memsets=dev["memsets"],
+                kernels_by_case=by_case)
+
+
+def host_breakdown(torch, vals, ids, n) -> dict:
+    """Host µs per call of each step of the launch path of an fp32 sum at
+    (vals, ids): the wrapper's steps one by one (dtype code, allocation,
+    stream handle, the ctypes entry call that launches), the wrapper
+    whole, and the registry's steps around it (kernel_ids, the autograd
+    Function, `segment_reduce` with and without a gradient to record, the
+    count of the mean)."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.segment_pool import kernel as seg
+    index = vals.get_device()
+    e, d = vals.shape
+    ids64 = ids.long()
+    leaf = vals.detach().clone().requires_grad_(True)
+    out = vals.new_empty((n, d))
+    stream = torch.cuda.current_stream(index).cuda_stream
+    entry = seg._entry("segment_pool")
+    args = (vals.data_ptr(), ids.data_ptr(), out.data_ptr(), out.data_ptr(),
+            e, d, n, seg._DTYPE_CODES[vals.dtype], seg._REDUCE_CODES["sum"],
+            stream)
+    off = contextlib.nullcontext
+    steps = {
+        "dtype code, dict by torch.dtype": (
+            lambda: seg._DTYPE_CODES[vals.dtype], off),
+        "values.new_empty [N, D]": (lambda: vals.new_empty((n, d)), off),
+        "current_stream(index).cuda_stream": (
+            lambda: torch.cuda.current_stream(index).cuda_stream, off),
+        "ctypes entry call (launches)": (lambda: entry(*args), off),
+        "wrapper segment_pool": (
+            lambda: seg.segment_pool(vals, ids, n_segments=n), off),
+        "kernel_ids int64 -> int32": (lambda: registry.kernel_ids(ids64),
+                                      off),
+        "SegmentPoolFunction.apply, grad": (
+            lambda: registry.SegmentPoolFunction.apply(
+                leaf, ids, n, "sum", seg.segment_pool), off),
+        "SegmentPoolFunction.apply, inference": (
+            lambda: registry.SegmentPoolFunction.apply(
+                vals, ids, n, "sum", seg.segment_pool), torch.inference_mode),
+        "segment_reduce sum, grad": (
+            lambda: registry.segment_reduce(leaf, ids64, n, "sum",
+                                            sorted_ids=False), off),
+        "segment_reduce sum, inference": (
+            lambda: registry.segment_reduce(vals, ids64, n, "sum",
+                                            sorted_ids=False),
+            torch.inference_mode),
+        "segment_count": (lambda: registry.segment_count(ids64, n), off),
+        "segment_reduce mean, inference": (
+            lambda: registry.segment_reduce(vals, ids64, n, "mean",
+                                            sorted_ids=False),
+            torch.inference_mode),
+    }
+    result = {}
+    for label, (fn, ctx) in steps.items():
+        with ctx():
+            result[label] = host_us(torch, fn)
+    return result
+
+
+BINCOUNT = "torch.bincount (control)"
+
+
+def sync_check(torch, batch) -> dict:
+    """Mean pooling (both pooling kernels) and `node_degree` on the card
+    under torch.cuda.set_sync_debug_mode("error"): {op: None, or the
+    error a host sync raised}.  A control, `BINCOUNT` of the same ids,
+    must raise: it reads the ids' max back to the host to size its
+    output, so it shows that the mode sees a sync."""
+    from repro_torch.core import ops
+    from repro_torch.core.graph_tensor import TARGET
+    from repro_torch.kernels import registry
+    feat = torch.ones(batch.edge_sets["has_topic"].capacity, DIM,
+                      device=DEVICE)
+
+    def mean(sorted_ids):
+        def run():
+            with registry.layout(sorted_by_target=sorted_ids):
+                ops.pool_edges_to_node(batch, "has_topic", TARGET, "mean",
+                                       feature_value=feat)
+        return run
+
+    cases = {"mean, segment_pool_runs": mean(True),
+             "mean, segment_pool": mean(False),
+             "node_degree": lambda: ops.node_degree(batch, "has_topic",
+                                                    TARGET),
+             BINCOUNT: lambda: torch.bincount(
+                 batch.edge_sets["has_topic"].adjacency.target.long()
+                 .clamp(min=0))}
+    result = {}
+    for name, fn in cases.items():
+        fn()  # first calls (library loads) are not the steady state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            result[name] = None
+        except RuntimeError as err:
+            result[name] = str(err).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return result
+
+
+def index_add_yardsticks(torch, vals, ids, n) -> tuple:
+    """(ms, ms) of the two library yardsticks of an fp32 segment sum, timed
+    only (the port never calls them): `index_add_` into an accumulator
+    allocated once and never zeroed again, and the whole function in one
+    expression, `torch.zeros(N + 1, D).index_add_(...)`, with padding ids
+    on the spare row."""
+    safe = torch.where(ids < n, ids, n).long()
+    acc = torch.zeros(n + 1, vals.shape[1], device=vals.device)
+    return (time_ms(torch, lambda: acc.index_add_(0, safe, vals)),
+            time_ms(torch, lambda: torch.zeros(
+                n + 1, vals.shape[1], device=vals.device).index_add_(
+                    0, safe, vals)))
+
+
+def kernels_phase(torch):
+    """Each kernel of the served conv (`served_inputs`) against its plain
+    version, timed beside its bound and a library call."""
+    from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn
+    from repro_torch.kernels.edge_mpnn.ref import edge_mpnn_ref
+    from repro_torch.kernels.segment_pool.kernel import segment_pool
+    from repro_torch.kernels.segment_pool.ref import segment_pool_ref
+
+    dev = torch.device(DEVICE)
+    s = served_inputs(torch)
+    n_src, n_tgt, e, d = s.n_src, s.n_tgt, s.e, s.d
+    rng, normal, src, tgt = s.rng, s.normal, s.src, s.tgt
+    n_valid, n_empty = s.n_valid, s.n_empty
+    h_src, h_tgt, w, b = s.h_src, s.h_tgt, s.w, s.b
     records = {}
 
     # -- edge_mpnn ----------------------------------------------------------
@@ -293,9 +510,7 @@ def kernels_phase(torch):
           f"({records['edge_mpnn']['bound_by']}); {n_valid} valid edges")
 
     # -- segment_pool --------------------------------------------------------
-    vals = normal(e, d)
-    ints = torch.from_numpy(rng.integers(-8, 8, (e, d)).astype(np.float32)
-                            ).to(dev)
+    vals, ints = s.vals, s.ints
     got = segment_pool(ints, tgt, n_segments=n_tgt, reduce="sum")
     want = segment_pool_ref(ints, tgt, n_segments=n_tgt, reduce="sum")
     if not torch.equal(got, want):
@@ -321,23 +536,29 @@ def kernels_phase(torch):
     ms = time_ms(torch, lambda: segment_pool(vals, tgt, n_segments=n_tgt))
     plain_ms = time_ms(torch, lambda: segment_pool_ref(
         vals, tgt, n_segments=n_tgt))
-    safe = torch.where(tgt < n_tgt, tgt, n_tgt).long()
-    acc = torch.zeros(n_tgt + 1, d, device=dev)
-    library_ms = time_ms(torch, lambda: acc.index_add_(0, safe, vals))
+    library_ms, zeroed_ms = index_add_yardsticks(torch, vals, tgt, n_tgt)
     # padding rows' values are never read
     bound_ms, bound_by = _bound(n_valid * d * isz + e * 4 + n_tgt * d * isz,
                                 n_valid * d)
+    costs = pool_launch_costs(torch, segment_pool, vals, tgt, n_tgt)
+    steps = host_breakdown(torch, vals, tgt, n_tgt)
     records["segment_pool"] = dict(
         name="segment_pool", route="cuda",
         source="src/repro_torch/kernels/segment_pool/segment_pool.cu",
         replaces="src/repro/kernels/segment_pool/kernel.py:193",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms)
+        bound_by=bound_by, library_ms=library_ms,
+        library_zeroed_ms=zeroed_ms, **costs, host_steps_us=steps)
     phase("kernels", f"segment_pool: int sums bit-exact, max/min exact, "
           f"sum fp32 max err {err:.2e}, bf16 cast back; {n_empty} empty "
           f"segments; sum {ms:.4f} ms vs plain {plain_ms:.4f} ms vs "
-          f"index_add_ {library_ms:.4f} ms, bound "
-          f"{records['segment_pool']['bound_ms']:.4f} ms")
+          f"index_add_ {library_ms:.4f} ms (zeros + index_add_ "
+          f"{zeroed_ms:.4f} ms), bound {bound_ms:.4f} ms; per call: host "
+          f"{costs['host_us']:.2f} us, device {costs['device_us']:.2f} us, "
+          f"device kernels {costs['kernels_by_case']}, memsets "
+          f"{costs['memsets']}")
+    phase("kernels", "segment_pool launch path, host us per call: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
 
     # -- widths past one tile: edge_mpnn walks M in 256-column tiles, and
     # segment_pool has no width limit, so a wider model stays on both
@@ -364,18 +585,13 @@ def kernels_phase(torch):
     return records
 
 
-def runs_kernels_phase(torch, batch, records):
-    """The run kernels at the trained shape: the has_topic conv of the
-    first 16-root training batch (n_src papers, n_tgt fields, E edges,
-    128 wide), its targets sorted as the batcher emits them (padding
-    last), and the same edges in a seeded random order."""
-    from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn, edge_mpnn_runs
-    from repro_torch.kernels.edge_mpnn.ref import activate, edge_mpnn_ref
+def trained_inputs(torch, batch) -> types.SimpleNamespace:
+    """The has_topic conv of the first 16-root training batch (n_src
+    papers, n_tgt fields, E edges, 128 wide), its targets sorted as the
+    batcher emits them (padding last) and in a seeded random order, with
+    values drawn from seed SEED + 4, and the zoo's attention scores on the
+    same edges ([E, 4]: gatv2 / hgt_like's 4 heads)."""
     from repro_torch.kernels.registry import kernel_ids
-    from repro_torch.kernels.segment_pool.kernel import (segment_pool,
-                                                         segment_pool_runs)
-    from repro_torch.kernels.segment_pool.ref import segment_pool_ref
-
     dev = torch.device(DEVICE)
     es = batch.edge_sets["has_topic"]
     n_src = batch.node_sets["paper"].capacity
@@ -387,11 +603,8 @@ def runs_kernels_phase(torch, batch, records):
                                                  n_tgt)))
     if not bool((tgt[1:] >= tgt[:-1]).all()):
         fail("training batch: has_topic targets are not sorted")
-    n_valid = int((tgt < n_tgt).sum())
-    n_runs = int(torch.unique(tgt[tgt < n_tgt]).numel())
     rng = np.random.default_rng(SEED + 4)
     perm = torch.from_numpy(rng.permutation(e)).to(dev)
-    layouts = {"sorted": (src, tgt), "unsorted": (src[perm], tgt[perm])}
 
     def normal(*shape, scale=1.0):
         return torch.from_numpy(
@@ -399,7 +612,37 @@ def runs_kernels_phase(torch, batch, records):
 
     h_src, h_tgt = normal(n_src, d), normal(n_tgt, d)
     w, b = normal(2 * d, d, scale=(2 * d) ** -0.5), normal(d, scale=0.1)
-    counts = torch.bincount(tgt.long(), minlength=n_tgt + 1)[:n_tgt]
+    vals = normal(e, d)
+    ints = torch.from_numpy(rng.integers(-8, 8, (e, d)).astype(np.float32)
+                            ).to(dev)
+    scores = normal(e, ATTN_HEADS)
+    return types.SimpleNamespace(
+        rng=rng, normal=normal, n_src=n_src, n_tgt=n_tgt, e=e, d=d,
+        layouts={"sorted": (src, tgt), "unsorted": (src[perm], tgt[perm])},
+        src=src, tgt=tgt, n_valid=int((tgt < n_tgt).sum()),
+        n_runs=int(torch.unique(tgt[tgt < n_tgt]).numel()),
+        counts=torch.zeros(n_tgt + 1, dtype=torch.int64, device=dev
+                           ).index_add_(0, tgt.long(),
+                                        torch.ones_like(tgt.long()))[:n_tgt],
+        h_src=h_src, h_tgt=h_tgt, w=w, b=b, vals=vals, ints=ints,
+        scores=scores)
+
+
+def runs_kernels_phase(torch, batch, records):
+    """The run kernels at the trained shape (`trained_inputs`), on sorted
+    and unsorted ids, and `segment_pool_runs` at the zoo's score shape."""
+    from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn, edge_mpnn_runs
+    from repro_torch.kernels.edge_mpnn.ref import activate, edge_mpnn_ref
+    from repro_torch.kernels.segment_pool.kernel import (segment_pool,
+                                                         segment_pool_runs)
+    from repro_torch.kernels.segment_pool.ref import segment_pool_ref
+
+    dev = torch.device(DEVICE)
+    t = trained_inputs(torch, batch)
+    n_src, n_tgt, e, d = t.n_src, t.n_tgt, t.e, t.d
+    rng, normal, src, tgt, layouts = t.rng, t.normal, t.src, t.tgt, t.layouts
+    n_valid, n_runs, counts = t.n_valid, t.n_runs, t.counts
+    h_src, h_tgt, w, b = t.h_src, t.h_tgt, t.w, t.b
 
     def message_sums(act, dtype=torch.float32, absolute=True):
         """Per target row, the sum of (|)message(|) over its edges."""
@@ -466,9 +709,7 @@ def runs_kernels_phase(torch, batch, records):
           f"{any_order_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
     # -- segment_pool_runs ---------------------------------------------------
-    vals = normal(e, d)
-    ints = torch.from_numpy(rng.integers(-8, 8, (e, d)).astype(np.float32)
-                            ).to(dev)
+    vals, ints = t.vals, t.ints
     abs_sum = segment_pool_ref(vals.abs(), tgt, n_segments=n_tgt)
     err = 0.0
     for layout, (_, t_ids) in layouts.items():
@@ -505,23 +746,77 @@ def runs_kernels_phase(torch, batch, records):
                                                        n_segments=n_tgt))
     any_order_ms = time_ms(torch, lambda: segment_pool(vals, tgt,
                                                        n_segments=n_tgt))
-    safe = torch.where(tgt < n_tgt, tgt, n_tgt).long()
-    acc = torch.zeros(n_tgt + 1, d, device=dev)
-    library_ms = time_ms(torch, lambda: acc.index_add_(0, safe, vals))
+    library_ms, zeroed_ms = index_add_yardsticks(torch, vals, tgt, n_tgt)
     bound_ms, bound_by = _bound(n_valid * d * isz + e * 4 + n_tgt * d * isz,
                                 n_valid * d)
+    costs = pool_launch_costs(torch, segment_pool_runs, vals, tgt, n_tgt)
     records["segment_pool_runs"] = dict(
         name="segment_pool_runs", route="cuda",
         source="src/repro_torch/kernels/segment_pool/runs.cu",
         replaces="src/repro/kernels/segment_pool/kernel.py:142",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms)
+        bound_by=bound_by, library_ms=library_ms,
+        library_zeroed_ms=zeroed_ms, any_order_ms=any_order_ms, **costs)
     phase("kernels", f"segment_pool_runs sorted+unsorted: int sums "
           f"bit-exact, max/min exact, sum fp32 max err {err:.2e} (vs "
           f"fp64: kernel {kernel_err.item():.2e}, plain "
-          f"{plain_err.item():.2e}), bf16 cast back; sorted sum {ms:.4f} ms vs plain {plain_ms:.4f} ms "
-          f"vs segment_pool {any_order_ms:.4f} ms vs index_add_ "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+          f"{plain_err.item():.2e}), bf16 cast back; sorted sum {ms:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms vs segment_pool {any_order_ms:.4f} ms "
+          f"vs index_add_ {library_ms:.4f} ms (zeros + index_add_ "
+          f"{zeroed_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by}); per "
+          f"call: host {costs['host_us']:.2f} us, device "
+          f"{costs['device_us']:.2f} us, device kernels "
+          f"{costs['kernels_by_case']}, memsets {costs['memsets']}")
+
+    # -- the zoo's attention scores: segment_softmax's max and exp-sum over
+    # [E, 4] on the same sorted targets (gatv2 / hgt_like, 4 heads)
+    scores = t.scores
+    smax = segment_pool_runs(scores, tgt, n_segments=n_tgt, reduce="max")
+    if not torch.equal(smax, segment_pool_ref(scores, tgt, n_segments=n_tgt,
+                                              reduce="max")):
+        fail("segment_pool_runs[D 4, max] differs from the plain version")
+    ex = torch.where((tgt < n_tgt)[:, None],
+                     torch.exp(scores - smax[tgt.clamp(max=n_tgt - 1).long()]),
+                     0.0)
+    ex_sum = segment_pool_ref(ex, tgt, n_segments=n_tgt)
+    d4_err = _close_sum(torch, "segment_pool_runs[D 4, sum]",
+                        segment_pool_runs(ex, tgt, n_segments=n_tgt), ex_sum,
+                        ex_sum, counts, 0.0)
+    d4_bound = _bound(n_valid * ATTN_HEADS * isz + e * 4
+                      + n_tgt * ATTN_HEADS * isz, n_valid * ATTN_HEADS)
+    d4 = {}
+    for reduce, x in (("max", scores), ("sum", ex)):
+        kernel_fn = functools.partial(segment_pool_runs, x, tgt,
+                                      n_segments=n_tgt, reduce=reduce)
+        dev_cost = device_per_call(torch, kernel_fn)
+        if not 1 <= dev_cost["kernels"] <= (1 if reduce == "sum" else 2):
+            fail(f"segment_pool_runs[D 4, {reduce}]: {dev_cost['kernels']} "
+                 "device kernels per call")
+        d4[reduce] = dict(
+            ms=time_ms(torch, kernel_fn),
+            plain_ms=time_ms(torch, functools.partial(
+                segment_pool_ref, x, tgt, n_segments=n_tgt, reduce=reduce)),
+            host_us=host_us(torch, kernel_fn),
+            device_us=dev_cost["device_us"],
+            device_kernels=dev_cost["kernels"], memsets=dev_cost["memsets"],
+            bound_ms=d4_bound[0])
+    records["segment_pool_runs"]["d4_scores"] = d4
+    phase("kernels", f"segment_pool_runs at the zoo's score shape [E {e}, "
+          f"{ATTN_HEADS}]: max exact, exp-sum max err {d4_err:.2e}; "
+          + "; ".join(f"{r} {c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} "
+                      f"ms, host {c['host_us']:.2f} us, device "
+                      f"{c['device_us']:.2f} us in {c['device_kernels']} "
+                      f"kernels + {c['memsets']} memsets"
+                      for r, c in d4.items())
+          + f", bound {d4_bound[0]:.5f} ms ({d4_bound[1]})")
+    syncs = sync_check(torch, batch)
+    if syncs.pop(BINCOUNT) is None:
+        fail("the sync check saw no host sync in torch.bincount, which "
+             "reads its input's max back to the host")
+    if any(syncs.values()):
+        fail(f"a mean pool or node_degree synchronised the host: {syncs}")
+    phase("kernels", f"no host sync under set_sync_debug_mode('error'): "
+          f"{', '.join(syncs)}; the control, torch.bincount, raised")
 
     # -- widths past one tile, on sorted ids ---------------------------------
     n_w, e_w = 300, 1000
@@ -543,8 +838,8 @@ def runs_kernels_phase(torch, batch, records):
                       segment_pool_ref(v_w, tgt_w, n_segments=n_w),
                       1e-5, 1e-5)
     phase("kernels", f"wide, sorted: edge_mpnn_runs 512 -> 384 (two column "
-          f"tiles) max err {mpnn_err:.2e}, segment_pool_runs 640 wide (three "
-          f"column tiles) max err {pool_err:.2e}")
+          f"tiles) max err {mpnn_err:.2e}, segment_pool_runs 640 wide (five "
+          f"128-column slices) max err {pool_err:.2e}")
 
 
 # ---------------------------------------------------------------------------
@@ -1230,11 +1525,13 @@ def train_mean_phase(torch, raw, spec, setup) -> int:
     losses = run.metrics["train_losses"]
     if not np.isfinite(losses).all():
         fail(f"train-mean: losses {losses}")
+    step_ms = 1e3 * statistics.median(run.metrics["step_seconds"][1:])
     phase("train-mean", f"{run.step} steps of the mean model: step-1 "
           f"gradients of {n_params} parameters ({reached} reached) max rel "
           f"err vs plain "
           f"{worst:.2e}; losses {[round(x, 4) for x in losses]}; launches "
-          f"{launches} = {launches['segment_pool_runs'] // run.step}/forward")
+          f"{launches} = {launches['segment_pool_runs'] // run.step}/forward; "
+          f"Trainer step {step_ms:.2f} ms median")
     return launches["segment_pool_runs"]
 
 
@@ -1476,17 +1773,18 @@ def zoo_models(torch) -> dict:
     }
 
 
-def zoo_phase(torch, raw, spec, setup) -> None:
+def zoo_phase(torch, raw, spec, setup) -> int:
     """Each zoo model on the first 16-root training batch: its exact
     segment_pool_runs launches per forward (no other kernel) and its
     step-1 gradients against the plain path by the [train] rule; then
     gatv2 and hgt_like trained ZOO_STEPS steps through the Trainer on
-    both paths, losses within LOSS_ATOL."""
+    both paths, losses within LOSS_ATOL.  Returns segment_pool_runs'
+    launches over the phase's kernel-path runs."""
     train_roots, _, sizes = setup
     train = provider(raw, spec, train_roots, sizes)
     first = next(iter(train.epoch(0)))
     labels = root_task().labels(first)
-    parts = []
+    parts, total = [], 0
     for name, (model_fn, hidden, per_forward) in zoo_models(torch).items():
         zero_launches()
         worst, n_params, reached, _, _ = grad_check(
@@ -1496,6 +1794,7 @@ def zoo_phase(torch, raw, spec, setup) -> None:
                 n for k, n in launches.items() if k != "segment_pool_runs"):
             fail(f"zoo {name}: launches {launches} for one forward "
                  f"({per_forward} segment_pool_runs expected)")
+        total += launches["segment_pool_runs"]
         parts.append(f"{name} {per_forward} launches/forward, {n_params} "
                      f"parameters ({reached} reached), max rel err "
                      f"{worst:.2e}")
@@ -1511,6 +1810,7 @@ def zoo_phase(torch, raw, spec, setup) -> None:
         if launches["segment_pool_runs"] != per_forward * ZOO_STEPS:
             fail(f"zoo {name}: {launches} over {ZOO_STEPS} Trainer steps "
                  f"({per_forward} segment_pool_runs per forward expected)")
+        total += launches["segment_pool_runs"]
         losses = np.asarray(run.metrics["train_losses"])
         plain_losses = np.asarray(plain.metrics["train_losses"])
         gap = float(np.abs(losses - plain_losses).max())
@@ -1522,20 +1822,14 @@ def zoo_phase(torch, raw, spec, setup) -> None:
         trained.append(f"{name} {ZOO_STEPS} steps, losses "
                        f"{[round(float(x), 4) for x in losses]}, max |kernel - "
                        f"plain| {gap:.2e}, step {step_ms:.2f} ms")
-    phase("zoo", "; ".join(parts + trained))
+    phase("zoo", "; ".join(parts + trained)
+          + f"; segment_pool_runs launches {total}")
+    return total
 
 
-def main() -> int:
-    import torch
-    card, smi = device_phase(torch)
-    src = os.path.join(ROOT, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        fail(f"the port's package is missing: no {src}/repro_torch")
-    sys.path.insert(0, src)
-
-    build_phase()
-    records = kernels_phase(torch)
-
+def load_data():
+    """The synthetic MAG store, the §8 spec, the training setup and the
+    first training batch on the card."""
     from repro_torch.core.graph_tensor import to_device
     from repro_torch.data.synthetic import synthetic_mag
     from repro_torch.serve.cache import VersionedGraphStore
@@ -1551,6 +1845,20 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     first = to_device(next(iter(provider(raw, spec, setup[0],
                                          setup[2]).epoch(0))), DEVICE)
+    return raw, store, spec, setup, first
+
+
+def main() -> int:
+    import torch
+    card, smi = device_phase(torch)
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        fail(f"the port's package is missing: no {src}/repro_torch")
+    sys.path.insert(0, src)
+
+    build_phase()
+    records = kernels_phase(torch)
+    raw, store, spec, setup, first = load_data()
     runs_kernels_phase(torch, first, records)
     flash_kernels_phase(torch, first, records)
 
@@ -1565,13 +1873,16 @@ def main() -> int:
         states = init_params(init_states(torch), SEED).to(DEVICE)(first)
     records["flash_attention"]["launches"] = attention_phase(torch, states,
                                                              card)
-    zoo_phase(torch, raw, spec, setup)
+    records["segment_pool_runs"]["zoo_launches"] = zoo_phase(torch, raw,
+                                                             spec, setup)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"card: {smi}", flush=True)
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in records.values()]}))
+    print(json.dumps({"kernels": [
+        {**{k: rec[k] for k in keys},
+         **{k: v for k, v in rec.items() if k not in keys}}
+        for rec in records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

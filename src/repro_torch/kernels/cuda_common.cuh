@@ -50,60 +50,4 @@ inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-// ---------------------------------------------------------------------------
-// Segment reductions into an [N, D] fp32 accumulator (segment_pool.cu and
-// segment_pool/runs.cu): sum by atomicAdd; max by atomicMax on an
-// order-preserving int encoding of fp32 (CUDA has no fp32 atomicMax); min
-// is -max(-x), negated on load and on store.  -1e30 is the reference's
-// max identity, and a result <= -5e29 (an empty segment) reads 0.
-// ---------------------------------------------------------------------------
-
-// reduce codes of segment_pool/kernel.py: 0 sum, 1 max, 2 min
-constexpr int kSum = 0;
-constexpr int kMin = 2;
-constexpr float kNegInf = -1e30f;
-
-// Monotone float -> int map: a < b as floats iff enc(a) < enc(b) as ints.
-__device__ __forceinline__ int float_to_ordered(float f) {
-  int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float ordered_to_float(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
-
-// one value (already negated for min) folded into accumulator slot o
-__device__ __forceinline__ void pool_accumulate(float* acc, int64_t o,
-                                                float v, int reduce) {
-  if (reduce == kSum)
-    atomicAdd(acc + o, v);
-  else
-    atomicMax(reinterpret_cast<int*>(acc) + o, float_to_ordered(v));
-}
-
-__global__ void pool_init_kernel(float* acc, int64_t n, int reduce) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  if (reduce == kSum)
-    acc[i] = 0.f;
-  else
-    reinterpret_cast<int*>(acc)[i] = float_to_ordered(kNegInf);
-}
-
-__global__ void pool_finalize_kernel(const float* acc, void* out, int64_t n,
-                                     int dtype, int reduce) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  float v;
-  if (reduce == kSum) {
-    v = acc[i];
-  } else {
-    v = ordered_to_float(reinterpret_cast<const int*>(acc)[i]);
-    if (v <= kNegInf * 0.5f) v = 0.f;  // empty segment
-    if (reduce == kMin) v = -v;
-  }
-  store_from_float(out, i, v, dtype);
-}
-
 }  // namespace repro_torch

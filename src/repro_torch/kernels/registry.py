@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Callable
 
@@ -273,7 +274,8 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
     if not dec.use_kernel:
         return entry.reference(values, seg_ids, n_segments=n_segments,
                                reduce=reduce)
-    flat = values.reshape(values.shape[0], -1).contiguous()
+    flat = values.reshape(values.shape[0],
+                          math.prod(values.shape[1:])).contiguous()
     out = SegmentPoolFunction.apply(flat, kernel_ids(seg_ids), n_segments,
                                     reduce, entry.kernels[dec.kernel])
     return out.reshape((n_segments,) + values.shape[1:])
@@ -282,11 +284,15 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
 def segment_count(seg_ids: torch.Tensor, n_segments: int,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Rows per segment (ids outside [0, n_segments) excluded), counted
-    exactly in int64 and returned in `dtype`."""
+    exactly in int64 and returned in `dtype`.  A fixed-size `index_add_`
+    into n_segments + 1 slots, padding ids into the spare last one:
+    `bincount` would read the ids' max back to the host to size its
+    output, and so stall the host on every mean pool and degree."""
     ids = seg_ids.to(torch.int64)
     valid = (ids >= 0) & (ids < n_segments)
-    counts = torch.bincount(torch.where(valid, ids, n_segments),
-                            minlength=n_segments + 1)
+    counts = torch.zeros(n_segments + 1, dtype=torch.int64, device=ids.device)
+    counts.index_add_(0, torch.where(valid, ids, n_segments),
+                      torch.ones_like(ids))
     return counts[:n_segments].to(dtype)
 
 

@@ -9,8 +9,17 @@ ids (the training batches).  On a CUDA tensor a wrapper launches its
 kernel, at any width — it checks device, dtype, shape and contiguity and
 raises on what the kernel does not take (a non-float dtype among them);
 on a CPU tensor it runs the plain version in `ref.py`.  Each wrapper's
-`launches` counts its kernel launches (plain-version calls are not
+`launches` counts the calls that launched (plain-version calls are not
 counted).
+
+One call is one ctypes call: the C entry zero-fills (or, for max/min,
+sentinel-fills) the accumulator on the stream and launches the scatter,
+plus a finalize pass for max/min or a 16-bit dtype.  For fp32 the
+accumulator is the output itself, so an fp32 sum allocates one tensor
+and runs one kernel.  The launch path does only what the launch needs:
+the checks that raise, one or two `new_empty`, the dtype code from a
+dict keyed by `torch.dtype`, and the stream of the values' device by
+index (`torch.cuda.current_stream(int)`, the cheapest public route).
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.segment_pool.ref import REDUCES, segment_pool_ref
 
 _REDUCE_CODES = {"sum": 0, "max": 1, "min": 2}
+_DTYPE_CODES = {getattr(torch, name): code
+                for name, code in build.DTYPE_CODES.items()}
 
 
 @functools.cache
@@ -48,26 +59,29 @@ def _run(library: str, values: torch.Tensor, seg_ids: torch.Tensor,
     if values.ndim != 2 or not values.is_contiguous():
         raise ValueError(f"{library} kernel takes contiguous [E, D] "
                          f"values, got shape {tuple(values.shape)}")
+    e, d = values.shape
+    index = values.get_device()
     if (seg_ids.dtype != torch.int32 or seg_ids.ndim != 1
-            or seg_ids.shape[0] != values.shape[0]
-            or seg_ids.device != values.device
+            or seg_ids.shape[0] != e or seg_ids.get_device() != index
             or not seg_ids.is_contiguous()):
         raise ValueError(f"{library} kernel takes contiguous int32 "
-                         f"seg_ids [{values.shape[0]}] on {values.device}")
-    code = build.dtype_code(values)
-    e, d = values.shape
+                         f"seg_ids [{e}] on {values.device}")
+    code = _DTYPE_CODES.get(values.dtype)
+    if code is None:
+        raise TypeError(f"{library} kernel takes "
+                        f"{sorted(build.DTYPE_CODES)}, got {values.dtype}")
     # padding rows carry id n_segments, which must fit int32 as well
     build.check_int32(library, n_segments=n_segments + 1, width=d)
-    out = torch.empty((n_segments, d), dtype=values.dtype,
-                      device=values.device)
-    if out.numel() == 0:
+    out = values.new_empty((n_segments, d))
+    if n_segments * d == 0:
         return out, False  # nothing to launch
-    acc = torch.empty((n_segments, d), dtype=torch.float32,
-                      device=values.device)
-    stream = torch.cuda.current_stream(values.device).cuda_stream
+    # fp32: the kernel accumulates straight into the output
+    acc = out if values.dtype == torch.float32 else values.new_empty(
+        (n_segments, d), dtype=torch.float32)
     rc = _entry(library)(values.data_ptr(), seg_ids.data_ptr(),
                          acc.data_ptr(), out.data_ptr(), e, d, n_segments,
-                         code, _REDUCE_CODES[reduce], stream)
+                         code, _REDUCE_CODES[reduce],
+                         torch.cuda.current_stream(index).cuda_stream)
     build.check_launch(rc, library)
     return out, True
 

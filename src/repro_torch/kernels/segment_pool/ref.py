@@ -8,6 +8,8 @@ and the result is cast back to the input dtype.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_INF = -1e30
@@ -23,8 +25,9 @@ def segment_pool_ref(values: torch.Tensor, seg_ids: torch.Tensor, *,
     ids = seg_ids.to(torch.int64)
     valid = (ids >= 0) & (ids < n_segments)
     safe = torch.where(valid, ids, n_segments)  # padding -> spare row
-    flat = values.reshape(values.shape[0], -1)
-    width = flat.shape[1]
+    # the width spelled out: reshape cannot infer -1 when E = 0
+    width = math.prod(values.shape[1:])
+    flat = values.reshape(values.shape[0], width)
     floating = values.is_floating_point()
     if reduce == "sum":
         acc_dtype = torch.float32 if floating else values.dtype

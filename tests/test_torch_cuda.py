@@ -101,8 +101,8 @@ def _ids(g, e, n, sort, device):
 @pytest.mark.parametrize("d", [40, 600])
 def test_segment_pool_runs_kernel_matches_plain(cuda_device, sort, reduce,
                                                 dtype, d):
-    """600 wide is three column tiles; 300 rows sorted into 70 ids give
-    runs that cross the 32-row tiles."""
+    """40 wide is one partial 128-column slice and 600 wide five; 300 rows
+    sorted into 70 ids give runs that cross the 16-row tiles (D >= 32)."""
     from repro_torch.kernels.segment_pool.kernel import segment_pool_runs
     g = torch.Generator(device=cuda_device).manual_seed(2)
     vals = torch.randn(300, d, generator=g, device=cuda_device).to(dtype)
@@ -202,22 +202,15 @@ def test_edge_mpnn_function_gradient_is_the_plain_one(cuda_device, variant):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("reduce_type", ["sum", "mean"])
-def test_cuda_forward_gives_every_parameter_a_gradient(cuda_device,
-                                                       reduce_type):
-    """A 2-round model on a target-sorted batch, inside the training
-    layout: every conv runs a run kernel, and the loss reaches every
-    parameter (slice 1's kernels returned tensors with no grad_fn)."""
-    from repro_torch.core.graph_tensor import HIDDEN_STATE, to_device
-    from repro_torch.core.models import vanilla_mpnn
+def _small_batch(device):
+    """(a 4-root target-sorted batch of a small synthetic MAG on `device`,
+    its store)."""
+    from repro_torch.core.graph_tensor import to_device
     from repro_torch.data.grouping import merge_and_pad
     from repro_torch.data.sampling import (SamplingSpecBuilder,
                                            sample_subgraph, seed_rng)
     from repro_torch.data.synthetic import synthetic_mag
-    from repro_torch.nn.layers import init_params
     from repro_torch.serve.gnn import spec_size_bounds, build_ladder
-    from repro_torch.kernels.edge_mpnn import kernel as mpnn_kernel
-    from repro_torch.kernels.segment_pool import kernel as seg_kernel
 
     store, _ = synthetic_mag(n_papers=60, n_authors=30, n_institutions=6,
                              n_fields=10, n_classes=4, feat_dim=8)
@@ -232,7 +225,23 @@ def test_cuda_forward_gives_every_parameter_a_gradient(cuda_device,
     sizes = build_ladder(spec_size_bounds(spec, store.schema), 4).sizes[4]
     graph = to_device(merge_and_pad(
         [sample_subgraph(store, spec, r, seed_rng(0, r)) for r in range(4)],
-        sizes, sort_by_target=True), cuda_device)
+        sizes, sort_by_target=True), device)
+    return graph, store
+
+
+@pytest.mark.parametrize("reduce_type", ["sum", "mean"])
+def test_cuda_forward_gives_every_parameter_a_gradient(cuda_device,
+                                                       reduce_type):
+    """A 2-round model on a target-sorted batch, inside the training
+    layout: every conv runs a run kernel, and the loss reaches every
+    parameter (slice 1's kernels returned tensors with no grad_fn)."""
+    from repro_torch.core.graph_tensor import HIDDEN_STATE
+    from repro_torch.core.models import vanilla_mpnn
+    from repro_torch.nn.layers import init_params
+    from repro_torch.kernels.edge_mpnn import kernel as mpnn_kernel
+    from repro_torch.kernels.segment_pool import kernel as seg_kernel
+
+    graph, store = _small_batch(cuda_device)
     edges = {k: (v.source, v.target)
              for k, v in store.schema.edge_sets.items()}
     dims = {n: 16 for n in store.schema.node_sets}
@@ -255,6 +264,194 @@ def test_cuda_forward_gives_every_parameter_a_gradient(cuda_device,
     for name, p in gnn.named_parameters():
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all(), name
+
+
+# ---------------------------------------------------------------------------
+# the pooling kernels' paths: scalar and 16-byte columns, rows per lane
+# (D < 32) and warp tiles, unaligned values, long runs, empty shapes, the
+# launch budget, and a count that does not sync the host
+# ---------------------------------------------------------------------------
+
+POOL_VARIANTS = ["segment_pool", "segment_pool_runs"]
+
+
+def _pool_kernel(variant):
+    from repro_torch.kernels.segment_pool import kernel as seg_kernel
+    return getattr(seg_kernel, variant)
+
+
+def _check_pool(kernel, vals, ids, n, reduce):
+    """kernel vs plain: max/min exact; bf16 sums within 2e-2 (the cast
+    back); fp32 sums within rtol/atol 1e-5 plus the summation-order bound
+    2 k 2**-24 sum|terms| of a segment of k rows (atomics and index_add_
+    add in different orders, which shows on runs of hundreds of rows).
+    The dtype is kept."""
+    got = kernel(vals, ids, n_segments=n, reduce=reduce)
+    want = segment_pool_ref(vals, ids, n_segments=n, reduce=reduce)
+    assert got.dtype == vals.dtype and got.shape == want.shape
+    if reduce != "sum":
+        assert torch.equal(got, want)
+    elif vals.dtype != torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    else:
+        abs_sum = segment_pool_ref(vals.abs(), ids, n_segments=n)
+        rows = registry.segment_count(ids, n)[:, None]
+        tol = 1e-5 * (1 + want.abs()) + 2 * rows * 2.0 ** -24 * abs_sum
+        assert bool(((got - want).abs() <= tol).all()), \
+            (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("variant", POOL_VARIANTS)
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 4, 128, 640])
+def test_pool_kernels_every_width(cuda_device, variant, sort, dtype, d):
+    """D 1 and 3: the scalar path; 4: one vector per row (one row per
+    lane in the run kernel); 128: one vector per lane over a warp; 640:
+    five 128-column slices.  Integer-valued fp32 sums are bit-equal to
+    the plain version."""
+    kernel = _pool_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(20 + d)
+    vals = torch.randn(500, d, generator=g, device=cuda_device).to(dtype)
+    ids = _ids(g, 500, 90, sort, cuda_device)
+    for reduce in ("sum", "max", "min"):
+        _check_pool(kernel, vals, ids, 90, reduce)
+    ints = torch.randint(-8, 8, (500, d), generator=g, device=cuda_device
+                         ).to(torch.float32)
+    assert torch.equal(kernel(ints, ids, n_segments=90),
+                       segment_pool_ref(ints, ids, n_segments=90))
+
+
+@pytest.mark.parametrize("variant", POOL_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 128])
+def test_pool_kernels_unaligned_values(cuda_device, variant, dtype, d):
+    """A contiguous view at storage offset 1: its rows start off the
+    16-byte (8-byte for bf16) vector boundary, so the kernel takes its
+    scalar path."""
+    kernel = _pool_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(30 + d)
+    flat = torch.randn(300 * d + 1, generator=g, device=cuda_device)
+    vals = flat.to(dtype)[1:].view(300, d)
+    assert vals.is_contiguous() and vals.storage_offset() == 1
+    ids = _ids(g, 300, 40, True, cuda_device)
+    for reduce in ("sum", "max", "min"):
+        _check_pool(kernel, vals, ids, 40, reduce)
+
+
+@pytest.mark.parametrize("variant", POOL_VARIANTS)
+@pytest.mark.parametrize("d", [4, 128])
+def test_pool_kernels_runs_over_many_tiles(cuda_device, variant, d):
+    """Sorted runs of 200 and 700 rows cross 3 and more 16-row tiles at D
+    128 and 32-row warp groups at D 4 (D < 32), and meet again in the
+    accumulator; the padding rows form a long run of their own at the
+    end."""
+    kernel = _pool_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(40 + d)
+    lengths = torch.tensor([200, 1, 31, 700, 33, 64, 5, 300],
+                           device=cuda_device)
+    ids = torch.repeat_interleave(
+        torch.tensor([0, 1, 2, 4, 5, 7, 8, 9], device=cuda_device),
+        lengths).to(torch.int32)  # 9: padding (n = 9); 3 and 6 empty
+    e = ids.numel()
+    vals = torch.randn(e, d, generator=g, device=cuda_device)
+    for reduce in ("sum", "max", "min"):
+        _check_pool(kernel, vals, ids, 9, reduce)
+    ints = torch.randint(-8, 8, (e, d), generator=g, device=cuda_device
+                         ).to(torch.float32)
+    assert torch.equal(kernel(ints, ids, n_segments=9),
+                       segment_pool_ref(ints, ids, n_segments=9))
+
+
+@pytest.mark.parametrize("variant", POOL_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernels_empty_shapes(cuda_device, variant, dtype):
+    """E = 0 gives zeros (and still counts as a launch: the call fills the
+    output on the card); N = 0 gives [0, D] and launches nothing; rows
+    that are all padding (ids >= N and < 0) give zeros; segments with no
+    row read 0 under max and min too."""
+    kernel = _pool_kernel(variant)
+    d = 8
+    for reduce in ("sum", "max", "min"):
+        before = kernel.launches
+        out = kernel(torch.empty(0, d, device=cuda_device, dtype=dtype),
+                     torch.empty(0, dtype=torch.int32, device=cuda_device),
+                     n_segments=5, reduce=reduce)
+        assert kernel.launches == before + 1
+        assert out.shape == (5, d) and out.dtype == dtype
+        assert not out.any()
+        vals = torch.randn(6, d, device=cuda_device).to(dtype)
+        out = kernel(vals, torch.arange(6, dtype=torch.int32,
+                                        device=cuda_device),
+                     n_segments=0, reduce=reduce)
+        assert out.shape == (0, d) and kernel.launches == before + 1
+        pad = torch.tensor([5, 9, -1, -7, 5, 6], dtype=torch.int32,
+                           device=cuda_device)
+        assert not kernel(vals, pad, n_segments=5, reduce=reduce).any()
+        ids = torch.tensor([0, 0, 3, 3, 3, 9], dtype=torch.int32,
+                           device=cuda_device)
+        got = kernel(-vals.abs() - 1, ids, n_segments=5, reduce=reduce)
+        _check_pool(kernel, -vals.abs() - 1, ids, 5, reduce)
+        assert not got[[1, 2, 4]].any()
+
+
+@pytest.mark.parametrize("variant", POOL_VARIANTS)
+def test_pool_kernels_launch_budget(cuda_device, variant):
+    """Device kernels per call from torch.profiler: an fp32 sum is one
+    kernel after one memset; max, min and a bf16 sum at most two."""
+    kernel = _pool_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(50)
+    vals = torch.randn(400, 128, generator=g, device=cuda_device)
+    ids = _ids(g, 400, 60, True, cuda_device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for reduce, dtype, most in (("sum", torch.float32, 1),
+                                ("max", torch.float32, 2),
+                                ("min", torch.float32, 2),
+                                ("sum", torch.bfloat16, 2)):
+        x = vals.to(dtype)
+        kernel(x, ids, n_segments=60, reduce=reduce)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            kernel(x, ids, n_segments=60, reduce=reduce)
+            torch.cuda.synchronize()
+        device = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        memsets = sum(ev.count for ev in device
+                      if "memset" in ev.key.lower())
+        kernels = sum(ev.count for ev in device) - memsets
+        assert 1 <= kernels <= most, (reduce, dtype, device)
+        assert memsets <= 1, (reduce, dtype, device)
+
+
+def test_mean_pool_and_degree_do_not_sync_the_host(cuda_device):
+    """The count of the mean and node_degree is a fixed-size index_add_:
+    under set_sync_debug_mode("error") neither mean pooling (either
+    kernel) nor node_degree makes the host wait on the card."""
+    from repro_torch.core import ops
+    from repro_torch.core.graph_tensor import SOURCE, TARGET
+    graph, _ = _small_batch(cuda_device)
+    feat = torch.ones(graph.edge_sets["has_topic"].capacity, 16,
+                      device=cuda_device)
+
+    def run():
+        outs = [ops.node_degree(graph, "has_topic", tag)
+                for tag in (SOURCE, TARGET)]
+        for hint in (True, False):
+            with registry.layout(sorted_by_target=hint):
+                outs.append(ops.pool_edges_to_node(
+                    graph, "has_topic", TARGET, "mean", feature_value=feat))
+        return outs
+
+    want = run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -75,6 +75,31 @@ def test_segment_reduce_matches_reference_dispatch(reduce):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("e,n", [(0, 5), (10, 0), (37, 9), (300, 64)])
+def test_segment_count_matches_reference_mean_and_degree(e, n):
+    """The count behind mean pooling and node_degree (a fixed-size
+    index_add_, no host sync on the card) against the reference's
+    segment_count and mean, with padding ids (>= n), negative ids and
+    empty segments: counts exact in int32 (node_degree's dtype) and
+    fp32, means within TOL."""
+    rng = np.random.default_rng(e + n)
+    ids = rng.integers(-3, n + 3, e).astype(np.int32)
+    ids[ids == n // 2] = n + 1  # one more empty segment
+    vals = rng.standard_normal((e, 4)).astype(np.float32)
+    for dtype, j_dtype in ((torch.int32, jnp.int32),
+                           (torch.float32, jnp.float32)):
+        got = registry.segment_count(torch.from_numpy(ids), n, dtype=dtype)
+        want = j_dispatch.segment_count(jnp.asarray(ids), n, dtype=j_dtype)
+        assert got.dtype == dtype and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = registry.segment_reduce(torch.from_numpy(vals),
+                                  torch.from_numpy(ids), n, "mean")
+    want = j_dispatch.segment_reduce(jnp.asarray(vals), jnp.asarray(ids), n,
+                                     "mean")
+    assert got.shape == (n, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_segment_pool_integer_sums_are_bit_identical():
     rng = np.random.default_rng(0)
     vals = rng.integers(-8, 8, (512, 32)).astype(np.float32)
