@@ -35,7 +35,13 @@ it and read just after.  Each phase prints one line; any failure prints
 of every kernel (launches on its path, error against the plain version,
 times on the card, bound; for the two pooling kernels also host and
 device µs per call, device kernels per call, a second `index_add_`
-yardstick and the zoo's score shape); the last line is
+yardstick and the zoo's score shape; for the two edge kernels device µs
+and device kernels and memsets per call in fp32 and bf16, the build's
+registers and spills over their instantiations, and the fp32 CUDA-core
+and bf16 tensor-core bounds);
+the edge kernels' launch budget (an fp32 call: one kernel after at most
+one memset; 16-bit: at most two kernels) fails the run past it; the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without a CUDA device, or without the `src/repro_torch` package next to
@@ -62,6 +68,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12        # fp32 on the CUDA cores
+PEAK_BF16_FLOPS = 989e12       # bf16 / fp16 on the tensor cores
 
 # the served model (paper §8 / examples/ogbn_mag_train.py, full width)
 DIM = 128
@@ -225,12 +232,15 @@ def build_phase():
     report = build.build(list(build.SOURCES))
     seconds = time.perf_counter() - t0
     for name, rep in report.items():
-        usage = [ln.split(":", 1)[1].strip()
-                 for ln in rep["log"].splitlines() if "registers" in ln]
+        usage = [f"{x['name']} {x.get('registers', '?')} registers "
+                 f"{x.get('smem', 0)} B smem {x.get('spill_stores', '?')}/"
+                 f"{x.get('spill_loads', '?')} B spills"
+                 for x in ptxas_entries(rep["log"])]
         phase("build", f"{name}: {rep['seconds']:.1f}s; "
-              + " | ".join(usage))
+              + (" | ".join(usage) or "no ptxas report (cached build)"))
     phase("build", f"{len(report)} kernels built in parallel in "
           f"{seconds:.1f}s")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +287,143 @@ def _bound(nbytes: int, flops: int) -> tuple:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_entries(log: str) -> list:
+    """Every kernel instantiation in a `-Xptxas -v` build log, as dicts
+    (name as `kernel<template arguments>`, registers, static shared
+    memory, spill stores and loads in bytes); what a line does not say is
+    left out, and nothing fails on a line it cannot read."""
+    import re
+    entries, current = [], None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            current = dict(name=short_name(found.group(1)))
+            entries.append(current)
+        elif current is not None and "spill stores" in line:
+            for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                got = re.search(pat, line)
+                if got:
+                    current[key] = int(got.group(1))
+        elif current is not None and "Used" in line:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem")):
+                got = re.search(pat, line)
+                if got:
+                    current[key] = int(got.group(1))
+            current = None
+    return entries
+
+
+def short_name(mangled: str) -> str:
+    """`name<1,2,...>` of an Itanium-mangled kernel name whose template
+    arguments are integers or bools (`_ZN..16edge_mpnn_kernelILi0E..`),
+    else the name as given."""
+    import re
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = None
+    while (got := re.match(r"(\d+)", rest)) is not None:
+        n = int(got.group(1))
+        name, rest = rest[got.end():got.end() + n], rest[got.end() + n:]
+    args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
+    if name is None:
+        return mangled
+    if args is None:
+        return name
+    return f"{name}<{','.join(re.findall(r'L[a-z]+(\d+)E', args.group(1)))}>"
+
+
+def ptxas_summary(entries: list, prefix: str) -> dict:
+    """Registers (least, most) and the largest spills over the entries
+    whose name starts with `prefix`."""
+    mine = [x for x in entries if x["name"].startswith(prefix + "<")]
+    regs = [x["registers"] for x in mine if "registers" in x]
+    return dict(instantiations=len(mine),
+                registers=[min(regs), max(regs)] if regs else None,
+                spill_stores=max((x.get("spill_stores", 0) for x in mine),
+                                 default=0),
+                spill_loads=max((x.get("spill_loads", 0) for x in mine),
+                                default=0))
+
+
+def edge_bytes(torch, h_src, h_tgt, src, tgt, w, b, n_out, isz) -> int:
+    """Bytes one edge kernel call must move: the distinct (clamped)
+    source rows and distinct target rows of the valid edges, W and b read
+    once, both id arrays read once, the [n_tgt, M] output written once."""
+    n_tgt = h_tgt.shape[0]
+    valid = (tgt >= 0) & (tgt < n_tgt)
+    rows_src = torch.unique(src[valid].clamp(0, h_src.shape[0] - 1)).numel()
+    rows_tgt = torch.unique(tgt[valid]).numel()
+    return ((rows_src * h_src.shape[1] + rows_tgt * h_tgt.shape[1]
+             + w.numel() + b.numel() + n_out) * isz + 2 * src.numel() * 4)
+
+
+def edge_kernel_costs(torch, kernel, args, kw, n_valid, n_out,
+                      build_report) -> dict:
+    """One edge kernel at (args, kw): device us and device kernels and
+    memsets per call (torch.profiler) for fp32 and bf16, the bf16 time,
+    the build's registers and spills over the kernel's instantiations,
+    and two bounds: fp32 on the CUDA cores (the product that ships for
+    fp32) and bf16 on the tensor cores, each the larger of its operations
+    and its bytes (`edge_bytes`).  Fails past the launch budget: an fp32
+    call is 1 kernel after at most 1 memset, a 16-bit one at most 2
+    kernels + 1 memset (the profiler may miss a memset event now and then,
+    as in pool_launch_costs' check)."""
+    name = kernel.__name__
+    h_src, h_tgt, src, tgt, w, b = args
+    ds, dt, m = h_src.shape[1], h_tgt.shape[1], w.shape[1]
+    bf = [t.to(torch.bfloat16) if t.is_floating_point() else t for t in args]
+    fp32 = device_per_call(torch, lambda: kernel(*args, **kw))
+    bf16 = device_per_call(torch, lambda: kernel(*bf, **kw))
+    if fp32["kernels"] != 1 or fp32["memsets"] > 1:
+        fail(f"{name}: an fp32 call ran {fp32['kernels']} device kernels "
+             f"({fp32['names']}) and {fp32['memsets']} memsets (1 kernel "
+             "and at most 1 memset expected)")
+    if not 1 <= bf16["kernels"] <= 2 or bf16["memsets"] > 1:
+        fail(f"{name}: a bf16 call ran {bf16['kernels']} device kernels "
+             f"({bf16['names']}) and {bf16['memsets']} memsets (at most "
+             "2 + 1 expected)")
+    flops = 2 * n_valid * (ds + dt) * m
+    fp32_bound = _bound(edge_bytes(torch, *args, n_out, 4), flops)
+    t_bytes = edge_bytes(torch, *args, n_out, 2) / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_BF16_FLOPS
+    bf16_bound = (max(t_bytes, t_ops) * 1e3,
+                  "bytes" if t_bytes >= t_ops else "operations")
+    ms_bf16 = time_ms(torch, lambda: kernel(*bf, **kw))
+    return dict(
+        device_us=fp32["device_us"], device_kernels=fp32["kernels"],
+        memsets=fp32["memsets"], device_names=fp32["names"],
+        bf16_ms=ms_bf16, bf16_device_us=bf16["device_us"],
+        bf16_device_kernels=bf16["kernels"], bf16_memsets=bf16["memsets"],
+        ptxas=ptxas_summary(ptxas_entries(build_report[name]["log"]),
+                            f"{name}_kernel"),
+        cuda_core_bound_ms=fp32_bound[0], cuda_core_bound_by=fp32_bound[1],
+        tensor_bound_ms=bf16_bound[0], tensor_bound_by=bf16_bound[1])
+
+
+def edge_costs_line(name, rec) -> str:
+    """The [kernels] line of edge_kernel_costs' numbers."""
+    p = rec["ptxas"]
+    regs = ("-".join(map(str, p["registers"])) if p["registers"]
+            else "not reported")
+    return (f"{name} per call: fp32 device {rec['device_us']:.2f} us in "
+            f"{rec['device_kernels']:g} kernel + {rec['memsets']:g} memset; "
+            f"bf16 {rec['bf16_ms']:.4f} ms, device "
+            f"{rec['bf16_device_us']:.2f} us in "
+            f"{rec['bf16_device_kernels']:g} kernels + "
+            f"{rec['bf16_memsets']:g} memset; build: {p['instantiations']} "
+            f"instantiations, {regs} registers, at most "
+            f"{p['spill_stores']}/{p['spill_loads']} B spill stores/loads; "
+            f"bounds: fp32 CUDA cores {rec['cuda_core_bound_ms']:.5f} ms "
+            f"({rec['cuda_core_bound_by']}, share of ms "
+            f"{rec['cuda_core_bound_ms'] / rec['ms']:.3f}, of device time "
+            f"{rec['cuda_core_bound_ms'] * 1e3 / rec['device_us']:.3f}), "
+            f"bf16 tensor cores {rec['tensor_bound_ms']:.5f} ms "
+            f"({rec['tensor_bound_by']}, share of bf16 ms "
+            f"{rec['tensor_bound_ms'] / rec['bf16_ms']:.3f}, of device time "
+            f"{rec['tensor_bound_ms'] * 1e3 / rec['bf16_device_us']:.3f})")
 
 
 def served_inputs(torch) -> types.SimpleNamespace:
@@ -455,7 +602,7 @@ def index_add_yardsticks(torch, vals, ids, n) -> tuple:
                     0, safe, vals)))
 
 
-def kernels_phase(torch):
+def kernels_phase(torch, build_report):
     """Each kernel of the served conv (`served_inputs`) against its plain
     version, timed beside its bound and a library call."""
     from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn
@@ -493,9 +640,8 @@ def kernels_phase(torch):
                                           n_src=n_src, n_tgt=n_tgt))
     plain_ms = time_ms(torch, lambda: edge_mpnn_ref(
         h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt))
-    isz = 4
     bound_ms, bound_by = _bound(
-        (n_src * d + n_tgt * d + 2 * d * d + d + n_tgt * d) * isz + 2 * e * 4,
+        edge_bytes(torch, h_src, h_tgt, src, tgt, w, b, n_tgt * d, 4),
         2 * n_valid * (2 * d) * d)
     records["edge_mpnn"] = dict(
         name="edge_mpnn", route="cuda",
@@ -503,11 +649,15 @@ def kernels_phase(torch):
         replaces="src/repro/kernels/edge_mpnn/kernel.py:182",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None)
+    records["edge_mpnn"].update(edge_kernel_costs(
+        torch, edge_mpnn, (h_src, h_tgt, src, tgt, w, b),
+        dict(n_src=n_src, n_tgt=n_tgt), n_valid, n_tgt * d, build_report))
     phase("kernels", f"edge_mpnn fp32/bf16 x relu/gelu/identity match the "
           f"plain version (fp32 max err {max(errs):.2e}); fp32 "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
           f"{records['edge_mpnn']['bound_ms']:.4f} ms "
           f"({records['edge_mpnn']['bound_by']}); {n_valid} valid edges")
+    phase("kernels", edge_costs_line("edge_mpnn", records["edge_mpnn"]))
 
     # -- segment_pool --------------------------------------------------------
     vals, ints = s.vals, s.ints
@@ -538,6 +688,7 @@ def kernels_phase(torch):
         vals, tgt, n_segments=n_tgt))
     library_ms, zeroed_ms = index_add_yardsticks(torch, vals, tgt, n_tgt)
     # padding rows' values are never read
+    isz = 4
     bound_ms, bound_by = _bound(n_valid * d * isz + e * 4 + n_tgt * d * isz,
                                 n_valid * d)
     costs = pool_launch_costs(torch, segment_pool, vals, tgt, n_tgt)
@@ -560,7 +711,7 @@ def kernels_phase(torch):
     phase("kernels", "segment_pool launch path, host us per call: "
           + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
 
-    # -- widths past one tile: edge_mpnn walks M in 256-column tiles, and
+    # -- widths past one tile: edge_mpnn walks M in 64-column tiles, and
     # segment_pool has no width limit, so a wider model stays on both
     n_w, e_w = 300, 1000
     src_w = torch.from_numpy(rng.integers(0, n_w, e_w).astype(np.int32)
@@ -579,7 +730,7 @@ def kernels_phase(torch):
                       segment_pool(v_w, tgt_w, n_segments=n_w),
                       segment_pool_ref(v_w, tgt_w, n_segments=n_w),
                       1e-5, 1e-5)
-    phase("kernels", f"wide: edge_mpnn 512 -> 384 (two column tiles) max "
+    phase("kernels", f"wide: edge_mpnn 512 -> 384 (six column tiles) max "
           f"err {mpnn_err:.2e}, segment_pool 640 wide max err "
           f"{pool_err:.2e}")
     return records
@@ -628,7 +779,7 @@ def trained_inputs(torch, batch) -> types.SimpleNamespace:
         scores=scores)
 
 
-def runs_kernels_phase(torch, batch, records):
+def runs_kernels_phase(torch, batch, records, build_report):
     """The run kernels at the trained shape (`trained_inputs`), on sorted
     and unsorted ids, and `segment_pool_runs` at the zoo's score shape."""
     from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn, edge_mpnn_runs
@@ -689,9 +840,8 @@ def runs_kernels_phase(torch, batch, records):
         h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt))
     any_order_ms = time_ms(torch, lambda: edge_mpnn(
         h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt))
-    isz = 4
     bound_ms, bound_by = _bound(
-        (n_src * d + n_tgt * d + 2 * d * d + d + n_tgt * d) * isz + 2 * e * 4,
+        edge_bytes(torch, h_src, h_tgt, src, tgt, w, b, n_tgt * d, 4),
         2 * n_valid * (2 * d) * d)
     records["edge_mpnn_runs"] = dict(
         name="edge_mpnn_runs", route="cuda",
@@ -699,6 +849,9 @@ def runs_kernels_phase(torch, batch, records):
         replaces="src/repro/kernels/edge_mpnn/kernel.py:129",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None)
+    records["edge_mpnn_runs"].update(edge_kernel_costs(
+        torch, edge_mpnn_runs, (h_src, h_tgt, src, tgt, w, b),
+        dict(n_src=n_src, n_tgt=n_tgt), n_valid, n_tgt * d, build_report))
     phase("kernels", f"edge_mpnn_runs sorted+unsorted x fp32/bf16 x "
           f"relu/gelu/identity match the plain version (fp32 max err "
           f"{max(errs):.2e}, the padding node's {int(counts.max())}-edge "
@@ -707,6 +860,8 @@ def runs_kernels_phase(torch, batch, records):
           f"E {e} ({n_valid} valid, {n_runs} target runs): sorted fp32 "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms vs edge_mpnn "
           f"{any_order_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    phase("kernels", edge_costs_line("edge_mpnn_runs",
+                                     records["edge_mpnn_runs"]))
 
     # -- segment_pool_runs ---------------------------------------------------
     vals, ints = t.vals, t.ints
@@ -747,6 +902,7 @@ def runs_kernels_phase(torch, batch, records):
     any_order_ms = time_ms(torch, lambda: segment_pool(vals, tgt,
                                                        n_segments=n_tgt))
     library_ms, zeroed_ms = index_add_yardsticks(torch, vals, tgt, n_tgt)
+    isz = 4
     bound_ms, bound_by = _bound(n_valid * d * isz + e * 4 + n_tgt * d * isz,
                                 n_valid * d)
     costs = pool_launch_costs(torch, segment_pool_runs, vals, tgt, n_tgt)
@@ -837,7 +993,7 @@ def runs_kernels_phase(torch, batch, records):
                       segment_pool_runs(v_w, tgt_w, n_segments=n_w),
                       segment_pool_ref(v_w, tgt_w, n_segments=n_w),
                       1e-5, 1e-5)
-    phase("kernels", f"wide, sorted: edge_mpnn_runs 512 -> 384 (two column "
+    phase("kernels", f"wide, sorted: edge_mpnn_runs 512 -> 384 (six column "
           f"tiles) max err {mpnn_err:.2e}, segment_pool_runs 640 wide (five "
           f"128-column slices) max err {pool_err:.2e}")
 
@@ -1856,10 +2012,10 @@ def main() -> int:
         fail(f"the port's package is missing: no {src}/repro_torch")
     sys.path.insert(0, src)
 
-    build_phase()
-    records = kernels_phase(torch)
+    build_report = build_phase()
+    records = kernels_phase(torch, build_report)
     raw, store, spec, setup, first = load_data()
-    runs_kernels_phase(torch, first, records)
+    runs_kernels_phase(torch, first, records, build_report)
     flash_kernels_phase(torch, first, records)
 
     records["edge_mpnn"]["launches"] = serve_phase(torch, store, spec, card)

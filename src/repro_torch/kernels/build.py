@@ -32,7 +32,8 @@ SOURCES = {
     "edge_mpnn_runs": KERNELS_DIR / "edge_mpnn" / "edge_mpnn_runs.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
 }
-# every header a source may include (cuda_common.cuh, edge_tile.cuh)
+# every header a source may include (cuda_common.cuh, edge_mma.cuh,
+# pool.cuh)
 HEADERS = tuple(sorted(KERNELS_DIR.rglob("*.cuh")))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,8 +76,9 @@ def library_path(name: str) -> Path:
 def build(names) -> dict[str, dict]:
     """Compile every kernel in `names` that is not built yet, one `nvcc`
     per source, all in parallel.  Returns {name: {"seconds", "log"}}
-    (the log holds ptxas' register and shared-memory report); raises
-    RuntimeError naming the kernel when a compile fails."""
+    (the log holds ptxas' register and shared-memory report, kept beside
+    the library as `<library>.log` for later calls); raises RuntimeError
+    naming the kernel when a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -85,7 +87,9 @@ def build(names) -> dict[str, dict]:
         for name in names:
             out = library_path(name)
             if out.exists():
-                report[name] = {"seconds": 0.0, "log": "cached"}
+                log = out.with_suffix(".log")
+                report[name] = {"seconds": 0.0, "log": log.read_text()
+                                if log.exists() else "cached"}
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
@@ -97,6 +101,7 @@ def build(names) -> dict[str, dict]:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name} "
                                    f"(exit {proc.returncode}):\n{log}")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a reader never sees half a file
             report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     finally:

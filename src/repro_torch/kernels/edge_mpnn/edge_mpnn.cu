@@ -8,86 +8,84 @@
 // src/repro/kernels/edge_mpnn/kernel.py (_edge_mpnn_kernel).  There the
 // gathers and the scatter are one-hot matmuls on the MXU into a
 // VMEM-resident accumulator over a sequential grid.  Here:
-//   * one CTA per tile of kTileE edges loads and clamps its own indices
-//     (padding edges carry tgt >= n_tgt; clamping keeps every gather in
-//     bounds, as kernel.py's run variant does);
-//   * the grid's y axis walks M in tiles of kTileM columns, so any
-//     message width runs on the kernel (at M <= kTileM, one tile);
-//   * the [kTileE, kTileM] product is edge_tile.cuh's: gathered rows and
-//     a W slice in shared memory, fp32 FMAs in the CTA's own body (no
-//     tensor cores, no TF32, no library GEMM);
-//   * bias, activation, then an fp32 atomicAdd of each valid row into
-//     the [n_tgt, M] accumulator; a cast kernel writes the input dtype.
+//   * the gather and the [16 x ROWS edges, 64 columns] tile product are
+//     edge_mma.cuh's: ids clamped per tile, rows gathered by cp.async into
+//     a 3-stage ring, W's column slice held in shared memory for all of a
+//     CTA's edge tiles, an fp32 FMA chain in k order (fp32) or mma.sync on
+//     the tensor cores (bf16, fp16) into fp32 registers;
+//   * the epilogue works on the accumulators where they lie (fp32: 4
+//     adjacent columns of 4 rows a thread; 16-bit, as mma.m16n8 lays them
+//     out: pairs of adjacent columns of 2 rows): bias, activation, then
+//     one float4 / float2 atomicAdd per row and column group into the
+//     [n_tgt, M] fp32 accumulator (scalar atomics when M is not a multiple
+//     of the group); edges to drop (tgt outside [0, n_tgt), or past E) add
+//     nothing;
+//   * the C entry zeroes the accumulator with cudaMemsetAsync, so an fp32
+//     call (the accumulator is the output) is one memset and one kernel;
+//     a 16-bit output takes one cast kernel more.
 // edge_mpnn_runs.cu keeps the product and replaces the per-edge atomics
 // with one atomic per run of equal targets.
 //
-// Bound on this card: operations.  At the served shape (E = n_tgt = 4896,
-// Ds = Dt = M = 128, fp32) it is 2*E*(Ds+Dt)*M = 0.32 GFLOP against
-// ~6 MB of traffic, so the fp32 FMA rate bounds it, not memory.  This
-// first version stays on the CUDA cores in fp32; moving the product to
-// wgmma (bf16/TF32 inputs) with TMA-fed tiles is later work.
-#include "edge_mpnn/edge_tile.cuh"
+// Bound on this card: operations (2*E*(Ds+Dt)*M against ~5 MB at the
+// served shape; edge_mma.cuh has the arithmetic and the design).
+#include "edge_mpnn/edge_mma.cuh"
 
 namespace {
 
 using namespace repro_torch;
+using namespace repro_torch::edge;
 
-__global__ void __launch_bounds__(kThreads)
-edge_mpnn_kernel(const void* h_src, const void* h_tgt, const int* src,
-                 const int* tgt, const void* w, const void* b, float* acc,
-                 int e, int n_src, int n_tgt, int ds, int dt, int m,
-                 int dtype, int act) {
-  __shared__ EdgeTile t;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.y * kTileM;   // this CTA's column tile
-  const int mc = min(m - m0, kTileM);   // its width
-
-  load_tile_ids(t, src, tgt, blockIdx.x * kTileE, e, n_src, n_tgt);
-  float accum[kRowsPerThread][kColsPerThread];
-  tile_product(t, accum, h_src, h_tgt, w, ds, dt, m, m0, mc, dtype);
-
+template <int DT, int ROWS, bool VEC, bool WSTREAM>
+__global__ void __launch_bounds__(edge::kThreads, 2)
+edge_mpnn_kernel(const __grid_constant__ EdgeArgs a) {
+  using F = Frag<DT, ROWS>;
+  edge_tiles<DT, ROWS, VEC, WSTREAM>(a, [&](float (&acc)[F::kRows][F::kCols],
+                                      const Tile& t) {
+    const bool vec = a.m % F::kGroup == 0;  // vector-aligned rows
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int dst = t.dst[warp + i * kWarps];
-    if (dst < 0) continue;
+    for (int i = 0; i < F::kRows; ++i) {
+      const int dst = t.dst[t.row0 + i * F::kRowStep];
+      if (dst < 0) continue;
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int c = lane + 32 * j;
-      if (c < mc) {
-        const float v = activate(
-            accum[i][j] + load_as_float(b, m0 + c, dtype), act);
-        atomicAdd(acc + static_cast<int64_t>(dst) * m + m0 + c, v);
+      for (int gi = 0; gi < F::kGroups; ++gi) {
+        const int c = t.col0 + gi * F::kGroupStep;
+        const int col = t.m0 + c;
+        if (col >= a.m) break;
+        float v[F::kGroup];
+#pragma unroll
+        for (int h = 0; h < F::kGroup; ++h)
+          v[h] = activate(acc[i][gi * F::kGroup + h] + t.bias[c + h], a.act);
+        float* p = a.acc + static_cast<int64_t>(dst) * a.m + col;
+        if (vec) {
+          atomic_add_vec(p, v);
+        } else {
+#pragma unroll
+          for (int h = 0; h < F::kGroup; ++h)
+            if (col + h < a.m) atomicAdd(p + h, v[h]);
+        }
       }
     }
-  }
+  });
 }
 
 }  // namespace
 
 // h_src [n_src, ds], h_tgt [n_tgt, dt], w [ds+dt, m], b [m] (one dtype
-// code for all four), src/tgt [e] int32, acc [n_tgt, m] fp32 scratch,
-// out [n_tgt, m] (dtype code; may alias acc for fp32).  Launches on
-// `stream`; returns the cudaError_t of the launches (0 on success).
+// code for all four), src/tgt [e] int32, acc [n_tgt, m] fp32 (the output
+// itself for fp32, else scratch), out [n_tgt, m] (dtype code).  Launches
+// on `stream`; returns the cudaError_t of the calls (0 on success).
 extern "C" int edge_mpnn_launch(const void* h_src, const void* h_tgt,
                                 const int* src, const int* tgt,
                                 const void* w, const void* b, float* acc,
                                 void* out, int e, int n_src, int n_tgt,
                                 int ds, int dt, int m, int dtype, int act,
                                 void* stream) {
-  dim3 grid;
-  if (!edge_grid(e, m, n_src, &grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n_out = static_cast<int64_t>(n_tgt) * m;
-  if (n_out == 0) return static_cast<int>(cudaGetLastError());
-  zero_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(acc, n_out);
-  if (e > 0)
-    edge_mpnn_kernel<<<grid, kThreads, 0, s>>>(h_src, h_tgt, src, tgt, w, b,
-                                               acc, e, n_src, n_tgt, ds, dt,
-                                               m, dtype, act);
-  if (out != acc)
-    cast_from_fp32_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(
-        acc, out, n_out, dtype);
-  return static_cast<int>(cudaGetLastError());
+  return edge_call(h_src, h_tgt, src, tgt, w, b, acc, out, e, n_src, n_tgt,
+                   ds, dt, m, dtype, act, stream,
+                   [](auto dt_, auto rows, auto vec, auto stream_) {
+                     return edge_mpnn_kernel<decltype(dt_)::value,
+                                             decltype(rows)::value,
+                                             decltype(vec)::value,
+                                             decltype(stream_)::value>;
+                   });
 }

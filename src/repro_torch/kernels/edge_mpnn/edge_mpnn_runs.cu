@@ -10,90 +10,82 @@
 // src/repro/kernels/edge_mpnn/kernel.py (_edge_mpnn_runs_kernel): per-row
 // gathers, the message matmul, then a segmented run scan over tgt and one
 // row update per run end into a VMEM-resident accumulator.  Here:
-//   * the gather and the [kTileE, kTileM] fp32 product are edge_tile.cuh's,
-//     unchanged from edge_mpnn.cu (one CTA per edge tile and column tile,
-//     M walked in kTileM-column tiles over the grid's y axis);
-//   * bias and activation, then each edge's message row goes to shared
-//     memory, over the W slice the product no longer needs;
-//   * each thread owns one column and walks the tile's kTileE rows in
-//     order, folding the current run of equal targets in a register, and
-//     makes one fp32 atomicAdd per (run end, column).  Padding edges
-//     (tgt >= n_tgt, or past E) form their own runs and are dropped, as
-//     kernel.py:106-124 does;
-//   * a run that crosses a tile boundary meets its other half in the
-//     [n_tgt, M] accumulator; a cast kernel writes the input dtype.
-// The tile stays at 32 edges: the message tile then fits in the W slice's
-// 32 KB, so the kernel keeps edge_mpnn.cu's static shared memory (under
-// 48 KB) and register blocking, and in the §8 batches a target's run is a
-// few edges long, so a longer tile would save few atomics.
+//   * the gather and the [16 x ROWS edges, 64 columns] tile product are
+//     edge_mma.cuh's, as in edge_mpnn.cu (cp.async ring, W's column slice
+//     in shared memory, fp32 FMA chain or bf16/fp16 mma.sync);
+//   * bias and activation, then the tile's messages go to shared memory
+//     (the ring, which the product no longer needs), as fp32;
+//   * each thread owns one column of a quarter of the tile (4 x ROWS rows),
+//     walks its rows in order, folds the current run of equal targets in
+//     a register, and makes one fp32 atomicAdd per (run end, column).
+//     Edges to drop (tgt outside [0, n_tgt), or past E) form their own
+//     runs and add nothing, as kernel.py:106-124 does;
+//   * a run that crosses a quarter or a tile boundary meets its other part
+//     in the [n_tgt, M] accumulator, which the C entry zeroes with
+//     cudaMemsetAsync: an fp32 call is one memset and one kernel, a 16-bit
+//     output takes one cast kernel more.
+// Four walkers a column, not one: the walk is a serial chain of
+// shared-memory reads, and in the §8 batches a target's run is a few edges
+// long, so the extra atomics at quarter boundaries are few.
 //
-// Bound on this card: operations, as edge_mpnn.cu (2*E*(Ds+Dt)*M fp32
-// FLOPs against a few MB); the run scatter cuts the atomics, not the
-// product.
-#include "edge_mpnn/edge_tile.cuh"
+// Bound on this card: operations, as edge_mpnn.cu; the run scatter cuts
+// the atomics, not the product.
+#include "edge_mpnn/edge_mma.cuh"
 
 namespace {
 
 using namespace repro_torch;
+using namespace repro_torch::edge;
 
-static_assert(kTileE * kTileM <= kTileK * kTileM,
-              "the message tile must fit in the W slice it reuses");
-static_assert(kTileM == kThreads, "one thread per column in the run walk");
+constexpr int kWalkers = edge::kThreads / kTileM;  // 4 per column
+static_assert(kWalkers * kTileM == edge::kThreads, "one thread per walker");
 
-__global__ void __launch_bounds__(kThreads)
-edge_mpnn_runs_kernel(const void* h_src, const void* h_tgt, const int* src,
-                      const int* tgt, const void* w, const void* b,
-                      float* acc, int e, int n_src, int n_tgt, int ds,
-                      int dt, int m, int dtype, int act) {
-  __shared__ EdgeTile t;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.y * kTileM;   // this CTA's column tile
-  const int mc = min(m - m0, kTileM);   // its width
-
-  load_tile_ids(t, src, tgt, blockIdx.x * kTileE, e, n_src, n_tgt);
-  float accum[kRowsPerThread][kColsPerThread];
-  tile_product(t, accum, h_src, h_tgt, w, ds, dt, m, m0, mc, dtype);
-
-  // messages -> shared memory (the W slice is free after tile_product)
-  float (*msg)[kTileM] = t.ws;
+template <int DT, int ROWS, bool VEC, bool WSTREAM>
+__global__ void __launch_bounds__(edge::kThreads, 2)
+edge_mpnn_runs_kernel(const __grid_constant__ EdgeArgs a) {
+  using F = Frag<DT, ROWS>;
+  edge_tiles<DT, ROWS, VEC, WSTREAM>(a, [&](float (&acc)[F::kRows][F::kCols],
+                                      const Tile& t) {
+    __syncthreads();  // every warp is done with the ring
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = warp + i * kWarps;
+    for (int i = 0; i < F::kRows; ++i) {
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int c = lane + 32 * j;
-      if (c < mc)
-        msg[r][c] = t.dst[r] < 0
-            ? 0.f
-            : activate(accum[i][j] + load_as_float(b, m0 + c, dtype), act);
+      for (int gi = 0; gi < F::kGroups; ++gi) {
+        const int c = t.col0 + gi * F::kGroupStep;
+        float v[F::kGroup];
+#pragma unroll
+        for (int h = 0; h < F::kGroup; ++h)
+          v[h] = activate(acc[i][gi * F::kGroup + h] + t.bias[c + h], a.act);
+        store_vec(t.msg + (t.row0 + i * F::kRowStep) * kMsgLd + c, v);
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // one thread per column: fold each run of equal targets, one atomic
-  // per run end
-  const int c = threadIdx.x;
-  if (c >= mc) return;
-  float run = 0.f;
-  for (int r = 0; r < kTileE; ++r) {
-    const int dst = t.dst[r];
-    run += msg[r][c];
-    if (r + 1 == kTileE || t.dst[r + 1] != dst) {
-      if (dst >= 0)
-        atomicAdd(acc + static_cast<int64_t>(dst) * m + m0 + c, run);
-      run = 0.f;
+    constexpr int kWalkRows = 16 * ROWS / kWalkers;  // a quarter tile
+    const int c = threadIdx.x % kTileM;
+    const int r0 = threadIdx.x / kTileM * kWalkRows;
+    const int col = t.m0 + c;
+    if (col >= a.m) return;
+    float run = 0.f;
+    for (int r = r0; r < r0 + kWalkRows; ++r) {
+      const int dst = t.dst[r];
+      run += t.msg[r * kMsgLd + c];
+      if (r + 1 == r0 + kWalkRows || t.dst[r + 1] != dst) {
+        if (dst >= 0)
+          atomicAdd(a.acc + static_cast<int64_t>(dst) * a.m + col, run);
+        run = 0.f;
+      }
     }
-  }
+  });
 }
 
 }  // namespace
 
 // Same arguments as edge_mpnn_launch (edge_mpnn.cu): h_src [n_src, ds],
 // h_tgt [n_tgt, dt], w [ds+dt, m], b [m] (one dtype code for all four),
-// src/tgt [e] int32, acc [n_tgt, m] fp32 scratch, out [n_tgt, m] (dtype
-// code; may alias acc for fp32).  Launches on `stream`; returns the
-// cudaError_t of the launches (0 on success).
+// src/tgt [e] int32, acc [n_tgt, m] fp32 (the output itself for fp32,
+// else scratch), out [n_tgt, m] (dtype code).  Launches on `stream`;
+// returns the cudaError_t of the calls (0 on success).
 extern "C" int edge_mpnn_runs_launch(const void* h_src, const void* h_tgt,
                                      const int* src, const int* tgt,
                                      const void* w, const void* b,
@@ -101,19 +93,12 @@ extern "C" int edge_mpnn_runs_launch(const void* h_src, const void* h_tgt,
                                      int n_src, int n_tgt, int ds, int dt,
                                      int m, int dtype, int act,
                                      void* stream) {
-  dim3 grid;
-  if (!edge_grid(e, m, n_src, &grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n_out = static_cast<int64_t>(n_tgt) * m;
-  if (n_out == 0) return static_cast<int>(cudaGetLastError());
-  zero_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(acc, n_out);
-  if (e > 0)
-    edge_mpnn_runs_kernel<<<grid, kThreads, 0, s>>>(
-        h_src, h_tgt, src, tgt, w, b, acc, e, n_src, n_tgt, ds, dt, m,
-        dtype, act);
-  if (out != acc)
-    cast_from_fp32_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(
-        acc, out, n_out, dtype);
-  return static_cast<int>(cudaGetLastError());
+  return edge_call(h_src, h_tgt, src, tgt, w, b, acc, out, e, n_src, n_tgt,
+                   ds, dt, m, dtype, act, stream,
+                   [](auto dt_, auto rows, auto vec, auto stream_) {
+                     return edge_mpnn_runs_kernel<decltype(dt_)::value,
+                                                  decltype(rows)::value,
+                                                  decltype(vec)::value,
+                                                  decltype(stream_)::value>;
+                   });
 }

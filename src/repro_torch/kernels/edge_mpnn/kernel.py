@@ -11,6 +11,13 @@ shape and contiguity and raises on what the kernel does not take; on a
 CPU tensor it runs the plain version in `ref.py`.  Each wrapper's
 `launches` counts its kernel launches (plain-version calls are not
 counted).
+
+One call is one ctypes call: the C entry zeroes the fp32 accumulator with
+a memset and launches the kernel (the tile product of `edge_mma.cuh`:
+fp32 FMAs in the plain version's k order, or bf16/fp16 on the tensor
+cores), plus one cast kernel for a 16-bit output.  For fp32 the
+accumulator is the output itself, so an fp32 call allocates one tensor
+and runs one kernel.
 """
 from __future__ import annotations
 

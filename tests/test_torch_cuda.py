@@ -573,3 +573,209 @@ def test_flash_attention_function_gradient_is_the_plain_one(cuda_device):
     assert flash_attention.launches == before + 1  # backward: no launch
     for a, c in zip(got_grads, _grads(want, leaves, 14)):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the edge kernels' tile product (edge_mpnn/edge_mma.cuh): ragged K and M,
+# the scalar-copy form, empty and padding-only edge sets, 16-bit inputs on
+# the tensor cores, W streamed past shared memory, the persistent grid,
+# runs across many tiles, and the launch budget
+# ---------------------------------------------------------------------------
+
+EDGE_VARIANTS = ["edge_mpnn", "edge_mpnn_runs"]
+
+
+def _edge_kernel(variant):
+    from repro_torch.kernels.edge_mpnn import kernel as mpnn_kernel
+    return getattr(mpnn_kernel, variant)
+
+
+def _edge_inputs(g, device, n_src, n_tgt, ds, dt, m, src, tgt,
+                 dtype=torch.float32, offset=0):
+    """(h_src, h_tgt, src, tgt, w, b) in `dtype`; with `offset`, every
+    float tensor is a contiguous view at that storage offset."""
+    def rand(*shape, scale=1.0):
+        n = 1
+        for s in shape:
+            n *= s
+        flat = scale * torch.randn(n + offset, generator=g, device=device)
+        return flat.to(dtype)[offset:].view(*shape)
+
+    return (rand(n_src, ds), rand(n_tgt, dt), src.to(torch.int32),
+            tgt.to(torch.int32), rand(ds + dt, m, scale=(ds + dt) ** -0.5),
+            rand(m, scale=0.1))
+
+
+def _check_edge(kernel, args, n_src, n_tgt, activation="relu"):
+    """kernel vs plain: fp32 within rtol/atol 1e-5 plus the summation-order
+    bound 2 k 2**-24 sum|terms| of a row of k edges (atomics, runs and
+    index_add_ add in different orders); 16-bit within 2e-2 (the cast
+    back).  The dtype and shape are kept, and the launch is counted."""
+    before = kernel.launches
+    got = kernel(*args, n_src=n_src, n_tgt=n_tgt, activation=activation)
+    want = edge_mpnn_ref(*args, n_src=n_src, n_tgt=n_tgt,
+                         activation=activation)
+    assert got.dtype == args[0].dtype and got.shape == want.shape
+    assert kernel.launches == before + (got.numel() > 0)
+    if got.dtype != torch.float32:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        return got
+    h_src, h_tgt, src, tgt, w, b = args
+    # per row, sum over its edges of |x| @ |W| + |b|: bounds the messages
+    # and the size of their products' terms
+    abs_sum = edge_mpnn_ref(h_src.abs(), h_tgt.abs(), src, tgt, w.abs(),
+                            b.abs(), n_src=n_src, n_tgt=n_tgt,
+                            activation="identity")
+    valid = (tgt >= 0) & (tgt < n_tgt)
+    rows = torch.zeros(n_tgt + 1, device=got.device).index_add_(
+        0, torch.where(valid, tgt, n_tgt).long(),
+        torch.ones_like(tgt, dtype=torch.float32))[:n_tgt, None]
+    tol = 1e-5 * (1 + want.abs()) + 2 * rows * 2.0 ** -24 * abs_sum
+    assert bool(((got - want).abs() <= tol).all()), \
+        (got - want).abs().max().item()
+    return got
+
+
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+@pytest.mark.parametrize("ds,dt", [(100, 28), (5, 3)])
+@pytest.mark.parametrize("m", [8, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_kernels_ragged_k_and_m(cuda_device, variant, ds, dt, m,
+                                     dtype):
+    """Ds 100 + Dt 28: the K chunk 96..127 straddles Ds (fp32 16-byte
+    copies; bf16 takes the scalar form, 100 % 8 != 0); Ds 5 + Dt 3: one
+    partial chunk, scalar form.  M 8: one column tile mostly masked; M 130:
+    three, the last 2 wide (and odd groups for the vector atomics)."""
+    kernel = _edge_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(60 + ds + m)
+    src = torch.randint(0, 50, (333,), generator=g, device=cuda_device)
+    tgt = torch.randint(0, 75, (333,), generator=g, device=cuda_device)
+    args = _edge_inputs(g, cuda_device, 50, 70, ds, dt, m, src,
+                        torch.sort(tgt).values, dtype)
+    for activation in ("relu", "gelu", "identity"):
+        _check_edge(kernel, args, 50, 70, activation)
+
+
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_edge_kernels_storage_offset_takes_the_scalar_form(
+        cuda_device, variant, dtype):
+    """Every float input a contiguous view at storage offset 1: rows off
+    the 16-byte boundary, so the kernel copies element by element; same
+    result as the plain version."""
+    kernel = _edge_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(70)
+    src = torch.randint(0, 40, (300,), generator=g, device=cuda_device)
+    tgt = torch.randint(0, 64, (300,), generator=g, device=cuda_device)
+    args = _edge_inputs(g, cuda_device, 40, 60, 128, 128, 96, src, tgt,
+                        dtype, offset=1)
+    assert args[0].storage_offset() == 1 and args[0].is_contiguous()
+    _check_edge(kernel, args, 40, 60)
+
+
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_edge_kernels_empty_single_and_padding_edges(cuda_device, variant,
+                                                     dtype):
+    """E = 0 gives zeros (and counts a launch: the call zeroes the output
+    on the card); E = 1 one row; every edge padding (tgt >= n_tgt or < 0)
+    gives zeros."""
+    kernel = _edge_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(80)
+    none = torch.empty(0, dtype=torch.int64, device=cuda_device)
+    out = _check_edge(kernel, _edge_inputs(g, cuda_device, 5, 7, 16, 16,
+                                           32, none, none, dtype), 5, 7)
+    assert not out.any()
+    one = torch.tensor([3], device=cuda_device)
+    out = _check_edge(kernel, _edge_inputs(g, cuda_device, 5, 7, 16, 16, 32,
+                                           one, one, dtype), 5, 7)
+    assert out[3].any() and not out[[0, 1, 2, 4, 5, 6]].any()
+    pad = torch.tensor([7, 9, -1, -5, 7, 100], device=cuda_device)
+    out = _check_edge(kernel, _edge_inputs(g, cuda_device, 5, 7, 16, 16, 32,
+                                           pad.abs() % 5, pad, dtype), 5, 7)
+    assert not out.any()
+
+
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_kernels_stream_w_past_shared_memory(cuda_device, variant,
+                                                  dtype):
+    """K = 2048: W's column slice no longer fits shared memory, so the
+    kernel streams it through the ring with the gathered rows."""
+    kernel = _edge_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(90)
+    src = torch.randint(0, 200, (700,), generator=g, device=cuda_device)
+    tgt = torch.randint(0, 310, (700,), generator=g, device=cuda_device)
+    args = _edge_inputs(g, cuda_device, 200, 300, 1024, 1024, 96, src, tgt,
+                        dtype)
+    _check_edge(kernel, args, 200, 300, "gelu")
+
+
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+def test_edge_kernels_persistent_grid(cuda_device, variant):
+    """60000 edges in fp32 tiles of 32 x 2 column tiles = 3750 tiles, more
+    than 2 CTAs per SM: each CTA walks several edge tiles with its W slice
+    loaded once."""
+    kernel = _edge_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(100)
+    src = torch.randint(0, 20000, (60000,), generator=g, device=cuda_device)
+    tgt = torch.randint(0, 20100, (60000,), generator=g, device=cuda_device)
+    args = _edge_inputs(g, cuda_device, 20000, 20000, 128, 128, 128, src,
+                        torch.sort(tgt).values)
+    _check_edge(kernel, args, 20000, 20000)
+
+
+def test_edge_mpnn_runs_across_many_tiles(cuda_device):
+    """Sorted runs of 200, 700 and 300 edges cross several edge tiles (32
+    edges fp32, 64 bf16) and walker quarters and meet again in the
+    accumulator; the padding edges form a long run of their own at the
+    end."""
+    kernel = _edge_kernel("edge_mpnn_runs")
+    g = torch.Generator(device=cuda_device).manual_seed(110)
+    lengths = torch.tensor([200, 1, 31, 700, 33, 64, 5, 300],
+                           device=cuda_device)
+    tgt = torch.repeat_interleave(
+        torch.tensor([0, 1, 2, 4, 5, 7, 8, 9], device=cuda_device),
+        lengths)  # 9: padding (n_tgt = 9); 3 and 6 receive nothing
+    src = torch.randint(0, 30, (tgt.numel(),), generator=g,
+                        device=cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _edge_inputs(g, cuda_device, 30, 9, 64, 64, 64, src, tgt,
+                            dtype)
+        out = _check_edge(kernel, args, 30, 9, "identity")
+        assert not out[[3, 6]].any()
+
+
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+def test_edge_kernels_launch_budget(cuda_device, variant):
+    """Device work per call from torch.profiler: an fp32 call is one
+    kernel after at most one memset (the output is its own accumulator);
+    a bf16 or fp16 call at most two kernels (the cast back) and one
+    memset."""
+    kernel = _edge_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(120)
+    src = torch.randint(0, 100, (500,), generator=g, device=cuda_device)
+    tgt = torch.randint(0, 130, (500,), generator=g, device=cuda_device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for dtype, most in ((torch.float32, 1), (torch.bfloat16, 2),
+                        (torch.float16, 2)):
+        args = _edge_inputs(g, cuda_device, 100, 120, 64, 64, 128, src, tgt,
+                            dtype)
+        kernel(*args, n_src=100, n_tgt=120)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            kernel(*args, n_src=100, n_tgt=120)
+            torch.cuda.synchronize()
+        device = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        memsets = sum(ev.count for ev in device
+                      if "memset" in ev.key.lower())
+        kernels = sum(ev.count for ev in device) - memsets
+        assert memsets <= 1, (dtype, device)
+        if dtype == torch.float32:
+            assert kernels == 1, device
+        else:
+            assert 1 <= kernels <= most, (dtype, device)
