@@ -38,9 +38,15 @@ device µs per call, device kernels per call, a second `index_add_`
 yardstick and the zoo's score shape; for the two edge kernels device µs
 and device kernels and memsets per call in fp32 and bf16, the build's
 registers and spills over their instantiations, and the fp32 CUDA-core
-and bf16 tensor-core bounds);
+and bf16 tensor-core bounds; for `flash_attention` at each of its three
+shapes the fp32 and bf16 times, device us and device kernels per call,
+the 3xTF32 bound (its `bound_ms`), the fp32 CUDA-core and bf16
+tensor-core bounds, and the build's registers and spills; its text lines
+add the CTA the C entry chose and the kv tiles its skip rule visits and
+the pairs they compute against the pairs the mask allows);
 the edge kernels' launch budget (an fp32 call: one kernel after at most
-one memset; 16-bit: at most two kernels) fails the run past it; the last
+one memset; 16-bit: at most two kernels) and flash's (at most two device
+kernels a call) fail the run past it; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -69,6 +75,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12        # fp32 on the CUDA cores
 PEAK_BF16_FLOPS = 989e12       # bf16 / fp16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12       # TF32 on the tensor cores
 
 # the served model (paper §8 / examples/ogbn_mag_train.py, full width)
 DIM = 128
@@ -165,33 +172,47 @@ def host_us(torch, fn, calls: int = 200, reps: int = 5,
     return statistics.median(times)
 
 
-def device_per_call(torch, fn, calls: int = 20) -> dict:
+def device_per_call(torch, fn, calls: int = 20, tries: int = 3) -> dict:
     """The device work of one call of `fn`, from torch.profiler over
     `calls` calls: device µs (kernels and memsets), and the kernels and
-    memsets it ran, per call, with the kernels' names."""
+    memsets it ran, per call, with the kernels' names.  The profiler
+    misses an event now and then: a run in which some kernel's or
+    memset's events are not a whole multiple of `calls` is profiled
+    again, up to `tries` runs.  If the last still misses, a name short of
+    a whole multiple by one event counts as that multiple (`missed`
+    says how many such events), and a larger shortfall leaves its count
+    fractional, so that a launch budget fails.  A name's device µs are
+    its mean per event times its launches a call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us, kernels, memsets, names = 0.0, 0, 0, set()
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != cuda:
-            continue
-        us += getattr(ev, "self_device_time_total", 0) or 0
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if getattr(ev, "device_type", None) == cuda and ev.count]
+        if all(ev.count % calls == 0 for ev in events):
+            break
+    us, kernels, memsets, missed, names = 0.0, 0.0, 0.0, 0, set()
+    for ev in events:
+        launches = ev.count / calls
+        if -ev.count % calls == 1:  # one event missed
+            launches, missed = -(-ev.count // calls), missed + 1
+        us += (getattr(ev, "self_device_time_total", 0) or 0) / ev.count \
+            * launches
         if "memset" in ev.key.lower():
-            memsets += ev.count
+            memsets += launches
         else:
-            kernels += ev.count
+            kernels += launches
             name = ev.key.replace("(anonymous namespace)::", "")
             names.add(name.split("(")[0].split("<")[0].split("::")[-1]
                       .removeprefix("void "))
-    return dict(device_us=us / calls, kernels=kernels / calls,
-                memsets=memsets / calls, names=sorted(names))
+    return dict(device_us=us, kernels=kernels, memsets=memsets,
+                missed=missed, names=sorted(names))
 
 
 # ---------------------------------------------------------------------------
@@ -1725,22 +1746,54 @@ def flash_shapes(torch, batch) -> dict:
     }
 
 
-def flash_bound(torch, q, k, seg) -> tuple:
-    """(bound_ms, bound_by, allowed pairs) for fp32 inputs: 4 D flops per
-    (query, key) pair the mask allows, per head (sum of n_c^2 over the
+def flash_bounds(torch, q, k, seg) -> tuple:
+    """(allowed pairs per head, {kind: (bound_ms, bound_by)}): 4 D flops
+    per (query, key) pair the mask allows, per head (sum of n_c^2 over the
     segments of the one batch row, or S (S + 1) / 2 per batch row for the
-    causal shape); q, k, v and out read or written once, plus the
-    segment ids."""
+    causal shape), against q, k, v and out read or written once plus the
+    segment ids; at fp32 on the CUDA cores ("fp32"), 3xTF32 on the
+    tensor cores (a third of the TF32 rate, fp32 bytes; "tf32x3") and
+    bf16 on the tensor cores (2-byte elements; "bf16")."""
     b, s, h, d = q.shape
     if seg is not None:
         pairs = int((torch.bincount(seg.flatten().long()) ** 2).sum())
     else:
         pairs = b * s * (s + 1) // 2
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
-    if seg is not None:
-        nbytes += 2 * seg.numel() * 4
-    bound_ms, bound_by = _bound(nbytes, 4 * d * h * pairs)
-    return bound_ms, bound_by, pairs
+
+    def bound(itemsize, flops_per_s):
+        nbytes = itemsize * (2 * q.numel() + 2 * k.numel())
+        if seg is not None:
+            nbytes += 2 * seg.numel() * 4
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = 4 * d * h * pairs / flops_per_s
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    return pairs, {"fp32": bound(4, PEAK_FP32_FLOPS),
+                   "tf32x3": bound(4, PEAK_TF32_FLOPS / 3),
+                   "bf16": bound(2, PEAK_BF16_FLOPS)}
+
+
+def flash_tiles(q, k, seg, causal, rows) -> dict:
+    """The kv tiles the kernel visits at these inputs for q tiles of
+    `rows` row groups, by its skip rule as `kernel.tile_plan` mirrors it:
+    visited and total over the q tiles of every batch row, and the
+    (query, key) pairs the visited tiles compute, per head."""
+    from repro_torch.kernels.flash_attention.kernel import (BLOCK_K,
+                                                            WARP_ROWS,
+                                                            tile_plan)
+    b, sq = q.shape[:2]
+    skv = k.shape[1]
+    ids = None if seg is None else seg.cpu().tolist()
+    visited = total = 0
+    for bi in range(b):
+        row_ids = None if ids is None else ids[bi]
+        plan = tile_plan(row_ids, row_ids, sq, skv, causal,
+                         WARP_ROWS * rows)
+        visited += sum(len(tiles) for tiles in plan)
+        total += len(plan) * -(-skv // BLOCK_K)
+    return dict(visited=visited, total=total,
+                pairs=visited * WARP_ROWS * rows * BLOCK_K)
 
 
 def sdpa_call(torch, q, k, v, seg, causal):
@@ -1756,28 +1809,38 @@ def sdpa_call(torch, q, k, v, seg, causal):
                         enable_gqa=k.shape[2] != q.shape[2])
 
 
-def flash_kernels_phase(torch, batch, records):
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+def flash_kernels_phase(torch, batch, records, build_report):
+    """flash_attention at flash_shapes' three shapes: fp32 (rtol/atol
+    1e-5) and bf16 (2e-2) against attention_ref, repeats bit-identical,
+    (b)'s unmatched queries exact zeros; then per shape the fp32 and bf16
+    times, the plain version's and SDPA's (a yardstick only), device us
+    and device kernels per call (at most 2, else FAIL), and the bounds:
+    3xTF32 (the product the kernel runs for fp32, the record's
+    `bound_ms`), fp32 on the CUDA cores, and bf16.  The text lines add
+    the CTA the C entry chose and, from `kernel.tile_plan`, the kv tiles
+    and pairs its skip rule visits."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            last_cta)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    lines = []
+    lines, shapes = [], {}
     for label, (q, k, v, seg, causal) in flash_shapes(torch, batch).items():
+        errs, ctas = {}, {}
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             args = [x.to(dtype) for x in (q, k, v)]
             got = flash_attention(*args, seg, causal=causal)
+            ctas[dtype] = last_cta()
             want = attention_ref(*args, seg, causal=causal)
             torch.cuda.synchronize()
             if got.dtype != dtype or got.shape != q.shape:
                 fail(f"flash_attention ({label}): got {got.dtype} "
                      f"{tuple(got.shape)}")
-            err = _close(torch, f"flash_attention[({label}), {dtype}]", got,
-                         want, tol, tol)
-            if dtype == torch.float32:
-                fp32_err = err
-                for _ in range(2):
-                    if not torch.equal(flash_attention(*args, seg,
-                                                       causal=causal), got):
-                        fail(f"flash_attention ({label}): repeat launches "
-                             "are not bit-identical")
+            errs[dtype] = _close(torch, f"flash_attention[({label}), "
+                                 f"{dtype}]", got, want, tol, tol)
+            for _ in range(2):
+                if not torch.equal(flash_attention(*args, seg,
+                                                   causal=causal), got):
+                    fail(f"flash_attention ({label}, {dtype}): repeat "
+                         "launches are not bit-identical")
         if label == "b":
             # queries whose id no key has: the padding rows moved to 17
             pad = seg == 16
@@ -1789,34 +1852,80 @@ def flash_kernels_phase(torch, batch, records):
             _close(torch, "flash_attention[(b), unmatched queries]", got,
                    attention_ref(q, k, v, q_seg, seg, causal=False),
                    1e-5, 1e-5)
+        bf = [x.to(torch.bfloat16) for x in (q, k, v)]
         library = sdpa_call(torch, q, k, v, seg, causal)
         lib_err = (library().transpose(1, 2) - attention_ref(
             q, k, v, seg, causal=causal)).abs().max().item()
         ms = time_ms(torch, lambda: flash_attention(q, k, v, seg,
                                                     causal=causal))
+        bf16_ms = time_ms(torch, lambda: flash_attention(*bf, seg,
+                                                         causal=causal))
         plain_ms = time_ms(torch, lambda: attention_ref(q, k, v, seg,
                                                         causal=causal))
         library_ms = time_ms(torch, library)
-        bound_ms, bound_by, pairs = flash_bound(torch, q, k, seg)
+        dev = {name: device_per_call(torch, lambda x=x: flash_attention(
+            *x, seg, causal=causal)) for name, x in (("fp32", (q, k, v)),
+                                                     ("bf16", bf))}
+        for name, d in dev.items():
+            if not 1 <= d["kernels"] <= 2:
+                fail(f"flash_attention ({label}, {name}): a call ran "
+                     f"{d['kernels']} device kernels ({d['names']}, "
+                     f"{d['missed']} profiler events missed); 1 expected, "
+                     "at most 2")
+        pairs, bounds = flash_bounds(torch, q, k, seg)
+        (bound_ms, bound_by), cc32, tc16 = (bounds["tf32x3"],
+                                            bounds["fp32"], bounds["bf16"])
+        cta = ctas[torch.float32]  # bf16 may take fewer kv splits
+        tiles = flash_tiles(q, k, seg, causal, cta[0])
         b, s, h, d = q.shape
+        shapes[label] = dict(
+            ms=ms, bf16_ms=bf16_ms, plain_ms=plain_ms, library_ms=library_ms,
+            fp32_err=errs[torch.float32], bf16_err=errs[torch.bfloat16],
+            device_us=dev["fp32"]["device_us"],
+            device_kernels=dev["fp32"]["kernels"],
+            bf16_device_us=dev["bf16"]["device_us"],
+            bf16_device_kernels=dev["bf16"]["kernels"],
+            bound_ms=bound_ms, bound_by=bound_by,
+            cuda_core_bound_ms=cc32[0], cuda_core_bound_by=cc32[1],
+            bf16_bound_ms=tc16[0], bf16_bound_by=tc16[1])
         lines.append(
             f"({label}) B {b} S {s} H {h} K {k.shape[2]} D {d}"
             f"{' causal' if causal else ''}"
             f"{f' {seg.unique().numel()} segments' if seg is not None else ''}"
-            f": {pairs} pairs, fp32 max err {fp32_err:.2e}; fp32 {ms:.4f} ms "
-            f"vs plain {plain_ms:.4f} ms vs SDPA {library_ms:.4f} ms (max "
-            f"err {lib_err:.2e}), bound {bound_ms:.4f} ms ({bound_by})")
-        if label == "a":  # the shape of the [attention] path
-            records["flash_attention"] = dict(
-                name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/flash_attention/"
-                       "flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:79",
-                max_abs_err=fp32_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+            f": CTAs of {cta[0]} x {cta[1]} warps, bf16 "
+            f"{ctas[torch.bfloat16][0]} x {ctas[torch.bfloat16][1]} (row "
+            f"groups x kv splits, as the C entry chose); by kernel.tile_plan "
+            f"they visit "
+            f"{tiles['visited']}/{tiles['total']} kv tiles, pairs per head "
+            f"computed {tiles['pairs']} / allowed {pairs}; max err fp32 "
+            f"{errs[torch.float32]:.2e} bf16 {errs[torch.bfloat16]:.2e}; "
+            f"fp32 {ms:.4f} ms (device {dev['fp32']['device_us']:.2f} us, "
+            f"{dev['fp32']['kernels']:g} kernel) bf16 {bf16_ms:.4f} ms "
+            f"(device {dev['bf16']['device_us']:.2f} us, "
+            f"{dev['bf16']['kernels']:g} kernel) vs plain {plain_ms:.4f} ms "
+            f"vs SDPA fp32 {library_ms:.4f} ms (max err {lib_err:.2e}); "
+            f"bounds 3xTF32 {bound_ms:.4f} ms ({bound_by}), fp32 CUDA cores "
+            f"{cc32[0]:.4f} ms ({cc32[1]}), bf16 {tc16[0]:.4f} ms "
+            f"({tc16[1]})")
+    ptxas = ptxas_summary(ptxas_entries(build_report["flash_attention"]
+                                        ["log"]), "flash_kernel")
+    a = shapes["a"]  # the shape of the [attention] path
+    records["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:79",
+        max_abs_err=a["fp32_err"], ms=a["ms"], plain_ms=a["plain_ms"],
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+        library_ms=a["library_ms"], ptxas=ptxas, shapes=shapes)
     for line in lines:
         phase("kernels", f"flash_attention fp32/bf16 match the plain "
               f"version, repeats bit-identical: {line}")
+    regs = ("-".join(map(str, ptxas["registers"])) if ptxas["registers"]
+            else "not reported")
+    phase("kernels", f"flash_attention build: {ptxas['instantiations']} "
+          f"instantiations, {regs} registers, at most "
+          f"{ptxas['spill_stores']}/{ptxas['spill_loads']} B spill "
+          "stores/loads")
 
 
 # ---------------------------------------------------------------------------
@@ -2016,7 +2125,7 @@ def main() -> int:
     records = kernels_phase(torch, build_report)
     raw, store, spec, setup, first = load_data()
     runs_kernels_phase(torch, first, records, build_report)
-    flash_kernels_phase(torch, first, records)
+    flash_kernels_phase(torch, first, records, build_report)
 
     records["edge_mpnn"]["launches"] = serve_phase(torch, store, spec, card)
     records["segment_pool"]["launches"] = mean_phase(torch, store, spec)

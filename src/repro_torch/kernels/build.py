@@ -33,7 +33,7 @@ SOURCES = {
     "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
 }
 # every header a source may include (cuda_common.cuh, edge_mma.cuh,
-# pool.cuh)
+# flash_mma.cuh, pool.cuh)
 HEADERS = tuple(sorted(KERNELS_DIR.rglob("*.cuh")))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -9,11 +9,19 @@ take.  On a CPU tensor it runs the plain version in `ref.py`.  Causal
 attention over Sq != Skv raises on both paths (see `ref.check_causal`).
 `flash_attention.launches` counts kernel launches (plain-version calls
 are not counted).
+
+The C entry chooses each call's CTA (row groups x kv splits) for the
+card and reports it: `last_cta()` returns the last launch's.
+`tile_plan` mirrors, in plain Python, the kernel's rule for which kv
+tiles a CTA visits and which of them apply the element mask; the tests
+hold the rule to brute force and emulate the kernel's arithmetic on it,
+and chip_smoke.py counts the visited tiles and pairs with it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,17 +30,64 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      check_causal)
 
 MAX_HEAD_DIM = 256  # the reference envelope's MAX_FEATURE_DIM
-Q_TILE = 64         # q rows per CTA (kBlockQ in the source)
+# the source's constants
+BLOCK_K = 32        # kv rows per tile (kBlockK)
+WARP_ROWS = 16      # q rows per warp (a row group)
+CHUNK = 128         # kv tiles ranged per pass (kChunk)
+
+_CTA = (ctypes.c_int * 2)()  # (row groups, kv splits) of the last launch
 
 
 @functools.cache
 def _entry():
     fn = build.load("flash_attention").flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
+
+
+def last_cta() -> tuple:
+    """(row groups, kv splits) of the CTA the C entry chose for the last
+    kernel launch: q tiles of WARP_ROWS x row groups rows."""
+    return tuple(_CTA)
+
+
+class KvTile(NamedTuple):
+    index: int     # kv rows [index * BLOCK_K, (index + 1) * BLOCK_K)
+    masked: bool   # applies the element mask
+
+
+def tile_plan(q_segments, kv_segments, sq: int, skv: int, causal: bool,
+              block_q: int) -> list:
+    """The kv tiles the kernel visits for each q tile of one batch row, in
+    its order: [[KvTile, ...] per q tile].  Segment ids are sequences of
+    ints (one batch row) or None.  A causal q tile stops at its diagonal
+    tile; a segmented one skips every kv tile whose valid ids' [min, max]
+    misses its valid ids' [min, max].  A tile applies the element mask
+    when it is ragged past Skv, straddles the diagonal, or its ids and
+    the q tile's are not all one id."""
+    plan = []
+    for q0 in range(0, sq, block_q):
+        q_ids = (None if q_segments is None
+                 else q_segments[q0:min(q0 + block_q, sq)])
+        kv_end = min(skv, q0 + block_q) if causal else skv
+        tiles = []
+        for tile in range(-(-kv_end // BLOCK_K)):
+            k0 = tile * BLOCK_K
+            kend = min(k0 + BLOCK_K, skv)
+            masked = kend - k0 < BLOCK_K or (causal and kend - 1 > q0)
+            if q_ids is not None:
+                kv_ids = kv_segments[k0:kend]
+                qmin, qmax = min(q_ids), max(q_ids)
+                kmin, kmax = min(kv_ids), max(kv_ids)
+                if kmax < qmin or kmin > qmax:
+                    continue
+                masked = masked or not qmin == qmax == kmin == kmax
+            tiles.append(KvTile(tile, masked))
+        plan.append(tiles)
+    return plan
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -88,7 +143,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _check(name, seg, (b, n), device)
     build.check_int32("flash_attention", sq=sq, skv=skv, width=h * d,
                       kv_width=kh * d,
-                      ctas=b * h * -(-sq // Q_TILE))
+                      ctas=b * h * -(-sq // WARP_ROWS))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out  # nothing to launch
@@ -97,7 +152,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 if q_segments is not None else (None, None))
     rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *seg_ptrs,
                   out.data_ptr(), b, sq, skv, h, kh, d, d ** -0.5,
-                  int(causal), code, stream)
+                  int(causal), code, _CTA, stream)
     build.check_launch(rc, "flash_attention")
     flash_attention.launches += 1
     return out

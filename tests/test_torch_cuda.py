@@ -551,6 +551,138 @@ def test_flash_kernel_repeats_are_bit_identical_and_checks_inputs(
         flash_attention(q.transpose(1, 2), k, v, causal=False)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_kernel_unsorted_segments(cuda_device, causal, dtype):
+    """Unsorted ids: every kv tile's id range spans the q tile's, so the
+    skip rule skips nothing and the element mask does the work."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    q, k, v = _qkv(g, 2, 300, 300, 4, 2, 32, dtype, cuda_device)
+    seg = torch.randint(0, 5, (2, 300), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    got = flash_attention(q, k, v, seg, causal=causal)
+    tol = _flash_tol(dtype)
+    torch.testing.assert_close(got, attention_ref(q, k, v, seg,
+                                                  causal=causal),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_kernel_tile_range_straddles_with_no_match(cuda_device):
+    """A kv tile whose ids (4 and 6) span the q tile's one id (5) without
+    holding it is visited and masked to nothing; with no key of id 5 at
+    all, every query emits an exact 0."""
+    from repro_torch.kernels.flash_attention.kernel import (BLOCK_K,
+                                                            flash_attention)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    q, k, v = _qkv(g, 1, 64, 4 * BLOCK_K, 2, 2, 64, torch.float32,
+                   cuda_device)
+    q_seg = torch.full((1, 64), 5, dtype=torch.int32, device=cuda_device)
+    kv_seg = torch.tensor([4, 6] * (BLOCK_K // 2) + [5] * BLOCK_K
+                          + [7] * BLOCK_K + [4, 6] * (BLOCK_K // 2),
+                          dtype=torch.int32, device=cuda_device)[None]
+    got = flash_attention(q, k, v, q_seg, kv_seg, causal=False)
+    torch.testing.assert_close(
+        got, attention_ref(q, k, v, q_seg, kv_seg, causal=False),
+        rtol=1e-5, atol=1e-5)
+    none = torch.where(kv_seg == 5, 6, kv_seg).to(torch.int32)
+    assert not flash_attention(q, k, v, q_seg, none, causal=False).any()
+
+
+@pytest.mark.parametrize("d", [1, 20, 100, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_any_head_width(cuda_device, d, dtype):
+    """Widths that are not multiples of 8 (zero padding in shared memory,
+    and the scalar copy for rows not 16-byte aligned), segmented and
+    causal."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(17 + d)
+    q, k, v = _qkv(g, 1, 150, 150, 2, 1, d, dtype, cuda_device)
+    seg = torch.sort(torch.randint(0, 3, (1, 150), generator=g,
+                                   device=cuda_device,
+                                   dtype=torch.int32)).values
+    tol = _flash_tol(dtype)
+    for causal in (True, False):
+        torch.testing.assert_close(
+            flash_attention(q, k, v, seg, causal=causal),
+            attention_ref(q, k, v, seg, causal=causal), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_kernel_gqa_causal_d128(cuda_device, dtype):
+    """GQA with G = 5 query heads per kv head, 128 wide, causal: the LM
+    prefill's form at a ragged length."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    q, k, v = _qkv(g, 2, 333, 333, 10, 2, 128, dtype, cuda_device)
+    tol = _flash_tol(dtype)
+    torch.testing.assert_close(flash_attention(q, k, v, causal=True),
+                               attention_ref(q, k, v, causal=True),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_repeats_bit_identical_segmented_and_causal(
+        cuda_device, dtype):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    q, k, v = _qkv(g, 1, 1000, 1000, 8, 8, 128, dtype, cuda_device)
+    seg = torch.clamp(torch.arange(1000, device=cuda_device) // 240,
+                      max=3).to(torch.int32)[None]
+    for args, kw in (((q, k, v, seg), dict(causal=False)),
+                     ((q, k, v), dict(causal=True))):
+        first = flash_attention(*args, **kw)
+        for _ in range(3):
+            assert torch.equal(flash_attention(*args, **kw), first)
+
+
+def _sq_for_rows(rows, sms):
+    """An Sq whose grid, at b = 2 and h = 4, gives CTAs of `rows` row
+    groups on a card of `sms` SMs: the most of 4, 2 and 1 whose
+    b * h * ceil(Sq / (16 rows)) CTAs still give every SM two."""
+    n = 2 * sms
+    return {1: 32 * ((n - 1) // 8) - 7, 2: 64 * ((n - 1) // 8) - 7,
+            4: 64 * -(-n // 8) + 3}[rows]
+
+
+@pytest.mark.parametrize("dtype,d,cta", [
+    (torch.float32, 64, (4, 1)), (torch.float32, 64, (2, 2)),
+    (torch.float32, 256, (2, 1)), (torch.float32, 64, (1, 4)),
+    (torch.float32, 128, (1, 2)), (torch.float32, 256, (1, 1)),
+    (torch.bfloat16, 64, (4, 1)), (torch.bfloat16, 256, (2, 2)),
+    (torch.bfloat16, 128, (1, 4)), (torch.bfloat16, 256, (1, 2))])
+def test_flash_kernel_every_cta_shape(cuda_device, dtype, d, cta):
+    """Each CTA of row groups x kv splits the C entry chooses, reached by
+    the grid's size (the row groups) and the head width (the kv splits
+    that fit in shared memory), on a segmented and a causal call whose
+    rows visit many kv tiles (the splits' merge), against the plain
+    version; the entry reports the CTA it chose."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            last_cta)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    sq = _sq_for_rows(cta[0], sms)
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    q, k, v = _qkv(g, 2, sq, sq, 4, 2, d, dtype, cuda_device)
+    seg = torch.sort(torch.randint(0, 3, (2, sq), generator=g,
+                                   device=cuda_device,
+                                   dtype=torch.int32)).values
+    tol = _flash_tol(dtype)
+    for ids, causal in ((seg, False), (None, True)):
+        got = flash_attention(q, k, v, ids, causal=causal)
+        assert last_cta() == cta
+        torch.testing.assert_close(
+            got, attention_ref(q, k, v, ids, causal=causal), rtol=tol,
+            atol=tol)
+
+
 def test_flash_attention_function_gradient_is_the_plain_one(cuda_device):
     """registry.graph_attention on the card: one launch forward, none
     backward, and the plain version's gradients."""

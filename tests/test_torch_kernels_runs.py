@@ -72,7 +72,8 @@ def test_run_kernels_are_built_with_the_others():
     assert {"segment_pool_runs", "edge_mpnn_runs"} <= set(build.SOURCES)
     assert all(p.is_file() for p in build.SOURCES.values())
     assert {p.name for p in build.HEADERS} == {"cuda_common.cuh",
-                                               "edge_mma.cuh", "pool.cuh"}
+                                               "edge_mma.cuh", "flash_mma.cuh",
+                                               "pool.cuh"}
 
 
 @pytest.mark.parametrize("sort", [True, False])

@@ -309,3 +309,21 @@ def test_trainer_steps_match_jax(data, name):
     assert result.step == TRAIN_STEPS == len(want)
     np.testing.assert_allclose(result.metrics["train_losses"], want, **TOL)
     assert want[0] != want[-1]
+
+
+@pytest.mark.parametrize("hidden", [DIM // 2, 2 * DIM])
+def test_sage_pool_with_hidden_not_in_dim_raises_in_both(batch, hidden):
+    """`SAGEConv(aggregator="pool", hidden=h)` with h != in_dim: the
+    reference's `w` is `Linear(in_dim, units)`, but it reads the pooled
+    `hidden`-wide messages, so the JAX package fails at that product, and
+    the port, which copies it, fails at the same step."""
+    jb, tb = batch
+    make = lambda m: m.SAGEConv(DIM, DIM, aggregator="pool", hidden=hidden)
+    j_conv, t_conv = make(j_convs), make(t_convs)
+    params = split_params(j_conv.init(jax.random.PRNGKey(1)))[0]
+    load_jax_params(t_conv, jax.tree_util.tree_map(np.asarray, params))
+    assert params["pool"]["w"].shape == (DIM, hidden)
+    with pytest.raises(TypeError, match="dot_general"):
+        j_conv(params, jb, "writes")
+    with pytest.raises(RuntimeError, match="cannot be multiplied"):
+        t_conv(tb, "writes")
