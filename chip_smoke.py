@@ -27,7 +27,18 @@ five edge sets, 128 wide, LayerNorm -> root-node head, 8 classes):
   over the paper states of a training batch (`[attention]`);
 * the model zoo: `rgcn`, `gcn`, `graph_sage`, `gatv2` and `hgt_like` on
   a training batch, gradients held to the plain path, and `gatv2` and
-  `hgt_like` trained a few steps through the Trainer (`[zoo]`).
+  `hgt_like` trained a few steps through the Trainer (`[zoo]`);
+* the example twins in `repro_torch.orchestration` at the examples'
+  defaults: `quickstart` against the plain versions (`[quickstart]`),
+  `link_prediction` trained twice, bit-identical (`[linkpred]`), and
+  `graph_classification` checkpointing to a temporary directory, with a
+  run stopped at its first save and resumed that must repeat the
+  uninterrupted losses exactly, and one full Graph Networks round
+  against the plain path (`[graphcls]`).
+
+The run kernels fold in a fixed order on sorted ids, so `[kernels]`
+holds them to 20 bit-identical repeats and `[train]` two independent
+kernel runs to the same bits over all 24 steps.
 
 Each path is run with every kernel's launch count set to 0 just before
 it and read just after.  Each phase prints one line; any failure prints
@@ -44,10 +55,11 @@ the 3xTF32 bound (its `bound_ms`), the fp32 CUDA-core and bf16
 tensor-core bounds, and the build's registers and spills; its text lines
 add the CTA the C entry chose and the kv tiles its skip rule visits and
 the pairs they compute against the pairs the mask allows);
-the edge kernels' launch budget (an fp32 call: one kernel after at most
-one memset; 16-bit: at most two kernels) and flash's (at most two device
-kernels a call) fail the run past it; the last
-line is
+the edge and pooling kernels' launch budgets (EDGE_BUDGET, POOL_BUDGET:
+exact device kernels a call, each after at most one memset) and flash's
+(at most two device kernels a call) fail the run past them, and each
+fp32 edge case must stay within FP64_ERR_MULTIPLE of the plain version's
+error against an fp64 result; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without a CUDA device, or without the `src/repro_torch` package next to
@@ -109,6 +121,26 @@ GRAD_RTOL = 1e-3
 LOSS_ATOL = 1e-3
 PARITY_STEPS = 5
 STEP_LOSS_ATOL = 1e-4
+# the run kernels fold each sum in a fixed order on sorted ids (carry.cuh):
+# REPEATS calls on the same inputs must return the same bits, and
+# independent training runs on the kernel path the same losses
+REPEATS = 20
+# an edge kernel's fp32 error against the fp64 result, held to this
+# multiple of the plain fp32 version's own (the product and the sum run
+# in other orders than cuBLAS and index_add_, with errors of one size)
+FP64_ERR_MULTIPLE = 4.0
+
+# device kernels per call, held exactly (each after at most one memset):
+# an any-order fp32 sum or edge call is one kernel; a run kernel's sum
+# adds its carry fold (carry.cuh); max/min and 16-bit outputs add a
+# finalize or cast pass
+EDGE_BUDGET = {"edge_mpnn": {"fp32": 1, "bf16": 2},
+               "edge_mpnn_runs": {"fp32": 2, "bf16": 3}}
+POOL_BUDGET = {
+    "segment_pool": {"sum fp32": 1, "max fp32": 2, "min fp32": 2,
+                     "sum bf16": 2},
+    "segment_pool_runs": {"sum fp32": 2, "max fp32": 2, "min fp32": 2,
+                          "sum bf16": 3}}
 
 # graph attention at full width: GraphSelfAttention(4 heads x 32) over the
 # 128-wide paper states; the zoo at the reference's defaults, two of its
@@ -172,47 +204,55 @@ def host_us(torch, fn, calls: int = 200, reps: int = 5,
     return statistics.median(times)
 
 
-def device_per_call(torch, fn, calls: int = 20, tries: int = 3) -> dict:
+def device_per_call(torch, fn, calls: int = 20, tries: int = 6) -> dict:
     """The device work of one call of `fn`, from torch.profiler over
     `calls` calls: device µs (kernels and memsets), and the kernels and
     memsets it ran, per call, with the kernels' names.  The profiler
-    misses an event now and then: a run in which some kernel's or
-    memset's events are not a whole multiple of `calls` is profiled
-    again, up to `tries` runs.  If the last still misses, a name short of
+    misses an event now and then, and now and then every event: a run
+    that saw no device event, or in which some kernel's or memset's events
+    are not a whole multiple of `calls`, is profiled again after a short
+    pause, up to `tries` runs.  If the last still misses, a name short of
     a whole multiple by one event counts as that multiple (`missed`
     says how many such events), and a larger shortfall leaves its count
     fractional, so that a launch budget fails.  A name's device µs are
-    its mean per event times its launches a call."""
+    its mean per event times its launches a call; `by_name` splits the
+    device µs by kernel name (memsets under "memset")."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.5)
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = [ev for ev in prof.key_averages()
                   if getattr(ev, "device_type", None) == cuda and ev.count]
-        if all(ev.count % calls == 0 for ev in events):
+        if events and all(ev.count % calls == 0 for ev in events):
             break
-    us, kernels, memsets, missed, names = 0.0, 0.0, 0.0, 0, set()
+    us, kernels, memsets, missed, by_name = 0.0, 0.0, 0.0, 0, {}
     for ev in events:
         launches = ev.count / calls
         if -ev.count % calls == 1:  # one event missed
             launches, missed = -(-ev.count // calls), missed + 1
-        us += (getattr(ev, "self_device_time_total", 0) or 0) / ev.count \
-            * launches
+        ev_us = (getattr(ev, "self_device_time_total", 0) or 0) \
+            / ev.count * launches
+        us += ev_us
         if "memset" in ev.key.lower():
             memsets += launches
+            name = "memset"
         else:
             kernels += launches
             name = ev.key.replace("(anonymous namespace)::", "")
-            names.add(name.split("(")[0].split("<")[0].split("::")[-1]
-                      .removeprefix("void "))
+            name = (name.split("(")[0].split("<")[0].split("::")[-1]
+                    .removeprefix("void "))
+        by_name[name] = by_name.get(name, 0.0) + ev_us
     return dict(device_us=us, kernels=kernels, memsets=memsets,
-                missed=missed, names=sorted(names))
+                missed=missed, names=sorted(set(by_name) - {"memset"}),
+                by_name=by_name)
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +342,41 @@ def _close_sum(torch, name, got, want, abs_sum, counts, rtol) -> float:
     return err.max().item()
 
 
+def edge_fp64(torch, h_src, h_tgt, src, tgt, w, b, n_tgt, act):
+    """The edge function of fp32 inputs in fp64 on the card: the result
+    that both the fp32 kernel and the fp32 plain version approximate."""
+    from repro_torch.kernels.edge_mpnn.ref import activate
+    src, tgt = src.long(), tgt.long()
+    valid = (tgt >= 0) & (tgt < n_tgt)
+    x = torch.cat([h_src[src.clamp(0, h_src.shape[0] - 1)],
+                   h_tgt[tgt.clamp(0, n_tgt - 1)]], dim=-1).double()
+    msg = activate(x @ w.double() + b.double(), act)
+    msg = torch.where(valid[:, None], msg, 0.0)
+    return torch.zeros(n_tgt + 1, w.shape[1], dtype=torch.float64,
+                       device=x.device).index_add_(
+        0, torch.where(valid, tgt, n_tgt), msg)[:n_tgt]
+
+
+def fp64_check(torch, name, got, want, exact) -> tuple:
+    """(kernel, plain) max |fp32 - fp64| of an edge call: fails when the
+    kernel's exceeds FP64_ERR_MULTIPLE times the plain version's."""
+    kernel_err = (got.double() - exact).abs().max().item()
+    plain_err = (want.double() - exact).abs().max().item()
+    if kernel_err > FP64_ERR_MULTIPLE * plain_err:
+        fail(f"{name}: |kernel - fp64| {kernel_err:.3e} exceeds "
+             f"{FP64_ERR_MULTIPLE:g} x the plain version's {plain_err:.3e}")
+    return kernel_err, plain_err
+
+
+def repeat_check(torch, name, fn) -> None:
+    """Fails unless REPEATS calls of `fn` return the same bits."""
+    first = fn()
+    for _ in range(REPEATS - 1):
+        if not torch.equal(fn(), first):
+            fail(f"{name}: {REPEATS} calls on the same inputs are not "
+                 "bit-identical")
+
+
 def _bound(nbytes: int, flops: int) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the card's memory
     rate and fp32 operations over its fp32 rate."""
@@ -388,24 +463,21 @@ def edge_kernel_costs(torch, kernel, args, kw, n_valid, n_out,
     the build's registers and spills over the kernel's instantiations,
     and two bounds: fp32 on the CUDA cores (the product that ships for
     fp32) and bf16 on the tensor cores, each the larger of its operations
-    and its bytes (`edge_bytes`).  Fails past the launch budget: an fp32
-    call is 1 kernel after at most 1 memset, a 16-bit one at most 2
-    kernels + 1 memset (the profiler may miss a memset event now and then,
-    as in pool_launch_costs' check)."""
+    and its bytes (`edge_bytes`).  Fails unless each call runs exactly
+    its EDGE_BUDGET kernels after at most 1 memset (the profiler may miss
+    a memset event now and then, as in pool_launch_costs' check)."""
     name = kernel.__name__
     h_src, h_tgt, src, tgt, w, b = args
     ds, dt, m = h_src.shape[1], h_tgt.shape[1], w.shape[1]
     bf = [t.to(torch.bfloat16) if t.is_floating_point() else t for t in args]
     fp32 = device_per_call(torch, lambda: kernel(*args, **kw))
     bf16 = device_per_call(torch, lambda: kernel(*bf, **kw))
-    if fp32["kernels"] != 1 or fp32["memsets"] > 1:
-        fail(f"{name}: an fp32 call ran {fp32['kernels']} device kernels "
-             f"({fp32['names']}) and {fp32['memsets']} memsets (1 kernel "
-             "and at most 1 memset expected)")
-    if not 1 <= bf16["kernels"] <= 2 or bf16["memsets"] > 1:
-        fail(f"{name}: a bf16 call ran {bf16['kernels']} device kernels "
-             f"({bf16['names']}) and {bf16['memsets']} memsets (at most "
-             "2 + 1 expected)")
+    for label, cost in (("fp32", fp32), ("bf16", bf16)):
+        want = EDGE_BUDGET[name][label]
+        if cost["kernels"] != want or cost["memsets"] > 1:
+            fail(f"{name}: a {label} call ran {cost['kernels']} device "
+                 f"kernels ({cost['names']}) and {cost['memsets']} memsets "
+                 f"({want} kernels and at most 1 memset expected)")
     flops = 2 * n_valid * (ds + dt) * m
     fp32_bound = _bound(edge_bytes(torch, *args, n_out, 4), flops)
     t_bytes = edge_bytes(torch, *args, n_out, 2) / PEAK_BYTES_PER_S
@@ -416,6 +488,7 @@ def edge_kernel_costs(torch, kernel, args, kw, n_valid, n_out,
     return dict(
         device_us=fp32["device_us"], device_kernels=fp32["kernels"],
         memsets=fp32["memsets"], device_names=fp32["names"],
+        device_us_by_name=fp32["by_name"],
         bf16_ms=ms_bf16, bf16_device_us=bf16["device_us"],
         bf16_device_kernels=bf16["kernels"], bf16_memsets=bf16["memsets"],
         ptxas=ptxas_summary(ptxas_entries(build_report[name]["log"]),
@@ -430,7 +503,10 @@ def edge_costs_line(name, rec) -> str:
     regs = ("-".join(map(str, p["registers"])) if p["registers"]
             else "not reported")
     return (f"{name} per call: fp32 device {rec['device_us']:.2f} us in "
-            f"{rec['device_kernels']:g} kernel + {rec['memsets']:g} memset; "
+            f"{rec['device_kernels']:g} kernel + {rec['memsets']:g} memset ("
+            + ", ".join(f"{k} {v:.2f}"
+                        for k, v in rec["device_us_by_name"].items())
+            + "); "
             f"bf16 {rec['bf16_ms']:.4f} ms, device "
             f"{rec['bf16_device_us']:.2f} us in "
             f"{rec['bf16_device_kernels']:g} kernels + "
@@ -476,13 +552,12 @@ def served_inputs(torch) -> types.SimpleNamespace:
         h_src=h_src, h_tgt=h_tgt, w=w, b=b, vals=vals, ints=ints)
 
 
-def pool_launch_costs(torch, kernel, vals, ids, n, check=True) -> dict:
+def pool_launch_costs(torch, kernel, vals, ids, n) -> dict:
     """One pooling kernel's launch costs at (vals, ids): host µs to
     enqueue an fp32 sum, its device µs, kernels and memsets per call
     (torch.profiler), and the device kernels per call of max, min and a
-    bf16 sum.  With `check`, fails unless an fp32 sum runs exactly one
-    kernel and at most one memset, and every other case one or two
-    kernels (the redesign's launch budget)."""
+    bf16 sum.  Fails unless every case runs exactly its POOL_BUDGET
+    kernels and an fp32 sum at most one memset."""
     name = kernel.__name__
     fn = functools.partial(kernel, vals, ids, n_segments=n)
     dev = device_per_call(torch, fn)
@@ -493,18 +568,17 @@ def pool_launch_costs(torch, kernel, vals, ids, n, check=True) -> dict:
         by_case[label] = device_per_call(torch, functools.partial(
             kernel, vals.to(dtype), ids, n_segments=n,
             reduce=reduce))["kernels"]
-    if check:
-        if by_case["sum fp32"] != 1 or dev["memsets"] > 1:
-            fail(f"{name}: an fp32 sum ran {by_case['sum fp32']} device "
-                 f"kernels ({dev['names']}) and {dev['memsets']} memsets per "
-                 "call (1 kernel and at most 1 memset expected)")
-        for label, k in by_case.items():
-            if not 1 <= k <= 2:
-                fail(f"{name}: {label} ran {k} device kernels per call "
-                     "(1 or 2 expected)")
+    if dev["memsets"] > 1:
+        fail(f"{name}: an fp32 sum ran {dev['memsets']} memsets per call "
+             "(at most 1 expected)")
+    for label, k in by_case.items():
+        if k != POOL_BUDGET[name][label]:
+            fail(f"{name}: {label} ran {k} device kernels per call "
+                 f"({dev['names']} for the fp32 sum; "
+                 f"{POOL_BUDGET[name][label]} expected)")
     return dict(host_us=host_us(torch, fn), device_us=dev["device_us"],
                 device_kernels=dev["kernels"], memsets=dev["memsets"],
-                kernels_by_case=by_case)
+                device_us_by_name=dev["by_name"], kernels_by_case=by_case)
 
 
 def host_breakdown(torch, vals, ids, n) -> dict:
@@ -640,7 +714,7 @@ def kernels_phase(torch, build_report):
     records = {}
 
     # -- edge_mpnn ----------------------------------------------------------
-    errs = []
+    errs, fp64_errs = [], []
     for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-5),
                               (torch.bfloat16, 2e-2, 2e-2)):
         args = [t.to(dtype) for t in (h_src, h_tgt)]
@@ -657,6 +731,10 @@ def kernels_phase(torch, build_report):
                          rtol, atol)
             if dtype == torch.float32:
                 errs.append(err)
+                fp64_errs.append(fp64_check(
+                    torch, f"edge_mpnn[{act}] vs fp64", got, want,
+                    edge_fp64(torch, h_src, h_tgt, src, tgt, w, b, n_tgt,
+                              act)))
     ms = time_ms(torch, lambda: edge_mpnn(h_src, h_tgt, src, tgt, w, b,
                                           n_src=n_src, n_tgt=n_tgt))
     plain_ms = time_ms(torch, lambda: edge_mpnn_ref(
@@ -669,12 +747,17 @@ def kernels_phase(torch, build_report):
         source="src/repro_torch/kernels/edge_mpnn/edge_mpnn.cu",
         replaces="src/repro/kernels/edge_mpnn/kernel.py:182",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
+        bound_by=bound_by, library_ms=None,
+        fp64_err=max(k for k, _ in fp64_errs),
+        plain_fp64_err=max(p for _, p in fp64_errs))
     records["edge_mpnn"].update(edge_kernel_costs(
         torch, edge_mpnn, (h_src, h_tgt, src, tgt, w, b),
         dict(n_src=n_src, n_tgt=n_tgt), n_valid, n_tgt * d, build_report))
     phase("kernels", f"edge_mpnn fp32/bf16 x relu/gelu/identity match the "
-          f"plain version (fp32 max err {max(errs):.2e}); fp32 "
+          f"plain version (fp32 max err {max(errs):.2e}); vs fp64 "
+          f"(relu, gelu, identity) kernel / plain "
+          + ", ".join(f"{k:.2e} / {p:.2e}" for k, p in fp64_errs)
+          + f" (kernel held to {FP64_ERR_MULTIPLE:g}x plain); fp32 "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
           f"{records['edge_mpnn']['bound_ms']:.4f} ms "
           f"({records['edge_mpnn']['bound_by']}); {n_valid} valid edges")
@@ -816,18 +899,17 @@ def runs_kernels_phase(torch, batch, records, build_report):
     n_valid, n_runs, counts = t.n_valid, t.n_runs, t.counts
     h_src, h_tgt, w, b = t.h_src, t.h_tgt, t.w, t.b
 
-    def message_sums(act, dtype=torch.float32, absolute=True):
-        """Per target row, the sum of (|)message(|) over its edges."""
+    def message_sums(act):
+        """Per target row, the sum of |message| over its edges."""
         x = torch.cat([h_src[src.long()], h_tgt[tgt.clamp(max=n_tgt - 1)
-                                                .long()]], dim=-1).to(dtype)
-        msg = activate(x @ w.to(dtype) + b.to(dtype), act)
-        msg = torch.where((tgt < n_tgt)[:, None], msg.abs() if absolute
-                          else msg, 0.0)
-        return torch.zeros(n_tgt + 1, d, dtype=dtype, device=dev).index_add_(
+                                                .long()]], dim=-1)
+        msg = activate(x @ w + b, act)
+        msg = torch.where((tgt < n_tgt)[:, None], msg.abs(), 0.0)
+        return torch.zeros(n_tgt + 1, d, device=dev).index_add_(
             0, tgt.long(), msg)[:n_tgt]
 
     # -- edge_mpnn_runs ------------------------------------------------------
-    errs = []
+    errs, fp64_errs = [], []
     for act in ("relu", "gelu", "identity"):
         abs_sum = message_sums(act)
         for layout, (s_ids, t_ids) in layouts.items():
@@ -847,14 +929,21 @@ def runs_kernels_phase(torch, batch, records, build_report):
                 if dtype == torch.float32:
                     errs.append(_close_sum(torch, name, got, want, abs_sum,
                                            counts, 1e-5))
+                    fp64_errs.append(fp64_check(
+                        torch, f"{name} vs fp64", got, want, edge_fp64(
+                            torch, h_src, h_tgt, s_ids, t_ids, w, b, n_tgt,
+                            act)))
                 else:  # the cast back to bf16 dominates
                     _close(torch, name, got, want, 2e-2, 2e-2)
-    # which order sums closer to the exact value: both against fp64
-    exact = message_sums("relu", torch.float64, absolute=False)
-    kernel_err = (edge_mpnn_runs(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
-                                 n_tgt=n_tgt).double() - exact).abs().max()
-    plain_err = (edge_mpnn_ref(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
-                               n_tgt=n_tgt).double() - exact).abs().max()
+    # sorted targets: every call returns the same bits (carry.cuh), the
+    # padding node's run across its tiles included
+    for act in ("relu", "gelu", "identity"):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [t.to(dtype) for t in (h_src, h_tgt, w, b)]
+            repeat_check(torch, f"edge_mpnn_runs[sorted, {dtype}, {act}]",
+                         lambda: edge_mpnn_runs(
+                             args[0], args[1], src, tgt, args[2], args[3],
+                             n_src=n_src, n_tgt=n_tgt, activation=act))
     ms = time_ms(torch, lambda: edge_mpnn_runs(
         h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt))
     plain_ms = time_ms(torch, lambda: edge_mpnn_ref(
@@ -869,15 +958,20 @@ def runs_kernels_phase(torch, batch, records, build_report):
         source="src/repro_torch/kernels/edge_mpnn/edge_mpnn_runs.cu",
         replaces="src/repro/kernels/edge_mpnn/kernel.py:129",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
+        bound_by=bound_by, library_ms=None,
+        fp64_err=max(k for k, _ in fp64_errs),
+        plain_fp64_err=max(p for _, p in fp64_errs))
     records["edge_mpnn_runs"].update(edge_kernel_costs(
         torch, edge_mpnn_runs, (h_src, h_tgt, src, tgt, w, b),
         dict(n_src=n_src, n_tgt=n_tgt), n_valid, n_tgt * d, build_report))
     phase("kernels", f"edge_mpnn_runs sorted+unsorted x fp32/bf16 x "
           f"relu/gelu/identity match the plain version (fp32 max err "
           f"{max(errs):.2e}, the padding node's {int(counts.max())}-edge "
-          f"run; vs fp64, relu: kernel {kernel_err.item():.2e}, plain "
-          f"{plain_err.item():.2e}); trained shape n_src {n_src} n_tgt {n_tgt} "
+          f"run; vs fp64, worst of the 3 x 2 fp32 cases: kernel "
+          f"{records['edge_mpnn_runs']['fp64_err']:.2e}, plain "
+          f"{records['edge_mpnn_runs']['plain_fp64_err']:.2e}, held to "
+          f"{FP64_ERR_MULTIPLE:g}x; sorted: {REPEATS} calls bit-identical "
+          f"in fp32 and bf16); trained shape n_src {n_src} n_tgt {n_tgt} "
           f"E {e} ({n_valid} valid, {n_runs} target runs): sorted fp32 "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms vs edge_mpnn "
           f"{any_order_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -910,6 +1004,28 @@ def runs_kernels_phase(torch, batch, records, build_report):
             fail(f"segment_pool_runs: bf16 input gave {got.dtype}")
         _close(torch, f"segment_pool_runs[{layout}, sum, bf16]", got,
                segment_pool_ref(vb, t_ids, **kw), 2e-2, 2e-2)
+    # sorted ids: every sum returns the same bits (carry.cuh), at the
+    # trained shape and at drawn runs of 1 to 3000 rows, 128 and 4 wide
+    for dtype in (torch.float32, torch.bfloat16):
+        x = vals.to(dtype)
+        repeat_check(torch, f"segment_pool_runs[sorted, sum, {dtype}]",
+                     lambda: segment_pool_runs(x, tgt, n_segments=n_tgt))
+    lengths = rng.integers(1, 3001, 12)
+    long_ids = torch.from_numpy(np.repeat(np.arange(len(lengths)), lengths)
+                                .astype(np.int32)).to(dev)
+    long_counts = torch.from_numpy(lengths).to(dev)
+    for width in (d, ATTN_HEADS):
+        x = normal(long_ids.numel(), width)
+        got = segment_pool_runs(x, long_ids, n_segments=len(lengths))
+        _close_sum(torch, f"segment_pool_runs[runs of 1-3000, D {width}]",
+                   got, segment_pool_ref(x, long_ids,
+                                         n_segments=len(lengths)),
+                   segment_pool_ref(x.abs(), long_ids,
+                                    n_segments=len(lengths)),
+                   long_counts, 0.0)
+        repeat_check(torch, f"segment_pool_runs[runs of 1-3000, D {width}]",
+                     lambda: segment_pool_runs(x, long_ids,
+                                               n_segments=len(lengths)))
     exact = torch.zeros(n_tgt + 1, d, dtype=torch.float64, device=dev
                         ).index_add_(0, tgt.long(), vals.double())[:n_tgt]
     kernel_err = (segment_pool_runs(vals, tgt, n_segments=n_tgt).double()
@@ -935,14 +1051,20 @@ def runs_kernels_phase(torch, batch, records, build_report):
         bound_by=bound_by, library_ms=library_ms,
         library_zeroed_ms=zeroed_ms, any_order_ms=any_order_ms, **costs)
     phase("kernels", f"segment_pool_runs sorted+unsorted: int sums "
-          f"bit-exact, max/min exact, sum fp32 max err {err:.2e} (vs "
+          f"bit-exact, max/min exact, sorted sums {REPEATS} calls "
+          f"bit-identical (fp32, bf16; also at runs of "
+          f"{int(lengths.min())}-{int(lengths.max())} rows, D {d} and "
+          f"{ATTN_HEADS}), sum fp32 max err {err:.2e} (vs "
           f"fp64: kernel {kernel_err.item():.2e}, plain "
           f"{plain_err.item():.2e}), bf16 cast back; sorted sum {ms:.4f} ms "
           f"vs plain {plain_ms:.4f} ms vs segment_pool {any_order_ms:.4f} ms "
           f"vs index_add_ {library_ms:.4f} ms (zeros + index_add_ "
           f"{zeroed_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by}); per "
           f"call: host {costs['host_us']:.2f} us, device "
-          f"{costs['device_us']:.2f} us, device kernels "
+          f"{costs['device_us']:.2f} us ("
+          + ", ".join(f"{k} {v:.2f}"
+                      for k, v in costs["device_us_by_name"].items())
+          + f"), device kernels "
           f"{costs['kernels_by_case']}, memsets {costs['memsets']}")
 
     # -- the zoo's attention scores: segment_softmax's max and exp-sum over
@@ -959,6 +1081,8 @@ def runs_kernels_phase(torch, batch, records, build_report):
     d4_err = _close_sum(torch, "segment_pool_runs[D 4, sum]",
                         segment_pool_runs(ex, tgt, n_segments=n_tgt), ex_sum,
                         ex_sum, counts, 0.0)
+    repeat_check(torch, "segment_pool_runs[D 4, sum]",
+                 lambda: segment_pool_runs(ex, tgt, n_segments=n_tgt))
     d4_bound = _bound(n_valid * ATTN_HEADS * isz + e * 4
                       + n_tgt * ATTN_HEADS * isz, n_valid * ATTN_HEADS)
     d4 = {}
@@ -966,7 +1090,8 @@ def runs_kernels_phase(torch, batch, records, build_report):
         kernel_fn = functools.partial(segment_pool_runs, x, tgt,
                                       n_segments=n_tgt, reduce=reduce)
         dev_cost = device_per_call(torch, kernel_fn)
-        if not 1 <= dev_cost["kernels"] <= (1 if reduce == "sum" else 2):
+        if dev_cost["kernels"] != POOL_BUDGET["segment_pool_runs"][
+                f"{reduce} fp32"]:
             fail(f"segment_pool_runs[D 4, {reduce}]: {dev_cost['kernels']} "
                  "device kernels per call")
         d4[reduce] = dict(
@@ -979,7 +1104,8 @@ def runs_kernels_phase(torch, batch, records, build_report):
             bound_ms=d4_bound[0])
     records["segment_pool_runs"]["d4_scores"] = d4
     phase("kernels", f"segment_pool_runs at the zoo's score shape [E {e}, "
-          f"{ATTN_HEADS}]: max exact, exp-sum max err {d4_err:.2e}; "
+          f"{ATTN_HEADS}]: max exact, exp-sum max err {d4_err:.2e}, "
+          f"{REPEATS} calls bit-identical; "
           + "; ".join(f"{r} {c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} "
                       f"ms, host {c['host_us']:.2f} us, device "
                       f"{c['device_us']:.2f} us in {c['device_kernels']} "
@@ -1408,20 +1534,22 @@ def provider(raw, spec, roots, sizes):
 
 
 def fresh_model(torch, reduce_type: str = "sum", parts=None,
-                hidden: int = DIM):
+                hidden: int = DIM, task=None):
     """The Trainer's model at step 0: TrainModel(init, gnn, head) drawn
     with init_params(model, SEED), on the card; (init, gnn) are `parts`,
-    or the §8 model with `reduce_type` pooling."""
+    or the §8 model with `reduce_type` pooling; the head is `task`'s (the
+    root-node task's by default)."""
     from repro_torch.nn.layers import init_params
     from repro_torch.orchestration.trainer import TrainModel
     init, gnn = parts if parts is not None else model_parts(torch,
                                                             reduce_type)
-    model = TrainModel(init, gnn, root_task(hidden).head())
+    task = task if task is not None else root_task(hidden)
+    model = TrainModel(init, gnn, task.head())
     return init_params(model, SEED).to(DEVICE)
 
 
 def grad_check(torch, reduce_type: str, batch, labels, parts=None,
-               hidden: int = DIM) -> tuple:
+               hidden: int = DIM, task=None) -> tuple:
     """Step 1's gradients, kernel path vs plain path, on one batch and one
     set of parameters.  A parameter the loss reaches on one path must be
     reached on the other (slice 1's kernels returned tensors with no
@@ -1432,12 +1560,13 @@ def grad_check(torch, reduce_type: str, batch, labels, parts=None,
     the Trainer's step.  Every gradient must be finite and within
     GRAD_RTOL of its largest plain entry.  `parts` (init, gnn) with a
     `hidden`-wide output replace the §8 model (`reduce_type` then only
-    names the model in messages).  Returns (worst relative error,
-    parameters, parameters the loss reaches, kernel loss, plain loss)."""
+    names the model in messages), and `task` the root-node task.  Returns
+    (worst relative error, parameters, parameters the loss reaches,
+    kernel loss, plain loss)."""
     from repro_torch.core.graph_tensor import to_device
     from repro_torch.kernels import registry
-    task = root_task(hidden)
-    model = fresh_model(torch, reduce_type, parts, hidden)
+    task = task if task is not None else root_task(hidden)
+    model = fresh_model(torch, reduce_type, parts, hidden, task)
     params = dict(model.named_parameters())
     g = to_device(batch, DEVICE)
     lab = torch.as_tensor(labels).to(DEVICE)
@@ -1628,12 +1757,25 @@ def train_phase(torch, raw, spec, card, setup) -> int:
         fail(f"train: launches {launches} for {forwards} forwards "
              f"({5 * ROUNDS} edge_mpnn_runs per forward expected, no other "
              "kernel)")
-    # independent runs part once a ReLU input within rounding of 0 flips
-    # sign on one path: its gradient jumps, and Adam scales the jump to a
-    # full lr-sized step.  So the trajectories are held together over the
-    # first PARITY_STEPS steps (warmup keeps lr small there), each step is
-    # held on shared parameters in step_loop, and the plain path's own
-    # run-to-run spread is measured beside them.
+    # the kernel path folds every sum in a fixed order on the sorted
+    # batches, so a second kernel run from the same draw and stream must
+    # repeat every loss and parameter bit for bit
+    again = fit(torch, "sum", train, None, TRAIN_STEPS)
+    if again.metrics["train_losses"] != run.metrics["train_losses"]:
+        fail(f"train: two kernel runs from the same draw and stream differ: "
+             f"{run.metrics['train_losses']} vs "
+             f"{again.metrics['train_losses']}")
+    for name, p in run.metrics["params"].items():
+        if not torch.equal(p, again.metrics["params"][name]):
+            fail(f"train: two kernel runs end with different {name}")
+    # kernel vs plain: independent runs part once a ReLU input within
+    # rounding of 0 flips sign on one path (the plain path's index_add_
+    # sums in another order, and in none fixed): its gradient jumps, and
+    # Adam scales the jump to a full lr-sized step.  So those trajectories
+    # are held together over the first PARITY_STEPS steps (warmup keeps
+    # lr small there), each step is held on shared parameters in
+    # step_loop, and the plain path's own run-to-run spread is measured
+    # beside them.
     plain = fit(torch, "sum", train, None, TRAIN_STEPS, plain=True)
     plain2 = fit(torch, "sum", train, None, TRAIN_STEPS, plain=True)
     losses = np.asarray(run.metrics["train_losses"])
@@ -1660,7 +1802,9 @@ def train_phase(torch, raw, spec, card, setup) -> int:
           f"paths) all finite, max rel err vs plain "
           f"{worst:.2e} (rtol {GRAD_RTOL}); step-1 loss {loss_k:.6f} (CPU "
           f"{loss_cpu:.6f}); loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; independent runs, max |kernel - plain| over "
+          f"{losses[-1]:.4f}; a second kernel run bit-identical over all "
+          f"{TRAIN_STEPS} steps (losses and parameters); independent "
+          f"runs, max |kernel - plain| over "
           f"the first {PARITY_STEPS} steps {head_gap:.2e} (atol "
           f"{LOSS_ATOL}), over all {TRAIN_STEPS} {gaps.max():.2e} (plain "
           f"vs plain {spread:.2e}); eval accuracy {acc:.4f} loss "
@@ -2092,6 +2236,234 @@ def zoo_phase(torch, raw, spec, setup) -> int:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the example twins: quickstart, link prediction, graph classification
+# ---------------------------------------------------------------------------
+
+def quickstart_phase(torch) -> dict:
+    """`repro_torch.orchestration.quickstart.run` on the card against the
+    same run through the plain versions on the card: the paper's spending
+    numbers and the round's user states within rtol/atol 1e-5, and the
+    exact launches of its one run: 2 edge_mpnn (the two SimpleConvs, rows
+    of 3 and 4 floats, 8 messages wide), 1 segment_pool (the purchases,
+    unsorted), 1 segment_pool_runs (the context max).  Returns them."""
+    from repro_torch.kernels import registry
+    from repro_torch.orchestration import quickstart
+    zero_launches()
+    got = quickstart.run(device=DEVICE)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want_launches = {"edge_mpnn": 2, "edge_mpnn_runs": 0, "segment_pool": 1,
+                     "segment_pool_runs": 1, "flash_attention": 0}
+    if launches != want_launches:
+        fail(f"quickstart: launches {launches}, expected {want_launches}")
+    with registry.plain_versions():
+        want = quickstart.run(device=DEVICE)
+    errs = []
+    for name in ("total_spend", "max_spend_fraction", "user_states"):
+        a, b = getattr(got, name), getattr(want, name)
+        if a.shape != b.shape or not np.isfinite(a).all() \
+                or not np.allclose(a, b, rtol=1e-5, atol=1e-5):
+            fail(f"quickstart: {name} {a.tolist()} vs plain {b.tolist()}")
+        errs.append(float(np.abs(a - b).max()))
+    if not np.allclose(got.total_spend, [160.11, 50.33, 350.0, 45.13],
+                       rtol=1e-6):
+        fail(f"quickstart: total spend {got.total_spend.tolist()}")
+    phase("quickstart", f"total spend "
+          f"{[round(float(x), 2) for x in got.total_spend]}, fraction of "
+          f"max {[round(float(x), 3) for x in got.max_spend_fraction]}, "
+          f"user states {got.user_states.shape}; max |kernel - plain| "
+          f"{max(errs):.2e} (rtol/atol 1e-5); launches {launches}")
+    return launches
+
+
+def twin_grad_check(torch, name, task, model_fn, hidden, provider_) -> str:
+    """Step 1's gradients of a twin's model on its first batch, kernel
+    path vs plain path, by the [train] rule; the phase-line text."""
+    first = next(iter(provider_.epoch(0)))
+    worst, n_params, reached, _, _ = grad_check(
+        torch, name, first, task.labels(first, epoch=0, step=0), model_fn(),
+        hidden, task)
+    return (f"step-1 gradients of {n_params} parameters ({reached} "
+            f"reached) max rel err vs plain {worst:.2e} (rtol {GRAD_RTOL})")
+
+
+def linkpred_phase(torch) -> int:
+    """`link_prediction.run` at the example's defaults on the card (480
+    papers, hidden 32, 2 rounds, 4 negatives, 3 epochs of 16-root
+    StoreProvider batches, eval at the end): exactly 6 edge_mpnn_runs a
+    forward (3 convs x 2 rounds) and no other kernel; a second kernel
+    run from the same draw and stream repeats every loss and parameter
+    bit for bit; step-1 gradients by the [train] rule.  Returns
+    edge_mpnn_runs' launches."""
+    from repro_torch.orchestration import link_prediction as lp
+    from repro_torch.orchestration.tasks import LinkPrediction
+    data = lp.providers()
+    train, val = data
+    zero_launches()
+    run = lp.run(device=DEVICE, data=data)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    forwards = run.step + val.num_steps
+    per_forward = 3 * lp.ROUNDS
+    if launches["edge_mpnn_runs"] != per_forward * forwards or any(
+            n for k, n in launches.items() if k != "edge_mpnn_runs"):
+        fail(f"linkpred: launches {launches} for {forwards} forwards "
+             f"({per_forward} edge_mpnn_runs per forward expected)")
+    again = lp.run(device=DEVICE, data=data)
+    if again.metrics["train_losses"] != run.metrics["train_losses"] or any(
+            not torch.equal(p, again.metrics["params"][k])
+            for k, p in run.metrics["params"].items()):
+        fail("linkpred: two kernel runs from the same draw and stream "
+             "differ")
+    losses = run.metrics["train_losses"]
+    if run.step != lp.EPOCHS * train.num_steps \
+            or not np.isfinite(losses).all():
+        fail(f"linkpred: {run.step} steps, losses {losses}")
+    task = LinkPrediction("writes", lp.HIDDEN, num_negatives=lp.NEGATIVES)
+    grads = twin_grad_check(torch, "linkpred", task, lp.model_fn, lp.HIDDEN,
+                            train)
+    em = run.metrics["eval"]
+    step_ms = 1e3 * statistics.median(run.metrics["step_seconds"][1:])
+    phase("linkpred", f"{run.step} steps ({lp.EPOCHS} epochs x "
+          f"{train.num_steps}) of 16 roots + eval {val.num_steps}; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; eval accuracy "
+          f"{em['accuracy']:.4f} loss {em['loss']:.4f}; a second kernel "
+          f"run bit-identical over all {run.step} steps (losses and "
+          f"parameters); {grads}; launches {launches} = "
+          f"{launches['edge_mpnn_runs'] // forwards}/forward; Trainer step "
+          f"{step_ms:.2f} ms median")
+    return launches["edge_mpnn_runs"]
+
+
+def gn_round_check(torch, first) -> str:
+    """One full Graph Networks round (EdgeSetUpdate on bonds, then the
+    atoms' NodeSetUpdate, a fused SimpleConv, then a mean ContextUpdate
+    over the atoms) on the first graph-classification batch, from the
+    twin's initial states drawn from SEED: kernel path vs plain path,
+    forward within rtol 1e-4 / atol 1e-5 and the gradients of a fixed
+    random projection by the [train] rule; exactly 1 edge_mpnn_runs and 1
+    segment_pool_runs.  The phase-line text."""
+    from repro_torch.core.convolutions import SimpleConv
+    from repro_torch.core.graph_tensor import HIDDEN_STATE, to_device
+    from repro_torch.core.graph_update import (ContextUpdate,
+                                               EdgeSetUpdate, GraphUpdate,
+                                               NextStateFromConcat,
+                                               NodeSetUpdate)
+    from repro_torch.kernels import registry
+    from repro_torch.nn.layers import init_params
+    from repro_torch.orchestration import graph_classification as gcls
+    h = gcls.HIDDEN
+    rnd = init_params(GraphUpdate(
+        edge_sets={"bonds": EdgeSetUpdate(2 * h, h)},
+        node_sets={"atoms": NodeSetUpdate({"bonds": SimpleConv(h, 2 * h)},
+                                          NextStateFromConcat(2 * h, h))},
+        context=ContextUpdate(["atoms"], h, h)), SEED).to(DEVICE)
+    init = init_params(gcls.InitStates(h), SEED).to(DEVICE)
+    with torch.no_grad():
+        g = init(to_device(first, DEVICE))
+    params = list(rnd.parameters())
+
+    def outputs():
+        out = rnd(g)
+        return (out.edge_sets["bonds"][HIDDEN_STATE],
+                out.node_sets["atoms"][HIDDEN_STATE],
+                out.context[HIDDEN_STATE])
+
+    gen = torch.Generator().manual_seed(SEED)
+    with registry.layout(sorted_by_target=True):
+        zero_launches()
+        got = outputs()
+        launches = read_launches()
+        cots = [torch.randn(o.shape, generator=gen).to(DEVICE) for o in got]
+        g_k = torch.autograd.grad(sum((o * c).sum() for o, c in
+                                      zip(got, cots)), params)
+        with registry.plain_versions():
+            want = outputs()
+            g_p = torch.autograd.grad(sum((o * c).sum() for o, c in
+                                          zip(want, cots)), params)
+    if launches["edge_mpnn_runs"] != 1 or launches["segment_pool_runs"] != 1:
+        fail(f"graphcls: the GN round launched {launches} (1 edge_mpnn_runs "
+             "and 1 segment_pool_runs expected)")
+    err = max(_close(torch, f"graphcls GN round output {i}", a, b, 1e-4,
+                     1e-5) for i, (a, b) in enumerate(zip(got, want)))
+    worst = 0.0
+    for (name, _), a, b in zip(rnd.named_parameters(), g_k, g_p):
+        scale = b.abs().max().item()
+        gap = (a - b).abs().max().item()
+        if not bool(torch.isfinite(a).all()) \
+                or gap > GRAD_RTOL * scale + 1e-7:
+            fail(f"graphcls GN round: {name} gradient differs from the "
+                 f"plain one by {gap:.3e} (largest {scale:.3e})")
+        worst = max(worst, gap / scale if scale else 0.0)
+    return (f"a full GN round (edges {tuple(got[0].shape)}, atoms "
+            f"{tuple(got[1].shape)}, context {tuple(got[2].shape)}) max "
+            f"|kernel - plain| {err:.2e}, gradients max rel err "
+            f"{worst:.2e}")
+
+
+def graphcls_phase(torch) -> tuple:
+    """`graph_classification.run` at the example's defaults on the card
+    (480 graphs, 3 classes, hidden 32, 3 rounds, 16-graph batches, 6
+    epochs with an eval after each, early stopping at patience 3),
+    checkpointing to a temporary directory: exactly 3 edge_mpnn_runs and
+    1 segment_pool_runs a forward; `best_checkpoint` names a directory
+    that exists; a second run into its own directory, stopped at its
+    first save (max_steps), then resumed with `Trainer(resume=True)`,
+    repeats the uninterrupted run's losses exactly; step-1 gradients by
+    the [train] rule; one full Graph Networks round (`gn_round_check`).
+    Returns (edge_mpnn_runs, segment_pool_runs) launches of the counted
+    run."""
+    import tempfile
+    from repro_torch.orchestration import graph_classification as gcls
+    from repro_torch.orchestration.tasks import GraphMulticlassClassification
+    data = gcls.providers()
+    train, val = data
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        run = gcls.run(device=DEVICE, data=data,
+                       ckpt_dir=os.path.join(tmp, "full"))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        evals = len(run.metrics["eval_history"])
+        forwards = run.step + evals * val.num_steps
+        want = {"edge_mpnn_runs": gcls.ROUNDS * forwards,
+                "segment_pool_runs": forwards}
+        if any(launches[k] != want.get(k, 0) for k in launches):
+            fail(f"graphcls: launches {launches} for {forwards} forwards "
+                 f"({gcls.ROUNDS} edge_mpnn_runs and 1 segment_pool_runs "
+                 "per forward expected)")
+        best = run.metrics["best_checkpoint"]
+        cut = gcls.SAVE_INTERVAL
+        part = gcls.run(device=DEVICE, data=data, steps=cut,
+                        ckpt_dir=os.path.join(tmp, "resumed"))
+        rest = gcls.run(device=DEVICE, data=data, resume=True,
+                        ckpt_dir=os.path.join(tmp, "resumed"))
+        losses = run.metrics["train_losses"]
+        resumed = part.metrics["train_losses"] + rest.metrics["train_losses"]
+        if part.step != cut or resumed != losses or rest.step != run.step:
+            fail(f"graphcls: stopped at {part.step} and resumed to "
+                 f"{rest.step}, losses {resumed} vs uninterrupted "
+                 f"{run.step}: {losses}")
+        best_name = os.path.basename(best)
+    task = GraphMulticlassClassification("atoms", gcls.CLASSES, gcls.HIDDEN)
+    grads = twin_grad_check(torch, "graphcls", task, gcls.model_fn,
+                            gcls.HIDDEN, train)
+    gn = gn_round_check(torch, next(iter(train.epoch(0))))
+    em = run.metrics["eval"]
+    step_ms = 1e3 * statistics.median(run.metrics["step_seconds"][1:])
+    phase("graphcls", f"{run.step} steps ({train.num_steps} an epoch, "
+          f"{evals} evals of {val.num_steps} batches"
+          f"{', stopped early' if run.metrics.get('stopped_early') else ''}"
+          f"); loss {losses[0]:.4f} -> {losses[-1]:.4f}; eval accuracy "
+          f"{em['accuracy']:.4f} loss {em['loss']:.4f}; best checkpoint "
+          f"{best_name} (step {run.metrics['best_step']}); stopped at step "
+          f"{cut} and resumed: all {len(losses)} losses exactly equal; "
+          f"{grads}; {gn}; launches {launches}; Trainer step "
+          f"{step_ms:.2f} ms median")
+    return launches["edge_mpnn_runs"], launches["segment_pool_runs"]
+
+
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
     first training batch on the card."""
@@ -2140,6 +2512,13 @@ def main() -> int:
                                                              card)
     records["segment_pool_runs"]["zoo_launches"] = zoo_phase(torch, raw,
                                                              spec, setup)
+    quick = quickstart_phase(torch)
+    for name in ("edge_mpnn", "segment_pool", "segment_pool_runs"):
+        records[name]["quickstart_launches"] = quick[name]
+    records["edge_mpnn_runs"]["linkpred_launches"] = linkpred_phase(torch)
+    (records["edge_mpnn_runs"]["graphcls_launches"],
+     records["segment_pool_runs"]["graphcls_launches"]) = graphcls_phase(
+        torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

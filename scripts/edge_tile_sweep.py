@@ -57,8 +57,9 @@ def build_sweep():
     if done.returncode:
         raise SystemExit(f"FAIL: nvcc {src}:\n{done.stdout}{done.stderr}")
     fn = ctypes.CDLL(str(out)).edge_tile_sweep_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -111,13 +112,17 @@ def capture(torch, store, spec, first) -> list:
 
 def sweep_call(torch, fn, runs: bool, rows: int, x: dict):
     """A call of the sweep entry at `rows` on launch inputs `x`."""
-    out = torch.empty((x["n_tgt"], x["w"].shape[1]), device="cuda")
+    m = x["w"].shape[1]
+    out = torch.empty((x["n_tgt"], m), device="cuda")
+    pieces = -(-x["src"].numel() // 32)  # carry.cuh scratch, any height
+    carry = torch.empty(pieces * (4 + 2 * m), device="cuda")
 
     def call():
         rc = fn(int(runs), rows, x["h_src"].data_ptr(),
                 x["h_tgt"].data_ptr(), x["src"].data_ptr(),
                 x["tgt"].data_ptr(), x["w"].data_ptr(), x["b"].data_ptr(),
-                out.data_ptr(), x["src"].numel(), x["n_src"], x["n_tgt"],
+                out.data_ptr(), carry.data_ptr(), pieces,
+                x["src"].numel(), x["n_src"], x["n_tgt"],
                 x["h_src"].shape[1], x["h_tgt"].shape[1], x["w"].shape[1],
                 ACT_CODES[x["act"]],
                 torch.cuda.current_stream().cuda_stream)

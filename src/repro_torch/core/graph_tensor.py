@@ -146,6 +146,27 @@ class GraphTensor:
                                    old.capacity)
         return GraphTensor(new_ctx, new_ns, new_es)
 
+    @classmethod
+    def from_pieces(cls, context: Optional[Context] = None,
+                    node_sets: Optional[Mapping[str, NodeSet]] = None,
+                    edge_sets: Optional[Mapping[str, EdgeSet]] = None
+                    ) -> "GraphTensor":
+        """A GraphTensor from its pieces; without `context`, one
+        component of weight 1 (int32 sizes, as the reference's
+        ``jnp.ones((1,), jnp.int32)``; a tensor on the node or edge sets'
+        device when their sizes are tensors, else numpy)."""
+        node_sets = dict(node_sets or {})
+        edge_sets = dict(edge_sets or {})
+        if context is None:
+            sizes = [p.sizes for p in (*node_sets.values(),
+                                       *edge_sets.values())
+                     if _is_tensor(p.sizes)]
+            ones = (torch.ones((1,), dtype=torch.int32,
+                               device=sizes[0].device) if sizes
+                    else np.ones((1,), np.int32))
+            context = Context(ones, {})
+        return cls(context, node_sets, edge_sets)
+
 
 def resolve_device(device=None) -> torch.device:
     """`device`, or the current CUDA device when None.  Raises when None

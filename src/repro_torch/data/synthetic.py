@@ -1,5 +1,6 @@
-"""Synthetic data — `synthetic_mag`, copied from `repro.data.synthetic`
-and held to the original by tests/test_torch_host_parity.py.
+"""Synthetic data — `synthetic_mag` and `synthetic_graph_classification`,
+copied from `repro.data.synthetic` and held to the originals, array for
+array, by tests/test_torch_host_parity.py.
 
 `synthetic_mag` builds an OGBN-MAG-shaped heterogeneous citation graph
 (paper §8) with a *learnable* planted signal: each paper gets a latent
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.graph_tensor import (Adjacency, Context, EdgeSet,
+                                           GraphTensor, NodeSet)
 from repro_torch.core.schema import mag_schema
 from repro_torch.data.sampling import GraphStore
 
@@ -96,3 +99,50 @@ def synthetic_mag(*, n_papers: int = 2000, n_authors: int = 1200,
                    "institution": n_institutions,
                    "field_of_study": n_fields})
     return store, labels
+
+
+def synthetic_graph_classification(*, num_graphs: int = 400,
+                                   num_classes: int = 2,
+                                   min_nodes: int = 8, max_nodes: int = 16,
+                                   feat_dim: int = 16, noise: float = 1.5,
+                                   seed: int = 0,
+                                   rng: np.random.Generator | None = None
+                                   ) -> list[GraphTensor]:
+    """MUTAG-shaped graph-level classification set: each graph is one
+    single-component GraphTensor ("atoms" nodes on a ring, "bonds" edges
+    both directions) carrying its class as the context feature "label".
+
+    The class is planted twice — a per-class feature center (noisy enough
+    that single-node readout is weak) and class-proportional chord density
+    on the ring — so context-pooled readout over message-passed states
+    beats any node-local or structure-blind classifier.
+    """
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(num_classes, feat_dim)).astype(np.float32)
+    graphs = []
+    for _ in range(num_graphs):
+        y = int(rng.integers(num_classes))
+        n = int(rng.integers(min_nodes, max_nodes + 1))
+        feat = (centers[y]
+                + noise * rng.normal(size=(n, feat_dim))).astype(np.float32)
+        ring = np.arange(n)
+        nxt = np.roll(ring, -1)
+        src, tgt = [ring, nxt], [nxt, ring]
+        n_chords = y * max(n // 4, 1)  # class-proportional density
+        if n_chords:
+            a = rng.integers(0, n, n_chords)
+            b = (a + 2 + rng.integers(0, max(n - 3, 1), n_chords)) % n
+            src += [a, b]
+            tgt += [b, a]
+        src = np.concatenate(src).astype(np.int32)
+        tgt = np.concatenate(tgt).astype(np.int32)
+        graphs.append(GraphTensor(
+            Context(np.asarray([1], np.int32),
+                    {"label": np.asarray([y], np.int32)}),
+            {"atoms": NodeSet(np.asarray([n], np.int32), {"feat": feat},
+                              n)},
+            {"bonds": EdgeSet(np.asarray([len(src)], np.int32),
+                              Adjacency(src, tgt, "atoms", "atoms"), {},
+                              len(src))}))
+    return graphs

@@ -32,8 +32,8 @@ SOURCES = {
     "edge_mpnn_runs": KERNELS_DIR / "edge_mpnn" / "edge_mpnn_runs.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
 }
-# every header a source may include (cuda_common.cuh, edge_mma.cuh,
-# flash_mma.cuh, pool.cuh)
+# every header a source may include (carry.cuh, cuda_common.cuh,
+# edge_mma.cuh, flash_mma.cuh, pool.cuh)
 HEADERS = tuple(sorted(KERNELS_DIR.rglob("*.cuh")))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

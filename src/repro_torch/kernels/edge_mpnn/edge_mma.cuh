@@ -71,6 +71,7 @@
 
 #include <type_traits>
 
+#include "carry.cuh"
 #include "cuda_common.cuh"
 
 namespace repro_torch {
@@ -216,6 +217,8 @@ struct EdgeArgs {
   const void* w;
   const void* b;
   float* acc;
+  int4* meta;    // edge_mpnn_runs' carry (carry.cuh), one piece a tile
+  float* parts;
   int e, n_src, n_tgt, ds, dt, m, act, k_pad;
   int w_vec;  // W rows 16-byte aligned (fp32 only): cp.async for W
 };
@@ -265,6 +268,7 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
 
 // What an epilogue sees of its tile.
 struct Tile {
+  int index;          // the edge tile: edges [index * 16 * ROWS, ...)
   int m0;             // the CTA's first column
   int row0, col0;     // this thread's first row and column in the tile
   const float* bias;  // [kTileM] fp32, 0 past M
@@ -476,6 +480,7 @@ __device__ __forceinline__ void edge_tiles(const EdgeArgs& a,
   const int nk = a.k_pad / kTileK;
   const int n_tiles = (a.e + kTileE - 1) / kTileE;
   for (int te = blockIdx.x; te < n_tiles; te += gridDim.x) {
+    tile.index = te;
     __syncthreads();  // the previous tile is done with ids and ring
     if (tid < kTileE) {
       const int ei = te * kTileE + tid;
@@ -558,8 +563,8 @@ inline Layout plan_layout(int dtype, int rows, int k_pad, bool* stream) {
 // The launch of one call with tiles of 16 x `rows` edges.
 inline bool plan(const void* h_src, const void* h_tgt, const int* src,
                  const int* tgt, const void* w, const void* b, float* acc,
-                 int e, int n_src, int n_tgt, int ds, int dt, int m,
-                 int dtype, int act, int rows, Plan* p) {
+                 float* carry, int e, int n_src, int n_tgt, int ds, int dt,
+                 int m, int dtype, int act, int rows, Plan* p) {
   const int m_tiles = (m + kTileM - 1) / kTileM;
   if (m <= 0 || m_tiles > 65535 || (e > 0 && n_src <= 0) ||
       ds + static_cast<int64_t>(dt) > 2147483647 - kTileK)
@@ -575,15 +580,17 @@ inline bool plan(const void* h_src, const void* h_tgt, const int* src,
   p->dtype = dtype;
   p->rows = rows;
   p->layout = plan_layout(dtype, p->rows, k_pad, &p->stream);
-  p->args = EdgeArgs{h_src, h_tgt, src, tgt, w, b, acc, e, n_src, n_tgt,
-                     ds, dt, m, act, k_pad,
+  const int64_t n_tiles =
+      (static_cast<int64_t>(e) + 16 * rows - 1) / (16 * rows);
+  p->args = EdgeArgs{h_src, h_tgt, src, tgt, w, b, acc,
+                     reinterpret_cast<int4*>(carry),
+                     carry == nullptr ? nullptr : carry + 4 * n_tiles,
+                     e, n_src, n_tgt, ds, dt, m, act, k_pad,
                      f32 && m % 4 == 0 && aligned(w)};
   // up to 2 CTAs per SM where shared memory allows (__launch_bounds__
   // keeps the registers for 2); past that many CTAs the grid is persistent
   const int per_sm =
       static_cast<int>(kSmSmem / (p->layout.total + 1024)) >= 2 ? 2 : 1;
-  const int64_t n_tiles =
-      (static_cast<int64_t>(e) + 16 * p->rows - 1) / (16 * p->rows);
   const int64_t want = (static_cast<int64_t>(sm_count()) * per_sm +
                         m_tiles - 1) / m_tiles;
   p->grid = dim3(static_cast<unsigned int>(
@@ -626,19 +633,27 @@ inline cudaError_t dispatch(const Plan& p, Launch launch) {
 }
 
 // One call: memset of the fp32 accumulator, the edge kernel (skipped for
-// e == 0), and for a 16-bit output one cast.  `kernel_of(dt, rows, vec,
-// stream)` names the kernel instantiation for the plan's dtype, tile
-// height, copy form and W mode.  acc == out exactly when the output is fp32, so an fp32
-// call is one memset and one kernel.
+// e == 0), with a `carry` scratch (edge_mpnn_runs) the fold of its chains
+// (carry.cuh; carry_pieces at least the call's edge tiles), and for a
+// 16-bit output one cast.  `kernel_of(dt, rows, vec, stream)` names the
+// kernel instantiation for the plan's dtype, tile height, copy form and W
+// mode.  acc == out exactly when the output is fp32, so an fp32 edge_mpnn
+// call is one memset and one kernel, an fp32 edge_mpnn_runs call one
+// memset and two kernels.
 template <typename KernelOf>
 inline int edge_call(const void* h_src, const void* h_tgt, const int* src,
                      const int* tgt, const void* w, const void* b,
-                     float* acc, void* out, int e, int n_src, int n_tgt,
+                     float* acc, void* out, float* carry,
+                     long long carry_pieces, int e, int n_src, int n_tgt,
                      int ds, int dt, int m, int dtype, int act,
                      void* stream, KernelOf kernel_of) {
   Plan p;
-  if (!plan(h_src, h_tgt, src, tgt, w, b, acc, e, n_src, n_tgt, ds, dt, m,
-            dtype, act, tile_rows(dtype), &p))
+  const int rows = tile_rows(dtype);
+  const int64_t n_tiles =
+      (static_cast<int64_t>(e) + 16 * rows - 1) / (16 * rows);
+  if (!plan(h_src, h_tgt, src, tgt, w, b, acc, carry, e, n_src, n_tgt, ds,
+            dt, m, dtype, act, rows, &p) ||
+      (carry != nullptr && carry_pieces < n_tiles))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n_out = static_cast<int64_t>(n_tgt) * m;
@@ -655,6 +670,10 @@ inline int edge_call(const void* h_src, const void* h_tgt, const int* src,
       return cudaGetLastError();
     });
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (carry != nullptr) {
+      err = carry_fold(carry, acc, n_tiles, m, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   if (out != acc)
     cast_from_fp32_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(

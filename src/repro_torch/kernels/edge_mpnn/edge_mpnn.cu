@@ -80,8 +80,8 @@ extern "C" int edge_mpnn_launch(const void* h_src, const void* h_tgt,
                                 void* out, int e, int n_src, int n_tgt,
                                 int ds, int dt, int m, int dtype, int act,
                                 void* stream) {
-  return edge_call(h_src, h_tgt, src, tgt, w, b, acc, out, e, n_src, n_tgt,
-                   ds, dt, m, dtype, act, stream,
+  return edge_call(h_src, h_tgt, src, tgt, w, b, acc, out, nullptr, 0, e,
+                   n_src, n_tgt, ds, dt, m, dtype, act, stream,
                    [](auto dt_, auto rows, auto vec, auto stream_) {
                      return edge_mpnn_kernel<decltype(dt_)::value,
                                              decltype(rows)::value,

@@ -16,8 +16,11 @@ One call is one ctypes call: the C entry zeroes the fp32 accumulator with
 a memset and launches the kernel (the tile product of `edge_mma.cuh`:
 fp32 FMAs in the plain version's k order, or bf16/fp16 on the tensor
 cores), plus one cast kernel for a 16-bit output.  For fp32 the
-accumulator is the output itself, so an fp32 call allocates one tensor
-and runs one kernel.
+accumulator is the output itself, so an fp32 `edge_mpnn` call allocates
+one tensor and runs one kernel.  `edge_mpnn_runs` also takes a carry
+scratch and runs a second kernel that adds the runs crossing an edge
+tile in tile order (`carry.cuh`): on target-sorted edges its result is
+bit-identical from call to call.
 """
 from __future__ import annotations
 
@@ -30,12 +33,19 @@ from repro_torch.kernels import build
 from repro_torch.kernels.edge_mpnn.ref import ACTIVATIONS, edge_mpnn_ref
 
 _ACT_CODES = {"relu": 0, "gelu": 1, "identity": 2}
+# edges of the run kernel's smallest tile (edge_mma.cuh: 32 for fp32, 64
+# for 16-bit), so ceil(E / 32) carry pieces cover any dtype
+_RUN_TILE_EDGES = 32
 
 
 @functools.cache
 def _entry(library: str):
     fn = getattr(build.load(library), f"{library}_launch")
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    # h_src, h_tgt, src, tgt, w, b, acc, out, [carry, carry_pieces,]
+    # e, n_src, n_tgt, ds, dt, m, dtype, act, stream
+    carry = ([ctypes.c_void_p, ctypes.c_longlong]
+             if library == "edge_mpnn_runs" else [])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + carry + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -89,10 +99,18 @@ def _run(library: str, h_src, h_tgt, src, tgt, w, b, n_src: int,
     acc = out if out.dtype == torch.float32 else torch.empty(
         (n_tgt, m), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _entry(library)(h_src.data_ptr(), h_tgt.data_ptr(), src.data_ptr(),
-                         tgt.data_ptr(), w.data_ptr(), b.data_ptr(),
-                         acc.data_ptr(), out.data_ptr(), e, n_src, n_tgt,
-                         ds, dt, m, code, _ACT_CODES[activation], stream)
+    args = [h_src.data_ptr(), h_tgt.data_ptr(), src.data_ptr(),
+            tgt.data_ptr(), w.data_ptr(), b.data_ptr(), acc.data_ptr(),
+            out.data_ptr()]
+    if library == "edge_mpnn_runs":
+        # the carry scratch of carry.cuh: [pieces] int4 meta, then
+        # [pieces, 2, m] fp32 partials; every tile writes its own meta
+        pieces = -(-e // _RUN_TILE_EDGES)
+        carry = torch.empty(pieces * (4 + 2 * m), dtype=torch.float32,
+                            device=device)
+        args += [carry.data_ptr(), pieces]
+    rc = _entry(library)(*args, e, n_src, n_tgt, ds, dt, m, code,
+                         _ACT_CODES[activation], stream)
     build.check_launch(rc, library)
     return out, True
 
@@ -115,9 +133,10 @@ def edge_mpnn_runs(h_src: torch.Tensor, h_tgt: torch.Tensor,
                    src: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor, *, n_src: int, n_tgt: int,
                    activation: str = "relu") -> torch.Tensor:
-    """The run variant: same contract as `edge_mpnn`, one atomic per run
-    of equal targets in an edge tile.  Correct for any edge order; fastest
-    when tgt is sorted."""
+    """The run variant: same contract as `edge_mpnn`, one add per run of
+    equal targets in an edge tile and one per chain of runs that cross
+    tiles, folded in tile order.  Correct for any edge order; fastest, and
+    bit-repeatable, when tgt is sorted."""
     out, launched = _run("edge_mpnn_runs", h_src, h_tgt, src, tgt, w, b,
                          n_src, n_tgt, activation)
     if launched:

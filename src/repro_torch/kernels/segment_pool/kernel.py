@@ -15,11 +15,15 @@ counted).
 One call is one ctypes call: the C entry zero-fills (or, for max/min,
 sentinel-fills) the accumulator on the stream and launches the scatter,
 plus a finalize pass for max/min or a 16-bit dtype.  For fp32 the
-accumulator is the output itself, so an fp32 sum allocates one tensor
-and runs one kernel.  The launch path does only what the launch needs:
-the checks that raise, one or two `new_empty`, the dtype code from a
-dict keyed by `torch.dtype`, and the stream of the values' device by
-index (`torch.cuda.current_stream(int)`, the cheapest public route).
+accumulator is the output itself, so an fp32 `segment_pool` sum
+allocates one tensor and runs one kernel.  A `segment_pool_runs` sum
+also takes a carry scratch and runs a second kernel that adds the runs
+crossing a piece boundary in piece order (`carry.cuh`): on sorted ids its
+result is bit-identical from call to call.  The launch path does only
+what the launch needs: the checks that raise, one to three `new_empty`,
+the dtype code from a dict keyed by `torch.dtype`, and the stream of the
+values' device by index (`torch.cuda.current_stream(int)`, the cheapest
+public route).
 """
 from __future__ import annotations
 
@@ -36,14 +40,33 @@ _DTYPE_CODES = {getattr(torch, name): code
                 for name, code in build.DTYPE_CODES.items()}
 
 
+# rows of the run kernel's smallest piece (runs.cu: a 16-row tile at
+# D >= 32, a warp's 32 rows below), so ceil(E / 16) pieces cover any width
+_RUN_PIECE_ROWS = 16
+
+
 @functools.cache
 def _entry(library: str):
     fn = getattr(build.load(library), f"{library}_launch")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    # values, seg_ids, acc, out, [carry, carry_pieces,] e, d, n, dtype,
+    # reduce, stream
+    carry = ([ctypes.c_void_p, ctypes.c_longlong]
+             if library == "segment_pool_runs" else [])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + carry
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def carry_scratch(values: torch.Tensor, e: int, d: int):
+    """(scratch, pieces) for a run kernel's sum (carry.cuh): [pieces] int4
+    meta then [pieces, 2, d] fp32 partials, on the values' device from the
+    caching allocator; every piece writes its own meta, so it is not
+    zeroed."""
+    pieces = -(-e // _RUN_PIECE_ROWS)
+    return values.new_empty(pieces * (4 + 2 * d),
+                            dtype=torch.float32), pieces
 
 
 def _run(library: str, values: torch.Tensor, seg_ids: torch.Tensor,
@@ -78,9 +101,14 @@ def _run(library: str, values: torch.Tensor, seg_ids: torch.Tensor,
     # fp32: the kernel accumulates straight into the output
     acc = out if values.dtype == torch.float32 else values.new_empty(
         (n_segments, d), dtype=torch.float32)
-    rc = _entry(library)(values.data_ptr(), seg_ids.data_ptr(),
-                         acc.data_ptr(), out.data_ptr(), e, d, n_segments,
-                         code, _REDUCE_CODES[reduce],
+    args = [values.data_ptr(), seg_ids.data_ptr(), acc.data_ptr(),
+            out.data_ptr()]
+    if library == "segment_pool_runs":
+        carry, pieces = (carry_scratch(values, e, d) if reduce == "sum"
+                         else (None, 0))
+        args += [None if carry is None else carry.data_ptr(), pieces]
+    rc = _entry(library)(*args, e, d, n_segments, code,
+                         _REDUCE_CODES[reduce],
                          torch.cuda.current_stream(index).cuda_stream)
     build.check_launch(rc, library)
     return out, True
@@ -99,9 +127,10 @@ def segment_pool(values: torch.Tensor, seg_ids: torch.Tensor, *,
 
 def segment_pool_runs(values: torch.Tensor, seg_ids: torch.Tensor, *,
                       n_segments: int, reduce: str = "sum") -> torch.Tensor:
-    """The run variant: same contract as `segment_pool`, one atomic per
-    run of equal ids in a tile.  Correct for any id order; fastest when
-    seg_ids is sorted."""
+    """The run variant: same contract as `segment_pool`, one add per run
+    of equal ids in a tile, and for a sum one per chain of runs that cross
+    tiles, folded in tile order.  Correct for any id order; fastest, and
+    for a sum bit-repeatable, when seg_ids is sorted."""
     out, launched = _run("segment_pool_runs", values, seg_ids, n_segments,
                          reduce)
     if launched:

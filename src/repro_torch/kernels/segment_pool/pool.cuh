@@ -5,11 +5,13 @@
 // Launch sequence of one call (the C entry points, pool_launch below):
 //   1. cudaMemsetAsync of the accumulator: 0 for sum, 0xFF bytes for
 //      max/min (the bit pattern 0xFFFFFFFF, "no value yet");
-//   2. the scatter kernel, adding or max-ing straight into it;
+//   2. the scatter kernel, adding or max-ing straight into it (runs.cu's
+//      sum adds its carry fold, carry.cuh, a second kernel);
 //   3. only for max/min, or for a bf16/fp16 output: one finalize pass.
 // For an fp32 sum the accumulator IS the output (the wrapper passes one
-// buffer twice), so the call is the memset plus one kernel; max/min and
-// 16-bit outputs take two kernels.
+// buffer twice), so segment_pool's call is the memset plus one kernel and
+// segment_pool_runs' the memset plus two; max/min take two kernels, and a
+// 16-bit output adds the finalize to the sum's.
 //
 // The kernels are templates over the reduction (sum or max; min is max of
 // the negated values, negated again on store) and the input dtype, so a

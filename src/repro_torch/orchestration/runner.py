@@ -20,7 +20,12 @@ import numpy as np
 
 from repro_torch.core.graph_tensor import GraphTensor
 from repro_torch.orchestration.providers import IteratorProvider
-from repro_torch.orchestration.tasks import Task
+# re-exports, as the reference's runner makes them: `from
+# repro_torch.orchestration.runner import <task>` keeps working
+from repro_torch.orchestration.tasks import (  # noqa: F401
+    DeepGraphInfomax, GraphBinaryClassification,
+    GraphMulticlassClassification, LinkPrediction,
+    RootNodeMulticlassClassification, Task)
 from repro_torch.orchestration.trainer import RunResult, Trainer
 
 

@@ -2,19 +2,25 @@
 (counterpart of `repro.orchestration.trainer`).
 
 The Trainer owns the step functions (`train_loop.make_graph_train_step`
-/ `make_graph_eval_step`) and the loop around them; the objective is the
-`Task`'s and the stream the `DatasetProvider`'s.  ``Trainer.fit`` wires
-the three together and `runner.run` is a thin shim over it.  It keeps
-the reference's fields and defaults, and its composition: AdamW with
+/ `make_graph_eval_step`), the loop around them and the checkpoint
+lifecycle (`fault_tolerance.CheckpointManager`: periodic async saves
+carrying the stream offset ``extra={"epoch", "step_in_epoch"}``,
+``resume=True`` through `restore_latest` and the provider's
+``epoch(e, start_step=s)``, and best-checkpoint tracking with
+`mark_best` driven by the eval stream); the objective is the `Task`'s
+and the stream the `DatasetProvider`'s.  ``Trainer.fit`` wires the three
+together and `runner.run` is a thin shim over it.  It keeps the
+reference's fields and defaults, and its composition: AdamW with
 warmup-cosine and ``weight_decay=1e-5``, labels from the Task at the
 stream's (epoch, step), the layout hint entered around the loop, eval
 at "end" or after every "epoch" with `EarlyStopping` best-step
-bookkeeping.
+bookkeeping.  With every provider honouring ``(seed, epoch, step) ->
+batch``, a resumed run's losses equal an uninterrupted run's exactly:
+on the CPU, and on the card, where the kernels fold every sum in a fixed
+order on the sorted training batches.
 
 What this slice leaves out: the mesh (``num_devices`` and
-``model_parallel > 1`` raise; the parallelism slice), and checkpointing
-(``ckpt_dir``/``resume`` raise `NotImplementedError`; ROADMAP queue 1
-item 6).
+``model_parallel > 1`` raise; ROADMAP queue 1 item 3).
 
 The model runs on CUDA unless ``device`` says otherwise; without a card
 and without ``device`` the Trainer raises rather than carry on on the
@@ -25,6 +31,7 @@ leaves of the JAX ``Trainer._init_params``) loads it with
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Optional
@@ -34,6 +41,7 @@ from torch import nn
 
 from repro_torch.core.graph_tensor import (resolve_device, stack_size,
                                            to_device)
+from repro_torch.distributed.fault_tolerance import CheckpointManager
 from repro_torch.kernels import registry
 from repro_torch.nn.layers import init_params, load_jax_params
 from repro_torch.orchestration.evaluation import EarlyStopping, evaluate
@@ -74,6 +82,12 @@ class Trainer:
     ``eval_at`` places the validation pass: "end" (once, after all
     epochs), "epoch" (after every epoch, with best-step tracking and
     optional early stopping), or "never".
+
+    ``ckpt_dir`` turns on checkpointing: a save every
+    ``save_interval_steps`` steps and at the end, the newest ``keep``
+    retained, and with ``track_best`` the best eval epoch's step pinned
+    as `best`.  ``resume=True`` restores the latest checkpoint there (if
+    any) and re-enters the stream at the (epoch, step) it recorded.
     """
 
     epochs: int = 1
@@ -104,11 +118,7 @@ class Trainer:
         if self.num_devices is not None or self.model_parallel > 1:
             raise ValueError("num_devices / model_parallel > 1 need the "
                              "mesh, which the port does not have yet "
-                             "(ROADMAP queue 1 item 10)")
-        if self.ckpt_dir or self.resume:
-            raise NotImplementedError(
-                "checkpointing (ckpt_dir= / resume=) is not ported yet "
-                "(ROADMAP queue 1 item 6)")
+                             "(ROADMAP queue 1 item 3)")
 
     @staticmethod
     def _labeled(stream, task, epoch: int, start_step: int):
@@ -181,6 +191,22 @@ class Trainer:
 
         train_step = make_graph_train_step(loss_fn, opt)
         eval_step = make_graph_eval_step(metric_fn)
+        mgr = CheckpointManager(
+            self.ckpt_dir, keep=self.keep,
+            save_interval_steps=self.save_interval_steps) \
+            if self.ckpt_dir else None
+        step = 0
+        start_epoch = 0
+        epoch_start_step = 0
+        if mgr is not None and self.resume:
+            restored = mgr.restore_latest((named, opt_state))
+            if restored is not None:
+                step, (saved, opt_state), extra = restored
+                with torch.no_grad():
+                    for name, p in named.items():
+                        p.copy_(saved[name])
+                start_epoch = int(extra.get("epoch", 0))
+                epoch_start_step = int(extra.get("step_in_epoch", 0))
         monitor = self.early_stopping or (
             # best-tracking without early stopping: an unreachable
             # patience makes `update` pure best bookkeeping
@@ -191,25 +217,38 @@ class Trainer:
         eval_history = []
         losses, step_seconds = [], []
         last_loss = float("nan")
-        step = 0
+        cur_epoch = start_epoch
+        step_in_epoch = epoch_start_step
         t0 = time.time()
 
         def run_eval():
             return evaluate(eval_provider, task, eval_step, place,
                             metric_keys=metric_keys)
 
+        def save(at_step, epoch, in_epoch):
+            # the state is copied to the host before save_async returns:
+            # the next step updates the parameters in place
+            mgr.save_async(at_step, (named, opt_state),
+                           extra={"epoch": epoch, "step_in_epoch": in_epoch})
+
         # the layout hint is read per call by the kernel registry, on the
-        # calling thread: hold it on the loop's thread for every step
-        with registry.layout(sorted_by_target=esbt):
-            for epoch in range(self.epochs):
+        # calling thread: hold it on the loop's thread for every step; the
+        # manager's exit joins its writer thread, however fit ends
+        with registry.layout(sorted_by_target=esbt), \
+                mgr if mgr is not None else contextlib.nullcontext():
+            for epoch in range(start_epoch, self.epochs):
                 if self.max_steps is not None and step >= self.max_steps:
                     break
-                pairs = self._labeled(train_provider.epoch(epoch), task,
-                                      epoch, 0)
+                start = epoch_start_step if epoch == start_epoch else 0
+                cur_epoch = epoch
+                pairs = self._labeled(
+                    train_provider.epoch(epoch, start_step=start), task,
+                    epoch, start)
                 if self.double_buffer:
                     placed = device_prefetch(pairs, place)
                 else:
                     placed = (place(g, l) for g, l in pairs)
+                step_in_epoch = start
                 t_step = time.perf_counter()
                 for graph, labels in placed:
                     if self.max_steps is not None \
@@ -219,6 +258,7 @@ class Trainer:
                     named, opt_state, loss = train_step(
                         named, opt_state, graph, labels)
                     step += 1
+                    step_in_epoch += 1
                     last_loss = float(loss)
                     losses.append(last_loss)
                     now = time.perf_counter()
@@ -230,6 +270,8 @@ class Trainer:
                               f"({self.log_every / (time.time() - t0):.1f}"
                               f" it/s)", flush=True)
                         t0 = time.time()
+                    if mgr is not None and mgr.should_save(step):
+                        save(step, epoch, step_in_epoch)
                 if eval_provider is not None and self.eval_at == "epoch":
                     em = run_eval()
                     eval_history.append(em)
@@ -238,7 +280,14 @@ class Trainer:
                                      for k, v in sorted(em.items())),
                           flush=True)
                     if monitor is not None:
-                        monitor.update(em[monitor.monitor], step=step)
+                        is_best = monitor.update(em[monitor.monitor],
+                                                 step=step)
+                        if is_best and self.track_best and mgr is not None:
+                            # pin this step's weights as `best` (its save
+                            # must land before the pointer)
+                            save(step, epoch, step_in_epoch)
+                            mgr.wait()
+                            mgr.mark_best(step)
                         if monitor.should_stop:
                             stop_early = True
                             break
@@ -248,6 +297,9 @@ class Trainer:
                 em = run_eval()
                 eval_history.append(em)
                 metrics["eval"] = em
+            if mgr is not None:
+                save(step, cur_epoch, step_in_epoch)
+                mgr.wait()
         if eval_history:
             metrics.setdefault("eval", eval_history[-1])
             metrics["eval_history"] = eval_history

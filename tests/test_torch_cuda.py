@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import registry
-from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn
+from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn, edge_mpnn_runs
 from repro_torch.kernels.edge_mpnn.ref import edge_mpnn_ref
-from repro_torch.kernels.segment_pool.kernel import segment_pool
+from repro_torch.kernels.segment_pool.kernel import (segment_pool,
+                                                     segment_pool_runs)
 from repro_torch.kernels.segment_pool.ref import segment_pool_ref
 
 pytestmark = pytest.mark.cuda
@@ -395,20 +396,28 @@ def test_pool_kernels_empty_shapes(cuda_device, variant, dtype):
         assert not got[[1, 2, 4]].any()
 
 
+# device kernels per call: an fp32 sum is the scatter (segment_pool) or
+# the scatter and its carry fold (segment_pool_runs, carry.cuh); max and
+# min add a finalize pass, a bf16 sum its cast
+POOL_BUDGET = {"segment_pool": (1, 2, 2, 2),
+               "segment_pool_runs": (2, 2, 2, 3)}
+
+
 @pytest.mark.parametrize("variant", POOL_VARIANTS)
 def test_pool_kernels_launch_budget(cuda_device, variant):
-    """Device kernels per call from torch.profiler: an fp32 sum is one
-    kernel after one memset; max, min and a bf16 sum at most two."""
+    """Device kernels per call from torch.profiler, exactly POOL_BUDGET
+    (fp32 sum, max, min, bf16 sum), each after at most one memset."""
     kernel = _pool_kernel(variant)
     g = torch.Generator(device=cuda_device).manual_seed(50)
     vals = torch.randn(400, 128, generator=g, device=cuda_device)
     ids = _ids(g, 400, 60, True, cuda_device)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for reduce, dtype, most in (("sum", torch.float32, 1),
-                                ("max", torch.float32, 2),
-                                ("min", torch.float32, 2),
-                                ("sum", torch.bfloat16, 2)):
+    for (reduce, dtype), want in zip((("sum", torch.float32),
+                                      ("max", torch.float32),
+                                      ("min", torch.float32),
+                                      ("sum", torch.bfloat16)),
+                                     POOL_BUDGET[variant]):
         x = vals.to(dtype)
         kernel(x, ids, n_segments=60, reduce=reduce)
         torch.cuda.synchronize()
@@ -420,7 +429,7 @@ def test_pool_kernels_launch_budget(cuda_device, variant):
         memsets = sum(ev.count for ev in device
                       if "memset" in ev.key.lower())
         kernels = sum(ev.count for ev in device) - memsets
-        assert 1 <= kernels <= most, (reduce, dtype, device)
+        assert kernels == want, (reduce, dtype, device)
         assert memsets <= 1, (reduce, dtype, device)
 
 
@@ -880,20 +889,24 @@ def test_edge_mpnn_runs_across_many_tiles(cuda_device):
         assert not out[[3, 6]].any()
 
 
+# device kernels per call (fp32, bf16, fp16): the edge kernel (the fp32
+# output is its own accumulator), edge_mpnn_runs' carry fold (carry.cuh),
+# and the cast back of a 16-bit output
+EDGE_BUDGET = {"edge_mpnn": (1, 2, 2), "edge_mpnn_runs": (2, 3, 3)}
+
+
 @pytest.mark.parametrize("variant", EDGE_VARIANTS)
 def test_edge_kernels_launch_budget(cuda_device, variant):
-    """Device work per call from torch.profiler: an fp32 call is one
-    kernel after at most one memset (the output is its own accumulator);
-    a bf16 or fp16 call at most two kernels (the cast back) and one
-    memset."""
+    """Device work per call from torch.profiler: exactly EDGE_BUDGET
+    kernels after at most one memset."""
     kernel = _edge_kernel(variant)
     g = torch.Generator(device=cuda_device).manual_seed(120)
     src = torch.randint(0, 100, (500,), generator=g, device=cuda_device)
     tgt = torch.randint(0, 130, (500,), generator=g, device=cuda_device)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for dtype, most in ((torch.float32, 1), (torch.bfloat16, 2),
-                        (torch.float16, 2)):
+    for dtype, want in zip((torch.float32, torch.bfloat16, torch.float16),
+                           EDGE_BUDGET[variant]):
         args = _edge_inputs(g, cuda_device, 100, 120, 64, 64, 128, src, tgt,
                             dtype)
         kernel(*args, n_src=100, n_tgt=120)
@@ -907,7 +920,153 @@ def test_edge_kernels_launch_budget(cuda_device, variant):
                       if "memset" in ev.key.lower())
         kernels = sum(ev.count for ev in device) - memsets
         assert memsets <= 1, (dtype, device)
-        if dtype == torch.float32:
-            assert kernels == 1, device
-        else:
-            assert 1 <= kernels <= most, (dtype, device)
+        assert kernels == want, (dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# the run kernels fold in a fixed order on sorted ids (carry.cuh)
+# ---------------------------------------------------------------------------
+
+REPEATS = 20
+
+
+def trained_like_ids(device, seed=0):
+    """(ids, n): the trained batch's has_topic shape — E 5175 sorted
+    targets into n 1409 rows, 1051 short runs then one 2697-row run into
+    a valid id (the padding node)."""
+    rng = torch.Generator().manual_seed(seed)
+    # 2478 rows before the long run, at least one a run
+    short = 1 + torch.bincount(torch.randint(0, 1051, (2478 - 1051,),
+                                             generator=rng), minlength=1051)
+    rows = torch.sort(torch.randperm(1408, generator=rng)[:1051]).values
+    ids = torch.cat([torch.repeat_interleave(rows, short),
+                     torch.full((2697,), 1408)])
+    return ids.to(torch.int32).to(device), 1409
+
+
+def drawn_ids(lengths, device, pad=0):
+    """Sorted ids: run i of lengths[i] rows has id 2 i (odd ids stay
+    empty), then `pad` padding rows (id n)."""
+    n = 2 * len(lengths)
+    ids = torch.repeat_interleave(torch.arange(0, n, 2),
+                                  torch.tensor(lengths))
+    ids = torch.cat([ids, torch.full((pad,), n)])
+    return ids.to(torch.int32).to(device), n
+
+
+def _repeats(fn):
+    first = fn()
+    torch.cuda.synchronize()
+    for _ in range(REPEATS - 1):
+        assert torch.equal(fn(), first)
+    return first
+
+
+def _edge_args(g, n_src, n_tgt, e, width, device):
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=device)
+
+    src = torch.randint(0, n_src, (e,), generator=g, device=device,
+                        dtype=torch.int32)
+    return (rand(n_src, width), rand(n_tgt, width), src,
+            rand(2 * width, width, scale=(2 * width) ** -0.5),
+            rand(width, scale=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 128])
+def test_segment_pool_runs_repeats_at_the_trained_shape(cuda_device, dtype,
+                                                        d):
+    """Real-valued sums over sorted ids, the 2697-row run included: 20
+    calls give the same bits, and they match the plain version; shuffled
+    ids still give the right sums."""
+    ids, n = trained_like_ids(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(60 + d)
+    vals = torch.randn(ids.numel(), d, generator=g,
+                       device=cuda_device).to(dtype)
+    got = _repeats(lambda: segment_pool_runs(vals, ids, n_segments=n))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    want = segment_pool_ref(vals, ids, n_segments=n)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    perm = torch.randperm(ids.numel(), generator=g, device=cuda_device)
+    torch.testing.assert_close(
+        segment_pool_runs(vals[perm], ids[perm], n_segments=n), want,
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_mpnn_runs_repeats_at_the_trained_shape(cuda_device, dtype):
+    """The trained conv's shape (1461 sources, 1409 targets, E 5175, 128
+    wide, the 2697-edge run): 20 calls give the same bits and match the
+    plain version; shuffled edges still give the right result."""
+    ids, n = trained_like_ids(cuda_device, seed=1)
+    g = torch.Generator(device=cuda_device).manual_seed(61)
+    h_src, h_tgt, src, w, b = _edge_args(g, 1461, n, ids.numel(), 128,
+                                         cuda_device)
+    args = [t.to(dtype) for t in (h_src, h_tgt, w, b)]
+    kw = dict(n_src=1461, n_tgt=n)
+    got = _repeats(lambda: edge_mpnn_runs(args[0], args[1], src, ids,
+                                          args[2], args[3], **kw))
+    want = edge_mpnn_ref(args[0], args[1], src, ids, args[2], args[3], **kw)
+    # the long run sums 2697 messages: hold it relative to its magnitude
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    scale = want.abs().amax(1, keepdim=True).float().clamp(min=1.0)
+    torch.testing.assert_close((got.float() / scale), want.float() / scale,
+                               rtol=tol, atol=tol)
+    perm = torch.randperm(ids.numel(), generator=g, device=cuda_device)
+    shuffled = edge_mpnn_runs(args[0], args[1], src[perm], ids[perm],
+                              args[2], args[3], **kw)
+    torch.testing.assert_close(shuffled.float() / scale,
+                               want.float() / scale, rtol=tol, atol=tol)
+
+
+try:
+    import hypothesis
+    import hypothesis.strategies as st
+except ImportError:  # the card's machine has hypothesis; the sweep
+    hypothesis = None  # below covers its absence
+
+RUN_LENGTHS = st.lists(st.integers(1, 3000), min_size=1, max_size=10) \
+    if hypothesis is not None else None
+
+
+def _check_drawn_runs(device, lengths, pad, d):
+    ids, n = drawn_ids(lengths, device, pad)
+    g = torch.Generator(device=device).manual_seed(sum(lengths) % 1000)
+    vals = torch.randn(ids.numel(), d, generator=g, device=device)
+    got = _repeats(lambda: segment_pool_runs(vals, ids, n_segments=n))
+    want = segment_pool_ref(vals, ids, n_segments=n)
+    scale = segment_pool_ref(vals.abs(), ids, n_segments=n).clamp(min=1.0)
+    torch.testing.assert_close(got / scale, want / scale, rtol=1e-5,
+                               atol=1e-5)
+    h_src, h_tgt, src, w, b = _edge_args(g, 97, n, ids.numel(), 64, device)
+    kw = dict(n_src=97, n_tgt=n)
+    got = _repeats(lambda: edge_mpnn_runs(h_src, h_tgt, src, ids, w, b,
+                                          **kw))
+    want = edge_mpnn_ref(h_src, h_tgt, src, ids, w, b, **kw)
+    scale = want.abs().amax(1, keepdim=True).clamp(min=1.0)
+    torch.testing.assert_close(got / scale, want / scale, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_run_kernels_repeat_on_drawn_runs_sweep(cuda_device, case):
+    """Seeded sorted run lengths of 1 to 3000 rows (and padding rows),
+    D 4 and 128 for the pool, 64 wide for the edge kernel."""
+    rng = torch.Generator().manual_seed(case)
+    lengths = torch.randint(1, 3001, (int(torch.randint(
+        1, 11, (1,), generator=rng)),), generator=rng).tolist()
+    _check_drawn_runs(cuda_device, lengths, 7 * case, 4 if case % 2
+                      else 128)
+
+
+if hypothesis is not None:
+    @hypothesis.given(RUN_LENGTHS, st.integers(0, 40),
+                      st.sampled_from([4, 128]))
+    @hypothesis.settings(max_examples=15, deadline=None,
+                         suppress_health_check=[
+                             hypothesis.HealthCheck.function_scoped_fixture])
+    def test_run_kernels_repeat_on_hypothesis_runs(cuda_device, lengths,
+                                                   pad, d):
+        """Hypothesis-drawn sorted run lengths of 1 to 3000 rows."""
+        _check_drawn_runs(cuda_device, lengths, pad, d)

@@ -375,3 +375,20 @@ def test_prefetch_reraises_and_joins_on_early_close():
     assert threading.active_count() == before
     assert not any(t.name == "graph-prefetch" and t.is_alive()
                    for t in threading.enumerate())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(num_graphs=24, num_classes=3, feat_dim=16, seed=0),
+    dict(num_graphs=10, num_classes=2, min_nodes=4, max_nodes=6,
+         feat_dim=5, noise=0.5, seed=3)])
+def test_synthetic_graph_classification_is_identical(kw):
+    from repro.data.synthetic import synthetic_graph_classification as j_gc
+    from repro_torch.data.synthetic import synthetic_graph_classification
+    want = j_gc(**kw)
+    got = synthetic_graph_classification(**kw)
+    assert len(got) == len(want) == kw["num_graphs"]
+    for a, b in zip(got, want):
+        assert_graphs_identical(a, b)
+        np.testing.assert_array_equal(a.context["label"],
+                                      b.context["label"])
+        assert a.context["label"].dtype == b.context["label"].dtype

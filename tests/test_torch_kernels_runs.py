@@ -71,7 +71,8 @@ def reference_kernels():
 def test_run_kernels_are_built_with_the_others():
     assert {"segment_pool_runs", "edge_mpnn_runs"} <= set(build.SOURCES)
     assert all(p.is_file() for p in build.SOURCES.values())
-    assert {p.name for p in build.HEADERS} == {"cuda_common.cuh",
+    assert {p.name for p in build.HEADERS} == {"carry.cuh",
+                                               "cuda_common.cuh",
                                                "edge_mma.cuh", "flash_mma.cuh",
                                                "pool.cuh"}
 

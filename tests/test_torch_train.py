@@ -13,9 +13,10 @@
   losses, final parameters and `evaluate`'s metrics must agree within
   rtol 1e-4 / atol 1e-5 (fp32 sums in another order, through 6 Adam
   steps).
-* The Trainer's contract: CUDA unless asked, what this slice leaves out
-  raises, the layout hint is held on the loop's thread and not on a
-  server's engine thread, and `runner.run` is a shim over `fit`.
+* The Trainer's contract: CUDA unless asked, the mesh (not ported yet)
+  raises, checkpointing constructs, the layout hint is held on the loop's
+  thread and not on a server's engine thread, and `runner.run` is a shim
+  over `fit`.
 """
 import dataclasses
 import threading
@@ -400,10 +401,10 @@ def test_trainer_defaults_to_cuda_and_leaves_out_what_is_not_ported(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer().fit(t_model_fn, task,
                       BatcherProvider(tg[:N_TRAIN], BATCH, sizes))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        Trainer(ckpt_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        Trainer(resume=True)
+    # checkpointing is ported: both construct (tests/test_torch_checkpoint.py
+    # drives them)
+    assert Trainer(ckpt_dir="ckpt").ckpt_dir == "ckpt"
+    assert Trainer(resume=True).resume
     with pytest.raises(ValueError, match="mesh"):
         Trainer(num_devices=2)
     with pytest.raises(ValueError, match="eval_at"):
