@@ -34,7 +34,16 @@ five edge sets, 128 wide, LayerNorm -> root-node head, 8 classes):
   `graph_classification` checkpointing to a temporary directory, with a
   run stopped at its first save and resumed that must repeat the
   uninterrupted losses exactly, and one full Graph Networks round
-  against the plain path (`[graphcls]`).
+  against the plain path (`[graphcls]`);
+* the sampler fleet: `[train]`'s run again through
+  `runner.run(sampler="service")` over a process fleet of 2 workers
+  forked from this CUDA-initialized process, each batch copied from
+  pinned buffers on a side stream a step ahead, every loss bit-identical
+  to `[train]`'s (`[service]`); and `repro_torch.orchestration.
+  out_of_core.run` at the example's defaults, a thread fleet against a
+  dial fleet of subprocess workers over an on-disk GraphDirectory:
+  losses exactly equal, each worker's peak RSS below the directory's
+  bytes (`[outofcore]`).
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -1725,12 +1734,14 @@ def eval_plain(torch, params, evaluation) -> dict:
                         metric_keys=keys)
 
 
-def train_phase(torch, raw, spec, card, setup) -> int:
+def train_phase(torch, raw, spec, card, setup) -> dict:
     """Train the sum model: step-1 gradient check, the counted Trainer
     run with its eval pass, the same run twice through the plain
     versions, the eval pass on the trained parameters through the plain
     versions, and the step loop (time split, same-parameter loss
-    parity).  Returns edge_mpnn_runs' launches."""
+    parity).  Returns edge_mpnn_runs' launches ("launches"), the counted
+    run's per-step losses ("losses"), and its median step and batch-wait
+    times ("step_ms", "wait_ms") over the steps after the first."""
     train_roots, eval_roots, sizes = setup
     train = provider(raw, spec, train_roots, sizes)
     evaluation = provider(raw, spec, eval_roots, sizes)
@@ -1796,6 +1807,7 @@ def train_phase(torch, raw, spec, card, setup) -> int:
         fail(f"train: eval {run.metrics['eval']} vs the plain versions on "
              f"the same parameters {plain_eval}")
     step_ms = 1e3 * statistics.median(run.metrics["step_seconds"][1:])
+    wait_ms = 1e3 * statistics.median(run.metrics["batch_wait_seconds"][1:])
     phase("train", f"{card}: {TRAIN_STEPS} steps x {TRAIN_BATCH} roots + "
           f"eval {eval_steps} x {TRAIN_BATCH}; step-1 gradients of "
           f"{n_params} parameters ({reached} reached by the loss on both "
@@ -1813,7 +1825,8 @@ def train_phase(torch, raw, spec, card, setup) -> int:
           f"launches {launches} = "
           f"{launches['edge_mpnn_runs'] // forwards}/forward; Trainer step "
           f"{step_ms:.2f} ms median = {1e3 * TRAIN_BATCH / step_ms:.1f} "
-          f"roots/s")
+          f"roots/s, of it waiting for the batch {wait_ms:.2f} ms median "
+          f"(sampling and the copy, on the loop's thread)")
     profile, step_gap = step_loop(torch, train)
     if step_gap > STEP_LOSS_ATOL:
         fail(f"train: on the same parameters, a step's kernel loss differs "
@@ -1821,7 +1834,9 @@ def train_phase(torch, raw, spec, card, setup) -> int:
     phase("train-profile", f"{profile}; same-parameter loss gap kernel vs "
           f"plain over {TRAIN_STEPS} steps {step_gap:.2e} (atol "
           f"{STEP_LOSS_ATOL})")
-    return launches["edge_mpnn_runs"]
+    return {"launches": launches["edge_mpnn_runs"],
+            "losses": run.metrics["train_losses"], "step_ms": step_ms,
+            "wait_ms": wait_ms}
 
 
 def train_mean_phase(torch, raw, spec, setup) -> int:
@@ -2464,6 +2479,126 @@ def graphcls_phase(torch) -> tuple:
     return launches["edge_mpnn_runs"], launches["segment_pool_runs"]
 
 
+def service_phase(torch, raw, spec, setup, trained, smi) -> int:
+    """[train]'s run again, its batches from a sampler fleet: the §8 model
+    at full width from the same draw, the same roots, sizes and plan, 24
+    steps of 16 roots through `runner.run(sampler="service")` over a
+    "process" fleet of 2 workers, double-buffered (pinned copies a step
+    ahead on a side stream).  The fleet forks this CUDA-initialized
+    process; its workers run numpy only.  Every loss must equal [train]'s
+    kernel run bit for bit (the fleet's stream is the StoreProvider's,
+    and the run kernels fold in a fixed order on sorted ids), with
+    exactly 5 x ROUNDS edge_mpnn_runs a forward and no other kernel.
+    Returns edge_mpnn_runs' launches."""
+    from repro_torch.orchestration import runner
+    from repro_torch.sampling_service import SamplingService
+    train_roots, _, sizes = setup
+    task = root_task()
+    svc = SamplingService(raw, spec, train_roots, batch_size=TRAIN_BATCH,
+                          sizes=sizes, num_workers=2, seed=0, base_seed=0,
+                          backend="process")
+    try:
+        procs = [w.process for w in svc.coordinator.workers.values()]
+        if svc.backend != "process" or not all(
+                hasattr(p_, "pid") for p_ in procs):
+            fail(f"service: the fleet runs backend {svc.backend!r}, not "
+                 "forked processes")
+        zero_launches()
+        run = runner.run(model_fn=lambda: model_parts(torch, "sum"),
+                         task=task, epochs=1, learning_rate=TRAIN_LR,
+                         total_steps=TRAIN_TOTAL, log_every=10 ** 6,
+                         seed=SEED, max_steps=TRAIN_STEPS,
+                         sampler="service", service=svc,
+                         label_fn=task.labels, device=DEVICE)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        marks = svc.watermarks()
+    finally:
+        svc.close(timeout=10.0)
+    if any(p_.is_alive() for p_ in procs):
+        fail("service: a fleet process outlived close()")
+    if run.step != TRAIN_STEPS:
+        fail(f"service: {run.step} steps, expected {TRAIN_STEPS}")
+    want = {"edge_mpnn_runs": 5 * ROUNDS * run.step}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        fail(f"service: launches {launches} for {run.step} forwards "
+             f"({5 * ROUNDS} edge_mpnn_runs per forward expected, no other "
+             "kernel)")
+    losses = run.metrics["train_losses"]
+    if losses != trained["losses"]:
+        fail(f"service: the fleet-fed losses {losses} differ from [train]'s "
+             f"kernel run {trained['losses']}")
+    step_ms = 1e3 * statistics.median(run.metrics["step_seconds"][1:])
+    wait_ms = 1e3 * statistics.median(run.metrics["batch_wait_seconds"][1:])
+    phase("service", f"{smi}: {run.step} steps x {TRAIN_BATCH} roots from "
+          f"a process fleet of 2 workers (watermarks {marks}), "
+          f"double-buffered; all {run.step} losses bit-identical to "
+          f"[train]'s kernel run ({losses[0]:.6f} -> {losses[-1]:.6f}); "
+          f"launches {launches} = {launches['edge_mpnn_runs'] // run.step}"
+          f"/forward; Trainer step {step_ms:.2f} ms median = "
+          f"{1e3 * TRAIN_BATCH / step_ms:.1f} roots/s, waiting for the "
+          f"batch {wait_ms:.2f} ms median; [train] (sampling on the loop's "
+          f"thread): step {trained['step_ms']:.2f} ms, waiting "
+          f"{trained['wait_ms']:.2f} ms")
+    return launches["edge_mpnn_runs"]
+
+
+def outofcore_phase(torch, smi) -> int:
+    """`out_of_core.run` at the example's defaults on the card (24000
+    papers x 1024 fp32 features, 64 roots, 6 steps of 8, hidden 32, 2
+    rounds over cites and written): a thread fleet's run, then a dial
+    fleet of 2 subprocess workers (`python -m
+    repro_torch.storage.dial_worker`, one shard each) over a
+    GraphDirectory in a temporary directory.  The two runs' losses must
+    be exactly equal over as many steps, each worker's peak RSS below the
+    directory's bytes, and each forward exactly 2 rounds x 2 edge sets =
+    4 edge_mpnn_runs, no other kernel.  Returns edge_mpnn_runs'
+    launches."""
+    from repro_torch.orchestration import out_of_core
+    per_forward = 2 * len(out_of_core.EDGES)
+    t0 = time.perf_counter()
+    data = out_of_core.problem()
+    t_data = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        result = out_of_core.run(device=DEVICE, data=data)
+    except RuntimeError as exc:
+        fail(f"outofcore: {exc}")
+    torch.cuda.synchronize()
+    t_runs = time.perf_counter() - t0
+    launches = read_launches()
+    forwards = result.thread.step + result.dial.step
+    want = {"edge_mpnn_runs": per_forward * forwards}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        fail(f"outofcore: launches {launches} for {forwards} forwards "
+             f"({per_forward} edge_mpnn_runs per forward expected, no "
+             "other kernel)")
+    losses = result.dial.metrics["train_losses"]
+    if result.dial.step != out_of_core.STEPS or \
+            losses != result.thread.metrics["train_losses"] or \
+            not np.isfinite(losses).all():
+        fail(f"outofcore: dial {result.dial.step} steps {losses} vs thread "
+             f"{result.thread.step} steps "
+             f"{result.thread.metrics['train_losses']}")
+    total = result.graph_bytes
+    rss = ", ".join(f"worker {w} {peak / 2 ** 20:.1f} MiB (ratio "
+                    f"{peak / total:.3f})"
+                    for w, peak in enumerate(result.peak_rss))
+    step_ms = [1e3 * statistics.median(r.metrics["step_seconds"][1:])
+               for r in (result.thread, result.dial)]
+    phase("outofcore", f"{smi}: {out_of_core.PAPERS} papers x "
+          f"{out_of_core.FEAT_DIM} features, GraphDirectory {total} bytes "
+          f"({total / 2 ** 20:.1f} MiB); thread and dial fleets "
+          f"{result.dial.step} steps each, losses exactly equal "
+          f"({losses[0]:.6f} -> {losses[-1]:.6f}); peak RSS {rss}, all "
+          f"below graph bytes; launches {launches} = "
+          f"{launches['edge_mpnn_runs'] // forwards}/forward; Trainer step "
+          f"thread {step_ms[0]:.2f} ms, dial {step_ms[1]:.2f} ms median; "
+          f"data {t_data:.1f} s, both runs {t_runs:.1f} s (host clock)")
+    return launches["edge_mpnn_runs"]
+
+
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
     first training batch on the card."""
@@ -2501,8 +2636,8 @@ def main() -> int:
 
     records["edge_mpnn"]["launches"] = serve_phase(torch, store, spec, card)
     records["segment_pool"]["launches"] = mean_phase(torch, store, spec)
-    records["edge_mpnn_runs"]["launches"] = train_phase(torch, raw, spec,
-                                                        card, setup)
+    trained = train_phase(torch, raw, spec, card, setup)
+    records["edge_mpnn_runs"]["launches"] = trained["launches"]
     records["segment_pool_runs"]["launches"] = train_mean_phase(
         torch, raw, spec, setup)
     from repro_torch.nn.layers import init_params
@@ -2519,6 +2654,10 @@ def main() -> int:
     (records["edge_mpnn_runs"]["graphcls_launches"],
      records["segment_pool_runs"]["graphcls_launches"]) = graphcls_phase(
         torch)
+    records["edge_mpnn_runs"]["service_launches"] = service_phase(
+        torch, raw, spec, setup, trained, smi)
+    records["edge_mpnn_runs"]["outofcore_launches"] = outofcore_phase(
+        torch, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

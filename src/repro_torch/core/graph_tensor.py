@@ -7,25 +7,34 @@ count per graph component.  Host code (sampling, merge-and-pad) builds
 GraphTensors whose leaves are numpy arrays; `to_device` turns them into
 tensors on one device for the model.  `mask()` and `component_ids()`
 work on either form.
+
+Host code imports this module without torch: the sampler workers (the
+fleet's forked and dial-in processes) are numpy-only, so torch is
+imported only by the functions that make a tensor or name a device, and
+a leaf is a tensor only if torch is already loaded.
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
-import torch
 
 Array = Any  # np.ndarray on the host, torch.Tensor on a device
 
 
 def _is_tensor(x) -> bool:
-    return isinstance(x, torch.Tensor)
+    """True for a torch.Tensor.  Nothing is a tensor before torch is
+    imported, so a numpy-only process never imports it here."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(x, torch.Tensor)
 
 
 def _arange_lt_total(sizes, capacity: int):
     """[capacity] bool: position < sizes.sum() (valid-item mask)."""
     if _is_tensor(sizes):
+        import torch
         return torch.arange(capacity, device=sizes.device) < sizes.sum()
     return np.arange(capacity) < np.asarray(sizes).sum()
 
@@ -34,6 +43,7 @@ def _component_ids(sizes, capacity: int):
     """[capacity] component index per item; padding slots past the last
     size map to len(sizes)."""
     if _is_tensor(sizes):
+        import torch
         bounds = torch.cumsum(sizes, 0)
         pos = torch.arange(capacity, device=sizes.device, dtype=bounds.dtype)
         return torch.searchsorted(bounds, pos, right=True)
@@ -161,17 +171,21 @@ class GraphTensor:
             sizes = [p.sizes for p in (*node_sets.values(),
                                        *edge_sets.values())
                      if _is_tensor(p.sizes)]
-            ones = (torch.ones((1,), dtype=torch.int32,
-                               device=sizes[0].device) if sizes
-                    else np.ones((1,), np.int32))
+            if sizes:
+                import torch
+                ones = torch.ones((1,), dtype=torch.int32,
+                                  device=sizes[0].device)
+            else:
+                ones = np.ones((1,), np.int32)
             context = Context(ones, {})
         return cls(context, node_sets, edge_sets)
 
 
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the current CUDA device when None.  Raises when None
-    is given and no CUDA device exists: the port never moves to the CPU
-    unless asked."""
+def resolve_device(device=None):
+    """`device` as a torch.device, or the current CUDA device when None.
+    Raises when None is given and no CUDA device exists: the port never
+    moves to the CPU unless asked."""
+    import torch
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -184,34 +198,55 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _leaf_to_device(x, device) -> torch.Tensor:
+def _leaf_to_device(x, device, non_blocking: bool = False):
     """numpy leaf -> tensor on `device`.  Integer leaves (ids, sizes,
     labels) become int64, torch's index type; the kernels take int32 ids
-    and the call sites that launch them narrow their own index vectors."""
-    arr = np.asarray(x)
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    and the call sites that launch them narrow their own index vectors.
+
+    ``non_blocking`` with a CUDA `device`: the leaf is written into a
+    pinned host buffer and copied without blocking the host, on the
+    calling thread's current stream; the caller orders its consumers
+    after that stream (`repro_torch.train.train_loop.device_prefetch`).
+    PyTorch's pinned-buffer cache records the copy and hands the buffer
+    out again only once the copy is done."""
+    import torch
+    arr = np.ascontiguousarray(np.asarray(x))
+    if non_blocking and torch.device(device).type == "cuda":
+        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+        if not (dtype.is_floating_point or dtype == torch.bool):
+            dtype = torch.int64
+        host = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+        host.numpy()[...] = arr
+        return host.to(device, non_blocking=True)
+    # a read-only leaf (a batch decoded from the sampler fleet's frames)
+    # is copied: torch does not wrap memory it may not write
+    t = torch.from_numpy(arr) if arr.flags.writeable else torch.tensor(arr)
     if not (t.is_floating_point() or t.dtype == torch.bool):
         t = t.to(torch.int64)
     return t.to(device)
 
 
-def to_device(graph: GraphTensor, device) -> GraphTensor:
-    """Copy a host (numpy) GraphTensor onto `device` as tensors."""
-    def conv(d):
-        return {k: _leaf_to_device(v, device) for k, v in d.items()}
+def to_device(graph: GraphTensor, device, *,
+              non_blocking: bool = False) -> GraphTensor:
+    """Copy a host (numpy) GraphTensor onto `device` as tensors
+    (``non_blocking``: through pinned host buffers, see
+    `_leaf_to_device`)."""
+    def leaf(x):
+        return _leaf_to_device(x, device, non_blocking)
 
-    ctx = Context(_leaf_to_device(graph.context.sizes, device),
-                  conv(graph.context.features))
-    node_sets = {name: NodeSet(_leaf_to_device(ns.sizes, device),
-                               conv(ns.features), ns.capacity)
+    def conv(d):
+        return {k: leaf(v) for k, v in d.items()}
+
+    ctx = Context(leaf(graph.context.sizes), conv(graph.context.features))
+    node_sets = {name: NodeSet(leaf(ns.sizes), conv(ns.features),
+                               ns.capacity)
                  for name, ns in graph.node_sets.items()}
     edge_sets = {}
     for name, es in graph.edge_sets.items():
         adj = es.adjacency
         edge_sets[name] = EdgeSet(
-            _leaf_to_device(es.sizes, device),
-            Adjacency(_leaf_to_device(adj.source, device),
-                      _leaf_to_device(adj.target, device),
+            leaf(es.sizes),
+            Adjacency(leaf(adj.source), leaf(adj.target),
                       adj.source_name, adj.target_name),
             conv(es.features), es.capacity)
     return GraphTensor(ctx, node_sets, edge_sets)
@@ -242,20 +277,24 @@ def _graph_structure(g: GraphTensor) -> tuple:
 
 def _map_graphs(fn, graphs: Sequence[GraphTensor]) -> GraphTensor:
     """Structural map over same-shaped GraphTensors, leaf by leaf — `fn`
-    receives one leaf per input graph, in input order."""
+    receives one leaf per input graph, in input order.  Set and feature
+    names come out sorted, as the reference's pytree map orders them, so
+    a stacked batch flattens (and goes on the wire) in the reference's
+    order."""
     g0 = graphs[0]
     ctx = Context(fn(*[g.context.sizes for g in graphs]),
                   {k: fn(*[g.context.features[k] for g in graphs])
-                   for k in g0.context.features})
+                   for k in sorted(g0.context.features)})
     node_sets = {}
-    for name, ns0 in g0.node_sets.items():
+    for name, ns0 in sorted(g0.node_sets.items()):
         sets = [g.node_sets[name] for g in graphs]
         node_sets[name] = NodeSet(
             fn(*[s.sizes for s in sets]),
-            {k: fn(*[s.features[k] for s in sets]) for k in ns0.features},
+            {k: fn(*[s.features[k] for s in sets])
+             for k in sorted(ns0.features)},
             ns0.capacity)
     edge_sets = {}
-    for name, es0 in g0.edge_sets.items():
+    for name, es0 in sorted(g0.edge_sets.items()):
         sets = [g.edge_sets[name] for g in graphs]
         adj = Adjacency(fn(*[s.adjacency.source for s in sets]),
                         fn(*[s.adjacency.target for s in sets]),
@@ -263,7 +302,8 @@ def _map_graphs(fn, graphs: Sequence[GraphTensor]) -> GraphTensor:
                         es0.adjacency.target_name)
         edge_sets[name] = EdgeSet(
             fn(*[s.sizes for s in sets]), adj,
-            {k: fn(*[s.features[k] for s in sets]) for k in es0.features},
+            {k: fn(*[s.features[k] for s in sets])
+             for k in sorted(es0.features)},
             es0.capacity)
     return GraphTensor(ctx, node_sets, edge_sets)
 
@@ -285,6 +325,7 @@ def stack_graphs(graphs: Sequence[GraphTensor]) -> GraphTensor:
     def _stack(*leaves):
         if all(isinstance(x, np.ndarray) for x in leaves):
             return np.stack(leaves)
+        import torch
         return torch.stack([torch.as_tensor(x) for x in leaves])
 
     return _map_graphs(_stack, graphs)

@@ -1,15 +1,21 @@
 """Rooted subgraph sampling (paper §6.1 + Algorithm 1) — a copy of
-`repro.data.sampling` (GraphStore, the spec builder, `sample_subgraph`,
-`seed_rng`), held to the original by tests/test_torch_host_parity.py.
+`repro.data.sampling`, held to the original by
+tests/test_torch_host_parity.py.
 
 `SamplingSpecBuilder` is the paper's Fig. 6 fluent API; the produced
-`SamplingSpec` drives on-demand sampling for the serving path.  The
-sharded, file-writing sampler of the reference comes with a later slice.
+`SamplingSpec` drives both the in-memory sampler (§6.1.2) and the
+distributed sampler (§6.1.1) — the latter implemented over an
+embarrassingly-parallel shard interface: seeds are partitioned into shards,
+each shard runs Algorithm 1 independently against the (read-only) graph
+store and writes one output file, which is the unit of fault tolerance
+(idempotent re-execution on worker failure, as with the paper's Flume
+pipeline).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Sequence
+import os
+from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -147,8 +153,7 @@ class GraphStore:
     def neighbors_batch(self, edge_set: str,
                         nodes: Sequence[int]) -> list[np.ndarray]:
         """Neighbor lists for `nodes`, in order.  The frontier-expansion
-        hook: partitioned stores (the reference's
-        repro.storage.ShardedGraphStore)
+        hook: partitioned stores (repro_torch.storage.ShardedGraphStore)
         override this to batch cross-shard lookups into one request per
         peer instead of one round-trip per node."""
         return [self.neighbors(edge_set, int(u)) for u in nodes]
@@ -254,5 +259,72 @@ def seed_rng(base_seed: int, root: int) -> np.random.Generator:
     which worker/shard draws it, in what order, or how many there are —
     which is what lets `distributed_sample` re-run a failed shard
     idempotently and lets the async sampler fleet
-    (`repro.sampling_service`) reproduce the in-process stream exactly."""
+    (`repro_torch.sampling_service`) reproduce the in-process stream
+    exactly."""
     return np.random.default_rng((base_seed, int(root)))
+
+
+class InMemorySampler:
+    """Medium-scale path (§6.1.2): samples on demand, nothing persisted.
+    Per-root generators (see `seed_rng`): ``sample([a, b]) ==
+    sample([b, a])`` element-wise, and equals what `distributed_sample`
+    persists for the same roots and base seed."""
+
+    def __init__(self, store: GraphStore, spec: SamplingSpec, *,
+                 seed: int = 0,
+                 rng_factory: Callable[[int], np.random.Generator]
+                 | None = None):
+        """`rng_factory(root) -> Generator` overrides the default
+        `seed_rng(seed, root)` derivation — the injection point for
+        callers that manage their own seed tree.  The factory must stay
+        a pure function of the root or the per-root determinism contract
+        above is lost."""
+        self.store = store
+        self.spec = spec
+        self.seed = seed
+        self._rng_factory = rng_factory or (
+            lambda root: seed_rng(self.seed, root))
+
+    def sample(self, roots: Sequence[int]) -> list[GraphTensor]:
+        return [sample_subgraph(self.store, self.spec, int(r),
+                                self._rng_factory(int(r)))
+                for r in roots]
+
+
+def shard_partition(seeds: Sequence[int], num_shards: int
+                    ) -> list[np.ndarray]:
+    """The sampler's shard striping (``seeds[s::num_shards]``) — the
+    single owner of how `distributed_sample` partitions roots into shard
+    files, so consumers that need the file-order root list (e.g. to feed
+    the same roots to the sampling service) derive it from here instead
+    of re-implementing the stride."""
+    seeds = np.asarray(seeds)
+    return [seeds[shard::num_shards] for shard in range(num_shards)]
+
+
+def distributed_sample(store: GraphStore, spec: SamplingSpec,
+                       seeds: Sequence[int], out_dir: str, *,
+                       num_shards: int = 4, base_seed: int = 0,
+                       writer: Callable | None = None) -> list[str]:
+    """Large-scale path (§6.1.1): shard the seeds, run Algorithm 1 per
+    shard, persist one file per shard (the fault-tolerance unit — a failed
+    shard is simply re-run; output write is atomic via tmp+rename).
+
+    Deterministic regardless of `num_shards`: each root draws from
+    `seed_rng(base_seed, root)`, so the union of sampled subgraphs over
+    all shards is a pure function of (seeds, base_seed) — only the
+    grouping into files depends on the shard count."""
+    from repro_torch.data.serialization import save_graphs
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for shard, shard_seeds in enumerate(shard_partition(seeds, num_shards)):
+        graphs = [sample_subgraph(store, spec, int(s),
+                                  seed_rng(base_seed, int(s)))
+                  for s in shard_seeds]
+        path = os.path.join(out_dir, f"samples-{shard:05d}-of-"
+                                     f"{num_shards:05d}.npz")
+        tmp = path + ".tmp"
+        (writer or save_graphs)(graphs, tmp)
+        os.replace(tmp, path)
+        paths.append(path)
+    return paths

@@ -1,18 +1,21 @@
 """DatasetProviders — the stream-owning piece of the orchestration layer
 (counterpart of `repro.orchestration.providers`).
 
-One iterator contract (the `GraphBatcher` shape) in front of the batch
-sources this slice has:
+One iterator contract (the `GraphBatcher` shape) in front of every batch
+source the port has:
 
   * `BatcherProvider`   — in-memory pre-sampled graphs via `GraphBatcher`;
-  * `StoreProvider`     — any `GraphStore`: samples each step's roots on
+  * `ServiceProvider`   — a sampler fleet
+    (`repro_torch.sampling_service.SamplingService`: forked, threaded or
+    out-of-core dial-in workers), or anything else already speaking the
+    batcher contract; sampling then runs off the trainer's thread;
+  * `StoreProvider`     — any `GraphStore` (in-memory OR an out-of-core
+    `repro_torch.storage.MmapGraphStore`): samples each step's roots on
     the fly through Algorithm 1 and batches them with the shared
     `BatchPlan`/`build_batch` math, so its stream is bit-identical to a
     `BatcherProvider` over the same roots' subgraphs;
   * `IteratorProvider`  — wraps any ``fn(epoch) -> iterator`` (what
     `runner.run(train_batches=)` compiles down to).
-
-The sampler-fleet `ServiceProvider` comes with the sampling-service port.
 
 The contract:
 
@@ -87,8 +90,44 @@ class BatcherProvider(DatasetProvider):
         return self.batcher.epoch(epoch, start_step=start_step)
 
 
+class ServiceProvider(DatasetProvider):
+    """A sampler fleet behind the contract.
+
+    ``source`` is anything with the batcher shape — a `SamplingService`
+    or another provider.  ``own=True`` makes `close()` close the source
+    (the Trainer closes providers it is handed only through this flag,
+    so a service shared across runs stays up).  ``label_fn`` computes
+    labels host-side per batch (the ``runner.run(label_fn=)`` contract);
+    without it the Task extracts labels itself.  The layout bit is the
+    source's plan's, None when the source carries no plan."""
+
+    def __init__(self, source, *, own: bool = False,
+                 label_fn: Optional[Callable] = None):
+        self.source = source
+        self.own = own
+        self.label_fn = label_fn
+        plan = getattr(source, "plan", None)
+        self.edges_sorted_by_target = getattr(
+            plan, "edges_sorted_by_target", None)
+
+    @property
+    def num_steps(self) -> int:
+        return self.source.num_steps
+
+    def epoch(self, epoch: int, *, start_step: int = 0) -> Iterator:
+        stream = self.source.epoch(epoch, start_step=start_step)
+        if self.label_fn is None:
+            return stream
+        return ((g, self.label_fn(g)) for g in stream)
+
+    def close(self) -> None:
+        if self.own:
+            self.source.close()
+
+
 class StoreProvider(DatasetProvider):
-    """Sample-on-demand provider over any `GraphStore`.
+    """Sample-on-demand provider over any `GraphStore` — including an
+    out-of-core `repro_torch.storage.MmapGraphStore`.
 
     Each step samples exactly that step's roots (Algorithm 1 with the
     per-root `seed_rng(base_seed, root)` generators) and builds the batch

@@ -9,8 +9,8 @@ orchestration pieces —
   `repro_torch.orchestration.trainer`    Trainer: steps, loop, eval
 
 — and delegates to `Trainer.fit`, kwarg for kwarg as the reference
-composes them.  This slice runs ``sampler="in_process"``; the sampling
-service (``sampler="service"``) comes with its port and raises here.
+composes them: ``sampler="in_process"`` over ``train_batches``, or
+``sampler="service"`` over a `repro_torch.sampling_service` fleet.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 
 from repro_torch.core.graph_tensor import GraphTensor
-from repro_torch.orchestration.providers import IteratorProvider
+from repro_torch.orchestration.providers import (IteratorProvider,
+                                                 ServiceProvider)
 # re-exports, as the reference's runner makes them: `from
 # repro_torch.orchestration.runner import <task>` keeps working
 from repro_torch.orchestration.tasks import (  # noqa: F401
@@ -57,22 +58,36 @@ def run(*, train_batches: Optional[Callable[[int],
     model_fn() -> (init_states_module, gnn_module); both take and return
     GraphTensors.  train_batches(epoch) yields (padded GraphTensor,
     labels[C]) or bare graphs (labels then come from ``task.labels``).
+    ``sampler="service"`` instead streams from ``service`` (a
+    `repro_torch.sampling_service.SamplingService`) with
+    ``label_fn(graph)`` extracting labels host-side, and places batches
+    on the device a step ahead by default (``double_buffer``: pinned
+    host copies on a side CUDA stream, `train_loop.device_prefetch`).
     ``device`` and ``params`` go to the Trainer (CUDA by default; a
     reference parameter tree instead of the seeded draw)."""
-    if sampler != "in_process":
-        raise ValueError(f"sampler {sampler!r} is not ported yet (the "
-                         "sampling-service slice); use 'in_process'")
-    if service is not None or label_fn is not None:
-        raise ValueError("service= and label_fn= belong to "
-                         "sampler='service', which is not ported yet")
-    if train_batches is None:
-        raise ValueError("sampler='in_process' needs train_batches=")
-    provider = IteratorProvider(train_batches)
-    if edges_sorted_by_target is None:
-        # GraphBatcher sorts by (component, target) by default
-        edges_sorted_by_target = True
+    if sampler == "service":
+        if service is None or label_fn is None:
+            raise ValueError("sampler='service' needs service= (a "
+                             "SamplingService) and label_fn=")
+        provider = ServiceProvider(service, label_fn=label_fn)
+        if edges_sorted_by_target is None:
+            # trust the plan's layout bit when the handle exposes it; a
+            # wrong hint costs kernel speed, never correctness
+            edges_sorted_by_target = bool(getattr(
+                getattr(service, "plan", None), "edges_sorted_by_target",
+                True))
+    elif sampler == "in_process":
+        if train_batches is None:
+            raise ValueError("sampler='in_process' needs train_batches=")
+        provider = IteratorProvider(train_batches)
+        if edges_sorted_by_target is None:
+            # GraphBatcher sorts by (component, target) by default
+            edges_sorted_by_target = True
+    else:
+        raise ValueError(f"unknown sampler {sampler!r} "
+                         "(want 'in_process' or 'service')")
     if double_buffer is None:
-        double_buffer = False
+        double_buffer = sampler == "service"
 
     eval_provider = (IteratorProvider(lambda epoch: eval_batches())
                      if eval_batches is not None else None)
@@ -92,5 +107,6 @@ def run(*, train_batches: Optional[Callable[[int],
     if eval_provider is not None:
         metrics["eval_accuracy"] = result.metrics["eval"]["accuracy"]
     metrics["params"] = result.metrics["params"]
-    metrics["train_losses"] = result.metrics["train_losses"]
+    for key in ("train_losses", "step_seconds", "batch_wait_seconds"):
+        metrics[key] = result.metrics[key]
     return RunResult(result.step, result.train_loss, metrics)

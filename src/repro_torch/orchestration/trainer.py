@@ -136,7 +136,9 @@ class Trainer:
         """Train `task` over `train_provider`; returns the final step,
         last train loss, and a metrics dict with "params" ({name:
         tensor}), "train_losses" and "step_seconds" (one per step, host
-        clock, each ending when the step's loss reached the host), plus
+        clock, each ending when the step's loss reached the host) and
+        "batch_wait_seconds" (the part of each step spent waiting for its
+        placed batch: sampling and the copy, or the prefetch queue), plus
         "eval", "eval_history", "best_step" when an eval stream ran.
 
         ``params``: a parameter tree ``{"init", "gnn", "head"}`` in the
@@ -180,14 +182,18 @@ class Trainer:
         if esbt is None:
             esbt = True  # the producers' default
 
-        def place(graph, labels):
-            """Host batch -> device batch."""
+        def place(graph, labels, non_blocking=False):
+            """Host batch -> device batch (``non_blocking``: through
+            pinned buffers, for `device_prefetch`'s side stream)."""
             if stack_size(graph) is not None:
                 raise ValueError(
                     "stacked [R, ...] super-batches need the mesh; build "
                     "batches with num_replicas=None")
-            return (to_device(graph, device),
-                    torch.as_tensor(labels).to(device))
+            labels = torch.as_tensor(labels)
+            if non_blocking and device.type == "cuda":
+                labels = labels.pin_memory()
+            return (to_device(graph, device, non_blocking=non_blocking),
+                    labels.to(device, non_blocking=non_blocking))
 
         train_step = make_graph_train_step(loss_fn, opt)
         eval_step = make_graph_eval_step(metric_fn)
@@ -215,7 +221,7 @@ class Trainer:
             else None)
         stop_early = False
         eval_history = []
-        losses, step_seconds = [], []
+        losses, step_seconds, waits = [], [], []
         last_loss = float("nan")
         cur_epoch = start_epoch
         step_in_epoch = epoch_start_step
@@ -245,7 +251,7 @@ class Trainer:
                     train_provider.epoch(epoch, start_step=start), task,
                     epoch, start)
                 if self.double_buffer:
-                    placed = device_prefetch(pairs, place)
+                    placed = device_prefetch(pairs, place, device=device)
                 else:
                     placed = (place(g, l) for g, l in pairs)
                 step_in_epoch = start
@@ -255,6 +261,7 @@ class Trainer:
                             and step >= self.max_steps:
                         placed.close()  # joins the device_prefetch thread
                         break
+                    waits.append(time.perf_counter() - t_step)
                     named, opt_state, loss = train_step(
                         named, opt_state, graph, labels)
                     step += 1
@@ -311,4 +318,5 @@ class Trainer:
         metrics["params"] = {k: p.detach() for k, p in named.items()}
         metrics["train_losses"] = losses
         metrics["step_seconds"] = step_seconds
+        metrics["batch_wait_seconds"] = waits
         return RunResult(step, last_loss, metrics)

@@ -15,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.graph_tensor import GraphTensor
 from repro_torch.data.pipeline import prefetch
 
 
@@ -66,11 +67,67 @@ def make_graph_eval_step(metric_fn: Callable) -> Callable:
     return eval_step
 
 
-def device_prefetch(batches, place: Callable, *, depth: int = 2):
+def device_prefetch(batches, place: Callable, *, depth: int = 2,
+                    device=None):
     """Run `place` (host -> device) for the next batches on a background
     thread while the caller runs the current step (the
     `repro_torch.data.pipeline.prefetch` contract: errors re-raise at the
-    consumer, early close joins the thread).  The copy itself is
-    `to_device`'s, from pageable memory; pinned buffers and a side CUDA
-    stream are later work."""
-    return prefetch((place(*b) for b in batches), depth=depth)
+    consumer, early close joins the thread).
+
+    On a CUDA `device`, ``place(*batch, non_blocking=True)`` runs under a
+    side stream: each leaf is written into a pinned host buffer and
+    copied from there without blocking the host, so the copies of batch
+    k + 1 overlap step k.  An event recorded on the side stream after
+    each batch's copies is what the consumer's stream waits on before
+    the batch is handed over, and every placed tensor is marked as used
+    on the consumer's stream (`record_stream`), so the caching allocator
+    does not give its memory to another tensor before the step that
+    reads it has run.  On any other device (or ``device=None``) `place`
+    runs as it is, on the thread."""
+    if device is None or torch.device(device).type != "cuda":
+        return prefetch((place(*b) for b in batches), depth=depth)
+    return _cuda_prefetch(batches, place, depth, torch.device(device))
+
+
+def _tensors(tree):
+    """Every tensor of a placed batch: a GraphTensor, tensors, tuples."""
+    if isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _tensors(x)
+    elif isinstance(tree, GraphTensor):
+        ctx = tree.context
+        yield ctx.sizes
+        yield from ctx.features.values()
+        for ns in tree.node_sets.values():
+            yield ns.sizes
+            yield from ns.features.values()
+        for es in tree.edge_sets.values():
+            yield es.sizes
+            yield es.adjacency.source
+            yield es.adjacency.target
+            yield from es.features.values()
+    elif hasattr(tree, "record_stream"):
+        yield tree
+
+
+def _cuda_prefetch(batches, place, depth: int, device):
+    copy_stream = torch.cuda.Stream(device)
+
+    def staged():
+        for b in batches:
+            with torch.cuda.stream(copy_stream):
+                placed = place(*b, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            yield placed, done
+
+    ahead = prefetch(staged(), depth=depth)
+    try:
+        for placed, done in ahead:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(done)
+            for t in _tensors(placed):
+                t.record_stream(stream)
+            yield placed
+    finally:
+        ahead.close()  # joins the prefetch thread on an early close

@@ -9,7 +9,10 @@ Tolerances: fp32 rtol/atol 1e-5 (atomic sums run in varying order; the
 flash kernel's online softmax reorders its sums), bf16 2e-2; max/min and
 integer-valued sums exact; gradients of the autograd Functions against
 the plain versions' rtol 1e-5 (pooling) and 1e-4 (edge_mpnn and flash
-attention, whose backwards recompute a product).
+attention, whose backwards recompute a product).  The sampler-fleet
+path's two tests are exact: `device_prefetch`'s pinned side-stream
+copies against a blocking `to_device`, and a thread-fleet
+`runner.run(sampler="service")` against itself.
 """
 import pytest
 import torch
@@ -1070,3 +1073,125 @@ if hypothesis is not None:
                                                    pad, d):
         """Hypothesis-drawn sorted run lengths of 1 to 3000 rows."""
         _check_drawn_runs(cuda_device, lengths, pad, d)
+
+
+# ---------------------------------------------------------------------------
+# the sampler-fleet path: pinned double-buffered placement, and the
+# service runner on the card
+# ---------------------------------------------------------------------------
+
+def _fleet_problem():
+    """A small synthetic MAG, the cites/written spec, 64 roots and the
+    size constraints of an 8-root batch (all host-side numpy)."""
+    from repro_torch.core.schema import mag_schema
+    from repro_torch.data.batching import find_size_constraints
+    from repro_torch.data.sampling import (InMemorySampler,
+                                           SamplingSpecBuilder)
+    from repro_torch.data.synthetic import synthetic_mag
+    store, _ = synthetic_mag(n_papers=400, n_authors=100, n_institutions=8,
+                             n_fields=24, n_classes=8, feat_dim=32)
+    b = SamplingSpecBuilder(mag_schema())
+    seed_op = b.seed("paper")
+    seed_op.sample(8, "cites").join([seed_op]).sample(4, "written")
+    spec = seed_op.build()
+    roots = list(range(64))
+    graphs = InMemorySampler(store, spec, seed=0).sample(roots)
+    return store, spec, roots, graphs, find_size_constraints(graphs, 8)
+
+
+def _assert_placed_equal(got, want):
+    from repro_torch.train.train_loop import _tensors
+    got, want = list(_tensors(got)), list(_tensors(want))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_device_prefetch_equals_to_device_over_epochs(cuda_device):
+    """Two epochs at depth 2 through pinned buffers and the side stream,
+    with a slow consumer (the copies run ahead, pinned and device blocks
+    are freed and handed out again): every batch bit-identical to a
+    blocking `to_device`, when it arrives and again after the epochs."""
+    from repro_torch.core.graph_tensor import to_device
+    from repro_torch.data.pipeline import GraphBatcher
+    from repro_torch.orchestration.tasks import (
+        RootNodeMulticlassClassification)
+    from repro_torch.train.train_loop import device_prefetch
+    _, _, _, graphs, sizes = _fleet_problem()
+    batcher = GraphBatcher(graphs, 8, sizes, seed=0)
+    task = RootNodeMulticlassClassification("paper", 8, 16)
+    calls = []
+
+    def place(graph, labels, non_blocking=False):
+        calls.append(non_blocking)
+        lab = torch.as_tensor(labels).pin_memory()
+        return (to_device(graph, cuda_device, non_blocking=non_blocking),
+                lab.to(cuda_device, non_blocking=non_blocking))
+
+    kept, spin = [], torch.randn(2048, 2048, device=cuda_device)
+    for epoch in (0, 1):
+        pairs = [(g, task.labels(g)) for g in batcher.epoch(epoch)]
+        for (graph, labels), placed in zip(pairs, device_prefetch(
+                iter(pairs), place, depth=2, device=cuda_device)):
+            for _ in range(20):  # keep the consumer's stream busy
+                spin = torch.tanh(spin @ spin * 1e-3)
+            want = (to_device(graph, cuda_device),
+                    torch.as_tensor(labels).to(cuda_device))
+            _assert_placed_equal(placed, want)
+            kept.append((placed, want))
+    torch.cuda.synchronize()
+    assert calls and all(calls) and len(kept) == 2 * batcher.num_steps
+    for placed, want in kept:
+        _assert_placed_equal(placed, want)
+
+
+def test_runner_service_thread_fleet_repeats_bit_for_bit(cuda_device):
+    """runner.run(sampler="service") over a thread fleet on the card,
+    twice from the same draw: the same losses, bit for bit (the batches
+    are target-sorted, and the run kernels fold in a fixed order)."""
+    from repro_torch.core.graph_tensor import HIDDEN_STATE
+    from repro_torch.core.models import vanilla_mpnn
+    from repro_torch.nn.layers import Embedding, Linear
+    from repro_torch.orchestration import runner
+    from repro_torch.orchestration.tasks import (
+        RootNodeMulticlassClassification)
+    from repro_torch.sampling_service import SamplingService
+    store, spec, roots, _, sizes = _fleet_problem()
+    dim = 16
+
+    class Init(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.paper = Linear(32, dim)
+            self.author = Embedding(128, dim)
+
+        def forward(self, graph):
+            ids = graph.node_sets["author"]["id"] % 128
+            return graph.replace_features(node_sets={
+                "paper": {HIDDEN_STATE: torch.relu(self.paper(
+                    graph.node_sets["paper"]["feat"]))},
+                "author": {HIDDEN_STATE: self.author(
+                    ids, dtype=torch.float32)}})
+
+    def model_fn():
+        return Init(), vanilla_mpnn(
+            {"cites": ("paper", "paper"), "written": ("paper", "author")},
+            {"paper": dim, "author": dim}, message_dim=dim, hidden_dim=dim,
+            num_rounds=2)
+
+    task = RootNodeMulticlassClassification("paper", 8, dim)
+    runs = []
+    for _ in range(2):
+        with SamplingService(store, spec, roots, batch_size=8, sizes=sizes,
+                             num_workers=2, seed=0,
+                             backend="thread") as svc:
+            runs.append(runner.run(
+                model_fn=model_fn, task=task, epochs=2, learning_rate=3e-3,
+                total_steps=100, log_every=10 ** 6, max_steps=12,
+                sampler="service", service=svc, label_fn=task.labels,
+                device=cuda_device))
+    assert runs[0].step == 12
+    losses = runs[0].metrics["train_losses"]
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert losses == runs[1].metrics["train_losses"]

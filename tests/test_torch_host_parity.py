@@ -392,3 +392,88 @@ def test_synthetic_graph_classification_is_identical(kw):
         np.testing.assert_array_equal(a.context["label"],
                                       b.context["label"])
         assert a.context["label"].dtype == b.context["label"].dtype
+
+
+# ---------------------------------------------------------------------------
+# sampler-fleet host copies: the on-demand and sharded samplers, and the
+# flat-dict serialization the frames and sample files carry
+# ---------------------------------------------------------------------------
+
+def test_in_memory_sampler_and_shard_partition_are_identical(stores):
+    (js, _), (ts, _) = stores
+    jspec = section8_spec(j_sampling, js.schema, 2)
+    tspec = section8_spec(t_sampling, ts.schema, 2)
+    roots = [7, 3, 41, 3]
+    for kw in (dict(seed=0), dict(seed=5)):
+        for a, b in zip(j_sampling.InMemorySampler(js, jspec, **kw)
+                        .sample(roots),
+                        t_sampling.InMemorySampler(ts, tspec, **kw)
+                        .sample(roots)):
+            assert_graphs_identical(a, b)
+    # a root's subgraph is a pure function of the root, in any order
+    fwd = t_sampling.InMemorySampler(ts, tspec).sample([1, 2])
+    rev = t_sampling.InMemorySampler(ts, tspec).sample([2, 1])
+    assert_graphs_identical(fwd[0], rev[1])
+    factory = t_sampling.InMemorySampler(
+        ts, tspec, rng_factory=lambda r: t_sampling.seed_rng(9, r))
+    assert_graphs_identical(factory.sample([4])[0],
+                            t_sampling.InMemorySampler(ts, tspec, seed=9)
+                            .sample([4])[0])
+    for n in (1, 3, 4):
+        for a, b in zip(j_sampling.shard_partition(range(10), n),
+                        t_sampling.shard_partition(range(10), n)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_distributed_sample_files_load_identically(stores, tmp_path):
+    """Each package's shard files hold the same graphs, in file order,
+    and each package loads the other's files."""
+    from repro.data.serialization import load_graphs as j_load
+    from repro_torch.data.serialization import load_graphs as t_load
+    (js, _), (ts, _) = stores
+    roots = list(range(10))
+    jp = j_sampling.distributed_sample(
+        js, section8_spec(j_sampling, js.schema, 2), roots,
+        str(tmp_path / "j"), num_shards=3, base_seed=2)
+    tp = t_sampling.distributed_sample(
+        ts, section8_spec(t_sampling, ts.schema, 2), roots,
+        str(tmp_path / "t"), num_shards=3, base_seed=2)
+    assert [p.rsplit("/", 1)[1] for p in jp] == \
+        [p.rsplit("/", 1)[1] for p in tp]
+    for jpath, tpath in zip(jp, tp):
+        want = j_load(jpath)
+        for got in (t_load(tpath), t_load(jpath)):
+            assert len(got) == len(want)
+            for a, b in zip(want, got):
+                assert_graphs_identical(a, b)
+        for a, b in zip(j_load(tpath), want):
+            assert_graphs_identical(a, b)
+
+
+@pytest.mark.parametrize("num_replicas", [None, 2])
+def test_graph_to_flat_and_back_are_identical(sampled, num_replicas):
+    """Scalar and stacked [R, ...] batches flatten to the same keys, in
+    the same order, with `#capacity`; each package rebuilds the other's
+    flat dict; a file without `#capacity` falls back to the shapes."""
+    from repro.data import serialization as j_ser
+    from repro.data.batching import find_size_constraints as j_find
+    from repro_torch.data import serialization as t_ser
+    jg, tg = sampled
+    kw = dict(batch_size=8, num_replicas=num_replicas)
+    sizes = j_find(jg, 8 // (num_replicas or 1))
+    jb = j_grouping.build_batch(jg[:8], j_grouping.BatchPlan(**kw), sizes)
+    tb = t_grouping.build_batch(tg[:8], t_grouping.BatchPlan(**kw), sizes)
+    jflat, tflat = j_ser.graph_to_flat(jb, "x/"), t_ser.graph_to_flat(tb,
+                                                                       "x/")
+    assert list(jflat) == list(tflat)
+    for k in jflat:
+        np.testing.assert_array_equal(jflat[k], tflat[k])
+        assert jflat[k].dtype == tflat[k].dtype
+    assert_graphs_identical(t_ser.flat_to_graph(tflat, "x/"), tb)
+    assert_graphs_identical(t_ser.flat_to_graph(jflat, "x/"), jb)
+    assert t_gt.stack_size(t_ser.flat_to_graph(tflat, "x/")) == num_replicas
+    if num_replicas is None:
+        legacy = {k: v for k, v in tflat.items()
+                  if not k.endswith("#capacity")}
+        assert_graphs_identical(t_ser.flat_to_graph(legacy, "x/"),
+                                j_ser.flat_to_graph(legacy, "x/"))

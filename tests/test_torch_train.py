@@ -353,8 +353,8 @@ def test_training_run_matches_jax(data, jax_run):
 def test_runner_run_is_a_shim_over_fit(data, jax_run):
     """runner.run(train_batches=...) trains the trajectory Trainer.fit
     trains with the reference's runner defaults (warmup 50), here with
-    double-buffered placement (device_prefetch); the samplers this slice
-    does not have raise."""
+    double-buffered placement (device_prefetch); ``sampler="service"``
+    without a fleet and a label_fn raises, as in the reference."""
     _, tg, sizes = data
     initial = jax_run[0]
     task = RootNodeMulticlassClassification("paper", N_CLASSES, DIM)
@@ -371,7 +371,7 @@ def test_runner_run_is_a_shim_over_fit(data, jax_run):
     np.testing.assert_allclose(res.metrics["train_losses"],
                                want.metrics["train_losses"], rtol=1e-6)
     assert 0.0 <= res.metrics["eval_accuracy"] <= 1.0
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="needs service="):
         t_runner.run(model_fn=t_model_fn, task=task, sampler="service")
 
 
