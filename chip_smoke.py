@@ -15,8 +15,22 @@ causal GQA prefill.  Then it drives the port's paths at the full width
 of the §8 OGBN-MAG model (init states -> 4-round vanilla_mpnn over all
 five edge sets, 128 wide, LayerNorm -> root-node head, 8 classes):
 
-* serving: `repro_torch.serve.gnn.GNNServer` on the card, and the
-  mean-pooling variant of the same model (`[serve]`, `[mean]`);
+* serving: `repro_torch.serve.gnn.GNNServer` on the card, the same
+  requests served twice in one call, eagerly and from one CUDA graph per
+  bucket rung captured at warmup (`[serve]`, with a rung-8 batch's host
+  stages, forward wall and device busy for both in `[profile]`); the
+  mean-pooling variant of the same model from captured graphs
+  (`[mean]`); then load generation through `repro_torch.serve.loadgen`
+  over all 20000 papers (a closed loop of 4 clients x 125, an open loop
+  at half its QPS for 5 s), the freshness step (`add_edges` bumps the
+  store's version, stale entries are evicted, the resampled root's
+  logits match the plain forward) and the twin
+  `repro_torch.orchestration.gnn_serve.main([])` at the example's
+  defaults, which must exit 0 (`[serveloop]`).  With graphs, launches
+  are counted at capture (each rung's capture must hold the forward's
+  20 `edge_mpnn` or `segment_pool` launches, replays none) and one
+  replay of each rung is read through torch.profiler (20 such device
+  kernels, no run kernel, no copy);
 * training: `repro_torch.orchestration.trainer.Trainer` over a
   `StoreProvider` of target-sorted 16-root batches, AdamW +
   warmup-cosine, then an eval pass (`[train]`, `[train-mean]`), with the
@@ -78,6 +92,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import itertools
 import json
 import os
@@ -225,7 +240,8 @@ def device_per_call(torch, fn, calls: int = 20, tries: int = 6) -> dict:
     says how many such events), and a larger shortfall leaves its count
     fractional, so that a launch budget fails.  A name's device µs are
     its mean per event times its launches a call; `by_name` splits the
-    device µs by kernel name (memsets under "memset")."""
+    device µs by kernel name (memsets under "memset"),
+    `launches_by_name` the launches a call by the same names."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -242,7 +258,7 @@ def device_per_call(torch, fn, calls: int = 20, tries: int = 6) -> dict:
                   if getattr(ev, "device_type", None) == cuda and ev.count]
         if events and all(ev.count % calls == 0 for ev in events):
             break
-    us, kernels, memsets, missed, by_name = 0.0, 0.0, 0.0, 0, {}
+    us, kernels, memsets, missed, by_name, counts = 0.0, 0.0, 0.0, 0, {}, {}
     for ev in events:
         launches = ev.count / calls
         if -ev.count % calls == 1:  # one event missed
@@ -259,9 +275,10 @@ def device_per_call(torch, fn, calls: int = 20, tries: int = 6) -> dict:
             name = (name.split("(")[0].split("<")[0].split("::")[-1]
                     .removeprefix("void "))
         by_name[name] = by_name.get(name, 0.0) + ev_us
+        counts[name] = counts.get(name, 0.0) + launches
     return dict(device_us=us, kernels=kernels, memsets=memsets,
                 missed=missed, names=sorted(set(by_name) - {"memset"}),
-                by_name=by_name)
+                by_name=by_name, launches_by_name=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -1223,7 +1240,7 @@ def build_model(torch, reduce_type: str):
         def forward(self, graph):
             return self.task.predict(self.head, self.gnn(self.init(graph)))
 
-    return init_params(Served(), SEED).to("cuda").eval()
+    return init_params(Served(), SEED).to(DEVICE).eval()
 
 
 def section8_spec(schema):
@@ -1249,7 +1266,7 @@ def plain_logits(torch, server, store, spec, roots):
               for r in roots]
     sizes = server.ladder.sizes[server.ladder.bucket_for(len(roots))]
     with registry.plain_versions():
-        return server.run_batch(merge_and_pad(graphs, sizes))[:len(roots)]
+        return server.run_eager(merge_and_pad(graphs, sizes))[:len(roots)]
 
 
 def check_logits(name, got, want, n):
@@ -1297,7 +1314,10 @@ def device_profile(torch, prof) -> tuple:
 def breakdown(torch, server, model, store, spec, roots) -> str:
     """Where one rung-8 request batch spends its time: host stages on the
     host clock (each ending in a synchronize), the forward's device time
-    from CUDA events, and device time by kernel from torch.profiler."""
+    from CUDA events, and device time by kernel from torch.profiler.
+    Eagerly the copy in is `to_device` and the forward the model's
+    launches plus the copy out; with graphs the copy in is the rung's
+    pinned stage and the forward its replay plus the copy out."""
     from repro_torch.core.graph_tensor import to_device
     from repro_torch.data.grouping import merge_and_pad
     from repro_torch.data.sampling import sample_subgraph, seed_rng
@@ -1306,29 +1326,43 @@ def breakdown(torch, server, model, store, spec, roots) -> str:
     t1 = time.perf_counter()
     merged = merge_and_pad(graphs, server.ladder.sizes[len(roots)])
     t2 = time.perf_counter()
-    g = to_device(merged, server.device)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
+    if server.capture_graphs:
+        rung_graph = server._graphs[len(roots)]
+        rung_graph.stage(merged)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+
+        def forward():
+            return rung_graph.replay(server.device)
+    else:
+        g = to_device(merged, server.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+
+        def forward():
+            return model(g).cpu()
     with torch.inference_mode():
-        model(g)
+        forward()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t4 = time.perf_counter()
         start.record()
-        model(g).cpu()
+        forward()
         end.record()
         torch.cuda.synchronize()
         t5 = time.perf_counter()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            model(g).cpu()
+            forward()
             torch.cuda.synchronize()
     busy_ms, n_kernels, profile = device_profile(torch, prof)
     fwd_ms = (t5 - t4) * 1e3
-    return (f"rung {len(roots)}: sample {(t1 - t0) * 1e3:.2f} ms, "
-            f"merge+pad {(t2 - t1) * 1e3:.2f} ms, to_device "
+    mode = "graph replay" if server.capture_graphs else "eager"
+    copy_in = "stage" if server.capture_graphs else "to_device"
+    return (f"rung {len(roots)} {mode}: sample {(t1 - t0) * 1e3:.2f} ms, "
+            f"merge+pad {(t2 - t1) * 1e3:.2f} ms, {copy_in} "
             f"{(t3 - t2) * 1e3:.2f} ms, forward wall {fwd_ms:.2f} ms "
             f"(CUDA events {start.elapsed_time(end):.2f} ms), profiler "
             f"device busy {busy_ms:.3f} ms = "
@@ -1389,39 +1423,120 @@ def closed_loop(server, roots_per_client, timeout=120.0):
 # phase 4: serve the §8 model through GNNServer on the card
 # ---------------------------------------------------------------------------
 
-def serve_phase(torch, store, spec, card):
+# device kernels a served graph must not hold: the run variants (served
+# batches are unsorted) and copies (inputs are staged before the replay)
+RUN_KERNELS = ("edge_mpnn_runs_kernel", "seg_runs_tile_kernel",
+               "seg_runs_rows_kernel", "carry_fold_kernel")
+
+
+def graph_server(torch, store, spec, model):
+    """A GNNServer capturing one CUDA graph per rung, with each rung's
+    kernel launches during its capture: (server, {rung: {kernel:
+    launches}}, warmup seconds).  The capture is spied on so that the
+    launch count reads the capture alone (warmup first runs each rung
+    eagerly, outside capture)."""
+    from repro_torch.serve.gnn import GNNServer
+    t0 = time.perf_counter()
+    server = GNNServer(store, spec, model, device=DEVICE,
+                       max_batch=MAX_BATCH, batch_window_ms=5.0,
+                       warmup=False)
+    captured, capture = {}, server._capture
+
+    def counted(rung, merged):
+        before = read_launches()
+        out = capture(rung, merged)
+        captured[rung] = {k: v - before[k]
+                          for k, v in read_launches().items()}
+        return out
+
+    server._capture = counted
+    try:
+        server.warmup()
+    except Exception:
+        server.close()
+        raise
+    return server, captured, time.perf_counter() - t0
+
+
+def replay_kernels(torch, server) -> dict:
+    """{rung: device kernels by name in one replay of its graph} from
+    torch.profiler (`device_per_call` over 5 replays of the static
+    inputs as they stand)."""
+    return {rung: device_per_call(torch, rung_graph.graph.replay, calls=5)
+            for rung, rung_graph in sorted(server._graphs.items())}
+
+
+def check_graphs(name, server, captured, replays, kernel, device_kernel,
+                 per_forward, forbidden=()):
+    """Every rung captured at warmup, `per_forward` launches of wrapper
+    `kernel` (and no other wrapper's) in each capture and as many
+    `device_kernel`s in one replay, none of `forbidden` or a copy."""
+    rungs = tuple(server.ladder.rungs)
+    if tuple(sorted(server._graphs)) != rungs or \
+            server.steady_state_recompiles != 0:
+        fail(f"{name}: captured rungs {sorted(server._graphs)} for ladder "
+             f"{rungs}, {server.steady_state_recompiles} captures after "
+             "warmup")
+    for rung in rungs:
+        want = {k: per_forward if k == kernel else 0
+                for k in captured.get(rung, {})}
+        if captured.get(rung) != want or not want:
+            fail(f"{name}: rung {rung} capture launched "
+                 f"{captured.get(rung)} ({per_forward} {kernel} expected)")
+        seen = replays[rung]["launches_by_name"]
+        bad = [k for k in seen if k in forbidden or "memcpy" in k.lower()]
+        if seen.get(device_kernel) != per_forward or bad:
+            fail(f"{name}: one replay of rung {rung} ran {seen} "
+                 f"({per_forward} {kernel} device kernels expected, none "
+                 f"of {list(forbidden)} or copies)")
+
+
+def convs_per_forward(torch, server, model) -> int:
+    """Convolutions a forward runs, each checked to be on the edge kernel
+    (`describe_dispatch` at every rung)."""
     from repro_torch.core.graph_tensor import to_device
     from repro_torch.data.grouping import merge_and_pad
-    from repro_torch.kernels.edge_mpnn.kernel import edge_mpnn
-    from repro_torch.kernels.segment_pool.kernel import segment_pool
-    from repro_torch.serve.gnn import GNNServer
+    graph = server._subgraphs.get(0)
+    n_convs = 0
+    for rung in server.ladder.rungs:
+        g = to_device(merge_and_pad([graph], server.ladder.sizes[rung]),
+                      server.device)
+        with torch.inference_mode():
+            rounds = model.gnn.describe_dispatch(model.init(g))
+        for rnd, per_set in enumerate(rounds):
+            for ns, convs in per_set.items():
+                for es, dec in convs.items():
+                    if dec is None or not dec.use_kernel:
+                        fail(f"rung {rung} round {rnd} {ns}<-{es} is "
+                             f"not on the kernel: {dec}")
+                    n_convs += 1
+    per_forward = n_convs // len(server.ladder.rungs)
+    if per_forward != 5 * ROUNDS:
+        fail(f"{per_forward} convs per forward, expected {5 * ROUNDS}")
+    return per_forward
 
-    model = build_model(torch, "sum")
-    t0 = time.perf_counter()
-    server = GNNServer(store, spec, model, device="cuda",
-                       max_batch=MAX_BATCH, batch_window_ms=5.0)
-    warm_s = time.perf_counter() - t0
+
+def serve_mode(torch, store, spec, model, capture: bool) -> dict:
+    """Serve the fresh-root checks and the closed loop through one
+    server, eager or from one CUDA graph per rung; the same seeded roots
+    in both modes.  Fails on any error, recompile, run kernel or wrong
+    launch count; returns the numbers the phase prints."""
+    from repro_torch.serve.gnn import GNNServer
+    zero_launches()
+    if capture:
+        server, captured, warm_s = graph_server(torch, store, spec, model)
+    else:
+        t0 = time.perf_counter()
+        server = GNNServer(store, spec, model, device=DEVICE,
+                           max_batch=MAX_BATCH, batch_window_ms=5.0,
+                           capture_graphs=False)
+        warm_s = time.perf_counter() - t0
+    warm_launches = read_launches()
+    mode = "graphs" if capture else "eager"
     try:
         if server.ladder.rungs != (1, 2, 4, 8):
             fail(f"bucket ladder {server.ladder.rungs}, expected (1, 2, 4, 8)")
-        graph = server._subgraphs.get(0)
-        n_convs = 0
-        for rung in server.ladder.rungs:
-            g = to_device(merge_and_pad([graph], server.ladder.sizes[rung]),
-                          server.device)
-            with torch.inference_mode():
-                rounds = model.gnn.describe_dispatch(model.init(g))
-            for rnd, per_set in enumerate(rounds):
-                for ns, convs in per_set.items():
-                    for es, dec in convs.items():
-                        if dec is None or not dec.use_kernel:
-                            fail(f"rung {rung} round {rnd} {ns}<-{es} is "
-                                 f"not on the kernel: {dec}")
-                        n_convs += 1
-        per_forward = n_convs // len(server.ladder.rungs)
-        if per_forward != 5 * ROUNDS:
-            fail(f"{per_forward} convs per forward, expected {5 * ROUNDS}")
-
+        per_forward = convs_per_forward(torch, server, model)
         rng = np.random.default_rng(SEED + 1)
         used = {0}
         n_papers = store.num_nodes["paper"]
@@ -1436,41 +1551,90 @@ def serve_phase(torch, store, spec, card):
         latencies, errors, duration = closed_loop(server, clients)
         stats = server.stats
         counts = read_launches()
-        launches = edge_mpnn.launches
-        pool_launches = segment_pool.launches
         batches = stats.batches - batches0
+        if counts["edge_mpnn_runs"] or counts["segment_pool_runs"]:
+            fail(f"serving ({mode}) launched a run kernel: {counts} (its "
+                 "batches are not sorted by target)")
+        if errors or stats.failed:
+            fail(f"{mode}: {errors} client errors, {stats.failed} failed "
+                 "requests")
+        if stats.steady_state_recompiles != 0:
+            fail(f"{mode}: {stats.steady_state_recompiles} steady-state "
+                 "recompiles")
+        if set(stats.batch_sizes) != set(server.ladder.rungs):
+            fail(f"{mode}: served buckets {sorted(stats.batch_sizes)} do "
+                 f"not cover the ladder {server.ladder.rungs}")
+        replays = None
+        if capture:
+            replays = replay_kernels(torch, server)
+            rungs = len(server.ladder.rungs)
+            check_graphs("serve", server, captured, replays, "edge_mpnn",
+                         "edge_mpnn_kernel", per_forward, RUN_KERNELS)
+            # warmup: one eager forward and one capture per rung; replays
+            # launch nothing through the wrappers
+            if warm_launches["edge_mpnn"] != 2 * per_forward * rungs or any(
+                    counts.values()):
+                fail(f"serve graphs: warmup launches {warm_launches}, "
+                     f"serving launches {counts} ({2 * per_forward * rungs}"
+                     " edge_mpnn at warmup, none in replays expected)")
+            launches = warm_launches["edge_mpnn"]
+        else:
+            launches = counts["edge_mpnn"]
+            if launches != per_forward * batches:
+                fail(f"edge_mpnn launched {launches} times for {batches} "
+                     f"batches ({per_forward} per forward expected)")
+        max_err = max(check_logits(f"serve {mode}", got, plain_logits(
+            torch, server, store, spec, roots), len(roots))
+            for roots, got in checks)
+        profile = breakdown(torch, server, model, store, spec,
+                            fresh_roots(rng, used, MAX_BATCH, n_papers))
     finally:
         server.close()
-    if counts["edge_mpnn_runs"] or counts["segment_pool_runs"]:
-        fail(f"serving launched a run kernel: {counts} (its batches are "
-             "not sorted by target)")
-    if errors or stats.failed:
-        fail(f"{errors} client errors, {stats.failed} failed requests")
-    if stats.steady_state_recompiles != 0:
-        fail(f"{stats.steady_state_recompiles} steady-state recompiles")
-    if set(stats.batch_sizes) != set(server.ladder.rungs):
-        fail(f"served buckets {sorted(stats.batch_sizes)} do not cover "
-             f"the ladder {server.ladder.rungs}")
-    if launches != per_forward * batches:
-        fail(f"edge_mpnn launched {launches} times for {batches} batches "
-             f"({per_forward} per forward expected)")
-    max_err = max(check_logits("serve", got, plain_logits(
-        torch, server, store, spec, roots), len(roots))
-        for roots, got in checks)
-    phase("profile", breakdown(torch, server, model, store, spec,
-                               fresh_roots(rng, used, MAX_BATCH, n_papers)))
-    p50, p99 = np.percentile(latencies, 50), np.percentile(latencies, 99)
-    qps = len(latencies) / duration
-    phase("serve", f"{card}: warmup {warm_s:.1f}s, ladder "
-          f"{list(server.ladder.rungs)}, {n_convs // len(server.ladder.rungs)}"
-          f" convs/forward all on edge_mpnn, {batches} batches "
-          f"{dict(sorted(stats.batch_sizes.items()))}, edge_mpnn "
-          f"launches {launches}, segment_pool launches {pool_launches}, "
-          f"logits vs plain max err {max_err:.2e}, closed loop "
-          f"{LOOP_CLIENTS} clients x {LOOP_REQUESTS} = {len(latencies)} "
-          f"requests: p50 {p50:.2f} ms p99 {p99:.2f} ms {qps:.1f} QPS, "
-          f"0 recompiles, 0 failed")
-    return launches
+    return dict(mode=mode, warm_s=warm_s, server=server, stats=stats,
+                batches=batches, launches=launches, per_forward=per_forward,
+                pool_launches=counts["segment_pool"], max_err=max_err,
+                profile=profile, replays=replays,
+                p50=np.percentile(latencies, 50),
+                p99=np.percentile(latencies, 99),
+                qps=len(latencies) / duration, n=len(latencies))
+
+
+def serve_phase(torch, store, spec, card) -> tuple:
+    """The §8 model served twice in one call, the same requests each
+    time: eagerly (each batch's forward launched op by op) and from one
+    CUDA graph per rung captured at warmup.  Returns edge_mpnn's launches
+    (eager serving, and the graph server's warmup)."""
+    model = build_model(torch, "sum")
+    runs = [serve_mode(torch, store, spec, model, capture)
+            for capture in (False, True)]
+    for r in runs:
+        phase("profile", r["profile"])
+    for r in runs:
+        stats = r["stats"]
+        if r["replays"] is None:
+            launch_text = (f"edge_mpnn launches {r['launches']}, "
+                           f"segment_pool launches {r['pool_launches']}")
+        else:
+            per_replay = {rung: rec["launches_by_name"].get(
+                "edge_mpnn_kernel") for rung, rec in r["replays"].items()}
+            us = {rung: round(rec["device_us"], 1)
+                  for rung, rec in r["replays"].items()}
+            launch_text = (f"{len(r['replays'])} rungs captured at warmup "
+                           f"({r['per_forward']} edge_mpnn launches a "
+                           f"capture, {r['launches']} with the eager warm "
+                           f"runs), none in replays; one replay's "
+                           f"edge_mpnn_kernel by rung {per_replay}, device "
+                           f"us {us}")
+        phase("serve", f"{card} {r['mode']}: warmup {r['warm_s']:.1f}s, "
+              f"ladder {list(r['server'].ladder.rungs)}, "
+              f"{r['per_forward']} convs/forward all on edge_mpnn, "
+              f"{r['batches']} batches "
+              f"{dict(sorted(stats.batch_sizes.items()))}, {launch_text}, "
+              f"logits vs plain max err {r['max_err']:.2e}, closed loop "
+              f"{LOOP_CLIENTS} clients x {LOOP_REQUESTS} = {r['n']} "
+              f"requests: p50 {r['p50']:.2f} ms p99 {r['p99']:.2f} ms "
+              f"{r['qps']:.1f} QPS, 0 recompiles, 0 failed")
+    return runs[0]["launches"], runs[1]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1478,12 +1642,14 @@ def serve_phase(torch, store, spec, card):
 # ---------------------------------------------------------------------------
 
 def mean_phase(torch, store, spec):
-    from repro_torch.kernels.segment_pool.kernel import segment_pool
-    from repro_torch.serve.gnn import GNNServer
-
+    """The mean-pooling model served from one CUDA graph per rung: each
+    capture holds 5 x ROUNDS segment_pool launches and each replay as
+    many `scatter_kernel`s, no edge or run kernel.  Returns segment_pool's
+    launches (the warmup's eager runs and captures)."""
     model = build_model(torch, "mean")
-    server = GNNServer(store, spec, model, device="cuda",
-                       max_batch=MAX_BATCH, batch_window_ms=5.0)
+    zero_launches()
+    server, captured, _ = graph_server(torch, store, spec, model)
+    warm = read_launches()
     rng = np.random.default_rng(SEED + 2)
     used = set()
     try:
@@ -1495,25 +1661,120 @@ def mean_phase(torch, store, spec):
             checks.append((roots, server.serve_sync(roots, timeout=120)))
         stats = server.stats
         counts = read_launches()
-        launches = segment_pool.launches
         batches = stats.batches - batches0
+        replays = replay_kernels(torch, server)
+        max_err = max(check_logits("mean", got, plain_logits(
+            torch, server, store, spec, roots), len(roots))
+            for roots, got in checks)
     finally:
         server.close()
+    per_forward = 5 * ROUNDS
+    rungs = len(server.ladder.rungs)
     if stats.failed or stats.steady_state_recompiles:
         fail(f"mean serve: {stats.failed} failed, "
              f"{stats.steady_state_recompiles} recompiles")
-    if launches != 5 * ROUNDS * batches or any(
-            counts[k] for k in ("edge_mpnn", "edge_mpnn_runs",
-                                "segment_pool_runs")):
-        fail(f"mean path: launches {counts} for {batches} batches "
-             f"({5 * ROUNDS} segment_pool per forward expected)")
-    max_err = max(check_logits("mean", got, plain_logits(
-        torch, server, store, spec, roots), len(roots))
-        for roots, got in checks)
-    phase("mean", f"mean-pooling model served: {batches} batches, "
-          f"segment_pool launches {launches} ({5 * ROUNDS}/forward), "
-          f"logits vs plain max err {max_err:.2e}")
-    return launches
+    check_graphs("mean", server, captured, replays, "segment_pool",
+                 "scatter_kernel", per_forward,
+                 RUN_KERNELS + ("edge_mpnn_kernel",))
+    if warm["segment_pool"] != 2 * per_forward * rungs or any(
+            v for k, v in warm.items() if k != "segment_pool") or any(
+            counts.values()):
+        fail(f"mean path: warmup launches {warm}, serving launches "
+             f"{counts} ({2 * per_forward * rungs} segment_pool at warmup, "
+             "none in replays expected)")
+    us = {rung: round(rec["device_us"], 1) for rung, rec in replays.items()}
+    phase("mean", f"mean-pooling model served from {rungs} CUDA graphs: "
+          f"{batches} batches, {per_forward} segment_pool launches a "
+          f"capture ({warm['segment_pool']} with the eager warm runs), "
+          f"none in replays, {per_forward} scatter_kernel in one replay "
+          f"of each rung (device us {us}), logits vs plain max err "
+          f"{max_err:.2e}")
+    return warm["segment_pool"]
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: load generation through the port's loadgen, freshness, the twin
+# ---------------------------------------------------------------------------
+
+SERVELOOP_OPEN_S = 5.0
+
+
+def serveloop_phase(torch, store, spec, smi) -> tuple:
+    """The §8 model at full width from one CUDA graph per rung, driven by
+    `repro_torch.serve.loadgen` over every paper: a closed loop (4
+    clients x 125, seed 0), an open loop at half its QPS for 5 s (seed
+    1), then freshness (`add_edges` on `cites` bumps the version, stale
+    entries are evicted, the resampled root's logits match the plain
+    forward within 1e-4); then the twin `gnn_serve.main([])` at the
+    example's defaults must exit 0.  Mutates `store` (a cites edge), so
+    later phases take the unwrapped store.  Returns edge_mpnn's launches
+    here and in the twin."""
+    from repro_torch.orchestration import gnn_serve
+    from repro_torch.serve import closed_loop as loadgen_closed
+    from repro_torch.serve import open_loop as loadgen_open
+    model = build_model(torch, "sum")
+    zero_launches()
+    server, captured, warm_s = graph_server(torch, store, spec, model)
+    n_papers = store.num_nodes["paper"]
+    root = 5
+    try:
+        closed = loadgen_closed(server, range(n_papers),
+                                clients=LOOP_CLIENTS,
+                                requests_per_client=LOOP_REQUESTS,
+                                seed=0, timeout=120)
+        opened = loadgen_open(server, range(n_papers), qps=0.5 * closed.qps,
+                              duration_s=SERVELOOP_OPEN_S, seed=1,
+                              timeout=120)
+        v0 = store.version
+        store.add_edges("cites", [root], [n_papers - 1])
+        after = server.submit(root).result(60)
+        stats = server.stats
+        err = check_logits("serveloop freshness", np.asarray(after)[None],
+                           plain_logits(torch, server, store, spec, [root]),
+                           1)
+    finally:
+        server.close()
+    launches = read_launches()
+    rungs = len(server.ladder.rungs)
+    if closed.errors or opened.errors or stats.failed:
+        fail(f"serveloop: errors closed {closed.errors}, open "
+             f"{opened.errors}, failed {stats.failed}")
+    if stats.steady_state_recompiles or server._captures != rungs:
+        fail(f"serveloop: {stats.steady_state_recompiles} recompiles, "
+             f"{server._captures} captures")
+    if store.version != v0 + 1 or stats.invalidations <= 0:
+        fail(f"serveloop freshness: version {v0} -> {store.version}, "
+             f"{stats.invalidations} invalidations")
+    if launches != {k: (2 * 5 * ROUNDS * rungs if k == "edge_mpnn" else 0)
+                    for k in launches}:
+        fail(f"serveloop: launches {launches} ({2 * 5 * ROUNDS * rungs} "
+             "edge_mpnn at warmup, none in replays expected)")
+    phase("serveloop", f"{smi}: warmup {warm_s:.1f}s, closed loop over "
+          f"{n_papers} papers {closed.summary()}, open loop at "
+          f"{0.5 * closed.qps:.1f} QPS for {SERVELOOP_OPEN_S:g} s "
+          f"{opened.summary()}; freshness: version {v0} -> "
+          f"{store.version}, {stats.invalidations} invalidations, root "
+          f"{root} resampled, logits vs plain max err {err:.2e}; "
+          f"embedding hits/misses {stats.embedding_hits}/"
+          f"{stats.embedding_misses}, {stats.batches} batches "
+          f"{dict(sorted(stats.batch_sizes.items()))}, 0 errors, 0 "
+          f"recompiles, launches {launches['edge_mpnn']} edge_mpnn (warmup)")
+    zero_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = gnn_serve.main([])
+        except SystemExit as exc:
+            rc = exc.code
+    twin = read_launches()
+    for line in out.getvalue().splitlines():
+        phase("serveloop", f"twin: {line}")
+    per_forward = 2  # two rounds over one edge set
+    if rc != 0 or twin != {k: (2 * per_forward * rungs
+                               if k == "edge_mpnn" else 0) for k in twin}:
+        fail(f"serveloop: gnn_serve.main([]) returned {rc!r}, launches "
+             f"{twin} ({2 * per_forward * rungs} edge_mpnn expected)")
+    return launches["edge_mpnn"], twin["edge_mpnn"]
 
 
 # ---------------------------------------------------------------------------
@@ -2634,8 +2895,13 @@ def main() -> int:
     runs_kernels_phase(torch, first, records, build_report)
     flash_kernels_phase(torch, first, records, build_report)
 
-    records["edge_mpnn"]["launches"] = serve_phase(torch, store, spec, card)
+    (records["edge_mpnn"]["launches"],
+     records["edge_mpnn"]["graph_launches"]) = serve_phase(torch, store, spec,
+                                                           card)
     records["segment_pool"]["launches"] = mean_phase(torch, store, spec)
+    (records["edge_mpnn"]["serveloop_launches"],
+     records["edge_mpnn"]["twin_launches"]) = serveloop_phase(
+        torch, store, spec, smi)
     trained = train_phase(torch, raw, spec, card, setup)
     records["edge_mpnn_runs"]["launches"] = trained["launches"]
     records["segment_pool_runs"]["launches"] = train_mean_phase(

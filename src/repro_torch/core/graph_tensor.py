@@ -198,6 +198,16 @@ def resolve_device(device=None):
     return device
 
 
+def leaf_dtype(np_dtype):
+    """The tensor dtype a numpy leaf of `np_dtype` becomes on a device:
+    float and bool leaves keep theirs, integer leaves become int64."""
+    import torch
+    dtype = torch.from_numpy(np.empty(0, np_dtype)).dtype
+    if not (dtype.is_floating_point or dtype == torch.bool):
+        dtype = torch.int64
+    return dtype
+
+
 def _leaf_to_device(x, device, non_blocking: bool = False):
     """numpy leaf -> tensor on `device`.  Integer leaves (ids, sizes,
     labels) become int64, torch's index type; the kernels take int32 ids
@@ -212,10 +222,8 @@ def _leaf_to_device(x, device, non_blocking: bool = False):
     import torch
     arr = np.ascontiguousarray(np.asarray(x))
     if non_blocking and torch.device(device).type == "cuda":
-        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
-        if not (dtype.is_floating_point or dtype == torch.bool):
-            dtype = torch.int64
-        host = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+        host = torch.empty(arr.shape, dtype=leaf_dtype(arr.dtype),
+                           pin_memory=True)
         host.numpy()[...] = arr
         return host.to(device, non_blocking=True)
     # a read-only leaf (a batch decoded from the sampler fleet's frames)
@@ -306,6 +314,15 @@ def _map_graphs(fn, graphs: Sequence[GraphTensor]) -> GraphTensor:
              for k in sorted(es0.features)},
             es0.capacity)
     return GraphTensor(ctx, node_sets, edge_sets)
+
+
+def graph_leaves(graph: GraphTensor) -> tuple:
+    """(structure, leaves): the graph's structural fingerprint and its
+    leaves in `_map_graphs`' order (set and feature names sorted), so two
+    graphs of one structure list matching leaves at matching places."""
+    leaves: list = []
+    _map_graphs(leaves.append, [graph])
+    return _graph_structure(graph), leaves
 
 
 def stack_graphs(graphs: Sequence[GraphTensor]) -> GraphTensor:

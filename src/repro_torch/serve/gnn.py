@@ -10,16 +10,28 @@ A request is a query node id.  The server:
      request queue for a short batching window, then merges the batch
      into ONE padded GraphTensor whose `SizeConstraints` come from a small
      fixed ladder of buckets (powers of two up to `max_batch`), so every
-     served batch has one of a handful of shapes, all run once during
-     warmup,
-  3. copies the batch to the device, runs the model's forward under
-     `torch.inference_mode()`, and scatters per-component rows back to the
-     waiting requests, writing each root's output through the
-     node-embedding cache.
+     served batch has one of a handful of shapes,
+  3. runs the model's forward for that bucket and scatters per-component
+     rows back to the waiting requests, writing each root's output
+     through the node-embedding cache.
 
-The model runs eagerly (there is no jit): the reference's compile
-counter becomes bucket accounting — a bucket served that warmup never
-ran counts as a steady-state recompile.
+The reference runs one compiled forward per bucket: `jax.jit(apply_fn)`
+(`repro/serve/gnn.py:280-282`), compiled for every rung by `warmup()`
+(`:323-334`), with `steady_state_recompiles` counting the compiles after
+it (`:307-321`).  Here the counterpart of an XLA executable per rung is a
+CUDA graph per rung (``capture_graphs=True``, mirroring ``jit_apply``):
+`warmup()` runs each rung eagerly once (the kernels build and load, and
+their one-time shared-memory opt-ins happen outside capture), then
+captures each rung's forward with `torch.cuda.graph` into one shared
+memory pool, largest rung first, over a static device GraphTensor of
+that rung's `SizeConstraints`.  A served batch is copied into that
+rung's static leaves through pinned host buffers, the graph is replayed,
+and the static output is copied back to the host before the next replay
+can overwrite it.  `steady_state_recompiles` counts captures after
+warmup.  Nothing falls back: a capture or replay that fails raises (at
+construction, or as its batch's `ServeError`).  ``capture_graphs=False``,
+and any server on the CPU, runs the forward eagerly; the compile count is
+then bucket accounting (a bucket served that warmup never ran).
 
 The ladder is plain powers of two up to `max_batch`.  The reference cuts
 its top rungs to stay inside a TPU kernel's VMEM budget; the GPU kernels
@@ -40,7 +52,8 @@ from typing import Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.graph_tensor import resolve_device, to_device
+from repro_torch.core.graph_tensor import (graph_leaves, leaf_dtype,
+                                           resolve_device, to_device)
 from repro_torch.data.batching import SizeConstraints
 from repro_torch.data.grouping import merge_and_pad
 from repro_torch.data.sampling import GraphStore, SamplingSpec
@@ -220,16 +233,64 @@ class ServeSnapshot:
     steady_state_recompiles: int
 
 
+class _RungGraph:
+    """One bucket's captured forward: the CUDA graph, its static device
+    input leaves (each with a pinned host buffer of the same shape and
+    dtype) and static output (with its pinned host buffer)."""
+
+    def __init__(self, graph, structure, inputs, out):
+        self.graph = graph
+        self.structure = structure
+        self.inputs = [(t, torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)) for t in inputs]
+        self.out = out
+        self.out_host = torch.empty(out.shape, dtype=out.dtype,
+                                    pin_memory=True)
+
+    def stage(self, merged) -> None:
+        """Copy a merged host batch into the static leaves (pinned,
+        non-blocking, on the calling thread's stream).  A batch of
+        another structure, or a leaf of another shape or dtype than the
+        captured one, raises."""
+        structure, leaves = graph_leaves(merged)
+        if structure != self.structure:
+            raise ValueError("batch structure differs from the captured "
+                             f"one: {structure} vs {self.structure}")
+        for i, ((static, host), leaf) in enumerate(zip(self.inputs,
+                                                       leaves)):
+            arr = np.asarray(leaf)
+            if arr.shape != tuple(static.shape) or \
+                    leaf_dtype(arr.dtype) != static.dtype:
+                raise ValueError(
+                    f"leaf {i}: {arr.dtype} {arr.shape} differs from the "
+                    f"captured {static.dtype} {tuple(static.shape)}")
+            host.numpy()[...] = arr
+            static.copy_(host, non_blocking=True)
+
+    def replay(self, device) -> np.ndarray:
+        """Replay the graph and copy its output to the host; returns a
+        host copy, so the next replay cannot overwrite it."""
+        self.graph.replay()
+        self.out_host.copy_(self.out, non_blocking=True)
+        torch.cuda.current_stream(device).synchronize()
+        return self.out_host.numpy().copy()
+
+
 class GNNServer:
     """The request path: submit(root) -> ServeRequest; an engine thread
     micro-batches concurrent requests into bucket-padded GraphTensors and
-    runs one forward per batch on `device`.
+    runs one forward per batch on `device` — on CUDA a replay of that
+    bucket's graph captured at warmup (``capture_graphs=True``, the
+    counterpart of the reference's ``jit_apply``), else eagerly.
 
     `apply_fn(graph) -> Tensor [C, ...]` takes the padded scalar
     GraphTensor on the device and returns component-major output rows
     (component i of a served batch is request i, in admission order;
     padding components trail and their rows are dropped).  The model's
     parameters live in `apply_fn` (an nn.Module or a closure over one).
+    To be captured, its forward must not sync the host (no `.item()`, no
+    `nonzero`, no branch on a tensor's value): such a sync aborts the
+    capture, and the constructor raises.
 
     Engine lifecycle: one named daemon thread, joined by `close()`;
     pending and in-flight requests are failed with `EngineClosed` on
@@ -247,11 +308,17 @@ class GNNServer:
                  base_seed: int = 0,
                  warmup_root: int = 0,
                  warmup: bool = True,
+                 capture_graphs: bool = True,
                  queue_depth: int = 4096):
         self.device = resolve_device(device)
         self.store = store
         self.spec = spec
         self._apply = apply_fn
+        self.capture_graphs = capture_graphs and self.device.type == "cuda"
+        self._graphs: dict[int, _RungGraph] = {}
+        self._graph_lock = threading.Lock()
+        self._graph_pool = self._capture_stream = None
+        self._captures = self._warm_captures = 0
         base = base_sizes or spec_size_bounds(spec, store.schema)
         self.ladder = build_ladder(base, max_batch)
         self._subgraphs = SubgraphCache(store, spec,
@@ -280,8 +347,8 @@ class GNNServer:
 
     # -- forward -------------------------------------------------------------
 
-    def run_batch(self, merged) -> np.ndarray:
-        """One forward over a merged, padded host batch: copy to the
+    def run_eager(self, merged) -> np.ndarray:
+        """One eager forward over a merged, padded host batch: copy to the
         device, run the model without autograd, return host rows.  The
         batches are not sorted by target, and the layout says so whatever
         the calling thread holds (warmup runs on the constructor's)."""
@@ -292,22 +359,90 @@ class GNNServer:
                 out = out.to(torch.float32)  # numpy has no bfloat16
             return out.cpu().numpy()
 
+    def run_batch(self, merged) -> np.ndarray:
+        """One forward over a merged, padded host batch of a ladder rung
+        (``num_components - 1`` requests' capacity): with graphs, copy it
+        into the rung's static leaves, replay the rung's graph and return
+        the host rows (a rung warmup did not capture is run eagerly and
+        captured first, which counts as a steady-state recompile); else
+        `run_eager`."""
+        if not self.capture_graphs:
+            return self.run_eager(merged)
+        rung = self.ladder.bucket_for(merged.num_components - 1)
+        with self._graph_lock:
+            rung_graph = self._graphs.get(rung)
+            if rung_graph is None:
+                self._warm(merged)
+                rung_graph = self._capture(rung, merged)
+            rung_graph.stage(merged)
+            return rung_graph.replay(self.device)
+
+    def _warm(self, merged) -> None:
+        """One eager forward on the capture stream, outside capture: the
+        kernels build and load, and make their one-time opt-ins (the edge
+        kernels' shared-memory attribute), and the stream's library
+        handles exist before a graph is captured on it."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self.run_eager(merged)
+
+    def _capture(self, rung: int, merged) -> _RungGraph:
+        """Capture rung `rung`'s forward over a static device copy of
+        `merged` (a batch of that rung) on the capture stream, into the
+        server's one memory pool, after `_warm`.  The caller holds the
+        graph lock."""
+        static = to_device(merged, self.device)
+        structure, inputs = graph_leaves(static)
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), \
+                registry.layout(sorted_by_target=False), \
+                torch.cuda.graph(graph, pool=self._graph_pool,
+                                 stream=self._capture_stream,
+                                 capture_error_mode="thread_local"):
+            out = self._apply(static)
+            if out.dtype == torch.bfloat16:
+                out = out.to(torch.float32)  # numpy has no bfloat16
+        rung_graph = _RungGraph(graph, structure, inputs, out)
+        self._graphs[rung] = rung_graph
+        self._captures += 1
+        return rung_graph
+
     @property
     def steady_state_recompiles(self) -> int:
-        """Buckets served that warmup never ran.  Zero is the serving
-        invariant: every steady-state batch has a shape warmup already
-        ran (the eager counterpart of the reference's compile count)."""
+        """Captures after warmup (eagerly: buckets served that warmup
+        never ran).  Zero is the serving invariant: every steady-state
+        batch replays a graph warmup captured — the counterpart of the
+        reference's compile count."""
+        if self.capture_graphs:
+            return self._captures - self._warm_captures
         with self._state_lock:
             return len(self._served_buckets - self._warm_buckets)
 
     def warmup(self, warmup_root: int = 0) -> None:
         """Run every bucket's shape once (one dummy batch per rung): the
-        kernels build and load, and each rung's allocations are made,
-        before any live request arrives."""
+        kernels build and load before any live request arrives.  With
+        graphs, then capture every rung, largest first, so the smaller
+        rungs' graphs reuse the pool's memory."""
         graph = self._subgraphs.get(warmup_root)
-        for rung in self.ladder.rungs:
-            self.run_batch(merge_and_pad([graph], self.ladder.sizes[rung]))
-            self._warm_buckets.add(rung)
+        batches = {rung: merge_and_pad([graph], self.ladder.sizes[rung])
+                   for rung in self.ladder.rungs}
+        if self.capture_graphs:
+            with self._graph_lock:
+                todo = [rung for rung in sorted(batches, reverse=True)
+                        if rung not in self._graphs]
+                for rung in todo:
+                    self._warm(batches[rung])
+                for rung in todo:
+                    self._capture(rung, batches[rung])
+                self._warm_captures = self._captures
+        else:
+            for merged in batches.values():
+                self.run_eager(merged)
+        self._warm_buckets.update(batches)
 
     # -- request admission ---------------------------------------------------
 

@@ -38,6 +38,8 @@ _SCRIPT = textwrap.dedent("""
 
     import numpy as np
     import repro_torch.sampling_service.service
+    import repro_torch.serve
+    import repro_torch.serve.loadgen
     import repro_torch.storage.dial_worker
     from repro_torch.core.schema import mag_schema
     from repro_torch.data.batching import find_size_constraints
