@@ -9,11 +9,13 @@ It builds the five hand-written CUDA kernels from the sources in the
 checkout (one `nvcc` per source, all in parallel) and holds each against
 its plain PyTorch version: `edge_mpnn` and `segment_pool` at the served
 shapes, `edge_mpnn_runs` and `segment_pool_runs` at the trained shapes,
-on sorted and unsorted ids, and `flash_attention` at the graph-attention
-shape of a training batch, the reference envelope's corner and an LM
-causal GQA prefill.  Then it drives the port's paths at the full width
-of the §8 OGBN-MAG model (init states -> 4-round vanilla_mpnn over all
-five edge sets, 128 wide, LayerNorm -> root-node head, 8 classes):
+on sorted and unsorted ids (`segment_pool_runs` also at the 64-wide
+chunks of the model-parallel mean model), and `flash_attention` at the
+graph-attention shape of a training batch, the reference envelope's
+corner and an LM causal GQA prefill.  Then it drives the port's paths at
+the full width of the §8 OGBN-MAG model (init states -> 4-round
+vanilla_mpnn over all five edge sets, 128 wide, LayerNorm -> root-node
+head, 8 classes):
 
 * serving: `repro_torch.serve.gnn.GNNServer` on the card, the same
   requests served twice in one call, eagerly and from one CUDA graph per
@@ -57,7 +59,19 @@ five edge sets, 128 wide, LayerNorm -> root-node head, 8 classes):
   out_of_core.run` at the example's defaults, a thread fleet against a
   dial fleet of subprocess workers over an on-disk GraphDirectory:
   losses exactly equal, each worker's peak RSS below the directory's
-  bytes (`[outofcore]`).
+  bytes (`[outofcore]`);
+* the mesh (`[mesh]`): the §8 model trained by `Trainer(num_devices=,
+  model_parallel=)` on super-batches of 4 component groups x 4 roots —
+  (a) one rank, the sum model, held to the plain versions by the
+  [train] rule; (b) 2 ranks sharing the card on gloo, (data=2), ZeRO-1
+  optimizer state; (c) 2 ranks, (data=1, model=2), the mean model, its
+  pools on 64-wide feature chunks; (d) one rank of the mean model —
+  (b)'s losses held to (a)'s and (c)'s to (d)'s within 1e-4, (c)'s
+  step-1 gradients to (d)'s by the [train] rule, (b)'s
+  optimizer state a rank at most (a)'s / 1.8, 20 `edge_mpnn_runs` (sum)
+  or `segment_pool_runs` (mean) a group forward on every rank; then the
+  twin `repro_torch.orchestration.ogbn_mag_train.main(["--steps", "3"])`,
+  which must exit 0.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -176,6 +190,16 @@ ZOO_STEPS = 3
 # attention (src/repro/configs/qwen2_5_32b.py: 40 q heads, 8 kv heads,
 # d_model 5120 -> head width 128), batch 1, 2048 tokens, causal
 PREFILL = dict(b=1, s=2048, h=40, kh=8, d=128)
+# the mesh (`[mesh]`): super-batches of MESH_GROUPS component groups of
+# MESH_ROOTS roots (16 roots a step, as [train]), MESH_STEPS steps a run;
+# two ranks share the one card on gloo
+MESH_GROUPS = 4
+MESH_ROOTS = 4
+MESH_STEPS = 12
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
+MESH_LOSS_ATOL = 1e-4           # reference: tests/test_graph_sharding.py
+MESH_ZERO_SHRINK = 1.8          # reference: tests/test_partition.py
 
 
 def fail(message: str) -> None:
@@ -1138,6 +1162,32 @@ def runs_kernels_phase(torch, batch, records, build_report):
                       f"kernels + {c['memsets']} memsets"
                       for r, c in d4.items())
           + f", bound {d4_bound[0]:.5f} ms ({d4_bound[1]})")
+    # -- the mean model's pools under model=2: [E, 64] chunks of the
+    # 128-wide messages, on the same sorted targets
+    v64 = normal(e, d // 2)
+    d64_err = _close_sum(torch, "segment_pool_runs[D 64, sum]",
+                         segment_pool_runs(v64, tgt, n_segments=n_tgt),
+                         segment_pool_ref(v64, tgt, n_segments=n_tgt),
+                         segment_pool_ref(v64.abs(), tgt, n_segments=n_tgt),
+                         counts, 0.0)
+    repeat_check(torch, "segment_pool_runs[D 64, sum]",
+                 lambda: segment_pool_runs(v64, tgt, n_segments=n_tgt))
+    d64_bound = _bound(n_valid * (d // 2) * isz + e * 4
+                       + n_tgt * (d // 2) * isz, n_valid * (d // 2))
+    d64 = dict(
+        max_abs_err=d64_err,
+        ms=time_ms(torch, lambda: segment_pool_runs(v64, tgt,
+                                                    n_segments=n_tgt)),
+        plain_ms=time_ms(torch, lambda: segment_pool_ref(
+            v64, tgt, n_segments=n_tgt)),
+        library_ms=index_add_yardsticks(torch, v64, tgt, n_tgt)[0],
+        bound_ms=d64_bound[0], bound_by=d64_bound[1])
+    records["segment_pool_runs"]["d64_chunk"] = d64
+    phase("kernels", f"segment_pool_runs at the model=2 chunk shape [E {e}, "
+          f"{d // 2}], sorted: sum max err {d64_err:.2e}, {REPEATS} calls "
+          f"bit-identical; {d64['ms']:.4f} ms vs plain "
+          f"{d64['plain_ms']:.4f} ms vs index_add_ {d64['library_ms']:.4f} "
+          f"ms, bound {d64['bound_ms']:.5f} ms ({d64['bound_by']})")
     syncs = sync_check(torch, batch)
     if syncs.pop(BINCOUNT) is None:
         fail("the sync check saw no host sync in torch.bincount, which "
@@ -1832,17 +1882,24 @@ def grad_check(torch, reduce_type: str, batch, labels, parts=None,
     `hidden`-wide output replace the §8 model (`reduce_type` then only
     names the model in messages), and `task` the root-node task.  Returns
     (worst relative error, parameters, parameters the loss reaches,
-    kernel loss, plain loss)."""
+    kernel loss, plain loss).  A stacked `batch` ([R, ...] component
+    groups, `labels` [R, C]) is held by the mean of its groups' losses."""
     from repro_torch.core.graph_tensor import to_device
     from repro_torch.kernels import registry
+    from repro_torch.core.graph_tensor import stack_size, unstack_graph
     task = task if task is not None else root_task(hidden)
     model = fresh_model(torch, reduce_type, parts, hidden, task)
     params = dict(model.named_parameters())
     g = to_device(batch, DEVICE)
     lab = torch.as_tensor(labels).to(DEVICE)
+    # a stacked [R, ...] super-batch: the mean of its groups' losses, as
+    # the mesh's step takes it
+    groups, labs = ((unstack_graph(g), lab) if stack_size(g) is not None
+                    else ([g], [lab]))
 
     def grads():
-        loss = task.loss_from_graph(model.head, model(g), lab)
+        loss = sum(task.loss_from_graph(model.head, model(x), y)
+                   for x, y in zip(groups, labs)) / len(groups)
         return loss.item(), torch.autograd.grad(
             loss, list(params.values()), allow_unused=True)
 
@@ -2725,7 +2782,9 @@ def graphcls_phase(torch) -> tuple:
     task = GraphMulticlassClassification("atoms", gcls.CLASSES, gcls.HIDDEN)
     grads = twin_grad_check(torch, "graphcls", task, gcls.model_fn,
                             gcls.HIDDEN, train)
-    gn = gn_round_check(torch, next(iter(train.epoch(0))))
+    from repro_torch.core.graph_tensor import unstack_graph
+    # the twin's batches are stacked [1, ...] super-batches
+    gn = gn_round_check(torch, unstack_graph(next(iter(train.epoch(0))))[0])
     em = run.metrics["eval"]
     step_ms = 1e3 * statistics.median(run.metrics["step_seconds"][1:])
     phase("graphcls", f"{run.step} steps ({train.num_steps} an epoch, "
@@ -2859,6 +2918,283 @@ def outofcore_phase(torch, smi) -> int:
           f"data {t_data:.1f} s, both runs {t_runs:.1f} s (host clock)")
     return launches["edge_mpnn_runs"]
 
+# ---------------------------------------------------------------------------
+# the mesh: data- and feature-parallel training over torch.distributed
+# ---------------------------------------------------------------------------
+
+def mesh_batches(raw, spec, roots, path) -> list:
+    """The first MESH_STEPS super-batches of MESH_GROUPS groups x
+    MESH_ROOTS roots over `roots` (target-sorted, sizes profiled per
+    group, as the §8 example sizes a super-batch's groups) with their
+    per-group labels, as (graph, labels) pairs, also pickled to `path`
+    for the spawned ranks."""
+    import pickle
+    from repro_torch.data.batching import find_size_constraints
+    from repro_torch.data.sampling import sample_subgraph, seed_rng
+    from repro_torch.orchestration.providers import StoreProvider
+    per_step = MESH_GROUPS * MESH_ROOTS
+    roots = roots[:MESH_STEPS * per_step]
+    sizes = find_size_constraints(
+        [sample_subgraph(raw, spec, int(r), seed_rng(0, int(r)))
+         for r in roots], MESH_ROOTS)
+    task = root_task()
+    pairs = [(g, task.labels(g)) for g in StoreProvider(
+        raw, spec, roots, batch_size=per_step, sizes=sizes,
+        num_replicas=MESH_GROUPS).epoch(0)]
+    with open(path, "wb") as f:
+        pickle.dump(pairs, f)
+    return pairs
+
+
+MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "broadcast", "barrier")
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Count the `torch.distributed` calls made inside the block and the
+    host time spent inside them (a gloo call returns once its exchange
+    is done, the copies of CUDA tensors to and from the host included):
+    {"calls": n, "ms": t}."""
+    import torch.distributed as dist
+    seen = {"calls": 0, "ms": 0.0}
+    real = {name: getattr(dist, name) for name in MESH_COLLECTIVES}
+
+    def timed(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seen["ms"] += 1e3 * (time.perf_counter() - t0)
+                seen["calls"] += 1
+        return call
+
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def mesh_fit(torch, pairs, reduce_type: str, num_devices: int,
+             model_parallel: int, steps: int, plain: bool = False) -> dict:
+    """One `Trainer(num_devices=, model_parallel=)` fit over the
+    super-batches `pairs` from seed 0 on the card (the [train] recipe);
+    what the phase prints and compares, launches and collectives
+    counted around the fit on this rank."""
+    from repro_torch.kernels import registry
+    from repro_torch.orchestration.providers import IteratorProvider
+    from repro_torch.orchestration.trainer import Trainer
+    trainer = Trainer(learning_rate=TRAIN_LR, total_steps=TRAIN_TOTAL,
+                      max_steps=steps, seed=SEED, log_every=10 ** 6,
+                      device=DEVICE, num_devices=num_devices,
+                      model_parallel=model_parallel, eval_at="never")
+    zero_launches()
+    with registry.plain_versions() if plain else contextlib.nullcontext(), \
+            collective_clock() as coll:
+        run = trainer.fit(lambda: model_parts(torch, reduce_type),
+                          root_task(), IteratorProvider(lambda e: iter(pairs)))
+    torch.cuda.synchronize()
+    return {"losses": run.metrics["train_losses"], "step": run.step,
+            "collectives": coll,
+            "launches": read_launches(), "plan": run.metrics["plan"],
+            "opt_bytes": run.metrics["opt_state_bytes"],
+            "step_ms": 1e3 * statistics.median(
+                run.metrics["step_seconds"][1:])}
+
+
+def mesh_grads(torch, pair, reduce_type: str, num_devices: int,
+               model_parallel: int) -> dict:
+    """Step 1's gradients of the §8 model (drawn as `fresh_model` draws
+    it) on one super-batch through a `num_devices` x `model_parallel`
+    plan: this rank's groups' mean loss under the plan's model context,
+    each gradient then averaged over every rank as the train step
+    averages it, {name: numpy}."""
+    from repro_torch.core.graph_tensor import unstack_graph
+    from repro_torch.distributed import collectives, partition
+    from repro_torch.kernels import registry
+    plan = partition.make_plan(num_devices, model_parallel=model_parallel,
+                               device=DEVICE)
+    task = root_task()
+    model = fresh_model(torch, reduce_type)
+    params = dict(model.named_parameters())
+    graph, labels = plan.put_super_batch(*pair)
+    groups = unstack_graph(plan.gather_graph(graph))
+    with registry.layout(sorted_by_target=True), plan.model_context():
+        loss = sum(task.loss_from_graph(model.head, model(g), labels[i])
+                   for i, g in enumerate(groups)) / len(groups)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    world = plan.mesh.world
+    return {k: (collectives.all_reduce(g, world) / world.size).cpu().numpy()
+            for k, g in zip(params, grads)}
+
+
+def mesh_grad_gap(name: str, got: dict, want: dict) -> float:
+    """The worst gradient error of `got` against `want` relative to each
+    leaf's largest `want` entry; fails beyond the [train] rule
+    (GRAD_RTOL of that entry)."""
+    worst = 0.0
+    for k, b in want.items():
+        a = got[k]
+        scale = float(np.abs(b).max())
+        err = float(np.abs(a - b).max())
+        if not np.isfinite(a).all() or err > GRAD_RTOL * scale + 1e-7:
+            fail(f"mesh {name} {k}: step-1 gradient differs from one rank's "
+                 f"by {err:.3e} (largest entry {scale:.3e}, rtol "
+                 f"{GRAD_RTOL})")
+        if scale > 0:
+            worst = max(worst, err / scale)
+    return worst
+
+
+def mesh_rank(path: str, reduce_type: str, model_parallel: int,
+              steps: int) -> dict:
+    """What each spawned rank of `[mesh]` (b) and (c) runs; a rank of a
+    model-split plan also returns step 1's gradients (`mesh_grads`) on
+    the first super-batch."""
+    import pickle
+    import torch
+    full_fp32(torch)
+    with open(path, "rb") as f:
+        pairs = pickle.load(f)
+    grads = (mesh_grads(torch, pairs[0], reduce_type, MESH_RANKS,
+                        model_parallel) if model_parallel > 1 else None)
+    # start the counted fit together: a rank still loading would show
+    # up as the other's time inside its first collective
+    torch.distributed.barrier()
+    run = mesh_fit(torch, pairs, reduce_type, MESH_RANKS, model_parallel,
+                   steps)
+    run["grads"] = grads
+    return run
+
+
+def mesh_line(name, run, kernel, groups, per_step, smi) -> str:
+    """The phase's text for one run; fails unless every forward on this
+    rank launched exactly 5 x ROUNDS of `kernel` and no other kernel."""
+    forwards = run["step"] * groups
+    launches = run["launches"]
+    if launches[kernel] != 5 * ROUNDS * forwards or any(
+            n for k, n in launches.items() if k != kernel):
+        fail(f"mesh {name}: launches {launches} for {forwards} group "
+             f"forwards ({5 * ROUNDS} {kernel} per group expected)")
+    coll = run["collectives"]
+    return (f"{name} plan {run['plan']}: step {run['step_ms']:.2f} ms median "
+            f"= {1e3 * per_step / run['step_ms']:.1f} roots/s ({smi}); "
+            f"collectives {coll['calls'] / run['step']:.1f} calls and "
+            f"{coll['ms'] / run['step']:.2f} ms a step (host clock inside "
+            f"the calls, step 1's setup included); "
+            f"{launches[kernel] // forwards} {kernel} per group forward, "
+            f"{groups} groups a step on this rank; opt-state "
+            f"{run['opt_bytes']} bytes on this rank; losses "
+            f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}")
+
+
+def mesh_phase(torch, raw, spec, setup, smi) -> dict:
+    """The port's mesh on the card at full width (the §8 model, 20000
+    papers), every plan over the same MESH_STEPS super-batches of
+    MESH_GROUPS x MESH_ROOTS target-sorted roots:
+    (a) `Trainer(num_devices=1)`, sum model: one rank, no process group;
+    step-1 gradients and the first PARITY_STEPS losses vs the same run
+    through the plain versions by the [train] rule;
+    (b) 2 ranks sharing the card, (data=2), sum model, on gloo: losses
+    within MESH_LOSS_ATOL of (a), ZeRO-1 optimizer state at most (a)'s /
+    MESH_ZERO_SHRINK a rank;
+    (c) 2 ranks, (data=1, model=2), the mean model (its pools run
+    `segment_pool_runs` on 64-wide chunks): step-1 gradients on the first
+    super-batch by the [train] rule and losses within MESH_LOSS_ATOL of
+    (d), one rank of the mean model;
+    then the twin `ogbn_mag_train.main(["--steps", "3"])`, which must exit
+    0.  Every forward launches exactly 20 `edge_mpnn_runs` (sum) or
+    `segment_pool_runs` (mean) per group on each rank.  A rank that
+    fails or outlives MESH_TIMEOUT_S fails the phase.  Returns the
+    launches of (a) + (b)'s rank 0 and of (c)'s rank 0 + (d)."""
+    import tempfile
+    from repro_torch.distributed.launch import run_ranks
+    from repro_torch.orchestration import ogbn_mag_train
+    train_roots = setup[0]
+    per_step = MESH_GROUPS * MESH_ROOTS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        path = os.path.join(tmp, "batches.pkl")
+        pairs = mesh_batches(raw, spec, train_roots, path)
+        first, first_labels = pairs[0]
+        worst, n_params, reached, _, _ = grad_check(torch, "sum", first,
+                                                    first_labels)
+        a = mesh_fit(torch, pairs, "sum", 1, 1, MESH_STEPS)
+        plain = mesh_fit(torch, pairs, "sum", 1, 1, PARITY_STEPS,
+                         plain=True)
+        head_gap = float(np.abs(np.asarray(a["losses"][:PARITY_STEPS])
+                                - np.asarray(plain["losses"])).max())
+        if head_gap > LOSS_ATOL:
+            fail(f"mesh (a): the first {PARITY_STEPS} losses differ from the "
+                 f"plain run by {head_gap:.3e} (atol {LOSS_ATOL})")
+        b = run_ranks(mesh_rank, MESH_RANKS,
+                      args=(path, "sum", 1, MESH_STEPS), backend="gloo",
+                      device=DEVICE + ":0", timeout_s=MESH_TIMEOUT_S)
+        c = run_ranks(mesh_rank, MESH_RANKS,
+                      args=(path, "mean", MESH_RANKS, MESH_STEPS),
+                      backend="gloo", device=DEVICE + ":0",
+                      timeout_s=MESH_TIMEOUT_S)
+        d = mesh_fit(torch, pairs, "mean", 1, 1, MESH_STEPS)
+        d_grads = mesh_grads(torch, pairs[0], "mean", 1, 1)
+    c_grad_gap = max(mesh_grad_gap(f"(c) rank {rank}", run["grads"], d_grads)
+                     for rank, run in enumerate(c))
+    checks = []
+    for name, runs, ref in (("(b)", b, a), ("(c)", c, d)):
+        for rank, run in enumerate(runs):
+            gap = float(np.abs(np.asarray(run["losses"])
+                               - np.asarray(ref["losses"])).max())
+            if run["step"] != MESH_STEPS or gap > MESH_LOSS_ATOL:
+                fail(f"mesh {name} rank {rank}: {run['step']} steps, losses "
+                     f"{run['losses']} vs one rank's {ref['losses']} (max "
+                     f"gap {gap:.3e}, atol {MESH_LOSS_ATOL})")
+            checks.append(gap)
+    if b[0]["opt_bytes"] * MESH_ZERO_SHRINK > a["opt_bytes"]:
+        fail(f"mesh (b): ZeRO-1 left {b[0]['opt_bytes']} bytes of optimizer "
+             f"state a rank against one rank's {a['opt_bytes']}")
+    phase("mesh", mesh_line("(a)", a, "edge_mpnn_runs", MESH_GROUPS,
+                            per_step, smi)
+          + f"; one rank, no process group; step-1 gradients "
+          f"of {n_params} parameters ({reached} reached) max rel err vs "
+          f"plain {worst:.2e} (rtol {GRAD_RTOL}); first {PARITY_STEPS} "
+          f"losses vs plain {head_gap:.2e} (atol {LOSS_ATOL})")
+    for name, runs, kernel, groups in (
+            ("(b)", b, "edge_mpnn_runs", MESH_GROUPS // MESH_RANKS),
+            ("(c)", c, "segment_pool_runs", MESH_GROUPS)):
+        for rank, run in enumerate(runs):
+            phase("mesh", f"rank {rank} " + mesh_line(
+                name, run, kernel, groups, per_step, smi))
+    phase("mesh", mesh_line("(d)", d, "segment_pool_runs", MESH_GROUPS,
+                            per_step, smi))
+    phase("mesh", f"(b) vs (a) and (c) vs (d): per-step losses within "
+          f"{max(checks):.2e} over {MESH_STEPS} steps (atol "
+          f"{MESH_LOSS_ATOL}); ZeRO-1 (b) {b[0]['opt_bytes']} vs (a) "
+          f"{a['opt_bytes']} optimizer bytes a rank "
+          f"({a['opt_bytes'] / b[0]['opt_bytes']:.3f}x); (c) vs (d) step-1 "
+          f"gradients of {len(d_grads)} parameters on the first "
+          f"super-batch, max rel err {c_grad_gap:.2e} (rtol {GRAD_RTOL})")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = ogbn_mag_train.main(["--steps", "3"])
+    tail = [line for line in out.getvalue().splitlines()
+            if line.startswith(("final loss", "ogbn_mag_train"))]
+    if code != 0 or "ogbn_mag_train OK" not in tail:
+        fail(f"mesh: the ogbn_mag_train twin exited {code}: "
+             f"{out.getvalue()[-2000:]}")
+    for line in tail:
+        phase("mesh", f"twin: {line}")
+    phase("mesh", f"phase {time.perf_counter() - t0:.1f}s")
+    return {"edge_mpnn_runs": a["launches"]["edge_mpnn_runs"]
+            + b[0]["launches"]["edge_mpnn_runs"],
+            "segment_pool_runs": c[0]["launches"]["segment_pool_runs"]
+            + d["launches"]["segment_pool_runs"]}
+
 
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
@@ -2924,6 +3260,9 @@ def main() -> int:
         torch, raw, spec, setup, trained, smi)
     records["edge_mpnn_runs"]["outofcore_launches"] = outofcore_phase(
         torch, smi)
+    mesh = mesh_phase(torch, raw, spec, setup, smi)
+    for name, n in mesh.items():
+        records[name]["mesh_launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,17 +7,43 @@ reduction by remapping their segment ids to `n_segments` (the registry
 contract: out-of-range ids are dropped, empty segments yield 0).  Every
 segment-shaped reduction routes through `repro_torch.kernels.registry`,
 which runs a CUDA `segment_pool` kernel on the card (the run variant on
-sorted ids) and the plain PyTorch version on the CPU.  The reference's
-model-axis feature split comes with the parallelism slice.
+sorted ids) and the plain PyTorch version on the CPU.
+
+Feature-dim model parallelism (driven by the mesh plan of
+`repro_torch.distributed.partition` through `repro_torch.core.mp_context`,
+as the reference's `core/ops.py:34-68`): inside a model-parallel step
+the segment reductions at the broadcast/pool boundary — the pool, both
+reductions of segment softmax, pooling to context — run on this rank's
+feature chunk and all-gather the pooled result back to full width.
+Broadcasts need no collective: their input is already full width.
+Chunks are exact slices, reductions are feature-independent and the
+gather concatenates them in mesh order, so results are bit-identical to
+the unsharded path.  A width the model axis does not divide stays
+unsharded.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import mp_context
 from repro_torch.core.graph_tensor import GraphTensor, SOURCE, TARGET
 from repro_torch.kernels import registry
 
 _REDUCE_TYPES = ("sum", "mean", "max", "min")
+
+
+def _mp_segment_reduce(value, seg_ids, n_segments, reduce_type,
+                       sorted_ids=None):
+    """Segment reduction with the feature axis split over the model
+    axis (all-gather at the pool boundary); unsharded outside a
+    model-parallel step.  sorted_ids is the registry's layout hint."""
+    ctx = mp_context.current_model_context()
+    if ctx is not None and ctx.can_split(value):
+        out = registry.segment_reduce(ctx.split(value), seg_ids, n_segments,
+                                      reduce_type, sorted_ids=sorted_ids)
+        return ctx.gather(out)
+    return registry.segment_reduce(value, seg_ids, n_segments, reduce_type,
+                                   sorted_ids=sorted_ids)
 
 
 def _edge_endpoint(graph: GraphTensor, edge_set_name: str, tag: str):
@@ -81,8 +107,8 @@ def pool_edges_to_node(graph: GraphTensor, edge_set_name: str, tag: str,
     # batches sort edges by (component, target) and pad last, so
     # TARGET-keyed ids are non-decreasing exactly when the calling
     # thread's registry.layout() says so; SOURCE-keyed ids never are
-    return registry.segment_reduce(value, seg_ids, num_nodes, reduce_type,
-                                   sorted_ids=_sorted_hint(tag))
+    return _mp_segment_reduce(value, seg_ids, num_nodes, reduce_type,
+                              sorted_ids=_sorted_hint(tag))
 
 
 def segment_softmax(graph: GraphTensor, edge_set_name: str, tag: str,
@@ -97,14 +123,15 @@ def segment_softmax(graph: GraphTensor, edge_set_name: str, tag: str,
     seg_ids = _masked_ids(emask, idx, num_nodes)
     sorted_ids = _sorted_hint(tag)
     # max-shift for stability, then exp-sum — both registry reductions
-    seg_max = registry.segment_reduce(feature_value, seg_ids, num_nodes,
-                                      "max", sorted_ids=sorted_ids)
+    # (feature-split over the model axis inside a model-parallel step)
+    seg_max = _mp_segment_reduce(feature_value, seg_ids, num_nodes, "max",
+                                 sorted_ids=sorted_ids)
     shifted = torch.where(emask_b, feature_value - seg_max[idx],
                           torch.full_like(feature_value, -torch.inf))
     exp = torch.where(emask_b, torch.exp(shifted),
                       torch.zeros_like(feature_value))
-    seg_sum = registry.segment_reduce(exp, seg_ids, num_nodes, "sum",
-                                      sorted_ids=sorted_ids)
+    seg_sum = _mp_segment_reduce(exp, seg_ids, num_nodes, "sum",
+                                 sorted_ids=sorted_ids)
     return exp / torch.clamp(seg_sum[idx], min=1e-37)
 
 
@@ -138,8 +165,8 @@ def _pool_items_to_context(piece, num_components, reduce_type, value):
     comp = _masked_ids(piece.mask(), piece.component_ids(), num_components)
     # component ids are non-decreasing by construction and padding rows
     # map to num_components at the end: context pooling is always sorted
-    return registry.segment_reduce(value, comp, num_components, reduce_type,
-                                   sorted_ids=True)
+    return _mp_segment_reduce(value, comp, num_components, reduce_type,
+                              sorted_ids=True)
 
 
 def pool_nodes_to_context(graph: GraphTensor, node_set_name: str,

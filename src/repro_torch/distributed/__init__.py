@@ -1,3 +1,4 @@
-"""repro_torch.distributed — checkpointing and resume (counterpart of
-`repro.distributed.fault_tolerance`); the mesh and its sharding come with
-the parallelism slice."""
+"""repro_torch.distributed — the mesh over torch.distributed ranks
+(`partition`, `sharding`, `graph_sharding`, `collectives`, `launch`) and
+checkpointing with resume (`fault_tolerance`); counterpart of
+`repro.distributed`."""

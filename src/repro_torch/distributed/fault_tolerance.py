@@ -22,6 +22,15 @@ as the reference names them with ``jax.tree_util.keystr``.  A bf16
 tensor, which numpy cannot hold, is stored as its int16 bits with dtype
 "bfloat16" in the manifest.  Restore returns the tree of `state_like`
 with each leaf a tensor on that leaf's device.
+
+Under a mesh (`MeshCheckpointManager`) the same files are written: the
+caller hands every rank's save the FULL state (the Trainer all-gathers
+the ZeRO-1 optimizer slices over the data axis first), rank 0 alone
+writes it, and every rank meets the others at a barrier after the save
+and after each wait, so no rank runs ahead of a checkpoint that is not
+there yet.  Every rank restores the full state (and the Trainer cuts
+its slices again).  This is the counterpart of the reference's
+single-process mesh, whose `save_async` sees the whole sharded state.
 """
 from __future__ import annotations
 
@@ -294,3 +303,61 @@ class CheckpointManager:
         if path is None:
             return None
         return restore_checkpoint(path, state_like)
+
+
+class MeshCheckpointManager:
+    """`CheckpointManager` for the ranks of a mesh: rank 0 writes,
+    every rank reads, and all of them meet at a barrier on each save,
+    wait and pointer update.  ``barrier`` is the mesh's (a callable);
+    the state given to `save_async` must be the full state on every
+    rank."""
+
+    def __init__(self, directory: str, *, rank: int,
+                 barrier: Callable[[], None], keep: int = 3,
+                 save_interval_steps: int = 100):
+        self.mgr = CheckpointManager(directory, keep=keep,
+                                     save_interval_steps=save_interval_steps)
+        self.rank = rank
+        self._barrier = barrier
+
+    @property
+    def directory(self) -> str:
+        return self.mgr.directory
+
+    def should_save(self, step: int) -> bool:
+        return self.mgr.should_save(step)
+
+    def save_async(self, step: int, state: Tree, *,
+                   extra: dict | None = None) -> None:
+        """Rank 0 copies the state to the host and writes it in the
+        background; every rank then waits at the barrier for the copy
+        to be taken (not for the write: `wait` does that)."""
+        if self.rank == 0:
+            self.mgr.save_async(step, state, extra=extra)
+        self._barrier()
+
+    def wait(self) -> None:
+        """Rank 0 lands its write; every rank waits for it."""
+        if self.rank == 0:
+            self.mgr.wait()
+        self._barrier()
+
+    def mark_best(self, step: int) -> None:
+        if self.rank == 0:
+            self.mgr.mark_best(step)
+        self._barrier()
+
+    def restore_latest(self, state_like: Tree):
+        return self.mgr.restore_latest(state_like)
+
+    def restore_best(self, state_like: Tree):
+        return self.mgr.restore_best(state_like)
+
+    def close(self) -> None:
+        self.mgr.close()
+
+    def __enter__(self) -> "MeshCheckpointManager":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

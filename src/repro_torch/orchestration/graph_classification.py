@@ -8,7 +8,9 @@ layer proper:
   eval stream, early stopping and best-checkpoint tracking.
 
 The defaults are the example's: 480 graphs, 3 classes, hidden 32, 3
-rounds, batches of 16, 6 epochs, patience 3, a save every 20 steps.  On
+rounds, batches of 16, 6 epochs, patience 3, a save every 20 steps,
+trained as the example trains them: stacked ``[1, ...]`` super-batches
+(``num_replicas=1``) on a one-rank mesh (``num_devices=1``).  On
 the card the rounds run through `edge_mpnn_runs` and the readout's mean
 through `segment_pool_runs`, both folding in a fixed order on the sorted
 batches, so a resumed run repeats an uninterrupted one's losses exactly.
@@ -46,8 +48,10 @@ def providers(graphs: int = GRAPHS, classes: int = CLASSES) -> tuple:
         num_graphs=graphs, num_classes=classes, feat_dim=FEAT_DIM, seed=0)
     n_train = int(graphs * 0.75)
     sizes = find_size_constraints(data, BATCH)
-    return (BatcherProvider(data[:n_train], BATCH, sizes, seed=0),
-            BatcherProvider(data[n_train:], BATCH, sizes, seed=0))
+    return (BatcherProvider(data[:n_train], BATCH, sizes, seed=0,
+                            num_replicas=1),
+            BatcherProvider(data[n_train:], BATCH, sizes, seed=0,
+                            num_replicas=1))
 
 
 class InitStates(nn.Module):
@@ -86,7 +90,7 @@ def run(device=None, *, graphs: int = GRAPHS, classes: int = CLASSES,
     train, val = data if data is not None else providers(graphs, classes)
     trainer = Trainer(
         epochs=epochs, learning_rate=LEARNING_RATE, total_steps=TOTAL_STEPS,
-        max_steps=steps, log_every=20, ckpt_dir=ckpt_dir,
+        num_devices=1, max_steps=steps, log_every=20, ckpt_dir=ckpt_dir,
         save_interval_steps=SAVE_INTERVAL, resume=resume, eval_at="epoch",
         early_stopping=EarlyStopping(monitor="loss", patience=patience,
                                      mode="min"),

@@ -10,7 +10,9 @@ and the sample-on-demand `StoreProvider`:
 Negatives are drawn host-side from `seed_rng(base_seed, (epoch, step))`,
 as the reference draws them, so both packages train on the same
 negatives.  The defaults are the example's: 480 papers, hidden 32, 2
-rounds, 4 negatives, batches of 16, 3 epochs.  On the card every
+rounds, 4 negatives, batches of 16, 3 epochs, trained as the example
+trains them: stacked ``[1, ...]`` super-batches (``num_replicas=1``) on
+a one-rank mesh (``num_devices=1``).  On the card every
 training forward runs the rounds through `edge_mpnn_runs` (the batches
 sort edges by target).
 
@@ -66,7 +68,8 @@ def providers(papers: int = PAPERS) -> tuple:
                for r in roots]
     sizes = find_size_constraints(profile, BATCH)
     return tuple(StoreProvider(store, spec, part, batch_size=BATCH,
-                               sizes=sizes, seed=0, base_seed=0)
+                               sizes=sizes, seed=0, num_replicas=1,
+                               base_seed=0)
                  for part in (roots[:n_train], roots[n_train:]))
 
 
@@ -106,8 +109,9 @@ def run(device=None, *, papers: int = PAPERS, epochs: int = EPOCHS,
     and loss) and "params"."""
     train, val = data if data is not None else providers(papers)
     trainer = Trainer(epochs=epochs, learning_rate=LEARNING_RATE,
-                      total_steps=TOTAL_STEPS, max_steps=steps,
-                      log_every=20, eval_at="end", device=device)
+                      total_steps=TOTAL_STEPS, num_devices=1,
+                      max_steps=steps, log_every=20, eval_at="end",
+                      device=device)
     task = LinkPrediction("writes", hidden, num_negatives=negatives,
                           base_seed=0)
     return trainer.fit(lambda: model_fn(hidden, rounds), task, train,

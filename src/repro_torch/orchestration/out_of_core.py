@@ -16,13 +16,10 @@ fixed order on the target-sorted batches).  On top of that the
 out-of-core claim itself: every worker's peak RSS (written through
 ``--rss-file``) stays BELOW the bytes of the GraphDirectory it sampled.
 
-One deviation from the example: it trains on stacked ``[1, ...]``
-super-batches (``num_devices=1``, ``num_replicas=1``), which need the
-mesh the port does not have yet, so here the fleets build scalar batches
-(``num_replicas=None``), the Trainer runs without a mesh
-(``num_devices=None``) and the label function returns ``[C]`` root
-labels.  The reference's ``runner.run(sampler="service",
-num_devices=None)`` over the same fleet and plan trains the same way.
+As the example does, it trains on stacked ``[1, ...]`` super-batches:
+the fleets build one component group a step (``num_replicas=1``), the
+Trainer runs them on a one-rank mesh (``num_devices=1``) and the label
+function returns ``[1, C]`` root labels.
 
 Workers are spawned through a small relay interpreter, so each
 worker's ``ru_maxrss`` starts at a bare interpreter and not at this
@@ -131,10 +128,12 @@ def model_fn(feat_dim: int = FEAT_DIM, hidden: int = HIDDEN):
 
 
 def root_labels(graph) -> np.ndarray:
-    """[C] root labels of a scalar batch."""
+    """Per-group root labels [R, C] from a stacked super-batch."""
     ns = graph.node_sets["paper"]
-    return RootNodeMulticlassClassification.root_labels(
-        np.asarray(ns.sizes), np.asarray(ns["labels"])).astype(np.int32)
+    sizes, labels = np.asarray(ns.sizes), np.asarray(ns["labels"])
+    return np.stack([
+        RootNodeMulticlassClassification.root_labels(sizes[r], labels[r])
+        for r in range(sizes.shape[0])]).astype(np.int32)
 
 
 def train_with(service, device, *, feat_dim: int = FEAT_DIM,
@@ -146,17 +145,17 @@ def train_with(service, device, *, feat_dim: int = FEAT_DIM,
         model_fn=lambda: model_fn(feat_dim, hidden),
         task=RootNodeMulticlassClassification("paper", N_CLASSES, hidden),
         epochs=EPOCHS, learning_rate=LEARNING_RATE, total_steps=TOTAL_STEPS,
-        log_every=4, max_steps=steps, sampler="service", service=service,
-        label_fn=root_labels, device=device, params=params)
+        log_every=4, max_steps=steps, num_devices=1, sampler="service",
+        service=service, label_fn=root_labels, device=device, params=params)
 
 
 def fleet(store, spec, roots, sizes, *, workers: int, backend: str,
           **kwargs) -> SamplingService:
-    """A sampler fleet over the example's plan (batches of 8, scalar,
-    seed 0, sorted by target)."""
+    """A sampler fleet over the example's plan (batches of 8 as one
+    stacked component group, seed 0, sorted by target)."""
     return SamplingService(store, spec, roots, batch_size=BATCH,
-                           sizes=sizes, num_workers=workers, seed=0,
-                           base_seed=0, backend=backend, **kwargs)
+                           sizes=sizes, num_workers=workers, num_replicas=1,
+                           seed=0, base_seed=0, backend=backend, **kwargs)
 
 
 def dial_run(store, spec, roots, sizes, train, *, workers: int,

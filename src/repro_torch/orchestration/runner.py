@@ -64,7 +64,9 @@ def run(*, train_batches: Optional[Callable[[int],
     on the device a step ahead by default (``double_buffer``: pinned
     host copies on a side CUDA stream, `train_loop.device_prefetch`).
     ``device`` and ``params`` go to the Trainer (CUDA by default; a
-    reference parameter tree instead of the seeded draw)."""
+    reference parameter tree instead of the seeded draw), and so do
+    ``num_devices`` / ``model_parallel``: the mesh over the world's
+    ranks, which then trains stacked ``[R, ...]`` super-batches."""
     if sampler == "service":
         if service is None or label_fn is None:
             raise ValueError("sampler='service' needs service= (a "

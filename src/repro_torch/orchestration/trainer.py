@@ -19,8 +19,18 @@ batch``, a resumed run's losses equal an uninterrupted run's exactly:
 on the CPU, and on the card, where the kernels fold every sum in a fixed
 order on the sorted training batches.
 
-What this slice leaves out: the mesh (``num_devices`` and
-``model_parallel > 1`` raise; ROADMAP queue 1 item 3).
+The mesh, as the reference's Trainer owns it: ``num_devices=N`` (the
+`torch.distributed` world size, one rank a device) with
+``model_parallel=M`` builds a `partition.MeshPlan` over ("data",
+"model") at the start of `fit`; every rank is handed the same stacked
+``[R, ...]`` super-batches and places its own block of the groups
+(`MeshPlan.put_super_batch`), the parameters are broadcast from rank 0
+and the AdamW state is cut to ZeRO-1 slices at the first step, and the
+step is `partition.make_train_step`'s.  Only rank 0 prints; under a mesh
+rank 0 writes the checkpoints (`MeshCheckpointManager`, the optimizer
+slices gathered first) and every rank restores the full state and cuts
+its slices again.  ``num_devices=1`` runs the same program on one device
+with no process group.
 
 The model runs on CUDA unless ``device`` says otherwise; without a card
 and without ``device`` the Trainer raises rather than carry on on the
@@ -41,7 +51,9 @@ from torch import nn
 
 from repro_torch.core.graph_tensor import (resolve_device, stack_size,
                                            to_device)
-from repro_torch.distributed.fault_tolerance import CheckpointManager
+from repro_torch.distributed import partition
+from repro_torch.distributed.fault_tolerance import (CheckpointManager,
+                                                     MeshCheckpointManager)
 from repro_torch.kernels import registry
 from repro_torch.nn.layers import init_params, load_jax_params
 from repro_torch.orchestration.evaluation import EarlyStopping, evaluate
@@ -115,10 +127,19 @@ class Trainer:
         if self.eval_at not in ("end", "epoch", "never"):
             raise ValueError(f"eval_at must be 'end', 'epoch' or 'never', "
                              f"got {self.eval_at!r}")
-        if self.num_devices is not None or self.model_parallel > 1:
-            raise ValueError("num_devices / model_parallel > 1 need the "
-                             "mesh, which the port does not have yet "
-                             "(ROADMAP queue 1 item 3)")
+
+    def _make_plan(self, device):
+        if self.num_devices is not None:
+            return partition.make_plan(self.num_devices,
+                                       model_parallel=self.model_parallel,
+                                       device=device)
+        if self.model_parallel > 1:
+            raise ValueError("model_parallel > 1 needs num_devices=")
+        if partition.world_size() > 1:
+            raise ValueError(
+                "multi-process (torch.distributed) training needs "
+                "num_devices= — the single-device step cannot see the mesh")
+        return None
 
     @staticmethod
     def _labeled(stream, task, epoch: int, start_step: int):
@@ -138,12 +159,19 @@ class Trainer:
         tensor}), "train_losses" and "step_seconds" (one per step, host
         clock, each ending when the step's loss reached the host) and
         "batch_wait_seconds" (the part of each step spent waiting for its
-        placed batch: sampling and the copy, or the prefetch queue), plus
-        "eval", "eval_history", "best_step" when an eval stream ran.
+        placed batch: sampling and the copy, or the prefetch queue),
+        "plan" (the mesh, e.g. ``(data=2, model=2) over 4 rank(s),
+        backend gloo``, or None) and "opt_state_bytes" (the optimizer
+        state this rank holds), plus "eval", "eval_history",
+        "best_step" when an eval stream ran.
 
         ``params``: a parameter tree ``{"init", "gnn", "head"}`` in the
         reference's layout, loaded in place of the seeded draw."""
         device = resolve_device(self.device)
+        plan = self._make_plan(device)
+        # one rank narrates for the whole mesh; the others compute the
+        # same replicated results and stay quiet
+        is_main = plan is None or plan.is_main
         init_states, gnn = model_fn()
         model = TrainModel(init_states, gnn, task.head())
         if params is None:
@@ -184,23 +212,35 @@ class Trainer:
 
         def place(graph, labels, non_blocking=False):
             """Host batch -> device batch (``non_blocking``: through
-            pinned buffers, for `device_prefetch`'s side stream)."""
+            pinned buffers, for `device_prefetch`'s side stream); under
+            the mesh, this rank's block of the super-batch."""
+            if plan is not None:
+                return plan.put_super_batch(graph, labels,
+                                            non_blocking=non_blocking)
             if stack_size(graph) is not None:
                 raise ValueError(
-                    "stacked [R, ...] super-batches need the mesh; build "
-                    "batches with num_replicas=None")
+                    "stacked [R, ...] super-batches need the mesh: pass "
+                    "num_devices= (or build batches with "
+                    "num_replicas=None)")
             labels = torch.as_tensor(labels)
             if non_blocking and device.type == "cuda":
                 labels = labels.pin_memory()
             return (to_device(graph, device, non_blocking=non_blocking),
                     labels.to(device, non_blocking=non_blocking))
 
-        train_step = make_graph_train_step(loss_fn, opt)
-        eval_step = make_graph_eval_step(metric_fn)
-        mgr = CheckpointManager(
-            self.ckpt_dir, keep=self.keep,
-            save_interval_steps=self.save_interval_steps) \
-            if self.ckpt_dir else None
+        train_step = make_graph_train_step(loss_fn, opt) \
+            if plan is None else None
+        eval_step = make_graph_eval_step(metric_fn, plan=plan)
+        mgr = None
+        if self.ckpt_dir and plan is None:
+            mgr = CheckpointManager(
+                self.ckpt_dir, keep=self.keep,
+                save_interval_steps=self.save_interval_steps)
+        elif self.ckpt_dir:
+            mgr = MeshCheckpointManager(
+                self.ckpt_dir, rank=plan.rank, barrier=plan.barrier,
+                keep=self.keep, save_interval_steps=self.save_interval_steps)
+        zero_placed = False
         step = 0
         start_epoch = 0
         epoch_start_step = 0
@@ -233,8 +273,12 @@ class Trainer:
 
         def save(at_step, epoch, in_epoch):
             # the state is copied to the host before save_async returns:
-            # the next step updates the parameters in place
-            mgr.save_async(at_step, (named, opt_state),
+            # the next step updates the parameters in place.  Under the
+            # mesh every rank gathers the full optimizer state first.
+            full = opt_state
+            if zero_placed:
+                full = plan.gather_opt_state(opt, named, opt_state)
+            mgr.save_async(at_step, (named, full),
                            extra={"epoch": epoch, "step_in_epoch": in_epoch})
 
         # the layout hint is read per call by the kernel registry, on the
@@ -262,6 +306,15 @@ class Trainer:
                         placed.close()  # joins the device_prefetch thread
                         break
                     waits.append(time.perf_counter() - t_step)
+                    if plan is not None and train_step is None:
+                        train_step = make_graph_train_step(
+                            loss_fn, opt, plan=plan,
+                            num_groups=stack_size(graph) * plan.data_size)
+                        plan.replicate(named)
+                        # ZeRO-1: AdamW m/v cut to this rank's slices
+                        opt_state = plan.place_opt_state(opt, named,
+                                                         opt_state)
+                        zero_placed = True
                     named, opt_state, loss = train_step(
                         named, opt_state, graph, labels)
                     step += 1
@@ -271,7 +324,7 @@ class Trainer:
                     now = time.perf_counter()
                     step_seconds.append(now - t_step)
                     t_step = now
-                    if step % self.log_every == 0:
+                    if step % self.log_every == 0 and is_main:
                         print(f"epoch {epoch} step {step} "
                               f"loss {last_loss:.4f} "
                               f"({self.log_every / (time.time() - t0):.1f}"
@@ -282,10 +335,11 @@ class Trainer:
                 if eval_provider is not None and self.eval_at == "epoch":
                     em = run_eval()
                     eval_history.append(em)
-                    print(f"epoch {epoch} eval "
-                          + " ".join(f"{k} {v:.4f}"
-                                     for k, v in sorted(em.items())),
-                          flush=True)
+                    if is_main:
+                        print(f"epoch {epoch} eval "
+                              + " ".join(f"{k} {v:.4f}"
+                                         for k, v in sorted(em.items())),
+                              flush=True)
                     if monitor is not None:
                         is_best = monitor.update(em[monitor.monitor],
                                                  step=step)
@@ -316,6 +370,8 @@ class Trainer:
         if stop_early:
             metrics["stopped_early"] = True
         metrics["params"] = {k: p.detach() for k, p in named.items()}
+        metrics["plan"] = plan.describe() if plan is not None else None
+        metrics["opt_state_bytes"] = partition.tree_bytes(opt_state)
         metrics["train_losses"] = losses
         metrics["step_seconds"] = step_seconds
         metrics["batch_wait_seconds"] = waits

@@ -1,6 +1,8 @@
 """AdamW, its schedules and gradient clipping — a line-for-line port of
-`repro.train.optimizer` (`:24-175`), without the ZeRO-1 arguments (the
-mesh comes with the parallelism slice).
+`repro.train.optimizer` (`:24-175`), ZeRO-1 arguments included: under
+the mesh (`repro_torch.distributed.partition`) `update` takes this data
+rank's slices and a ``group`` (the data `Axis`) with ``shard_dims``, and
+only the clipping norm needs the cross-rank correction.
 
 It is not `torch.optim.AdamW`, whose defaults and order differ: b2 is
 0.95 and eps 1e-8; the gradient is clipped to global norm 1.0 (with
@@ -50,15 +52,36 @@ def constant_lr(lr: float):
 # Gradient clipping
 # ---------------------------------------------------------------------------
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def _sqsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.square(x.to(torch.float32)))
+
+
+def global_norm(tree: Tree, *, group=None,
+                shard_dims: dict | None = None) -> torch.Tensor:
     """L2 norm over a gradient tree, each leaf squared and summed in
-    fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree.values()))
+    fp32.
+
+    Under ZeRO-1 each leaf may be this data rank's *slice*: pass
+    ``group`` (the data `Axis`) and ``shard_dims`` ({name: int}, -1 =
+    replicated) and the squared sum of the sliced leaves is all-reduced
+    over the group, while replicated leaves count once — so every rank
+    computes the exact full norm."""
+    if group is None or shard_dims is None:
+        return torch.sqrt(sum(_sqsum(x) for x in tree.values()))
+    from repro_torch.distributed import collectives
+    device = next(iter(tree.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    local = sum((_sqsum(x) for k, x in tree.items() if shard_dims[k] >= 0),
+                zero)
+    repl = sum((_sqsum(x) for k, x in tree.items() if shard_dims[k] < 0),
+               zero)
+    return torch.sqrt(collectives.all_reduce(local.reshape(1),
+                                             group)[0] + repl)
 
 
-def clip_by_global_norm(tree: Tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: Tree, max_norm: float, *, group=None,
+                        shard_dims: dict | None = None):
+    norm = global_norm(tree, group=group, shard_dims=shard_dims)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     # multiply in each leaf's own dtype, as the reference does
     return {k: g * scale.to(g.dtype) for k, g in tree.items()}, norm
@@ -98,9 +121,15 @@ class AdamW:
                           zeros,
                           {k: z.clone() for k, z in zeros.items()})
 
-    def update(self, grads: Tree, state: AdamWState, params: Tree
+    def update(self, grads: Tree, state: AdamWState, params: Tree, *,
+               group=None, shard_dims: dict | None = None
                ) -> tuple[Tree, AdamWState, dict]:
-        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
+        """ZeRO-1: with ``group``/``shard_dims`` the inputs are this data
+        rank's slices; AdamW's update is elementwise, so only the
+        clipping norm needs the cross-rank correction."""
+        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm,
+                                           group=group,
+                                           shard_dims=shard_dims)
         step = state.step + 1
         b1, b2 = self.b1, self.b2
         bc1 = 1 - b1 ** step.to(torch.float32)
@@ -125,3 +154,7 @@ class AdamW:
                 AdamWState(step, {k: o[1] for k, o in out.items()},
                            {k: o[2] for k, o in out.items()}),
                 {"grad_norm": gnorm, "learning_rate": lr})
+
+    def state_axes(self, param_axes: Tree) -> AdamWState:
+        """Optimizer-state logical axes mirror the parameters'."""
+        return AdamWState((), param_axes, param_axes)

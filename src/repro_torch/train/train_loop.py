@@ -1,5 +1,7 @@
 """Graph train/eval steps (counterpart of the Trainer's step factories in
-`repro.train.train_loop`, `:264-306`), without the mesh (``plan=``).
+`repro.train.train_loop`, `:218-306`): a plain step on one device, or
+under a mesh plan (``plan=``) the 2-D step of
+`repro_torch.distributed.partition`.
 
 In PyTorch the parameters live in the modules, so a loss function here
 takes ``(graph, labels)`` and reads the parameters it was built over;
@@ -40,11 +42,23 @@ def apply_updates(optimizer, params: dict, opt_state, grads: dict):
     return opt_state
 
 
-def make_graph_train_step(loss_fn: Callable, optimizer) -> Callable:
+def make_graph_train_step(loss_fn: Callable, optimizer, *, plan=None,
+                          num_groups: int | None = None) -> Callable:
     """(params, opt_state, graph, labels) -> (params, opt_state, loss).
 
     ``loss_fn(scalar_graph, labels) -> scalar`` over modules that own
-    `params`: value-and-grad, then the optimizer update."""
+    `params`.  Without a plan: value-and-grad, then the optimizer
+    update.  With a `repro_torch.distributed.partition.MeshPlan`:
+    ``partition.make_train_step`` (per-rank forward/backward over the
+    2-D mesh, gradient mean, ZeRO-1 update) — ``num_groups`` is the
+    super-batch stack size, required there."""
+    if plan is not None:
+        from repro_torch.distributed import partition
+        if num_groups is None:
+            raise ValueError("make_graph_train_step with plan= needs "
+                             "num_groups= (the super-batch stack size)")
+        return partition.make_train_step(plan, loss_fn, optimizer,
+                                         num_groups=num_groups)
 
     def train_step(params, opt_state, graph, labels):
         loss, grads = loss_and_grads(loss_fn, params, graph, labels)
@@ -54,11 +68,16 @@ def make_graph_train_step(loss_fn: Callable, optimizer) -> Callable:
     return train_step
 
 
-def make_graph_eval_step(metric_fn: Callable) -> Callable:
+def make_graph_eval_step(metric_fn: Callable, *, plan=None) -> Callable:
     """(graph, labels) -> tuple of metric scalars, without autograd.
 
     ``metric_fn(scalar_graph, labels)`` must return a TUPLE of scalars
-    that are exact sums (numerators/denominators, not means)."""
+    that are exact sums (numerators/denominators, not means) — with a
+    plan they are summed over component groups and over the data axis
+    by ``partition.make_eval_step``."""
+    if plan is not None:
+        from repro_torch.distributed import partition
+        return partition.make_eval_step(plan, metric_fn)
 
     def eval_step(graph, labels):
         with torch.no_grad():
@@ -67,8 +86,8 @@ def make_graph_eval_step(metric_fn: Callable) -> Callable:
     return eval_step
 
 
-def device_prefetch(batches, place: Callable, *, depth: int = 2,
-                    device=None):
+def device_prefetch(batches, place: Callable | None = None, *, plan=None,
+                    depth: int = 2, device=None):
     """Run `place` (host -> device) for the next batches on a background
     thread while the caller runs the current step (the
     `repro_torch.data.pipeline.prefetch` contract: errors re-raise at the
@@ -83,7 +102,17 @@ def device_prefetch(batches, place: Callable, *, depth: int = 2,
     on the consumer's stream (`record_stream`), so the caching allocator
     does not give its memory to another tensor before the step that
     reads it has run.  On any other device (or ``device=None``) `place`
-    runs as it is, on the thread."""
+    runs as it is, on the thread.
+
+    Under a mesh pass the `MeshPlan` as ``plan``: `place` then defaults
+    to ``plan.put_super_batch`` (this rank's block of the groups, its
+    feature chunk) and `device` to the plan's."""
+    if place is None:
+        if plan is None:
+            raise ValueError("device_prefetch needs place= or plan=")
+        place = plan.put_super_batch
+    if device is None and plan is not None:
+        device = plan.device
     if device is None or torch.device(device).type != "cuda":
         return prefetch((place(*b) for b in batches), depth=depth)
     return _cuda_prefetch(batches, place, depth, torch.device(device))

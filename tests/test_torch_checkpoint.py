@@ -171,7 +171,7 @@ def test_trainer_epoch_eval_early_stops_and_tracks_best(data, tmp_path):
         ckpt_dir=ckpt, save_interval_steps=2, keep=1, eval_at="epoch",
         early_stopping=EarlyStopping(monitor="loss", patience=1,
                                      min_delta=100.0, mode="min"),
-        device="cpu")
+        num_devices=1, device="cpu")
     result = trainer.fit(gc.model_fn, GraphMulticlassClassification(
         "atoms", gc.CLASSES, gc.HIDDEN), train, eval_provider=val)
     assert result.metrics["stopped_early"] is True
@@ -251,9 +251,11 @@ SCRIPT = textwrap.dedent("""
     print(f"NUM_STEPS {train.num_steps}", flush=True)
     if mode == "kill":
         train = KillSwitch(train, kill_after)
+    # the twin's stream is stacked [1, ...] super-batches: a one-rank mesh
     trainer = Trainer(epochs=2, learning_rate=1e-2, total_steps=50,
                       log_every=1, ckpt_dir=ckpt, save_interval_steps=2,
-                      resume=(mode == "resume"), device="cpu")
+                      resume=(mode == "resume"), num_devices=1,
+                      device="cpu")
     result = trainer.fit(gc.model_fn, GraphMulticlassClassification(
         "atoms", gc.CLASSES, gc.HIDDEN), train)
     print("RESULT " + json.dumps({"step": result.step,

@@ -462,7 +462,8 @@ class JInitStates(JModule):
 
 def test_out_of_core_twin_matches_the_reference_runner():
     """The twin's model, labels and thread fleet against the reference's
-    runner with the same fleet and plan, scalar batches, no mesh."""
+    runner with the same fleet and plan, as the example runs it: stacked
+    [1, ...] super-batches on a one-device mesh."""
     feat, dim, steps = 16, 16, 3
     kw = dict(n_papers=300, n_authors=75, n_institutions=40, n_fields=80,
               n_classes=8, feat_dim=feat)
@@ -481,17 +482,18 @@ def test_out_of_core_twin_matches_the_reference_runner():
         seed=0)._init_params(*jmodel(), jtask.head()))
     want = []
     with JService(jstore, jspec, roots, batch_size=8, sizes=sizes,
-                  num_workers=2, seed=0, backend="thread") as jsvc:
+                  num_workers=2, num_replicas=1, seed=0,
+                  backend="thread") as jsvc:
         for k in range(1, steps + 1):
             want.append(j_run(
                 model_fn=jmodel, task=jtask, epochs=2, learning_rate=3e-3,
                 total_steps=100, log_every=10 ** 6, max_steps=k,
-                sampler="service", service=jsvc,
+                num_devices=1, sampler="service", service=jsvc,
                 label_fn=jtask.labels).train_loss)
     with out_of_core.fleet(store, spec, roots, sizes, workers=2,
                            backend="thread") as svc:
         got = out_of_core.train_with(svc, "cpu", feat_dim=feat, hidden=dim,
                                      steps=steps, params=initial)
-        assert svc.plan.num_replicas is None
+        assert svc.plan.num_replicas == 1
     np.testing.assert_allclose(got.metrics["train_losses"], want,
                                rtol=1e-4, atol=1e-5)

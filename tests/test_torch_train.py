@@ -13,8 +13,8 @@
   losses, final parameters and `evaluate`'s metrics must agree within
   rtol 1e-4 / atol 1e-5 (fp32 sums in another order, through 6 Adam
   steps).
-* The Trainer's contract: CUDA unless asked, the mesh (not ported yet)
-  raises, checkpointing constructs, the layout hint is held on the loop's
+* The Trainer's contract: CUDA unless asked, a world that does not
+  match ``num_devices`` raises, checkpointing constructs, the layout hint is held on the loop's
   thread and not on a server's engine thread, and `runner.run` is a shim
   over `fit`.
 """
@@ -405,8 +405,15 @@ def test_trainer_defaults_to_cuda_and_leaves_out_what_is_not_ported(
     # drives them)
     assert Trainer(ckpt_dir="ckpt").ckpt_dir == "ckpt"
     assert Trainer(resume=True).resume
-    with pytest.raises(ValueError, match="mesh"):
-        Trainer(num_devices=2)
+    # the mesh is ported (tests/test_torch_partition.py,
+    # test_torch_mesh.py): a world that does not match num_devices raises
+    # the reference's message at fit, and so does a model axis without it
+    batches = BatcherProvider(tg[:N_TRAIN], BATCH, sizes)
+    with pytest.raises(RuntimeError, match="need 2 devices, have 1"):
+        Trainer(num_devices=2, device="cpu").fit(t_model_fn, task, batches)
+    with pytest.raises(ValueError, match="needs num_devices"):
+        Trainer(model_parallel=2, device="cpu").fit(t_model_fn, task,
+                                                    batches)
     with pytest.raises(ValueError, match="eval_at"):
         Trainer(eval_at="sometimes")
 
