@@ -71,7 +71,17 @@ head, 8 classes):
   optimizer state a rank at most (a)'s / 1.8, 20 `edge_mpnn_runs` (sum)
   or `segment_pool_runs` (mean) a group forward on every rank; then the
   twin `repro_torch.orchestration.ogbn_mag_train.main(["--steps", "3"])`,
-  which must exit 0.
+  which must exit 0;
+* multi-host sampling (`[multihost]`): the `ogbn_mag_train` twin at
+  ``--multihost 2 --num-devices 2`` (through `run_twin`, what its `main`
+  runs), two processes of one gloo world sharing the card, rank 0
+  hosting a `SamplerEndpoint` whose per-rank sampler fleets stream every
+  rank's batches over loopback TCP; then the same argv without
+  ``--multihost`` through `run_ranks`, the in-process stream on the same
+  2-rank mesh.  Every per-step loss of each rank within 1e-4 of the
+  in-process run's, 20 `edge_mpnn_runs` a group forward on each rank,
+  and the step time, batch wait and roots/s of both runs and their
+  ratio printed.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -200,6 +210,13 @@ MESH_RANKS = 2
 MESH_TIMEOUT_S = 300
 MESH_LOSS_ATOL = 1e-4           # reference: tests/test_graph_sharding.py
 MESH_ZERO_SHRINK = 1.8          # reference: tests/test_partition.py
+# multi-host sampling: the ogbn_mag_train twin on two ranks, 24 steps of
+# 16 roots; 600 papers, half the example's, since every process of both
+# runs samples all of them before its first step (the phase stays under
+# a minute)
+MULTIHOST_STEPS = 24
+MULTIHOST_PAPERS = 600
+MULTIHOST_RANKS = 2
 
 
 def fail(message: str) -> None:
@@ -3023,7 +3040,7 @@ def mesh_grads(torch, pair, reduce_type: str, num_devices: int,
     model = fresh_model(torch, reduce_type)
     params = dict(model.named_parameters())
     graph, labels = plan.put_super_batch(*pair)
-    groups = unstack_graph(plan.gather_graph(graph))
+    groups = unstack_graph(graph)
     with registry.layout(sorted_by_target=True), plan.model_context():
         loss = sum(task.loss_from_graph(model.head, model(g), labels[i])
                    for i, g in enumerate(groups)) / len(groups)
@@ -3196,6 +3213,104 @@ def mesh_phase(torch, raw, spec, setup, smi) -> dict:
             + d["launches"]["segment_pool_runs"]}
 
 
+def twin_summary(argv: list, label: str) -> tuple:
+    """The ogbn_mag_train twin's `run_twin(argv)` (its ranks are
+    subprocesses), with what it printed; fails the phase when a rank
+    fails."""
+    from repro_torch.distributed.launch import RankFailure
+    from repro_torch.orchestration import ogbn_mag_train
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            summary = ogbn_mag_train.run_twin(argv)
+    except (SystemExit, RankFailure) as exc:
+        fail(f"multihost: the {label} run failed ({exc!r}): "
+             f"{out.getvalue()[-3000:]}")
+    if len(summary["ranks"]) != MULTIHOST_RANKS:
+        fail(f"multihost: the {label} run reported {len(summary['ranks'])} "
+             f"ranks, not {MULTIHOST_RANKS}")
+    return summary, out.getvalue()
+
+
+def multihost_rank_line(label: str, rank: dict, forwards: int) -> tuple:
+    """One rank's text and its median step and batch wait (ms, after the
+    first step); fails unless every group forward on the rank launched
+    exactly 5 x ROUNDS `edge_mpnn_runs` and no other kernel."""
+    launches = rank["launches"]
+    if launches["edge_mpnn_runs"] != 5 * ROUNDS * forwards or any(
+            n for k, n in launches.items() if k != "edge_mpnn_runs"):
+        fail(f"multihost {label} rank {rank['rank']}: launches {launches} "
+             f"for {forwards} group forwards ({5 * ROUNDS} edge_mpnn_runs "
+             "per group expected)")
+    step = 1e3 * statistics.median(rank["step_seconds"][1:])
+    wait = 1e3 * statistics.median(rank["batch_wait_seconds"][1:])
+    first_step = 1e3 * rank["step_seconds"][0]
+    first_wait = 1e3 * rank["batch_wait_seconds"][0]
+    return (f"{label} rank {rank['rank']}: step {step:.2f} ms median, batch "
+            f"wait {wait:.3f} ms median (first step {first_step:.1f} ms, "
+            f"wait {first_wait:.1f}); {launches['edge_mpnn_runs'] // forwards}"
+            f" edge_mpnn_runs per group forward over {forwards} (1 group a "
+            "step)", step, wait)
+
+
+def multihost_phase(torch, smi) -> int:
+    """Multi-host sampling on the card: the ogbn_mag_train twin (the §8
+    model at the twin's width, hidden 64) at ``--multihost 2
+    --num-devices 2``, two processes of one gloo world sharing the card,
+    every rank reading its row's batches over loopback TCP from rank 0's
+    `SamplerEndpoint`; then the same argv in-process (two spawned ranks,
+    each placing its block of the global super-batch).  Fails unless
+    every per-step loss of each rank is within MESH_LOSS_ATOL of the
+    in-process run's (the batches are bit-identical, the collectives the
+    same) and every group forward on each rank launched exactly 20
+    `edge_mpnn_runs`; prints both runs' median step time, batch wait and
+    roots/s and their ratio (not gated: no benchmark file).  Returns the
+    launches of both runs' rank 0."""
+    argv = ["--num-devices", str(MULTIHOST_RANKS), "--steps",
+            str(MULTIHOST_STEPS), "--papers", str(MULTIHOST_PAPERS)]
+    from repro_torch.orchestration import ogbn_mag_train
+    t0 = time.perf_counter()
+    remote, text = twin_summary(argv + ["--multihost", str(MULTIHOST_RANKS)],
+                                "--multihost")
+    if "multihost: OK" not in text or "service over TCP" not in text:
+        fail(f"multihost: the launcher did not report OK over TCP: "
+             f"{text[-3000:]}")
+    t1 = time.perf_counter()
+    local, _ = twin_summary(argv, "in-process")
+    t2 = time.perf_counter()
+    n_test = MULTIHOST_PAPERS - int(MULTIHOST_PAPERS * 0.75)
+    forwards = MULTIHOST_STEPS + n_test // ogbn_mag_train.BATCH
+    gaps, steps = [], {}
+    for label, run in (("--multihost", remote), ("in-process", local)):
+        for rank, ref in zip(run["ranks"], local["ranks"]):
+            gap = float(np.abs(np.asarray(rank["losses"])
+                               - np.asarray(ref["losses"])).max())
+            if rank["steps"] != MULTIHOST_STEPS or gap > MESH_LOSS_ATOL \
+                    or not np.isfinite(rank["losses"]).all():
+                fail(f"multihost {label} rank {rank['rank']}: "
+                     f"{rank['steps']} steps, losses {rank['losses']} vs the "
+                     f"in-process run's {ref['losses']} (max gap {gap:.3e}, "
+                     f"atol {MESH_LOSS_ATOL})")
+            gaps.append(gap)
+            line, step, wait = multihost_rank_line(label, rank, forwards)
+            steps.setdefault(label, []).append(step)
+            phase("multihost", line)
+    per_step = ogbn_mag_train.BATCH
+    rates = {label: 1e3 * per_step / max(v) for label, v in steps.items()}
+    phase("multihost", f"roots/s (16 roots a step over the slower rank's "
+          f"median step): --multihost {rates['--multihost']:.1f}, "
+          f"in-process {rates['in-process']:.1f}, ratio "
+          f"{rates['--multihost'] / rates['in-process']:.3f} ({smi}); "
+          f"per-step losses within {max(gaps):.2e} over {MULTIHOST_STEPS} "
+          f"steps (atol {MESH_LOSS_ATOL}), final loss "
+          f"{remote['final_loss']:.4f} / {local['final_loss']:.4f}, test "
+          f"accuracy {remote['test_accuracy']:.4f} / "
+          f"{local['test_accuracy']:.4f}; runs {t1 - t0:.1f}s / "
+          f"{t2 - t1:.1f}s")
+    return (remote["ranks"][0]["launches"]["edge_mpnn_runs"]
+            + local["ranks"][0]["launches"]["edge_mpnn_runs"])
+
+
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
     first training batch on the card."""
@@ -3263,6 +3378,8 @@ def main() -> int:
     mesh = mesh_phase(torch, raw, spec, setup, smi)
     for name, n in mesh.items():
         records[name]["mesh_launches"] = n
+    records["edge_mpnn_runs"]["multihost_launches"] = multihost_phase(
+        torch, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -16,11 +16,21 @@ How the reference's JAX mesh maps onto PyTorch:
   identity (`collectives`), so ``Trainer(num_devices=1)`` trains an
   R-group super-batch on one device as the reference's ``(data=1)`` mesh
   does, and its loss equals the N-rank run's.
-* **Every rank is handed the same global super-batch** (the stream of a
-  host's `GraphBatcher(num_replicas=R)`, as the reference's
-  single-process mesh is) and `MeshPlan.put_super_batch` places this
-  rank's contiguous block of the R component groups, with the trailing
-  feature dim of rank >= 3 leaves cut to this rank's model chunk.
+* **A rank is handed either the global super-batch or its own row's
+  group.**  The global one is the stream of a host's
+  `GraphBatcher(num_replicas=R)`, as the reference's single-process mesh
+  is, and `MeshPlan.put_super_batch` takes this rank's contiguous block
+  of the R component groups.  The per-rank one is the port's
+  counterpart of the reference's process-local placement
+  (`make_array_from_process_local_data`): a reference host holding a
+  data row is a rank here, so rank ``r`` of a (data=R, model=M) mesh
+  reads ``GraphBatcher(rank=r // M, world=R, num_replicas=1)`` (or a
+  fleet of that plan, over TCP from a `SamplerEndpoint`), which is
+  group ``r // M`` of the global super-batch bit for bit (the plan
+  splits a step into contiguous blocks).  Either way the groups are
+  placed at full width: every rank holds the whole host batch, so the
+  feature dim is not cut at placement; the ops split it at the pool
+  boundary.
 * **Backend**: the caller's explicit choice (`initialize_distributed`),
   printed by every run: NCCL when every rank has its own card (it cannot
   put two ranks on one device), gloo otherwise (the CPU, or two ranks
@@ -29,8 +39,7 @@ How the reference's JAX mesh maps onto PyTorch:
 A MeshPlan derives from the mesh and the rule tables of
 `repro_torch.distributed.sharding`:
 
-* per-leaf placement specs of a super-batch (leading group axis ->
-  "data", trailing feature axis of rank >= 3 leaves -> "model");
+* the placement of a super-batch (leading group axis -> "data");
 * the gather boundaries: `model_context()` makes the model axis visible
   to `repro_torch.core.ops`, which splits the feature axis of each
   segment reduction and all-gathers the pooled result
@@ -45,9 +54,8 @@ A MeshPlan derives from the mesh and the rule tables of
   the updated slices are all-gathered back (`zero_gather`): parameters
   stay replicated, the state shrinks by the data factor.
 
-Not ported: the reference's multi-process placement (`jax.distributed`
-global arrays: `--multihost` needs `sampling_service/remote.py`) and
-`dispatch_context` (only GSPMD steps traced at global shapes read it).
+Not ported: `dispatch_context` (only GSPMD steps traced at global
+shapes read it).
 """
 from __future__ import annotations
 
@@ -61,8 +69,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import mp_context
-from repro_torch.core.graph_tensor import (_map_graphs, graph_leaves,
-                                           resolve_device,
+from repro_torch.core.graph_tensor import (_map_graphs, resolve_device,
                                            stack_graphs, stack_size,
                                            to_device, unstack_graph)
 from repro_torch.distributed import collectives
@@ -73,7 +80,6 @@ from repro_torch.distributed.sharding import (DEFAULT_ACT_RULES,
                                               data_axis_names, is_axes_leaf)
 
 GROUP_AXIS = "batch"    # logical name of the leading component-group axis
-FEATURE_AXIS = "feature"  # logical name of a trailing feature axis
 MODEL_AXIS = "model"    # mesh axis carrying feature-dim model parallelism
 DATA_AXIS = "data"
 PROCESS_GROUP_TIMEOUT_S = 300.0   # a collective that waits longer fails
@@ -93,8 +99,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID`` environment (the
     reference's contract); ``backend`` is the caller's choice.  The
     coordinator is an init method: ``tcp://host:port`` (a bare
-    ``host:port`` is taken as tcp) or ``file:///path`` (a `FileStore`, which needs no port).  With NCCL each
-    rank takes card ``rank % device_count`` as its current device first.
+    ``host:port`` is taken as tcp) or ``file:///path`` (a `FileStore`,
+    which needs no port).  With NCCL each rank takes card
+    ``rank % device_count`` as its current device first.
     Returns True when a process group was initialized, False when
     unconfigured or the world is one process (which needs none)."""
     coord = coordinator_address or os.environ.get("REPRO_COORDINATOR", "")
@@ -132,9 +139,7 @@ def backend_name() -> str:
 class Mesh:
     """The ranks as a grid: ``axis_names`` ("data",) or ("data",
     "model"), ``shape`` {axis: size}; ``axes`` holds this rank's `Axis`
-    for each, ``world`` the axis of every rank.  ``layouts`` records the
-    specs each super-batch layout was placed with, so any plan over this
-    mesh can gather what another placed."""
+    for each, ``world`` the axis of every rank."""
 
     axis_names: tuple
     shape: dict
@@ -142,8 +147,6 @@ class Mesh:
     axes: dict
     world: Axis
     backend: str
-    layouts: dict = dataclasses.field(default_factory=dict, compare=False,
-                                      repr=False)
 
     @property
     def devices(self) -> np.ndarray:
@@ -232,21 +235,6 @@ def tree_bytes(tree) -> int:
     return sum(int(x.numel()) * x.element_size() for x in out)
 
 
-def _leaf_axes(x):
-    """Logical axes of one super-batch leaf: the leading group axis is
-    "batch"; the trailing dim of rank >= 3 leaves (node/edge/context
-    features with a real feature dim) is "feature".  Rank <= 2 leaves
-    (sizes, adjacency, scalar features) never resolve to "model"."""
-    if x.ndim >= 3:
-        return (GROUP_AXIS,) + (None,) * (x.ndim - 2) + (FEATURE_AXIS,)
-    return (GROUP_AXIS,) + (None,) * (x.ndim - 1)
-
-
-def _layout_key(graph) -> tuple:
-    structure, leaves = graph_leaves(graph)
-    return structure, tuple(tuple(x.shape) for x in leaves)
-
-
 # ---------------------------------------------------------------------------
 # MeshPlan
 # ---------------------------------------------------------------------------
@@ -256,9 +244,9 @@ class MeshPlan:
     """Axes, per-leaf specs and gather/mean boundaries for one mesh.
 
     Every layer consumes the plan instead of re-deriving its own specs:
-    `graph_specs` and `put_super_batch` (placement), `gather_graph` and
-    `model_context` (the step's gather boundaries), `zero_*` (the
-    optimizer-state layout).  ``device`` is this rank's device."""
+    `put_super_batch` (placement), `model_context` (the step's gather
+    boundaries), `zero_*` (the optimizer-state layout).  ``device`` is
+    this rank's device."""
 
     mesh: Mesh
     param_rules: Mapping[str, Any] = dataclasses.field(
@@ -307,13 +295,20 @@ class MeshPlan:
     def is_main(self) -> bool:
         return self.mesh.rank == 0
 
-    @property
-    def local_data_size(self) -> int:
-        """Data shards the super-batch handed to this rank covers: all
-        of them (every rank is handed the same global super-batch and
-        takes its own block), as on the reference's single-process
-        mesh."""
-        return self.data_size
+    def local_data_size(self, n_groups: int) -> int:
+        """Data shards a super-batch of `n_groups` groups handed to this
+        rank covers: all of them when the count is a multiple of the
+        data size (the global super-batch, as on the reference's
+        single-process mesh), one when it is a single group (this rank's
+        own row, the per-rank stream); any other count raises."""
+        if n_groups % self.data_size == 0:
+            return self.data_size
+        if n_groups == 1:
+            return 1
+        raise ValueError(
+            f"super-batch has {n_groups} component groups: neither a "
+            f"multiple of the {self.data_size} data shards (a global "
+            "super-batch) nor one group (this rank's own row)")
 
     def describe(self) -> str:
         """e.g. ``(data=2, model=2) over 4 rank(s), backend gloo``."""
@@ -340,16 +335,7 @@ class MeshPlan:
     def barrier(self) -> None:
         collectives.barrier(self.mesh.world)
 
-    # -- GraphTensor super-batch specs ---------------------------------------
-
-    def graph_specs(self, graph):
-        """A spec tuple per leaf (a GraphTensor of tuples), resolved
-        through the rule tables with the divisibility fixup — a feature
-        width the model axis does not divide replicates."""
-        ctx = self._ctx()
-        return _map_graphs(lambda x: ctx.resolve(_leaf_axes(x),
-                                                 ctx.act_rules,
-                                                 shape=x.shape), [graph])
+    # -- super-batch placement -----------------------------------------------
 
     def data_spec(self) -> tuple:
         """Spec sharding a leading batch/group dim over the data axes."""
@@ -369,59 +355,36 @@ class MeshPlan:
         return x
 
     def put_super_batch(self, graph, labels, non_blocking: bool = False):
-        """Place a host super-batch and its per-group labels: this rank's
-        contiguous block of the R component groups on its device, the
-        trailing feature dim of rank >= 3 leaves cut to this rank's model
-        chunk.  A scalar GraphTensor is promoted to a [1, ...] stack, so a
-        one-rank plan runs the identical program.  ``non_blocking``:
-        through pinned buffers (`to_device`)."""
+        """Place a host super-batch and its per-group labels on this
+        rank's device, at full width.  A global super-batch (a multiple
+        of the data size in groups) gives this rank its contiguous block
+        of the groups; a single group is this rank's own row (a per-rank
+        stream) and is placed whole (`local_data_size`; the Trainer
+        takes one group as a row only from a per-row source).  At one
+        data shard a scalar GraphTensor is promoted to a [1, ...] stack,
+        so a one-rank plan runs the identical program; at more it
+        raises.  ``non_blocking``: through pinned
+        buffers (`to_device`)."""
         if stack_size(graph) is None:
+            if self.data_size > 1:
+                raise ValueError(
+                    f"an unstacked graph on a mesh of {self.data_size} "
+                    "data shards: build stacked super-batches "
+                    "(num_replicas=)")
             graph = stack_graphs([graph])
             labels = np.asarray(labels)[None]
-        n_groups = stack_size(graph)
-        if n_groups % self.local_data_size:
-            raise ValueError(
-                f"super-batch has {n_groups} component groups, not "
-                f"divisible by the {self.local_data_size} data shards")
-        specs = self.graph_specs(graph)
-        local = _map_graphs(self._block, [graph, specs])
-        labels = self._block(labels if isinstance(labels, torch.Tensor)
-                             else np.asarray(labels), self.data_spec())
-        key = _layout_key(local)
-        known = self.mesh.layouts.setdefault(key, specs)
-        if _tree_specs(known) != _tree_specs(specs):
-            raise ValueError("two super-batch layouts place to the same "
-                             "local shapes with different specs")
+        labels = labels if isinstance(labels, torch.Tensor) \
+            else np.asarray(labels)
+        if self.local_data_size(stack_size(graph)) > 1:
+            spec = self.data_spec()
+            graph = _map_graphs(lambda x: self._block(x, spec), [graph])
+            labels = self._block(labels, spec)
         device = self.device if self.device is not None else "cpu"
         labels = torch.as_tensor(labels)
         if non_blocking and torch.device(device).type == "cuda":
             labels = labels.pin_memory()
-        return (to_device(local, device, non_blocking=non_blocking),
+        return (to_device(graph, device, non_blocking=non_blocking),
                 labels.to(device, non_blocking=non_blocking))
-
-    def local_specs(self, graph):
-        """The specs a placed (local) super-batch was cut with."""
-        try:
-            return self.mesh.layouts[_layout_key(graph)]
-        except KeyError:
-            raise ValueError("this super-batch was not placed by this "
-                             "plan's put_super_batch") from None
-
-    def gather_graph(self, graph, specs=None):
-        """Entry all-gather of a step: leaves placed model-split on their
-        feature dim come back to full width (the model consumes
-        full-width features; the boundary ops re-split per
-        reduction)."""
-        if self.model_axis is None:
-            return graph
-        specs = specs if specs is not None else self.local_specs(graph)
-        model = self.mesh.axes[MODEL_AXIS]
-
-        def g(x, spec):
-            if spec and spec[-1] == MODEL_AXIS:
-                return collectives.all_gather(x, model, dim=-1)
-            return x
-        return _map_graphs(g, [graph, specs])
 
     # -- placement of replicated state ---------------------------------------
 
@@ -586,11 +549,6 @@ class MeshPlan:
         return out
 
 
-def _tree_specs(specs) -> list:
-    _, leaves = graph_leaves(specs)
-    return leaves
-
-
 def _flat(tensors) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in tensors])
 
@@ -659,7 +617,6 @@ def make_train_step(plan: MeshPlan, loss_fn: Callable, optimizer, *,
 
     def train_step(params, opt_state, graph_stack, labels):
         names = list(params)
-        graph_stack = plan.gather_graph(graph_stack)
         with plan.model_context():
             loss = _local_mean(loss_fn, graph_stack, labels)
             grads = torch.autograd.grad(loss, [params[k] for k in names],
@@ -698,7 +655,6 @@ def make_eval_step(plan: MeshPlan, metric_fn: Callable) -> Callable:
     the data axis (counts, not means — divide at the caller)."""
 
     def eval_step(graph_stack, labels):
-        graph_stack = plan.gather_graph(graph_stack)
         with torch.no_grad(), plan.model_context():
             totals = None
             for i, g in enumerate(unstack_graph(graph_stack)):

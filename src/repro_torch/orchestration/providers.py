@@ -68,6 +68,18 @@ class DatasetProvider:
         self.close()
 
 
+def source_rows(provider) -> Optional[int]:
+    """How many data rows the provider's stream is one of: its batch
+    plan's ``world`` (1 for a stream of all the roots), through a
+    `ServiceProvider`'s source and a `BatcherProvider`'s batcher.  None
+    where the source shows no plan: a generator, or a remote stream,
+    whose endpoint decides what each rank reads."""
+    source = getattr(provider, "source", provider)
+    source = getattr(source, "batcher", source)
+    plan = getattr(source, "plan", None)
+    return None if plan is None else int(plan.world)
+
+
 class BatcherProvider(DatasetProvider):
     """Pre-sampled in-memory graphs behind the contract (wraps
     `GraphBatcher` — same constructor surface)."""

@@ -22,14 +22,15 @@ order on the sorted training batches.
 The mesh, as the reference's Trainer owns it: ``num_devices=N`` (the
 `torch.distributed` world size, one rank a device) with
 ``model_parallel=M`` builds a `partition.MeshPlan` over ("data",
-"model") at the start of `fit`; every rank is handed the same stacked
-``[R, ...]`` super-batches and places its own block of the groups
-(`MeshPlan.put_super_batch`), the parameters are broadcast from rank 0
-and the AdamW state is cut to ZeRO-1 slices at the first step, and the
-step is `partition.make_train_step`'s.  Only rank 0 prints; under a mesh
-rank 0 writes the checkpoints (`MeshCheckpointManager`, the optimizer
-slices gathered first) and every rank restores the full state and cuts
-its slices again.  ``num_devices=1`` runs the same program on one device
+"model") at the start of `fit`; every rank places its own block of the
+groups of stacked ``[R, ...]`` super-batches, or the one group of its
+own row's stream (`MeshPlan.put_super_batch`; one group is a row only
+from a source split into the mesh's rows), the parameters are
+broadcast from rank 0 and the AdamW state is cut to ZeRO-1 slices at
+the first step, and the step is `partition.make_train_step`'s.  Only
+rank 0 prints; under a mesh rank 0 writes the checkpoints
+(`MeshCheckpointManager`, the optimizer slices gathered first) and
+every rank restores the full state and cuts its slices again.  ``num_devices=1`` runs the same program on one device
 with no process group.
 
 The model runs on CUDA unless ``device`` says otherwise; without a card
@@ -57,6 +58,7 @@ from repro_torch.distributed.fault_tolerance import (CheckpointManager,
 from repro_torch.kernels import registry
 from repro_torch.nn.layers import init_params, load_jax_params
 from repro_torch.orchestration.evaluation import EarlyStopping, evaluate
+from repro_torch.orchestration.providers import source_rows
 from repro_torch.train.optimizer import AdamW, warmup_cosine
 from repro_torch.train.train_loop import (device_prefetch,
                                           make_graph_eval_step,
@@ -228,6 +230,31 @@ class Trainer:
             return (to_device(graph, device, non_blocking=non_blocking),
                     labels.to(device, non_blocking=non_blocking))
 
+        def place_from(provider):
+            """`place` for one provider's batches.  At data > 1 a
+            one-group batch is this rank's own row only when the
+            provider's source is split into the mesh's data rows
+            (`source_rows`); from a source split otherwise it is a
+            global super-batch the data shards cannot divide."""
+            rows = source_rows(provider)
+            if plan is None or plan.data_size == 1 \
+                    or rows in (None, plan.data_size):
+                return place
+
+            def checked(graph, labels, non_blocking=False):
+                if stack_size(graph) == 1:
+                    raise ValueError(
+                        f"a one-group batch from a stream of {rows} data "
+                        f"row(s) on a mesh of {plan.data_size}: neither "
+                        "a global super-batch (build it with "
+                        f"num_replicas={plan.data_size}) nor this rank's "
+                        f"row (rank=, world={plan.data_size}, "
+                        "num_replicas=1)")
+                return place(graph, labels, non_blocking)
+
+            return checked
+
+        train_place = place_from(train_provider)
         train_step = make_graph_train_step(loss_fn, opt) \
             if plan is None else None
         eval_step = make_graph_eval_step(metric_fn, plan=plan)
@@ -268,7 +295,8 @@ class Trainer:
         t0 = time.time()
 
         def run_eval():
-            return evaluate(eval_provider, task, eval_step, place,
+            return evaluate(eval_provider, task, eval_step,
+                            place_from(eval_provider),
                             metric_keys=metric_keys)
 
         def save(at_step, epoch, in_epoch):
@@ -295,9 +323,10 @@ class Trainer:
                     train_provider.epoch(epoch, start_step=start), task,
                     epoch, start)
                 if self.double_buffer:
-                    placed = device_prefetch(pairs, place, device=device)
+                    placed = device_prefetch(pairs, train_place,
+                                             device=device)
                 else:
-                    placed = (place(g, l) for g, l in pairs)
+                    placed = (train_place(g, l) for g, l in pairs)
                 step_in_epoch = start
                 t_step = time.perf_counter()
                 for graph, labels in placed:

@@ -105,8 +105,8 @@ def device_prefetch(batches, place: Callable | None = None, *, plan=None,
     runs as it is, on the thread.
 
     Under a mesh pass the `MeshPlan` as ``plan``: `place` then defaults
-    to ``plan.put_super_batch`` (this rank's block of the groups, its
-    feature chunk) and `device` to the plan's."""
+    to ``plan.put_super_batch`` (this rank's block of the groups, or its
+    own row's group, at full width) and `device` to the plan's."""
     if place is None:
         if plan is None:
             raise ValueError("device_prefetch needs place= or plan=")

@@ -10,9 +10,8 @@ around them.
   JAX example's initial parameters reaches the example's final loss at
   the same arguments (1e-4; one JAX subprocess, 4 host devices, runs
   `examples/ogbn_mag_train.py` itself); ``--sampler service`` on one
-  rank trains the in-process path's losses bit for bit; ``--multihost``
-  and the service over several ranks raise (they need the reference's
-  `sampling_service/remote.py`).
+  rank trains the in-process path's losses bit for bit (``--multihost``
+  and the service over several ranks: tests/test_torch_remote.py).
 * A world that does not match ``num_devices`` raises the reference's
   message; one rank needs no process group (and the 1-D surface's step
   is the plan's); `runner.run` passes the mesh through; a failing rank
@@ -239,14 +238,6 @@ def test_twin_sampler_service_on_one_rank_repeats_in_process():
     assert inproc["steps"] == service["steps"] == 2
     assert service["losses"] == inproc["losses"]
     assert inproc["backend"] == "none"
-
-
-@pytest.mark.parametrize("argv", [["--multihost", "2"],
-                                  ["--sampler", "service",
-                                   "--num-devices", "2"]])
-def test_twin_paths_that_need_remote_streams_raise(argv):
-    with pytest.raises(SystemExit, match="remote.py"):
-        ogbn_mag_train.run_twin(argv + ["--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 module names that keep the reference's lint rules live.
 
 * A subprocess whose `sys.meta_path` refuses any `torch` import (as
-  tests/test_worker_numpy_only.py refuses jax) imports the dial-in worker
-  and the sampling service, builds a padded batch through
+  tests/test_worker_numpy_only.py refuses jax) imports the dial-in worker,
+  the sampling service and its multi-host endpoint and client, builds a padded batch through
   `SamplerWorker.build_step` and through an `MmapGraphStore`, and ends
   with torch absent from `sys.modules`.
 * repro-lint finds the reference's wire module and both sampler workers
@@ -37,6 +37,7 @@ _SCRIPT = textwrap.dedent("""
     sys.meta_path.insert(0, _BlockTorch())
 
     import numpy as np
+    import repro_torch.sampling_service.remote
     import repro_torch.sampling_service.service
     import repro_torch.serve
     import repro_torch.serve.loadgen

@@ -152,8 +152,7 @@ def model_axis_pieces():
     host = next(iter(prov.epoch(0)))
     labels = task().labels(host)
     graph, lab = plan.put_super_batch(host, labels)
-    full = plan.gather_graph(graph)
-    g0 = unstack_graph(full)[0]
+    g0 = unstack_graph(graph)[0]
     plain = _segment_cases(plan, ops, g0)
     with plan.model_context() as ctx:
         split = _segment_cases(plan, ops, g0)
