@@ -12,7 +12,15 @@ shapes, `edge_mpnn_runs` and `segment_pool_runs` at the trained shapes,
 on sorted and unsorted ids (`segment_pool_runs` also at the 64-wide
 chunks of the model-parallel mean model), and `flash_attention` at the
 graph-attention shape of a training batch, the reference envelope's
-corner and an LM causal GQA prefill.  Then it drives the port's paths at
+corner and an LM causal GQA prefill.  `[autotune]` then tunes the edge
+and pooling kernels' variant and tile height per exact key with
+`repro_torch.kernels.autotune` into a temporary file (the reference
+bench's pooling shape, the served and trained convs and pools), prints
+every candidate's device µs beside the shipped rule's, and with the
+registry's consult on holds the tuned decisions, outputs and repeats to
+`[kernels]`' rules, a GNNServer warmed from CUDA graphs to 0 captures
+after warmup and a training forward to its 20 run-kernel launches.
+Then it drives the port's paths at
 the full width of the §8 OGBN-MAG model (init states -> 4-round
 vanilla_mpnn over all five edge sets, 128 wide, LayerNorm -> root-node
 head, 8 classes):
@@ -2423,6 +2431,353 @@ def flash_kernels_phase(torch, batch, records, build_report):
 
 
 # ---------------------------------------------------------------------------
+# the autotuner: kernels/autotune.py's records and the registry's consult
+# ---------------------------------------------------------------------------
+
+def autotune_jobs(torch, batch) -> list:
+    """The keys `[autotune]` tunes, as (family, shape) pairs: segment_pool
+    at the reference bench's shape (n 1000, E 8000, D 64; sum and max
+    sorted, sum unsorted: `benchmarks/run.py:489-499`), at the trained
+    pool shape and at its D 64 model=2 chunk; edge_mpnn, relu, at the
+    served has_topic conv (unsorted, fp32 and bf16) and the trained one
+    (sorted, fp32)."""
+    s, t = served_inputs(torch), trained_inputs(torch, batch)
+    pool = [dict(n=1000, d=64, e=8000, reduce="sum", sorted=True),
+            dict(n=1000, d=64, e=8000, reduce="max", sorted=True),
+            dict(n=1000, d=64, e=8000, reduce="sum", sorted=False),
+            dict(n=t.n_tgt, d=t.d, e=t.e, reduce="sum", sorted=True),
+            dict(n=t.n_tgt, d=t.d // 2, e=t.e, reduce="sum", sorted=True)]
+    served = dict(n_src=s.n_src, n_tgt=s.n_tgt, ds=s.d, dt=s.d, m=s.d,
+                  e=s.e, sorted=False)
+    edge = [dict(served, dtype="float32"), dict(served, dtype="bfloat16"),
+            dict(n_src=t.n_src, n_tgt=t.n_tgt, ds=t.d, dt=t.d, m=t.d,
+                 e=t.e, sorted=True, dtype="float32")]
+    return ([("segment_pool", job) for job in pool]
+            + [("edge_mpnn", job) for job in edge])
+
+
+def autotune_label(family, job) -> str:
+    layout = "sorted" if job["sorted"] else "unsorted"
+    if family == "segment_pool":
+        return (f"segment_pool n {job['n']} D {job['d']} E {job['e']} "
+                f"{job['reduce']} {layout}")
+    return (f"edge_mpnn {job['n_src']} -> {job['n_tgt']} E {job['e']} "
+            f"{job['dtype']} relu {layout}")
+
+
+def autotune_check(torch, family, job, rec) -> str:
+    """The registry under the consult at `job`'s shape, on seeded inputs
+    (uniform ids, sorted for a sorted key): the decision reads the
+    record, the output agrees with the plain version by `[kernels]`'
+    rules (pool sums by `_close_sum`, max exactly; fp32 edges within
+    FP64_ERR_MULTIPLE of the plain version's error against fp64, bf16
+    2e-2), and on a sorted key REPEATS calls are bit-identical.  Returns
+    the decision's reason."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.edge_mpnn.ref import edge_mpnn_ref
+    from repro_torch.kernels.segment_pool.ref import segment_pool_ref
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 7)
+    layout = "sorted" if job["sorted"] else "unsorted"
+    want_reason = f"autotuned:{rec['variant']}/{rec['tile']}[{layout}]"
+    label = autotune_label(family, job)
+
+    def ids(n, e):
+        x = rng.integers(0, n, e).astype(np.int32)
+        return torch.from_numpy(np.sort(x) if job["sorted"] else x).to(dev)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    if family == "segment_pool":
+        n, reduce = job["n"], job["reduce"]
+        vals, seg = normal(job["e"], job["d"]), ids(n, job["e"])
+        dec = registry.segment_reduce_decision(
+            vals, job["sorted"], n_segments=n, reduce=reduce)
+
+        def call():
+            return registry.segment_reduce(vals, seg, n, reduce,
+                                           sorted_ids=job["sorted"])
+
+        got, want = call(), segment_pool_ref(vals, seg, n_segments=n,
+                                             reduce=reduce)
+        if reduce == "sum":
+            counts = torch.zeros(n + 1, dtype=torch.int64, device=dev
+                                 ).index_add_(0, seg.long(),
+                                              torch.ones_like(seg.long()))[:n]
+            _close_sum(torch, f"[autotune] {label}", got, want,
+                       segment_pool_ref(vals.abs(), seg, n_segments=n),
+                       counts, 0.0)
+        elif not torch.equal(got, want):
+            fail(f"[autotune] {label}: {reduce} differs from the plain "
+                 "version")
+    else:
+        dtype = getattr(torch, job["dtype"])
+        n_src, n_tgt, d = job["n_src"], job["n_tgt"], job["m"]
+        src = torch.from_numpy(rng.integers(0, n_src, job["e"]).astype(
+            np.int32)).to(dev)
+        tgt = ids(n_tgt, job["e"])
+        h_src, h_tgt = normal(n_src, job["ds"]), normal(n_tgt, job["dt"])
+        w = normal(job["ds"] + job["dt"], d,
+                   scale=(job["ds"] + job["dt"]) ** -0.5)
+        b = normal(d, scale=0.1)
+        args = [x.to(dtype) for x in (h_src, h_tgt, w, b)]
+        dec = registry.edge_mpnn_decision(
+            args[0], "relu", job["sorted"], h_tgt=args[1], w=args[2],
+            n_edges=job["e"])
+
+        def call():
+            return registry.edge_mpnn(
+                args[0], args[1], src, tgt, args[2], args[3], n_src=n_src,
+                n_tgt=n_tgt, sorted_ids=job["sorted"])
+
+        got = call()
+        want = edge_mpnn_ref(args[0], args[1], src, tgt, args[2], args[3],
+                             n_src=n_src, n_tgt=n_tgt)
+        if dtype == torch.float32:
+            fp64_check(torch, f"[autotune] {label} vs fp64", got, want,
+                       edge_fp64(torch, h_src, h_tgt, src, tgt, w, b, n_tgt,
+                                 "relu"))
+        else:
+            _close(torch, f"[autotune] {label}", got, want, 2e-2, 2e-2)
+    if dec.reason != want_reason:
+        fail(f"[autotune] {label}: decision {dec.reason!r} under the "
+             f"consult ({want_reason!r} expected)")
+    if job["sorted"]:
+        repeat_check(torch, f"[autotune] {label}", call)
+    return dec.reason
+
+
+def autotune_reasons(torch, jobs) -> list:
+    """Each job's decision reason on the card, from its shape alone."""
+    from repro_torch.kernels import registry
+    dev = torch.device(DEVICE)
+    reasons = []
+    for family, job in jobs:
+        if family == "segment_pool":
+            reasons.append(registry.segment_reduce_decision(
+                torch.empty(job["e"], job["d"], device=dev), job["sorted"],
+                n_segments=job["n"], reduce=job["reduce"]).reason)
+        else:
+            dtype = getattr(torch, job["dtype"])
+            reasons.append(registry.edge_mpnn_decision(
+                torch.empty(job["n_src"], job["ds"], dtype=dtype,
+                            device=dev), "relu", job["sorted"],
+                h_tgt=torch.empty(job["n_tgt"], job["dt"], dtype=dtype,
+                                  device=dev),
+                w=torch.empty(job["ds"] + job["dt"], job["m"], dtype=dtype,
+                              device=dev), n_edges=job["e"]).reason)
+    return reasons
+
+
+def autotuned_convs(torch, model, graph, sorted_ids: bool) -> tuple:
+    """(convs on an autotuned decision, convs) of one forward of `model`
+    on `graph` (`describe_dispatch`)."""
+    from repro_torch.kernels import registry
+    with registry.layout(sorted_by_target=sorted_ids), \
+            torch.inference_mode():
+        rounds = model.gnn.describe_dispatch(model.init(graph))
+    decs = [dec for per_set in rounds for convs in per_set.values()
+            for dec in convs.values()]
+    return (sum(dec is not None and dec.reason.startswith("autotuned:")
+                for dec in decs), len(decs))
+
+
+def edge_calls(run, shape) -> list:
+    """The edge kernel calls `run()` makes at `shape` (n_src, n_tgt, E),
+    each as the keyword arguments of a wrapper call on cloned inputs."""
+    from repro_torch.kernels.edge_mpnn import kernel as mpnn
+    calls, real = [], mpnn._run
+
+    def spy(library, h_src, h_tgt, src, tgt, w, b, n_src, n_tgt, act, tile):
+        if (n_src, n_tgt, src.shape[0]) == shape:
+            calls.append(dict(
+                h_src=h_src.clone(), h_tgt=h_tgt.clone(), src=src.clone(),
+                tgt=tgt.clone(), w=w.clone(), b=b.clone(), n_src=n_src,
+                n_tgt=n_tgt, activation=act))
+        return real(library, h_src, h_tgt, src, tgt, w, b, n_src, n_tgt, act,
+                    tile)
+
+    mpnn._run = spy
+    try:
+        run()
+    finally:
+        mpnn._run = real
+    return calls
+
+
+def path_us(calls, choices) -> dict:
+    """{"kernel/tile": device µs summed over `calls`} for each (kernel,
+    tile) in `choices`, timed as the tuner times (`autotune._time_us`)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.edge_mpnn import kernel as mpnn
+    return {f"{name}/{tile}": sum(
+        autotune._time_us(functools.partial(getattr(mpnn, name), tile=tile,
+                                            **c), 10) for c in calls)
+        for name, tile in choices}
+
+
+def autotune_server(torch, store, spec, model, roots) -> dict:
+    """A GNNServer warmed from CUDA graphs under the registry's current
+    consult, serving each root list of `roots` once: logits within 1e-4
+    of the plain forward, 0 captures after warmup; autotuned convs by
+    rung, one replay's device µs by rung (torch.profiler), the wrappers'
+    launches (warmup included) and the has_topic calls of an eager
+    rung-8 forward over `roots[0]`."""
+    from repro_torch.core.graph_tensor import to_device
+    from repro_torch.data.grouping import merge_and_pad
+    from repro_torch.data.sampling import sample_subgraph, seed_rng
+    zero_launches()
+    server, _, warm_s = graph_server(torch, store, spec, model)
+    try:
+        max_err = max(check_logits(
+            "[autotune] serve", server.serve_sync(r, timeout=120),
+            plain_logits(torch, server, store, spec, r), len(r))
+            for r in roots)
+        if server.stats.steady_state_recompiles != 0:
+            fail(f"[autotune] {server.stats.steady_state_recompiles} "
+                 "captures after warmup")
+        launches = read_launches()
+        tuned = {rung: autotuned_convs(torch, model, to_device(
+            merge_and_pad([server._subgraphs.get(0)],
+                          server.ladder.sizes[rung]), server.device), False)
+            for rung in server.ladder.rungs}
+        replay_us = {rung: round(rec["device_us"], 1)
+                     for rung, rec in replay_kernels(torch, server).items()}
+        graphs = [sample_subgraph(store, spec, r, seed_rng(0, r))
+                  for r in roots[0]]
+        merged = merge_and_pad(graphs, server.ladder.sizes[len(roots[0])])
+        s = served_inputs(torch)
+        calls = edge_calls(lambda: server.run_eager(merged),
+                           (s.n_src, s.n_tgt, s.e))
+    finally:
+        server.close()
+    return dict(max_err=max_err, warm_s=warm_s, launches=launches,
+                tuned=tuned, replay_us=replay_us, calls=calls)
+
+
+def autotune_phase(torch, store, spec, batch, records, smi) -> dict:
+    """`[autotune]`: tune every `autotune_jobs` key into a temporary file
+    (never the default path or a file of the checkout) and print each
+    candidate's device µs, the winner, the shipped rule's time and their
+    ratio; then, with the consult on over that file, hold each key's
+    decision, output and (sorted) repeats by `autotune_check`, serve the
+    §8 model from CUDA graphs (0 captures after warmup, logits within
+    1e-4 of plain) and run one training forward (exactly 20 run-kernel
+    launches).  With the consult off, every reason must be the one it
+    was.  The tuned and shipped choices are also timed on the served and
+    trained paths' own has_topic calls (their ids, padding included: the
+    tuner's are uniform), and a rung's replay with the consult on beside
+    one with it off.  Returns the launches of the served and trained
+    paths under the consult."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import autotune, registry
+    t0 = time.perf_counter()
+    jobs = autotune_jobs(torch, batch)
+    before = autotune_reasons(torch, jobs)
+    want = [f"kernel:{family}_runs[sorted]" if job["sorted"]
+            else f"kernel:{family}[unsorted]" for family, job in jobs]
+    if before != want:
+        fail(f"[autotune] reasons with the consult off: {before} ({want} "
+             "expected)")
+    rng = np.random.default_rng(SEED + 8)
+    used = {0}
+    roots = [fresh_roots(rng, used, n, store.num_nodes["paper"])
+             for n in (8, 3, 1)]
+    model = build_model(torch, "sum")
+    default_path = autotune.DEFAULT_CACHE_PATH
+    tmp = tempfile.mkdtemp(prefix="repro_autotune_")
+    autotune.DEFAULT_CACHE_PATH = os.path.join(tmp, "autotune_cache_cuda.json")
+    try:
+        recs = []
+        for family, job in jobs:
+            if family == "segment_pool":
+                rec = autotune.tune_segment_pool(
+                    job["n"], job["d"], reduce=job["reduce"],
+                    sorted_ids=job["sorted"], n_edges=job["e"])
+            else:
+                rec = autotune.tune_edge_mpnn(
+                    job["n_src"], job["n_tgt"], job["ds"], job["dt"],
+                    job["m"], dtype=job["dtype"], sorted_ids=job["sorted"],
+                    n_edges=job["e"])
+            recs.append(rec)
+            phase("autotune", f"{autotune_label(family, job)}: "
+                  + ", ".join(f"{k} {us:.2f}"
+                              for k, us in rec["candidates"].items())
+                  + f" us; winner {rec['variant']}/{rec['tile']} "
+                  f"{rec['us']:.2f} us, shipped rule {rec['default_us']:.2f}"
+                  f" us, ratio {rec['default_us'] / rec['us']:.3f} ({smi})")
+        registry.use_autotune(True)
+        try:
+            reasons = [autotune_check(torch, family, job, rec)
+                       for (family, job), rec in zip(jobs, recs)]
+            on = autotune_server(torch, store, spec, model, roots)
+            train_model = fresh_model(torch, "sum")
+            zero_launches()
+            t = trained_inputs(torch, batch)
+
+            def train_forward():
+                with registry.layout(sorted_by_target=True), \
+                        torch.no_grad():
+                    train_model(batch)
+
+            trained_calls = edge_calls(train_forward, (t.n_src, t.n_tgt, t.e))
+            trained = read_launches()
+            tuned_trained = autotuned_convs(torch, train_model, batch, True)
+        finally:
+            registry.use_autotune(False)
+        if trained["edge_mpnn_runs"] != 5 * ROUNDS or any(
+                v for k, v in trained.items() if k != "edge_mpnn_runs"):
+            fail(f"[autotune] a training forward launched {trained} "
+                 f"({5 * ROUNDS} edge_mpnn_runs expected)")
+    finally:
+        autotune.clear(autotune.DEFAULT_CACHE_PATH)
+        autotune.DEFAULT_CACHE_PATH = default_path
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = autotune_reasons(torch, jobs)
+    if after != want:
+        fail(f"[autotune] reasons after the consult was turned off: {after}")
+    off = autotune_server(torch, store, spec, model, roots)
+    if on["tuned"][MAX_BATCH][0] == 0 or any(
+            n for n, _ in off["tuned"].values()):
+        fail(f"[autotune] autotuned convs by rung: consult on {on['tuned']},"
+             f" off {off['tuned']} (some at rung {MAX_BATCH} on, none off "
+             "expected)")
+    served_rec, _, trained_rec = recs[-3:]  # the edge jobs, in order
+    served_path = path_us(on["calls"], [
+        ("edge_mpnn", 32), (served_rec["variant"], served_rec["tile"])])
+    trained_path = path_us(trained_calls, [
+        ("edge_mpnn_runs", 32), (trained_rec["variant"], trained_rec["tile"])])
+    phase("autotune", f"consult on: {len(reasons)} decisions autotuned, "
+          f"outputs within [kernels]' rules, sorted keys {REPEATS} calls "
+          f"bit-identical; GNNServer from CUDA graphs (warmup "
+          f"{on['warm_s']:.1f}s, launches {on['launches']}): 0 captures "
+          f"after warmup, logits vs plain max err {on['max_err']:.2e}, "
+          f"autotuned convs / convs by rung {on['tuned']}; a training "
+          f"forward {trained} (autotuned convs {tuned_trained[0]} of "
+          f"{tuned_trained[1]}); consult off: every reason as before, no "
+          f"conv autotuned; {time.perf_counter() - t0:.1f}s")
+    phase("autotune", f"on the paths' own has_topic calls (device us "
+          f"summed over a forward's {len(on['calls'])} / "
+          f"{len(trained_calls)} launches): served rung {MAX_BATCH} "
+          + ", ".join(f"{k} {v:.2f}" for k, v in served_path.items())
+          + "; trained " + ", ".join(f"{k} {v:.2f}"
+                                     for k, v in trained_path.items())
+          + f"; one replay's device us by rung, consult on "
+          f"{on['replay_us']} vs off {off['replay_us']} ({smi})")
+    for name in ("segment_pool", "edge_mpnn"):
+        records[name]["autotune"] = [
+            dict(key=autotune_label(family, job), **{
+                k: rec[k] for k in ("variant", "tile", "us", "default_us")})
+            for (family, job), rec in zip(jobs, recs) if family == name]
+    records["edge_mpnn"]["autotune_path_us"] = dict(served=served_path,
+                                                    trained=trained_path)
+    return {"served": on["launches"], "trained": trained}
+
+
+# ---------------------------------------------------------------------------
 # graph attention: GraphSelfAttention on the flash kernel
 # ---------------------------------------------------------------------------
 
@@ -3345,6 +3700,11 @@ def main() -> int:
     raw, store, spec, setup, first = load_data()
     runs_kernels_phase(torch, first, records, build_report)
     flash_kernels_phase(torch, first, records, build_report)
+    tuned = autotune_phase(torch, store, spec, first, records, smi)
+    for name, n in tuned["served"].items():
+        records[name]["autotune_served_launches"] = n
+    for name, n in tuned["trained"].items():
+        records[name]["autotune_trained_launches"] = n
 
     (records["edge_mpnn"]["launches"],
      records["edge_mpnn"]["graph_launches"]) = serve_phase(torch, store, spec,

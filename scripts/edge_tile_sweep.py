@@ -77,12 +77,13 @@ def capture(torch, store, spec, first) -> list:
     launches = []
     run = mpnn._run
 
-    def spy(library, h_src, h_tgt, src, tgt, w, b, n_src, n_tgt, act):
+    def spy(library, h_src, h_tgt, src, tgt, w, b, n_src, n_tgt, act, tile):
         launches.append((library, dict(
             h_src=h_src.clone(), h_tgt=h_tgt.clone(), src=src.clone(),
             tgt=tgt.clone(), w=w.clone(), b=b.clone(), n_src=n_src,
             n_tgt=n_tgt, act=act)))
-        return run(library, h_src, h_tgt, src, tgt, w, b, n_src, n_tgt, act)
+        return run(library, h_src, h_tgt, src, tgt, w, b, n_src, n_tgt, act,
+                   tile)
 
     model = smoke.build_model(torch, "sum")
     server = GNNServer(store, spec, model, device="cuda",

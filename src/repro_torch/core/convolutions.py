@@ -186,8 +186,9 @@ class SimpleConv(AnyToAnyConv):
             return registry.Decision(False, "in_dim mismatch")
         # the same inputs registry.edge_mpnn re-checks in forward, so the
         # two decisions cannot diverge
-        return registry.edge_mpnn_decision(h_src, self.activation_name,
-                                           self._sorted_hint())
+        return registry.edge_mpnn_decision(
+            h_src, self.activation_name, self._sorted_hint(), h_tgt=h_tgt,
+            w=self.message.w, n_edges=es.adjacency.source.shape[0])
 
     def _sorted_hint(self):
         """Batches sort edges by TARGET; a SOURCE receiver scatters by

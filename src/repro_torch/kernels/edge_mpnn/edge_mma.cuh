@@ -31,16 +31,19 @@
 // The design:
 //   * fill: tiles of 16 x ROWS edges and 64 columns (M 128 is two full
 //     column tiles), 256 threads, up to 2 CTAs per SM.  fp32 tiles are 32
-//     edges (kFmaRows), 16-bit tiles 64 (kMmaRows).  The fp32 height was
-//     measured on an H100 at every edge launch of a served batch and a
-//     training forward of the §8 model (E 64 .. 5175, M 128), at heights 32
-//     .. 128 (scripts/edge_tile_sweep.py): 32 everywhere came within 0.6%
-//     of the best height per launch, and no rule that picks a height per
-//     call did better.  (On uniformly random ids at E 4896, taller tiles
-//     win: 306 tiles of 32 edges take two rounds of the 264 resident
-//     CTAs; the served batches' E 4896 launch, whose padding edges share
-//     one row, does not.)  Past 2 CTAs per SM the grid is persistent: a
-//     CTA walks edge tiles blockIdx.x, + gridDim.x, ...;
+//     edges by default (kFmaRows), 16-bit tiles 64 (kMmaRows).  The fp32
+//     height was measured on an H100 at every edge launch of a served
+//     batch and a training forward of the §8 model (E 64 .. 5175, M 128),
+//     at heights 32 .. 128 (scripts/edge_tile_sweep.py): 32 everywhere
+//     came within 0.6% of the best height per launch, and no rule that
+//     picks a height per call did better.  (On uniformly random ids at E
+//     4896, taller tiles win: 306 tiles of 32 edges take two rounds of
+//     the 264 resident CTAs; the served batches' E 4896 launch, whose
+//     padding edges share one row, does not.)  So the height is also an
+//     argument of the C entries: fp32 takes 32, 64 or 128 edges and
+//     16-bit 64 (tile_rows), and kernels/autotune.py records the fastest per
+//     exact shape; 0 keeps the default.  Past 2 CTAs per SM the grid is
+//     persistent: a CTA walks edge tiles blockIdx.x, + gridDim.x, ...;
 //   * W on chip: each CTA loads its [K, kTileM] slice of W once and keeps
 //     it in shared memory for all its edge tiles (above 48 KB after
 //     cudaFuncSetAttribute); a K too large for that streams W in
@@ -79,7 +82,7 @@ namespace edge {
 
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kMmaRows = 4;     // 16-bit tiles: 4 x 16 = 64 edges
-constexpr int kFmaRows = 2;     // fp32 tiles: 2 x 16 = 32 edges
+constexpr int kFmaRows = 2;     // fp32 default: 2 x 16 = 32 edges
 constexpr int kTileM = 64;      // columns per CTA
 constexpr int kTileK = 32;      // K elements per ring stage
 constexpr int kStages = 3;      // ring depth
@@ -549,9 +552,14 @@ inline int sm_count() {
   return counts[dev];
 }
 
-// Tile height of a dtype's kernels, in 16-edge row groups.
-inline int tile_rows(int dtype) {
-  return dtype == kFloat32 ? kFmaRows : kMmaRows;
+// Tile height in 16-edge row groups for a tile of `tile` edges (0: the
+// dtype's default), or 0 when no kernel of that height is built: fp32
+// takes 32, 64 or 128 edges, 16-bit 64 (kernel.py's `tiles` says the
+// same).
+inline int tile_rows(int dtype, int tile) {
+  if (tile == 0) return dtype == kFloat32 ? kFmaRows : kMmaRows;
+  if (dtype != kFloat32) return tile == 16 * kMmaRows ? kMmaRows : 0;
+  return tile == 32 || tile == 64 || tile == 128 ? tile / 16 : 0;
 }
 
 // The plan's layout: W resident unless it does not fit.
@@ -611,7 +619,8 @@ inline cudaError_t allow_smem(Fn fn, int64_t bytes, int64_t* allowed) {
 }
 
 // Call `launch(dt, rows, vec, stream)` with compile-time constants for
-// the plan's dtype, its tile height (tile_rows), copy form and W mode.
+// the plan's dtype, its tile height (a height of tile_rows), copy form
+// and W mode.
 template <typename Launch>
 inline cudaError_t dispatch(const Plan& p, Launch launch) {
   auto by_vec = [&](auto dt, auto rows) {
@@ -628,27 +637,32 @@ inline cudaError_t dispatch(const Plan& p, Launch launch) {
     return by_vec(std::integral_constant<int, kBFloat16>{}, Mma{});
   if (p.dtype == kFloat16)
     return by_vec(std::integral_constant<int, kFloat16>{}, Mma{});
-  return by_vec(std::integral_constant<int, kFloat32>{},
-                std::integral_constant<int, kFmaRows>{});
+  using F32 = std::integral_constant<int, kFloat32>;
+  if (p.rows == 8) return by_vec(F32{}, std::integral_constant<int, 8>{});
+  if (p.rows == 4) return by_vec(F32{}, std::integral_constant<int, 4>{});
+  return by_vec(F32{}, std::integral_constant<int, kFmaRows>{});
 }
 
 // One call: memset of the fp32 accumulator, the edge kernel (skipped for
 // e == 0), with a `carry` scratch (edge_mpnn_runs) the fold of its chains
 // (carry.cuh; carry_pieces at least the call's edge tiles), and for a
-// 16-bit output one cast.  `kernel_of(dt, rows, vec, stream)` names the
-// kernel instantiation for the plan's dtype, tile height, copy form and W
-// mode.  acc == out exactly when the output is fp32, so an fp32 edge_mpnn
-// call is one memset and one kernel, an fp32 edge_mpnn_runs call one
-// memset and two kernels.
+// 16-bit output one cast; tiles of `tile` edges (tile_rows; 0 the
+// dtype's default), cudaErrorInvalidValue with nothing launched for a
+// height no kernel is built for.  `kernel_of(dt, rows, vec, stream)`
+// names the kernel instantiation for the plan's dtype, tile height, copy
+// form and W mode.  acc == out exactly when the output is fp32, so an
+// fp32 edge_mpnn call is one memset and one kernel, an fp32
+// edge_mpnn_runs call one memset and two kernels.
 template <typename KernelOf>
 inline int edge_call(const void* h_src, const void* h_tgt, const int* src,
                      const int* tgt, const void* w, const void* b,
                      float* acc, void* out, float* carry,
                      long long carry_pieces, int e, int n_src, int n_tgt,
-                     int ds, int dt, int m, int dtype, int act,
+                     int ds, int dt, int m, int dtype, int act, int tile,
                      void* stream, KernelOf kernel_of) {
   Plan p;
-  const int rows = tile_rows(dtype);
+  const int rows = tile_rows(dtype, tile);
+  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_tiles =
       (static_cast<int64_t>(e) + 16 * rows - 1) / (16 * rows);
   if (!plan(h_src, h_tgt, src, tgt, w, b, acc, carry, e, n_src, n_tgt, ds,

@@ -72,16 +72,19 @@ edge_mpnn_kernel(const __grid_constant__ EdgeArgs a) {
 
 // h_src [n_src, ds], h_tgt [n_tgt, dt], w [ds+dt, m], b [m] (one dtype
 // code for all four), src/tgt [e] int32, acc [n_tgt, m] fp32 (the output
-// itself for fp32, else scratch), out [n_tgt, m] (dtype code).  Launches
-// on `stream`; returns the cudaError_t of the calls (0 on success).
+// itself for fp32, else scratch), out [n_tgt, m] (dtype code); tiles of
+// `tile` edges (fp32 32, 64 or 128, 16-bit 64; 0 the default,
+// edge_mma.cuh tile_rows).  Launches on `stream`; returns the
+// cudaError_t of the calls (0 on success; cudaErrorInvalidValue, with
+// nothing launched, for a tile that is not built).
 extern "C" int edge_mpnn_launch(const void* h_src, const void* h_tgt,
                                 const int* src, const int* tgt,
                                 const void* w, const void* b, float* acc,
                                 void* out, int e, int n_src, int n_tgt,
                                 int ds, int dt, int m, int dtype, int act,
-                                void* stream) {
+                                int tile, void* stream) {
   return edge_call(h_src, h_tgt, src, tgt, w, b, acc, out, nullptr, 0, e,
-                   n_src, n_tgt, ds, dt, m, dtype, act, stream,
+                   n_src, n_tgt, ds, dt, m, dtype, act, tile, stream,
                    [](auto dt_, auto rows, auto vec, auto stream_) {
                      return edge_mpnn_kernel<decltype(dt_)::value,
                                              decltype(rows)::value,

@@ -180,21 +180,22 @@ edge_mpnn_runs_kernel(const __grid_constant__ EdgeArgs a) {
 // src/tgt [e] int32, acc [n_tgt, m] fp32 (the output itself for fp32,
 // else scratch), out [n_tgt, m] (dtype code); and carry, scratch of
 // carry_floats(carry_pieces, m) floats (carry.cuh), carry_pieces at least
-// the call's edge tiles (ceil(e / 32) covers every dtype).  Launches on
-// `stream`; returns the cudaError_t of the calls (0 on success).
+// the call's edge tiles (ceil(e / 32) covers every dtype and tile); tiles
+// of `tile` edges as edge_mpnn_launch's.  Launches on `stream`; returns
+// the cudaError_t of the calls (0 on success).
 extern "C" int edge_mpnn_runs_launch(const void* h_src, const void* h_tgt,
                                      const int* src, const int* tgt,
                                      const void* w, const void* b,
                                      float* acc, void* out, float* carry,
                                      long long carry_pieces, int e,
                                      int n_src, int n_tgt, int ds, int dt,
-                                     int m, int dtype, int act,
+                                     int m, int dtype, int act, int tile,
                                      void* stream) {
   if (e > 0 && carry == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return edge_call(h_src, h_tgt, src, tgt, w, b, acc, out, carry,
                    carry_pieces, e, n_src, n_tgt, ds, dt, m, dtype, act,
-                   stream,
+                   tile, stream,
                    [](auto dt_, auto rows, auto vec, auto stream_) {
                      return edge_mpnn_runs_kernel<decltype(dt_)::value,
                                                   decltype(rows)::value,

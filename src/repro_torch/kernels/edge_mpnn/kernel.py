@@ -21,6 +21,11 @@ one tensor and runs one kernel.  `edge_mpnn_runs` also takes a carry
 scratch and runs a second kernel that adds the runs crossing an edge
 tile in tile order (`carry.cuh`): on target-sorted edges its result is
 bit-identical from call to call.
+
+The tile height is a run-time argument of both C entries: fp32 tiles of
+32, 64 or 128 edges, 16-bit tiles of 64 (`tiles`; 0 is the default, 32
+for fp32), which `kernels/autotune.py` times per shape and the registry
+passes from its record.
 """
 from __future__ import annotations
 
@@ -34,18 +39,30 @@ from repro_torch.kernels.edge_mpnn.ref import ACTIVATIONS, edge_mpnn_ref
 
 _ACT_CODES = {"relu": 0, "gelu": 1, "identity": 2}
 # edges of the run kernel's smallest tile (edge_mma.cuh: 32 for fp32, 64
-# for 16-bit), so ceil(E / 32) carry pieces cover any dtype
+# for 16-bit), so ceil(E / 32) carry pieces cover any dtype and tile
 _RUN_TILE_EDGES = 32
+# the tile heights in edges each dtype's kernels are built for
+# (edge_mma.cuh tile_rows)
+_FP32_TILES = (32, 64, 128)
+_16BIT_TILES = (64,)
+
+
+def tiles(library: str, dtype: torch.dtype, width: int) -> tuple:
+    """The tile heights, in edges, kernel `library` is built for at this
+    dtype (besides 0, its default): what a tuner may time and a record
+    may name.  Both edge kernels take the same heights at any width."""
+    del library, width
+    return _FP32_TILES if dtype == torch.float32 else _16BIT_TILES
 
 
 @functools.cache
 def _entry(library: str):
     fn = getattr(build.load(library), f"{library}_launch")
     # h_src, h_tgt, src, tgt, w, b, acc, out, [carry, carry_pieces,]
-    # e, n_src, n_tgt, ds, dt, m, dtype, act, stream
+    # e, n_src, n_tgt, ds, dt, m, dtype, act, tile, stream
     carry = ([ctypes.c_void_p, ctypes.c_longlong]
              if library == "edge_mpnn_runs" else [])
-    fn.argtypes = ([ctypes.c_void_p] * 8 + carry + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + carry + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -60,12 +77,17 @@ def _check(library: str, name: str, t: torch.Tensor, ndim: int,
 
 
 def _run(library: str, h_src, h_tgt, src, tgt, w, b, n_src: int,
-         n_tgt: int, activation: str):
+         n_tgt: int, activation: str, tile: int):
     """Check the inputs and launch kernel `library`; returns (out,
     launched)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported activation {activation!r}; "
                          f"expected one of {ACTIVATIONS}")
+    if tile:
+        built = tiles(library, h_src.dtype, w.shape[-1])
+        if tile not in built:
+            raise ValueError(f"{library} kernel: no {tile}-edge tile for "
+                             f"{h_src.dtype} (built: {built})")
     if not h_src.is_cuda:
         return edge_mpnn_ref(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
                              n_tgt=n_tgt, activation=activation), False
@@ -110,20 +132,21 @@ def _run(library: str, h_src, h_tgt, src, tgt, w, b, n_src: int,
                             device=device)
         args += [carry.data_ptr(), pieces]
     rc = _entry(library)(*args, e, n_src, n_tgt, ds, dt, m, code,
-                         _ACT_CODES[activation], stream)
+                         _ACT_CODES[activation], tile, stream)
     build.check_launch(rc, library)
     return out, True
 
 
 def edge_mpnn(h_src: torch.Tensor, h_tgt: torch.Tensor, src: torch.Tensor,
               tgt: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-              n_src: int, n_tgt: int, activation: str = "relu"
-              ) -> torch.Tensor:
+              n_src: int, n_tgt: int, activation: str = "relu",
+              tile: int = 0) -> torch.Tensor:
     """h_src [n_src, Ds], h_tgt [n_tgt, Dt], src/tgt [E] int32 (padding
     edges carry tgt >= n_tgt), w [Ds+Dt, M], b [M] -> [n_tgt, M] in the
-    inputs' dtype."""
+    inputs' dtype.  `tile`: edges a tile, one of `tiles(...)`, or 0 for
+    the default."""
     out, launched = _run("edge_mpnn", h_src, h_tgt, src, tgt, w, b, n_src,
-                         n_tgt, activation)
+                         n_tgt, activation, tile)
     if launched:
         edge_mpnn.launches += 1
     return out
@@ -132,13 +155,14 @@ def edge_mpnn(h_src: torch.Tensor, h_tgt: torch.Tensor, src: torch.Tensor,
 def edge_mpnn_runs(h_src: torch.Tensor, h_tgt: torch.Tensor,
                    src: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor, *, n_src: int, n_tgt: int,
-                   activation: str = "relu") -> torch.Tensor:
+                   activation: str = "relu",
+                   tile: int = 0) -> torch.Tensor:
     """The run variant: same contract as `edge_mpnn`, one add per run of
     equal targets in an edge tile and one per chain of runs that cross
     tiles, folded in tile order.  Correct for any edge order; fastest, and
     bit-repeatable, when tgt is sorted."""
     out, launched = _run("edge_mpnn_runs", h_src, h_tgt, src, tgt, w, b,
-                         n_src, n_tgt, activation)
+                         n_src, n_tgt, activation, tile)
     if launched:
         edge_mpnn_runs.launches += 1
     return out

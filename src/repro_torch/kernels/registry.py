@@ -26,6 +26,18 @@ order.  Unlike the reference's trace-time global, `layout` and
 `plain_versions` are read per call and per thread, so a server's engine
 thread keeps the unsorted kernels while a training loop holds the hint.
 
+Under ``use_autotune(True)`` (or ``REPRO_AUTOTUNE=1`` at import; off by
+default, as the reference's dispatch, `kernels/dispatch.py:177-190`), a
+decision that has its shape (`segment_reduce_decision`'s `n_segments`,
+`edge_mpnn_decision`'s `h_tgt`, `w` and `n_edges`) first looks up the
+exact key in `kernels/autotune`'s records, after eligibility and before
+the layout rule: a record names a kernel and its tile
+(``autotuned:<kernel>/<tile>[<layout>]``).  A record naming an unknown
+kernel, a tile that is not built, or the any-order kernel on a sorted
+key is ignored (the counterpart of the reference's re-validation,
+`dispatch.py:492-500`).  The lookup is a memoized dict read with no host
+sync, so a CUDA graph captures the tuned launch.
+
 Every kernel call on the card goes through a `torch.autograd.Function`
 (`SegmentPoolFunction`, `EdgeMpnnFunction`, `FlashAttentionFunction`)
 whose backward is the plain version's gradient, recomputed from the
@@ -47,11 +59,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 import threading
 from typing import Callable
 
 import torch
 
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels.edge_mpnn import kernel as _mpnn_kernel
 from repro_torch.kernels.edge_mpnn.ref import ACTIVATIONS, edge_mpnn_ref
 from repro_torch.kernels.flash_attention import kernel as _flash_kernel
@@ -93,13 +107,34 @@ def layout_sorted_by_target() -> bool:
     return getattr(_THREAD, "sorted_by_target", False)
 
 
+_AUTOTUNE = os.environ.get("REPRO_AUTOTUNE", "0") == "1"
+
+
+def use_autotune(on: bool) -> None:
+    """Let decisions consult the autotune records.  Off by default so
+    test and training dispatch stays independent of whatever records the
+    checkout happens to hold."""
+    global _AUTOTUNE
+    _AUTOTUNE = bool(on)
+
+
+def autotune_enabled() -> bool:
+    return _AUTOTUNE
+
+
 @dataclasses.dataclass(frozen=True)
 class Decision:
     """Outcome of an eligibility check: which path runs and why.
-    `kernel` names the kernel that runs ("" for the plain version)."""
+    `kernel` names the kernel that runs ("" for the plain version), at
+    tile height `tile` (0: the kernel's default)."""
     use_kernel: bool
     reason: str
     kernel: str = ""
+    tile: int = 0
+
+
+def _no_tiles(library, dtype, width) -> tuple:
+    return ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +143,8 @@ class KernelEntry:
     kernels: dict        # {kernel name: wrapper}: any-order and run variant
     reference: Callable  # plain PyTorch version, identical contract
     decide: Callable     # (...) -> Decision
+    # (kernel name, dtype, width) -> the tile heights built besides 0
+    tiles: Callable = _no_tiles
 
 
 _REGISTRY: dict[str, KernelEntry] = {}
@@ -131,18 +168,37 @@ def _plain_reason(t: torch.Tensor) -> str | None:
     return None
 
 
-def _on_device(t: torch.Tensor, name: str,
-               sorted_ids: bool | None) -> Decision:
-    """A kernel on a CUDA tensor — `name`_runs on sorted ids, `name`
-    otherwise — and the plain version anywhere else."""
-    reason = _plain_reason(t)
-    if reason is not None:
-        return Decision(False, reason)
+def _layout(sorted_ids: bool | None) -> str:
     if sorted_ids is None:
         sorted_ids = layout_sorted_by_target()
-    if sorted_ids:
+    return "sorted" if sorted_ids else "unsorted"
+
+
+def _by_layout(name: str, layout: str) -> Decision:
+    """The layout rule on the card: `name`_runs on sorted ids, `name`
+    otherwise."""
+    if layout == "sorted":
         return Decision(True, f"kernel:{name}_runs[sorted]", f"{name}_runs")
     return Decision(True, f"kernel:{name}[unsorted]", name)
+
+
+def _autotuned(name: str, key: str, layout: str, dtype: torch.dtype,
+               width: int) -> Decision | None:
+    """The decision of family `name`'s record under `key`, or None when
+    there is none or it names what cannot run here: an unknown kernel, a
+    tile that is not built, or the any-order kernel on a sorted key (the
+    run kernels alone are bit-repeatable there)."""
+    rec = _autotune.lookup(key)
+    if rec is None:
+        return None
+    entry = _REGISTRY[name]
+    kernel, tile = rec.get("variant"), rec.get("tile", 0)
+    if (kernel not in entry.kernels or (layout == "sorted" and kernel == name)
+            or type(tile) is not int
+            or (tile and tile not in entry.tiles(kernel, dtype, width))):
+        return None
+    return Decision(True, f"autotuned:{kernel}/{tile}[{layout}]", kernel,
+                    tile)
 
 
 # ---------------------------------------------------------------------------
@@ -154,42 +210,43 @@ def _on_device(t: torch.Tensor, name: str,
 
 class SegmentPoolFunction(torch.autograd.Function):
     """``apply(values [E, D], seg_ids [E] int32, n_segments, reduce,
-    kernel)``: `kernel` (a wrapper of `segment_pool.kernel`) forward,
-    `segment_pool_ref`'s gradient backward.  Differentiable in `values`
-    only."""
+    kernel[, tile])``: `kernel` (a wrapper of `segment_pool.kernel`, at
+    tile height `tile`) forward, `segment_pool_ref`'s gradient backward.
+    Differentiable in `values` only."""
 
     @staticmethod
-    def forward(ctx, values, seg_ids, n_segments, reduce, kernel):
+    def forward(ctx, values, seg_ids, n_segments, reduce, kernel, tile=0):
         ctx.save_for_backward(values, seg_ids)
         ctx.n_segments, ctx.reduce = n_segments, reduce
-        return kernel(values, seg_ids, n_segments=n_segments, reduce=reduce)
+        return kernel(values, seg_ids, n_segments=n_segments, reduce=reduce,
+                      tile=tile)
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         values, seg_ids = ctx.saved_tensors
         with torch.enable_grad():
             v = values.detach().requires_grad_(True)
             out = segment_pool_ref(v, seg_ids, n_segments=ctx.n_segments,
                                    reduce=ctx.reduce)
             (g,) = torch.autograd.grad(out, v, grad)
-        return g, None, None, None, None
+        return g, None, None, None, None, None
 
 
 class EdgeMpnnFunction(torch.autograd.Function):
     """``apply(h_src, h_tgt, w, b, src, tgt, n_src, n_tgt, activation,
-    kernel)``: `kernel` (a wrapper of `edge_mpnn.kernel`) forward,
-    `edge_mpnn_ref`'s gradient backward.  Differentiable in h_src, h_tgt,
-    w and b."""
+    kernel[, tile])``: `kernel` (a wrapper of `edge_mpnn.kernel`, at tile
+    height `tile`) forward, `edge_mpnn_ref`'s gradient backward.
+    Differentiable in h_src, h_tgt, w and b."""
 
     @staticmethod
     def forward(ctx, h_src, h_tgt, w, b, src, tgt, n_src, n_tgt, activation,
-                kernel):
+                kernel, tile=0):
         ctx.save_for_backward(h_src, h_tgt, w, b, src, tgt)
         ctx.n_src, ctx.n_tgt, ctx.activation = n_src, n_tgt, activation
         return kernel(h_src, h_tgt, src, tgt, w, b, n_src=n_src, n_tgt=n_tgt,
-                      activation=activation)
+                      activation=activation, tile=tile)
 
     @staticmethod
     def backward(ctx, grad):
@@ -208,7 +265,7 @@ class EdgeMpnnFunction(torch.autograd.Function):
                                           grad, allow_unused=True)
             for i, g in zip(wanted, got):
                 grads[i] = g if g is not None else torch.zeros_like(xs[i])
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -246,8 +303,25 @@ class FlashAttentionFunction(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 def segment_reduce_decision(values: torch.Tensor,
-                            sorted_ids: bool | None = None) -> Decision:
-    return _on_device(values, "segment_pool", sorted_ids)
+                            sorted_ids: bool | None = None, *,
+                            n_segments: int | None = None,
+                            reduce: str = "sum") -> Decision:
+    """A kernel on a CUDA tensor, the plain version anywhere else; with
+    `n_segments` given, an autotune record of the exact shape first."""
+    reason = _plain_reason(values)
+    if reason is not None:
+        return Decision(False, reason)
+    layout = _layout(sorted_ids)
+    if _AUTOTUNE and n_segments is not None:
+        width = math.prod(values.shape[1:])
+        tuned = _autotuned("segment_pool", _autotune.pool_key(
+            n=n_segments, d=width, dtype=values.dtype, reduce=reduce,
+            layout=layout, e=values.shape[0],
+            sm=_autotune.device_sm(values.device)), layout, values.dtype,
+            width)
+        if tuned is not None:
+            return tuned
+    return _by_layout("segment_pool", layout)
 
 
 def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
@@ -270,14 +344,16 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
         return (total.to(torch.float32)
                 / torch.clamp(cnt, min=1)).to(out_dtype)
     entry = _REGISTRY["segment_pool"]
-    dec = entry.decide(values, sorted_ids)
+    dec = entry.decide(values, sorted_ids, n_segments=n_segments,
+                       reduce=reduce)
     if not dec.use_kernel:
         return entry.reference(values, seg_ids, n_segments=n_segments,
                                reduce=reduce)
     flat = values.reshape(values.shape[0],
                           math.prod(values.shape[1:])).contiguous()
     out = SegmentPoolFunction.apply(flat, kernel_ids(seg_ids), n_segments,
-                                    reduce, entry.kernels[dec.kernel])
+                                    reduce, entry.kernels[dec.kernel],
+                                    dec.tile)
     return out.reshape((n_segments,) + values.shape[1:])
 
 
@@ -307,10 +383,29 @@ def kernel_ids(ids: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def edge_mpnn_decision(h_src: torch.Tensor, activation: str = "relu",
-                       sorted_ids: bool | None = None) -> Decision:
+                       sorted_ids: bool | None = None, *,
+                       h_tgt: torch.Tensor | None = None,
+                       w: torch.Tensor | None = None,
+                       n_edges: int | None = None) -> Decision:
+    """A kernel on a CUDA tensor, the plain version anywhere else; with
+    `h_tgt`, `w` and `n_edges` given, an autotune record of the exact
+    shape first."""
     if activation not in ACTIVATIONS:
         return Decision(False, f"unsupported activation {activation!r}")
-    return _on_device(h_src, "edge_mpnn", sorted_ids)
+    reason = _plain_reason(h_src)
+    if reason is not None:
+        return Decision(False, reason)
+    layout = _layout(sorted_ids)
+    if _AUTOTUNE and not (h_tgt is None or w is None or n_edges is None):
+        tuned = _autotuned("edge_mpnn", _autotune.edge_key(
+            n_src=h_src.shape[0], n_tgt=h_tgt.shape[0], ds=h_src.shape[1],
+            dt=h_tgt.shape[1], m=w.shape[1], dtype=h_src.dtype,
+            activation=activation, layout=layout, e=n_edges,
+            sm=_autotune.device_sm(h_src.device)), layout, h_src.dtype,
+            w.shape[1])
+        if tuned is not None:
+            return tuned
+    return _by_layout("edge_mpnn", layout)
 
 
 def edge_mpnn(h_src, h_tgt, src, tgt, w, b, *, n_src: int, n_tgt: int,
@@ -323,14 +418,15 @@ def edge_mpnn(h_src, h_tgt, src, tgt, w, b, *, n_src: int, n_tgt: int,
     sorted_ids hints that tgt arrives non-decreasing (performance only;
     None reads the calling thread's `layout()`)."""
     entry = _REGISTRY["edge_mpnn"]
-    dec = entry.decide(h_src, activation, sorted_ids)
+    dec = entry.decide(h_src, activation, sorted_ids, h_tgt=h_tgt, w=w,
+                       n_edges=src.shape[0])
     if not dec.use_kernel:
         return entry.reference(h_src, h_tgt, src, tgt, w, b, n_src=n_src,
                                n_tgt=n_tgt, activation=activation)
     return EdgeMpnnFunction.apply(
         h_src.contiguous(), h_tgt.contiguous(), w.contiguous(),
         b.contiguous(), kernel_ids(src), kernel_ids(tgt), n_src, n_tgt,
-        activation, entry.kernels[dec.kernel])
+        activation, entry.kernels[dec.kernel], dec.tile)
 
 
 # ---------------------------------------------------------------------------
@@ -369,12 +465,12 @@ register(KernelEntry(
     "segment_pool",
     {"segment_pool": _seg_kernel.segment_pool,
      "segment_pool_runs": _seg_kernel.segment_pool_runs},
-    segment_pool_ref, segment_reduce_decision))
+    segment_pool_ref, segment_reduce_decision, _seg_kernel.tiles))
 register(KernelEntry(
     "edge_mpnn",
     {"edge_mpnn": _mpnn_kernel.edge_mpnn,
      "edge_mpnn_runs": _mpnn_kernel.edge_mpnn_runs},
-    edge_mpnn_ref, edge_mpnn_decision))
+    edge_mpnn_ref, edge_mpnn_decision, _mpnn_kernel.tiles))
 register(KernelEntry(
     "graph_attention",
     {"flash_attention": _flash_kernel.flash_attention},

@@ -10,7 +10,10 @@ kernel, at any width — it checks device, dtype, shape and contiguity and
 raises on what the kernel does not take (a non-float dtype among them);
 on a CPU tensor it runs the plain version in `ref.py`.  Each wrapper's
 `launches` counts the calls that launched (plain-version calls are not
-counted).
+counted).  `segment_pool_runs` takes its tile height at D >= 32 as a
+run-time argument (`tiles` lists the heights built; 0 is the default,
+16 rows), which `kernels/autotune.py` times per shape and the registry
+passes from its record; the any-order kernel has no tile.
 
 One call is one ctypes call: the C entry zero-fills (or, for max/min,
 sentinel-fills) the accumulator on the stream and launches the scatter,
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -40,21 +44,34 @@ _DTYPE_CODES = {getattr(torch, name): code
                 for name, code in build.DTYPE_CODES.items()}
 
 
-# rows of the run kernel's smallest piece (runs.cu: a 16-row tile at
-# D >= 32, a warp's 32 rows below), so ceil(E / 16) pieces cover any width
+# rows of the run kernel's smallest piece (runs.cu: a 16- or 32-row tile
+# at D >= 32, a warp's 32 rows below), so ceil(E / 16) pieces cover any
+# width and tile
 _RUN_PIECE_ROWS = 16
+# the run kernel's tile heights at D >= 32 (runs.cu); below D 32 a piece
+# is a warp's 32 rows, with no height to choose
+_RUN_TILES = (16, 32)
+
+
+def tiles(library: str, dtype: torch.dtype, width: int) -> tuple:
+    """The tile heights kernel `library` is built for at this dtype and
+    width (besides 0, its default): what a tuner may time and a record
+    may name."""
+    del dtype  # every dtype takes the same tiles
+    return _RUN_TILES if library == "segment_pool_runs" and width >= 32 \
+        else ()
 
 
 @functools.cache
 def _entry(library: str):
     fn = getattr(build.load(library), f"{library}_launch")
     # values, seg_ids, acc, out, [carry, carry_pieces,] e, d, n, dtype,
-    # reduce, stream
-    carry = ([ctypes.c_void_p, ctypes.c_longlong]
-             if library == "segment_pool_runs" else [])
+    # reduce, [tile,] stream
+    runs = library == "segment_pool_runs"
+    carry = [ctypes.c_void_p, ctypes.c_longlong] if runs else []
     fn.argtypes = ([ctypes.c_void_p] * 4 + carry
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong] + [ctypes.c_int] * (4 + runs)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,12 +87,18 @@ def carry_scratch(values: torch.Tensor, e: int, d: int):
 
 
 def _run(library: str, values: torch.Tensor, seg_ids: torch.Tensor,
-         n_segments: int, reduce: str):
+         n_segments: int, reduce: str, tile: int):
     """Check the inputs and launch kernel `library`; returns (out,
     launched)."""
     if reduce not in REDUCES:
         raise ValueError(f"unsupported reduce {reduce!r}; expected one of "
                          f"{REDUCES}")
+    if tile:
+        built = tiles(library, values.dtype, math.prod(values.shape[1:]))
+        if tile not in built:
+            raise ValueError(f"{library} kernel: no {tile}-row tile at "
+                             f"shape {tuple(values.shape)} (built: "
+                             f"{built or 'none'})")
     if not values.is_cuda:
         return segment_pool_ref(values, seg_ids, n_segments=n_segments,
                                 reduce=reduce), False
@@ -106,33 +129,38 @@ def _run(library: str, values: torch.Tensor, seg_ids: torch.Tensor,
     if library == "segment_pool_runs":
         carry, pieces = (carry_scratch(values, e, d) if reduce == "sum"
                          else (None, 0))
-        args += [None if carry is None else carry.data_ptr(), pieces]
-    rc = _entry(library)(*args, e, d, n_segments, code,
-                         _REDUCE_CODES[reduce],
-                         torch.cuda.current_stream(index).cuda_stream)
+        args += [None if carry is None else carry.data_ptr(), pieces,
+                 e, d, n_segments, code, _REDUCE_CODES[reduce], tile]
+    else:
+        args += [e, d, n_segments, code, _REDUCE_CODES[reduce]]
+    rc = _entry(library)(*args, torch.cuda.current_stream(index).cuda_stream)
     build.check_launch(rc, library)
     return out, True
 
 
 def segment_pool(values: torch.Tensor, seg_ids: torch.Tensor, *,
-                 n_segments: int, reduce: str = "sum") -> torch.Tensor:
+                 n_segments: int, reduce: str = "sum",
+                 tile: int = 0) -> torch.Tensor:
     """values [E, D] float, seg_ids [E] int32 -> [n_segments, D] in
     values' dtype.  Ids outside [0, n_segments) are dropped; empty
-    segments yield 0."""
-    out, launched = _run("segment_pool", values, seg_ids, n_segments, reduce)
+    segments yield 0.  `tile` must be 0: the any-order kernel has none."""
+    out, launched = _run("segment_pool", values, seg_ids, n_segments, reduce,
+                         tile)
     if launched:
         segment_pool.launches += 1
     return out
 
 
 def segment_pool_runs(values: torch.Tensor, seg_ids: torch.Tensor, *,
-                      n_segments: int, reduce: str = "sum") -> torch.Tensor:
+                      n_segments: int, reduce: str = "sum",
+                      tile: int = 0) -> torch.Tensor:
     """The run variant: same contract as `segment_pool`, one add per run
     of equal ids in a tile, and for a sum one per chain of runs that cross
     tiles, folded in tile order.  Correct for any id order; fastest, and
-    for a sum bit-repeatable, when seg_ids is sorted."""
+    for a sum bit-repeatable, when seg_ids is sorted.  `tile`: rows a
+    tile at D >= 32, one of `tiles(...)`, or 0 for the default."""
     out, launched = _run("segment_pool_runs", values, seg_ids, n_segments,
-                         reduce)
+                         reduce, tile)
     if launched:
         segment_pool_runs.launches += 1
     return out

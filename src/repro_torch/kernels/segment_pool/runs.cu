@@ -22,18 +22,21 @@
 //     each run end issues one vector atomicAdd (sum) or four sign-split
 //     atomics (max/min), or, for a sum's run that crosses the tile's
 //     boundary, stores it to its carry slot.  Padding rows are never
-//     read.  The tile is 16 rows, not longer: the fold is serial within a
-//     warp, so at E ~ 5000 a longer tile means fewer warps each with a
-//     longer chain, and on the H100 tiles of 32 and 64 rows ran slower
-//     than 16; 16 rows already cut the trained batch's 2697-row run into
-//     one partial per tile, where an any-order scatter contends 2697
-//     times on one row.
+//     read.  The tile is 16 rows by default, not longer: the fold is
+//     serial within a warp, so at E ~ 5000 a longer tile means fewer
+//     warps each with a longer chain, and on the H100 tiles of 32 and 64
+//     rows ran slower than 16; 16 rows already cut the trained batch's
+//     2697-row run into one partial per tile, where an any-order scatter
+//     contends 2697 times on one row.  The entry also takes 32-row tiles
+//     (half the carry partials and warps), which kernels/autotune.py
+//     times per exact shape against 16.
 //   * D < 32 (the attention scores [E, heads], D = 4): lanes take rows.
 //     Each lane loads its row's D values (one 16-byte load at D = 4), and
 //     a segmented inclusive scan across the warp's 32 rows with head flags
 //     (__shfl_up_sync, 5 steps; the counterpart of segmented_run_scan)
 //     folds the runs; the lane at each run end issues the atomic (or
-//     stores its carry slot).
+//     stores its carry slot).  The piece is the warp's 32 rows, one a
+//     lane, so this form has no tile height to choose.
 // A width or pointer that does not allow 16-byte vectors takes the scalar
 // form of the same kernels (one column per lane).  Launches as in
 // segment_pool.cu (pool.cuh), plus the carry fold of a sum: an fp32 sum is
@@ -58,7 +61,7 @@ using namespace repro_torch;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerCta = 4;
 constexpr int kGroup = 16;  // rows whose loads a lane keeps in flight
-constexpr int kTileRows = 16;
+constexpr int kTileRows = 16;  // D >= 32: the default tile; 32 is built too
 
 __device__ __forceinline__ bool is_valid(int seg, int n_segments) {
   return seg >= 0 && seg < n_segments;
@@ -85,16 +88,16 @@ __device__ __forceinline__ void run_end(float* acc, float* parts, int slot,
     accumulate<SUM, VEC>(acc + static_cast<int64_t>(seg) * d + col, run);
 }
 
-// D >= 32: warp w folds rows [tile * kTileRows, +kTileRows) of column
-// slice `slice`; lane l owns columns slice * 32 * VEC + l * VEC + [0, VEC).
-template <int DT, bool SUM, int VEC>
+// D >= 32: warp w folds rows [tile * TILE, +TILE) of column slice
+// `slice`; lane l owns columns slice * 32 * VEC + l * VEC + [0, VEC).
+template <int DT, bool SUM, int VEC, int TILE>
 __global__ void __launch_bounds__(32 * kWarpsPerCta)
 seg_runs_tile_kernel(const void* __restrict__ values,
                      const int* __restrict__ seg_ids, float* __restrict__ acc,
                      int4* __restrict__ meta, float* __restrict__ parts,
                      int64_t e, int d, int n_segments, bool negate,
                      int slices, int64_t n_warps) {
-  static_assert(kTileRows <= 32 && kTileRows % kGroup == 0,
+  static_assert(TILE <= 32 && TILE % kGroup == 0,
                 "one id load per lane, whole row groups");
   const int lane = threadIdx.x & 31;
   const int64_t w = blockIdx.x * static_cast<int64_t>(kWarpsPerCta) +
@@ -103,9 +106,9 @@ seg_runs_tile_kernel(const void* __restrict__ values,
   const int64_t tile = w / slices;
   const int col = static_cast<int>(w - tile * slices) * 32 * VEC + lane * VEC;
   const bool active = col < d;
-  const int64_t row0 = tile * kTileRows;
+  const int64_t row0 = tile * TILE;
   const int rows = static_cast<int>(
-      e - row0 < kTileRows ? e - row0 : static_cast<int64_t>(kTileRows));
+      e - row0 < TILE ? e - row0 : static_cast<int64_t>(TILE));
 
   // the tile's ids, one per lane, and the id after each row (-1, never
   // valid, past the tile's end, which ends every run)
@@ -136,7 +139,7 @@ seg_runs_tile_kernel(const void* __restrict__ values,
   for (int c = 0; c < VEC; ++c) run[c] = identity;
   bool first_run = true;
 #pragma unroll
-  for (int g = 0; g < kTileRows; g += kGroup) {
+  for (int g = 0; g < TILE; g += kGroup) {
     float v[kGroup][VEC];
     int seg[kGroup], next[kGroup];
 #pragma unroll
@@ -235,21 +238,27 @@ seg_runs_rows_kernel(const void* __restrict__ values,
 // (the output itself when the dtype is fp32, else scratch), out
 // [n_segments, d] (dtype code); for a sum, carry: scratch of
 // carry_floats(carry_pieces, d) floats (carry.cuh), carry_pieces at least
-// the call's pieces (ceil(e / 16) covers every width).  Launches on
-// `stream`; returns the cudaError_t of the calls (0 on success).
+// the call's pieces (ceil(e / 16) covers every width and tile); tiles of
+// `tile` rows at D >= 32 (16 or 32; 0 the default, kTileRows), and only
+// 0 below D 32 (a warp's 32 rows).  Launches on `stream`; returns the
+// cudaError_t of the calls (0 on success; cudaErrorInvalidValue, with
+// nothing launched, for a tile that is not built).
 extern "C" int segment_pool_runs_launch(const void* values,
                                         const int* seg_ids, float* acc,
                                         void* out, float* carry,
                                         long long carry_pieces, long long e,
                                         int d, int n_segments, int dtype,
-                                        int reduce, void* stream) {
+                                        int reduce, int tile, void* stream) {
+  const int tile_rows = tile == 0 ? kTileRows : tile;
+  if (d < 32 ? tile != 0 : tile_rows != 16 && tile_rows != 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   int vec = vector_width(values, acc, d, dtype);
   if (reinterpret_cast<uintptr_t>(carry) % 16 != 0) vec = 1;
   constexpr int threads = 32 * kWarpsPerCta;
   // D >= 32: one warp per (tile, column slice); below, one warp per 32 rows
   const int slices = (d + 32 * vec - 1) / (32 * vec);
   const int64_t pieces = d < 32 ? (e + 31) / 32
-                                : (e + kTileRows - 1) / kTileRows;
+                                : (e + tile_rows - 1) / tile_rows;
   const int64_t n_warps = pieces * slices;
   const int64_t blocks = d < 32 ? (e + threads - 1) / threads
                                 : (n_warps + kWarpsPerCta - 1) / kWarpsPerCta;
@@ -271,8 +280,13 @@ extern "C" int segment_pool_runs_launch(const void* values,
             seg_runs_rows_kernel<kDt, kSumOp, kVec>
                 <<<grid, threads, 0, s>>>(values, seg_ids, acc, meta, parts,
                                           e, d, n_segments, negate);
+          else if (tile_rows == 32)
+            seg_runs_tile_kernel<kDt, kSumOp, kVec, 32>
+                <<<grid, threads, 0, s>>>(values, seg_ids, acc, meta, parts,
+                                          e, d, n_segments, negate, slices,
+                                          n_warps);
           else
-            seg_runs_tile_kernel<kDt, kSumOp, kVec>
+            seg_runs_tile_kernel<kDt, kSumOp, kVec, kTileRows>
                 <<<grid, threads, 0, s>>>(values, seg_ids, acc, meta, parts,
                                           e, d, n_segments, negate, slices,
                                           n_warps);

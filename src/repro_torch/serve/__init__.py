@@ -37,7 +37,7 @@ _EXPORTS = {
     "LoadReport": "repro_torch.serve.loadgen",
     # `ServeEngine` and `Request` (the LM continuous-batching engine,
     # `repro.serve.engine`) join this map with the LM side stack,
-    # ROADMAP.md queue 1 item 2.
+    # ROADMAP.md queue 1 item 1.
 }
 
 __all__ = sorted(_EXPORTS)

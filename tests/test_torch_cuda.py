@@ -12,7 +12,9 @@ the plain versions' rtol 1e-5 (pooling) and 1e-4 (edge_mpnn and flash
 attention, whose backwards recompute a product).  The sampler-fleet
 path's two tests are exact: `device_prefetch`'s pinned side-stream
 copies against a blocking `to_device`, and a thread-fleet
-`runner.run(sampler="service")` against itself.
+`runner.run(sampler="service")` against itself.  Every tile height the
+autotuner may pick is held to the plain version by the same rules, and
+`kernels/autotune.py`'s records drive the registry's decisions.
 """
 import pytest
 import torch
@@ -284,13 +286,13 @@ def _pool_kernel(variant):
     return getattr(seg_kernel, variant)
 
 
-def _check_pool(kernel, vals, ids, n, reduce):
-    """kernel vs plain: max/min exact; bf16 sums within 2e-2 (the cast
-    back); fp32 sums within rtol/atol 1e-5 plus the summation-order bound
-    2 k 2**-24 sum|terms| of a segment of k rows (atomics and index_add_
-    add in different orders, which shows on runs of hundreds of rows).
-    The dtype is kept."""
-    got = kernel(vals, ids, n_segments=n, reduce=reduce)
+def _check_pool(kernel, vals, ids, n, reduce, tile=0):
+    """kernel (at tile height `tile`) vs plain: max/min exact; bf16 sums
+    within 2e-2 (the cast back); fp32 sums within rtol/atol 1e-5 plus the
+    summation-order bound 2 k 2**-24 sum|terms| of a segment of k rows
+    (atomics and index_add_ add in different orders, which shows on runs
+    of hundreds of rows).  The dtype is kept."""
+    got = kernel(vals, ids, n_segments=n, reduce=reduce, tile=tile)
     want = segment_pool_ref(vals, ids, n_segments=n, reduce=reduce)
     assert got.dtype == vals.dtype and got.shape == want.shape
     if reduce != "sum":
@@ -750,13 +752,15 @@ def _edge_inputs(g, device, n_src, n_tgt, ds, dt, m, src, tgt,
             rand(m, scale=0.1))
 
 
-def _check_edge(kernel, args, n_src, n_tgt, activation="relu"):
-    """kernel vs plain: fp32 within rtol/atol 1e-5 plus the summation-order
-    bound 2 k 2**-24 sum|terms| of a row of k edges (atomics, runs and
-    index_add_ add in different orders); 16-bit within 2e-2 (the cast
-    back).  The dtype and shape are kept, and the launch is counted."""
+def _check_edge(kernel, args, n_src, n_tgt, activation="relu", tile=0):
+    """kernel (at tile height `tile`) vs plain: fp32 within rtol/atol 1e-5
+    plus the summation-order bound 2 k 2**-24 sum|terms| of a row of k
+    edges (atomics, runs and index_add_ add in different orders); 16-bit
+    within 2e-2 (the cast back).  The dtype and shape are kept, and the
+    launch is counted."""
     before = kernel.launches
-    got = kernel(*args, n_src=n_src, n_tgt=n_tgt, activation=activation)
+    got = kernel(*args, n_src=n_src, n_tgt=n_tgt, activation=activation,
+                 tile=tile)
     want = edge_mpnn_ref(*args, n_src=n_src, n_tgt=n_tgt,
                          activation=activation)
     assert got.dtype == args[0].dtype and got.shape == want.shape
@@ -1195,3 +1199,149 @@ def test_runner_service_thread_fleet_repeats_bit_for_bit(cuda_device):
     losses = runs[0].metrics["train_losses"]
     assert all(torch.isfinite(torch.tensor(losses)))
     assert losses == runs[1].metrics["train_losses"]
+
+
+# ---------------------------------------------------------------------------
+# the tile heights kernels/autotune.py picks among, a tile that is not
+# built, and tuned records through the registry's consult
+# ---------------------------------------------------------------------------
+
+EDGE_TILES = [(torch.float32, 32), (torch.float32, 64),
+              (torch.float32, 128), (torch.bfloat16, 64),
+              (torch.float16, 64)]
+
+
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+@pytest.mark.parametrize("dtype,tile", EDGE_TILES)
+@pytest.mark.parametrize("sort", [True, False])
+def test_edge_kernels_every_tile(cuda_device, variant, dtype, tile, sort):
+    """E 1001 (a ragged last tile at every height) with a 300-edge run
+    into one target, 128 + 128 -> 130 (a partial column tile): each
+    height against the plain version; on sorted targets the run kernel
+    repeats bit for bit at every height."""
+    kernel = _edge_kernel(variant)
+    g = torch.Generator(device=cuda_device).manual_seed(110 + tile)
+    src = torch.randint(0, 300, (1001,), generator=g, device=cuda_device)
+    tgt = torch.randint(0, 210, (1001,), generator=g, device=cuda_device)
+    tgt[:300] = 17
+    if sort:
+        tgt = torch.sort(tgt).values
+    args = _edge_inputs(g, cuda_device, 300, 200, 128, 128, 130, src, tgt,
+                        dtype)
+    got = _check_edge(kernel, args, 300, 200, "gelu", tile)
+    if sort and variant == "edge_mpnn_runs":
+        for _ in range(4):
+            assert torch.equal(kernel(*args, n_src=300, n_tgt=200,
+                                      activation="gelu", tile=tile), got)
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128, 640])
+def test_pool_run_kernel_every_tile(cuda_device, tile, sort, dtype, d):
+    """segment_pool_runs at 16- and 32-row tiles, from one 32-column slice
+    to five 128-column ones, with a 900-row run: sum, max and min against
+    the plain version; sorted sums repeat bit for bit."""
+    from repro_torch.kernels.segment_pool.kernel import segment_pool_runs
+    g = torch.Generator(device=cuda_device).manual_seed(120 + d)
+    vals = torch.randn(2001, d, generator=g, device=cuda_device).to(dtype)
+    ids = torch.randint(0, 95, (2001,), generator=g, device=cuda_device)
+    ids[100:1000] = 40
+    if sort:
+        ids = torch.sort(ids).values
+    ids = ids.to(torch.int32)
+    for reduce in ("sum", "max", "min"):
+        _check_pool(segment_pool_runs, vals, ids, 90, reduce, tile)
+    if sort:
+        first = segment_pool_runs(vals, ids, n_segments=90, tile=tile)
+        for _ in range(4):
+            assert torch.equal(
+                segment_pool_runs(vals, ids, n_segments=90, tile=tile), first)
+
+
+def test_a_tile_that_is_not_built_is_refused(cuda_device, monkeypatch):
+    """The wrappers raise on a tile their kernel is not built for; with
+    that check lifted, the C entries refuse it themselves
+    (cudaErrorInvalidValue, nothing launched) and the wrapper raises."""
+    from repro_torch.kernels.edge_mpnn import kernel as mpnn_kernel
+    from repro_torch.kernels.segment_pool import kernel as seg_kernel
+    g = torch.Generator(device=cuda_device).manual_seed(130)
+    idx = torch.randint(0, 40, (100,), generator=g, device=cuda_device)
+    args = _edge_inputs(g, cuda_device, 40, 40, 64, 64, 64, idx, idx)
+    vals = torch.randn(100, 64, device=cuda_device)
+    narrow = torch.randn(100, 4, device=cuda_device)
+    ids = idx.to(torch.int32)
+    with pytest.raises(ValueError, match="tile"):
+        mpnn_kernel.edge_mpnn(*args, n_src=40, n_tgt=40, tile=48)
+    with pytest.raises(ValueError, match="tile"):
+        seg_kernel.segment_pool_runs(narrow, ids, n_segments=40, tile=16)
+    monkeypatch.setattr(mpnn_kernel, "tiles", lambda *a: (48,))
+    monkeypatch.setattr(seg_kernel, "tiles", lambda *a: (16, 48))
+    for variant in EDGE_VARIANTS:
+        kernel = getattr(mpnn_kernel, variant)
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="error 1"):
+            kernel(*args, n_src=40, n_tgt=40, tile=48)
+        assert kernel.launches == before
+    for x, tile in ((vals, 48), (narrow, 16)):
+        before = seg_kernel.segment_pool_runs.launches
+        with pytest.raises(RuntimeError, match="error 1"):
+            seg_kernel.segment_pool_runs(x, ids, n_segments=40, tile=tile)
+        assert seg_kernel.segment_pool_runs.launches == before
+
+
+def test_autotune_records_drive_the_registry(cuda_device, tmp_path,
+                                             monkeypatch):
+    """tune_segment_pool / tune_edge_mpnn on the card into a temporary
+    file: each record names a built tile and its candidates; under the
+    consult the decisions at those shapes read it, and the registry's
+    outputs match the plain versions; off, the reasons are the layout
+    rule's."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE_PATH",
+                        tmp_path / "autotune_cache_cuda.json")
+    autotune._LOADED.clear()
+    pool = autotune.tune_segment_pool(64, 128, sorted_ids=True,
+                                      n_edges=1000, iters=3)
+    assert pool["variant"] == "segment_pool_runs" and pool["tile"] in (16, 32)
+    assert set(pool["candidates"]) == {"segment_pool/0",
+                                       "segment_pool_runs/16",
+                                       "segment_pool_runs/32"}
+    assert pool["default_us"] == pool["candidates"]["segment_pool_runs/16"]
+    edge = autotune.tune_edge_mpnn(50, 70, 64, 64, 96, sorted_ids=False,
+                                   n_edges=700, iters=3)
+    assert len(edge["candidates"]) == 6
+    assert edge["default_us"] == edge["candidates"]["edge_mpnn/32"]
+    assert edge["us"] == min(edge["candidates"].values())
+    g = torch.Generator(device=cuda_device).manual_seed(140)
+    vals = torch.randn(1000, 128, generator=g, device=cuda_device)
+    ids = torch.sort(torch.randint(0, 64, (1000,), generator=g,
+                                   device=cuda_device)).values
+    src = torch.randint(0, 50, (700,), generator=g, device=cuda_device)
+    tgt = torch.randint(0, 70, (700,), generator=g, device=cuda_device)
+    h_src, h_tgt, src, tgt, w, b = _edge_inputs(g, cuda_device, 50, 70, 64,
+                                                64, 96, src, tgt)
+    registry.use_autotune(True)
+    try:
+        dec = registry.segment_reduce_decision(vals, True, n_segments=64)
+        assert dec.reason == (f"autotuned:segment_pool_runs/{pool['tile']}"
+                              "[sorted]")
+        got = registry.segment_reduce(vals, ids, 64, sorted_ids=True)
+        dec = registry.edge_mpnn_decision(h_src, "relu", False, h_tgt=h_tgt,
+                                          w=w, n_edges=700)
+        assert dec.reason == (f"autotuned:{edge['variant']}/{edge['tile']}"
+                              "[unsorted]")
+        got_edge = registry.edge_mpnn(h_src, h_tgt, src, tgt, w, b,
+                                      n_src=50, n_tgt=70, sorted_ids=False)
+    finally:
+        registry.use_autotune(False)
+    torch.testing.assert_close(got, segment_pool_ref(vals, ids,
+                                                     n_segments=64),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_edge, edge_mpnn_ref(
+        h_src, h_tgt, src, tgt, w, b, n_src=50, n_tgt=70),
+        rtol=1e-5, atol=1e-5)
+    assert registry.segment_reduce_decision(
+        vals, True, n_segments=64).reason == "kernel:segment_pool_runs[sorted]"
+    autotune._LOADED.clear()
