@@ -89,7 +89,18 @@ head, 8 classes):
   2-rank mesh.  Every per-step loss of each rank within 1e-4 of the
   in-process run's, 20 `edge_mpnn_runs` a group forward on each rank,
   and the step time, batch wait and roots/s of both runs and their
-  ratio printed.
+  ratio printed;
+* LM serving (`[lm]`): the dense decoder at full width (qwen1.5-4b,
+  3.95 B fp32 parameters drawn on the card, bf16 compute, a float8 KV
+  cache) behind `repro_torch.serve.engine.ServeEngine`: 8 requests over
+  4 slots (every token in range, every logit finite), the engine's
+  greedy tokens at one slot equal to a hand-rolled prefill ->
+  decode_step loop bit for bit, decode after prefill against the full
+  forward (bf16 cache), the float8 cast on the card against the CPU's,
+  flash through the LM's `Attention(use_flash=True)` at 2048 tokens (1
+  launch, within 2e-2 of the chunked path), prefill and decode times
+  with fp32-held and bf16-held weights (the same tokens), and the
+  `lm_serve` twin at its defaults.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -3666,6 +3677,378 @@ def multihost_phase(torch, smi) -> int:
             + local["ranks"][0]["launches"]["edge_mpnn_runs"])
 
 
+# ---------------------------------------------------------------------------
+# LM serving: the dense decoder at full width behind ServeEngine
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen1.5-4b"
+LM_SLOTS, LM_MAX_LEN = 4, 512
+LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 12, 16
+LM_CHECK_PROMPT = 64
+LM_LONG_PROMPT = 2048
+LM_FLASH_TOKENS = 2048
+LM_FLASH_TOL = 2e-2             # [kernels]' bf16 tolerance
+# decode after prefill vs the full forward, bf16 compute and a bf16
+# cache, logits of unit scale: the two take the same ops on other
+# shapes (M 65 against 64 + 1), so cuBLAS may split the bf16 products'
+# sums otherwise and each of the 40 layers' bf16 activations can round
+# the other way (2^-8 relative a rounding); the reference's smoke test
+# holds fp32 to 2e-2.
+LM_DECODE_ATOL = 0.25
+LM_DECODE_RTOL = 0.05
+E4M3_CASES = (0.0, 1e-9, 240.0, 447.0, 448.0, 449.0, 463.9, 464.0, 464.1,
+              466.0, 480.0, 1e4, float("inf"), float("nan"))
+
+
+def lm_config():
+    from repro_torch.models.registry import get_config
+    return get_config(LM_ARCH)
+
+
+def lm_prompts(cfg, n: int, length: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, length).astype(np.int32)
+            for _ in range(n)]
+
+
+def lm_finite_spy(torch, model) -> list:
+    """Wrap the model's prefill and decode_step so each records, on the
+    device, whether all its logits are finite; returns the flags' list
+    (read after the run: no sync inside it)."""
+    flags = []
+    for name in ("prefill", "decode_step"):
+        original = getattr(model, name)
+
+        def spy(*args, _original=original, **kwargs):
+            out, cache = _original(*args, **kwargs)
+            flags.append(torch.isfinite(out.logits).all())
+            return out, cache
+        setattr(model, name, spy)
+    return flags
+
+
+def lm_unspy(model) -> None:
+    for name in ("prefill", "decode_step"):
+        delattr(model, name)
+
+
+def lm_greedy(torch, model, prompt, new_tokens: int) -> list:
+    """The hand-rolled loop: prefill, then decode_step with the cache's
+    length set as ServeEngine.step sets it (the prompt + 1 at the first
+    decode, the reference's gap, then one more a step)."""
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompt.astype(np.int64),
+                                 device=DEVICE)[None]
+        out, cache = model.prefill(tokens, max_len=LM_MAX_LEN)
+        toks = [int(torch.argmax(out.logits[0, -1]))]
+        length = len(prompt) + 1
+        while len(toks) < new_tokens:
+            cache.length = length
+            out, cache = model.decode_step(
+                torch.tensor([[toks[-1]]], device=DEVICE), cache)
+            toks.append(int(torch.argmax(out.logits[0, -1])))
+            length += 1
+    return toks
+
+
+def lm_engine_run(torch, cfg, model, n_slots, prompts, temps) -> tuple:
+    """ServeEngine over the prompts; (done requests, seconds)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    engine = ServeEngine(cfg, model, n_slots=n_slots, max_len=LM_MAX_LEN)
+    reqs = [Request(prompt=p, max_new_tokens=LM_NEW, temperature=t)
+            for p, t in zip(prompts, temps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0
+
+
+def lm_decode_check(torch, model) -> tuple:
+    """Decode after a LM_CHECK_PROMPT-token prefill against the full
+    forward's last position, the cache in the compute dtype (bf16) and
+    then in the config's float8: (max |bf16 cache - forward|, max |float8
+    cache - bf16 cache|)."""
+    import dataclasses
+    cfg = model.cfg
+    [toks] = lm_prompts(cfg, 1, LM_CHECK_PROMPT + 1, SEED + 3)
+    toks = torch.as_tensor(toks.astype(np.int64), device=DEVICE)[None]
+    decoded = {}
+    with torch.inference_mode():
+        full = model(toks).logits[:, -1]
+        for kv in ("", cfg.kv_cache_dtype):
+            model.cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            try:
+                _, cache = model.prefill(toks[:, :-1], max_len=LM_MAX_LEN)
+                decoded[kv] = model.decode_step(toks[:, -1:],
+                                                cache)[0].logits[:, 0]
+            finally:
+                model.cfg = cfg
+    bf16 = decoded[""]
+    if not torch.allclose(bf16, full, rtol=LM_DECODE_RTOL,
+                          atol=LM_DECODE_ATOL):
+        fail(f"lm: decode after prefill differs from the full forward by "
+             f"{(bf16 - full).abs().max().item():.3e} (rtol "
+             f"{LM_DECODE_RTOL}, atol {LM_DECODE_ATOL}; logits up to "
+             f"{full.abs().max().item():.3f})")
+    return ((bf16 - full).abs().max().item(),
+            (decoded[cfg.kv_cache_dtype] - bf16).abs().max().item(),
+            full.abs().max().item())
+
+
+def lm_cast_check(torch) -> int:
+    """`to_kv_dtype` on the card against the CPU, float8_e4m3fn: the
+    overflow boundary (both signs) in fp32 and bf16, and 2^20 random
+    values spread over it.  Equal bytes, NaN where the CPU has NaN.
+    Returns the values checked."""
+    from repro_torch.nn.attention import to_kv_dtype
+    g = torch.Generator().manual_seed(SEED + 4)
+    edge = torch.tensor(E4M3_CASES, dtype=torch.float32)
+    values = torch.cat([edge, -edge,
+                        torch.randn(1 << 20, generator=g) * 160.0])
+    fp8 = torch.float8_e4m3fn
+    for dtype in (torch.float32, torch.bfloat16):
+        x = values.to(dtype)
+        want = to_kv_dtype(x, fp8)
+        got = to_kv_dtype(x.to(DEVICE), fp8).cpu()
+        gn, wn = got.float().isnan(), want.float().isnan()
+        if not torch.equal(gn, wn) or not torch.equal(
+                got.view(torch.uint8)[~wn], want.view(torch.uint8)[~wn]):
+            bad = (got.float() != want.float()) & ~(gn & wn)
+            fail(f"lm: the float8 cast of {dtype} differs on the card at "
+                 f"{x[bad][:8].tolist()}: {got[bad][:8].float().tolist()} "
+                 f"vs {want[bad][:8].float().tolist()} on the CPU")
+        if not wn[:len(E4M3_CASES)][-5:].all():
+            fail(f"lm: the float8 cast of {dtype} keeps a value past 464")
+    return 2 * values.numel()
+
+
+def lm_flash_check(torch, cfg) -> tuple:
+    """One Attention of the config's shapes (bf16 input, fp32 weights
+    cast per call), causal over LM_FLASH_TOKENS tokens: use_flash=True
+    makes exactly one flash launch and agrees with the chunked path
+    (use_flash=False, LM_FLASH_TOKENS >= chunk_threshold) within
+    LM_FLASH_TOL.  Returns (launches, max err, call): ``call(flash)``
+    runs the layer on either path, for timing."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.nn.attention import Attention
+    from repro_torch.nn.layers import init_params
+    with torch.device(DEVICE):
+        attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim, qkv_bias=cfg.qkv_bias,
+                         out_bias=cfg.out_bias, rope_theta=cfg.rope_theta,
+                         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                         use_flash=True)
+    init_params(attn, SEED + 6)
+    if LM_FLASH_TOKENS < attn.chunk_threshold:
+        fail("lm: the flash check's length would not take the chunked path")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    x = torch.randn(1, LM_FLASH_TOKENS, cfg.d_model, generator=g,
+                    device=DEVICE).to(torch.bfloat16)
+
+    def call(flash: bool):
+        attn.use_flash = flash
+        with torch.inference_mode():
+            return attn(x)
+
+    before = flash_attention.launches
+    got = call(True)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches - before
+    if launches != 1:
+        fail(f"lm: Attention(use_flash=True) made {launches} flash "
+             "launches in one call (1 expected)")
+    before = flash_attention.launches
+    want = call(False)
+    if flash_attention.launches != before:
+        fail("lm: Attention(use_flash=False) launched the flash kernel")
+    err = _close(torch, "lm: Attention flash vs chunked", got, want,
+                 LM_FLASH_TOL, LM_FLASH_TOL)
+    return launches, err, call
+
+
+def lm_hold_bf16(torch, model) -> None:
+    """Hold the Linear weights and biases and the embedding table in
+    bf16 (norm scales stay fp32): every call casts them to bf16 anyway,
+    so the same bits come out."""
+    from repro_torch.nn.layers import Embedding, Linear
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (Linear, Embedding)):
+                for p in mod.parameters(recurse=False):
+                    p.data = p.data.to(torch.bfloat16)
+
+
+def lm_times(torch, model) -> dict:
+    """Prefill ms at LM_PROMPT and LM_LONG_PROMPT tokens and decode ms a
+    step at LM_SLOTS slots (CUDA events; the decode rewrites one
+    position of a cache filled to LM_CHECK_PROMPT), and a decode step's
+    device us and device kernels (torch.profiler)."""
+    cfg = model.cfg
+    out = {}
+    with torch.inference_mode():
+        for n in (LM_PROMPT, LM_LONG_PROMPT):
+            [p] = lm_prompts(cfg, 1, n, SEED + 8)
+            toks = torch.as_tensor(p.astype(np.int64), device=DEVICE)[None]
+            out[f"prefill_{n}"] = time_ms(
+                torch, lambda t=toks: model.prefill(t, max_len=LM_MAX_LEN),
+                calls=3, reps=3, warmup=1)
+        cache = model.init_cache(LM_SLOTS, LM_MAX_LEN)
+        cache.length = LM_CHECK_PROMPT
+        tok = torch.zeros(LM_SLOTS, 1, dtype=torch.int64, device=DEVICE)
+        out["decode"] = time_ms(torch, lambda: model.decode_step(tok, cache),
+                                calls=10, reps=3, warmup=2)
+        out["profile"] = device_per_call(
+            torch, lambda: model.decode_step(tok, cache), calls=1)
+    return out
+
+
+def lm_phase(torch, smi) -> int:
+    """The dense decoder at full width (qwen1.5-4b: 40 layers, d_model
+    2560, 20 heads x 128, kv 20, d_ff 6912, vocab 151936, QKV bias,
+    untied head; bf16 compute, float8_e4m3fn KV cache; fp32 weights
+    drawn on the card from seed 0) behind `ServeEngine`: (1) 8 requests
+    over 4 slots, recycled; (2) at 1 slot, greedy tokens equal to the
+    hand-rolled prefill -> decode_step loop bit for bit; (3) decode after
+    prefill against the full forward; (4) the float8 cast on the card
+    against the CPU; (5) flash through the LM's Attention layer; (6)
+    times; (7) the lm_serve twin at its defaults.  Returns the flash
+    launches of the phase's main path (its one use_flash call)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.layers import init_params
+    from repro_torch.orchestration import lm_serve
+
+    t0 = time.perf_counter()
+    cfg = lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model = init_params(build_model(cfg, DEVICE), SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    fp32_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    flash_attention.launches = 0
+
+    # (1) the engine, 8 requests over 4 slots
+    flags = lm_finite_spy(torch, model)
+    prompts = lm_prompts(cfg, LM_REQUESTS, LM_PROMPT, SEED)
+    temps = [0.0 if i % 2 == 0 else 0.8 for i in range(LM_REQUESTS)]
+    done, t_engine = lm_engine_run(torch, cfg, model, LM_SLOTS, prompts,
+                                   temps)
+    lm_unspy(model)
+    finite = bool(torch.stack(flags).all())
+    tokens = [t for r in done for t in r.generated]
+    if (len(done) != LM_REQUESTS
+            or not all(r.done and len(r.generated) >= LM_NEW for r in done)
+            or not all(0 <= t < cfg.vocab_size for t in tokens)
+            or not finite):
+        fail(f"lm: engine served {len(done)} of {LM_REQUESTS} requests, "
+             f"lengths {[len(r.generated) for r in done]}, tokens in range "
+             f"{all(0 <= t < cfg.vocab_size for t in tokens)}, logits "
+             f"finite {finite}")
+
+    # (2) the engine against its own bookkeeping, greedy at one slot
+    [greedy_req], _ = lm_engine_run(torch, cfg, model, 1, prompts[:1], [0.0])
+    manual = lm_greedy(torch, model, prompts[0], LM_NEW)
+    if greedy_req.generated != manual:
+        fail(f"lm: engine tokens {greedy_req.generated} != prefill -> "
+             f"decode_step loop {manual}")
+
+    # (3) decode after prefill vs the full forward; (4) the float8 cast
+    decode_err, fp8_gap, logit_scale = lm_decode_check(torch, model)
+    n_cast = lm_cast_check(torch)
+
+    # (5) flash through the LM's own Attention layer
+    launches, flash_err, call = lm_flash_check(torch, cfg)
+    torch.cuda.synchronize()
+    main_launches = flash_attention.launches
+    if main_launches != 1:
+        fail(f"lm: {main_launches} flash launches on the phase's path (1 "
+             "expected: the use_flash call)")
+    flash_ms, chunked_ms = (time_ms(torch, lambda f=f: call(f), calls=5,
+                                    reps=3, warmup=1) for f in (True, False))
+
+    # (6) times, fp32-held weights, then bf16-held
+    t_times = time.perf_counter()
+    times = lm_times(torch, model)
+    t_times = time.perf_counter() - t_times
+    kv_bytes = (model.init_cache(LM_SLOTS, LM_MAX_LEN).k.numel() * 2
+                * torch.empty(0, dtype=model.kv_dtype()).element_size())
+    lm_hold_bf16(torch, model)
+    bf16_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    held = lm_greedy(torch, model, prompts[0], LM_NEW)
+    if held != manual:
+        fail(f"lm: bf16-held weights gave tokens {held} != {manual}")
+    times16 = lm_times(torch, model)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+
+    # (7) the twin at its defaults
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lm_serve.main([])
+    for line in out.getvalue().splitlines():
+        phase("lm", f"twin: {line}")
+    if rc != 0:
+        fail(f"lm: lm_serve.main([]) returned {rc}")
+
+    bound = fp32_bytes / PEAK_BYTES_PER_S * 1e3
+    bound16 = bf16_bytes / PEAK_BYTES_PER_S * 1e3
+    cast_bound = (fp32_bytes + bf16_bytes * 2) / PEAK_BYTES_PER_S * 1e3
+    phase("lm", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} x {cfg.resolved_head_dim} heads, "
+          f"kv {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params} parameters ({fp32_bytes / 1e9:.2f} GB fp32) drawn "
+          f"on the card in {t_build:.1f}s; KV cache {LM_SLOTS} x "
+          f"{LM_MAX_LEN} {cfg.kv_cache_dtype} {kv_bytes / 1e9:.3f} GB; "
+          f"peak {peak_gb:.2f} GB")
+    phase("lm", f"engine: {len(done)} requests ({LM_PROMPT}-token prompts, "
+          f"{LM_NEW} new, every other at temperature 0.8) over {LM_SLOTS} "
+          f"slots in {t_engine:.2f}s, {len(tokens)} tokens "
+          f"({len(tokens) / t_engine:.1f} tok/s), all logits finite; at 1 "
+          f"slot greedy tokens equal to prefill -> decode_step bit for bit "
+          f"({len(manual)} tokens)")
+    phase("lm", f"decode after a {LM_CHECK_PROMPT}-token prefill vs the "
+          f"full forward (bf16 cache): max |diff| {decode_err:.4e} (logits "
+          f"up to {logit_scale:.3f}; rtol {LM_DECODE_RTOL}, atol "
+          f"{LM_DECODE_ATOL}); float8 cache vs bf16 cache: max |diff| "
+          f"{fp8_gap:.4e}; float8 cast on the card equal to the CPU's on "
+          f"{n_cast} values (NaN past 464)")
+    phase("lm", f"flash through Attention ({cfg.n_heads} x "
+          f"{cfg.resolved_head_dim}, kv {cfg.n_kv_heads}, bf16, 1 x "
+          f"{LM_FLASH_TOKENS}, causal): {launches} launch a call, max err "
+          f"{flash_err:.3e} vs the chunked path (tol {LM_FLASH_TOL}); "
+          f"layer {flash_ms:.4f} ms with flash vs {chunked_ms:.4f} ms "
+          f"chunked")
+    phase("lm", f"times ({smi}): prefill {LM_PROMPT} tokens "
+          f"{times[f'prefill_{LM_PROMPT}']:.3f} ms, {LM_LONG_PROMPT} tokens "
+          f"{times[f'prefill_{LM_LONG_PROMPT}']:.3f} ms; decode a step at "
+          f"{LM_SLOTS} slots {times['decode']:.3f} ms "
+          f"({LM_SLOTS / times['decode'] * 1e3:.1f} tok/s), device "
+          f"{times['profile']['device_us'] / 1e3:.3f} ms in "
+          f"{times['profile']['kernels']:.0f} kernels + "
+          f"{times['profile']['memsets']:.0f} memsets; bound: weights "
+          f"read once {bound:.3f} ms ({fp32_bytes / 1e9:.2f} GB), as cast "
+          f"a call {cast_bound:.3f} ms (+ {2 * bf16_bytes / 1e9:.2f} GB "
+          f"written and read in bf16)")
+    phase("lm", f"bf16-held Linear weights and embedding table (same "
+          f"tokens): prefill {LM_PROMPT} "
+          f"{times16[f'prefill_{LM_PROMPT}']:.3f} ms, {LM_LONG_PROMPT} "
+          f"{times16[f'prefill_{LM_LONG_PROMPT}']:.3f} ms; decode "
+          f"{times16['decode']:.3f} ms "
+          f"({LM_SLOTS / times16['decode'] * 1e3:.1f} tok/s), device "
+          f"{times16['profile']['device_us'] / 1e3:.3f} ms in "
+          f"{times16['profile']['kernels']:.0f} kernels; bound "
+          f"{bound16:.3f} ms ({bf16_bytes / 1e9:.2f} GB)")
+    phase("lm", f"phase {time.perf_counter() - t0:.1f}s (the fp32-held "
+          f"times {t_times:.1f}s)")
+    return main_launches
+
+
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
     first training batch on the card."""
@@ -3740,6 +4123,9 @@ def main() -> int:
         records[name]["mesh_launches"] = n
     records["edge_mpnn_runs"]["multihost_launches"] = multihost_phase(
         torch, smi)
+    lm = lm_phase(torch, smi)
+    records["flash_attention"]["lm_launches"] = lm
+    records["flash_attention"]["launches"] += lm
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,5 +1,7 @@
 """Core trainable layers (counterpart of `repro.nn.layers` and the
-parameter handling of `repro.nn.module`).
+parameter handling of `repro.nn.module`): Linear, RMSNorm, LayerNorm,
+Embedding, MLP, Dropout, the parameter draw and the carry of reference
+parameter trees.
 
 Layouts follow the reference so weights carry across as plain copies:
 `Linear.w` is ``[in, out]`` and `Linear.b` is ``[out]``.  Every module's
@@ -43,6 +45,29 @@ class Linear(nn.Module):
         if self.b is not None:
             y = y + self.b.to(x.dtype)
         return y
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm computed in fp32 and cast back, eps 1e-6, a `scale`
+    parameter (`repro/nn/layers.py:45-63`)."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-6):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        x32 = x.to(torch.float32)
+        var = torch.square(x32).mean(dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + self.eps)
+        return (y * self.scale.to(torch.float32)).to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -93,6 +118,11 @@ class Embedding(nn.Module):
                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return self.table.to(dtype)[ids]
 
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits against the table (the tied softmax head), in x's
+        dtype."""
+        return torch.matmul(x, self.table.to(x.dtype).T)
+
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; torch's default is
@@ -112,13 +142,56 @@ ACTIVATIONS = {
 }
 
 
+class MLP(nn.Module):
+    """Transformer FFN, gated (SwiGLU family: ``act(x @ wg) * (x @ wi)``)
+    or plain (``act(x @ wi)``), then ``wo`` (`repro/nn/layers.py:
+    129-161`)."""
+
+    def __init__(self, dim: int, hidden: int, *, activation: str = "silu",
+                 gated: bool = True, use_bias: bool = False):
+        super().__init__()
+        self.act = ACTIVATIONS[activation]
+        self.gated = gated
+        self.wi = Linear(dim, hidden, use_bias=use_bias)
+        self.wg = Linear(dim, hidden, use_bias=use_bias) if gated else None
+        self.wo = Linear(hidden, dim, use_bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.wi(x)
+        h = self.act(self.wg(x)) * h if self.gated else self.act(h)
+        return self.wo(h)
+
+
+class Dropout:
+    """Functional dropout: the caller passes a `torch.Generator`, or None
+    to turn it off (`repro/nn/layers.py:164-175`).  The generator's bits
+    are not `jax.random`'s, so only the rule is the reference's: keep
+    with probability ``1 - rate`` and scale the kept by its inverse."""
+
+    def __init__(self, rate: float):
+        self.rate = rate
+
+    def __call__(self, x: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if generator is None or self.rate <= 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 def init_params(module: nn.Module, seed: int) -> nn.Module:
     """Draw every parameter of `module` from one seeded generator, layer
     by layer in registration order (a pure function of the seed).  Each
     of the port's modules that owns parameters of its own (`Linear`,
-    `LayerNorm`, `Embedding`, `GATv2Conv`) draws them in its
-    ``reset_parameters(generator)``."""
-    generator = torch.Generator().manual_seed(int(seed))
+    `LayerNorm`, `RMSNorm`, `Embedding`, `GATv2Conv`) draws them in its
+    ``reset_parameters(generator)``.  The generator lives on the device
+    the parameters lie on, so a module built on the card (the LM at full
+    width) is drawn there, never on the host."""
+    first = next(module.parameters(), None)
+    device = first.device if first is not None else torch.device("cpu")
+    generator = torch.Generator(device=device).manual_seed(int(seed))
     for sub in module.modules():
         if (type(sub).__module__.startswith("repro_torch.")
                 and hasattr(sub, "reset_parameters")):
@@ -163,3 +236,32 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
                                  f"{tuple(p.shape)}")
             p.copy_(value.to(p.dtype))
     return module
+
+
+def unstack_blocks(tree: Mapping, n_blocks: int) -> dict:
+    """The reference's LM tree with its stacked ``blocks`` (every leaf
+    ``[L, ...]``, `repro/nn/module.py` `init_stacked`) split into a list
+    of `n_blocks` per-block trees, the key paths of an `nn.ModuleList`
+    (``blocks.{i}.…``).  Raises ValueError when a block leaf's leading
+    dimension is not `n_blocks`."""
+    out = dict(tree)
+    if "blocks" not in tree:
+        return out
+    leaves = _flatten_tree(tree["blocks"])
+    wrong = {k: v.shape for k, v in leaves.items()
+             if v.ndim == 0 or v.shape[0] != n_blocks}
+    if wrong:
+        raise ValueError(f"stacked block leaves must lead with "
+                         f"{n_blocks} layers: {wrong}")
+    out["blocks"] = [{k: v[i] for k, v in leaves.items()}
+                     for i in range(n_blocks)]
+    return out
+
+
+def load_jax_lm_params(model: nn.Module, tree: Mapping) -> nn.Module:
+    """`load_jax_params` for a model whose blocks are an `nn.ModuleList`
+    named ``blocks`` (`repro_torch.nn.transformer.DecoderLM`) and whose
+    reference tree stacks them: the stack is split per block first.  It
+    refuses a missing or unexpected key or a wrong shape, as
+    `load_jax_params` does."""
+    return load_jax_params(model, unstack_blocks(tree, len(model.blocks)))

@@ -1,0 +1,225 @@
+"""Decoder-only LM assembly, dense and parallel-block variants
+(counterpart of `repro.nn.transformer`).
+
+The reference stacks its layers and runs them with `jax.lax.scan`; here
+the blocks are an `nn.ModuleList` run by a Python loop, so parameter
+names are ``blocks.{i}.…`` (`layers.load_jax_lm_params` splits the
+reference's stack).  Remat, sharding constraints and the gradient-dtype
+barrier are training concerns of the reference's scan and are not here.
+The KV cache is stacked ``[L, B, T, K, D]``; decode writes each layer's
+slice in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
+                                      chunked_gqa_attention, gqa_attention,
+                                      to_kv_dtype)
+from repro_torch.nn.layers import MLP, Embedding, LayerNorm, Linear, RMSNorm
+
+MOE_TODO = ("MoE layers are not ported yet: ROADMAP.md queue 1, item 1.1 "
+            "(nn/moe.py, nn/ssm.py and the rwkv, zamba and whisper models)")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name ("float32", "bfloat16",
+    "float8_e4m3fn", ...)."""
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype name {name!r}")
+    return dtype
+
+
+def make_norm(cfg: ArchConfig, dim: int | None = None) -> nn.Module:
+    dim = dim or cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return RMSNorm(dim)
+    return LayerNorm(dim)
+
+
+def zero_aux(device=None) -> dict[str, torch.Tensor]:
+    """The auxiliary losses of a block without MoE: zeros (on the host
+    unless a device is given, so a block adds no device launch)."""
+    def z():
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return {"moe_lb_loss": z(), "moe_z_loss": z(), "moe_drop_fraction": z()}
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+class DecoderBlock(nn.Module):
+    """Pre-norm transformer block; sequential or parallel (command-r)."""
+
+    def __init__(self, cfg: ArchConfig, *, causal: bool = True,
+                 rope: bool = True):
+        super().__init__()
+        if cfg.moe is not None:
+            raise NotImplementedError(MOE_TODO)
+        self.cfg = cfg
+        self.attn = Attention(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, out_bias=cfg.out_bias, rope=rope,
+            rope_theta=cfg.rope_theta, causal=causal,
+            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+            skip_masked_chunks=cfg.skip_masked_chunks)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, activation=cfg.activation,
+                       gated=cfg.gated_mlp)
+        self.norm1 = make_norm(cfg)
+        self.norm2 = None if cfg.parallel_block else make_norm(cfg)
+
+    def _residual(self, x, h, attn_out):
+        """x plus the attention and FFN branches, in parallel (both read
+        h) or in sequence (the FFN reads the norm of x + attention)."""
+        if self.cfg.parallel_block:
+            return x + attn_out + self.ffn(h), zero_aux()
+        x = x + attn_out
+        return x + self.ffn(self.norm2(x)), zero_aux()
+
+    def forward(self, x: torch.Tensor, *, positions=None):
+        h = self.norm1(x)
+        return self._residual(x, h, self.attn(h, positions=positions))
+
+    def prefill(self, x: torch.Tensor, *, positions=None):
+        """Like forward, and also returns this layer's (k, v).  Calls the
+        chunked or the einsum attention directly, never flash, as the
+        reference's does (`repro/nn/transformer.py:146-172`)."""
+        h = self.norm1(x)
+        b, s, _ = h.shape
+        attn = self.attn
+        q, k, v = attn._project(h, positions if positions is not None
+                                else _positions(b, s, h.device))
+        if s >= attn.chunk_threshold:
+            out = chunked_gqa_attention(
+                q, k, v, causal=True, q_chunk=attn.q_chunk,
+                kv_chunk=attn.kv_chunk,
+                skip_masked_chunks=attn.skip_masked_chunks)
+        else:
+            out = gqa_attention(q, k, v, causal_mask(s, s, 0, h.device))
+        x, aux = self._residual(x, h, attn.wo(out.reshape(b, s, -1)))
+        return x, (k, v), aux
+
+    def decode(self, x: torch.Tensor, cache: KVCache, *, positions=None):
+        h = self.norm1(x)
+        attn_out, cache = self.attn.decode_step(h, cache,
+                                                positions=positions)
+        x, aux = self._residual(x, h, attn_out)
+        return x, cache, aux
+
+
+class LMOutput(NamedTuple):
+    logits: torch.Tensor
+    aux: dict[str, torch.Tensor]
+
+
+class DecoderLM(nn.Module):
+    """Token-in, logits-out decoder LM.  Also the backbone of
+    phi-3-vision: `patch_embeds` (the stubbed CLIP output, [B, P,
+    d_model]) are prepended to the token embeddings.  Its blocks have no
+    MoE, so the summed auxiliary losses are zeros on the model's
+    device."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        if cfg.moe is not None:
+            raise NotImplementedError(MOE_TODO)
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model)
+        self.blocks = nn.ModuleList(DecoderBlock(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = make_norm(cfg)
+        self.lm_head = None
+        if not cfg.tie_embeddings:
+            self.lm_head = Linear(cfg.d_model, cfg.vocab_size,
+                                  use_bias=False)
+
+    # ---- shared pieces -----------------------------------------------------
+
+    def _embed_inputs(self, tokens, patch_embeds=None):
+        dtype = torch_dtype(self.cfg.compute_dtype)
+        x = self.embed(tokens, dtype=dtype)
+        if self.cfg.num_patches and patch_embeds is not None:
+            # vlm: the patches go first; decode has none (they were
+            # consumed at prefill and live in the KV cache)
+            x = torch.cat([patch_embeds.to(dtype), x], dim=1)
+        return x
+
+    def _logits(self, x):
+        x = self.final_norm(x)
+        if self.lm_head is not None:
+            logits = self.lm_head(x)
+        else:
+            logits = self.embed.attend(x)
+        return logits.to(torch.float32)
+
+    # ---- full sequence -----------------------------------------------------
+
+    def backbone(self, tokens, *, patch_embeds=None):
+        """Full-sequence forward up to the head: ([B, S, d], aux)."""
+        x = self._embed_inputs(tokens, patch_embeds)
+        for block in self.blocks:
+            x, _ = block(x)
+        if self.cfg.num_patches:
+            x = x[:, self.cfg.num_patches:]
+        return x, zero_aux(x.device)
+
+    def apply_head(self, x):
+        """Final norm and fp32 logits for a slice of positions."""
+        return self._logits(x)
+
+    def forward(self, tokens, *, patch_embeds=None) -> LMOutput:
+        x, aux = self.backbone(tokens, patch_embeds=patch_embeds)
+        return LMOutput(self.apply_head(x), aux)
+
+    # ---- prefill -----------------------------------------------------------
+
+    def prefill(self, tokens, max_len: int | None = None, *,
+                patch_embeds=None) -> tuple[LMOutput, KVCache]:
+        """Logits of the last position and the stacked cache, padded with
+        zeros to `max_len` (never cut below the prompt)."""
+        x = self._embed_inputs(tokens, patch_embeds)
+        b, s, _ = x.shape
+        dtype = self.kv_dtype()
+        cfg = self.cfg
+        cache = KVCache.zeros(b, max(max_len or s, s), cfg.n_kv_heads,
+                              cfg.resolved_head_dim, dtype=dtype,
+                              layers=cfg.num_layers, device=x.device)
+        for layer, block in enumerate(self.blocks):
+            x, (k, v), _ = block.prefill(x)
+            cache.k[layer, :, :s] = to_kv_dtype(k, dtype)
+            cache.v[layer, :, :s] = to_kv_dtype(v, dtype)
+        cache.length = s
+        if cfg.num_patches:
+            x = x[:, cfg.num_patches:]
+        return LMOutput(self._logits(x[:, -1:]), zero_aux(x.device)), cache
+
+    def kv_dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg.kv_cache_dtype or self.cfg.compute_dtype)
+
+    def init_cache(self, batch: int, max_len: int) -> KVCache:
+        cfg = self.cfg
+        return KVCache.zeros(batch, max_len, cfg.n_kv_heads,
+                             cfg.resolved_head_dim, dtype=self.kv_dtype(),
+                             layers=cfg.num_layers,
+                             device=self.embed.table.device)
+
+    # ---- decode ------------------------------------------------------------
+
+    def decode_step(self, tokens, cache: KVCache
+                    ) -> tuple[LMOutput, KVCache]:
+        """tokens [B, S_new] (usually S_new == 1).  Writes the new K/V
+        into `cache`'s tensors in place and returns the cache S_new
+        longer."""
+        x = self._embed_inputs(tokens)
+        for layer, block in enumerate(self.blocks):
+            x, _, _ = block.decode(
+                x, KVCache(cache.k[layer], cache.v[layer], cache.length))
+        new_cache = KVCache(cache.k, cache.v,
+                            cache.length + tokens.shape[1])
+        return LMOutput(self._logits(x), zero_aux(x.device)), new_cache

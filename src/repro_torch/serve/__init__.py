@@ -1,6 +1,9 @@
-"""repro_torch.serve — GNN inference serving on the GPU (counterpart of
-`repro.serve`, GNN half).
+"""repro_torch.serve — inference serving on the GPU (counterpart of
+`repro.serve`).
 
+  * ``repro_torch.serve.engine``  — the LM continuous-batching engine
+    (`repro.serve.engine`): prefill into free slots, one decode step a
+    tick across all slots, greedy or temperature sampling;
   * ``repro_torch.serve.gnn``     — the request path (`repro.serve.gnn`):
     on-demand seeded subgraph sampling, micro-batching into a fixed
     bucket ladder of padded SizeConstraints, and one forward per bucket
@@ -35,9 +38,8 @@ _EXPORTS = {
     "closed_loop": "repro_torch.serve.loadgen",
     "open_loop": "repro_torch.serve.loadgen",
     "LoadReport": "repro_torch.serve.loadgen",
-    # `ServeEngine` and `Request` (the LM continuous-batching engine,
-    # `repro.serve.engine`) join this map with the LM side stack,
-    # ROADMAP.md queue 1 item 1.
+    "ServeEngine": "repro_torch.serve.engine",
+    "Request": "repro_torch.serve.engine",
 }
 
 __all__ = sorted(_EXPORTS)

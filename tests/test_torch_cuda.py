@@ -14,7 +14,10 @@ path's two tests are exact: `device_prefetch`'s pinned side-stream
 copies against a blocking `to_device`, and a thread-fleet
 `runner.run(sampler="service")` against itself.  Every tile height the
 autotuner may pick is held to the plain version by the same rules, and
-`kernels/autotune.py`'s records drive the registry's decisions.
+`kernels/autotune.py`'s records drive the registry's decisions.  The
+LM's `ServeEngine` on the card gives the CPU's greedy tokens (fp32, TF32
+off), and flash through the LM's `Attention(use_flash=True)` makes one
+launch and agrees with the chunked path at bf16's 2e-2.
 """
 import pytest
 import torch
@@ -1345,3 +1348,44 @@ def test_autotune_records_drive_the_registry(cuda_device, tmp_path,
     assert registry.segment_reduce_decision(
         vals, True, n_segments=64).reason == "kernel:segment_pool_runs[sorted]"
     autotune._LOADED.clear()
+
+
+def test_lm_engine_on_the_card_equals_the_cpu(cuda_device):
+    import numpy as np
+
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.nn.layers import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("qwen1.5-4b-smoke")
+    cpu = init_params(build_model(cfg, "cpu"), 0)
+    card = build_model(cfg, cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, 8).astype(np.int32) for _ in range(5)]
+
+    def run(model):
+        return [r.generated for r in ServeEngine(
+            cfg, model, n_slots=3, max_len=64).run(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts])]
+    assert run(card) == run(cpu)
+
+
+def test_flash_through_the_lm_attention(cuda_device):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.nn.attention import Attention
+    from repro_torch.nn.layers import init_params
+    with torch.device(cuda_device):
+        attn = init_params(Attention(256, 4, 2, 64, qkv_bias=True,
+                                     use_flash=True), 0)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(1, 1024, 256, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got = attn(x)
+        assert flash_attention.launches == before + 1
+        attn.use_flash = False
+        want = attn(x)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
