@@ -100,7 +100,19 @@ head, 8 classes):
   flash through the LM's `Attention(use_flash=True)` at 2048 tokens (1
   launch, within 2e-2 of the chunked path), prefill and decode times
   with fp32-held and bf16-held weights (the same tokens), and the
-  `lm_serve` twin at its defaults.
+  `lm_serve` twin at its defaults;
+* the other LM families (`[lm-families]`), one model on the card at a
+  time, each at full width and depth, fp32 weights drawn on the card
+  from the seed, bf16 compute: granite-moe-3b-a800m (MoE), rwkv6-3b and
+  zamba2-1.2b behind `ServeEngine` as `[lm]`'s decoder (8 requests over
+  4 slots, the 1-slot engine against the hand-rolled loop bit for bit,
+  decode after prefill against the full forward in bf16 and in fp32
+  compute, the MoE check at a prompt where neither run drops, prefill
+  and decode times), whisper-medium through its own prefill (1024
+  stubbed frames) and 16 greedy decode steps, every decoded position
+  against the full forward; then the `lm_serve` twin at `--arch
+  rwkv6-3b-smoke`.  No kernel of the port is on these paths: every
+  launch count must stay 0.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -4049,6 +4061,336 @@ def lm_phase(torch, smi) -> int:
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# LM serving: the other families at full width and depth
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "rwkv6-3b", "zamba2-1.2b")
+WHISPER_ARCH = "whisper-medium"
+# Whisper's 30-second window is 1500 frames, but an encoder length at or
+# past the chunk threshold (1024) must be a multiple of its 512-query and
+# 1024-key chunks, in the reference as in the port: 1500 raises in both
+# (tests/test_torch_lm_families.py), so the encoder takes 1024 frames
+WHISPER_FRAMES = 1024
+WHISPER_PROMPT, WHISPER_NEW = 4, 16
+# granite-moe-3b-a800m drops assignments past capacity (factor 1.0), and
+# the drops of a full forward differ from those of prefill + decode: the
+# decode check takes the first prompt length whose prefill and whose
+# full forward both drop nothing (at 7 neither can: one group of 7
+# tokens, then 8 groups of 1, each under the 8-slot capacity)
+MOE_CHECK_PROMPTS = (LM_CHECK_PROMPT, 15, 7)
+# decode after prefill vs the full forward is held twice: in the
+# config's bf16 compute at [lm]'s tolerance (RWKV6 at FAMILY_RWKV_ATOL),
+# and with the same fp32 weights in fp32 compute at FAMILY_FP32_TOL,
+# where the two forms differ only in the order of their fp32 sums.
+# RWKV6's chunked form rounds its wkv output to bf16 before the
+# LayerNorm and its recurrent step does not (repro/nn/ssm.py:335 and
+# :355, copied as written); over 32 layers that is the reference's own
+# bf16 gap, as large in both packages at the smoke width
+# (tests/test_torch_lm_families.py), and larger at full width
+FAMILY_RWKV_ATOL = 0.5
+FAMILY_FP32_TOL = 1e-3
+
+
+def family_config(arch: str):
+    from repro_torch.models.registry import get_config
+    return get_config(arch)
+
+
+def family_build(torch, arch: str) -> tuple:
+    """The model of `arch` built and drawn on the card from SEED (fp32
+    weights, the config's bf16 compute): (cfg, model, parameters, fp32
+    bytes, seconds)."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.layers import init_params
+    cfg = family_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = init_params(build_model(cfg, DEVICE), SEED)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    return cfg, model, n, nbytes, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def compute_dtype(model, dtype: str):
+    """The model with its config's compute dtype replaced, for a check."""
+    import dataclasses
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    try:
+        yield
+    finally:
+        model.cfg = cfg
+
+
+def family_gap(torch, cfg, got, want, dtype: str) -> float:
+    """max |got - want|, failing past the dtype's tolerance."""
+    if dtype == "float32":
+        rtol = atol = FAMILY_FP32_TOL
+    else:
+        rtol = LM_DECODE_RTOL
+        atol = FAMILY_RWKV_ATOL if cfg.family == "ssm" else LM_DECODE_ATOL
+    gap = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        fail(f"lm-families: {cfg.name} in {dtype} compute, decode after "
+             f"prefill differs from the full forward by {gap:.3e} (rtol "
+             f"{rtol}, atol {atol}; logits up to "
+             f"{want.abs().max().item():.3f})")
+    return gap
+
+
+def family_drops(out, cfg) -> float:
+    """The mean drop fraction over the layers of an MoE model's output."""
+    return out.aux["moe_drop_fraction"].item() / cfg.num_layers
+
+
+def family_decode_check(torch, cfg, model) -> tuple:
+    """Decode after a prefill against the full forward's last position,
+    in bf16 and in fp32 compute: (prompt length, {dtype: max |diff|},
+    logit scale, the MoE drop fractions tried as (prompt, prefill,
+    forward) in both dtypes)."""
+    tried = []
+    for length in (MOE_CHECK_PROMPTS if cfg.moe is not None
+                   else (LM_CHECK_PROMPT,)):
+        [toks] = lm_prompts(cfg, 1, length + 1, SEED + 3)
+        toks = torch.as_tensor(toks.astype(np.int64), device=DEVICE)[None]
+        runs = {}
+        for dtype in (cfg.compute_dtype, "float32"):
+            with compute_dtype(model, dtype), torch.inference_mode():
+                full = model(toks)
+                out, cache = model.prefill(toks[:, :-1], max_len=LM_MAX_LEN)
+                dec = model.decode_step(toks[:, -1:], cache)[0]
+            runs[dtype] = (out, full, dec)
+        if cfg.moe is not None:
+            drops = [(family_drops(o, cfg), family_drops(f, cfg))
+                     for o, f, _ in runs.values()]
+            tried.append((length, drops))
+            if any(any(d) for d in drops):
+                continue
+        gaps = {dtype: family_gap(torch, cfg, dec.logits[:, 0],
+                                  full.logits[:, -1], dtype)
+                for dtype, (_, full, dec) in runs.items()}
+        return (length, gaps,
+                runs["float32"][1].logits[:, -1].abs().max().item(), tried)
+    fail(f"lm-families: {cfg.name} drops at every prompt length tried "
+         f"(prompt, [(prefill, forward) in bf16 and fp32]): {tried}")
+
+
+def family_times(torch, cfg, model) -> dict:
+    """Prefill ms at LM_PROMPT and LM_LONG_PROMPT tokens (and at each an
+    MoE model's drop fraction), decode ms a step at LM_SLOTS slots (CUDA
+    events; the cache at LM_CHECK_PROMPT), and the device us and kernels
+    of one long prefill and of one decode step (torch.profiler)."""
+    out = {}
+    with torch.inference_mode():
+        for n, calls in ((LM_PROMPT, 3), (LM_LONG_PROMPT, 1)):
+            [p] = lm_prompts(cfg, 1, n, SEED + 8)
+            toks = torch.as_tensor(p.astype(np.int64), device=DEVICE)[None]
+            out[f"prefill_{n}"] = time_ms(
+                torch, lambda t=toks: model.prefill(t, max_len=LM_MAX_LEN),
+                calls=calls, reps=3, warmup=1)
+            if cfg.moe is not None:
+                out[f"drops_{n}"] = family_drops(
+                    model.prefill(toks, max_len=LM_MAX_LEN)[0], cfg)
+        out["prefill_profile"] = device_per_call(
+            torch, lambda: model.prefill(toks, max_len=LM_MAX_LEN), calls=1)
+        cache = model.init_cache(LM_SLOTS, LM_MAX_LEN)
+        cache.length = LM_CHECK_PROMPT
+        tok = torch.zeros(LM_SLOTS, 1, dtype=torch.int64, device=DEVICE)
+        out["decode"] = time_ms(torch, lambda: model.decode_step(tok, cache),
+                                calls=10, reps=3, warmup=2)
+        out["profile"] = device_per_call(
+            torch, lambda: model.decode_step(tok, cache), calls=1)
+    return out
+
+
+def family_serve(torch, smi, arch: str) -> None:
+    """One engine family at full width and depth: (1) ServeEngine, 8
+    requests over 4 slots; (2) at 1 slot the engine's greedy tokens
+    equal to the hand-rolled prefill -> decode_step loop bit for bit;
+    (3) decode after prefill against the full forward; (4) times."""
+    t0 = time.perf_counter()
+    cfg, model, n_params, fp32_bytes, t_build = family_build(torch, arch)
+
+    flags = lm_finite_spy(torch, model)
+    prompts = lm_prompts(cfg, LM_REQUESTS, LM_PROMPT, SEED)
+    temps = [0.0 if i % 2 == 0 else 0.8 for i in range(LM_REQUESTS)]
+    done, t_engine = lm_engine_run(torch, cfg, model, LM_SLOTS, prompts,
+                                   temps)
+    lm_unspy(model)
+    finite = bool(torch.stack(flags).all())
+    tokens = [t for r in done for t in r.generated]
+    in_range = all(0 <= t < cfg.vocab_size for t in tokens)
+    if (len(done) != LM_REQUESTS
+            or not all(r.done and len(r.generated) >= LM_NEW for r in done)
+            or not in_range or not finite):
+        fail(f"lm-families: {cfg.name} engine served {len(done)} of "
+             f"{LM_REQUESTS} requests, lengths "
+             f"{[len(r.generated) for r in done]}, tokens in range "
+             f"{in_range}, logits finite {finite}")
+
+    [greedy_req], _ = lm_engine_run(torch, cfg, model, 1, prompts[:1], [0.0])
+    manual = lm_greedy(torch, model, prompts[0], LM_NEW)
+    if greedy_req.generated != manual:
+        fail(f"lm-families: {cfg.name} engine tokens {greedy_req.generated}"
+             f" != prefill -> decode_step loop {manual}")
+
+    length, decode_err, scale, tried = family_decode_check(torch, cfg, model)
+    times = family_times(torch, cfg, model)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bf16_bytes = n_params * 2
+    del model
+    torch.cuda.empty_cache()
+
+    bound16 = bf16_bytes / PEAK_BYTES_PER_S * 1e3
+    cast_bound = (fp32_bytes + bf16_bytes * 2) / PEAK_BYTES_PER_S * 1e3
+    prof, pre = times["profile"], times["prefill_profile"]
+    drops = (f"; drop fractions (prompt, [(prefill, forward) in bf16 and "
+             f"fp32]) {tried}" if tried else "")
+    long_drops = (f" (drop fraction {times[f'drops_{LM_LONG_PROMPT}']:.4f},"
+                  f" at {LM_PROMPT} {times[f'drops_{LM_PROMPT}']:.4f})"
+                  if cfg.moe is not None else "")
+    phase("lm-families", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}; {n_params} parameters "
+          f"({fp32_bytes / 1e9:.2f} GB fp32) drawn on the card in "
+          f"{t_build:.1f}s; engine: {len(done)} requests ({LM_PROMPT}-token "
+          f"prompts, {LM_NEW} new, every other at temperature 0.8) over "
+          f"{LM_SLOTS} slots x {LM_MAX_LEN} in {t_engine:.2f}s, "
+          f"{len(tokens)} tokens ({len(tokens) / t_engine:.1f} tok/s), all "
+          f"logits finite; at 1 slot greedy tokens equal to prefill -> "
+          f"decode_step bit for bit ({len(manual)} tokens)")
+    phase("lm-families", f"{cfg.name}: decode after a {length}-token "
+          f"prefill vs the full forward: max |diff| bf16 "
+          f"{decode_err[cfg.compute_dtype]:.4e} (rtol {LM_DECODE_RTOL}, "
+          f"atol {FAMILY_RWKV_ATOL if cfg.family == 'ssm' else LM_DECODE_ATOL})"
+          f", fp32 compute {decode_err['float32']:.4e} (tol "
+          f"{FAMILY_FP32_TOL}); logits up to {scale:.3f}{drops}")
+    phase("lm-families", f"{cfg.name} times ({smi}): prefill {LM_PROMPT} "
+          f"tokens {times[f'prefill_{LM_PROMPT}']:.3f} ms, {LM_LONG_PROMPT} "
+          f"tokens {times[f'prefill_{LM_LONG_PROMPT}']:.3f} ms{long_drops}, "
+          f"device {pre['device_us'] / 1e3:.3f} ms in {pre['kernels']:.0f} "
+          f"kernels; "
+          f"decode a step at {LM_SLOTS} slots {times['decode']:.3f} ms "
+          f"({LM_SLOTS / times['decode'] * 1e3:.1f} tok/s), device "
+          f"{prof['device_us'] / 1e3:.3f} ms in {prof['kernels']:.0f} "
+          f"kernels + {prof['memsets']:.0f} memsets; bound: bf16 weights "
+          f"read once {bound16:.3f} ms ({bf16_bytes / 1e9:.2f} GB), fp32 "
+          f"weights as cast a call {cast_bound:.3f} ms; peak "
+          f"{peak_gb:.2f} GB; {time.perf_counter() - t0:.1f}s")
+
+
+def whisper_serve(torch, smi) -> None:
+    """Whisper at full width and depth through its own protocol: encode
+    WHISPER_FRAMES stubbed frame embeddings (random, from the seed),
+    prefill a WHISPER_PROMPT-token decoder prompt with them, then
+    WHISPER_NEW greedy decode steps; every decoded position's logits
+    against the full forward's over the same tokens; times."""
+    t0 = time.perf_counter()
+    cfg, model, n_params, fp32_bytes, t_build = family_build(
+        torch, WHISPER_ARCH)
+    from repro_torch.nn.transformer import torch_dtype
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    frames = torch.randn(1, WHISPER_FRAMES, cfg.d_model, generator=g,
+                         device=DEVICE).to(torch_dtype(cfg.compute_dtype))
+    [prompt] = lm_prompts(cfg, 1, WHISPER_PROMPT, SEED + 10)
+    toks = torch.as_tensor(prompt.astype(np.int64), device=DEVICE)[None]
+    gaps = {}
+    for dtype in (cfg.compute_dtype, "float32"):
+        audio = frames.to(torch_dtype(dtype))
+        with compute_dtype(model, dtype), torch.inference_mode():
+            out, cache = model.prefill(toks, max_len=LM_MAX_LEN,
+                                       audio_embeds=audio)
+            logits, generated = [out.logits[:, -1]], []
+            while True:
+                generated.append(int(torch.argmax(logits[-1][0])))
+                if len(generated) == WHISPER_NEW:
+                    break
+                out, cache = model.decode_step(
+                    torch.tensor([[generated[-1]]], device=DEVICE), cache)
+                logits.append(out.logits[:, -1])
+            seq = torch.cat([toks, torch.tensor([generated[:-1]],
+                                                device=DEVICE)], dim=1)
+            full = model(seq, audio_embeds=audio).logits[
+                0, WHISPER_PROMPT - 1:]
+        got = torch.cat(logits)
+        finite = bool(torch.isfinite(got).all())
+        if (not finite or len(generated) != WHISPER_NEW
+                or not all(0 <= t < cfg.vocab_size for t in generated)):
+            fail(f"lm-families: {cfg.name} in {dtype} generated "
+                 f"{generated}, logits finite {finite}")
+        # every decoded position against the full forward's
+        gaps[dtype] = family_gap(torch, cfg, got, full, dtype)
+        if dtype == cfg.compute_dtype:
+            served, served_cache = generated, cache
+    generated, cache = served, served_cache
+
+    with torch.inference_mode():
+        encode_ms = time_ms(torch, lambda: model.encode(frames), calls=1,
+                            reps=3, warmup=1)
+        tok = torch.tensor([[generated[-1]]], device=DEVICE)
+        decode_ms = time_ms(torch, lambda: model.decode_step(tok, cache),
+                            calls=10, reps=3, warmup=2)
+        prof = device_per_call(torch, lambda: model.decode_step(tok, cache),
+                               calls=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dec_bytes = sum(p.numel() for n, p in model.named_parameters()
+                    if not n.startswith("encoder")) * 2
+    del model
+    torch.cuda.empty_cache()
+    phase("lm-families", f"{cfg.name}: {cfg.enc_layers} + "
+          f"{cfg.dec_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}; {n_params} parameters "
+          f"({fp32_bytes / 1e9:.2f} GB fp32) drawn on the card in "
+          f"{t_build:.1f}s; {WHISPER_FRAMES} frames encoded, a "
+          f"{WHISPER_PROMPT}-token prompt prefilled, {WHISPER_NEW} greedy "
+          f"tokens {generated[:8]}...; every decoded position vs the full "
+          f"forward: max |diff| bf16 {gaps[cfg.compute_dtype]:.4e} (rtol "
+          f"{LM_DECODE_RTOL}, atol {LM_DECODE_ATOL}), fp32 compute "
+          f"{gaps['float32']:.4e} (tol {FAMILY_FP32_TOL}); logits up to "
+          f"{full.abs().max().item():.3f}")
+    phase("lm-families", f"{cfg.name} times ({smi}): encode "
+          f"{WHISPER_FRAMES} frames {encode_ms:.3f} ms; decode a step at 1 "
+          f"slot {decode_ms:.3f} ms ({1e3 / decode_ms:.1f} tok/s), device "
+          f"{prof['device_us'] / 1e3:.3f} ms in {prof['kernels']:.0f} "
+          f"kernels + {prof['memsets']:.0f} memsets; bound: the decoder's "
+          f"bf16 weights read once {dec_bytes / PEAK_BYTES_PER_S * 1e3:.3f}"
+          f" ms ({dec_bytes / 1e9:.2f} GB); peak {peak_gb:.2f} GB; "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
+def lm_families_phase(torch, smi) -> dict:
+    """granite-moe-3b-a800m, rwkv6-3b and zamba2-1.2b behind ServeEngine
+    and whisper-medium through prefill / decode_step, each at full width
+    and depth, one model on the card at a time; then the lm_serve twin at
+    `--arch rwkv6-3b-smoke`.  None of these families reaches a kernel of
+    the port: every kernel's launches must stay 0 (returned by name)."""
+    from repro_torch.orchestration import lm_serve
+    t0 = time.perf_counter()
+    zero_launches()
+    for arch in FAMILY_ARCHS:
+        family_serve(torch, smi, arch)
+    whisper_serve(torch, smi)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lm_serve.main(["--arch", "rwkv6-3b-smoke"])
+    for line in out.getvalue().splitlines():
+        phase("lm-families", f"twin: {line}")
+    if rc != 0:
+        fail(f"lm-families: lm_serve.main(['--arch', 'rwkv6-3b-smoke']) "
+             f"returned {rc}")
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"lm-families: a kernel of the port was launched: {launches} "
+             "(no family here reaches one)")
+    phase("lm-families", f"kernel launches {launches} (none on this path, "
+          f"flash included, as in the reference); phase "
+          f"{time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
     first training batch on the card."""
@@ -4126,6 +4468,8 @@ def main() -> int:
     lm = lm_phase(torch, smi)
     records["flash_attention"]["lm_launches"] = lm
     records["flash_attention"]["launches"] += lm
+    for name, n in lm_families_phase(torch, smi).items():
+        records[name]["lm_families_launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

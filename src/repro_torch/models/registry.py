@@ -21,15 +21,6 @@ _ARCH_MODULES = {
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
-# families whose modules are still to port (ROADMAP.md queue 1, item 1.1)
-_NOT_PORTED = {
-    "moe": "nn/moe.py",
-    "ssm": "nn/ssm.py and models/rwkv.py",
-    "hybrid": "nn/ssm.py and models/zamba.py",
-    "audio": "models/whisper.py",
-}
-
-
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id.endswith("-smoke"):
         return smoke_config(get_config(arch_id[: -len("-smoke")]))
@@ -42,19 +33,23 @@ def build_model(cfg: ArchConfig, device=None):
     """The model of a config, built on `device` (default: the card; pass
     ``device="cpu"`` for the plain path).  Its parameters are zeros until
     `repro_torch.nn.layers.init_params` draws them (on that device) or
-    `load_jax_lm_params` loads a reference tree."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED[cfg.family]}, ROADMAP.md queue 1, item 1.1")
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"unknown family {cfg.family!r}")
+    `load_jax_lm_params` loads a reference tree.  All models share the
+    protocol: forward / prefill / init_cache / decode_step."""
     import torch
 
     from repro_torch.core.graph_tensor import resolve_device
-    from repro_torch.nn.transformer import DecoderLM
+    if cfg.family in ("dense", "moe", "vlm"):
+        from repro_torch.nn.transformer import DecoderLM as model
+    elif cfg.family == "ssm":
+        from repro_torch.models.rwkv import RWKV6LM as model
+    elif cfg.family == "hybrid":
+        from repro_torch.models.zamba import Zamba2LM as model
+    elif cfg.family == "audio":
+        from repro_torch.models.whisper import WhisperModel as model
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
     with torch.device(resolve_device(device)):
-        return DecoderLM(cfg)
+        return model(cfg)
 
 
 def runnable_cells() -> list[tuple[str, str]]:

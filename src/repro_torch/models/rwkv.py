@@ -1,0 +1,123 @@
+"""RWKV6 ("Finch") language model: attention-free, O(1)-state decode
+(counterpart of `repro.models.rwkv`).
+
+The reference stacks its blocks and scans them; here they are an
+`nn.ModuleList` named ``blocks`` run by a Python loop
+(`layers.load_jax_lm_params` splits the stack).  The cache holds each
+layer's token shifts and wkv state, stacked ``[L, B, ...]`` in fp32.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn.layers import Embedding, LayerNorm, Linear
+from repro_torch.nn.ssm import RWKV6ChannelMix, RWKV6TimeMix
+from repro_torch.nn.transformer import LMOutput, torch_dtype, zero_aux
+
+
+@dataclasses.dataclass
+class RWKVCache:
+    shift_tm: torch.Tensor  # [L, B, d]
+    wkv: torch.Tensor       # [L, B, H, dk, dk]
+    shift_cm: torch.Tensor  # [L, B, d]
+    length: int
+
+
+class RWKVBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.tm = RWKV6TimeMix(cfg.d_model, head_dim=cfg.ssm_head_dim)
+        self.cm = RWKV6ChannelMix(cfg.d_model, cfg.d_ff)
+        self.ln1 = LayerNorm(cfg.d_model)
+        self.ln2 = LayerNorm(cfg.d_model)
+
+    def forward(self, x, shift_tm, wkv, shift_cm):
+        y, shift_tm, wkv = self.tm(self.ln1(x), shift_tm, wkv)
+        x = x + y
+        y, shift_cm = self.cm(self.ln2(x), shift_cm)
+        return x + y, shift_tm, wkv, shift_cm
+
+    def decode(self, x, shift_tm, wkv, shift_cm):
+        y, shift_tm, wkv = self.tm.decode_step(self.ln1(x), shift_tm, wkv)
+        x = x + y
+        y, shift_cm = self.cm(self.ln2(x), shift_cm)
+        return x + y, shift_tm, wkv, shift_cm
+
+
+class RWKV6LM(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model)
+        self.blocks = nn.ModuleList(RWKVBlock(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.ln_in = LayerNorm(cfg.d_model)
+        self.ln_out = LayerNorm(cfg.d_model)
+        self.head = (None if cfg.tie_embeddings else
+                     Linear(cfg.d_model, cfg.vocab_size, use_bias=False))
+
+    def _logits(self, x):
+        x = self.ln_out(x)
+        logits = self.head(x) if self.head is not None \
+            else self.embed.attend(x)
+        return logits.to(torch.float32)
+
+    def init_cache(self, batch: int, max_len: int = 0) -> RWKVCache:
+        """Zero states; `max_len` is unused (the state is O(1))."""
+        del max_len
+        cfg = self.cfg
+        l, d, p = cfg.num_layers, cfg.d_model, cfg.ssm_head_dim
+        dev = self.embed.table.device
+        f32 = torch.float32
+        return RWKVCache(
+            torch.zeros((l, batch, d), dtype=f32, device=dev),
+            torch.zeros((l, batch, d // p, p, p), dtype=f32, device=dev),
+            torch.zeros((l, batch, d), dtype=f32, device=dev), 0)
+
+    def _embed(self, tokens):
+        x = self.embed(tokens, dtype=torch_dtype(self.cfg.compute_dtype))
+        return self.ln_in(x)
+
+    def _run(self, x, cache: RWKVCache, decode: bool, n_new: int):
+        s_tm, wkv, s_cm = [], [], []
+        for i, block in enumerate(self.blocks):
+            run = block.decode if decode else block
+            x, a, b, c = run(x, cache.shift_tm[i], cache.wkv[i],
+                             cache.shift_cm[i])
+            s_tm.append(a)
+            wkv.append(b)
+            s_cm.append(c)
+        return x, RWKVCache(torch.stack(s_tm), torch.stack(wkv),
+                            torch.stack(s_cm), cache.length + n_new)
+
+    def backbone(self, tokens, **_):
+        x, _ = self._run(self._embed(tokens),
+                         self.init_cache(tokens.shape[0]), False,
+                         tokens.shape[1])
+        return x, zero_aux(x.device)
+
+    def apply_head(self, x):
+        return self._logits(x)
+
+    def forward(self, tokens, **_) -> LMOutput:
+        x, aux = self.backbone(tokens)
+        return LMOutput(self.apply_head(x), aux)
+
+    def prefill(self, tokens, max_len: int | None = None, **_):
+        """Logits of the last position and the states after the prompt
+        (`max_len` is unused)."""
+        del max_len
+        x, cache = self._run(self._embed(tokens),
+                             self.init_cache(tokens.shape[0]), False,
+                             tokens.shape[1])
+        return LMOutput(self._logits(x[:, -1:]), zero_aux(x.device)), cache
+
+    def decode_step(self, tokens, cache: RWKVCache):
+        x, cache = self._run(self._embed(tokens), cache, True,
+                             tokens.shape[1])
+        return LMOutput(self._logits(x), zero_aux(x.device)), cache

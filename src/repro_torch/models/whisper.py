@@ -1,0 +1,219 @@
+"""Whisper-style encoder-decoder (counterpart of `repro.models.whisper`).
+
+The convolutional mel front end is a stub, as in the reference: the
+encoder takes frame embeddings ``[B, T_frames, d_model]``.  The encoder
+(self-attention, sinusoidal positions) and the decoder (causal
+self-attention, cross-attention, sinusoidal positions at the decoded
+offset) are complete.  Serving goes through the model's own `prefill`
+(which takes ``audio_embeds=``, encodes them once and keeps every
+decoder layer's cross K/V in the cache with their valid length) and
+`decode_step`; `ServeEngine` passes no audio and raises at the encoder,
+as the reference's does.
+
+The encoder and decoder stacks are `nn.ModuleList`s named ``encoder``
+and ``decoder`` (the reference's stacked trees, split by
+`layers.load_jax_lm_params`).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
+                                      gqa_attention, sinusoidal_positions)
+from repro_torch.nn.layers import MLP, Embedding, LayerNorm
+from repro_torch.nn.transformer import LMOutput, torch_dtype, zero_aux
+
+# the decoder's position table: the reference slices rows of an
+# 8192-row sinusoidal table, its start clamped into the table
+DECODER_POSITIONS = 8192
+
+
+@dataclasses.dataclass
+class WhisperCache:
+    dec_k: torch.Tensor  # [L, B, S_dec, K, D] decoder self-attention
+    dec_v: torch.Tensor
+    enc_k: torch.Tensor  # [L, B, T_enc, K, D] cross-attention K/V
+    enc_v: torch.Tensor
+    enc_valid: int
+    length: int
+
+
+def decoder_positions(start: int, s: int, dim: int,
+                      device=None) -> torch.Tensor:
+    """Rows ``[start, start + s)`` of the reference's 8192-row
+    `sinusoidal_positions` table, the start clamped into the table as
+    ``dynamic_slice_in_dim`` clamps it."""
+    start = min(max(int(start), 0), DECODER_POSITIONS - s)
+    return sinusoidal_positions(DECODER_POSITIONS, dim,
+                                device)[start:start + s]
+
+
+def _attention(cfg: ArchConfig, causal: bool) -> Attention:
+    return Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                     qkv_bias=True, out_bias=True, rope=False, causal=causal,
+                     q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+
+
+def _mlp(cfg: ArchConfig) -> MLP:
+    return MLP(cfg.d_model, cfg.d_ff, activation="gelu", gated=False,
+               use_bias=True)
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.attn = _attention(cfg, causal=False)
+        self.mlp = _mlp(cfg)
+        self.ln1 = LayerNorm(cfg.d_model)
+        self.ln2 = LayerNorm(cfg.d_model)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class DecoderBlockXAttn(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.self_attn = _attention(cfg, causal=True)
+        self.cross_attn = _attention(cfg, causal=False)
+        self.mlp = _mlp(cfg)
+        self.ln1 = LayerNorm(cfg.d_model)
+        self.ln2 = LayerNorm(cfg.d_model)
+        self.ln3 = LayerNorm(cfg.d_model)
+
+    def forward(self, x, enc_kv):
+        x = x + self.self_attn(self.ln1(x))
+        x = x + self.cross_attn(self.ln2(x), kv=enc_kv)
+        return x + self.mlp(self.ln3(x))
+
+    def prefill(self, x, enc_kv):
+        """Like forward, with the self-attention always the einsum form
+        under a causal mask (the reference's prefill body,
+        `repro/models/whisper.py:217-233`); also returns its (k, v)."""
+        h = self.ln1(x)
+        b, s, _ = h.shape
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        q, k, v = self.self_attn._project(h, pos)
+        out = gqa_attention(q, k, v, causal_mask(s, s, 0, x.device))
+        x = x + self.self_attn.wo(out.reshape(b, s, -1))
+        x = x + self.cross_attn(self.ln2(x), kv=enc_kv)
+        return x + self.mlp(self.ln3(x)), (k, v)
+
+    def decode(self, x, cache: KVCache, enc_k, enc_v, enc_valid):
+        y, cache = self.self_attn.decode_step(self.ln1(x), cache)
+        x = x + y
+        x = x + self.cross_attn.cross_decode_step(self.ln2(x), enc_k, enc_v,
+                                                  kv_valid=enc_valid)
+        return x + self.mlp(self.ln3(x)), cache
+
+
+class WhisperModel(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.enc_layers = cfg.enc_layers or cfg.num_layers
+        self.dec_layers = cfg.dec_layers or cfg.num_layers
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model)
+        self.encoder = nn.ModuleList(EncoderBlock(cfg)
+                                     for _ in range(self.enc_layers))
+        self.decoder = nn.ModuleList(DecoderBlockXAttn(cfg)
+                                     for _ in range(self.dec_layers))
+        self.ln_enc = LayerNorm(cfg.d_model)
+        self.ln_dec = LayerNorm(cfg.d_model)
+
+    # ---- encoder -----------------------------------------------------------
+
+    def encode(self, audio_embeds):
+        """audio_embeds [B, T, d_model] (the stubbed front end's output)."""
+        b, t, d = audio_embeds.shape
+        x = audio_embeds + sinusoidal_positions(
+            t, d, audio_embeds.device).to(audio_embeds.dtype)[None]
+        for block in self.encoder:
+            x = block(x)
+        return self.ln_enc(x)
+
+    def _cross_kvs(self, enc_out) -> list:
+        """Every decoder layer's cross-attention (k, v) of the encoder
+        output."""
+        return [block.cross_attn.cross_kv(enc_out) for block in self.decoder]
+
+    def _decoder_embed(self, tokens, offset: int = 0):
+        dtype = torch_dtype(self.cfg.compute_dtype)
+        x = self.embed(tokens, dtype=dtype)
+        pos = decoder_positions(offset, tokens.shape[1], self.cfg.d_model,
+                                tokens.device)
+        return x + pos.to(dtype)[None]
+
+    def _logits(self, x):
+        return self.embed.attend(self.ln_dec(x)).to(torch.float32)
+
+    # ---- teacher forcing -----------------------------------------------------
+
+    def backbone(self, tokens, *, audio_embeds=None, **_):
+        kvs = self._cross_kvs(self.encode(audio_embeds))
+        x = self._decoder_embed(tokens)
+        for block, kv in zip(self.decoder, kvs):
+            x = block(x, kv)
+        return x, zero_aux(x.device)
+
+    def apply_head(self, x):
+        return self._logits(x)
+
+    def forward(self, tokens, *, audio_embeds=None, **_) -> LMOutput:
+        x, aux = self.backbone(tokens, audio_embeds=audio_embeds)
+        return LMOutput(self.apply_head(x), aux)
+
+    # ---- serving -------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int,
+                   enc_len: int = 0) -> WhisperCache:
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.compute_dtype)
+        dev = self.embed.table.device
+        l, kh, hd = self.dec_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+
+        def zeros(n):
+            return torch.zeros((l, batch, n, kh, hd), dtype=dtype,
+                               device=dev)
+        return WhisperCache(zeros(max_len), zeros(max_len),
+                            zeros(max(enc_len, 1)), zeros(max(enc_len, 1)),
+                            0, 0)
+
+    def prefill(self, tokens, max_len: int | None = None, *,
+                audio_embeds=None, **_):
+        """Encode the audio once, run the decoder prompt, and keep each
+        decoder layer's self-attention K/V (padded with zeros to
+        `max_len`, never cut below the prompt) and cross K/V, all in the
+        compute dtype."""
+        enc_out = self.encode(audio_embeds)
+        kvs = self._cross_kvs(enc_out)
+        b, s = tokens.shape
+        x = self._decoder_embed(tokens)
+        cache = self.init_cache(b, max(max_len or s, s), enc_out.shape[1])
+        dtype = cache.dec_k.dtype
+        for layer, (block, kv) in enumerate(zip(self.decoder, kvs)):
+            x, (k, v) = block.prefill(x, kv)
+            cache.dec_k[layer, :, :s] = k.to(dtype)
+            cache.dec_v[layer, :, :s] = v.to(dtype)
+            cache.enc_k[layer] = kv[0].to(dtype)
+            cache.enc_v[layer] = kv[1].to(dtype)
+        cache.enc_valid, cache.length = enc_out.shape[1], s
+        return LMOutput(self._logits(x[:, -1:]), zero_aux(x.device)), cache
+
+    def decode_step(self, tokens, cache: WhisperCache):
+        """Writes the new self-attention K/V into `cache`'s tensors in
+        place and returns the cache one token longer."""
+        x = self._decoder_embed(tokens, offset=cache.length)
+        for layer, block in enumerate(self.decoder):
+            x, _ = block.decode(
+                x, KVCache(cache.dec_k[layer], cache.dec_v[layer],
+                           cache.length),
+                cache.enc_k[layer], cache.enc_v[layer], cache.enc_valid)
+        return (LMOutput(self._logits(x), zero_aux(x.device)),
+                dataclasses.replace(cache,
+                                    length=cache.length + tokens.shape[1]))

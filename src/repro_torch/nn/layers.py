@@ -20,6 +20,17 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Draw `w` in place lecun-normal, truncated at two standard
+    deviations, with the fan-in its second-to-last dimension (the
+    reference's default initializer, `repro/nn/module.py`
+    `variance_scaling`)."""
+    std = math.sqrt(1.0 / max(1, w.shape[-2])) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+
+
 class Linear(nn.Module):
     """Dense layer: y = x @ w (+ b), with w stored [in, out]."""
 
@@ -31,13 +42,10 @@ class Linear(nn.Module):
         self.b = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Lecun-normal, truncated at two standard deviations (the
-        reference's default initializer); zero bias."""
-        std = math.sqrt(1.0 / max(1, self.in_dim)) / 0.87962566103423978
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.w, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-            if self.b is not None:
+        """Lecun-normal (`lecun_normal_`); zero bias."""
+        lecun_normal_(self.w, generator)
+        if self.b is not None:
+            with torch.no_grad():
                 self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -238,30 +246,43 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
     return module
 
 
-def unstack_blocks(tree: Mapping, n_blocks: int) -> dict:
-    """The reference's LM tree with its stacked ``blocks`` (every leaf
+def unstack_blocks(tree: Mapping, n_blocks: int,
+                   key: str = "blocks") -> dict:
+    """The reference's tree with its stack under `key` (every leaf
     ``[L, ...]``, `repro/nn/module.py` `init_stacked`) split into a list
-    of `n_blocks` per-block trees, the key paths of an `nn.ModuleList`
-    (``blocks.{i}.…``).  Raises ValueError when a block leaf's leading
+    of `n_blocks` per-layer trees, the key paths of an `nn.ModuleList`
+    (``{key}.{i}.…``).  Raises ValueError when a stacked leaf's leading
     dimension is not `n_blocks`."""
     out = dict(tree)
-    if "blocks" not in tree:
+    if key not in tree:
         return out
-    leaves = _flatten_tree(tree["blocks"])
+    leaves = _flatten_tree(tree[key])
     wrong = {k: v.shape for k, v in leaves.items()
              if v.ndim == 0 or v.shape[0] != n_blocks}
     if wrong:
-        raise ValueError(f"stacked block leaves must lead with "
+        raise ValueError(f"stacked {key} leaves must lead with "
                          f"{n_blocks} layers: {wrong}")
-    out["blocks"] = [{k: v[i] for k, v in leaves.items()}
-                     for i in range(n_blocks)]
+    out[key] = [{k: v[i] for k, v in leaves.items()}
+                for i in range(n_blocks)]
     return out
 
 
+# the reference's stacked layer trees and the port's ModuleLists of the
+# same names: DecoderLM and RWKV6LM `blocks`, Zamba2LM `mamba`,
+# WhisperModel `encoder` and `decoder`
+LAYER_STACKS = ("blocks", "mamba", "encoder", "decoder")
+
+
 def load_jax_lm_params(model: nn.Module, tree: Mapping) -> nn.Module:
-    """`load_jax_params` for a model whose blocks are an `nn.ModuleList`
-    named ``blocks`` (`repro_torch.nn.transformer.DecoderLM`) and whose
-    reference tree stacks them: the stack is split per block first.  It
-    refuses a missing or unexpected key or a wrong shape, as
-    `load_jax_params` does."""
-    return load_jax_params(model, unstack_blocks(tree, len(model.blocks)))
+    """`load_jax_params` for an LM whose layers are `nn.ModuleList`s named
+    as the reference's stacked trees (`LAYER_STACKS`): each stack is
+    split per layer first.  Everything else carries as it is: Zamba2's
+    one ``shared`` block (loaded once, as the reference holds it) and the
+    MoE expert stacks ``[E, ...]`` (one parameter each).  It refuses a
+    missing or unexpected key or a wrong shape, as `load_jax_params`
+    does."""
+    for key in LAYER_STACKS:
+        stack = getattr(model, key, None)
+        if isinstance(stack, nn.ModuleList):
+            tree = unstack_blocks(tree, len(stack), key)
+    return load_jax_params(model, tree)

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense and parallel-block variants
+"""Decoder-only LM assembly: dense, MoE and parallel-block variants
 (counterpart of `repro.nn.transformer`).
 
 The reference stacks its layers and runs them with `jax.lax.scan`; here
@@ -21,9 +21,7 @@ from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
                                       chunked_gqa_attention, gqa_attention,
                                       to_kv_dtype)
 from repro_torch.nn.layers import MLP, Embedding, LayerNorm, Linear, RMSNorm
-
-MOE_TODO = ("MoE layers are not ported yet: ROADMAP.md queue 1, item 1.1 "
-            "(nn/moe.py, nn/ssm.py and the rwkv, zamba and whisper models)")
+from repro_torch.nn.moe import MoELayer
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -50,6 +48,12 @@ def zero_aux(device=None) -> dict[str, torch.Tensor]:
     return {"moe_lb_loss": z(), "moe_z_loss": z(), "moe_drop_fraction": z()}
 
 
+def sum_aux(auxes: list) -> dict[str, torch.Tensor]:
+    """The blocks' auxiliary values summed over the layers, in layer
+    order (the reference's sum over its stacked scan outputs)."""
+    return {k: torch.stack([a[k] for a in auxes]).sum() for k in auxes[0]}
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
@@ -60,8 +64,6 @@ class DecoderBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, *, causal: bool = True,
                  rope: bool = True):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(MOE_TODO)
         self.cfg = cfg
         self.attn = Attention(
             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -69,18 +71,38 @@ class DecoderBlock(nn.Module):
             rope_theta=cfg.rope_theta, causal=causal,
             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
             skip_masked_chunks=cfg.skip_masked_chunks)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, activation=cfg.activation,
-                       gated=cfg.gated_mlp)
+        if cfg.moe is not None:
+            self.ffn = MoELayer(
+                cfg.d_model, cfg.moe.expert_d_ff, cfg.moe.n_experts,
+                cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
+                activation=cfg.activation, gated=cfg.gated_mlp,
+                dense_residual_hidden=cfg.moe.dense_residual_ff or None)
+        else:
+            self.ffn = MLP(cfg.d_model, cfg.d_ff, activation=cfg.activation,
+                           gated=cfg.gated_mlp)
         self.norm1 = make_norm(cfg)
         self.norm2 = None if cfg.parallel_block else make_norm(cfg)
+
+    def _ffn(self, h):
+        """The FFN's output and its auxiliary values (an MoE layer's
+        load-balance loss, router z-loss and drop fraction; zeros on the
+        host for a dense MLP)."""
+        if isinstance(self.ffn, MoELayer):
+            y, aux = self.ffn(h)
+            return y, {"moe_lb_loss": aux.load_balance_loss,
+                       "moe_z_loss": aux.router_z_loss,
+                       "moe_drop_fraction": aux.drop_fraction}
+        return self.ffn(h), zero_aux()
 
     def _residual(self, x, h, attn_out):
         """x plus the attention and FFN branches, in parallel (both read
         h) or in sequence (the FFN reads the norm of x + attention)."""
         if self.cfg.parallel_block:
-            return x + attn_out + self.ffn(h), zero_aux()
+            ffn_out, aux = self._ffn(h)
+            return x + attn_out + ffn_out, aux
         x = x + attn_out
-        return x + self.ffn(self.norm2(x)), zero_aux()
+        ffn_out, aux = self._ffn(self.norm2(x))
+        return x + ffn_out, aux
 
     def forward(self, x: torch.Tensor, *, positions=None):
         h = self.norm1(x)
@@ -121,14 +143,12 @@ class LMOutput(NamedTuple):
 class DecoderLM(nn.Module):
     """Token-in, logits-out decoder LM.  Also the backbone of
     phi-3-vision: `patch_embeds` (the stubbed CLIP output, [B, P,
-    d_model]) are prepended to the token embeddings.  Its blocks have no
-    MoE, so the summed auxiliary losses are zeros on the model's
-    device."""
+    d_model]) are prepended to the token embeddings.  The auxiliary
+    values are the blocks' summed over the layers: zeros on the model's
+    device for dense blocks, the MoE layers' otherwise."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(MOE_TODO)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.d_model)
         self.blocks = nn.ModuleList(DecoderBlock(cfg)
@@ -163,11 +183,18 @@ class DecoderLM(nn.Module):
     def backbone(self, tokens, *, patch_embeds=None):
         """Full-sequence forward up to the head: ([B, S, d], aux)."""
         x = self._embed_inputs(tokens, patch_embeds)
+        auxes = []
         for block in self.blocks:
-            x, _ = block(x)
+            x, aux = block(x)
+            auxes.append(aux)
         if self.cfg.num_patches:
             x = x[:, self.cfg.num_patches:]
-        return x, zero_aux(x.device)
+        return x, self._aux(auxes, x.device)
+
+    def _aux(self, auxes: list, device) -> dict[str, torch.Tensor]:
+        if self.cfg.moe is None:
+            return zero_aux(device)
+        return sum_aux(auxes)
 
     def apply_head(self, x):
         """Final norm and fp32 logits for a slice of positions."""
@@ -190,14 +217,17 @@ class DecoderLM(nn.Module):
         cache = KVCache.zeros(b, max(max_len or s, s), cfg.n_kv_heads,
                               cfg.resolved_head_dim, dtype=dtype,
                               layers=cfg.num_layers, device=x.device)
+        auxes = []
         for layer, block in enumerate(self.blocks):
-            x, (k, v), _ = block.prefill(x)
+            x, (k, v), aux = block.prefill(x)
             cache.k[layer, :, :s] = to_kv_dtype(k, dtype)
             cache.v[layer, :, :s] = to_kv_dtype(v, dtype)
+            auxes.append(aux)
         cache.length = s
         if cfg.num_patches:
             x = x[:, cfg.num_patches:]
-        return LMOutput(self._logits(x[:, -1:]), zero_aux(x.device)), cache
+        return (LMOutput(self._logits(x[:, -1:]), self._aux(auxes, x.device)),
+                cache)
 
     def kv_dtype(self) -> torch.dtype:
         return torch_dtype(self.cfg.kv_cache_dtype or self.cfg.compute_dtype)
@@ -217,9 +247,12 @@ class DecoderLM(nn.Module):
         into `cache`'s tensors in place and returns the cache S_new
         longer."""
         x = self._embed_inputs(tokens)
+        auxes = []
         for layer, block in enumerate(self.blocks):
-            x, _, _ = block.decode(
+            x, _, aux = block.decode(
                 x, KVCache(cache.k[layer], cache.v[layer], cache.length))
+            auxes.append(aux)
         new_cache = KVCache(cache.k, cache.v,
                             cache.length + tokens.shape[1])
-        return LMOutput(self._logits(x), zero_aux(x.device)), new_cache
+        return (LMOutput(self._logits(x), self._aux(auxes, x.device)),
+                new_cache)

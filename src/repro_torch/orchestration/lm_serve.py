@@ -5,11 +5,17 @@ of `examples/lm_serve.py`).
 The defaults are the example's: `qwen1.5-4b-smoke`, 6 requests of 12
 prompt tokens drawn from ``default_rng(0)``, 16 new tokens each, every
 other request at temperature 0.8, 4 slots, max_len 128, weights drawn
-from seed 0 (the port's draw, not `jax.random`'s).  Runs on CUDA unless
-asked for the CPU (``--device cpu``):
+from seed 0 (the port's draw, not `jax.random`'s).  `--arch` takes any
+arch id the engine serves: the dense decoders, the MoE ones
+(`granite-moe-3b-a800m-smoke`), `rwkv6-3b-smoke` (the example's own
+docstring command) and `zamba2-1.2b-smoke`; Whisper needs its audio and
+is served through its own `prefill` / `decode_step`.  Runs on CUDA
+unless asked for the CPU (``--device cpu``):
 
     PYTHONPATH=src python -m repro_torch.orchestration.lm_serve
     PYTHONPATH=src python -m repro_torch.orchestration.lm_serve --device cpu
+    PYTHONPATH=src python -m repro_torch.orchestration.lm_serve \
+        --arch rwkv6-3b-smoke --device cpu
 """
 from __future__ import annotations
 

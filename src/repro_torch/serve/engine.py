@@ -3,7 +3,11 @@ scheduler (counterpart of `repro.serve.engine`).
 
   * a fixed decode batch of `n_slots` sequences (left-aligned KV cache);
   * prefill admits a request into a free slot, and its one-sequence cache
-    is spliced into the batch cache at that slot;
+    is spliced into the batch cache at that slot: every cache tensor whose
+    axis 1 is the slot axis (``ndim >= 2`` and ``shape[1] == n_slots``),
+    cast to the batch tensor's dtype, the reference's rule
+    (`repro/serve/engine.py:67-72`), so RWKV's states and Zamba's states
+    and K/V are spliced as the dense K/V are;
   * one decode step advances every slot a tick;
   * greedy or temperature sampling.
 
@@ -79,15 +83,24 @@ class ServeEngine:
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None]
         out, cache1 = self.model.prefill(tokens, max_len=self.max_len)
-        # splice the one-sequence cache into the batch cache at `slot`
-        self.cache.k[:, slot:slot + 1] = cache1.k.to(self.cache.k.dtype)
-        self.cache.v[:, slot:slot + 1] = cache1.v.to(self.cache.v.dtype)
+        self._splice(cache1, slot)
         first = int(torch.argmax(out.logits[0, -1]))
         req.generated.append(first)
         self.slot_busy[slot] = True
         self.slot_req[slot] = req
         self.slot_len[slot] = len(req.prompt) + 1
         return True
+
+    def _splice(self, one, slot: int) -> None:
+        """Write the one-sequence cache `one` into the batch cache at
+        `slot`, in place: each tensor field whose axis 1 is the slot
+        axis."""
+        for field in dataclasses.fields(self.cache):
+            batch = getattr(self.cache, field.name)
+            if (isinstance(batch, torch.Tensor) and batch.ndim >= 2
+                    and batch.shape[1] == self.n_slots):
+                batch[:, slot:slot + 1] = getattr(one, field.name).to(
+                    batch.dtype)
 
     # -- decode tick ---------------------------------------------------------
 
@@ -119,9 +132,10 @@ class ServeEngine:
         for s, req in enumerate(self.slot_req):
             if req is not None and req.generated:
                 toks[s, 0] = req.generated[-1]
-        # the batch cache's length: the longest slot (the reference's
-        # documented simplification)
-        self.cache.length = int(self.slot_len.max())
+        # the batch cache's length, where it has one: the longest slot
+        # (the reference's documented simplification)
+        if hasattr(self.cache, "length"):
+            self.cache.length = int(self.slot_len.max())
         out, self.cache = self.model.decode_step(
             torch.as_tensor(toks, device=self.device), self.cache)
         sampled = self._sample(out.logits[:, -1])

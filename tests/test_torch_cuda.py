@@ -16,7 +16,9 @@ copies against a blocking `to_device`, and a thread-fleet
 autotuner may pick is held to the plain version by the same rules, and
 `kernels/autotune.py`'s records drive the registry's decisions.  The
 LM's `ServeEngine` on the card gives the CPU's greedy tokens (fp32, TF32
-off), and flash through the LM's `Attention(use_flash=True)` makes one
+off), for the dense decoder and for the MoE, RWKV6 and Zamba2 families
+(whose forward logits also agree with the CPU's within 1e-4), Whisper's
+prefill -> decode_step loop likewise, and flash through the LM's `Attention(use_flash=True)` makes one
 launch and agrees with the chunked path at bf16's 2e-2.
 """
 import pytest
@@ -1368,6 +1370,50 @@ def test_lm_engine_on_the_card_equals_the_cpu(cuda_device):
             cfg, model, n_slots=3, max_len=64).run(
             [Request(prompt=p, max_new_tokens=6) for p in prompts])]
     assert run(card) == run(cpu)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m-smoke",
+                                  "rwkv6-3b-smoke", "zamba2-1.2b-smoke",
+                                  "whisper-medium-smoke"])
+def test_lm_family_on_the_card_equals_the_cpu(cuda_device, arch):
+    import numpy as np
+
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.nn.layers import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(arch)
+    cpu = init_params(build_model(cfg, "cpu"), 0)
+    card = build_model(cfg, cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, 8).astype(np.int32) for _ in range(5)]
+    audio = torch.from_numpy(rng.standard_normal(
+        (1, 24, cfg.d_model)).astype(np.float32))
+
+    def forward(model):
+        dev = model.embed.table.device
+        extra = ({"audio_embeds": audio.to(dev)} if cfg.family == "audio"
+                 else {})
+        with torch.inference_mode():
+            logits = model(torch.as_tensor(prompts[0][None].astype(np.int64),
+                                           device=dev), **extra).logits
+            if cfg.family != "audio":
+                return logits.cpu(), [r.generated for r in ServeEngine(
+                    cfg, model, n_slots=3, max_len=64).run(
+                    [Request(prompt=p, max_new_tokens=6) for p in prompts])]
+            out, cache = model.prefill(
+                torch.as_tensor(prompts[0][None].astype(np.int64),
+                                device=dev), max_len=16, **extra)
+            toks = []
+            for _ in range(6):
+                toks.append(int(torch.argmax(out.logits[0, -1])))
+                out, cache = model.decode_step(
+                    torch.tensor([[toks[-1]]], device=dev), cache)
+            return logits.cpu(), [toks]
+    got, got_tokens = forward(card)
+    want, want_tokens = forward(cpu)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert got_tokens == want_tokens
 
 
 def test_flash_through_the_lm_attention(cuda_device):

@@ -23,9 +23,11 @@ norm scales are exercised too).
   forward at 1024 tokens through the chunked path, fp32 logits from a
   bf16 model.
 * The registry: every config and its `-smoke` equal to the reference's,
-  parameter counts, runnable cells, the families not ported yet; the
-  weight carry's refusals; `build_model` needs a card unless given
-  ``device="cpu"``.
+  parameter counts of every arch (smoke configs built, full sizes on the
+  meta device), runnable cells, an unknown family refused; the weight
+  carry's refusals; `build_model` needs a card unless given
+  ``device="cpu"``.  The other families' models are held to the
+  reference in `test_torch_lm_families.py`.
 
 Tolerances: fp32 rtol 1e-5 / atol 1e-5 unless a test states another;
 bf16 outputs 2e-2 (a bf16 ulp at the outputs' scale).
@@ -48,7 +50,6 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.models import registry
 from repro_torch.nn import attention as t_attn
 from repro_torch.nn import layers as t_layers
-from repro_torch.nn.transformer import DecoderLM
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE_ARCHS = ["qwen1.5-4b", "qwen2.5-32b", "deepseek-7b",
@@ -520,22 +521,31 @@ def test_registry_ids_shapes_and_cells_equal_the_reference():
         registry.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", [a + "-smoke" for a in DENSE_ARCHS])
+@pytest.mark.parametrize("arch", [a + "-smoke"
+                                  for a in j_registry.ARCH_IDS])
 def test_parameter_counts_equal_the_reference(arch):
     _, tree, mod, _ = lm_pair(arch)
     assert sum(p.numel() for p in mod.parameters()) == param_count(tree)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "arctic-480b",
-                                  "rwkv6-3b", "zamba2-1.2b",
-                                  "whisper-medium"])
-def test_families_not_ported_raise(arch):
-    cfg = registry.get_config(arch + "-smoke")
-    with pytest.raises(NotImplementedError, match="queue 1, item 1.1"):
+@pytest.mark.parametrize("arch", j_registry.ARCH_IDS)
+def test_full_size_parameter_counts_equal_the_reference(arch):
+    """Every arch at full size, counted without allocating: the port's
+    model built on the meta device against the reference's abstract
+    init (`jax.eval_shape`)."""
+    ref = j_registry.build_model(j_registry.get_config(arch))
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0))
+    want = sum(int(np.prod(leaf.shape))
+               for leaf in jax.tree_util.tree_leaves(shapes))
+    mod = registry.build_model(registry.get_config(arch), "meta")
+    assert sum(p.numel() for p in mod.parameters()) == want
+
+
+def test_build_model_refuses_an_unknown_family():
+    cfg = dataclasses.replace(registry.get_config("qwen1.5-4b-smoke"),
+                              family="diffusion")
+    with pytest.raises(ValueError, match="unknown family"):
         registry.build_model(cfg, "cpu")
-    if cfg.moe is not None:
-        with pytest.raises(NotImplementedError, match="item 1.1"):
-            DecoderLM(cfg)
 
 
 def test_build_model_needs_a_card_unless_given_the_cpu(monkeypatch):
