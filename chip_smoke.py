@@ -112,7 +112,23 @@ head, 8 classes):
   stubbed frames) and 16 greedy decode steps, every decoded position
   against the full forward; then the `lm_serve` twin at `--arch
   rwkv6-3b-smoke`.  No kernel of the port is on these paths: every
-  launch count must stay 0.
+  launch count must stay 0;
+* LM training (`[lm-train]`), one model on the card at a time: (a) every
+  arch id's smoke model one `make_train_step` on the card against the
+  same step on the CPU (AdamW; then command-r-plus-104b with Adafactor
+  and qwen1.5-4b with the int8 error-feedback compressor): loss rtol
+  1e-5, step-1 gradients |d| <= 1e-6 + 1e-4 |g|, int8 codes equal on
+  identical gradients; (b) at full width and 4 layers in fp32, remat
+  "layer" (qwen1.5-4b) and "dots" (granite-moe-3b-a800m) against "none"
+  and n_microbatches=2 against 1, and the in-place sliced AdamW against
+  the functional update bit for bit; (c) qwen1.5-4b at full width and
+  depth (3.95 B fp32 parameters, bf16 compute, remat "layer",
+  `pick_optimizer`'s AdamW) 6 steps of 1 x 2048 tokens: peak memory,
+  losses and gradient norms, step ms and tokens/s, a profiled step and
+  optimizer update beside the step's bound, then a microbatched step
+  holding no second gradient buffer; (d) the `repro_torch.launch.train`
+  twin restarted from its checkpoint, its losses equal to an
+  uninterrupted run's.  No kernel of the port is on these paths either.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -4391,6 +4407,651 @@ def lm_families_phase(torch, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LM training: every family on the card against the CPU, the full-width
+# checks, qwen1.5-4b trained at full depth, the train twin
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_MOE_ARCH = "granite-moe-3b-a800m"
+TRAIN_LR = 1e-3                 # tests/test_arch_smoke.py's AdamW
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 64
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-6, 1e-4   # |d| <= atol + rtol |g|
+TRAIN_GRAD_MAX_MISSES = 2   # elements of a leaf past that, held by float64
+TRAIN_REMAT_RTOL = 1e-6         # a leaf's largest |d| / its largest |g|
+TRAIN_CHECK_LAYERS = 4
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 512
+TRAIN_FULL_BATCH, TRAIN_FULL_SEQ = 1, 2048
+TRAIN_FULL_STEPS = 6
+TRAIN_TWIN_ARGS = ["--arch", "qwen1.5-4b-smoke", "--batch", "2", "--seq",
+                   "32", "--ckpt-every", "3", "--log-every", "1"]
+
+
+def train_config(arch: str):
+    """The config [lm-train] trains `arch` at (full width; its CPU
+    rehearsal sets `-smoke` configs here)."""
+    from repro_torch.models.registry import get_config
+    return get_config(arch)
+
+
+def train_smoke_batch(cfg) -> dict:
+    """tests/test_arch_smoke.py's `make_batch` (numpy, seeded)."""
+    rng = np.random.default_rng(SEED)
+    b, s = TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "audio":
+        out["audio_embeds"] = rng.normal(
+            size=(b, s, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.normal(
+            size=(b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def on(torch, batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def train_grads(model) -> dict:
+    return {k: p.grad.detach() for k, p in model.named_parameters()}
+
+
+def train_float64_grads(torch, model, batch) -> dict:
+    """The gradient of the same loss in float64 on the CPU (the judge of
+    a gradient element that misses the rule)."""
+    import copy
+    import dataclasses
+    from repro_torch.train.train_loop import make_loss_fn
+    m64 = copy.deepcopy(model).to("cpu").double()
+    m64.cfg = dataclasses.replace(model.cfg, compute_dtype="float64")
+    b64 = {k: v.to("cpu").double() if v.is_floating_point() else v.to("cpu")
+           for k, v in batch.items()}
+    for p in m64.parameters():
+        p.grad = None
+    make_loss_fn(m64, m64.cfg)(b64)[0].backward()
+    return train_grads(m64)
+
+
+def train_grad_check(torch, name, got, want, judge) -> tuple:
+    """Step-1 gradients, element by element: |d| <= 1e-6 + 1e-4 |g|.
+    An element that misses must be no further from the float64 gradient
+    (``judge()``) than the CPU's own error plus the rule (fp32 sums in
+    another order over entries that cancel), and a leaf may hold at most
+    TRAIN_GRAD_MAX_MISSES such elements.  Returns (the largest |d|
+    over every leaf, the misses the float64 gradient accepted)."""
+    worst, misses, g64 = 0.0, 0, None
+    for k, w in want.items():
+        g = got[k].to("cpu", torch.float32)
+        w = w.to("cpu", torch.float32)
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        bad = d > TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * w.abs()
+        if not bool(bad.any()):
+            continue
+        if g64 is None:
+            g64 = judge()
+        t = g64[k]
+        ok = ((g.double() - t).abs() <= TRAIN_GRAD_ATOL
+              + TRAIN_GRAD_RTOL * t.abs() + (w.double() - t).abs())
+        if not bool(ok[bad].all()):
+            fail(f"lm-train: {name} gradient {k}: "
+                 f"{int((bad & ~ok).sum())} elements off the CPU's by more "
+                 f"than 1e-6 + 1e-4 |g| and further from float64 than it")
+        if int(bad.sum()) > TRAIN_GRAD_MAX_MISSES:
+            fail(f"lm-train: {name} gradient {k}: {int(bad.sum())} elements "
+                 f"off the CPU's by more than 1e-6 + 1e-4 |g| (at most "
+                 f"{TRAIN_GRAD_MAX_MISSES} a leaf)")
+        misses += int(bad.sum())
+    return worst, misses
+
+
+def train_pair(torch, arch: str):
+    """(cfg, the model on the card, the same on the CPU) at the smoke
+    config, drawn once on the CPU from SEED."""
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.nn.layers import init_params
+    cfg = get_config(arch + "-smoke")
+    cpu = init_params(build_model(cfg, "cpu"), SEED)
+    card = build_model(cfg, DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, card, cpu
+
+
+def train_one_step(torch, model, cfg, opt, batch, **kw) -> dict:
+    from repro_torch.train.train_loop import make_train_step
+    params = dict(model.named_parameters())
+    step = make_train_step(model, cfg, opt, **kw)
+    _, state, metrics = step(params, opt.init(params), batch)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "state": state}
+
+
+def train_smoke_arch(torch, arch: str) -> str:
+    """(a) one train step of `arch`'s smoke model on the card and on the
+    CPU from the same state and batch (AdamW(1e-3)): the loss at rtol
+    1e-5, the step-1 gradients by the rule."""
+    from repro_torch.train.optimizer import AdamW
+    cfg, card, cpu = train_pair(torch, arch)
+    b = train_smoke_batch(cfg)
+    got = train_one_step(torch, card, cfg, AdamW(learning_rate=TRAIN_LR),
+                         on(torch, b, DEVICE))["metrics"]
+    want = train_one_step(torch, cpu, cfg, AdamW(learning_rate=TRAIN_LR),
+                          on(torch, b, "cpu"))["metrics"]
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    if not (np.isfinite(got["loss"]) and rel <= TRAIN_LOSS_RTOL):
+        fail(f"lm-train: {arch} loss on the card {got['loss']!r} vs the "
+             f"CPU's {want['loss']!r} (rtol {TRAIN_LOSS_RTOL})")
+    fresh = train_pair(torch, arch)[2]
+    worst, misses = train_grad_check(
+        torch, arch, train_grads(card), train_grads(cpu),
+        lambda: train_float64_grads(torch, fresh, on(torch, b, "cpu")))
+    extra = "".join(f", {k} {got[k]:.4e}" for k in ("moe_lb_loss",
+                                                    "moe_z_loss")
+                    if cfg.moe is not None)
+    return (f"{arch}: loss {got['loss']:.6f} (CPU {want['loss']:.6f}, rel "
+            f"{rel:.2e}){extra}; gradients max |d| {worst:.3e}"
+            + (f", {misses} elements past the rule held by float64"
+               if misses else ""))
+
+
+def train_smoke_adafactor(torch) -> str:
+    """(a) command-r-plus-104b-smoke with Adafactor: the step on both
+    devices (loss), then the update on identical gradients (the CPU's,
+    from the same initial state): new parameters at rtol 1e-5."""
+    from repro_torch.train.optimizer import Adafactor
+    arch = "command-r-plus-104b"
+    cfg, card, cpu = train_pair(torch, arch)
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    b = train_smoke_batch(cfg)
+    got = train_one_step(torch, card, cfg, Adafactor(learning_rate=TRAIN_LR),
+                         on(torch, b, DEVICE))["metrics"]
+    want = train_one_step(torch, cpu, cfg, Adafactor(learning_rate=TRAIN_LR),
+                          on(torch, b, "cpu"))["metrics"]
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f"lm-train: {arch} (Adafactor) loss {got['loss']!r} vs "
+             f"{want['loss']!r}")
+    card.load_state_dict(start)
+    opt = Adafactor(learning_rate=TRAIN_LR)
+    params = dict(card.named_parameters())
+    grads = {k: p.grad.to(DEVICE) for k, p in cpu.named_parameters()}
+    opt.update_(grads, opt.init(params), params)
+    gap = 0.0
+    for (k, p), q in zip(card.named_parameters(), cpu.parameters()):
+        p, q = p.detach().cpu(), q.detach()
+        gap = max(gap, float((p - q).abs().max()))
+        if not torch.allclose(p, q, rtol=TRAIN_LOSS_RTOL, atol=1e-7):
+            fail(f"lm-train: {arch} Adafactor on the card vs the CPU on "
+                 f"identical gradients: {k} differs by "
+                 f"{float((p - q).abs().max()):.3e} (rtol 1e-5, atol 1e-7)")
+    return (f"{arch} + Adafactor: loss {got['loss']:.6f} (rel {rel:.2e}); "
+            f"on identical gradients the card's new parameters within "
+            f"{gap:.2e} of the CPU's (rtol 1e-5, atol 1e-7)")
+
+
+def train_smoke_compressed(torch) -> str:
+    """(a) qwen1.5-4b-smoke with ErrorFeedbackCompressor: the step on
+    both devices (loss), then the compressor on identical gradients (the
+    CPU's step-1 gradients): int8 codes, scales and residuals equal."""
+    from repro_torch.distributed.compression import (ErrorFeedbackCompressor,
+                                                     quantize_int8)
+    from repro_torch.train.optimizer import AdamW
+    arch = "qwen1.5-4b"
+    cfg, card, cpu = train_pair(torch, arch)
+    b = train_smoke_batch(cfg)
+    comp = ErrorFeedbackCompressor()
+    out = {}
+    for name, model, dev in (("card", card, DEVICE), ("cpu", cpu, "cpu")):
+        params = dict(model.named_parameters())
+        bound = comp.bind(comp.init(params))
+        out[name] = train_one_step(torch, model, cfg,
+                                   AdamW(learning_rate=TRAIN_LR),
+                                   on(torch, b, dev),
+                                   grad_compression=bound)["metrics"]
+        out[name + "_residual"] = bound.state.residual
+    rel = abs(out["card"]["loss"] - out["cpu"]["loss"]) / abs(
+        out["cpu"]["loss"])
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f"lm-train: {arch} (compressed) loss {out['card']['loss']!r} "
+             f"vs {out['cpu']['loss']!r}")
+    n_codes, differ = 0, 0
+    for k, p in cpu.named_parameters():
+        g = p.grad.to(torch.float32)
+        q_cpu, s_cpu = quantize_int8(g)
+        q_card, s_card = quantize_int8(g.to(DEVICE))
+        n_codes += q_cpu.numel()
+        if not (torch.equal(q_card.cpu(), q_cpu)
+                and float(s_card) == float(s_cpu)):
+            fail(f"lm-train: {arch} int8 codes of {k} on the card differ "
+                 "from the CPU's on identical gradients")
+        # the codes of each device's own step (gradients within the rule)
+        own = quantize_int8(card.get_parameter(k).grad.to(torch.float32))[0]
+        differ += int((own.cpu() != q_cpu).sum())
+    return (f"{arch} + ErrorFeedbackCompressor: loss "
+            f"{out['card']['loss']:.6f} (rel {rel:.2e}); int8 codes and "
+            f"scales equal on identical gradients ({n_codes} codes); on "
+            f"each device's own gradients {differ} codes differ by a "
+            "rounding step")
+
+
+def train_full_width_model(torch, arch: str, layers: int, **over):
+    """`arch` at full width with `layers` layers, fp32 weights drawn on
+    the card from SEED, `over` replacing config fields."""
+    import dataclasses
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.layers import init_params
+    cfg = dataclasses.replace(train_config(arch), num_layers=layers, **over)
+    with torch.no_grad():
+        model = init_params(build_model(cfg, DEVICE), SEED)
+    return cfg, model
+
+
+def train_check_batch(torch, cfg, batch: int, seq: int, steps: int = 1):
+    from repro_torch.data.synthetic import token_batches
+    return [on(torch, b, DEVICE) for b in token_batches(
+        batch=batch, seq=seq, vocab=cfg.vocab_size, steps=steps, seed=1)]
+
+
+def train_loss_grads(torch, model, cfg, batch) -> tuple:
+    """(metrics, gradients) of one forward and backward, the parameters
+    left as they are."""
+    from repro_torch.train.train_loop import make_loss_fn
+    for p in model.parameters():
+        p.grad = None
+    total, metrics = make_loss_fn(model, cfg)(batch)
+    total.backward()
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {k: g.clone() for k, g in train_grads(model).items()})
+
+
+def train_remat_gap(torch, name, a, b) -> float:
+    """The largest over leaves of max |d| / max |g|; fails past 1e-6."""
+    gap = 0.0
+    for k in b:
+        scale = float(b[k].abs().max())
+        if scale > 0:
+            gap = max(gap, float((a[k] - b[k]).abs().max()) / scale)
+    if gap > TRAIN_REMAT_RTOL:
+        fail(f"lm-train: {name}: gradients differ by {gap:.3e} of a leaf's "
+             f"largest entry ({TRAIN_REMAT_RTOL})")
+    return gap
+
+
+def train_remat_check(torch, arch: str, remat: str) -> str:
+    """(b) `remat` against "none" at full width, 4 layers, fp32 compute:
+    the loss and gradients bit for bit, or within 1e-6 relative."""
+    import dataclasses
+    cfg, model = train_full_width_model(torch, arch, TRAIN_CHECK_LAYERS,
+                                        compute_dtype="float32", remat=remat)
+    [batch] = train_check_batch(torch, cfg, TRAIN_CHECK_BATCH,
+                                TRAIN_CHECK_SEQ)
+    m_r, g_r = train_loss_grads(torch, model, cfg, batch)
+    model.cfg = dataclasses.replace(cfg, remat="none")
+    m_n, g_n = train_loss_grads(torch, model, model.cfg, batch)
+    same = m_r["loss"] == m_n["loss"] and all(
+        torch.equal(g_r[k], g_n[k]) for k in g_n)
+    gap = 0.0 if same else train_remat_gap(torch, f"{arch} {remat}", g_r,
+                                           g_n)
+    if not same and abs(m_r["loss"] - m_n["loss"]) > TRAIN_REMAT_RTOL * abs(
+            m_n["loss"]):
+        fail(f"lm-train: {arch} remat {remat} loss {m_r['loss']!r} vs "
+             f"{m_n['loss']!r}")
+    extra = "".join(f", {k} {m_r[k]:.6e}" for k in ("moe_lb_loss",
+                                                    "moe_z_loss",
+                                                    "moe_drop_fraction")
+                    if cfg.moe is not None)
+    del model, g_r, g_n
+    torch.cuda.empty_cache()
+    return (f"{arch} at full width, {TRAIN_CHECK_LAYERS} layers, fp32: "
+            f"remat {remat!r} vs 'none' "
+            + ("bit for bit" if same else
+               f"loss {m_r['loss']!r} vs {m_n['loss']!r}, gradients within "
+               f"{gap:.3e} of a leaf's largest")
+            + f" (loss {m_r['loss']:.6f}{extra})")
+
+
+def train_micro_and_update_check(torch) -> str:
+    """(b) qwen1.5-4b at full width, 4 layers, fp32: `make_train_step`
+    with n_microbatches=2 against 1 (losses rtol 1e-5, gradients by the
+    rule) from the same state; then the in-place sliced AdamW against
+    the functional one on the same gradients, twice: parameters and
+    moments bit for bit."""
+    from repro_torch.train.optimizer import CHUNKED_UPDATE_THRESHOLD, AdamW
+    from repro_torch.train.train_loop import make_train_step
+    cfg, model = train_full_width_model(torch, TRAIN_ARCH,
+                                        TRAIN_CHECK_LAYERS,
+                                        compute_dtype="float32")
+    [batch] = train_check_batch(torch, cfg, TRAIN_CHECK_BATCH,
+                                TRAIN_CHECK_SEQ)
+    params = dict(model.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items()}
+    opt = AdamW(learning_rate=TRAIN_LR)
+    runs = {}
+    for n in (1, 2):
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(start[k])
+        step = make_train_step(model, cfg, opt, n_microbatches=n)
+        _, _, metrics = step(params, opt.init(params), batch)
+        runs[n] = (float(metrics["loss"]),
+                   {k: g.clone() for k, g in train_grads(model).items()})
+    rel = abs(runs[2][0] - runs[1][0]) / abs(runs[1][0])
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f"lm-train: n_microbatches=2 loss {runs[2][0]!r} vs 1's "
+             f"{runs[1][0]!r}")
+    worst, _ = train_grad_check(
+        torch, "n_microbatches=2", runs[2][1], runs[1][1],
+        lambda: fail("lm-train: n_microbatches=2 gradients miss the rule "
+                     "against n=1 (no float64 judge at full width)"))
+    del runs[2]
+    # the in-place, sliced update against the functional one
+    grads = runs[1][1]
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(start[k])
+    plain_p = {k: v.clone() for k, v in start.items()}
+    state, plain_s = opt.init(params), opt.init(plain_p)
+    sliced = [k for k, p in params.items()
+              if p.numel() > CHUNKED_UPDATE_THRESHOLD]
+    for _ in range(2):
+        _, state, _ = opt.update_(grads, state, params)
+        plain_p, plain_s, _ = opt.update(grads, plain_s, plain_p)
+    for k, p in params.items():
+        for name, a, b in (("parameter", p.detach(), plain_p[k]),
+                           ("m", state.m[k], plain_s.m[k]),
+                           ("v", state.v[k], plain_s.v[k])):
+            if not torch.equal(a, b):
+                fail(f"lm-train: in-place AdamW {name} of {k} differs from "
+                     f"the functional update by "
+                     f"{float((a - b).abs().max()):.3e}")
+    n = sum(p.numel() for p in params.values())
+    del model, params, start, plain_p, plain_s, state, grads, runs
+    torch.cuda.empty_cache()
+    return (f"{TRAIN_ARCH} at full width, {TRAIN_CHECK_LAYERS} layers "
+            f"({n} parameters), fp32, batch {TRAIN_CHECK_BATCH} x "
+            f"{TRAIN_CHECK_SEQ}: n_microbatches=2 vs 1 loss rel {rel:.2e}, "
+            f"gradients max |d| {worst:.3e}; in-place AdamW "
+            f"({len(sliced)} leaves in row slices: "
+            f"{', '.join(sliced)}) equal to the functional update bit for "
+            "bit, parameters and moments, over 2 updates")
+
+
+def train_flops_bound(cfg, n_params: int, n_gather: int, batch: int,
+                      seq: int) -> dict:
+    """The step's bound, its phases in sequence: 6 N T for the forward
+    and backward plus 2 N T for the remat forward at 989 TFLOP/s (bf16),
+    N without the `n_gather` elements of an untied embedding table,
+    which is read by a gather and enters no product; the causal
+    attention's QK and PV products, which the reference takes in fp32,
+    4 x 2 S^2 D H L B for the forward, remat forward and backward at 67
+    TFLOP/s (fp32, TF32 off); the AdamW update's bytes (read p, g, m, v;
+    write p, m, v, all fp32) and three fp32 -> bf16 casts of every
+    weight a step, the table's included (forward, recompute, backward:
+    read 4 bytes, write 2) at 3.35 TB/s."""
+    tokens = batch * seq
+    remat = 2 if cfg.remat == "layer" else 0
+    flops = (6 + remat) * (n_params - n_gather) * tokens
+    attn = ((4 if remat else 3) * 2 * seq * seq * cfg.resolved_head_dim
+            * cfg.n_heads * cfg.num_layers * batch)
+    adam = n_params * 4 * (4 + 3)
+    casts = (3 if remat else 2) * n_params * (4 + 2)
+    out = {"matmul_ms": flops / PEAK_BF16_FLOPS * 1e3,
+           "attn_ms": attn / PEAK_FP32_FLOPS * 1e3,
+           "adamw_ms": adam / PEAK_BYTES_PER_S * 1e3,
+           "casts_ms": casts / PEAK_BYTES_PER_S * 1e3,
+           "flops": flops, "attn_flops": attn, "adam_bytes": adam,
+           "cast_bytes": casts}
+    out["bound_ms"] = (out["matmul_ms"] + out["attn_ms"] + out["adamw_ms"]
+                       + out["casts_ms"])
+    return out
+
+
+def train_full_run(torch, smi) -> str:
+    """(c) qwen1.5-4b at full width and depth (3.95 B fp32 parameters
+    drawn on the card, bf16 compute, remat "layer", pick_optimizer's
+    AdamW), TRAIN_FULL_STEPS steps of batch 1 x 2048 from
+    token_batches(seed=1) through make_train_step: peak memory, every
+    step's loss and grad_norm (finite), the median step of steps 2-6,
+    tokens/s, one step and one optimizer update under torch.profiler,
+    and the bound; then one step at batch 2 with n_microbatches=2, whose
+    peak may exceed the 1-batch run's by at most that run's activations
+    (its peak over the memory held between steps) and the fp32
+    whole-leaf gradients of the embedding table and the head: no second
+    gradient buffer."""
+    from repro_torch.launch.specs import pick_optimizer
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.layers import init_params
+    from repro_torch.train.train_loop import make_train_step
+    cfg = train_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = init_params(build_model(cfg, DEVICE), SEED)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    opt = pick_optimizer(cfg)
+    state = opt.init(params)
+    step = make_train_step(model, cfg, opt)
+    batches = train_check_batch(torch, cfg, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ,
+                                TRAIN_FULL_STEPS)
+    losses, norms, step_ms = [], [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, metrics = step(params, state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    static = torch.cuda.memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    if not all(np.isfinite(losses + norms)):
+        fail(f"lm-train: {cfg.name} losses {losses}, grad norms {norms}")
+    med = statistics.median(step_ms[1:])
+    tokens = TRAIN_FULL_BATCH * TRAIN_FULL_SEQ
+    prof = device_per_call(torch, lambda: step(params, state, batches[-1]),
+                           calls=1)
+    grads = train_grads(model)
+    upd = device_per_call(torch, lambda: opt.update_(grads, state, params),
+                          calls=1)
+    upd_ms = time_ms(torch, lambda: opt.update_(grads, state, params),
+                     calls=1, reps=3, warmup=1)
+    del grads
+    n_gather = 0 if cfg.tie_embeddings else params["embed.table"].numel()
+    bound = train_flops_bound(cfg, n_params, n_gather, TRAIN_FULL_BATCH,
+                              TRAIN_FULL_SEQ)
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:6]
+    phase("lm-train", f"(c) {cfg.name} at full width and depth ({smi}): "
+          f"{cfg.num_layers} layers, {n_params} fp32 parameters drawn on "
+          f"the card in {t_build:.1f}s, {cfg.compute_dtype} compute, remat "
+          f"{cfg.remat!r}, {type(opt).__name__} (moments "
+          f"{str(opt.moment_dtype).split('.')[-1]}), batch "
+          f"{TRAIN_FULL_BATCH} x {TRAIN_FULL_SEQ}: losses "
+          f"{[round(x, 4) for x in losses]}, grad_norm "
+          f"{[round(x, 4) for x in norms]}; step ms "
+          f"{[round(x, 3) for x in step_ms]}, median of steps 2-"
+          f"{TRAIN_FULL_STEPS} {med:.3f} ms ({tokens / med * 1e3:.1f} "
+          f"tokens/s); peak {peak / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated), {static / 1e9:.2f} GB held "
+          f"between steps, {reserved / 1e9:.2f} GB reserved at most, "
+          f"{retries} allocation retries (cache flushed and retried)")
+    phase("lm-train", f"(c) one step under torch.profiler: device "
+          f"{prof['device_us'] / 1e3:.3f} ms in {prof['kernels']:.0f} "
+          f"kernels + {prof['memsets']:.0f} memsets, top "
+          + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in top)
+          + f"; the optimizer update alone {upd_ms:.3f} ms, device "
+          f"{upd['device_us'] / 1e3:.3f} ms in {upd['kernels']:.0f} "
+          f"kernels ({100 * upd['device_us'] / prof['device_us']:.1f}% of "
+          f"the step's device time); bound {bound['bound_ms']:.1f} ms = "
+          f"matmuls {bound['flops'] / 1e12:.1f} TFLOP (the "
+          f"{n_gather} elements of the gathered table left out) "
+          f"{bound['matmul_ms']:.1f} ms + fp32 causal attention "
+          f"{bound['attn_flops'] / 1e12:.2f} TFLOP {bound['attn_ms']:.1f} "
+          f"ms + AdamW "
+          f"{bound['adam_bytes'] / 1e9:.1f} GB {bound['adamw_ms']:.1f} ms"
+          f" + weight casts {bound['cast_bytes'] / 1e9:.1f} GB "
+          f"{bound['casts_ms']:.1f} ms ({bound['bound_ms'] / med * 100:.1f}"
+          f"% of the median step)")
+    # one step at batch 2 in two microbatches of the run's size: its
+    # peak may pass (c)'s by (c)'s activations (the second microbatch's)
+    # and the whole-leaf gradients of the embedding table and the head,
+    # which the second backward makes before adding them into `.grad`;
+    # a second gradient buffer would be the gradients' whole size
+    activations = peak - static
+    whole_leaves = [k for k in ("embed.table", "lm_head.w") if k in params]
+    leaf_bytes = sum(params[k].numel() * 4 for k in whole_leaves)
+    allowance = activations + leaf_bytes
+    grad_bytes = sum(p.grad.numel() * p.grad.element_size()
+                     for p in params.values())
+    if allowance >= grad_bytes:
+        fail(f"lm-train: the microbatched step's allowance "
+             f"{allowance / 1e9:.2f} GB cannot tell a second gradient "
+             f"buffer ({grad_bytes / 1e9:.2f} GB)")
+    micro_step = make_train_step(model, cfg, opt, n_microbatches=2)
+    [batch2] = train_check_batch(torch, cfg, 2 * TRAIN_FULL_BATCH,
+                                 TRAIN_FULL_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    _, state, metrics2 = micro_step(params, state, batch2)
+    loss2 = float(metrics2["loss"])
+    peak2 = torch.cuda.max_memory_allocated()
+    if not np.isfinite(loss2) or peak2 > peak + allowance:
+        fail(f"lm-train: n_microbatches=2 at batch 2: loss {loss2}, peak "
+             f"{peak2 / 1e9:.2f} GB above the 1-batch run's "
+             f"{peak / 1e9:.2f} GB + {activations / 1e9:.2f} GB of its "
+             f"activations + {leaf_bytes / 1e9:.2f} GB of whole-leaf "
+             f"gradients ({', '.join(whole_leaves)})")
+    del model, params, state, step, micro_step, batches, batch2
+    torch.cuda.empty_cache()
+    return (f"n_microbatches=2 at batch {2 * TRAIN_FULL_BATCH}: loss "
+            f"{loss2:.4f}, peak {peak2 / 1e9:.2f} GB (the 1-batch run's "
+            f"{peak / 1e9:.2f} GB + {(peak2 - peak) / 1e9:.2f}) against "
+            f"{(peak + allowance) / 1e9:.2f} GB = that peak + "
+            f"{activations / 1e9:.2f} GB of its activations + "
+            f"{leaf_bytes / 1e9:.2f} GB of the whole-leaf gradients of "
+            f"{', '.join(whole_leaves)} (fp32, from their shapes); a "
+            f"second gradient buffer would be {grad_bytes / 1e9:.2f} GB "
+            f"more")
+
+
+def train_twin(argv: list) -> tuple:
+    """`repro_torch.launch.train.main(argv)` with its stdout captured and
+    each step's loss read from its train step: (rc, losses, lines)."""
+    from repro_torch.launch import train as twin
+    losses = []
+    make = twin.make_train_step
+
+    def spying(*a, **kw):
+        step = make(*a, **kw)
+
+        def wrapped(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            losses.append(float(out[2]["loss"]))
+            return out
+        return wrapped
+
+    out = io.StringIO()
+    twin.make_train_step = spying
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = twin.main(argv)
+    finally:
+        twin.make_train_step = make
+    return rc, losses, out.getvalue().splitlines()
+
+
+def train_twin_check(torch) -> str:
+    """(d) the train twin: 6 steps checkpointing every 3, restarted with
+    --steps 8 on the same directory (it must restore at step >= 3), and
+    an uninterrupted 8-step run: steps 7-8 equal exactly."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="lm_train_twin_") as tmp:
+        ck = os.path.join(tmp, "ck")
+        rc1, first, out1 = train_twin(TRAIN_TWIN_ARGS + [
+            "--steps", "6", "--ckpt-dir", ck])
+        rc2, second, out2 = train_twin(TRAIN_TWIN_ARGS + [
+            "--steps", "8", "--ckpt-dir", ck])
+        rc3, whole, _ = train_twin(TRAIN_TWIN_ARGS + [
+            "--steps", "8", "--ckpt-dir", os.path.join(tmp, "whole")])
+    for line in out1 + out2:
+        phase("lm-train", f"twin: {line}")
+    restored = [int(line.split()[-1]) for line in out2
+                if line.startswith("restored checkpoint at step")]
+    if (rc1, rc2, rc3) != (0, 0, 0) or not restored or restored[0] < 3:
+        fail(f"lm-train: twin exits {rc1}, {rc2}, {rc3}; restored at "
+             f"{restored}")
+    resumed = whole[restored[0]:]
+    if second != resumed or not out2[-1].endswith("at step 8"):
+        fail(f"lm-train: resumed losses {second} != uninterrupted "
+             f"{resumed}")
+    return (f"twin: 6 steps, restart at step {restored[0]}, steps "
+            f"{restored[0] + 1}-8 losses {second} equal to the uninterrupted"
+            f" run's exactly; first run {[round(x, 4) for x in first]}")
+
+
+def train_part(torch, name: str, fn, *args) -> str:
+    """Run one part with every kernel's launch count set to 0 just before
+    and read just after; every count must stay 0."""
+    zero_launches()
+    line = fn(torch, *args)
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"lm-train: {name}: a kernel of the port was launched: "
+             f"{launches} (LM training reaches none)")
+    return line
+
+
+def lm_train_phase(torch, smi) -> dict:
+    """LM training on the card, one model at a time: (a) all 10 arch ids
+    at smoke size, card against CPU, with AdamW, then Adafactor and the
+    int8 error-feedback compressor; (b) remat and microbatches at full
+    width and 4 layers against their plain counterparts, and the
+    in-place AdamW against the functional one; (c) qwen1.5-4b trained at
+    full width and depth; (d) the train twin's exact resume.  No kernel
+    of the port is on these paths (the reference's LM training reaches
+    no Pallas kernel): every launch count must stay 0 in every part."""
+    import gc
+    from repro_torch.models.registry import ARCH_IDS
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("lm-train", f"start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "held by the earlier phases")
+    for name, fn, args in (
+            [(f"(a) {a}", train_smoke_arch, (a,)) for a in ARCH_IDS]
+            + [("(a) Adafactor", train_smoke_adafactor, ()),
+               ("(a) compressor", train_smoke_compressed, ())]):
+        phase("lm-train", f"(a) {train_part(torch, name, fn, *args)}")
+    phase("lm-train", f"(a) all {len(ARCH_IDS)} families: one step on the "
+          f"card equal to the CPU's (loss rtol {TRAIN_LOSS_RTOL}, step-1 "
+          f"gradients |d| <= {TRAIN_GRAD_ATOL} + {TRAIN_GRAD_RTOL} |g|); "
+          f"{time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    for name, fn, args in (
+            ("(b) remat layer", train_remat_check, (TRAIN_ARCH, "layer")),
+            ("(b) microbatches", train_micro_and_update_check, ()),
+            ("(b) remat dots", train_remat_check, (TRAIN_MOE_ARCH, "dots"))):
+        phase("lm-train", f"(b) {train_part(torch, name, fn, *args)}")
+    phase("lm-train", f"(b) {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    phase("lm-train", f"(c) {train_part(torch, '(c)', train_full_run, smi)}"
+          f"; {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    phase("lm-train", f"(d) {train_part(torch, '(d)', train_twin_check)}; "
+          f"{time.perf_counter() - t1:.1f}s")
+    launches = read_launches()
+    phase("lm-train", f"kernel launches 0 in every part (none on this path, "
+          f"as in the reference); phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
     first training batch on the card."""
@@ -4470,6 +5131,8 @@ def main() -> int:
     records["flash_attention"]["launches"] += lm
     for name, n in lm_families_phase(torch, smi).items():
         records[name]["lm_families_launches"] = n
+    for name, n in lm_train_phase(torch, smi).items():
+        records[name]["lm_train_launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,6 +1,6 @@
-"""Synthetic data — `synthetic_mag` and `synthetic_graph_classification`,
-copied from `repro.data.synthetic` and held to the originals, array for
-array, by tests/test_torch_host_parity.py.
+"""Synthetic data — `synthetic_mag`, `synthetic_graph_classification` and
+`token_batches`, copied from `repro.data.synthetic` and held to the
+originals, array for array, by tests/test_torch_host_parity.py.
 
 `synthetic_mag` builds an OGBN-MAG-shaped heterogeneous citation graph
 (paper §8) with a *learnable* planted signal: each paper gets a latent
@@ -146,3 +146,23 @@ def synthetic_graph_classification(*, num_graphs: int = 400,
                               Adjacency(src, tgt, "atoms", "atoms"), {},
                               len(src))}))
     return graphs
+
+
+def token_batches(*, batch: int, seq: int, vocab: int, steps: int,
+                  seed: int = 0, rng: np.random.Generator | None = None):
+    """Synthetic LM batches: orderly Markov-ish streams (learnable).
+    `rng` overrides the `seed`-derived generator (same contract as
+    `synthetic_mag`)."""
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    trans = rng.integers(0, vocab, (vocab, 4))
+    for _ in range(steps):
+        toks = np.empty((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, vocab, batch)
+        choices = rng.integers(0, 4, (batch, seq))
+        noise = rng.random((batch, seq)) < 0.1
+        rand = rng.integers(0, vocab, (batch, seq))
+        for t in range(seq):
+            nxt = trans[toks[:, t], choices[:, t]]
+            toks[:, t + 1] = np.where(noise[:, t], rand[:, t], nxt)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

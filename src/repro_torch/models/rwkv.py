@@ -3,8 +3,10 @@
 
 The reference stacks its blocks and scans them; here they are an
 `nn.ModuleList` named ``blocks`` run by a Python loop
-(`layers.load_jax_lm_params` splits the stack).  The cache holds each
-layer's token shifts and wkv state, stacked ``[L, B, ...]`` in fp32.
+(`layers.load_jax_lm_params` splits the stack), each under
+`maybe_remat` outside decode, as the reference's scan body.  The cache
+holds each layer's token shifts and wkv state, stacked ``[L, B, ...]``
+in fp32.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import Embedding, LayerNorm, Linear
 from repro_torch.nn.ssm import RWKV6ChannelMix, RWKV6TimeMix
-from repro_torch.nn.transformer import LMOutput, torch_dtype, zero_aux
+from repro_torch.nn.transformer import (LMOutput, maybe_remat, torch_dtype,
+                                        zero_aux)
 
 
 @dataclasses.dataclass
@@ -86,7 +89,7 @@ class RWKV6LM(nn.Module):
     def _run(self, x, cache: RWKVCache, decode: bool, n_new: int):
         s_tm, wkv, s_cm = [], [], []
         for i, block in enumerate(self.blocks):
-            run = block.decode if decode else block
+            run = block.decode if decode else maybe_remat(block, self.cfg)
             x, a, b, c = run(x, cache.shift_tm[i], cache.wkv[i],
                              cache.shift_cm[i])
             s_tm.append(a)

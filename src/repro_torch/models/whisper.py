@@ -12,7 +12,8 @@ as the reference's does.
 
 The encoder and decoder stacks are `nn.ModuleList`s named ``encoder``
 and ``decoder`` (the reference's stacked trees, split by
-`layers.load_jax_lm_params`).
+`layers.load_jax_lm_params`); their layers run under `maybe_remat`, as
+the reference's scan bodies (the cross K/V projections do not).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
                                       gqa_attention, sinusoidal_positions)
 from repro_torch.nn.layers import MLP, Embedding, LayerNorm
-from repro_torch.nn.transformer import LMOutput, torch_dtype, zero_aux
+from repro_torch.nn.transformer import (LMOutput, maybe_remat, torch_dtype,
+                                        zero_aux)
 
 # the decoder's position table: the reference slices rows of an
 # 8192-row sinusoidal table, its start clamped into the table
@@ -134,7 +136,7 @@ class WhisperModel(nn.Module):
         x = audio_embeds + sinusoidal_positions(
             t, d, audio_embeds.device).to(audio_embeds.dtype)[None]
         for block in self.encoder:
-            x = block(x)
+            x = maybe_remat(block, self.cfg)(x)
         return self.ln_enc(x)
 
     def _cross_kvs(self, enc_out) -> list:
@@ -158,7 +160,7 @@ class WhisperModel(nn.Module):
         kvs = self._cross_kvs(self.encode(audio_embeds))
         x = self._decoder_embed(tokens)
         for block, kv in zip(self.decoder, kvs):
-            x = block(x, kv)
+            x = maybe_remat(block, self.cfg)(x, kv)
         return x, zero_aux(x.device)
 
     def apply_head(self, x):

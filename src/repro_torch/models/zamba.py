@@ -5,10 +5,11 @@ MLP block applied after each group of layers (counterpart of
 One parameter set, ``shared``, serves every application, each with its
 own KV cache; the port holds it once, as the reference does.  The Mamba2
 layers are an `nn.ModuleList` named ``mamba`` (the reference's stacked
-``mamba`` tree, split by `layers.load_jax_lm_params`).  The KV cache is
-``[G, B, max_len, K, D]`` in the compute dtype; its ``length`` is set by
-the serving engine as the dense decoder's is, so the reference engine's
-KV gap applies here too.
+``mamba`` tree, split by `layers.load_jax_lm_params`); in training each
+runs under `maybe_remat`, and the shared block does not, as in the
+reference.  The KV cache is ``[G, B, max_len, K, D]`` in the compute
+dtype; its ``length`` is set by the serving engine as the dense
+decoder's is, so the reference engine's KV gap applies here too.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.ssm import Mamba2, Mamba2State
-from repro_torch.nn.transformer import (DecoderBlock, LMOutput, sum_aux,
-                                        torch_dtype)
+from repro_torch.nn.transformer import (DecoderBlock, LMOutput,
+                                        maybe_remat, sum_aux, torch_dtype)
 
 
 @dataclasses.dataclass
@@ -100,6 +101,8 @@ class Zamba2LM(nn.Module):
                 state = Mamba2State(cache.ssm[layer], cache.conv[layer])
                 if mode == "decode":
                     x, state = block.decode(x, state)
+                elif mode == "train":
+                    x, state = maybe_remat(block, self.cfg)(x, state)
                 else:
                     x, state = block(x, state)
                 ssm.append(state.ssm)

@@ -12,6 +12,7 @@ parameter names, joined with dots, are the key paths of the reference's
 from __future__ import annotations
 
 import math
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -286,3 +287,51 @@ def load_jax_lm_params(model: nn.Module, tree: Mapping) -> nn.Module:
         if isinstance(stack, nn.ModuleList):
             tree = unstack_blocks(tree, len(stack), key)
     return load_jax_params(model, tree)
+
+
+_LAYER_NAME = re.compile(r"^(%s)\.(\d+)\.(.+)$" % "|".join(LAYER_STACKS))
+
+
+def stack_groups(names) -> dict:
+    """{stacked name: [port names in layer order]}: the parameters of a
+    layer ModuleList (``blocks.3.attn.wq.w``, `LAYER_STACKS`) gather
+    under the reference's stacked name (``blocks.attn.wq.w``); any other
+    name maps to itself, a string rather than a list."""
+    groups: dict = {}
+    for name in names:
+        m = _LAYER_NAME.match(name)
+        if m is None:
+            groups[name] = name
+            continue
+        groups.setdefault(f"{m[1]}.{m[3]}", []).append((int(m[2]), name))
+    out = {}
+    for key, members in groups.items():
+        if isinstance(members, str):
+            out[key] = members
+            continue
+        members.sort()
+        if [i for i, _ in members] != list(range(len(members))):
+            raise ValueError(f"{key}: layers {[i for i, _ in members]} "
+                             "are not 0..L-1")
+        out[key] = [n for _, n in members]
+    return out
+
+
+def stack_lm_tree(values: Mapping) -> dict:
+    """The inverse of `load_jax_lm_params`: `values` ({parameter name:
+    tensor}: an LM's named parameters, or their gradients) as the
+    reference's nested tree of fp32 numpy arrays, each layer stack of
+    `LAYER_STACKS` restacked ``[L, ...]`` under its stacked name."""
+    def host(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    tree: dict = {}
+    for key, names in stack_groups(values).items():
+        leaf = (host(values[names]) if isinstance(names, str)
+                else np.stack([host(values[n]) for n in names]))
+        node = tree
+        *path, last = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree

@@ -4,17 +4,27 @@
 The reference stacks its layers and runs them with `jax.lax.scan`; here
 the blocks are an `nn.ModuleList` run by a Python loop, so parameter
 names are ``blocks.{i}.…`` (`layers.load_jax_lm_params` splits the
-reference's stack).  Remat, sharding constraints and the gradient-dtype
-barrier are training concerns of the reference's scan and are not here.
-The KV cache is stacked ``[L, B, T, K, D]``; decode writes each layer's
-slice in place.
+reference's stack).  The training forward (`backbone`) runs each block
+under `maybe_remat`, as the reference's scan body.
+
+The reference also passes each scanned layer's parameters through a
+gradient-dtype barrier (`constrain_layer_params`, `repro/nn/
+transformer.py:43-76`) so that the stacked gradient of a bf16-param
+model is not carried at fp32 width.  Nothing here needs it: a PyTorch
+leaf's ``.grad`` always has the leaf's dtype (autograd casts the
+cotangent of the per-call ``w.to(compute dtype)`` back), and the port's
+leaves are per layer.  Its sharding constraint is the identity on one
+device and comes with the mesh.  The KV cache is stacked ``[L, B, T, K,
+D]``; decode writes each layer's slice in place.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
@@ -31,6 +41,50 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype name {name!r}")
     return dtype
+
+
+# the matmuls the "dots" policy saves: what `F.linear` and `torch.matmul`
+# of a 2-D weight reach on CPU and CUDA (a [B, S, d] input is folded to
+# 2-D first); the batched products (attention's and the MoE experts'
+# `bmm`) and everything else are recomputed, as the reference's
+# `dots_with_no_batch_dims_saveable` saves only dots without batch dims
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _SAVED_DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
+    """`fn` (a layer's call) under the config's activation checkpointing,
+    the counterpart of the reference's `maybe_remat` on a scan body:
+    ``"layer"`` keeps only the layer's inputs and recomputes it in the
+    backward (`torch.utils.checkpoint`, non-reentrant); ``"dots"`` keeps
+    the outputs of the 2-D matmuls and recomputes the rest (selective
+    checkpointing, `_dots_policy`); ``"none"`` is the plain call.  It
+    checkpoints only while autograd records: serving runs `fn` as it
+    is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("layer", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        if cfg.remat == "layer":
+            return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                    **kwargs)
+        return _ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy),
+            **kwargs)
+
+    return run
 
 
 def make_norm(cfg: ArchConfig, dim: int | None = None) -> nn.Module:
@@ -185,7 +239,7 @@ class DecoderLM(nn.Module):
         x = self._embed_inputs(tokens, patch_embeds)
         auxes = []
         for block in self.blocks:
-            x, aux = block(x)
+            x, aux = maybe_remat(block, self.cfg)(x)
             auxes.append(aux)
         if self.cfg.num_patches:
             x = x[:, self.cfg.num_patches:]

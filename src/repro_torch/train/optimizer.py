@@ -1,17 +1,42 @@
-"""AdamW, its schedules and gradient clipping — a line-for-line port of
-`repro.train.optimizer` (`:24-175`), ZeRO-1 arguments included: under
-the mesh (`repro_torch.distributed.partition`) `update` takes this data
-rank's slices and a ``group`` (the data `Axis`) with ``shard_dims``, and
-only the clipping norm needs the cross-rank correction.
+"""AdamW, Adafactor, their schedules and gradient clipping — a
+line-for-line port of `repro.train.optimizer`, ZeRO-1 arguments
+included: under the mesh (`repro_torch.distributed.partition`) `update`
+takes this data rank's slices and a ``group`` (the data `Axis`) with
+``shard_dims``; AdamW needs the cross-rank correction only in the
+clipping norm, Adafactor also in every mean over a sliced dimension.
 
 It is not `torch.optim.AdamW`, whose defaults and order differ: b2 is
 0.95 and eps 1e-8; the gradient is clipped to global norm 1.0 (with
 ``norm + 1e-9``) in fp32 inside `update`; weight decay is added to the
 Adam step inside the lr-scaled delta; the schedule is read at
 ``step + 1``; and `warmup_cosine` decays to ``final_frac = 0.1`` of the
-peak.  Trees are dicts ``{name: tensor}`` (a module's named parameters);
-`update` is pure — it returns new tensors and a new state, and the train
-step writes them into the parameters.
+peak.  Trees are dicts ``{name: tensor}`` (a module's named parameters).
+
+`update` is pure — it returns new tensors and a new state, and the
+caller writes them into the parameters.  `update_` is the same update
+written into the parameters and the optimizer state in place, leaf by
+leaf: the counterpart of the reference's buffer donation and
+`_maybe_chunked`.  AdamW's `update_` applies the clip scale inside each
+leaf's update (no clipped copy of the gradient tree) and takes a leaf
+above `CHUNKED_UPDATE_THRESHOLD` elements in slices of rows, so its fp32
+temporaries cover one slice; every operation is elementwise and the
+same as `update`'s, so both give the same bits.
+
+Adafactor sees the reference's stacked leaves: the port holds each layer
+of a `LAYER_STACKS` ModuleList as its own parameters (``blocks.3.…``),
+the reference one ``[L, …]`` leaf a stack (``blocks.…``), and Adafactor
+factors every leaf of two or more dimensions and clips its update by one
+RMS a leaf, so a per-layer ``[d]`` norm scale is factored over (L, d)
+there.  Its state is keyed by the stacked names, and its update gives
+the stacked leaf's numbers without building the stack: a layer group
+of 2-D or larger leaves goes a layer at a time, every statistic but the
+RMS of the stack's update being that layer's own, and that RMS is summed
+over the layers in a first pass (the reference's per-layer clip above
+`CHUNKED_UPDATE_THRESHOLD` needs none).  Only groups of 1-D leaves (norm
+scales, biases), small by nature, are stacked.  `update_` writes each
+layer as it is done, so its fp32 temporaries cover one layer, or one
+unstacked leaf whole, as the reference's do.  The grouping is read from
+the parameter names (`repro_torch.nn.layers.stack_groups`).
 """
 from __future__ import annotations
 
@@ -20,6 +45,8 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.nn.layers import stack_groups
 
 Tree = dict  # {name: torch.Tensor}
 
@@ -52,13 +79,19 @@ def constant_lr(lr: float):
 # Gradient clipping
 # ---------------------------------------------------------------------------
 
-def _sqsum(x: torch.Tensor) -> torch.Tensor:
-    return torch.sum(torch.square(x.to(torch.float32)))
+def _sqnorms(leaves: list) -> list:
+    """Each leaf's squared L2 norm in fp32: one fused reduction over all
+    of them (`torch._foreach_norm`, fp32 accumulation; no fp32 copy of a
+    16-bit leaf)."""
+    if not leaves:
+        return []
+    return [n * n for n in torch._foreach_norm(leaves, 2,
+                                               dtype=torch.float32)]
 
 
 def global_norm(tree: Tree, *, group=None,
                 shard_dims: dict | None = None) -> torch.Tensor:
-    """L2 norm over a gradient tree, each leaf squared and summed in
+    """L2 norm over a gradient tree, each leaf's squared norm taken in
     fp32.
 
     Under ZeRO-1 each leaf may be this data rank's *slice*: pass
@@ -67,22 +100,28 @@ def global_norm(tree: Tree, *, group=None,
     over the group, while replicated leaves count once — so every rank
     computes the exact full norm."""
     if group is None or shard_dims is None:
-        return torch.sqrt(sum(_sqsum(x) for x in tree.values()))
+        return torch.sqrt(sum(_sqnorms(list(tree.values()))))
     from repro_torch.distributed import collectives
     device = next(iter(tree.values())).device
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    local = sum((_sqsum(x) for k, x in tree.items() if shard_dims[k] >= 0),
-                zero)
-    repl = sum((_sqsum(x) for k, x in tree.items() if shard_dims[k] < 0),
-               zero)
+    local = sum(_sqnorms([x for k, x in tree.items()
+                          if shard_dims[k] >= 0]), zero)
+    repl = sum(_sqnorms([x for k, x in tree.items()
+                         if shard_dims[k] < 0]), zero)
     return torch.sqrt(collectives.all_reduce(local.reshape(1),
                                              group)[0] + repl)
+
+
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that clips a tree of global norm `norm` to
+    `max_norm`."""
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
 
 
 def clip_by_global_norm(tree: Tree, max_norm: float, *, group=None,
                         shard_dims: dict | None = None):
     norm = global_norm(tree, group=group, shard_dims=shard_dims)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     # multiply in each leaf's own dtype, as the reference does
     return {k: g * scale.to(g.dtype) for k, g in tree.items()}, norm
 
@@ -90,6 +129,30 @@ def clip_by_global_norm(tree: Tree, max_norm: float, *, group=None,
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
+
+# A leaf larger than this (elements) is updated in place in slices of
+# rows of at most UPDATE_SLICE elements: the fp32 temporaries of the
+# update (about six of a slice's size) then cover one slice, not the
+# leaf.  The reference's threshold (`_maybe_chunked` slices its stacked
+# leaves per layer above it); the port's leaves are per layer already,
+# so what it slices are the 389 M-element embedding and head of
+# qwen1.5-4b and their like.
+CHUNKED_UPDATE_THRESHOLD = 64 * 1024 * 1024
+UPDATE_SLICE = 16 * 1024 * 1024
+
+
+def _slices(*leaves):
+    """Views of `leaves` over the same rows: the whole leaves when the
+    first holds at most CHUNKED_UPDATE_THRESHOLD elements, else runs of
+    rows of dim 0 of at most UPDATE_SLICE elements each."""
+    lead = leaves[0]
+    if lead.numel() <= CHUNKED_UPDATE_THRESHOLD or lead.ndim == 0:
+        yield leaves
+        return
+    rows = max(1, UPDATE_SLICE // max(1, lead[0].numel()))
+    for start in range(0, lead.shape[0], rows):
+        yield tuple(x[start:start + rows] for x in leaves)
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor  # int32 scalar, on the parameters' device
@@ -121,6 +184,28 @@ class AdamW:
                           zeros,
                           {k: z.clone() for k, z in zeros.items()})
 
+    def _terms(self, state: AdamWState) -> tuple:
+        """(step, bias corrections 1 and 2, lr) of the next update."""
+        step = state.step + 1
+        bc1 = 1 - self.b1 ** step.to(torch.float32)
+        bc2 = 1 - self.b2 ** step.to(torch.float32)
+        return step, bc1, bc2, self._lr(step)
+
+    def _upd(self, p, g, m, v, bc1, bc2, lr) -> tuple:
+        """The reference's elementwise update of one leaf (or slice):
+        (new p, new m, new v) as new tensors."""
+        b1, b2 = self.b1, self.b2
+        g32 = g.to(torch.float32)
+        m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
+        v32 = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g32)
+        mh = m32 / bc1
+        vh = v32 / bc2
+        delta = mh / (torch.sqrt(vh) + self.eps)
+        delta = delta + self.weight_decay * p.to(torch.float32)
+        new_p = p.to(torch.float32) - lr * delta
+        return (new_p.to(p.dtype), m32.to(self.moment_dtype),
+                v32.to(self.moment_dtype))
+
     def update(self, grads: Tree, state: AdamWState, params: Tree, *,
                group=None, shard_dims: dict | None = None
                ) -> tuple[Tree, AdamWState, dict]:
@@ -130,31 +215,276 @@ class AdamW:
         grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm,
                                            group=group,
                                            shard_dims=shard_dims)
-        step = state.step + 1
-        b1, b2 = self.b1, self.b2
-        bc1 = 1 - b1 ** step.to(torch.float32)
-        bc2 = 1 - b2 ** step.to(torch.float32)
-        lr = self._lr(step)
-
-        def upd(p, g, m, v):
-            g32 = g.to(torch.float32)
-            m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
-            v32 = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g32)
-            mh = m32 / bc1
-            vh = v32 / bc2
-            delta = mh / (torch.sqrt(vh) + self.eps)
-            delta = delta + self.weight_decay * p.to(torch.float32)
-            new_p = p.to(torch.float32) - lr * delta
-            return (new_p.to(p.dtype), m32.to(self.moment_dtype),
-                    v32.to(self.moment_dtype))
-
-        out = {k: upd(params[k], grads[k], state.m[k], state.v[k])
+        step, bc1, bc2, lr = self._terms(state)
+        out = {k: self._upd(params[k], grads[k], state.m[k], state.v[k],
+                            bc1, bc2, lr)
                for k in params}
         return ({k: o[0] for k, o in out.items()},
                 AdamWState(step, {k: o[1] for k, o in out.items()},
                            {k: o[2] for k, o in out.items()}),
                 {"grad_norm": gnorm, "learning_rate": lr})
 
+    def update_(self, grads: Tree, state: AdamWState, params: Tree, *,
+                group=None, shard_dims: dict | None = None
+                ) -> tuple[Tree, AdamWState, dict]:
+        """`update` written into `params` and the state's moments in
+        place, leaf by leaf, a leaf above CHUNKED_UPDATE_THRESHOLD in
+        slices of rows.  The clip scale comes from one fused norm and
+        multiplies each slice of the gradient in its own dtype, as
+        `clip_by_global_norm` does, so the bits are `update`'s.  Returns
+        `params` and a state holding the same moment tensors."""
+        gnorm = global_norm(grads, group=group, shard_dims=shard_dims)
+        scale = clip_scale(gnorm, self.max_grad_norm)
+        step, bc1, bc2, lr = self._terms(state)
+        with torch.no_grad():
+            for k, p in params.items():
+                for ps, gs, ms, vs in _slices(p, grads[k], state.m[k],
+                                              state.v[k]):
+                    new = self._upd(ps, gs * scale.to(gs.dtype), ms, vs,
+                                    bc1, bc2, lr)
+                    for dst, src in zip((ps, ms, vs), new):
+                        dst.copy_(src)
+        return (params, AdamWState(step, state.m, state.v),
+                {"grad_norm": gnorm, "learning_rate": lr})
+
     def state_axes(self, param_axes: Tree) -> AdamWState:
         """Optimizer-state logical axes mirror the parameters'."""
         return AdamWState((), param_axes, param_axes)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment; for the >=100B archs)
+# ---------------------------------------------------------------------------
+
+class AdafactorState(NamedTuple):
+    step: torch.Tensor
+    vr: Tree  # row second moment (or the full v of a leaf under 2-D)
+    vc: Tree  # column second moment (or an unused zero)
+
+
+@dataclasses.dataclass(frozen=True)
+class Adafactor:
+    learning_rate: Callable | float = 1e-3
+    decay: float = 0.8  # beta2 exponent: 1 - step^-decay
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+    weight_decay: float = 0.0
+    # T5X-style: no global grad-norm clip — Adafactor's rms_u update clip
+    # substitutes, and skipping it avoids full-gradient-tree fp32 temps.
+    max_grad_norm: float | None = None
+
+    def _lr(self, step):
+        if callable(self.learning_rate):
+            return self.learning_rate(step)
+        return torch.full((), self.learning_rate, dtype=torch.float32,
+                          device=step.device)
+
+    @staticmethod
+    def _factored(p) -> bool:
+        return p.ndim >= 2
+
+    def init(self, params: Tree) -> AdafactorState:
+        """Zero moments for the stacked view of `params`."""
+        groups = stack_groups(params)
+        device = next(iter(params.values())).device
+        vr, vc = {}, {}
+        for key, names in groups.items():
+            first = params[names if isinstance(names, str) else names[0]]
+            shape = tuple(first.shape)
+            if not isinstance(names, str):
+                shape = (len(names),) + shape
+            f32 = dict(dtype=torch.float32, device=first.device)
+            if len(shape) >= 2:
+                vr[key] = torch.zeros(shape[:-1], **f32)
+                vc[key] = torch.zeros(shape[:-2] + shape[-1:], **f32)
+            else:
+                vr[key] = torch.zeros(shape, **f32)
+                vc[key] = torch.zeros((), **f32)
+        return AdafactorState(torch.zeros((), dtype=torch.int32,
+                                          device=device), vr, vc)
+
+    def update(self, grads: Tree, state: AdafactorState, params: Tree, *,
+               group=None, shard_dims: dict | None = None
+               ) -> tuple[Tree, AdafactorState, dict]:
+        """ZeRO-1: with ``group``/``shard_dims`` ({name: dim of the
+        port's tensor, -1 = replicated}; every layer of a stack on the
+        same dim) the inputs are this data rank's slices.  Unlike AdamW
+        the factored statistics are not elementwise — any mean that
+        reduces over a sliced dimension (the column statistics and the
+        RMS normalizers of a row-sliced 2-D leaf) is averaged over the
+        group so every rank reproduces the replicated math."""
+        out: Tree = {}
+
+        def put(name, index, value):
+            if index is None:
+                out[name] = value
+            else:
+                out.setdefault(name, torch.empty_like(params[name]))[
+                    index] = value
+
+        state, metrics = self._update(grads, state, params, put, group,
+                                      shard_dims)
+        return out, state, metrics
+
+    def update_(self, grads: Tree, state: AdafactorState, params: Tree, *,
+                group=None, shard_dims: dict | None = None
+                ) -> tuple[Tree, AdafactorState, dict]:
+        """`update`, each layer's new values written into `params` as
+        soon as they are computed: no stack of a layer group is made
+        (apart from the small ones of 1-D per-layer leaves), so the fp32
+        temporaries cover one layer of a stack, or one unstacked leaf
+        whole, as the reference's do."""
+        def put(name, index, value):
+            target = params[name]
+            (target if index is None else target[index]).copy_(value)
+
+        state, metrics = self._update(grads, state, params, put, group,
+                                      shard_dims)
+        return params, state, metrics
+
+    def _update(self, grads, state, params, put, group, shard_dims):
+        """The update, handed to ``put(name, index, value)`` a leaf (index
+        None) or a leading slice of one at a time; returns (new state,
+        metrics).  A stack of per-layer leaves of 2 or more dims is taken
+        a layer at a time: every statistic of the stacked leaf but the
+        RMS of its update is one layer's, and that RMS is summed over
+        the layers first and the update made in a second pass, unless
+        the reference clips the stack per layer (`_maybe_chunked`)."""
+        with torch.no_grad():
+            return self._run(grads, state, params, put, group, shard_dims)
+
+    def _run(self, grads, state, params, put, group, shard_dims):
+        if self.max_grad_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm,
+                                               group=group,
+                                               shard_dims=shard_dims)
+        else:
+            gnorm = torch.zeros((), dtype=torch.float32,
+                                device=state.step.device)
+        step = state.step + 1
+        beta2 = 1.0 - step.to(torch.float32) ** (-self.decay)
+        lr = self._lr(step)
+        f32 = torch.float32
+        if group is not None:
+            from repro_torch.distributed import collectives
+
+        # shard_dim >= 0: the leaf is a ZeRO slice along that dim (slices
+        # are equal-sized, so the mean of means is the mean)
+        def corr(x, shard_dim, over_dim):
+            if group is not None and shard_dim == over_dim:
+                return collectives.all_reduce(x, group) / group.size
+            return x
+
+        def moments(g32, vr, vc, ndim, shard_dim):
+            g2 = torch.square(g32) + self.eps
+            if ndim >= 2:
+                return (beta2 * vr + (1 - beta2) * corr(
+                            g2.mean(dim=-1), shard_dim, ndim - 1),
+                        beta2 * vc + (1 - beta2) * corr(
+                            g2.mean(dim=-2), shard_dim, ndim - 2))
+            return beta2 * vr + (1 - beta2) * g2, vc
+
+        def direction(g32, vr_n, vc_n, ndim, shard_dim):
+            if ndim >= 2:
+                rbar = corr(vr_n.mean(dim=-1, keepdim=True), shard_dim,
+                            ndim - 2)
+                denom = (vr_n / torch.clamp(rbar, min=self.eps))[..., None] \
+                    * vc_n[..., None, :]
+                return g32 * torch.rsqrt(denom + self.eps)
+            return g32 * torch.rsqrt(vr_n + self.eps)
+
+        def apply(p, u, msq, shard_dim):
+            if group is not None and shard_dim >= 0:
+                msq = collectives.all_reduce(msq, group) / group.size
+            rms_u = torch.sqrt(msq + 1e-12)
+            u = u / torch.clamp(rms_u / self.clip_threshold, min=1.0)
+            new_p = (p.to(f32) - lr * (u + self.weight_decay * p.to(f32)))
+            return new_p.to(p.dtype)
+
+        def whole(p, g, vr, vc, shard_dim=-1):
+            g32 = g.to(f32)
+            vr_n, vc_n = moments(g32, vr, vc, p.ndim, shard_dim)
+            u = direction(g32, vr_n, vc_n, p.ndim, shard_dim)
+            return apply(p, u, torch.mean(torch.square(u)), shard_dim), \
+                vr_n, vc_n
+
+        def by_slice(ps, gs, vr, vc, targets, shard_dim, per_slice):
+            # ps[i], gs[i]: the stacked leaf's slice i, of >= 2 dims
+            vr_n, vc_n = torch.empty_like(vr), torch.empty_like(vc)
+            total = torch.zeros((), dtype=f32, device=vr.device)
+            for i, (p, g) in enumerate(zip(ps, gs)):
+                g32 = g.to(f32)
+                vr_n[i], vc_n[i] = moments(g32, vr[i], vc[i], p.ndim,
+                                           shard_dim)
+                u = direction(g32, vr_n[i], vc_n[i], p.ndim, shard_dim)
+                if per_slice:
+                    put(*targets[i], apply(p, u, torch.mean(torch.square(u)),
+                                           -1))
+                else:
+                    total += torch.sum(torch.square(u))
+            if not per_slice:
+                msq = total / sum(p.numel() for p in ps)
+                for i, (p, g) in enumerate(zip(ps, gs)):
+                    u = direction(g.to(f32), vr_n[i], vc_n[i], p.ndim,
+                                  shard_dim)
+                    put(*targets[i], apply(p, u, msq, shard_dim))
+            return vr_n, vc_n
+
+        vr, vc = {}, {}
+        for key, names in stack_groups(params).items():
+            members = [names] if isinstance(names, str) else names
+            dim = -1
+            if shard_dims is not None:
+                dims = {shard_dims[n] for n in members}
+                if len(dims) != 1:
+                    raise ValueError(f"{key}: layers sliced on dims {dims}")
+                dim = dims.pop()
+            ps = [params[n] for n in members]
+            gs = [grads[n] for n in members]
+            numel = sum(p.numel() for p in ps)
+            args = (state.vr[key], state.vc[key])
+            if isinstance(names, str):
+                p = ps[0]
+                if dim >= 0 or p.ndim < 3 or numel <= CHUNKED_UPDATE_THRESHOLD:
+                    new, vr[key], vc[key] = whole(p, gs[0], *args, dim)
+                    put(names, None, new)
+                else:  # the reference's `_maybe_chunked`
+                    vr[key], vc[key] = by_slice(
+                        p.unbind(0), gs[0].unbind(0), *args,
+                        [(names, i) for i in range(len(p))], -1, True)
+            elif ps[0].ndim >= 2:
+                vr[key], vc[key] = by_slice(
+                    ps, gs, *args, [(n, None) for n in names], dim,
+                    dim < 0 and numel > CHUNKED_UPDATE_THRESHOLD)
+            else:  # [L, ...] of small leaves: stacked, as the reference
+                new, vr[key], vc[key] = whole(
+                    torch.stack(ps), torch.stack(gs), *args,
+                    dim + 1 if dim >= 0 else -1)
+                for n, v in zip(names, new.unbind(0)):
+                    put(n, None, v)
+        return (AdafactorState(step, vr, vc),
+                {"grad_norm": gnorm, "learning_rate": lr})
+
+    def state_axes(self, param_axes: Tree) -> AdafactorState:
+        """The state's logical axes from the stacked parameters' (a
+        {stacked name: axes tuple} tree)."""
+        def vr_ax(ax):
+            return tuple(ax[:-1]) if len(ax) >= 2 else tuple(ax)
+
+        def vc_ax(ax):
+            return tuple(ax[:-2]) + tuple(ax[-1:]) if len(ax) >= 2 else ()
+
+        return AdafactorState((), {k: vr_ax(a) for k, a in param_axes.items()},
+                              {k: vc_ax(a) for k, a in param_axes.items()})
+
+
+def make_optimizer(kind: str, lr, *, total_steps: int = 10000,
+                   warmup: int = 200, moment_dtype=torch.float32,
+                   weight_decay: float = 0.1):
+    sched = warmup_cosine(lr, warmup, total_steps)
+    if kind == "adamw":
+        return AdamW(learning_rate=sched, moment_dtype=moment_dtype,
+                     weight_decay=weight_decay)
+    if kind == "adafactor":
+        return Adafactor(learning_rate=sched, weight_decay=weight_decay)
+    raise ValueError(kind)

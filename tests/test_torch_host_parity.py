@@ -394,6 +394,28 @@ def test_synthetic_graph_classification_is_identical(kw):
         assert a.context["label"].dtype == b.context["label"].dtype
 
 
+@pytest.mark.parametrize("kw", [
+    dict(batch=2, seq=32, vocab=256, steps=8, seed=1),
+    dict(batch=3, seq=17, vocab=151936, steps=2, seed=0)])
+def test_token_batches_are_identical(kw):
+    """The LM stream the train twin and the card's [lm-train] read."""
+    from repro.data.synthetic import token_batches as j_tokens
+    from repro_torch.data.synthetic import token_batches
+    want = list(j_tokens(**kw))
+    got = list(token_batches(**kw))
+    assert len(got) == len(want) == kw["steps"]
+    for a, b in zip(got, want):
+        assert a.keys() == b.keys() == {"tokens", "labels"}
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+            assert a[k].dtype == b[k].dtype == np.int32
+    rng_a, rng_b = np.random.default_rng(7), np.random.default_rng(7)
+    for a, b in zip(token_batches(batch=1, seq=4, vocab=9, steps=3,
+                                  rng=rng_a),
+                    j_tokens(batch=1, seq=4, vocab=9, steps=3, rng=rng_b)):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+
+
 # ---------------------------------------------------------------------------
 # sampler-fleet host copies: the on-demand and sharded samplers, and the
 # flat-dict serialization the frames and sample files carry
