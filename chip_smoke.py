@@ -128,7 +128,21 @@ head, 8 classes):
   optimizer update beside the step's bound, then a microbatched step
   holding no second gradient buffer; (d) the `repro_torch.launch.train`
   twin restarted from its checkpoint, its losses equal to an
-  uninterrupted run's.  No kernel of the port is on these paths either.
+  uninterrupted run's.  No kernel of the port is on these paths either;
+* the LM on the mesh (`[lm-mesh]`): 4 gloo ranks sharing the card at
+  (data=2, model=2), `make_train_step(plan=, zero1=True)`, fp32 and TF32
+  off, against the same steps on one rank of the card run alone first:
+  (a) qwen1.5-4b at full width and 2 layers, AdamW, 3 steps of 4 x 512
+  tokens in 2 microbatches with a loss mask whose counts differ between
+  the data halves (losses rtol 1e-4, final parameters rtol 1e-4 / atol
+  1e-5, a rank's parameters at most 0.55 and its optimizer state at
+  most 1 / 3.5 of one rank's); (b) granite-moe-3b-a800m likewise at its
+  capacity factor 1.0, where tokens drop (the MoE terms each step too;
+  its bytes against the reckoning of its split, since its vocabulary
+  stays whole); (c) `pipeline_apply` over 4 stage ranks, one qwen1.5-4b
+  `DecoderBlock` a stage, 4 microbatches of 1 x 512, against the blocks
+  in sequence (rtol 1e-4).  Step ms, `torch.distributed` calls and the
+  host ms inside them a step, and peak GB, a rank.  No kernel launches.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -264,6 +278,24 @@ MESH_ZERO_SHRINK = 1.8          # reference: tests/test_partition.py
 MULTIHOST_STEPS = 24
 MULTIHOST_PAPERS = 600
 MULTIHOST_RANKS = 2
+# the LM on the mesh (`[lm-mesh]`): (data=2, model=2) on 4 gloo ranks
+# sharing the card, full width cut to 2 layers, fp32 compute.  Adam's
+# first steps move a parameter by about its gradient's sign times the
+# rate, so a gradient element within rounding of zero, summed in another
+# order on the ranks, can land apart by a good part of the rate: at 1e-4
+# one element of qwen1.5-4b's 936.6 M ended 1.47e-5 off one rank's, past
+# rtol 1e-4 / atol 1e-5 (PERF.md §6, PR 26); at 1e-5 such a gap stays
+# under the tolerance while a parameter still moves by up to 3e-5
+LM_MESH_ARCHS = ("qwen1.5-4b", "granite-moe-3b-a800m")
+LM_MESH_DATA, LM_MESH_MODEL, LM_MESH_STAGES = 2, 2, 4
+LM_MESH_LAYERS = 2
+LM_MESH_BATCH, LM_MESH_SEQ, LM_MESH_MICRO = 4, 512, 2
+LM_MESH_STEPS = 3
+LM_MESH_LR = 1e-5
+LM_MESH_RTOL, LM_MESH_ATOL = 1e-4, 1e-5
+LM_MESH_PARAM_SHARE = 0.55
+LM_MESH_OPT_SHRINK = 3.5
+LM_MESH_TIMEOUT_S = 600
 
 
 def fail(message: str) -> None:
@@ -4520,10 +4552,12 @@ def train_pair(torch, arch: str):
 
 
 def train_one_step(torch, model, cfg, opt, batch, **kw) -> dict:
+    from repro_torch.nn.layers import stack_groups
     from repro_torch.train.train_loop import make_train_step
     params = dict(model.named_parameters())
     step = make_train_step(model, cfg, opt, **kw)
-    _, state, metrics = step(params, opt.init(params), batch)
+    _, state, metrics = step(params, opt.init(params, stack_groups(params)),
+                             batch)
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "state": state}
 
@@ -4560,6 +4594,7 @@ def train_smoke_adafactor(torch) -> str:
     """(a) command-r-plus-104b-smoke with Adafactor: the step on both
     devices (loss), then the update on identical gradients (the CPU's,
     from the same initial state): new parameters at rtol 1e-5."""
+    from repro_torch.nn.layers import stack_groups
     from repro_torch.train.optimizer import Adafactor
     arch = "command-r-plus-104b"
     cfg, card, cpu = train_pair(torch, arch)
@@ -4577,7 +4612,8 @@ def train_smoke_adafactor(torch) -> str:
     opt = Adafactor(learning_rate=TRAIN_LR)
     params = dict(card.named_parameters())
     grads = {k: p.grad.to(DEVICE) for k, p in cpu.named_parameters()}
-    opt.update_(grads, opt.init(params), params)
+    groups = stack_groups(params)
+    opt.update_(grads, opt.init(params, groups), params, groups=groups)
     gap = 0.0
     for (k, p), q in zip(card.named_parameters(), cpu.parameters()):
         p, q = p.detach().cpu(), q.detach()
@@ -4822,7 +4858,7 @@ def train_full_run(torch, smi) -> str:
     gradient buffer."""
     from repro_torch.launch.specs import pick_optimizer
     from repro_torch.models.registry import build_model
-    from repro_torch.nn.layers import init_params
+    from repro_torch.nn.layers import init_params, stack_groups
     from repro_torch.train.train_loop import make_train_step
     cfg = train_config(TRAIN_ARCH)
     torch.cuda.reset_peak_memory_stats()
@@ -4834,7 +4870,7 @@ def train_full_run(torch, smi) -> str:
     params = dict(model.named_parameters())
     n_params = sum(p.numel() for p in params.values())
     opt = pick_optimizer(cfg)
-    state = opt.init(params)
+    state = opt.init(params, stack_groups(params))
     step = make_train_step(model, cfg, opt)
     batches = train_check_batch(torch, cfg, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ,
                                 TRAIN_FULL_STEPS)
@@ -5052,6 +5088,310 @@ def lm_train_phase(torch, smi) -> dict:
     return launches
 
 
+def lm_mesh_config(arch: str):
+    """`arch` at full width, LM_MESH_LAYERS layers, fp32 compute."""
+    import dataclasses
+    from repro_torch.models.registry import get_config
+    return dataclasses.replace(get_config(arch), num_layers=LM_MESH_LAYERS,
+                               compute_dtype="float32")
+
+
+def lm_mesh_batch(torch, cfg) -> dict:
+    """The global batch every rank is handed: tokens from the seed and a
+    loss mask whose counts differ between the data halves of each of the
+    two microbatches (rows 1 and 2 cut)."""
+    rng = np.random.default_rng(SEED + 7)
+    b, s = LM_MESH_BATCH, LM_MESH_SEQ
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int64)
+    mask = np.ones((b, s), np.float32)
+    mask[1, s // 4:] = 0.0
+    mask[2, : s // 2] = 0.0
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]),
+                         ("loss_mask", mask))}
+
+
+def lm_mesh_train(torch, arch: str, plan=None, ref_path=None) -> dict:
+    """`arch` (`lm_mesh_config`) drawn on the card from SEED and trained
+    LM_MESH_STEPS steps with AdamW, on `plan`'s ranks (ZeRO-1) or on
+    this rank alone: metrics and ms a step, the bytes of parameters and
+    optimizer state held, peak GB, `torch.distributed` calls and their
+    host ms.  Alone, the final parameters are saved to `ref_path`; on a
+    plan, this rank's parameters are held to that file's slices of them
+    (rtol LM_MESH_RTOL, atol LM_MESH_ATOL)."""
+    from repro_torch.distributed.partition import tree_bytes
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.layers import init_params, stack_groups
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_loop import make_train_step
+    cfg = lm_mesh_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model = init_params(build_model(cfg, DEVICE), SEED)
+    opt = AdamW(learning_rate=LM_MESH_LR)
+    step = make_train_step(model, cfg, opt, plan=plan, zero1=True,
+                           n_microbatches=LM_MESH_MICRO)
+    params = dict(model.named_parameters())
+    state = (step.init_opt_state(params) if plan is not None
+             else opt.init(params, stack_groups(params)))
+    batch = lm_mesh_batch(torch, cfg)
+    metrics, step_ms = [], []
+    with collective_clock() as coll:
+        for _ in range(LM_MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            metrics.append({k: float(v) for k, v in m.items()})
+    out = {"metrics": metrics, "step_ms": step_ms,
+           "calls": coll["calls"] / LM_MESH_STEPS,
+           "coll_ms": coll["ms"] / LM_MESH_STEPS,
+           "param_bytes": tree_bytes({k: p.detach()
+                                      for k, p in params.items()}),
+           "opt_bytes": tree_bytes(state),
+           "peak": torch.cuda.max_memory_allocated()}
+    if plan is None:
+        torch.save({k: p.detach().cpu() for k, p in params.items()},
+                   ref_path)
+    else:
+        out.update(lm_mesh_compare(torch, step, params, ref_path))
+    del model, params, state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_compare(torch, step, params, ref_path) -> dict:
+    """This rank's parameters against its slices of the one-rank run's
+    (read from `ref_path` mapped, a leaf at a time): elements past the
+    tolerance, the largest difference, and the split it checked."""
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    axis = step.model_axis
+    misses, worst, split, where = 0, 0.0, 0, []
+    for k, p in params.items():
+        want = ref[k]
+        dim = step.model_dims[k]
+        if dim >= 0:
+            width = want.shape[dim] // axis.size
+            want = want.narrow(dim, axis.index * width, width)
+            split += 1
+        want = want.to(DEVICE)
+        got = p.detach()
+        diff = (got - want).abs()
+        bad = diff > LM_MESH_ATOL + LM_MESH_RTOL * want.abs()
+        if bad.any():
+            i = int(torch.argmax(diff.masked_fill(~bad, 0)))
+            where.append(f"{k}: {int(bad.sum())} of {bad.numel()}, "
+                         f"{float(got.reshape(-1)[i])!r} vs "
+                         f"{float(want.reshape(-1)[i])!r}")
+        misses += int(bad.sum())
+        worst = max(worst, float(diff.max()))
+    return {"misses": misses, "worst": worst, "split": split,
+            "leaves": len(params), "where": where}
+
+
+def lm_mesh_expected_bytes(torch, arch: str) -> tuple:
+    """(whole parameter bytes, a rank's parameter bytes at model=2)
+    from the model's own split on a meta copy (no card memory)."""
+    from repro_torch.distributed.collectives import Axis
+    from repro_torch.models.registry import build_model
+    cfg = lm_mesh_config(arch)
+    model = build_model(cfg, "meta")
+    whole = sum(p.numel() * 4 for p in model.parameters())
+    model.split_(Axis("model", LM_MESH_MODEL, 0))
+    return whole, sum(p.numel() * 4 for p in model.parameters())
+
+
+def lm_mesh_pipeline(torch, mesh=None) -> tuple:
+    """`pipeline_apply` over `mesh`'s stage ranks (one full-width
+    qwen1.5-4b DecoderBlock a stage, fp32, drawn from SEED + 100 +
+    stage), or with no mesh the LM_MESH_STAGES blocks in sequence on
+    this rank, a microbatch at a time (the pipeline's shapes, so the
+    same products): (output on the host, ms)."""
+    from repro_torch.distributed.pipeline_parallel import pipeline_apply
+    from repro_torch.nn.layers import init_params
+    from repro_torch.nn.transformer import DecoderBlock
+    cfg = lm_mesh_config("qwen1.5-4b")
+    rng = np.random.default_rng(SEED + 9)
+    x = torch.from_numpy(rng.standard_normal(
+        (LM_MESH_STAGES, LM_MESH_SEQ, cfg.d_model)).astype(np.float32)
+    ).to(DEVICE)
+
+    def block(stage):
+        with torch.device(DEVICE):
+            return init_params(DecoderBlock(cfg), SEED + 100 + stage)
+
+    if mesh is None:
+        blocks = [block(stage) for stage in range(LM_MESH_STAGES)]
+
+        def run(x):
+            outs = []
+            for h in x.split(1):  # LM_MESH_STAGES microbatches of one row
+                for blk in blocks:
+                    h = blk(h)[0]
+                outs.append(h)
+            return torch.cat(outs)
+    else:
+        mine = [block(mesh.axes["stage"].index)]
+        pipe = pipeline_apply(lambda blk, y: blk(y)[0], mesh,
+                              n_microbatches=LM_MESH_STAGES)
+
+        def run(x):
+            return pipe(mine, x)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = run(x)
+        torch.cuda.synchronize()
+    return h.cpu().numpy(), 1e3 * (time.perf_counter() - t0)
+
+
+def lm_mesh_rank(paths: dict) -> dict:
+    """What each spawned rank of `[lm-mesh]` runs: (a) and (b) on the
+    (data, model) plan, then (c) on the stage mesh, with every kernel's
+    launch count read (the path reaches none)."""
+    import torch
+    from repro_torch.distributed import partition
+    full_fp32(torch)
+    zero_launches()
+    plan = partition.make_plan(model_parallel=LM_MESH_MODEL, device=DEVICE)
+    out = {}
+    for arch in LM_MESH_ARCHS:
+        torch.distributed.barrier()
+        out[arch] = lm_mesh_train(torch, arch, plan, paths[arch])
+    mesh = partition.make_mesh(stages=LM_MESH_STAGES)
+    torch.distributed.barrier()
+    with collective_clock() as coll:
+        pipe, pipe_ms = lm_mesh_pipeline(torch, mesh)
+    out["pipeline"] = {"out": pipe if plan.rank == 0 else None,
+                       "sum": float(np.abs(pipe).sum()), "ms": pipe_ms,
+                       "calls": coll["calls"], "coll_ms": coll["ms"]}
+    out["launches"] = read_launches()
+    out["rank"] = plan.rank
+    return out
+
+
+def lm_mesh_line(label: str, run: dict, smi: str) -> str:
+    med = statistics.median(run["step_ms"][1:])
+    return (f"{label}: step {med:.1f} ms median of steps 2-{LM_MESH_STEPS} "
+            f"({smi}), {run['calls']:.0f} torch.distributed calls and "
+            f"{run['coll_ms']:.1f} host ms inside them a step; peak "
+            f"{run['peak'] / 1e9:.2f} GB; {run['param_bytes'] / 1e9:.3f} GB "
+            f"of parameters and {run['opt_bytes'] / 1e9:.3f} GB of "
+            f"optimizer state held")
+
+
+def lm_mesh_phase(torch, smi) -> dict:
+    """The LM on the mesh (module docstring, `[lm-mesh]`): the one-rank
+    runs alone first, then one world of LM_MESH_DATA x LM_MESH_MODEL
+    gloo ranks sharing the card for (a), (b) and (c).  Returns every
+    kernel's launches (all must be 0)."""
+    import gc
+    import tempfile
+    from repro_torch.distributed.launch import run_ranks
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launches()
+    ranks = LM_MESH_DATA * LM_MESH_MODEL
+    with tempfile.TemporaryDirectory(prefix="lm_mesh_") as tmp:
+        paths = {a: os.path.join(tmp, f"{i}.pt")
+                 for i, a in enumerate(LM_MESH_ARCHS)}
+        one = {a: lm_mesh_train(torch, a, None, paths[a])
+               for a in LM_MESH_ARCHS}
+        pipe_want, pipe_one_ms = lm_mesh_pipeline(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        world = run_ranks(lm_mesh_rank, ranks, args=(paths,),
+                          backend="gloo", device=DEVICE + ":0",
+                          timeout_s=LM_MESH_TIMEOUT_S)
+        world_s = time.perf_counter() - t1
+    launches = read_launches()
+    for run in world:
+        for k, v in run["launches"].items():
+            launches[k] += v
+    if any(launches.values()):
+        fail(f"lm-mesh: a kernel of the port was launched: {launches} (the "
+             "LM mesh step reaches none)")
+    for label, arch in (("(a)", LM_MESH_ARCHS[0]), ("(b)", LM_MESH_ARCHS[1])):
+        want = one[arch]
+        whole, split = lm_mesh_expected_bytes(torch, arch)
+        if want["param_bytes"] != whole:
+            fail(f"lm-mesh {label}: one rank holds {want['param_bytes']} "
+                 f"parameter bytes, the model {whole}")
+        if arch == LM_MESH_ARCHS[1] and not all(
+                m["moe_drop_fraction"] > 0 for m in want["metrics"]):
+            fail(f"lm-mesh {label}: no token dropped at capacity factor "
+                 f"1.0: {[m['moe_drop_fraction'] for m in want['metrics']]}")
+        phase("lm-mesh", lm_mesh_line(f"{label} {arch} one rank", want, smi)
+              + f"; losses {[round(m['loss'], 5) for m in want['metrics']]}")
+        keys = ("loss", "total_loss", "tokens", "grad_norm") + (
+            ("moe_lb_loss", "moe_z_loss", "moe_drop_fraction")
+            if arch == LM_MESH_ARCHS[1] else ())
+        for run in world:
+            got, r = run[arch], run["rank"]
+            for s, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+                for k in keys:
+                    if not abs(g[k] - w[k]) <= LM_MESH_RTOL * abs(w[k]) + 1e-7:
+                        fail(f"lm-mesh {label} rank {r} step {s + 1}: {k} "
+                             f"{g[k]!r} vs one rank's {w[k]!r} (rtol "
+                             f"{LM_MESH_RTOL})")
+            if got["misses"]:
+                fail(f"lm-mesh {label} rank {r}: {got['misses']} parameter "
+                     f"elements past rtol {LM_MESH_RTOL} / atol "
+                     f"{LM_MESH_ATOL} of one rank's (largest difference "
+                     f"{got['worst']:.3e}): {'; '.join(got['where'])}")
+            if got["param_bytes"] != split:
+                fail(f"lm-mesh {label} rank {r}: {got['param_bytes']} "
+                     f"parameter bytes held, the split's reckoning {split}")
+            if arch == LM_MESH_ARCHS[0] and (
+                    got["param_bytes"] > LM_MESH_PARAM_SHARE * whole
+                    or got["opt_bytes"] * LM_MESH_OPT_SHRINK
+                    > want["opt_bytes"]):
+                fail(f"lm-mesh {label} rank {r}: {got['param_bytes']} "
+                     f"parameter and {got['opt_bytes']} optimizer bytes "
+                     f"against one rank's {whole} and {want['opt_bytes']} "
+                     f"(at most {LM_MESH_PARAM_SHARE} and "
+                     f"1/{LM_MESH_OPT_SHRINK})")
+            phase("lm-mesh", lm_mesh_line(f"{label} rank {r}", got, smi)
+                  + f" ({got['param_bytes'] / whole:.3f} and "
+                  f"{got['opt_bytes'] / want['opt_bytes']:.3f} of one "
+                  f"rank's); {got['split']} of {got['leaves']} leaves split "
+                  f"over model, largest parameter difference "
+                  f"{got['worst']:.2e}")
+        extra = (", moe_drop_fraction "
+                 f"{[round(m['moe_drop_fraction'], 4) for m in want['metrics']]}"
+                 if arch == LM_MESH_ARCHS[1] else "")
+        phase("lm-mesh", f"{label} {arch} (data={LM_MESH_DATA}, model="
+              f"{LM_MESH_MODEL}) vs one rank: {', '.join(keys)} each step "
+              f"within rtol {LM_MESH_RTOL}, final parameters within rtol "
+              f"{LM_MESH_RTOL} / atol {LM_MESH_ATOL}{extra}")
+    pipe = [run["pipeline"] for run in world]
+    got = next(p["out"] for p in pipe if p["out"] is not None)
+    gap = float(np.abs(got - pipe_want).max())
+    if not np.allclose(got, pipe_want, rtol=LM_MESH_RTOL, atol=LM_MESH_ATOL) \
+            or len({p["sum"] for p in pipe}) != 1:
+        fail(f"lm-mesh (c): the pipeline's output is {gap:.3e} off the "
+             f"blocks in sequence (rtol {LM_MESH_RTOL} / atol "
+             f"{LM_MESH_ATOL}), or differs between stages: "
+             f"{[p['sum'] for p in pipe]}")
+    phase("lm-mesh", f"(c) pipeline_apply over {LM_MESH_STAGES} stages, one "
+          f"qwen1.5-4b DecoderBlock a stage, {LM_MESH_STAGES} microbatches "
+          f"of 1 x {LM_MESH_SEQ}: within {gap:.2e} of the blocks in "
+          f"sequence on each microbatch (rtol {LM_MESH_RTOL} / atol "
+          f"{LM_MESH_ATOL}), every stage the same output; "
+          f"{max(p['ms'] for p in pipe):.1f} ms against "
+          f"{pipe_one_ms:.1f} ms in sequence on one rank, "
+          f"{pipe[0]['calls']} torch.distributed calls "
+          f"and {max(p['coll_ms'] for p in pipe):.1f} host ms inside them "
+          f"({smi})")
+    phase("lm-mesh", f"kernel launches 0 (none on this path); world "
+          f"{world_s:.1f}s, phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
     first training batch on the card."""
@@ -5133,6 +5473,8 @@ def main() -> int:
         records[name]["lm_families_launches"] = n
     for name, n in lm_train_phase(torch, smi).items():
         records[name]["lm_train_launches"] = n
+    for name, n in lm_mesh_phase(torch, smi).items():
+        records[name]["lm_mesh_launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -12,6 +12,17 @@ reference's `jax.lax` collectives inside a shard_map body:
                                   tiled=True)``
   `all_reduce(x, axis)`           ``psum``
   `broadcast(x, axis)`            (placement of replicated host state)
+  `all_max(x, axis)`              ``pmax``
+
+and the two differentiable boundaries of a tensor-parallel region (the
+Megatron "copy" and "reduce" pair), which GSPMD inserts by itself where
+a replicated activation meets a "model"-split weight:
+
+  `copy_to(x, axis)`      identity forward, sum of the cotangents over
+                          the axis backward (a replicated input read by
+                          each rank's slice of the weights)
+  `reduce_from(x, axis)`  sum over the axis forward, identity backward
+                          (each rank's partial result made whole)
 
 Transport: tensors go to the backend as they are, CUDA tensors included:
 with torch 2.11 on an H100, gloo takes CUDA tensors for every collective
@@ -104,3 +115,49 @@ def split_chunk(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
         return x
     width = x.shape[dim] // axis.size
     return x.narrow(dim, axis.index * width, width).contiguous()
+
+
+def all_max(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Elementwise maximum of `x` over the axis (a new tensor)."""
+    if axis.size == 1:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=axis.group)
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """`x` as it is; its gradient is summed over the axis (every rank
+    of the axis reads the same `x` with its own slice of a weight)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The sum of `x` over the axis; the gradient reaches each rank's
+    `x` as it is (every rank holds one part of a sum)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _ReduceFrom.apply(x, axis)

@@ -52,10 +52,16 @@ A MeshPlan derives from the mesh and the rule tables of
   scattered to it (`zero_reduce_grads`), the clipping norm is
   all-reduce-corrected (`repro_torch.train.optimizer.global_norm`), and
   the updated slices are all-gathered back (`zero_gather`): parameters
-  stay replicated, the state shrinks by the data factor.
+  stay replicated, the state shrinks by the data factor;
+* the kernels' dispatch context (`dispatch_context`): the registry's
+  `partitioned(data=, model=)`, under which the autotune keys count a
+  data shard's rows and a model shard's widths, as the reference's
+  decisions do under GSPMD.  The LM mesh step
+  (`repro_torch.train.train_loop.make_train_step` with ``plan=``) runs
+  under it; the GNN step's per-rank shapes are a shard's already.
 
-Not ported: `dispatch_context` (only GSPMD steps traced at global
-shapes read it).
+A mesh may also lead with a "stage" axis (``make_mesh(stages=S)``), the
+ranks of one pipeline (`repro_torch.distributed.pipeline_parallel`).
 """
 from __future__ import annotations
 
@@ -77,11 +83,12 @@ from repro_torch.distributed.collectives import Axis
 from repro_torch.distributed.sharding import (DEFAULT_ACT_RULES,
                                               DEFAULT_PARAM_RULES,
                                               ShardingContext,
-                                              data_axis_names, is_axes_leaf)
+                                              data_axis_names, tree_map)
 
 GROUP_AXIS = "batch"    # logical name of the leading component-group axis
 MODEL_AXIS = "model"    # mesh axis carrying feature-dim model parallelism
 DATA_AXIS = "data"
+STAGE_AXIS = "stage"    # mesh axis of pipeline stages (outermost)
 PROCESS_GROUP_TIMEOUT_S = 300.0   # a collective that waits longer fails
 
 
@@ -166,12 +173,14 @@ def _line_group(ranks: list, world: int):
 
 
 def make_mesh(num_devices: Optional[int] = None, *,
-              model_parallel: int = 1) -> Mesh:
+              model_parallel: int = 1, stages: int = 1) -> Mesh:
     """A ("data",) mesh, or a 2-D ("data", "model") mesh when
     ``model_parallel > 1`` (data rows x model columns of consecutive
     ranks), over the ranks of the initialized world (one rank without
-    one).  Every rank must call it, in the same order: it creates the
-    axes' process groups."""
+    one).  With ``stages > 1`` a "stage" axis leads: the world is cut
+    into `stages` blocks of consecutive ranks, each such a mesh.  Every
+    rank must call it, in the same order: it creates the axes' process
+    groups."""
     world = world_size()
     n = num_devices or world
     if world != n:
@@ -179,59 +188,52 @@ def make_mesh(num_devices: Optional[int] = None, *,
             f"need {n} devices, have {world} — run {n} torch.distributed "
             "ranks, one device each (partition.initialize_distributed)")
     mp = max(int(model_parallel), 1)
+    st = max(int(stages), 1)
     if n % mp:
         raise ValueError(f"model_parallel {mp} must divide the device "
                          f"count {n}")
+    if n % (mp * st):
+        raise ValueError(f"stages {st} x model_parallel {mp} must divide "
+                         f"the device count {n}")
     rank = world_rank()
-    grid = np.arange(n).reshape(n // mp, mp)
-    row, col = divmod(rank, mp)
+    grid = np.arange(n).reshape(st, n // (mp * st), mp)
+    here = tuple(int(i) for i in np.argwhere(grid == rank)[0])
     groups = {}
     if n > 1:
-        # every rank creates every group, in one order
-        for c in range(mp):
-            g = _line_group(grid[:, c].tolist(), n)
-            if c == col:
-                groups[DATA_AXIS] = g
-        for r in range(n // mp):
-            g = _line_group(grid[r].tolist(), n)
-            if r == row:
-                groups[MODEL_AXIS] = g
-    data = Axis(DATA_AXIS, n // mp, row, tuple(grid[:, col].tolist()),
-                groups.get(DATA_AXIS))
-    model = Axis(MODEL_AXIS, mp, col, tuple(grid[row].tolist()),
-                 groups.get(MODEL_AXIS))
+        # every rank creates every axis line's group, in one order
+        for name, dim in ((DATA_AXIS, 1), (MODEL_AXIS, 2), (STAGE_AXIS, 0)):
+            lines = np.moveaxis(grid, dim, -1).reshape(-1, grid.shape[dim])
+            for line in lines.tolist():
+                g = _line_group(line, n)
+                if rank in line:
+                    groups[name] = g
+
+    def axis(name, dim):
+        index = [slice(None) if d == dim else here[d] for d in range(3)]
+        ranks = tuple(grid[tuple(index)].tolist())
+        return Axis(name, len(ranks), here[dim], ranks, groups.get(name))
+
+    axes = {DATA_AXIS: axis(DATA_AXIS, 1)}
+    names = (DATA_AXIS,)
+    if mp > 1:
+        axes[MODEL_AXIS] = axis(MODEL_AXIS, 2)
+        names += (MODEL_AXIS,)
+    if st > 1:
+        axes[STAGE_AXIS] = axis(STAGE_AXIS, 0)
+        names = (STAGE_AXIS,) + names
     everyone = Axis("world", n, rank, tuple(range(n)), None)
-    if mp == 1:
-        return Mesh((DATA_AXIS,), {DATA_AXIS: n}, rank, {DATA_AXIS: data},
-                    everyone, backend_name())
-    return Mesh((DATA_AXIS, MODEL_AXIS), {DATA_AXIS: n // mp,
-                                          MODEL_AXIS: mp}, rank,
-                {DATA_AXIS: data, MODEL_AXIS: model}, everyone,
-                backend_name())
+    return Mesh(names, {a: axes[a].size for a in names}, rank, axes,
+                everyone, backend_name())
 
 
 # ---------------------------------------------------------------------------
 # Trees: {name: tensor} dicts, NamedTuples (AdamWState), axes tuples
 # ---------------------------------------------------------------------------
 
-def _tree_map(fn, tree, *rest):
-    """Map over dicts and (Named)tuples; a plain tuple of axis names (an
-    axes leaf) is a leaf."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_tree_map(fn, *xs)
-                            for xs in zip(tree, *rest)))
-    if isinstance(tree, (tuple, list)) and not is_axes_leaf(tree):
-        return type(tree)(_tree_map(fn, *xs) for xs in zip(tree, *rest))
-    return fn(tree, *rest)
-
-
 def tree_bytes(tree) -> int:
     """Bytes of the tensors of a tree (dicts, NamedTuples)."""
     out = []
-    _tree_map(out.append, tree)
+    tree_map(out.append, tree)
     return sum(int(x.numel()) * x.element_size() for x in out)
 
 
@@ -332,6 +334,15 @@ class MeshPlan:
         return mp_context.model_parallel_trace(
             self.mesh.axes[MODEL_AXIS] if self.model_axis else None)
 
+    def dispatch_context(self):
+        """The kernels' dispatch context for a step whose decisions see
+        the whole batch (the LM mesh step): autotune keys count rows per
+        data shard and widths per model shard
+        (`repro_torch.kernels.registry.partitioned`)."""
+        from repro_torch.kernels import registry
+        return registry.partitioned(data=self.data_size,
+                                    model=self.model_size)
+
     def barrier(self) -> None:
         collectives.barrier(self.mesh.world)
 
@@ -419,7 +430,7 @@ class MeshPlan:
 
     def _resolve_axes_tree(self, axes_tree, values):
         ctx = self._ctx()
-        return _tree_map(
+        return tree_map(
             lambda a, v: ctx.resolve(a, ctx.param_rules,
                                      shape=tuple(v.shape)),
             axes_tree, values)
@@ -444,14 +455,14 @@ class MeshPlan:
 
     def zero_dims(self, specs) -> Any:
         """Per leaf, the dim sharded over data (-1 = replicated)."""
-        return _tree_map(self._spec_data_dim, specs)
+        return tree_map(self._spec_data_dim, specs)
 
     def opt_state_specs(self, optimizer, params, opt_state,
                         param_axes=None):
         """Per-leaf specs of the optimizer state, through the optimizer's
         own `state_axes` (m/v mirror the parameters)."""
         if not self.zero_enabled():
-            return _tree_map(lambda x: (), opt_state)
+            return tree_map(lambda x: (), opt_state)
         axes = param_axes if param_axes is not None \
             else self.param_logical_axes(params)
         return self._resolve_axes_tree(optimizer.state_axes(axes),
@@ -464,7 +475,7 @@ class MeshPlan:
         holds."""
         specs = self.opt_state_specs(optimizer, params, opt_state,
                                      param_axes)
-        return _tree_map(lambda x, s: self._block(x, s).contiguous()
+        return tree_map(lambda x, s: self._block(x, s).contiguous()
                          if isinstance(x, torch.Tensor) and x.ndim
                          else x, opt_state, specs)
 
@@ -477,8 +488,8 @@ class MeshPlan:
         full = optimizer.init({k: torch.empty(p.shape, device="meta")
                                for k, p in params.items()})
         specs = self.opt_state_specs(optimizer, params, full, param_axes)
-        dims = _tree_map(self._spec_data_dim, specs)
-        return _tree_map(
+        dims = tree_map(self._spec_data_dim, specs)
+        return tree_map(
             lambda x, d: collectives.all_gather(x, self.data_axis, d)
             if d >= 0 else x, opt_state, dims)
 
@@ -487,32 +498,45 @@ class MeshPlan:
         memory metric)."""
         return tree_bytes(opt_state)
 
-    def zero_reduce_grads(self, grads: dict, dims: dict) -> dict:
+    def zero_reduce_grads(self, grads: dict, dims: dict, *,
+                          mean: bool = True) -> dict:
         """Cross-rank gradient mean, delivered pre-sliced for ZeRO:
         sharded leaves are averaged over "model" and reduce-scattered
         over "data" (each rank receives only its averaged slice), while
         replicated leaves are averaged over every rank.  One collective a
-        kind, over all leaves of that kind at once."""
+        kind, over all leaves of that kind at once.
+
+        ``mean=False`` is the LM's tensor-parallel rule: each rank's
+        gradient is its part of a sum over the data ranks (the loss is
+        the global mean) and each model rank holds its leaves' whole
+        gradient already, so the leaves are summed over "data" only (at
+        one data rank: the gradients as they are)."""
         n = self.data_size
+        if not mean and n == 1:
+            return dict(grads)
         out = {}
         repl = [k for k in grads if dims[k] < 0]
         shard = [k for k in grads if dims[k] >= 0]
-        world = self.mesh.world
+        world = self.mesh.world if mean else self.data_axis
         if repl:
             buf = collectives.all_reduce(_flat([grads[k] for k in repl]),
-                                         world) / world.size
+                                         world)
+            if mean:
+                buf = buf / world.size
             out.update(zip(repl, _split_flat(buf, [grads[k]
                                                    for k in repl])))
         if shard:
             gs = [grads[k] for k in shard]
-            if self.model_axis:
+            if self.model_axis and mean:
                 model = self.mesh.axes[MODEL_AXIS]
                 buf = collectives.all_reduce(_flat(gs), model) / model.size
                 gs = _split_flat(buf, gs)
             moved = [g.movedim(dims[k], 0) for k, g in zip(shard, gs)]
             table = torch.cat([m.reshape(n, -1) for m in moved], dim=1)
             mine = collectives.reduce_scatter(table, self.data_axis,
-                                              dim=0)[0] / n
+                                              dim=0)[0]
+            if mean:
+                mine = mine / n
             start = 0
             for k, m in zip(shard, moved):
                 shape = (m.shape[0] // n,) + tuple(m.shape[1:])
@@ -521,6 +545,16 @@ class MeshPlan:
                     0, dims[k])
                 start += size
         return {k: out[k] for k in grads}
+
+    def gather_params(self, tree: dict, model_dims: dict) -> dict:
+        """Whole leaves from this rank's model slices: each leaf split over
+        "model" (``model_dims[k] >= 0``) all-gathered on its dim, the rest
+        as they are (a collective: every rank calls it)."""
+        if not self.model_axis:
+            return dict(tree)
+        model = self.mesh.axes[MODEL_AXIS]
+        return {k: collectives.all_gather(x, model, model_dims[k])
+                if model_dims[k] >= 0 else x for k, x in tree.items()}
 
     def zero_slice(self, tree: dict, dims: dict) -> dict:
         """This data shard's slice of each leaf (identity for dim -1)."""

@@ -1,5 +1,5 @@
-"""Logical-axis rule tables (counterpart of
-`repro.distributed.sharding`, `:35-93,146-172`).
+"""Logical-axis rule tables and the sharding context (counterpart of
+`repro.distributed.sharding`).
 
 One rule table maps model-declared logical axis names to mesh axes,
 separately for parameters (FSDP-style: "embed" -> "data", which ZeRO-1
@@ -7,15 +7,30 @@ reuses for the optimizer state) and for activations ("batch" -> the data
 axes, "feature" -> "model" for the trailing feature dim of a placed
 super-batch).  A spec is a tuple with one entry per dim: a mesh axis
 name, a tuple of them, or None (replicated) — the reference's
-``PartitionSpec`` as a plain tuple.  The port has no GSPMD, so the
-reference's activation constraints (`shard_activation`,
-`constrain_tree`) have no counterpart: the mesh plan places and gathers
-explicitly.
+``PartitionSpec`` as a plain tuple.
+
+`use_sharding` makes a mesh and its rules current for the block, as the
+reference's does, but for the whole process rather than the calling
+thread: on the card, autograd runs the backward (and the recomputation
+of a checkpointed layer in it) on its own device thread, which must see
+the mesh the forward saw.  `logical_to_spec` and `param_shardings` resolve under
+it (a spec per leaf, which the LM mesh step slices parameters and
+optimizer state by), and `mesh_axis` gives a layer the rank's `Axis` of
+a mesh axis (the MoE layer's data axis).  A rank here holds its local
+shapes, so the reference's constraints on global arrays,
+`shard_activation` and `constrain_tree`, are the identity: they are
+called at the reference's sites so that a reader finds them, and the
+explicit collectives of the layers and the step do what GSPMD derives
+from them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import types
 from typing import Any, Mapping, Sequence
+
+_state = types.SimpleNamespace(ctx=None)  # process-wide (module docstring)
 
 # Default rule tables.  Values may be a mesh axis name, a tuple of mesh
 # axes, or None (replicate).
@@ -118,3 +133,87 @@ def is_axes_leaf(x) -> bool:
     NamedTuples (containers like AdamWState) are NOT leaves."""
     return (type(x) is tuple
             and all(isinstance(e, (str, type(None))) for e in x))
+
+
+def tree_map(fn, tree, *rest):
+    """Map over dicts and (Named)tuples; a plain tuple of axis names (an
+    axes leaf) is a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)) and not is_axes_leaf(tree):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def current_context() -> ShardingContext | None:
+    return _state.ctx
+
+
+@contextlib.contextmanager
+def use_sharding(mesh, param_rules: Mapping[str, Any] | None = None,
+                 act_rules: Mapping[str, Any] | None = None):
+    """Make `mesh` and the rule tables (the defaults updated by the
+    given ones) current for the process within the block."""
+    prev = current_context()
+    _state.ctx = ShardingContext(
+        mesh,
+        dict(DEFAULT_PARAM_RULES, **(param_rules or {})),
+        dict(DEFAULT_ACT_RULES, **(act_rules or {})))
+    try:
+        yield _state.ctx
+    finally:
+        _state.ctx = prev
+
+
+def logical_to_spec(axes: Sequence[Any], *, kind: str = "param") -> tuple:
+    """The spec of `axes` under the current context; () without one."""
+    ctx = current_context()
+    if ctx is None:
+        return ()
+    rules = ctx.param_rules if kind == "param" else ctx.act_rules
+    return ctx.resolve(axes, rules)
+
+
+def shard_activation(x, names: Sequence[Any]):
+    """The identity: a rank's activation is its own shard already (the
+    reference constrains a global array here)."""
+    del names
+    return x
+
+
+def constrain_tree(tree, axes_tree, *, kind: str = "param"):
+    """The identity, as `shard_activation` (the reference constrains a
+    tree of global intermediates here)."""
+    del axes_tree, kind
+    return tree
+
+
+def param_shardings(axes_tree, *, kind: str = "param", specs_tree=None):
+    """A spec per leaf of a logical-axes tree under the current context.
+    With `specs_tree` (a matching tree of tensors or anything with a
+    ``shape``) a mesh axis goes only to a dim it divides evenly, as at
+    the reference's argument boundary.  Raises RuntimeError without a
+    context."""
+    ctx = current_context()
+    if ctx is None:
+        raise RuntimeError(
+            "param_shardings requires an active use_sharding()")
+    rules = ctx.param_rules if kind == "param" else ctx.act_rules
+    if specs_tree is None:
+        return tree_map(lambda a: ctx.resolve(a, rules), axes_tree)
+    return tree_map(lambda a, s: ctx.resolve(a, rules,
+                                             shape=tuple(s.shape)),
+                    axes_tree, specs_tree)
+
+
+def mesh_axis(name: str):
+    """This rank's `Axis` of mesh axis `name` under the current context,
+    or None: no context, a mesh without rank axes, or an axis of one
+    rank (nothing to split over)."""
+    ctx = current_context()
+    axes = getattr(ctx.mesh, "axes", None) if ctx is not None else None
+    axis = (axes or {}).get(name)
+    return axis if axis is not None and axis.size > 1 else None

@@ -38,6 +38,14 @@ key is ignored (the counterpart of the reference's re-validation,
 `dispatch.py:492-500`).  The lookup is a memoized dict read with no host
 sync, so a CUDA graph captures the tuned launch.
 
+Under ``partitioned(data=n, model=m)`` (`MeshPlan.dispatch_context`, the
+reference's trace-time context for steps that see global shapes,
+`kernels/dispatch.py:95-138`) an autotune key counts one shard's work:
+rows and segments ceil-divided by `n`, a pooled width by `m`
+(`_per_shard`, `_per_shard_feature`).  Eligibility reads no shape on
+Hopper, so the key is all the context moves.  Like `layout`, it is per
+thread.
+
 Every kernel call on the card goes through a `torch.autograd.Function`
 (`SegmentPoolFunction`, `EdgeMpnnFunction`, `FlashAttentionFunction`)
 whose backward is the plain version's gradient, recomputed from the
@@ -105,6 +113,44 @@ def layout(sorted_by_target: bool = True):
 
 def layout_sorted_by_target() -> bool:
     return getattr(_THREAD, "sorted_by_target", False)
+
+
+@contextlib.contextmanager
+def partitioned(data: int = 1, model: int = 1):
+    """Within this block, the calling thread's decisions count one
+    shard's work in their autotune keys: rows and segments over `data`
+    shards, pooled widths over `model` shards (the 2-D ("data",
+    "model") mesh); the previous counts come back after."""
+    prev = (data_shards(), model_shards())
+    _THREAD.shards = (max(int(data), 1), max(int(model), 1))
+    try:
+        yield
+    finally:
+        _THREAD.shards = prev
+
+
+def data_parallel(num_shards: int):
+    """`partitioned` over the data axis alone."""
+    return partitioned(data=num_shards)
+
+
+def data_shards() -> int:
+    return getattr(_THREAD, "shards", (1, 1))[0]
+
+
+def model_shards() -> int:
+    return getattr(_THREAD, "shards", (1, 1))[1]
+
+
+def _per_shard(n: int) -> int:
+    """A leading count split over the data shards (ceil: the largest
+    shard decides)."""
+    return -(-int(n) // data_shards())
+
+
+def _per_shard_feature(d: int) -> int:
+    """A feature width split over the model shards (ceil)."""
+    return -(-int(d) // model_shards())
 
 
 _AUTOTUNE = os.environ.get("REPRO_AUTOTUNE", "0") == "1"
@@ -315,8 +361,9 @@ def segment_reduce_decision(values: torch.Tensor,
     if _AUTOTUNE and n_segments is not None:
         width = math.prod(values.shape[1:])
         tuned = _autotuned("segment_pool", _autotune.pool_key(
-            n=n_segments, d=width, dtype=values.dtype, reduce=reduce,
-            layout=layout, e=values.shape[0],
+            n=_per_shard(n_segments), d=_per_shard_feature(width),
+            dtype=values.dtype, reduce=reduce, layout=layout,
+            e=_per_shard(values.shape[0]),
             sm=_autotune.device_sm(values.device)), layout, values.dtype,
             width)
         if tuned is not None:
@@ -398,9 +445,10 @@ def edge_mpnn_decision(h_src: torch.Tensor, activation: str = "relu",
     layout = _layout(sorted_ids)
     if _AUTOTUNE and not (h_tgt is None or w is None or n_edges is None):
         tuned = _autotuned("edge_mpnn", _autotune.edge_key(
-            n_src=h_src.shape[0], n_tgt=h_tgt.shape[0], ds=h_src.shape[1],
+            n_src=_per_shard(h_src.shape[0]),
+            n_tgt=_per_shard(h_tgt.shape[0]), ds=h_src.shape[1],
             dt=h_tgt.shape[1], m=w.shape[1], dtype=h_src.dtype,
-            activation=activation, layout=layout, e=n_edges,
+            activation=activation, layout=layout, e=_per_shard(n_edges),
             sm=_autotune.device_sm(h_src.device)), layout, h_src.dtype,
             w.shape[1])
         if tuned is not None:

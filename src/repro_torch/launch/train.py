@@ -26,7 +26,7 @@ from repro_torch.data.synthetic import token_batches
 from repro_torch.distributed.fault_tolerance import CheckpointManager
 from repro_torch.launch.specs import pick_optimizer
 from repro_torch.models.registry import build_model, get_config
-from repro_torch.nn.layers import init_params
+from repro_torch.nn.layers import init_params, stack_groups
 from repro_torch.nn.transformer import torch_dtype
 from repro_torch.train.train_loop import make_train_step
 
@@ -62,7 +62,7 @@ def main(argv=None) -> int:
                 p.data = p.data.to(pdt)
     params = dict(model.named_parameters())
     opt = pick_optimizer(cfg)
-    opt_state = opt.init(params)
+    opt_state = opt.init(params, stack_groups(params))
     step = 0
 
     mgr = None

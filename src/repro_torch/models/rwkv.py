@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.nn.layers import Embedding, LayerNorm, Linear
 from repro_torch.nn.ssm import RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.nn.transformer import (LMOutput, maybe_remat, torch_dtype,
@@ -43,7 +44,8 @@ class RWKVBlock(nn.Module):
         y, shift_tm, wkv = self.tm(self.ln1(x), shift_tm, wkv)
         x = x + y
         y, shift_cm = self.cm(self.ln2(x), shift_cm)
-        return x + y, shift_tm, wkv, shift_cm
+        return (shard_activation(x + y, ("batch", "seq", None)), shift_tm,
+                wkv, shift_cm)
 
     def decode(self, x, shift_tm, wkv, shift_cm):
         y, shift_tm, wkv = self.tm.decode_step(self.ln1(x), shift_tm, wkv)
@@ -62,7 +64,8 @@ class RWKV6LM(nn.Module):
         self.ln_in = LayerNorm(cfg.d_model)
         self.ln_out = LayerNorm(cfg.d_model)
         self.head = (None if cfg.tie_embeddings else
-                     Linear(cfg.d_model, cfg.vocab_size, use_bias=False))
+                     Linear(cfg.d_model, cfg.vocab_size, use_bias=False,
+                            kernel_axes=("embed", "vocab")))
 
     def _logits(self, x):
         x = self.ln_out(x)
@@ -99,7 +102,8 @@ class RWKV6LM(nn.Module):
                             torch.stack(s_cm), cache.length + n_new)
 
     def backbone(self, tokens, **_):
-        x, _ = self._run(self._embed(tokens),
+        x = shard_activation(self._embed(tokens), ("batch", "seq", None))
+        x, _ = self._run(x,
                          self.init_cache(tokens.shape[0]), False,
                          tokens.shape[1])
         return x, zero_aux(x.device)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
                                       gqa_attention, sinusoidal_positions)
 from repro_torch.nn.layers import MLP, Embedding, LayerNorm
@@ -75,7 +76,8 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        return shard_activation(x + self.mlp(self.ln2(x)),
+                                ("batch", "seq", None))
 
 
 class DecoderBlockXAttn(nn.Module):
@@ -91,7 +93,8 @@ class DecoderBlockXAttn(nn.Module):
     def forward(self, x, enc_kv):
         x = x + self.self_attn(self.ln1(x))
         x = x + self.cross_attn(self.ln2(x), kv=enc_kv)
-        return x + self.mlp(self.ln3(x))
+        return shard_activation(x + self.mlp(self.ln3(x)),
+                                ("batch", "seq", None))
 
     def prefill(self, x, enc_kv):
         """Like forward, with the self-attention always the einsum form
@@ -135,6 +138,7 @@ class WhisperModel(nn.Module):
         b, t, d = audio_embeds.shape
         x = audio_embeds + sinusoidal_positions(
             t, d, audio_embeds.device).to(audio_embeds.dtype)[None]
+        x = shard_activation(x, ("batch", "seq", None))
         for block in self.encoder:
             x = maybe_remat(block, self.cfg)(x)
         return self.ln_enc(x)

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.ssm import Mamba2, Mamba2State
@@ -126,8 +127,8 @@ class Zamba2LM(nn.Module):
 
     def backbone(self, tokens, **_):
         cache = self.init_cache(tokens.shape[0], max_len=0)
-        x, _, _, _, aux = self._run_groups(self._embed(tokens), cache,
-                                           "train")
+        x = shard_activation(self._embed(tokens), ("batch", "seq", None))
+        x, _, _, _, aux = self._run_groups(x, cache, "train")
         return x, aux
 
     def apply_head(self, x):

@@ -20,7 +20,8 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.nn.layers import Linear
+from repro_torch.distributed.collectives import Axis, copy_to
+from repro_torch.nn.layers import Linear, splits
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -255,10 +256,31 @@ class Attention(nn.Module):
         self.causal = causal
         self.use_flash = use_flash
         hd = self.head_dim
-        self.wq = Linear(d_model, n_heads * hd, use_bias=qkv_bias)
-        self.wk = Linear(d_model, n_kv_heads * hd, use_bias=qkv_bias)
-        self.wv = Linear(d_model, n_kv_heads * hd, use_bias=qkv_bias)
-        self.wo = Linear(n_heads * hd, d_model, use_bias=out_bias)
+        self.wq = Linear(d_model, n_heads * hd, use_bias=qkv_bias,
+                         kernel_axes=("embed", "heads"))
+        self.wk = Linear(d_model, n_kv_heads * hd, use_bias=qkv_bias,
+                         kernel_axes=("embed", "kv_heads"))
+        self.wv = Linear(d_model, n_kv_heads * hd, use_bias=qkv_bias,
+                         kernel_axes=("embed", "kv_heads"))
+        self.wo = Linear(n_heads * hd, d_model, use_bias=out_bias,
+                         kernel_axes=("heads", "embed"))
+        self.axis: Axis | None = None
+
+    def split_(self, axis: Axis) -> bool:
+        """Split by whole heads over the axis: q, k and v by columns
+        (this rank's query heads and the kv heads their GQA groups read,
+        both contiguous), o by rows, its products summed over the axis.
+        False (the layer stays whole) when the query or kv heads do not
+        split evenly, which would cut a head or a group."""
+        if not (splits(self.n_heads, axis) and splits(self.n_kv, axis)):
+            return False
+        for lin in (self.wq, self.wk, self.wv):
+            lin.split_("column", axis)
+        self.wo.split_("row", axis)
+        self.n_heads //= axis.size
+        self.n_kv //= axis.size
+        self.axis = axis
+        return True
 
     def _project(self, x: torch.Tensor, positions: torch.Tensor):
         b, s, _ = x.shape
@@ -276,6 +298,7 @@ class Attention(nn.Module):
         """Full-sequence (train / prefill) attention; kv: external (k, v)
         for cross attention."""
         b, s, _ = x.shape
+        x = copy_to(x, self.axis)
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if kv is None:

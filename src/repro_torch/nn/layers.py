@@ -8,6 +8,15 @@ Layouts follow the reference so weights carry across as plain copies:
 parameter names, joined with dots, are the key paths of the reference's
 ``split_params(module.init(key))[0]`` tree, which is what
 `load_jax_params` relies on.
+
+Each module that owns parameters declares their logical axes as the
+reference's `Param`s do (`logical_axes`, the same names at the same
+places), and `param_axes(model)` gathers them by parameter name.
+`Linear`, `Embedding` and `MLP` also split over the "model" axis of a
+mesh (`split_`): a column split cuts a weight's outputs, a row split its
+inputs and sums the partial products over the axis
+(`repro_torch.distributed.collectives.copy_to` / `reduce_from` are the
+region's boundaries).
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.collectives import Axis, copy_to, reduce_from
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -32,15 +43,54 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
                               generator=generator)
 
 
-class Linear(nn.Module):
-    """Dense layer: y = x @ w (+ b), with w stored [in, out]."""
+def rank_slice(p: nn.Parameter, dim: int, axis: Axis) -> nn.Parameter:
+    """This rank's equal slice of `p` on `dim`, as a new parameter."""
+    width = p.shape[dim] // axis.size
+    with torch.no_grad():
+        part = p.narrow(dim, axis.index * width, width).clone()
+    return nn.Parameter(part, requires_grad=p.requires_grad)
 
-    def __init__(self, in_dim: int, out_dim: int, *, use_bias: bool = True):
+
+def splits(n: int, axis: Axis | None) -> bool:
+    """Whether `n` things split evenly over a model axis of more than one
+    rank."""
+    return axis is not None and axis.size > 1 and n % axis.size == 0
+
+
+class Linear(nn.Module):
+    """Dense layer: y = x @ w (+ b), with w stored [in, out].
+
+    After ``split_("column", axis)`` the layer holds this rank's columns
+    (and bias entries) and gives this rank's outputs; after
+    ``split_("row", axis)`` it holds its rows, reads this rank's inputs
+    and sums the products over the axis before the (whole) bias."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, use_bias: bool = True,
+                 kernel_axes: tuple = (None, None)):
         super().__init__()
         self.in_dim = in_dim
         self.out_dim = out_dim
+        self.kernel_axes = tuple(kernel_axes)
         self.w = nn.Parameter(torch.zeros(in_dim, out_dim))
         self.b = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
+        self.split: str | None = None
+        self.axis: Axis | None = None
+
+    def logical_axes(self) -> dict:
+        return {"w": self.kernel_axes, "b": self.kernel_axes[-1:]}
+
+    def split_(self, kind: str, axis: Axis) -> None:
+        """Keep this rank's slice: "column" cuts the outputs, "row" the
+        inputs (both must divide by the axis size)."""
+        if kind == "column":
+            self.w = rank_slice(self.w, 1, axis)
+            if self.b is not None:
+                self.b = rank_slice(self.b, 0, axis)
+        elif kind == "row":
+            self.w = rank_slice(self.w, 0, axis)
+        else:
+            raise ValueError(f"unknown split {kind!r}")
+        self.split, self.axis = kind, axis
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Lecun-normal (`lecun_normal_`); zero bias."""
@@ -51,6 +101,8 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.w.to(x.dtype))
+        if self.split == "row":
+            y = reduce_from(y, self.axis)
         if self.b is not None:
             y = y + self.b.to(x.dtype)
         return y
@@ -60,11 +112,15 @@ class RMSNorm(nn.Module):
     """RMSNorm computed in fp32 and cast back, eps 1e-6, a `scale`
     parameter (`repro/nn/layers.py:45-63`)."""
 
-    def __init__(self, dim: int, *, eps: float = 1e-6):
+    def __init__(self, dim: int, *, eps: float = 1e-6, axis_name=None):
         super().__init__()
         self.dim = dim
         self.eps = eps
+        self.axis_name = axis_name
         self.scale = nn.Parameter(torch.ones(dim))
+
+    def logical_axes(self) -> dict:
+        return {"scale": (self.axis_name,)}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         del generator
@@ -83,12 +139,17 @@ class LayerNorm(nn.Module):
     """LayerNorm computed in fp32 and cast back, eps 1e-5 (as the
     reference writes it out; no fused library call)."""
 
-    def __init__(self, dim: int, *, eps: float = 1e-5, use_bias: bool = True):
+    def __init__(self, dim: int, *, eps: float = 1e-5, use_bias: bool = True,
+                 axis_name=None):
         super().__init__()
         self.dim = dim
         self.eps = eps
+        self.axis_name = axis_name
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def logical_axes(self) -> dict:
+        return {"scale": (self.axis_name,), "bias": (self.axis_name,)}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         del generator
@@ -111,26 +172,60 @@ class LayerNorm(nn.Module):
 
 class Embedding(nn.Module):
     """Id embedding.  Like the reference, the lookup returns bfloat16
-    unless the caller asks for another dtype."""
+    unless the caller asks for another dtype.
 
-    def __init__(self, vocab_size: int, dim: int):
+    After `split_` the table holds this rank's rows of the vocabulary
+    (``vocab_start`` on): a lookup takes the ids in its range, zeros the
+    rest and sums over the axis, and `attend` gives this rank's logits
+    (`vocab_shard` says which)."""
+
+    def __init__(self, vocab_size: int, dim: int, *,
+                 axes: tuple = ("vocab", "embed")):
         super().__init__()
         self.vocab_size = vocab_size
         self.dim = dim
+        self.axes = tuple(axes)
         self.table = nn.Parameter(torch.zeros(vocab_size, dim))
+        self.axis: Axis | None = None
+        self.vocab_start = 0
+
+    def logical_axes(self) -> dict:
+        return {"table": self.axes}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.table.normal_(0.0, 0.02, generator=generator)
 
+    def split_(self, axis: Axis) -> bool:
+        """Keep this rank's rows when the vocabulary splits evenly over
+        the axis; False (the table stays whole) otherwise."""
+        if not splits(self.vocab_size, axis):
+            return False
+        self.table = rank_slice(self.table, 0, axis)
+        self.axis = axis
+        self.vocab_start = axis.index * self.table.shape[0]
+        return True
+
+    def vocab_shard(self) -> tuple | None:
+        """(axis, first id) of this rank's rows, or None when whole."""
+        return None if self.axis is None else (self.axis, self.vocab_start)
+
     def forward(self, ids: torch.Tensor,
                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        return self.table.to(dtype)[ids]
+        if self.axis is None:
+            return self.table.to(dtype)[ids]
+        rows = self.table.shape[0]
+        local = ids - self.vocab_start
+        inside = (local >= 0) & (local < rows)
+        out = self.table.to(dtype)[local.clamp(0, rows - 1)]
+        out = torch.where(inside[..., None], out,
+                          torch.zeros((), dtype=dtype, device=out.device))
+        return reduce_from(out, self.axis)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Logits against the table (the tied softmax head), in x's
-        dtype."""
-        return torch.matmul(x, self.table.to(x.dtype).T)
+        dtype: this rank's vocabulary slice when split."""
+        return torch.matmul(copy_to(x, self.axis), self.table.to(x.dtype).T)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -161,11 +256,29 @@ class MLP(nn.Module):
         super().__init__()
         self.act = ACTIVATIONS[activation]
         self.gated = gated
-        self.wi = Linear(dim, hidden, use_bias=use_bias)
-        self.wg = Linear(dim, hidden, use_bias=use_bias) if gated else None
-        self.wo = Linear(hidden, dim, use_bias=use_bias)
+        self.hidden = hidden
+        self.wi = Linear(dim, hidden, use_bias=use_bias,
+                         kernel_axes=("embed", "mlp"))
+        self.wg = (Linear(dim, hidden, use_bias=use_bias,
+                          kernel_axes=("embed", "mlp")) if gated else None)
+        self.wo = Linear(hidden, dim, use_bias=use_bias,
+                         kernel_axes=("mlp", "embed"))
+        self.axis: Axis | None = None
+
+    def split_(self, axis: Axis) -> bool:
+        """Split the hidden width over the axis (wi, wg by columns, wo
+        by rows) when it divides evenly; False (whole) otherwise."""
+        if not splits(self.hidden, axis):
+            return False
+        for lin in (self.wi, self.wg):
+            if lin is not None:
+                lin.split_("column", axis)
+        self.wo.split_("row", axis)
+        self.axis = axis
+        return True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to(x, self.axis)
         h = self.wi(x)
         h = self.act(self.wg(x)) * h if self.gated else self.act(h)
         return self.wo(h)
@@ -206,6 +319,28 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
                 and hasattr(sub, "reset_parameters")):
             sub.reset_parameters(generator)
     return module
+
+
+def param_axes(model: nn.Module) -> dict[str, tuple]:
+    """{parameter name: logical axes} of every parameter of `model`, as
+    its modules declare them (`logical_axes`).  The per-layer leaves of a
+    layer ModuleList carry no "layers" axis (the reference's stacked
+    leaves lead with it).  Raises ValueError for a module that owns a
+    parameter and declares no axes for it."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        own = [n for n, _ in mod.named_parameters(recurse=False)]
+        if not own:
+            continue
+        declared = (mod.logical_axes() if hasattr(mod, "logical_axes")
+                    else {})
+        for name in own:
+            if name not in declared:
+                raise ValueError(f"{type(mod).__name__} declares no "
+                                 f"logical axes for {name!r}")
+            out[f"{prefix}.{name}" if prefix else name] = \
+                tuple(declared[name])
+    return out
 
 
 def _flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:

@@ -21,8 +21,24 @@ expert are counted within a group of tokens, each expert keeps at most
 
 The expert stacks ``wi`` / ``wg`` ``[E, d, h]`` and ``wo`` ``[E, h, d]``
 are each one parameter, cast to the compute dtype on every call as the
-reference casts them.  The sharding constraints of the reference are the
-identity on one device and are left out.
+reference casts them.
+
+On a mesh (the counterpart of the reference's sharding constraints,
+`repro/nn/moe.py:112-165`):
+
+  * groups over "data" (the current `sharding.use_sharding` context's
+    data axis): the group count and capacity are the reference's, from
+    the tokens of the whole (micro)batch, and a rank runs its contiguous
+    block of the groups — the block its rows hold.  The auxiliary values
+    are global means: sums and counts are all-reduced over the data axis
+    before the load-balance product (``e * sum(me * ce)`` is not
+    linear).  A group count the data ranks do not divide raises;
+  * experts over "model" (`split_`): a rank keeps its contiguous block
+    of experts, runs them on the dispatched tokens of its groups and
+    combines only their outputs; the combine is summed over the axis.
+    The router and the routing stay whole on every rank; the dispatched
+    tokens and the gates enter the rank's experts through
+    `collectives.copy_to`, so their gradients are summed over the axis.
 """
 from __future__ import annotations
 
@@ -33,7 +49,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.layers import ACTIVATIONS, MLP, Linear, lecun_normal_
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import Axis, copy_to, reduce_from
+from repro_torch.distributed.sharding import mesh_axis, shard_activation
+from repro_torch.nn.layers import (ACTIVATIONS, MLP, Linear, rank_slice,
+                                   lecun_normal_, splits)
 
 
 class MoEAux(NamedTuple):
@@ -73,7 +93,8 @@ class MoELayer(nn.Module):
         self.act = ACTIVATIONS[activation]
         self.gated = gated
         self.normalize_gates = normalize_gates
-        self.router = Linear(dim, n_experts, use_bias=False)
+        self.router = Linear(dim, n_experts, use_bias=False,
+                             kernel_axes=("embed", None))
         self.wi = nn.Parameter(torch.zeros(n_experts, dim, hidden))
         self.wg = (nn.Parameter(torch.zeros(n_experts, dim, hidden))
                    if gated else None)
@@ -81,6 +102,29 @@ class MoELayer(nn.Module):
         self.dense = (MLP(dim, dense_residual_hidden, activation=activation,
                           gated=gated)
                       if dense_residual_hidden else None)
+        self.axis: Axis | None = None
+        self.expert_start = 0
+
+    def logical_axes(self) -> dict:
+        return {"wi": ("expert", "embed", "mlp"),
+                "wg": ("expert", "embed", "mlp"),
+                "wo": ("expert", "mlp", "embed")}
+
+    def split_(self, axis: Axis) -> bool:
+        """Keep this rank's block of experts when they split evenly over
+        the axis (the dense residual MLP splits on its own); False when
+        the experts stay whole."""
+        if self.dense is not None:
+            self.dense.split_(axis)
+        if not splits(self.n_experts, axis):
+            return False
+        self.wi = rank_slice(self.wi, 0, axis)
+        self.wo = rank_slice(self.wo, 0, axis)
+        if self.wg is not None:
+            self.wg = rank_slice(self.wg, 0, axis)
+        self.axis = axis
+        self.expert_start = axis.index * self.wi.shape[0]
+        return True
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Each expert's matrices lecun-normal, drawn one expert at a
@@ -103,12 +147,22 @@ class MoELayer(nn.Module):
         xt = x.reshape(-1, d)
         t = xt.shape[0]
         e, k = self.n_experts, self.top_k
+        data = mesh_axis("data")
+        shards = data.size if data is not None else 1
+        t_all = t * shards  # the (micro)batch's tokens on every data rank
         g = self.n_groups
-        while t % g:
+        while t_all % g:
             g //= 2
-        tg = t // g
+        if g % shards:
+            raise ValueError(
+                f"MoE: {g} groups of {t_all // g} tokens ({t_all} tokens, "
+                f"input {tuple(orig_shape)} a rank) do not split over "
+                f"{shards} data shards")
+        tg = t_all // g
+        g //= shards  # this rank's groups
         cap = self.capacity(tg)
-        xg = xt.reshape(g, tg, d)
+        xg = shard_activation(xt.reshape(g, tg, d),
+                              ("moe_group", None, None))
 
         # routing: the router in the compute dtype, softmax in fp32
         router_logits = self.router(xg).to(torch.float32)
@@ -127,14 +181,17 @@ class MoELayer(nn.Module):
         token_ids = torch.arange(tg, device=x.device).repeat_interleave(k)
 
         # dispatch: the dropped go to row e * cap, which is cut off
-        gathered = xg[:, token_ids]  # [G, N, d]
+        gathered = copy_to(xg, self.axis)[:, token_ids]  # [G, N, d]
         gathered = torch.where(keep[..., None], gathered,
                                torch.zeros((), dtype=xt.dtype,
                                            device=x.device))
         buf = torch.zeros((g, e * cap + 1, d), dtype=xt.dtype,
                           device=x.device)
         buf.scatter_(1, slots[..., None].expand(-1, -1, d), gathered)
-        buf = buf[:, :e * cap].reshape(g, e, cap, d)
+        # this rank's experts (all of them unless split over "model")
+        e_loc, first = self.wi.shape[0], self.expert_start * cap
+        buf = buf[:, first:first + e_loc * cap].reshape(g, e_loc, cap, d)
+        buf = shard_activation(buf, ("moe_group", "expert", None, None))
 
         # the experts, their stacks cast a call
         wi = self.wi.to(xt.dtype)
@@ -145,24 +202,51 @@ class MoELayer(nn.Module):
             h = self.act(torch.einsum("gecd,edh->gech", buf, wg)) * h
         else:
             h = self.act(h)
-        out = torch.einsum("gech,ehd->gecd", h, wo).reshape(g, e * cap, d)
+        h = shard_activation(h, ("moe_group", "expert", None, "mlp"))
+        out = torch.einsum("gech,ehd->gecd", h, wo)
+        out = shard_activation(out, ("moe_group", "expert", None, None))
+        out = out.reshape(g, e_loc * cap, d)
 
-        # combine: a token's k assignments are adjacent
+        # combine: a token's k assignments are adjacent; on a split, only
+        # the assignments to this rank's experts, summed over the axis
+        mine, gates = keep, gate_vals.reshape(g, -1)
+        local = slots - first
+        if self.axis is not None:
+            mine = keep & (local >= 0) & (local < e_loc * cap)
+            gates = copy_to(gates, self.axis)
         picked = torch.gather(
-            out, 1, slots.clamp(max=e * cap - 1)[..., None].expand(-1, -1, d))
-        weight = (gate_vals.reshape(g, -1) * keep).to(xt.dtype)
+            out, 1, local.clamp(0, e_loc * cap - 1)[..., None]
+            .expand(-1, -1, d))
+        weight = (gates * mine).to(xt.dtype)
         y = (picked * weight[..., None]).reshape(g, tg, k, d).sum(2)
-        y = y.reshape(t, d)
+        y = reduce_from(y, self.axis)
+        y = shard_activation(y, ("moe_group", None, None)).reshape(t, d)
 
         if self.dense is not None:
             y = y + self.dense(xt)
 
-        # auxiliary values
-        me = probs.mean(dim=(0, 1))  # [E] mean router probability
-        ce = (onehot.sum((0, 1)) / max(t * k, 1)).to(torch.float32)
-        lb_loss = e * torch.sum(me * ce)
-        z_loss = torch.mean(torch.square(
-            torch.logsumexp(router_logits, dim=-1)))
-        dropped = 1.0 - keep.to(torch.float32).mean()
-        aux = MoEAux(lb_loss, z_loss, dropped)
+        aux = self._aux(probs, router_logits, onehot, keep, t_all, data)
         return y.reshape(orig_shape).to(x.dtype), aux
+
+    def _aux(self, probs, router_logits, onehot, keep, t: int,
+             data: Axis | None) -> MoEAux:
+        """The load-balance loss, router z-loss and drop fraction over
+        all `t` tokens of the (micro)batch: over this rank's groups, or
+        with `data`, from sums and counts all-reduced over it first."""
+        e, k = self.n_experts, self.top_k
+        lse2 = torch.square(torch.logsumexp(router_logits, dim=-1))
+        if data is None:
+            me = probs.mean(dim=(0, 1))  # [E] mean router probability
+            ce = (onehot.sum((0, 1)) / max(t * k, 1)).to(torch.float32)
+            z_loss = torch.mean(lse2)
+            dropped = 1.0 - keep.to(torch.float32).mean()
+        else:
+            sums = reduce_from(torch.cat([probs.sum(dim=(0, 1)),
+                                          lse2.sum()[None]]), data)
+            counts = collectives.all_reduce(torch.cat([
+                onehot.sum((0, 1)).to(torch.float32),
+                keep.to(torch.float32).sum()[None]]), data)
+            me, z_loss = sums[:e] / t, sums[e] / t
+            ce = counts[:e] / max(t * k, 1)
+            dropped = 1.0 - counts[e] / (t * k)
+        return MoEAux(e * torch.sum(me * ce), z_loss, dropped)

@@ -60,14 +60,20 @@ class Mamba2(nn.Module):
         self.proj_dims = (self.d_inner, self.d_inner, d_state, d_state,
                           self.n_heads)
         self.conv_dim = self.d_inner + 2 * d_state
-        self.in_proj = Linear(d_model, sum(self.proj_dims), use_bias=False)
-        self.out_proj = Linear(self.d_inner, d_model, use_bias=False)
+        self.in_proj = Linear(d_model, sum(self.proj_dims), use_bias=False,
+                              kernel_axes=("embed", "mlp"))
+        self.out_proj = Linear(self.d_inner, d_model, use_bias=False,
+                               kernel_axes=("mlp", "embed"))
         self.conv_w = nn.Parameter(torch.zeros(conv_kernel, self.conv_dim))
         self.conv_b = nn.Parameter(torch.zeros(self.conv_dim))
         self.A_log = nn.Parameter(torch.zeros(self.n_heads))
         self.D = nn.Parameter(torch.zeros(self.n_heads))
         self.dt_bias = nn.Parameter(torch.zeros(self.n_heads))
         self.norm = LayerNorm(self.d_inner, use_bias=False)
+
+    def logical_axes(self) -> dict:
+        return {"conv_w": (None, "mlp"), "conv_b": ("mlp",),
+                "A_log": (None,), "D": (None,), "dt_bias": (None,)}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's constants (`repro/nn/ssm.py:55-69`): conv_w
@@ -221,14 +227,21 @@ class RWKV6TimeMix(nn.Module):
         self.dec_b = nn.Parameter(torch.zeros(lora_decay, d))
         self.dec_base = nn.Parameter(torch.zeros(d))
         self.bonus_u = nn.Parameter(torch.zeros(self.n_heads, head_dim))
-        self.r = Linear(d, d, use_bias=False)
-        self.k = Linear(d, d, use_bias=False)
-        self.v = Linear(d, d, use_bias=False)
-        self.g = Linear(d, d, use_bias=False)
-        self.o = Linear(d, d, use_bias=False)
+        ax = ("embed", "heads")
+        self.r = Linear(d, d, use_bias=False, kernel_axes=ax)
+        self.k = Linear(d, d, use_bias=False, kernel_axes=ax)
+        self.v = Linear(d, d, use_bias=False, kernel_axes=ax)
+        self.g = Linear(d, d, use_bias=False, kernel_axes=ax)
+        self.o = Linear(d, d, use_bias=False, kernel_axes=("heads", "embed"))
         # one LayerNorm over all of d (the reference's, despite its
         # "per-head group norm" comment)
         self.ln_x = LayerNorm(d)
+
+    def logical_axes(self) -> dict:
+        return {"mu_x": ("embed",), "mu": (None, "embed"),
+                "mix_a": ("embed", None), "mix_b": (None, None, "embed"),
+                "dec_a": ("embed", None), "dec_b": (None, "embed"),
+                "dec_base": ("embed",), "bonus_u": (None, None)}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's constants (`repro/nn/ssm.py:227-247`): mu_x,
@@ -353,9 +366,15 @@ class RWKV6ChannelMix(nn.Module):
         self.hidden = hidden
         self.mu_k = nn.Parameter(torch.zeros(d_model))
         self.mu_r = nn.Parameter(torch.zeros(d_model))
-        self.k = Linear(d_model, hidden, use_bias=False)
-        self.v = Linear(hidden, d_model, use_bias=False)
-        self.r = Linear(d_model, d_model, use_bias=False)
+        self.k = Linear(d_model, hidden, use_bias=False,
+                        kernel_axes=("embed", "mlp"))
+        self.v = Linear(hidden, d_model, use_bias=False,
+                        kernel_axes=("mlp", "embed"))
+        self.r = Linear(d_model, d_model, use_bias=False,
+                        kernel_axes=("embed", "mlp"))
+
+    def logical_axes(self) -> dict:
+        return {"mu_k": ("embed",), "mu_r": ("embed",)}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """mu_k and mu_r 0.5 (`repro/nn/ssm.py:371-377`)."""

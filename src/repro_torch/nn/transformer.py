@@ -13,9 +13,16 @@ transformer.py:43-76`) so that the stacked gradient of a bf16-param
 model is not carried at fp32 width.  Nothing here needs it: a PyTorch
 leaf's ``.grad`` always has the leaf's dtype (autograd casts the
 cotangent of the per-call ``w.to(compute dtype)`` back), and the port's
-leaves are per layer.  Its sharding constraint is the identity on one
-device and comes with the mesh.  The KV cache is stacked ``[L, B, T, K,
-D]``; decode writes each layer's slice in place.
+leaves are per layer.  The KV cache is stacked ``[L, B, T, K, D]``;
+decode writes each layer's slice in place.
+
+On a mesh, `DecoderLM.split_` splits the model over its "model" axis
+(tensor parallelism, the leaves the reference's rules put on "model"):
+attention by whole heads, the MLP by its hidden width, the MoE experts,
+the embedding table and the head by vocabulary.  A part whose count the
+axis does not divide stays whole on every rank.  The head then gives
+this rank's logits (`vocab_shard`), and the loss reduces over the axis
+without gathering them (`repro_torch.train.train_loop`).
 """
 from __future__ import annotations
 
@@ -27,10 +34,13 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import Axis, copy_to
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
                                       chunked_gqa_attention, gqa_attention,
                                       to_kv_dtype)
-from repro_torch.nn.layers import MLP, Embedding, LayerNorm, Linear, RMSNorm
+from repro_torch.nn.layers import (MLP, Embedding, LayerNorm, Linear,
+                                   RMSNorm, splits)
 from repro_torch.nn.moe import MoELayer
 
 
@@ -137,6 +147,13 @@ class DecoderBlock(nn.Module):
         self.norm1 = make_norm(cfg)
         self.norm2 = None if cfg.parallel_block else make_norm(cfg)
 
+    def split_(self, axis: Axis) -> None:
+        """Split attention and the FFN over the model axis, each where
+        its count divides (`Attention.split_`, `MLP.split_`,
+        `MoELayer.split_`)."""
+        self.attn.split_(axis)
+        self.ffn.split_(axis)
+
     def _ffn(self, h):
         """The FFN's output and its auxiliary values (an MoE layer's
         load-balance loss, router z-loss and drop fraction; zeros on the
@@ -160,7 +177,8 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, *, positions=None):
         h = self.norm1(x)
-        return self._residual(x, h, self.attn(h, positions=positions))
+        x, aux = self._residual(x, h, self.attn(h, positions=positions))
+        return shard_activation(x, ("batch", "seq", None)), aux
 
     def prefill(self, x: torch.Tensor, *, positions=None):
         """Like forward, and also returns this layer's (k, v).  Calls the
@@ -211,7 +229,30 @@ class DecoderLM(nn.Module):
         self.lm_head = None
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.vocab_size,
-                                  use_bias=False)
+                                  use_bias=False,
+                                  kernel_axes=("embed", "vocab"))
+
+    def split_(self, axis: Axis) -> None:
+        """Tensor parallelism over `axis` (the mesh's "model" axis): every
+        block, the embedding table by vocabulary rows and the untied head
+        by vocabulary columns, each part where the axis divides its
+        count.  The parameters become this rank's slices in place (read
+        ``named_parameters()`` again after)."""
+        for block in self.blocks:
+            block.split_(axis)
+        self.embed.split_(axis)
+        if self.lm_head is not None and splits(self.cfg.vocab_size, axis):
+            self.lm_head.split_("column", axis)
+
+    def vocab_shard(self) -> tuple | None:
+        """(axis, first id) of the vocabulary slice `apply_head` gives on
+        this rank, or None when it gives all of it."""
+        if self.lm_head is None:
+            return self.embed.vocab_shard()
+        if self.lm_head.split is None:
+            return None
+        return self.lm_head.axis, (self.lm_head.axis.index
+                                   * self.lm_head.w.shape[1])
 
     # ---- shared pieces -----------------------------------------------------
 
@@ -222,14 +263,15 @@ class DecoderLM(nn.Module):
             # vlm: the patches go first; decode has none (they were
             # consumed at prefill and live in the KV cache)
             x = torch.cat([patch_embeds.to(dtype), x], dim=1)
-        return x
+        return shard_activation(x, ("batch", "seq", None))
 
     def _logits(self, x):
         x = self.final_norm(x)
         if self.lm_head is not None:
-            logits = self.lm_head(x)
+            logits = self.lm_head(copy_to(x, self.lm_head.axis))
         else:
             logits = self.embed.attend(x)
+        logits = shard_activation(logits, ("batch", None, "vocab"))
         return logits.to(torch.float32)
 
     # ---- full sequence -----------------------------------------------------

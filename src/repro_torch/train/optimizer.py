@@ -4,6 +4,9 @@ included: under the mesh (`repro_torch.distributed.partition`) `update`
 takes this data rank's slices and a ``group`` (the data `Axis`) with
 ``shard_dims``; AdamW needs the cross-rank correction only in the
 clipping norm, Adafactor also in every mean over a sliced dimension.
+A leaf split over the "model" axis as well (tensor parallelism) comes
+with ``model`` (the model `Axis`) and ``model_dims``, and is corrected
+over that axis in the same places.
 
 It is not `torch.optim.AdamW`, whose defaults and order differ: b2 is
 0.95 and eps 1e-8; the gradient is clipped to global norm 1.0 (with
@@ -35,8 +38,10 @@ over the layers in a first pass (the reference's per-layer clip above
 `CHUNKED_UPDATE_THRESHOLD` needs none).  Only groups of 1-D leaves (norm
 scales, biases), small by nature, are stacked.  `update_` writes each
 layer as it is done, so its fp32 temporaries cover one layer, or one
-unstacked leaf whole, as the reference's do.  The grouping is read from
-the parameter names (`repro_torch.nn.layers.stack_groups`).
+unstacked leaf whole, as the reference's do.  The caller passes the
+grouping (``groups=``, {stacked name: [names in layer order]}, or a
+name mapped to itself: what `repro_torch.nn.layers.stack_groups` gives
+for a model's parameters); without it every leaf stands alone.
 """
 from __future__ import annotations
 
@@ -45,8 +50,6 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
-
-from repro_torch.nn.layers import stack_groups
 
 Tree = dict  # {name: torch.Tensor}
 
@@ -89,8 +92,9 @@ def _sqnorms(leaves: list) -> list:
                                                dtype=torch.float32)]
 
 
-def global_norm(tree: Tree, *, group=None,
-                shard_dims: dict | None = None) -> torch.Tensor:
+def global_norm(tree: Tree, *, group=None, shard_dims: dict | None = None,
+                model=None, model_dims: dict | None = None
+                ) -> torch.Tensor:
     """L2 norm over a gradient tree, each leaf's squared norm taken in
     fp32.
 
@@ -98,18 +102,34 @@ def global_norm(tree: Tree, *, group=None,
     ``group`` (the data `Axis`) and ``shard_dims`` ({name: int}, -1 =
     replicated) and the squared sum of the sliced leaves is all-reduced
     over the group, while replicated leaves count once — so every rank
-    computes the exact full norm."""
-    if group is None or shard_dims is None:
+    computes the exact full norm.  ``model`` and ``model_dims`` do the
+    same for the leaves split over the model axis (a leaf split over
+    both is summed over both)."""
+    if group is None:
+        shard_dims = None
+    if model is None:
+        model_dims = None
+    if shard_dims is None and model_dims is None:
         return torch.sqrt(sum(_sqnorms(list(tree.values()))))
     from repro_torch.distributed import collectives
+
+    def cut(dims, k):
+        return dims is not None and dims[k] >= 0
+
     device = next(iter(tree.values())).device
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    local = sum(_sqnorms([x for k, x in tree.items()
-                          if shard_dims[k] >= 0]), zero)
-    repl = sum(_sqnorms([x for k, x in tree.items()
-                         if shard_dims[k] < 0]), zero)
-    return torch.sqrt(collectives.all_reduce(local.reshape(1),
-                                             group)[0] + repl)
+    parts = {(d, m): sum(_sqnorms([
+        x for k, x in tree.items()
+        if cut(shard_dims, k) == d and cut(model_dims, k) == m]), zero)
+        for d in (False, True) for m in (False, True)}
+    over_data = torch.stack([parts[True, False], parts[True, True]])
+    if shard_dims is not None:
+        over_data = collectives.all_reduce(over_data, group)
+    over_model = torch.stack([parts[False, True], over_data[1]])
+    if model_dims is not None:
+        over_model = collectives.all_reduce(over_model, model)
+    return torch.sqrt(parts[False, False] + over_data[0] + over_model[0]
+                      + over_model[1])
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -119,8 +139,10 @@ def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
 
 
 def clip_by_global_norm(tree: Tree, max_norm: float, *, group=None,
-                        shard_dims: dict | None = None):
-    norm = global_norm(tree, group=group, shard_dims=shard_dims)
+                        shard_dims: dict | None = None, model=None,
+                        model_dims: dict | None = None):
+    norm = global_norm(tree, group=group, shard_dims=shard_dims,
+                       model=model, model_dims=model_dims)
     scale = clip_scale(norm, max_norm)
     # multiply in each leaf's own dtype, as the reference does
     return {k: g * scale.to(g.dtype) for k, g in tree.items()}, norm
@@ -176,7 +198,10 @@ class AdamW:
         return torch.full((), self.learning_rate, dtype=torch.float32,
                           device=step.device)
 
-    def init(self, params: Tree) -> AdamWState:
+    def init(self, params: Tree, groups: dict | None = None) -> AdamWState:
+        """Zero moments shaped as `params` (``groups`` is Adafactor's and
+        changes nothing here)."""
+        del groups
         device = next(iter(params.values())).device
         zeros = {k: torch.zeros(p.shape, dtype=self.moment_dtype,
                                 device=p.device) for k, p in params.items()}
@@ -207,14 +232,19 @@ class AdamW:
                 v32.to(self.moment_dtype))
 
     def update(self, grads: Tree, state: AdamWState, params: Tree, *,
-               group=None, shard_dims: dict | None = None
+               group=None, shard_dims: dict | None = None, model=None,
+               model_dims: dict | None = None, groups: dict | None = None
                ) -> tuple[Tree, AdamWState, dict]:
         """ZeRO-1: with ``group``/``shard_dims`` the inputs are this data
-        rank's slices; AdamW's update is elementwise, so only the
-        clipping norm needs the cross-rank correction."""
+        rank's slices (and with ``model``/``model_dims`` this model
+        rank's); AdamW's update is elementwise, so only the clipping
+        norm needs the cross-rank correction."""
+        del groups
         grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm,
                                            group=group,
-                                           shard_dims=shard_dims)
+                                           shard_dims=shard_dims,
+                                           model=model,
+                                           model_dims=model_dims)
         step, bc1, bc2, lr = self._terms(state)
         out = {k: self._upd(params[k], grads[k], state.m[k], state.v[k],
                             bc1, bc2, lr)
@@ -225,7 +255,8 @@ class AdamW:
                 {"grad_norm": gnorm, "learning_rate": lr})
 
     def update_(self, grads: Tree, state: AdamWState, params: Tree, *,
-                group=None, shard_dims: dict | None = None
+                group=None, shard_dims: dict | None = None, model=None,
+                model_dims: dict | None = None, groups: dict | None = None
                 ) -> tuple[Tree, AdamWState, dict]:
         """`update` written into `params` and the state's moments in
         place, leaf by leaf, a leaf above CHUNKED_UPDATE_THRESHOLD in
@@ -233,7 +264,9 @@ class AdamW:
         multiplies each slice of the gradient in its own dtype, as
         `clip_by_global_norm` does, so the bits are `update`'s.  Returns
         `params` and a state holding the same moment tensors."""
-        gnorm = global_norm(grads, group=group, shard_dims=shard_dims)
+        del groups
+        gnorm = global_norm(grads, group=group, shard_dims=shard_dims,
+                            model=model, model_dims=model_dims)
         scale = clip_scale(gnorm, self.max_grad_norm)
         step, bc1, bc2, lr = self._terms(state)
         with torch.no_grad():
@@ -247,8 +280,10 @@ class AdamW:
         return (params, AdamWState(step, state.m, state.v),
                 {"grad_norm": gnorm, "learning_rate": lr})
 
-    def state_axes(self, param_axes: Tree) -> AdamWState:
+    def state_axes(self, param_axes: Tree,
+                   groups: dict | None = None) -> AdamWState:
         """Optimizer-state logical axes mirror the parameters'."""
+        del groups
         return AdamWState((), param_axes, param_axes)
 
 
@@ -283,9 +318,11 @@ class Adafactor:
     def _factored(p) -> bool:
         return p.ndim >= 2
 
-    def init(self, params: Tree) -> AdafactorState:
-        """Zero moments for the stacked view of `params`."""
-        groups = stack_groups(params)
+    def init(self, params: Tree, groups: dict | None = None
+             ) -> AdafactorState:
+        """Zero moments for the stacked view of `params` under `groups`
+        (module docstring; without it every leaf stands alone)."""
+        groups = _groups(params, groups)
         device = next(iter(params.values())).device
         vr, vc = {}, {}
         for key, names in groups.items():
@@ -304,15 +341,18 @@ class Adafactor:
                                           device=device), vr, vc)
 
     def update(self, grads: Tree, state: AdafactorState, params: Tree, *,
-               group=None, shard_dims: dict | None = None
+               group=None, shard_dims: dict | None = None, model=None,
+               model_dims: dict | None = None, groups: dict | None = None
                ) -> tuple[Tree, AdafactorState, dict]:
         """ZeRO-1: with ``group``/``shard_dims`` ({name: dim of the
         port's tensor, -1 = replicated}; every layer of a stack on the
-        same dim) the inputs are this data rank's slices.  Unlike AdamW
-        the factored statistics are not elementwise — any mean that
-        reduces over a sliced dimension (the column statistics and the
-        RMS normalizers of a row-sliced 2-D leaf) is averaged over the
-        group so every rank reproduces the replicated math."""
+        same dim) the inputs are this data rank's slices, and with
+        ``model``/``model_dims`` this model rank's.  Unlike AdamW the
+        factored statistics are not elementwise — any mean that reduces
+        over a sliced dimension (the column statistics and the RMS
+        normalizers of a row-sliced 2-D leaf) is averaged over the axis
+        it is sliced on, so every rank reproduces the replicated math.
+        ``groups``: the layer grouping (`init`)."""
         out: Tree = {}
 
         def put(name, index, value):
@@ -322,12 +362,15 @@ class Adafactor:
                 out.setdefault(name, torch.empty_like(params[name]))[
                     index] = value
 
-        state, metrics = self._update(grads, state, params, put, group,
-                                      shard_dims)
+        state, metrics = self._update(
+            grads, state, params, put, dict(
+                group=group, shard_dims=shard_dims, model=model,
+                model_dims=model_dims), groups)
         return out, state, metrics
 
     def update_(self, grads: Tree, state: AdafactorState, params: Tree, *,
-                group=None, shard_dims: dict | None = None
+                group=None, shard_dims: dict | None = None, model=None,
+                model_dims: dict | None = None, groups: dict | None = None
                 ) -> tuple[Tree, AdafactorState, dict]:
         """`update`, each layer's new values written into `params` as
         soon as they are computed: no stack of a layer group is made
@@ -338,26 +381,35 @@ class Adafactor:
             target = params[name]
             (target if index is None else target[index]).copy_(value)
 
-        state, metrics = self._update(grads, state, params, put, group,
-                                      shard_dims)
+        state, metrics = self._update(
+            grads, state, params, put, dict(
+                group=group, shard_dims=shard_dims, model=model,
+                model_dims=model_dims), groups)
         return params, state, metrics
 
-    def _update(self, grads, state, params, put, group, shard_dims):
+    def _update(self, grads, state, params, put, mesh, groups):
         """The update, handed to ``put(name, index, value)`` a leaf (index
         None) or a leading slice of one at a time; returns (new state,
-        metrics).  A stack of per-layer leaves of 2 or more dims is taken
-        a layer at a time: every statistic of the stacked leaf but the
-        RMS of its update is one layer's, and that RMS is summed over
-        the layers first and the update made in a second pass, unless
-        the reference clips the stack per layer (`_maybe_chunked`)."""
+        metrics).  `mesh`: `update`'s ``group``, ``shard_dims``,
+        ``model`` and ``model_dims``.  A stack of per-layer leaves of 2 or
+        more dims is taken a layer at a time: every statistic of the
+        stacked leaf but the RMS of its update is one layer's, and that
+        RMS is summed over the layers first and the update made in a
+        second pass, unless the reference clips the stack per layer
+        (`_maybe_chunked`)."""
         with torch.no_grad():
-            return self._run(grads, state, params, put, group, shard_dims)
+            return self._run(grads, state, params, put, mesh,
+                             _groups(params, groups))
 
-    def _run(self, grads, state, params, put, group, shard_dims):
+    def _run(self, grads, state, params, put, mesh, groups):
+        # the axes the leaves are sliced over: ((axis, {name: dim}), ...)
+        sliced = tuple((axis, dims) for axis, dims in (
+            (mesh["group"], mesh["shard_dims"]),
+            (mesh["model"], mesh["model_dims"]))
+            if axis is not None and dims is not None)
         if self.max_grad_norm is not None:
             grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm,
-                                               group=group,
-                                               shard_dims=shard_dims)
+                                               **mesh)
         else:
             gnorm = torch.zeros((), dtype=torch.float32,
                                 device=state.step.device)
@@ -365,109 +417,119 @@ class Adafactor:
         beta2 = 1.0 - step.to(torch.float32) ** (-self.decay)
         lr = self._lr(step)
         f32 = torch.float32
-        if group is not None:
+        if sliced:
             from repro_torch.distributed import collectives
 
-        # shard_dim >= 0: the leaf is a ZeRO slice along that dim (slices
-        # are equal-sized, so the mean of means is the mean)
-        def corr(x, shard_dim, over_dim):
-            if group is not None and shard_dim == over_dim:
-                return collectives.all_reduce(x, group) / group.size
+        # cuts: ((axis, dim), ...), the dims of this leaf sliced over each
+        # axis (slices are equal-sized, so the mean of means is the mean)
+        def corr(x, cuts, over_dim):
+            for axis, dim in cuts:
+                if dim == over_dim:
+                    x = collectives.all_reduce(x, axis) / axis.size
             return x
 
-        def moments(g32, vr, vc, ndim, shard_dim):
+        def moments(g32, vr, vc, ndim, cuts):
             g2 = torch.square(g32) + self.eps
             if ndim >= 2:
                 return (beta2 * vr + (1 - beta2) * corr(
-                            g2.mean(dim=-1), shard_dim, ndim - 1),
+                            g2.mean(dim=-1), cuts, ndim - 1),
                         beta2 * vc + (1 - beta2) * corr(
-                            g2.mean(dim=-2), shard_dim, ndim - 2))
+                            g2.mean(dim=-2), cuts, ndim - 2))
             return beta2 * vr + (1 - beta2) * g2, vc
 
-        def direction(g32, vr_n, vc_n, ndim, shard_dim):
+        def direction(g32, vr_n, vc_n, ndim, cuts):
             if ndim >= 2:
-                rbar = corr(vr_n.mean(dim=-1, keepdim=True), shard_dim,
-                            ndim - 2)
+                rbar = corr(vr_n.mean(dim=-1, keepdim=True), cuts, ndim - 2)
                 denom = (vr_n / torch.clamp(rbar, min=self.eps))[..., None] \
                     * vc_n[..., None, :]
                 return g32 * torch.rsqrt(denom + self.eps)
             return g32 * torch.rsqrt(vr_n + self.eps)
 
-        def apply(p, u, msq, shard_dim):
-            if group is not None and shard_dim >= 0:
-                msq = collectives.all_reduce(msq, group) / group.size
+        def apply(p, u, msq, cuts):
+            for axis, _ in cuts:
+                msq = collectives.all_reduce(msq, axis) / axis.size
             rms_u = torch.sqrt(msq + 1e-12)
             u = u / torch.clamp(rms_u / self.clip_threshold, min=1.0)
             new_p = (p.to(f32) - lr * (u + self.weight_decay * p.to(f32)))
             return new_p.to(p.dtype)
 
-        def whole(p, g, vr, vc, shard_dim=-1):
+        def whole(p, g, vr, vc, cuts=()):
             g32 = g.to(f32)
-            vr_n, vc_n = moments(g32, vr, vc, p.ndim, shard_dim)
-            u = direction(g32, vr_n, vc_n, p.ndim, shard_dim)
-            return apply(p, u, torch.mean(torch.square(u)), shard_dim), \
+            vr_n, vc_n = moments(g32, vr, vc, p.ndim, cuts)
+            u = direction(g32, vr_n, vc_n, p.ndim, cuts)
+            return apply(p, u, torch.mean(torch.square(u)), cuts), \
                 vr_n, vc_n
 
-        def by_slice(ps, gs, vr, vc, targets, shard_dim, per_slice):
+        def by_slice(ps, gs, vr, vc, targets, cuts, per_slice):
             # ps[i], gs[i]: the stacked leaf's slice i, of >= 2 dims
             vr_n, vc_n = torch.empty_like(vr), torch.empty_like(vc)
             total = torch.zeros((), dtype=f32, device=vr.device)
             for i, (p, g) in enumerate(zip(ps, gs)):
                 g32 = g.to(f32)
-                vr_n[i], vc_n[i] = moments(g32, vr[i], vc[i], p.ndim,
-                                           shard_dim)
-                u = direction(g32, vr_n[i], vc_n[i], p.ndim, shard_dim)
+                vr_n[i], vc_n[i] = moments(g32, vr[i], vc[i], p.ndim, cuts)
+                u = direction(g32, vr_n[i], vc_n[i], p.ndim, cuts)
                 if per_slice:
                     put(*targets[i], apply(p, u, torch.mean(torch.square(u)),
-                                           -1))
+                                           ()))
                 else:
                     total += torch.sum(torch.square(u))
             if not per_slice:
                 msq = total / sum(p.numel() for p in ps)
                 for i, (p, g) in enumerate(zip(ps, gs)):
-                    u = direction(g.to(f32), vr_n[i], vc_n[i], p.ndim,
-                                  shard_dim)
-                    put(*targets[i], apply(p, u, msq, shard_dim))
+                    u = direction(g.to(f32), vr_n[i], vc_n[i], p.ndim, cuts)
+                    put(*targets[i], apply(p, u, msq, cuts))
             return vr_n, vc_n
 
         vr, vc = {}, {}
-        for key, names in stack_groups(params).items():
+        for key, names in groups.items():
             members = [names] if isinstance(names, str) else names
-            dim = -1
-            if shard_dims is not None:
-                dims = {shard_dims[n] for n in members}
-                if len(dims) != 1:
-                    raise ValueError(f"{key}: layers sliced on dims {dims}")
-                dim = dims.pop()
+            cuts = []
+            for axis, dims in sliced:
+                at = {dims[n] for n in members}
+                if len(at) != 1:
+                    raise ValueError(f"{key}: layers sliced on dims {at} "
+                                     f"over {axis.name!r}")
+                dim = at.pop()
+                if dim >= 0:
+                    cuts.append((axis, dim))
             ps = [params[n] for n in members]
             gs = [grads[n] for n in members]
             numel = sum(p.numel() for p in ps)
             args = (state.vr[key], state.vc[key])
             if isinstance(names, str):
                 p = ps[0]
-                if dim >= 0 or p.ndim < 3 or numel <= CHUNKED_UPDATE_THRESHOLD:
-                    new, vr[key], vc[key] = whole(p, gs[0], *args, dim)
+                if cuts or p.ndim < 3 or numel <= CHUNKED_UPDATE_THRESHOLD:
+                    new, vr[key], vc[key] = whole(p, gs[0], *args, cuts)
                     put(names, None, new)
                 else:  # the reference's `_maybe_chunked`
                     vr[key], vc[key] = by_slice(
                         p.unbind(0), gs[0].unbind(0), *args,
-                        [(names, i) for i in range(len(p))], -1, True)
+                        [(names, i) for i in range(len(p))], (), True)
             elif ps[0].ndim >= 2:
                 vr[key], vc[key] = by_slice(
-                    ps, gs, *args, [(n, None) for n in names], dim,
-                    dim < 0 and numel > CHUNKED_UPDATE_THRESHOLD)
+                    ps, gs, *args, [(n, None) for n in names], cuts,
+                    not cuts and numel > CHUNKED_UPDATE_THRESHOLD)
             else:  # [L, ...] of small leaves: stacked, as the reference
                 new, vr[key], vc[key] = whole(
                     torch.stack(ps), torch.stack(gs), *args,
-                    dim + 1 if dim >= 0 else -1)
+                    [(axis, dim + 1) for axis, dim in cuts])
                 for n, v in zip(names, new.unbind(0)):
                     put(n, None, v)
         return (AdafactorState(step, vr, vc),
                 {"grad_norm": gnorm, "learning_rate": lr})
 
-    def state_axes(self, param_axes: Tree) -> AdafactorState:
+    def state_axes(self, param_axes: Tree,
+                   groups: dict | None = None) -> AdafactorState:
         """The state's logical axes from the stacked parameters' (a
-        {stacked name: axes tuple} tree)."""
+        {stacked name: axes tuple} tree), or with ``groups`` from the
+        per-layer parameters' ({name: axes}; a stack leads with
+        "layers", as the reference's stacked leaves do)."""
+        if groups is not None:
+            param_axes = {
+                k: (param_axes[names] if isinstance(names, str)
+                    else ("layers",) + tuple(param_axes[names[0]]))
+                for k, names in groups.items()}
+
         def vr_ax(ax):
             return tuple(ax[:-1]) if len(ax) >= 2 else tuple(ax)
 
@@ -476,6 +538,11 @@ class Adafactor:
 
         return AdafactorState((), {k: vr_ax(a) for k, a in param_axes.items()},
                               {k: vc_ax(a) for k, a in param_axes.items()})
+
+
+def _groups(params: Tree, groups: dict | None) -> dict:
+    """The layer grouping to use: `groups`, or every leaf alone."""
+    return groups if groups is not None else {k: k for k in params}
 
 
 def make_optimizer(kind: str, lr, *, total_steps: int = 10000,

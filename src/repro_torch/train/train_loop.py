@@ -1,16 +1,16 @@
 """Train and eval steps (counterpart of `repro.train.train_loop`).
 
-The LM half (`:21-175`, `:250-261`): `softmax_cross_entropy`,
+The LM half (`:21-206`, `:250-261`): `softmax_cross_entropy`,
 `chunked_cross_entropy`, `make_loss_fn`, the microbatched
-`make_train_step` on one device and `make_eval_step`.  The reference
-returns a pure step for `jax.jit` and donates its state; here the step
-is ``(params, opt_state, batch) -> (params, opt_state, metrics)`` over
-the module's named parameters (``dict(model.named_parameters())``),
-whose ``.grad`` it fills by backward and which the optimizer's
-`update_` rewrites in place — the counterpart of the donated buffers.
-``plan=``, ``mesh=``, ``zero1=`` and ``param_axes=`` belong to the LM
-on the mesh, which is not ported yet (ROADMAP.md queue 1, "the LM on
-the mesh"): they raise `NotImplementedError`.
+`make_train_step` and `make_eval_step`.  The reference returns a pure
+step for `jax.jit` and donates its state; here the step is ``(params,
+opt_state, batch) -> (params, opt_state, metrics)`` over the module's
+named parameters (``dict(model.named_parameters())``), whose ``.grad``
+it fills by backward and which the optimizer's `update_` rewrites in
+place — the counterpart of the donated buffers.  With ``plan=`` (or
+``mesh=``) it is the LM on the mesh, `MeshTrainStep`: the reference's
+one GSPMD program (`:176-206`) as explicit collectives over
+`torch.distributed` ranks, with the one-device step's numbers.
 
 The graph steps (the Trainer's step factories, `:218-306`): a plain
 step on one device, or under a mesh plan (``plan=``) the 2-D step of
@@ -34,6 +34,9 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph_tensor import GraphTensor
 from repro_torch.data.pipeline import prefetch
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import Axis
+from repro_torch.nn import layers
 
 EXTRA_INPUT_KEYS = ("audio_embeds", "patch_embeds")
 # the metrics every LM step returns, averaged over microbatches (the
@@ -46,10 +49,30 @@ LM_METRICS = ("loss", "total_loss", "tokens", "moe_lb_loss", "moe_z_loss",
 # LM: loss, train step, eval step
 # ---------------------------------------------------------------------------
 
-def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return logz - ll
+def _nll(logits: torch.Tensor, labels: torch.Tensor,
+         vocab: tuple | None = None) -> torch.Tensor:
+    """Per-position ``logsumexp(logits) - logits[label]``.  With `vocab`
+    = (model `Axis`, first id), `logits` are this rank's slice of the
+    vocabulary: the maximum and the sum of exponentials are reduced over
+    the axis, and the label's logit is taken on the rank that holds it
+    (the full logits are never gathered)."""
+    if vocab is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return logz - ll
+    axis, start = vocab
+    width = logits.shape[-1]
+    top = collectives.all_max(logits.detach().amax(dim=-1), axis)
+    sumexp = collectives.reduce_from(
+        torch.exp(logits - top[..., None]).sum(dim=-1), axis)
+    local = labels.long() - start
+    inside = (local >= 0) & (local < width)
+    ll = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])[
+        ..., 0]
+    ll = collectives.reduce_from(
+        torch.where(inside, ll, torch.zeros((), dtype=ll.dtype,
+                                            device=ll.device)), axis)
+    return top + torch.log(sumexp) - ll
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -66,7 +89,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def chunked_cross_entropy(apply_head: Callable, x: torch.Tensor,
                           labels: torch.Tensor, mask=None, *,
-                          seq_chunk: int = 512):
+                          seq_chunk: int = 512, vocab: tuple | None = None,
+                          data: Axis | None = None):
     """CE loss without ever holding [B, S, V] logits.
 
     The sequence goes in chunks of `seq_chunk` positions (or the largest
@@ -74,17 +98,28 @@ def chunked_cross_entropy(apply_head: Callable, x: torch.Tensor,
     `torch.utils.checkpoint` (non-reentrant), as the reference's scan
     body under `jax.checkpoint`, so one [B, c, V] fp32 logits block is
     live at a time, in the forward and again in the backward.  The
-    chunks' sums are added in order, as the scan's carry."""
+    chunks' sums are added in order, as the scan's carry.
+
+    `vocab`: the head gives a vocabulary slice (`_nll`).  `data`: this
+    rank holds one block of the batch; the summed loss and the mask's
+    count are summed over the data axis before the division, so the
+    loss is the whole batch's mean (each rank's gradient is then its
+    part of the whole batch's)."""
     b, s, _ = x.shape
     c = min(seq_chunk, s)
     while s % c:  # fall back to a divisor
         c -= 1
     n = s // c
-    if n <= 1:
+    if n <= 1 and vocab is None and data is None:
         return softmax_cross_entropy(apply_head(x), labels, mask)
+    if n <= 1:
+        nll = _nll(apply_head(x), labels, vocab)
+        mask = (torch.ones_like(nll) if mask is None
+                else mask.to(torch.float32))
+        return _global_mean((nll * mask).sum(), mask.sum(), data)
 
     def body(xc, lc, mc):
-        nll = _nll(apply_head(xc), lc)
+        nll = _nll(apply_head(xc), lc, vocab)
         mc = mc.to(torch.float32)
         return (nll * mc).sum(), mc.sum()
 
@@ -100,21 +135,36 @@ def chunked_cross_entropy(apply_head: Callable, x: torch.Tensor,
         else:
             part, count = body(x[:, cut], labels[:, cut], mc)
         tot, den = tot + part, den + count
-    den = torch.clamp(den, min=1.0)
-    return tot / den, den
+    return _global_mean(tot, den, data)
 
 
-def make_loss_fn(model, cfg: ArchConfig, *, seq_chunk: int = 512
-                 ) -> Callable:
+def _global_mean(total: torch.Tensor, count: torch.Tensor,
+                 data: Axis | None):
+    """(total / max(count, 1), that denominator), both summed over the
+    data axis first when given."""
+    if data is not None:
+        total = collectives.reduce_from(total, data)
+        count = collectives.all_reduce(count.detach(), data)
+    count = torch.clamp(count, min=1.0)
+    return total / count, count
+
+
+def make_loss_fn(model, cfg: ArchConfig, *, seq_chunk: int = 512,
+                 data: Axis | None = None) -> Callable:
     """``loss_fn(batch) -> (total loss, metrics)`` over `model`'s own
     parameters; the MoE configs add ``aux_loss_weight * moe_lb_loss +
-    z_loss_weight * moe_z_loss`` to the total."""
+    z_loss_weight * moe_z_loss`` to the total.  `data`: the batch is
+    this rank's block of one over the data axis (`chunked_cross_entropy`;
+    the MoE layers read the axis from the sharding context); a model
+    split over its model axis gives a vocabulary slice (`vocab_shard`)."""
     def loss_fn(batch):
         extras = {k: batch[k] for k in EXTRA_INPUT_KEYS if k in batch}
         x, aux = model.backbone(batch["tokens"], **extras)
+        vocab = model.vocab_shard() if hasattr(model, "vocab_shard") \
+            else None
         loss, denom = chunked_cross_entropy(
             model.apply_head, x, batch["labels"], batch.get("loss_mask"),
-            seq_chunk=seq_chunk)
+            seq_chunk=seq_chunk, vocab=vocab, data=data)
         total = loss
         if cfg.moe is not None:
             total = (total
@@ -141,8 +191,15 @@ def make_train_step(model, cfg: ArchConfig, optimizer, *,
                     n_microbatches: int = 1, grad_compression=None,
                     param_axes=None, mesh=None, plan=None,
                     zero1: bool = False) -> Callable:
-    """The LM train step on one device: ``(params, opt_state, batch) ->
-    (params, opt_state, metrics)``.
+    """The LM train step: ``(params, opt_state, batch) -> (params,
+    opt_state, metrics)``.
+
+    With ``plan`` (a `repro_torch.distributed.partition.MeshPlan`) or
+    ``mesh`` (wrapped by `plan_for`) it is `MeshTrainStep` over the
+    mesh's ranks (ZeRO-1 with ``zero1``; ``param_axes``: {parameter
+    name: logical axes}, `layers.param_axes(model)` when None).
+    Without either, ``zero1`` and ``param_axes`` change nothing, as in
+    the reference, and the step runs on one device:
 
     ``params`` are `model`'s named parameters.  Each microbatch's mean
     loss is backpropagated as it is, so its gradient adds into
@@ -152,51 +209,218 @@ def make_train_step(model, cfg: ArchConfig, optimizer, *,
     An unused parameter gets a zero gradient, as `jax.grad` gives it.
     ``grad_compression`` (a ``grads -> grads`` callable, e.g.
     `ErrorFeedbackCompressor.bind`) sees the gradients before the
-    optimizer's in-place `update_`.  The raw gradients stay in
-    ``.grad`` until the next step clears them."""
-    if plan is not None or mesh is not None or zero1 \
-            or param_axes is not None:
-        raise NotImplementedError(
-            "make_train_step: plan=, mesh=, zero1= and param_axes= are the "
-            "LM on the mesh, not ported yet (ROADMAP.md queue 1, 'the LM "
-            "on the mesh')")
+    optimizer's in-place `update_`, with the layer grouping of the
+    model's parameters (`layers.stack_groups`, Adafactor's; pass the same
+    to ``optimizer.init``).  The raw gradients stay in ``.grad`` until
+    the next step clears them."""
+    if plan is not None or mesh is not None:
+        if plan is None:
+            from repro_torch.distributed.partition import plan_for
+            plan = plan_for(mesh, device=next(model.parameters()).device)
+        return MeshTrainStep(model, cfg, optimizer, plan,
+                             n_microbatches=n_microbatches,
+                             grad_compression=grad_compression,
+                             param_axes=param_axes, zero1=zero1)
     loss_fn = make_loss_fn(model, cfg)
+    groups = layers.stack_groups(dict(model.named_parameters()))
 
     def train_step(params, opt_state, batch):
         for p in params.values():
             p.grad = None
-        if n_microbatches > 1:
-            metrics = None
-            for mb in _split_microbatches(batch, n_microbatches):
-                total, m = loss_fn(mb)
-                total.backward()
-                m = {k: m[k].detach().to(torch.float32) for k in LM_METRICS}
-                metrics = m if metrics is None else {
-                    k: metrics[k] + m[k] for k in LM_METRICS}
-            with torch.no_grad():
-                for p in params.values():
-                    if p.grad is not None:
-                        p.grad.mul_(torch.full(
-                            (), 1.0 / n_microbatches, dtype=p.grad.dtype,
-                            device=p.grad.device))
-            metrics = {k: v / n_microbatches for k, v in metrics.items()}
-        else:
-            total, metrics = loss_fn(batch)
-            total.backward()
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        grads = {}
-        for k, p in params.items():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads[k] = p.grad
+        metrics = _backward_metrics(
+            loss_fn, _split_microbatches(batch, n_microbatches))
+        grads = _gradients(params, n_microbatches)
         if grad_compression is not None:
             grads = grad_compression(grads)
-        params, opt_state, opt_metrics = optimizer.update_(grads, opt_state,
-                                                           params)
+        params, opt_state, opt_metrics = optimizer.update_(
+            grads, opt_state, params, groups=groups)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
     return train_step
+
+
+def _backward_metrics(loss_fn, batches: list) -> dict:
+    """Backpropagate each batch's total loss (the gradients add into
+    ``.grad``) and return the metrics averaged over the batches."""
+    metrics = None
+    for mb in batches:
+        total, m = loss_fn(mb)
+        total.backward()
+        m = {k: m[k].detach().to(torch.float32) for k in LM_METRICS}
+        metrics = m if metrics is None else {
+            k: metrics[k] + m[k] for k in LM_METRICS}
+    return {k: v / len(batches) for k, v in metrics.items()}
+
+
+def _gradients(params: dict, n_microbatches: int) -> dict:
+    """{name: ``.grad``}: the microbatches' sum multiplied by 1 / n in
+    the parameter dtype, as the reference accumulates; an unused
+    parameter gets a zero gradient, as `jax.grad` gives it."""
+    grads = {}
+    with torch.no_grad():
+        for k, p in params.items():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif n_microbatches > 1:
+                p.grad.mul_(torch.full((), 1.0 / n_microbatches,
+                                       dtype=p.grad.dtype,
+                                       device=p.grad.device))
+            grads[k] = p.grad
+    return grads
+
+
+def _split_dim(full: tuple, local: tuple) -> int:
+    """The one dim on which a leaf's local shape is cut from its full
+    shape, or -1 when it is whole."""
+    cut = [i for i, (a, b) in enumerate(zip(full, local)) if a != b]
+    if len(cut) > 1:
+        raise ValueError(f"a leaf of {full} cut to {local} on dims {cut}")
+    return cut[0] if cut else -1
+
+
+class MeshTrainStep:
+    """The LM train step on a (data, model) mesh of ranks: the
+    reference's ``make_train_step(..., plan=, zero1=)``, one GSPMD
+    program with the one-device step's numbers, as explicit collectives.
+
+    * **Tensor parallelism** over "model": the step splits `model` in
+      place on construction (`DecoderLM.split_`; the other families stay
+      whole on every model rank), so read ``model.named_parameters()``
+      after building it.  A leaf split there holds its slice; its
+      logical axes keep their model names, and a whole leaf's lose them
+      (`axes`), so every spec below is what the rank holds.
+    * **Data parallelism**: every rank is handed the whole batch.  It is
+      cut into microbatches first and each microbatch into the data
+      ranks' row blocks (the reference constrains each microbatch over
+      "data"), so rank ``d`` runs block ``d`` of every microbatch.  The
+      loss is the microbatch's global mean (`make_loss_fn` with
+      ``data=``), and the MoE layers see the data axis through
+      `use_sharding`.
+    * **Gradients**: each rank's backward gives its part of the global
+      gradient, whole over "model" for a whole leaf and its slice's for
+      a split one, so they are summed over "data" only
+      (`MeshPlan.zero_reduce_grads(mean=False)`).
+    * **ZeRO-1** (``zero1`` and more than one data rank): the optimizer
+      state holds this data rank's slice of each leaf on the dim its
+      "embed" axis resolves to (`init_opt_state`); the gradient arrives
+      reduce-scattered there, the update runs on the slices (the norm
+      and Adafactor's statistics corrected over both axes), and the new
+      slices are all-gathered.
+
+    The body runs under the plan's `dispatch_context()`.
+    ``grad_compression`` is not ported on the mesh and raises."""
+
+    def __init__(self, model, cfg: ArchConfig, optimizer, plan, *,
+                 n_microbatches: int = 1, grad_compression=None,
+                 param_axes=None, zero1: bool = False):
+        from repro_torch.distributed.partition import MODEL_AXIS
+        if grad_compression is not None:
+            raise NotImplementedError(
+                "make_train_step: grad_compression on the mesh is not "
+                "ported (ROADMAP.md queue 1)")
+        self.optimizer, self.plan = optimizer, plan
+        self.n_microbatches = n_microbatches
+        axes = dict(param_axes if param_axes is not None
+                    else layers.param_axes(model))
+        full = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        self.model_axis = (plan.mesh.axes[MODEL_AXIS] if plan.model_axis
+                           else None)
+        if self.model_axis is not None and hasattr(model, "split_"):
+            model.split_(self.model_axis)
+        params = dict(model.named_parameters())
+        self.model_dims = {k: _split_dim(full[k], tuple(p.shape))
+                           for k, p in params.items()}
+        rules = plan.param_rules
+        self.axes = {k: axes[k] if self.model_dims[k] >= 0
+                     else _whole_over_model(axes[k], rules)
+                     for k in params}
+        ctx = plan._ctx()
+        self.specs = {k: ctx.resolve(self.axes[k], rules, shape=full[k])
+                      for k in params}
+        for k, spec in self.specs.items():
+            on_model = [i for i, e in enumerate(spec)
+                        if MODEL_AXIS in (e if isinstance(e, tuple)
+                                          else (e,))]
+            if on_model != ([self.model_dims[k]] if self.model_dims[k] >= 0
+                            else []):
+                raise ValueError(
+                    f"{k}: split on dim {self.model_dims[k]} but its axes "
+                    f"{self.axes[k]} resolve to {spec}")
+        self.zero = zero1 and plan.zero_enabled()
+        self.data_dims = {k: plan._spec_data_dim(s) if self.zero else -1
+                          for k, s in self.specs.items()}
+        self.groups = layers.stack_groups(params)
+        self.data = plan.data_axis if plan.data_size > 1 else None
+        self.loss_fn = make_loss_fn(model, cfg, data=self.data)
+
+    def init_opt_state(self, params: dict):
+        """The optimizer's zero state for this rank: over its ZeRO slices
+        of `params` (this rank's model slices)."""
+        with torch.no_grad():
+            return self.optimizer.init(
+                self.plan.zero_slice({k: p.detach() for k, p in
+                                      params.items()}, self.data_dims),
+                self.groups)
+
+    def gather_params(self, params: dict) -> dict:
+        """Whole parameters from this rank's (a collective)."""
+        with torch.no_grad():
+            return self.plan.gather_params(
+                {k: p.detach() for k, p in params.items()}, self.model_dims)
+
+    def _microbatches(self, batch: dict) -> list:
+        """Rank ``d``'s row block of every microbatch of `batch`."""
+        data = self.data
+        micro = _split_microbatches(batch, self.n_microbatches)
+        if data is None:
+            return micro
+        for k, x in micro[0].items():
+            if x.shape[0] % data.size:
+                raise ValueError(
+                    f"batch leaf {k!r}: a microbatch of {x.shape[0]} rows "
+                    f"does not split over {data.size} data shards")
+        return [{k: collectives.split_chunk(x, data, 0)
+                 for k, x in mb.items()} for mb in micro]
+
+    def __call__(self, params: dict, opt_state, batch: dict):
+        from repro_torch.distributed.sharding import use_sharding
+        plan = self.plan
+        for p in params.values():
+            p.grad = None
+        with use_sharding(plan.mesh, plan.param_rules, plan.act_rules), \
+                plan.dispatch_context():
+            metrics = _backward_metrics(self.loss_fn,
+                                        self._microbatches(batch))
+        grads = _gradients(params, self.n_microbatches)
+        with torch.no_grad():
+            grads = plan.zero_reduce_grads(grads, self.data_dims,
+                                           mean=False)
+            mesh_kw = dict(model=self.model_axis, model_dims=self.model_dims,
+                           groups=self.groups)
+            if self.zero:
+                current = {k: p.detach() for k, p in params.items()}
+                mine = plan.zero_slice(current, self.data_dims)
+                mine, opt_state, opt_metrics = self.optimizer.update_(
+                    grads, opt_state, mine, group=plan.data_axis,
+                    shard_dims=self.data_dims, **mesh_kw)
+                for k, x in plan.zero_gather(mine, self.data_dims).items():
+                    params[k].copy_(x)
+            else:
+                _, opt_state, opt_metrics = self.optimizer.update_(
+                    grads, opt_state, params, **mesh_kw)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+
+def _whole_over_model(axes: tuple, rules: dict) -> tuple:
+    """`axes` with every name the rules put on "model" dropped (a leaf
+    that stays whole on every model rank)."""
+    def on_model(name):
+        target = rules.get(name) if name is not None else None
+        return "model" in (target if isinstance(target, (tuple, list))
+                           else (target,))
+    return tuple(None if on_model(a) else a for a in axes)
 
 
 def make_eval_step(model, cfg: ArchConfig) -> Callable:

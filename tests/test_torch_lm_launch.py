@@ -12,8 +12,9 @@
 * Without ``--device`` it needs a card (no CPU fallback); its flags are
   the reference's plus ``--device``.
 * `pick_optimizer` against the reference's for every arch (kind, moment
-  dtype, learning rate), and `make_train_step`'s mesh arguments refused
-  with `NotImplementedError` until the LM on the mesh is ported.
+  dtype, learning rate), and `make_train_step`'s mesh arguments: without
+  a mesh ``zero1=`` and ``param_axes=`` change nothing, and a world of
+  one rank through ``plan=`` or ``mesh=`` gives the plain step.
 """
 import os
 
@@ -114,10 +115,57 @@ def test_pick_optimizer_matches_reference(arch):
             float(want.learning_rate(jnp.asarray(step))), rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [{"plan": object()}, {"mesh": object()},
-                                {"zero1": True}, {"param_axes": {}}])
-def test_mesh_arguments_are_not_ported_yet(kw):
-    cfg = registry.get_config("qwen1.5-4b-smoke")
-    model = registry.build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="the LM on the mesh"):
-        t_loop.make_train_step(model, cfg, t_opt.AdamW(), **kw)
+def _one_rank(kind: str, model) -> dict:
+    """`make_train_step`'s keywords for a case of the test below."""
+    from repro_torch.distributed import partition
+    from repro_torch.nn.layers import param_axes
+    if kind == "zero1":
+        return {"zero1": True}
+    if kind == "param_axes":
+        return {"param_axes": param_axes(model)}
+    plan = partition.make_plan(1, device="cpu")
+    return {"plan": plan, "zero1": True} if kind == "plan" \
+        else {"mesh": plan.mesh, "zero1": True}
+
+
+@pytest.mark.parametrize("kind", ["zero1", "param_axes", "plan", "mesh"])
+def test_mesh_arguments_match_the_plain_step(kind):
+    """``zero1=`` and ``param_axes=`` without a mesh change nothing, as in
+    the reference; a world of one rank through ``plan=`` or ``mesh=``
+    (wrapped by `plan_for`) runs the mesh program, which gives the plain
+    step's numbers: two steps from the same weights, bit for bit (one
+    intra-op thread, so the embedding gradient's sum has one order)."""
+    from repro_torch.nn.layers import init_params, stack_groups
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = registry.get_config("qwen1.5-4b-smoke")
+        runs = []
+        for kw in (None, kind):
+            model = init_params(registry.build_model(cfg, "cpu"), 7)
+            opt = t_opt.AdamW(learning_rate=1e-3)
+            step = t_loop.make_train_step(
+                model, cfg, opt, n_microbatches=2,
+                **(_one_rank(kw, model) if kw else {}))
+            params = dict(model.named_parameters())
+            state = (step.init_opt_state(params)
+                     if isinstance(step, t_loop.MeshTrainStep)
+                     else opt.init(params, stack_groups(params)))
+            rng = np.random.default_rng(1)
+            toks = rng.integers(0, cfg.vocab_size, (4, 17)).astype(np.int64)
+            batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                     "labels": torch.from_numpy(toks[:, 1:])}
+            losses = []
+            for _ in range(2):
+                params, state, m = step(params, state, batch)
+                losses.append({k: float(v) for k, v in m.items()})
+            runs.append((losses, {k: p.detach().clone()
+                                  for k, p in params.items()}))
+    finally:
+        torch.set_num_threads(threads)
+    (want, want_p), (got, got_p) = runs
+    assert (kind in ("plan", "mesh")) == isinstance(step,
+                                                    t_loop.MeshTrainStep)
+    assert got == want
+    for k in want_p:
+        assert torch.equal(got_p[k], want_p[k]), k

@@ -286,14 +286,16 @@ def test_adafactor_matches_reference_on_the_stacked_tree(
     topt = t_opt.Adafactor(learning_rate=1e-2, weight_decay=0.01)
     jp = jax.tree_util.tree_map(jnp.asarray, tree)
     tp = _per_layer(model, stacked)
-    js, ts = jopt.init(jp), topt.init(tp)
+    groups = t_layers.stack_groups(tp)
+    js, ts = jopt.init(jp), topt.init(tp, groups=groups)
     assert set(ts.vr) == set(stacked)
     j_update = jax.jit(jopt.update)  # traced with the threshold set here
     for step in range(3):
         grads = _stacked_grads(tree, 100 * step)
         jp, js, _ = j_update(
             jax.tree_util.tree_map(jnp.asarray, _nest(grads)), js, jp)
-        tp, ts, _ = topt.update(_per_layer(model, grads), ts, tp)
+        tp, ts, _ = topt.update(_per_layer(model, grads), ts, tp,
+                                groups=groups)
     got = flat(t_layers.stack_lm_tree(tp))
     want = flat(jax.tree_util.tree_map(np.asarray, jp))
     for k in want:
@@ -322,7 +324,8 @@ def test_adafactor_update_in_place_matches_update(monkeypatch, arch,
     fn_p = {k: v.clone() for k, v in start.items()}
     ip_p = {k: v.clone() for k, v in start.items()}
     held = dict(ip_p)
-    fn_s, ip_s = opt.init(fn_p), opt.init(ip_p)
+    groups = t_layers.stack_groups(start)
+    fn_s, ip_s = opt.init(fn_p, groups), opt.init(ip_p, groups)
     stacked = []
     stack = torch.stack
 
@@ -332,9 +335,9 @@ def test_adafactor_update_in_place_matches_update(monkeypatch, arch,
 
     for step in range(3):
         grads = _per_layer(model, _stacked_grads(tree, 100 * step))
-        fn_p, fn_s, _ = opt.update(grads, fn_s, fn_p)
+        fn_p, fn_s, _ = opt.update(grads, fn_s, fn_p, groups=groups)
         monkeypatch.setattr(torch, "stack", spy)
-        out, ip_s, _ = opt.update_(grads, ip_s, ip_p)
+        out, ip_s, _ = opt.update_(grads, ip_s, ip_p, groups=groups)
         monkeypatch.setattr(torch, "stack", stack)
         assert out is ip_p
     assert stacked and max(stacked) <= 1

@@ -49,9 +49,10 @@ def adafactor_zero_rank():
     full = {k: torch.from_numpy(normal(s, i)) for i, (k, s)
             in enumerate(ZERO_SHAPES.items())}
     mine = {k: _cut(v, ZERO_DIMS[k], rank) for k, v in full.items()}
-    s_full, s_mine = opt.init(full), opt.init(full)
+    groups = t_layers.stack_groups(full)
+    s_full, s_mine = opt.init(full, groups), opt.init(full, groups)
     # the sliced state: each moment cut where its leaf is cut
-    for key, names in t_layers.stack_groups(full).items():
+    for key, names in groups.items():
         dim = ZERO_DIMS[names if isinstance(names, str) else names[0]]
         if dim < 0:
             continue
@@ -66,10 +67,10 @@ def adafactor_zero_rank():
     for step in range(3):
         grads = {k: torch.from_numpy(normal(s, 50 + 10 * step + i, 0.5))
                  for i, (k, s) in enumerate(ZERO_SHAPES.items())}
-        full, s_full, _ = opt.update(grads, s_full, full)
+        full, s_full, _ = opt.update(grads, s_full, full, groups=groups)
         g_mine = {k: _cut(v, ZERO_DIMS[k], rank) for k, v in grads.items()}
         mine, s_mine, _ = opt.update(g_mine, s_mine, mine, group=axis,
-                                     shard_dims=ZERO_DIMS)
+                                     shard_dims=ZERO_DIMS, groups=groups)
     return ({k: v.numpy() for k, v in mine.items()},
             {k: _cut(v, ZERO_DIMS[k], rank).numpy()
              for k, v in full.items()})
