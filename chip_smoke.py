@@ -142,7 +142,15 @@ head, 8 classes):
   stays whole); (c) `pipeline_apply` over 4 stage ranks, one qwen1.5-4b
   `DecoderBlock` a stage, 4 microbatches of 1 x 512, against the blocks
   in sequence (rtol 1e-4).  Step ms, `torch.distributed` calls and the
-  host ms inside them a step, and peak GB, a rank.  No kernel launches.
+  host ms inside them a step, and peak GB, a rank.  No kernel launches;
+* the dry run (`[dryrun]`, `repro_torch.launch.dryrun`, traced on meta
+  tensors in spawned processes on the CPU): (a) `[lm-train]` (c)'s step
+  on one rank against that run's measured peak, (b) rank 0 of
+  `[lm-mesh]` (a) in a fake world of 4 against rank 0's measured peak
+  (both within 10%), its `torch.distributed` calls a step and the
+  parameter and optimizer bytes it held (equal); (c) qwen2.5-32b's
+  train_4k, prefill_32k and decode_32k at 16 x 16 (256 ranks), each
+  cell's row and roofline; (d) `HBM_PER_CARD` against the card.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -4844,7 +4852,32 @@ def train_flops_bound(cfg, n_params: int, n_gather: int, batch: int,
     return out
 
 
-def train_full_run(torch, smi) -> str:
+def train_roofline_line(cfg, bound: dict, step_ms: float) -> str:
+    """`repro_torch.launch.roofline.analyze` of (c)'s step (one card, no
+    collectives) beside `train_flops_bound`: the roofline takes the
+    reference's analytic FLOPs (2 N T a pass, 4 passes under remat
+    "layer", the causal attention's quadratic term at bf16 rate) and its
+    HBM bytes (weights 3 passes a microbatch, activations, the optimizer
+    state read and written once); the bound takes its phases in
+    sequence, the attention at the fp32 rate, the AdamW update's bytes
+    and the weight casts."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    shape = ShapeConfig("lm-train (c)", TRAIN_FULL_SEQ, TRAIN_FULL_BATCH,
+                        "train")
+    row = roofline.analyze({"arch": TRAIN_ARCH, "shape": shape.name,
+                            "mesh": "1", "n_chips": 1, "n_microbatches": 1,
+                            "collectives": {"per_axis": {}}}, shape=shape)
+    return (f"roofline.analyze: compute {row.compute_s * 1e3:.1f} ms "
+            f"({row.compiled_flops / 1e12:.1f} TFLOP at 989 TFLOP/s), memory "
+            f"{row.memory_s * 1e3:.1f} ms at 3.35 TB/s, collective 0, bound "
+            f"by {row.bottleneck}, MFU at the median step "
+            f"{row.model_flops / 989e12 / (step_ms / 1e3) * 100:.1f}%; "
+            f"beside train_flops_bound {bound['bound_ms']:.1f} ms "
+            f"({cfg.name})")
+
+
+def train_full_run(torch, smi, figures: dict) -> str:
     """(c) qwen1.5-4b at full width and depth (3.95 B fp32 parameters
     drawn on the card, bf16 compute, remat "layer", pick_optimizer's
     AdamW), TRAIN_FULL_STEPS steps of batch 1 x 2048 from
@@ -4855,7 +4888,8 @@ def train_full_run(torch, smi) -> str:
     peak may exceed the 1-batch run's by at most that run's activations
     (its peak over the memory held between steps) and the fp32
     whole-leaf gradients of the embedding table and the head: no second
-    gradient buffer."""
+    gradient buffer.  Its peak goes into ``figures["lm-train"]`` for
+    `[dryrun]` (a)."""
     from repro_torch.launch.specs import pick_optimizer
     from repro_torch.models.registry import build_model
     from repro_torch.nn.layers import init_params, stack_groups
@@ -4887,6 +4921,7 @@ def train_full_run(torch, smi) -> str:
         norms.append(float(metrics["grad_norm"]))
     peak = torch.cuda.max_memory_allocated()
     static = torch.cuda.memory_allocated()
+    figures["lm-train"] = {"peak": peak}
     reserved = torch.cuda.max_memory_reserved()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     if not all(np.isfinite(losses + norms)):
@@ -4936,6 +4971,7 @@ def train_full_run(torch, smi) -> str:
           f" + weight casts {bound['cast_bytes'] / 1e9:.1f} GB "
           f"{bound['casts_ms']:.1f} ms ({bound['bound_ms'] / med * 100:.1f}"
           f"% of the median step)")
+    phase("lm-train", f"(c) {train_roofline_line(cfg, bound, med)}")
     # one step at batch 2 in two microbatches of the run's size: its
     # peak may pass (c)'s by (c)'s activations (the second microbatch's)
     # and the whole-leaf gradients of the embedding table and the head,
@@ -5044,7 +5080,7 @@ def train_part(torch, name: str, fn, *args) -> str:
     return line
 
 
-def lm_train_phase(torch, smi) -> dict:
+def lm_train_phase(torch, smi, figures: dict) -> dict:
     """LM training on the card, one model at a time: (a) all 10 arch ids
     at smoke size, card against CPU, with AdamW, then Adafactor and the
     int8 error-feedback compressor; (b) remat and microbatches at full
@@ -5077,7 +5113,7 @@ def lm_train_phase(torch, smi) -> dict:
         phase("lm-train", f"(b) {train_part(torch, name, fn, *args)}")
     phase("lm-train", f"(b) {time.perf_counter() - t1:.1f}s")
     t1 = time.perf_counter()
-    phase("lm-train", f"(c) {train_part(torch, '(c)', train_full_run, smi)}"
+    phase("lm-train", f"(c) {train_part(torch, '(c)', train_full_run, smi, figures)}"
           f"; {time.perf_counter() - t1:.1f}s")
     t1 = time.perf_counter()
     phase("lm-train", f"(d) {train_part(torch, '(d)', train_twin_check)}; "
@@ -5282,11 +5318,12 @@ def lm_mesh_line(label: str, run: dict, smi: str) -> str:
             f"optimizer state held")
 
 
-def lm_mesh_phase(torch, smi) -> dict:
+def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     """The LM on the mesh (module docstring, `[lm-mesh]`): the one-rank
     runs alone first, then one world of LM_MESH_DATA x LM_MESH_MODEL
     gloo ranks sharing the card for (a), (b) and (c).  Returns every
-    kernel's launches (all must be 0)."""
+    kernel's launches (all must be 0); each rank's (a) run goes into
+    ``figures["lm-mesh"]`` for `[dryrun]` (b)."""
     import gc
     import tempfile
     from repro_torch.distributed.launch import run_ranks
@@ -5308,6 +5345,9 @@ def lm_mesh_phase(torch, smi) -> dict:
                           backend="gloo", device=DEVICE + ":0",
                           timeout_s=LM_MESH_TIMEOUT_S)
         world_s = time.perf_counter() - t1
+    figures["lm-mesh"] = sorted(
+        ({"rank": run["rank"], **run[LM_MESH_ARCHS[0]]} for run in world),
+        key=lambda r: r["rank"])
     launches = read_launches()
     for run in world:
         for k, v in run["launches"].items():
@@ -5392,6 +5432,177 @@ def lm_mesh_phase(torch, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dry run against the card: [lm-train] (c) and [lm-mesh] (a) traced
+# on meta tensors, the production cells of qwen2.5-32b, the card's memory
+# ---------------------------------------------------------------------------
+
+DRYRUN_TOL = 0.10           # a dry-run peak against the card's measured one
+DRYRUN_CELLS = (("qwen2.5-32b", "train_4k"), ("qwen2.5-32b", "prefill_32k"),
+                ("qwen2.5-32b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 900
+
+
+def dryrun_job(job: tuple):
+    """One trace of `[dryrun]`, in a spawned process on the CPU (nothing
+    touches the card): ("lm-train",) traces `[lm-train]` (c)'s step on
+    one rank; ("lm-mesh",) rank 0 of `[lm-mesh]` (a) in a fake world of
+    its ranks; ("cell", arch, shape) `run_cell` at 16 x 16 and its
+    `analyze` row."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch.dryrun import fake_world, run_cell, trace_train
+    t0 = time.perf_counter()
+    if job[0] == "lm-train":
+        from repro_torch.launch.specs import pick_optimizer
+        cfg = train_config(TRAIN_ARCH)
+        tokens = ((TRAIN_FULL_BATCH, TRAIN_FULL_SEQ), torch.int32)
+        out = trace_train(cfg, pick_optimizer(cfg),
+                          {"tokens": tokens, "labels": tokens})
+    elif job[0] == "lm-mesh":
+        from repro_torch.distributed import partition
+        from repro_torch.train.optimizer import AdamW
+        cfg = lm_mesh_config(LM_MESH_ARCHS[0])
+        shape = (LM_MESH_BATCH, LM_MESH_SEQ)
+        batch = {"tokens": (shape, torch.int64), "labels": (shape, torch.int64),
+                 "loss_mask": (shape, torch.float32)}
+        with fake_world(LM_MESH_DATA * LM_MESH_MODEL):
+            plan = partition.make_plan(model_parallel=LM_MESH_MODEL,
+                                       device="cpu")
+            out = trace_train(cfg, AdamW(learning_rate=LM_MESH_LR), batch,
+                              plan=plan, n_microbatches=LM_MESH_MICRO)
+    else:
+        from repro_torch.launch.roofline import analyze
+        row = run_cell(job[1], job[2], multi_pod=False, verbose=False)
+        out = {"row": row, "roofline": analyze(row).as_dict()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun_peak(trace: dict) -> int:
+    """The window a card's ``max_memory_allocated`` covers: the setup
+    (build, split, state) and the step."""
+    return max(trace["setup_peak"], trace["peak"]["total"])
+
+
+def dryrun_gap(label: str, predicted: int, measured: int) -> float:
+    gap = predicted / measured - 1.0
+    if abs(gap) > DRYRUN_TOL:
+        fail(f"dryrun {label}: the dry run's peak {predicted / 1e9:.3f} GB "
+             f"is {gap * 100:+.1f}% off the card's {measured / 1e9:.3f} GB "
+             f"(limit {DRYRUN_TOL * 100:.0f}%)")
+    return gap
+
+
+def dryrun_breakdown(trace: dict) -> str:
+    p = trace["peak"]
+    return (f"step peak {p['total'] / 1e9:.3f} GB = parameters "
+            f"{p['params'] / 1e9:.3f} + gradients {p['grads'] / 1e9:.3f} + "
+            f"optimizer {p['opt_state'] / 1e9:.3f} + the rest "
+            f"{p['rest'] / 1e9:.3f}; setup peak "
+            f"{trace['setup_peak'] / 1e9:.3f} GB")
+
+
+def dryrun_hbm_check(torch) -> str:
+    """(d) `HBM_PER_CARD` against this card: its total memory less what
+    the CUDA context and the other processes hold now (free and
+    PyTorch's reserved bytes taken off), within 1%."""
+    from repro_torch.launch.specs import HBM_PER_CARD
+    total = torch.cuda.get_device_properties(0).total_memory
+    free, _ = torch.cuda.mem_get_info()
+    reserve = total - free - torch.cuda.memory_reserved()
+    usable = total - reserve
+    if abs(usable - HBM_PER_CARD) > 0.01 * HBM_PER_CARD:
+        fail(f"dryrun (d): HBM_PER_CARD {HBM_PER_CARD} against this card's "
+             f"{usable} ({total} total less {reserve} outside PyTorch)")
+    return (f"(d) HBM_PER_CARD {HBM_PER_CARD} B against this card's "
+            f"{usable} B ({total} total less {reserve} held outside "
+            f"PyTorch's allocator now): {(HBM_PER_CARD / usable - 1) * 100:+.2f}%")
+
+
+def dryrun_phase(torch, smi, figures: dict) -> dict:
+    """The dry run (`repro_torch.launch.dryrun`) held to the card: (a)
+    `[lm-train]` (c)'s step traced on one rank against its measured
+    ``max_memory_allocated``; (b) rank 0 of `[lm-mesh]` (a) traced in a
+    fake world of its 4 ranks against rank 0's measured peak, its
+    `torch.distributed` calls a step (equal) and the parameter and
+    optimizer bytes it held (equal); (c) qwen2.5-32b's three cells at 16 x
+    16, `run_cell` and `analyze` rows; (d) `HBM_PER_CARD` against the
+    card.  The traces run in spawned processes on the CPU, side by side;
+    every kernel's launch count must stay 0."""
+    import concurrent.futures
+    import multiprocessing
+    t0 = time.perf_counter()
+    zero_launches()
+    jobs = [("lm-train",), ("lm-mesh",)] + [("cell",) + c for c in DRYRUN_CELLS]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(jobs),
+                                                mp_context=ctx) as pool:
+        futures = [pool.submit(dryrun_job, job) for job in jobs]
+        done = [f.result(timeout=DRYRUN_TIMEOUT_S) for f in futures]
+    one, mesh, cells = done[0], done[1], done[2:]
+
+    measured = figures["lm-train"]["peak"]
+    gap = dryrun_gap("(a)", dryrun_peak(one), measured)
+    phase("dryrun", f"(a) {TRAIN_ARCH} one rank, 1 x {TRAIN_FULL_SEQ}, "
+          f"fp32 parameters, bf16 compute, AdamW (the [lm-train] (c) run): "
+          f"dry-run peak {dryrun_peak(one) / 1e9:.3f} GB against the card's "
+          f"max_memory_allocated {measured / 1e9:.3f} GB ({smi}): "
+          f"{gap * 100:+.2f}% (limit {DRYRUN_TOL * 100:.0f}%); "
+          f"{dryrun_breakdown(one)}; {one['flops'] / 1e12:.1f} TFLOP "
+          f"counted; traced in {one['seconds']:.1f}s")
+    rank0 = figures["lm-mesh"][0]
+    calls = mesh["collectives"]["n_ops"]
+    held = mesh["held"]
+    if calls != rank0["calls"] or held != {"params": rank0["param_bytes"],
+                                           "opt_state": rank0["opt_bytes"]}:
+        fail(f"dryrun (b): the dry run's {calls} torch.distributed calls a "
+             f"step and {held} bytes held, rank 0's {rank0['calls']} calls, "
+             f"{rank0['param_bytes']} parameter and {rank0['opt_bytes']} "
+             "optimizer bytes")
+    gap = dryrun_gap("(b)", dryrun_peak(mesh), rank0["peak"])
+    per_op = ", ".join(f"{k} {v['count']} ({v['bytes'] / 1e9:.3f} GB)"
+                       for k, v in mesh["collectives"]["per_op"].items()
+                       if v["count"])
+    phase("dryrun", f"(b) {LM_MESH_ARCHS[0]} {LM_MESH_LAYERS} layers at "
+          f"(data={LM_MESH_DATA}, model={LM_MESH_MODEL}), rank 0 of a fake "
+          f"world of {LM_MESH_DATA * LM_MESH_MODEL} (the [lm-mesh] (a) run): "
+          f"{calls} torch.distributed calls a step and "
+          f"{held['params'] / 1e9:.3f} / {held['opt_state'] / 1e9:.3f} GB "
+          f"of parameters / optimizer state held, equal to rank 0's on the "
+          f"card; dry-run peak {dryrun_peak(mesh) / 1e9:.3f} GB against "
+          f"rank 0's {rank0['peak'] / 1e9:.3f} GB ({smi}; ranks "
+          + ", ".join(f"{r['peak'] / 1e9:.3f}" for r in figures["lm-mesh"])
+          + f"): {gap * 100:+.2f}% (limit {DRYRUN_TOL * 100:.0f}%); "
+          f"{dryrun_breakdown(mesh)}; calls {per_op}; traced in "
+          f"{mesh['seconds']:.1f}s")
+    for (arch, shape), cell in zip(DRYRUN_CELLS, cells):
+        row, roof = cell["row"], cell["roofline"]
+        p = row["peak_bytes_per_device"]
+        coll = row["collectives"]
+        phase("dryrun", f"(c) {arch} {shape} at 16x16 (rank 0 of 256): "
+              f"peak {p['total'] / 1e9:.2f} GB a rank (parameters "
+              f"{p['params'] / 1e9:.2f}, gradients {p['grads'] / 1e9:.2f}, "
+              f"optimizer {p['opt_state'] / 1e9:.2f}, cache "
+              f"{p['cache'] / 1e9:.2f}, rest {p['rest'] / 1e9:.2f}), fit "
+              f"{row['hbm_fit']}; {coll['n_ops']} calls, "
+              f"{coll['total_bytes'] / 1e9:.2f} GB; "
+              f"{row['traced_flops_per_device'] / 1e12:.1f} TFLOP; layout "
+              f"{json.dumps(row['layout'])}; roofline compute "
+              f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} s, "
+              f"collective {roof['collective_s']:.4f} s, bound "
+              f"{roof['bottleneck']}, MFU {roof['mfu'] * 100:.1f}% "
+              f"(dry-run predictions for the H100 80GB HBM3); traced in "
+              f"{cell['seconds']:.1f}s")
+    phase("dryrun", dryrun_hbm_check(torch))
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"dryrun: a kernel of the port was launched: {launches}")
+    phase("dryrun", f"kernel launches 0 (the traces run on meta tensors); "
+          f"phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def load_data():
     """The synthetic MAG store, the §8 spec, the training setup and the
     first training batch on the card."""
@@ -5471,10 +5682,13 @@ def main() -> int:
     records["flash_attention"]["launches"] += lm
     for name, n in lm_families_phase(torch, smi).items():
         records[name]["lm_families_launches"] = n
-    for name, n in lm_train_phase(torch, smi).items():
+    figures: dict = {}
+    for name, n in lm_train_phase(torch, smi, figures).items():
         records[name]["lm_train_launches"] = n
-    for name, n in lm_mesh_phase(torch, smi).items():
+    for name, n in lm_mesh_phase(torch, smi, figures).items():
         records[name]["lm_mesh_launches"] = n
+    for name, n in dryrun_phase(torch, smi, figures).items():
+        records[name]["dryrun_launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

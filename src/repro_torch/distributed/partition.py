@@ -61,7 +61,13 @@ A MeshPlan derives from the mesh and the rule tables of
   under it; the GNN step's per-rank shapes are a shard's already.
 
 A mesh may also lead with a "stage" axis (``make_mesh(stages=S)``), the
-ranks of one pipeline (`repro_torch.distributed.pipeline_parallel`).
+ranks of one pipeline (`repro_torch.distributed.pipeline_parallel`), or
+with a "pod" axis (``make_mesh(pods=P)``, the reference's production
+``("pod", "data", "model")``).  A pod's ranks are a consecutive block,
+as a stage's are.  The batch splits over pod x data (the act rule of
+"batch"; the mesh's `batch` axis is that line of ranks), gradients are
+summed over both, and ZeRO-1 slices over "data" only (the param rule
+``"embed": "data"``), so the optimizer state is the same in every pod.
 """
 from __future__ import annotations
 
@@ -89,6 +95,8 @@ GROUP_AXIS = "batch"    # logical name of the leading component-group axis
 MODEL_AXIS = "model"    # mesh axis carrying feature-dim model parallelism
 DATA_AXIS = "data"
 STAGE_AXIS = "stage"    # mesh axis of pipeline stages (outermost)
+POD_AXIS = "pod"        # mesh axis of pods (data parallel, outside "data")
+BATCH_LINE = "pod+data"  # the pod x data line of a mesh with pods
 PROCESS_GROUP_TIMEOUT_S = 300.0   # a collective that waits longer fails
 
 
@@ -145,8 +153,10 @@ def backend_name() -> str:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The ranks as a grid: ``axis_names`` ("data",) or ("data",
-    "model"), ``shape`` {axis: size}; ``axes`` holds this rank's `Axis`
-    for each, ``world`` the axis of every rank."""
+    "model"), led by "pod" or "stage" where there is one, ``shape``
+    {axis: size}; ``axes`` holds this rank's `Axis` for each, ``world``
+    the axis of every rank, ``batch`` the line of data-parallel ranks
+    (pod x data, pod-major; the "data" axis without pods)."""
 
     axis_names: tuple
     shape: dict
@@ -154,6 +164,7 @@ class Mesh:
     axes: dict
     world: Axis
     backend: str
+    batch: Optional[Axis] = None
 
     @property
     def devices(self) -> np.ndarray:
@@ -173,14 +184,15 @@ def _line_group(ranks: list, world: int):
 
 
 def make_mesh(num_devices: Optional[int] = None, *,
-              model_parallel: int = 1, stages: int = 1) -> Mesh:
+              model_parallel: int = 1, stages: int = 1,
+              pods: int = 1) -> Mesh:
     """A ("data",) mesh, or a 2-D ("data", "model") mesh when
     ``model_parallel > 1`` (data rows x model columns of consecutive
     ranks), over the ranks of the initialized world (one rank without
-    one).  With ``stages > 1`` a "stage" axis leads: the world is cut
-    into `stages` blocks of consecutive ranks, each such a mesh.  Every
-    rank must call it, in the same order: it creates the axes' process
-    groups."""
+    one).  With ``stages > 1`` a "stage" axis leads, with ``pods > 1`` a
+    "pod" axis: the world is cut into that many blocks of consecutive
+    ranks, each such a mesh.  Every rank must call it, in the same
+    order: it creates the axes' process groups."""
     world = world_size()
     n = num_devices or world
     if world != n:
@@ -189,41 +201,63 @@ def make_mesh(num_devices: Optional[int] = None, *,
             "ranks, one device each (partition.initialize_distributed)")
     mp = max(int(model_parallel), 1)
     st = max(int(stages), 1)
+    po = max(int(pods), 1)
     if n % mp:
         raise ValueError(f"model_parallel {mp} must divide the device "
                          f"count {n}")
-    if n % (mp * st):
-        raise ValueError(f"stages {st} x model_parallel {mp} must divide "
-                         f"the device count {n}")
+    if n % (mp * st * po):
+        raise ValueError(f"stages {st} x pods {po} x model_parallel {mp} "
+                         f"must divide the device count {n}")
     rank = world_rank()
-    grid = np.arange(n).reshape(st, n // (mp * st), mp)
+    # dims: stage, pod, data, model
+    grid = np.arange(n).reshape(st, po, n // (mp * st * po), mp)
     here = tuple(int(i) for i in np.argwhere(grid == rank)[0])
+    lines_of = {DATA_AXIS: (2,), MODEL_AXIS: (3,), STAGE_AXIS: (0,),
+                POD_AXIS: (1,)}
+    if po > 1:
+        lines_of[BATCH_LINE] = (1, 2)
     groups = {}
     if n > 1:
         # every rank creates every axis line's group, in one order
-        for name, dim in ((DATA_AXIS, 1), (MODEL_AXIS, 2), (STAGE_AXIS, 0)):
-            lines = np.moveaxis(grid, dim, -1).reshape(-1, grid.shape[dim])
-            for line in lines.tolist():
+        for name, dims in lines_of.items():
+            for line in _lines(grid, dims):
                 g = _line_group(line, n)
                 if rank in line:
                     groups[name] = g
 
-    def axis(name, dim):
-        index = [slice(None) if d == dim else here[d] for d in range(3)]
-        ranks = tuple(grid[tuple(index)].tolist())
-        return Axis(name, len(ranks), here[dim], ranks, groups.get(name))
+    def axis(name):
+        dims = lines_of[name]
+        index = tuple(slice(None) if d in dims else here[d]
+                      for d in range(grid.ndim))
+        ranks = tuple(grid[index].reshape(-1).tolist())
+        return Axis(name, len(ranks), ranks.index(rank), ranks,
+                    groups.get(name))
 
-    axes = {DATA_AXIS: axis(DATA_AXIS, 1)}
+    axes = {DATA_AXIS: axis(DATA_AXIS)}
     names = (DATA_AXIS,)
     if mp > 1:
-        axes[MODEL_AXIS] = axis(MODEL_AXIS, 2)
+        axes[MODEL_AXIS] = axis(MODEL_AXIS)
         names += (MODEL_AXIS,)
+    batch = axes[DATA_AXIS]
+    if po > 1:
+        axes[POD_AXIS] = axis(POD_AXIS)
+        names = (POD_AXIS,) + names
+        batch = axis(BATCH_LINE)
     if st > 1:
-        axes[STAGE_AXIS] = axis(STAGE_AXIS, 0)
+        axes[STAGE_AXIS] = axis(STAGE_AXIS)
         names = (STAGE_AXIS,) + names
     everyone = Axis("world", n, rank, tuple(range(n)), None)
     return Mesh(names, {a: axes[a].size for a in names}, rank, axes,
-                everyone, backend_name())
+                everyone, backend_name(), batch)
+
+
+def _lines(grid: np.ndarray, dims: tuple) -> list:
+    """The lines of `grid` along `dims` (their ranks in row-major order
+    of those dims), one per position of the other dims."""
+    rest = [d for d in range(grid.ndim) if d not in dims]
+    moved = np.transpose(grid, rest + list(dims))
+    size = int(np.prod([grid.shape[d] for d in dims]))
+    return moved.reshape(-1, size).tolist()
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +309,16 @@ class MeshPlan:
         return self.mesh.axes[DATA_AXIS]
 
     @property
+    def batch_axis(self) -> Axis:
+        """The line of data-parallel ranks through this rank: pod x data
+        (the "data" axis on a mesh without pods)."""
+        return self.mesh.batch or self.data_axis
+
+    @property
+    def pod_axis(self) -> Optional[Axis]:
+        return self.mesh.axes.get(POD_AXIS)
+
+    @property
     def model_axis(self) -> Optional[str]:
         if MODEL_AXIS in self.mesh.axis_names \
                 and self.mesh.shape[MODEL_AXIS] > 1:
@@ -324,6 +368,8 @@ class MeshPlan:
 
     def _axis_of(self, entry) -> Optional[Axis]:
         names = entry if isinstance(entry, (tuple, list)) else (entry,)
+        if len([a for a in names if a in self.mesh.axes]) > 1:
+            return self.batch_axis  # ("pod", "data"): the data spec
         for name in names:
             if name in self.mesh.axes:
                 return self.mesh.axes[name]
@@ -444,8 +490,9 @@ class MeshPlan:
         return -1
 
     def zero_enabled(self) -> bool:
-        """ZeRO-1 slicing needs more than one data shard on one axis."""
-        return self.data_size > 1 and len(self.data_axes) == 1
+        """ZeRO-1 slices over the "data" axis ("embed" -> "data"), so it
+        needs more than one rank there; pods hold equal copies."""
+        return self.data_axis.size > 1
 
     def zero_param_specs(self, params: dict, param_axes=None) -> dict:
         """The spec of each parameter's ZeRO slice (and its gradient's)."""
@@ -501,10 +548,11 @@ class MeshPlan:
     def zero_reduce_grads(self, grads: dict, dims: dict, *,
                           mean: bool = True) -> dict:
         """Cross-rank gradient mean, delivered pre-sliced for ZeRO:
-        sharded leaves are averaged over "model" and reduce-scattered
-        over "data" (each rank receives only its averaged slice), while
-        replicated leaves are averaged over every rank.  One collective a
-        kind, over all leaves of that kind at once.
+        sharded leaves are averaged over "model", summed over "pod" and
+        reduce-scattered over "data" (each rank receives only its
+        averaged slice), while replicated leaves are averaged over every
+        rank.  One collective a kind, over all leaves of that kind at
+        once.
 
         ``mean=False`` is the LM's tensor-parallel rule: each rank's
         gradient is its part of a sum over the data ranks (the loss is
@@ -517,7 +565,7 @@ class MeshPlan:
         out = {}
         repl = [k for k in grads if dims[k] < 0]
         shard = [k for k in grads if dims[k] >= 0]
-        world = self.mesh.world if mean else self.data_axis
+        world = self.mesh.world if mean else self.batch_axis
         if repl:
             buf = collectives.all_reduce(_flat([grads[k] for k in repl]),
                                          world)
@@ -531,15 +579,19 @@ class MeshPlan:
                 model = self.mesh.axes[MODEL_AXIS]
                 buf = collectives.all_reduce(_flat(gs), model) / model.size
                 gs = _split_flat(buf, gs)
+            pod = self.pod_axis
+            if pod is not None and pod.size > 1:
+                gs = _split_flat(collectives.all_reduce(_flat(gs), pod), gs)
+            nd = self.data_axis.size
             moved = [g.movedim(dims[k], 0) for k, g in zip(shard, gs)]
-            table = torch.cat([m.reshape(n, -1) for m in moved], dim=1)
+            table = torch.cat([m.reshape(nd, -1) for m in moved], dim=1)
             mine = collectives.reduce_scatter(table, self.data_axis,
                                               dim=0)[0]
             if mean:
                 mine = mine / n
             start = 0
             for k, m in zip(shard, moved):
-                shape = (m.shape[0] // n,) + tuple(m.shape[1:])
+                shape = (m.shape[0] // nd,) + tuple(m.shape[1:])
                 size = int(np.prod(shape))
                 out[k] = mine[start:start + size].reshape(shape).movedim(
                     0, dims[k])
@@ -567,9 +619,9 @@ class MeshPlan:
         collective for all sharded leaves)."""
         shard = [k for k in tree if dims[k] >= 0]
         out = dict(tree)
-        if not shard or self.data_size == 1:
+        n = self.data_axis.size
+        if not shard or n == 1:
             return out
-        n = self.data_size
         moved = [tree[k].movedim(dims[k], 0).contiguous() for k in shard]
         full = collectives.all_gather(_flat(moved), self.data_axis, dim=0)
         table = full.reshape(n, -1)
@@ -596,12 +648,13 @@ def _split_flat(buf: torch.Tensor, like) -> list:
 
 
 def make_plan(num_devices: Optional[int] = None, *, model_parallel: int = 1,
-              param_rules: Mapping[str, Any] | None = None,
+              pods: int = 1, param_rules: Mapping[str, Any] | None = None,
               act_rules: Mapping[str, Any] | None = None,
               device=None) -> MeshPlan:
     """Build the mesh and its MeshPlan in one call (the Trainer's
     entry); ``device`` is this rank's (CUDA unless given)."""
-    return plan_for(make_mesh(num_devices, model_parallel=model_parallel),
+    return plan_for(make_mesh(num_devices, model_parallel=model_parallel,
+                              pods=pods),
                     param_rules=param_rules, act_rules=act_rules,
                     device=device)
 
@@ -698,7 +751,7 @@ def make_eval_step(plan: MeshPlan, metric_fn: Callable) -> Callable:
             # fp64: counts stay exact through the sum
             stacked = torch.stack([torch.as_tensor(t).to(torch.float64)
                                    .reshape(()) for t in totals])
-            summed = collectives.all_reduce(stacked, plan.data_axis)
+            summed = collectives.all_reduce(stacked, plan.batch_axis)
         return tuple(summed[i] for i in range(len(totals)))
 
     return eval_step

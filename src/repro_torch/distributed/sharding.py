@@ -209,6 +209,17 @@ def param_shardings(axes_tree, *, kind: str = "param", specs_tree=None):
                     axes_tree, specs_tree)
 
 
+def batch_axis():
+    """This rank's `Axis` over the data-parallel ranks under the current
+    context (the mesh's pod x data line, or its "data" axis), or None
+    where that is one rank or there is no such mesh."""
+    ctx = current_context()
+    axis = getattr(ctx.mesh, "batch", None) if ctx is not None else None
+    if axis is None:
+        return mesh_axis("data")
+    return axis if axis.size > 1 else None
+
+
 def mesh_axis(name: str):
     """This rank's `Axis` of mesh axis `name` under the current context,
     or None: no context, a mesh without rank axes, or an axis of one

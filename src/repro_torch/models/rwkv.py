@@ -85,6 +85,12 @@ class RWKV6LM(nn.Module):
             torch.zeros((l, batch, d // p, p, p), dtype=f32, device=dev),
             torch.zeros((l, batch, d), dtype=f32, device=dev), 0)
 
+    def cache_axes(self) -> RWKVCache:
+        """The state's logical axes (the reference's `cache_axes`)."""
+        return RWKVCache(("layers", "batch", None),
+                         ("layers", "batch", "heads", None, "mlp"),
+                         ("layers", "batch", None), ())
+
     def _embed(self, tokens):
         x = self.embed(tokens, dtype=torch_dtype(self.cfg.compute_dtype))
         return self.ln_in(x)

@@ -190,6 +190,11 @@ class WhisperModel(nn.Module):
                             zeros(max(enc_len, 1)), zeros(max(enc_len, 1)),
                             0, 0)
 
+    def cache_axes(self) -> WhisperCache:
+        """The cache's logical axes (the reference's `cache_axes`)."""
+        kv = ("layers", "batch", "seq", "kv_heads", None)
+        return WhisperCache(kv, kv, kv, kv, (), ())
+
     def prefill(self, tokens, max_len: int | None = None, *,
                 audio_embeds=None, **_):
         """Encode the audio once, run the decoder prompt, and keep each

@@ -87,6 +87,12 @@ class Zamba2LM(nn.Module):
             k=torch.zeros(kv, dtype=dtype, device=dev),
             v=torch.zeros(kv, dtype=dtype, device=dev), length=0)
 
+    def cache_axes(self) -> ZambaCache:
+        """The cache's logical axes (the reference's `cache_axes`)."""
+        kv = (None, "batch", "seq", "kv_heads", None)
+        return ZambaCache(("layers", "batch", "heads", None, None),
+                          ("layers", "batch", None, "mlp"), kv, kv, ())
+
     def _logits(self, x):
         x = self.final_norm(x)
         return self.embed.attend(x).to(torch.float32)

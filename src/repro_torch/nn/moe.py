@@ -27,7 +27,8 @@ On a mesh (the counterpart of the reference's sharding constraints,
 `repro/nn/moe.py:112-165`):
 
   * groups over "data" (the current `sharding.use_sharding` context's
-    data axis): the group count and capacity are the reference's, from
+    data-parallel ranks, `sharding.batch_axis`: pod x data on a mesh with
+    pods): the group count and capacity are the reference's, from
     the tokens of the whole (micro)batch, and a rank runs its contiguous
     block of the groups — the block its rows hold.  The auxiliary values
     are global means: sums and counts are all-reduced over the data axis
@@ -51,7 +52,7 @@ from torch import nn
 
 from repro_torch.distributed import collectives
 from repro_torch.distributed.collectives import Axis, copy_to, reduce_from
-from repro_torch.distributed.sharding import mesh_axis, shard_activation
+from repro_torch.distributed.sharding import batch_axis, shard_activation
 from repro_torch.nn.layers import (ACTIVATIONS, MLP, Linear, rank_slice,
                                    lecun_normal_, splits)
 
@@ -147,7 +148,7 @@ class MoELayer(nn.Module):
         xt = x.reshape(-1, d)
         t = xt.shape[0]
         e, k = self.n_experts, self.top_k
-        data = mesh_axis("data")
+        data = batch_axis()
         shards = data.size if data is not None else 1
         t_all = t * shards  # the (micro)batch's tokens on every data rank
         g = self.n_groups

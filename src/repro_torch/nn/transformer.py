@@ -22,7 +22,12 @@ attention by whole heads, the MLP by its hidden width, the MoE experts,
 the embedding table and the head by vocabulary.  A part whose count the
 axis does not divide stays whole on every rank.  The head then gives
 this rank's logits (`vocab_shard`), and the loss reduces over the axis
-without gathering them (`repro_torch.train.train_loop`).
+without gathering them (`repro_torch.train.train_loop`).  A split model
+also serves: `prefill` and `init_cache` size the KV cache by the rank's
+kv heads (a whole layer's count where attention stayed whole), and
+`forward`, `prefill` and `decode_step` all-gather the vocabulary slices
+over the axis, so they return whole logits.  The cache is cut by heads,
+never by sequence.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.collectives import Axis, copy_to
+from repro_torch.distributed.collectives import Axis, all_gather, copy_to
 from repro_torch.distributed.sharding import shard_activation
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
                                       chunked_gqa_attention, gqa_attention,
@@ -265,13 +270,18 @@ class DecoderLM(nn.Module):
             x = torch.cat([patch_embeds.to(dtype), x], dim=1)
         return shard_activation(x, ("batch", "seq", None))
 
-    def _logits(self, x):
+    def _logits(self, x, whole: bool = False):
+        """fp32 logits of this rank's vocabulary slice; with `whole`, the
+        slices all-gathered over the model axis (serving)."""
         x = self.final_norm(x)
         if self.lm_head is not None:
             logits = self.lm_head(copy_to(x, self.lm_head.axis))
         else:
             logits = self.embed.attend(x)
         logits = shard_activation(logits, ("batch", None, "vocab"))
+        shard = self.vocab_shard() if whole else None
+        if shard is not None:
+            logits = all_gather(logits, shard[0], -1)
         return logits.to(torch.float32)
 
     # ---- full sequence -----------------------------------------------------
@@ -298,7 +308,7 @@ class DecoderLM(nn.Module):
 
     def forward(self, tokens, *, patch_embeds=None) -> LMOutput:
         x, aux = self.backbone(tokens, patch_embeds=patch_embeds)
-        return LMOutput(self.apply_head(x), aux)
+        return LMOutput(self._logits(x, whole=True), aux)
 
     # ---- prefill -----------------------------------------------------------
 
@@ -308,11 +318,9 @@ class DecoderLM(nn.Module):
         zeros to `max_len` (never cut below the prompt)."""
         x = self._embed_inputs(tokens, patch_embeds)
         b, s, _ = x.shape
-        dtype = self.kv_dtype()
+        cache = self.init_cache(b, max(max_len or s, s))
+        dtype = cache.k.dtype
         cfg = self.cfg
-        cache = KVCache.zeros(b, max(max_len or s, s), cfg.n_kv_heads,
-                              cfg.resolved_head_dim, dtype=dtype,
-                              layers=cfg.num_layers, device=x.device)
         auxes = []
         for layer, block in enumerate(self.blocks):
             x, (k, v), aux = block.prefill(x)
@@ -322,18 +330,25 @@ class DecoderLM(nn.Module):
         cache.length = s
         if cfg.num_patches:
             x = x[:, cfg.num_patches:]
-        return (LMOutput(self._logits(x[:, -1:]), self._aux(auxes, x.device)),
-                cache)
+        return (LMOutput(self._logits(x[:, -1:], whole=True),
+                         self._aux(auxes, x.device)), cache)
 
     def kv_dtype(self) -> torch.dtype:
         return torch_dtype(self.cfg.kv_cache_dtype or self.cfg.compute_dtype)
 
     def init_cache(self, batch: int, max_len: int) -> KVCache:
+        """Zeros for every layer, by this rank's kv heads (all of them
+        unless `split_` cut the attention)."""
         cfg = self.cfg
-        return KVCache.zeros(batch, max_len, cfg.n_kv_heads,
+        return KVCache.zeros(batch, max_len, self.blocks[0].attn.n_kv,
                              cfg.resolved_head_dim, dtype=self.kv_dtype(),
                              layers=cfg.num_layers,
                              device=self.embed.table.device)
+
+    def cache_axes(self) -> KVCache:
+        """The cache's logical axes (the reference's `cache_axes`)."""
+        kv = ("layers", "batch", "seq", "kv_heads", None)
+        return KVCache(kv, kv, ())
 
     # ---- decode ------------------------------------------------------------
 
@@ -350,5 +365,5 @@ class DecoderLM(nn.Module):
             auxes.append(aux)
         new_cache = KVCache(cache.k, cache.v,
                             cache.length + tokens.shape[1])
-        return (LMOutput(self._logits(x), self._aux(auxes, x.device)),
-                new_cache)
+        return (LMOutput(self._logits(x, whole=True),
+                         self._aux(auxes, x.device)), new_cache)

@@ -292,15 +292,15 @@ class MeshTrainStep:
       (`axes`), so every spec below is what the rank holds.
     * **Data parallelism**: every rank is handed the whole batch.  It is
       cut into microbatches first and each microbatch into the data
-      ranks' row blocks (the reference constrains each microbatch over
+      ranks' row blocks (over pod x data where the mesh has pods) (the reference constrains each microbatch over
       "data"), so rank ``d`` runs block ``d`` of every microbatch.  The
       loss is the microbatch's global mean (`make_loss_fn` with
       ``data=``), and the MoE layers see the data axis through
       `use_sharding`.
     * **Gradients**: each rank's backward gives its part of the global
       gradient, whole over "model" for a whole leaf and its slice's for
-      a split one, so they are summed over "data" only
-      (`MeshPlan.zero_reduce_grads(mean=False)`).
+      a split one, so they are summed over the data ranks only
+      (`MeshPlan.zero_reduce_grads(mean=False)`: "pod" and "data").
     * **ZeRO-1** (``zero1`` and more than one data rank): the optimizer
       state holds this data rank's slice of each leaf on the dim its
       "embed" axis resolves to (`init_opt_state`); the gradient arrives
@@ -351,7 +351,7 @@ class MeshTrainStep:
         self.data_dims = {k: plan._spec_data_dim(s) if self.zero else -1
                           for k, s in self.specs.items()}
         self.groups = layers.stack_groups(params)
-        self.data = plan.data_axis if plan.data_size > 1 else None
+        self.data = plan.batch_axis if plan.data_size > 1 else None
         self.loss_fn = make_loss_fn(model, cfg, data=self.data)
 
     def init_opt_state(self, params: dict):

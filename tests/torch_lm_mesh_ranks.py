@@ -87,10 +87,10 @@ def optimizer(case: dict):
 
 def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
                mesh: bool = True, steps: int = STEPS,
-               device: str = "cpu") -> dict:
-    """The case on this rank's mesh (or, ``mesh=False``, the one-device
-    step) from the reference's initial tree, on `device` (fp32, TF32
-    off): per-step metrics, the whole final parameters as the
+               device: str = "cpu", pods: int = 1) -> dict:
+    """The case on this rank's mesh (led by `pods` pods; or, with
+    ``mesh=False``, the one-device step) from the reference's initial
+    tree, on `device` (fp32, TF32 off): per-step metrics, the whole final parameters as the
     reference's flat tree, the bytes this rank holds of parameters and
     of optimizer state."""
     from repro_torch.distributed import partition
@@ -108,7 +108,7 @@ def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
              for k, v in batch_np(cfg, case).items()}
     if mesh:
         plan = partition.make_plan(model_parallel=model_parallel,
-                                   device=device)
+                                   pods=pods, device=device)
         step = train_loop.make_train_step(
             model, cfg, opt, plan=plan, zero1=True,
             n_microbatches=case["n_micro"])
