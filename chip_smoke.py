@@ -141,16 +141,23 @@ head, 8 classes):
   its bytes against the reckoning of its split, since its vocabulary
   stays whole); (c) `pipeline_apply` over 4 stage ranks, one qwen1.5-4b
   `DecoderBlock` a stage, 4 microbatches of 1 x 512, against the blocks
-  in sequence (rtol 1e-4).  Step ms, `torch.distributed` calls and the
-  host ms inside them a step, and peak GB, a rank.  No kernel launches;
+  in sequence (rtol 1e-4); (d) (a)'s model and steps again over
+  parameters placed by `MeshPlan.place_params_` (FSDP / ZeRO-3: cut
+  over "data" at rest, gathered a layer at use), against the same
+  one-rank run at (a)'s limits, a rank's parameters at most 0.30 of the
+  model's and exactly its placement's reckoning.  Step ms,
+  `torch.distributed` calls (and, for (d), per op) and the host ms
+  inside them a step, and peak GB, a rank.  No kernel launches;
 * the dry run (`[dryrun]`, `repro_torch.launch.dryrun`, traced on meta
   tensors in spawned processes on the CPU): (a) `[lm-train]` (c)'s step
   on one rank against that run's measured peak, (b) rank 0 of
   `[lm-mesh]` (a) in a fake world of 4 against rank 0's measured peak
   (both within 10%), its `torch.distributed` calls a step and the
-  parameter and optimizer bytes it held (equal); (c) qwen2.5-32b's
-  train_4k, prefill_32k and decode_32k at 16 x 16 (256 ranks), each
-  cell's row and roofline; (d) `HBM_PER_CARD` against the card.
+  parameter and optimizer bytes it held (equal); (b') the same for rank
+  0 of `[lm-mesh]` (d), calls per op equal too; (c) qwen2.5-32b's
+  train_4k, prefill_32k and decode_32k at 16 x 16 (256 ranks), placed as
+  every cell is (FSDP), each cell's row and roofline; (d)
+  `HBM_PER_CARD` against the card.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -302,6 +309,7 @@ LM_MESH_STEPS = 3
 LM_MESH_LR = 1e-5
 LM_MESH_RTOL, LM_MESH_ATOL = 1e-4, 1e-5
 LM_MESH_PARAM_SHARE = 0.55
+LM_MESH_FSDP_SHARE = 0.30   # (d): parameters cut over "data" too
 LM_MESH_OPT_SHRINK = 3.5
 LM_MESH_TIMEOUT_S = 600
 
@@ -3406,12 +3414,13 @@ def collective_clock():
     """Count the `torch.distributed` calls made inside the block and the
     host time spent inside them (a gloo call returns once its exchange
     is done, the copies of CUDA tensors to and from the host included):
-    {"calls": n, "ms": t}."""
+    {"calls": n, "ms": t, "per_op": {name: n}}."""
     import torch.distributed as dist
-    seen = {"calls": 0, "ms": 0.0}
+    seen = {"calls": 0, "ms": 0.0,
+            "per_op": {name: 0 for name in MESH_COLLECTIVES}}
     real = {name: getattr(dist, name) for name in MESH_COLLECTIVES}
 
-    def timed(fn):
+    def timed(name, fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
             t0 = time.perf_counter()
@@ -3420,10 +3429,11 @@ def collective_clock():
             finally:
                 seen["ms"] += 1e3 * (time.perf_counter() - t0)
                 seen["calls"] += 1
+                seen["per_op"][name] += 1
         return call
 
     for name, fn in real.items():
-        setattr(dist, name, timed(fn))
+        setattr(dist, name, timed(name, fn))
     try:
         yield seen
     finally:
@@ -5147,14 +5157,17 @@ def lm_mesh_batch(torch, cfg) -> dict:
                          ("loss_mask", mask))}
 
 
-def lm_mesh_train(torch, arch: str, plan=None, ref_path=None) -> dict:
+def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
+                  placed: bool = False) -> dict:
     """`arch` (`lm_mesh_config`) drawn on the card from SEED and trained
-    LM_MESH_STEPS steps with AdamW, on `plan`'s ranks (ZeRO-1) or on
-    this rank alone: metrics and ms a step, the bytes of parameters and
-    optimizer state held, peak GB, `torch.distributed` calls and their
-    host ms.  Alone, the final parameters are saved to `ref_path`; on a
-    plan, this rank's parameters are held to that file's slices of them
-    (rtol LM_MESH_RTOL, atol LM_MESH_ATOL)."""
+    LM_MESH_STEPS steps with AdamW, on `plan`'s ranks (ZeRO-1; with
+    `placed`, over parameters placed first by `MeshPlan.place_params_`:
+    FSDP) or on this rank alone: metrics and ms a step, the bytes of
+    parameters and optimizer state held, peak GB, `torch.distributed`
+    calls (per op too) and their host ms.  Alone, the final parameters
+    are saved to `ref_path`; on a plan, this rank's parameters are held
+    to that file's slices of them (rtol LM_MESH_RTOL, atol
+    LM_MESH_ATOL)."""
     from repro_torch.distributed.partition import tree_bytes
     from repro_torch.models.registry import build_model
     from repro_torch.nn.layers import init_params, stack_groups
@@ -5165,6 +5178,8 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         model = init_params(build_model(cfg, DEVICE), SEED)
+    if placed:
+        plan.place_params_(model)
     opt = AdamW(learning_rate=LM_MESH_LR)
     step = make_train_step(model, cfg, opt, plan=plan, zero1=True,
                            n_microbatches=LM_MESH_MICRO)
@@ -5183,6 +5198,8 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None) -> dict:
             metrics.append({k: float(v) for k, v in m.items()})
     out = {"metrics": metrics, "step_ms": step_ms,
            "calls": coll["calls"] / LM_MESH_STEPS,
+           "per_op": {k: v / LM_MESH_STEPS
+                      for k, v in coll["per_op"].items()},
            "coll_ms": coll["ms"] / LM_MESH_STEPS,
            "param_bytes": tree_bytes({k: p.detach()
                                       for k, p in params.items()}),
@@ -5193,6 +5210,8 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None) -> dict:
                    ref_path)
     else:
         out.update(lm_mesh_compare(torch, step, params, ref_path))
+        if placed:
+            out.update(lm_mesh_placement(step, params))
     del model, params, state, step, batch
     torch.cuda.empty_cache()
     return out
@@ -5212,6 +5231,11 @@ def lm_mesh_compare(torch, step, params, ref_path) -> dict:
             width = want.shape[dim] // axis.size
             want = want.narrow(dim, axis.index * width, width)
             split += 1
+        dim = step.data_dims[k] if step.fsdp else -1
+        if dim >= 0:  # FSDP: this rank's slice over "data" too
+            data = step.plan.data_axis
+            width = want.shape[dim] // data.size
+            want = want.narrow(dim, data.index * width, width)
         want = want.to(DEVICE)
         got = p.detach()
         diff = (got - want).abs()
@@ -5225,6 +5249,29 @@ def lm_mesh_compare(torch, step, params, ref_path) -> dict:
         worst = max(worst, float(diff.max()))
     return {"misses": misses, "worst": worst, "split": split,
             "leaves": len(params), "where": where}
+
+
+def lm_mesh_placement(step, params) -> dict:
+    """(d)'s placement checked on this rank: the bytes its parameters
+    hold against the reckoning of the layout's specs (each leaf's whole
+    size over the mesh axes its spec names), and the leaves that came
+    out whole on a dim the placement cut (must be none)."""
+    mesh = step.plan.mesh
+    layout = step.layout
+    reckoned, uncut = 0, []
+    for k, p in params.items():
+        n = int(np.prod(layout.full[k])) * p.element_size()
+        for entry in layout.specs[k]:
+            for name in (entry if isinstance(entry, tuple) else (entry,)):
+                if name is not None:
+                    n //= mesh.shape[name]
+        if not step.data_dims[k] < 0 and \
+                p.shape[step.data_dims[k]] == layout.full[k][
+                    step.data_dims[k]]:
+            uncut.append(k)
+        reckoned += n
+    cut = sum(1 for d in step.data_dims.values() if d >= 0)
+    return {"reckoned": reckoned, "uncut": uncut, "cut": cut}
 
 
 def lm_mesh_expected_bytes(torch, arch: str) -> tuple:
@@ -5285,8 +5332,9 @@ def lm_mesh_pipeline(torch, mesh=None) -> tuple:
 
 def lm_mesh_rank(paths: dict) -> dict:
     """What each spawned rank of `[lm-mesh]` runs: (a) and (b) on the
-    (data, model) plan, then (c) on the stage mesh, with every kernel's
-    launch count read (the path reaches none)."""
+    (data, model) plan, (d) on it over placed parameters, then (c) on
+    the stage mesh, with every kernel's launch count read (the path
+    reaches none)."""
     import torch
     from repro_torch.distributed import partition
     full_fp32(torch)
@@ -5296,6 +5344,9 @@ def lm_mesh_rank(paths: dict) -> dict:
     for arch in LM_MESH_ARCHS:
         torch.distributed.barrier()
         out[arch] = lm_mesh_train(torch, arch, plan, paths[arch])
+    torch.distributed.barrier()
+    out["fsdp"] = lm_mesh_train(torch, LM_MESH_ARCHS[0], plan,
+                                paths[LM_MESH_ARCHS[0]], placed=True)
     mesh = partition.make_mesh(stages=LM_MESH_STAGES)
     torch.distributed.barrier()
     with collective_clock() as coll:
@@ -5316,6 +5367,51 @@ def lm_mesh_line(label: str, run: dict, smi: str) -> str:
             f"{run['peak'] / 1e9:.2f} GB; {run['param_bytes'] / 1e9:.3f} GB "
             f"of parameters and {run['opt_bytes'] / 1e9:.3f} GB of "
             f"optimizer state held")
+
+
+def lm_mesh_fsdp_check(world: list, want: dict, smi: str) -> None:
+    """(d): each rank's FSDP run against the one-rank run of (a): the
+    metrics each step and the final parameters at (a)'s limits, its
+    parameter bytes equal to its placement's reckoning with no leaf
+    whole on a dim the placement cut, and at most LM_MESH_FSDP_SHARE of
+    the model's."""
+    arch = LM_MESH_ARCHS[0]
+    whole = want["param_bytes"]
+    keys = ("loss", "total_loss", "tokens", "grad_norm")
+    for run in world:
+        got, r = run["fsdp"], run["rank"]
+        for s, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+            for k in keys:
+                if not abs(g[k] - w[k]) <= LM_MESH_RTOL * abs(w[k]) + 1e-7:
+                    fail(f"lm-mesh (d) rank {r} step {s + 1}: {k} {g[k]!r} "
+                         f"vs one rank's {w[k]!r} (rtol {LM_MESH_RTOL})")
+        if got["misses"]:
+            fail(f"lm-mesh (d) rank {r}: {got['misses']} parameter elements "
+                 f"past rtol {LM_MESH_RTOL} / atol {LM_MESH_ATOL} of one "
+                 f"rank's (largest difference {got['worst']:.3e}): "
+                 f"{'; '.join(got['where'])}")
+        if got["uncut"] or not got["cut"] \
+                or got["param_bytes"] != got["reckoned"]:
+            fail(f"lm-mesh (d) rank {r}: {got['param_bytes']} parameter "
+                 f"bytes held against the placement's {got['reckoned']}; "
+                 f"{got['cut']} leaves cut over data, whole where cut: "
+                 f"{got['uncut']}")
+        if got["param_bytes"] > LM_MESH_FSDP_SHARE * whole:
+            fail(f"lm-mesh (d) rank {r}: {got['param_bytes']} parameter "
+                 f"bytes, past {LM_MESH_FSDP_SHARE} of the model's {whole}")
+        per_op = ", ".join(f"{k} {v:.0f}" for k, v in got["per_op"].items()
+                           if v)
+        phase("lm-mesh", lm_mesh_line(f"(d) FSDP rank {r}", got, smi)
+              + f" ({got['param_bytes'] / whole:.3f} and "
+              f"{got['opt_bytes'] / want['opt_bytes']:.3f} of one rank's); "
+              f"calls a step: {per_op}; {got['cut']} of {got['leaves']} "
+              f"leaves cut over data, largest parameter difference "
+              f"{got['worst']:.2e}")
+    phase("lm-mesh", f"(d) {arch} FSDP at (data={LM_MESH_DATA}, model="
+          f"{LM_MESH_MODEL}) vs one rank: {', '.join(keys)} each step within "
+          f"rtol {LM_MESH_RTOL}, final parameters within rtol "
+          f"{LM_MESH_RTOL} / atol {LM_MESH_ATOL}, parameters at most "
+          f"{LM_MESH_FSDP_SHARE} of the model's a rank")
 
 
 def lm_mesh_phase(torch, smi, figures: dict) -> dict:
@@ -5347,6 +5443,9 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
         world_s = time.perf_counter() - t1
     figures["lm-mesh"] = sorted(
         ({"rank": run["rank"], **run[LM_MESH_ARCHS[0]]} for run in world),
+        key=lambda r: r["rank"])
+    figures["lm-mesh-fsdp"] = sorted(
+        ({"rank": run["rank"], **run["fsdp"]} for run in world),
         key=lambda r: r["rank"])
     launches = read_launches()
     for run in world:
@@ -5408,6 +5507,7 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
               f"{LM_MESH_MODEL}) vs one rank: {', '.join(keys)} each step "
               f"within rtol {LM_MESH_RTOL}, final parameters within rtol "
               f"{LM_MESH_RTOL} / atol {LM_MESH_ATOL}{extra}")
+    lm_mesh_fsdp_check(world, one[LM_MESH_ARCHS[0]], smi)
     pipe = [run["pipeline"] for run in world]
     got = next(p["out"] for p in pipe if p["out"] is not None)
     gap = float(np.abs(got - pipe_want).max())
@@ -5447,7 +5547,7 @@ def dryrun_job(job: tuple):
     """One trace of `[dryrun]`, in a spawned process on the CPU (nothing
     touches the card): ("lm-train",) traces `[lm-train]` (c)'s step on
     one rank; ("lm-mesh",) rank 0 of `[lm-mesh]` (a) in a fake world of
-    its ranks; ("cell", arch, shape) `run_cell` at 16 x 16 and its
+    its ranks, ("lm-mesh-fsdp",) that of (d); ("cell", arch, shape) `run_cell` at 16 x 16 and its
     `analyze` row."""
     import torch
     torch.set_num_threads(1)
@@ -5459,7 +5559,7 @@ def dryrun_job(job: tuple):
         tokens = ((TRAIN_FULL_BATCH, TRAIN_FULL_SEQ), torch.int32)
         out = trace_train(cfg, pick_optimizer(cfg),
                           {"tokens": tokens, "labels": tokens})
-    elif job[0] == "lm-mesh":
+    elif job[0] in ("lm-mesh", "lm-mesh-fsdp"):
         from repro_torch.distributed import partition
         from repro_torch.train.optimizer import AdamW
         cfg = lm_mesh_config(LM_MESH_ARCHS[0])
@@ -5470,7 +5570,8 @@ def dryrun_job(job: tuple):
             plan = partition.make_plan(model_parallel=LM_MESH_MODEL,
                                        device="cpu")
             out = trace_train(cfg, AdamW(learning_rate=LM_MESH_LR), batch,
-                              plan=plan, n_microbatches=LM_MESH_MICRO)
+                              plan=plan, n_microbatches=LM_MESH_MICRO,
+                              place=job[0] == "lm-mesh-fsdp")
     else:
         from repro_torch.launch.roofline import analyze
         row = run_cell(job[1], job[2], multi_pod=False, verbose=False)
@@ -5498,7 +5599,8 @@ def dryrun_breakdown(trace: dict) -> str:
     p = trace["peak"]
     return (f"step peak {p['total'] / 1e9:.3f} GB = parameters "
             f"{p['params'] / 1e9:.3f} + gradients {p['grads'] / 1e9:.3f} + "
-            f"optimizer {p['opt_state'] / 1e9:.3f} + the rest "
+            f"optimizer {p['opt_state'] / 1e9:.3f} + gathered "
+            f"{p['gathered'] / 1e9:.3f} + the rest "
             f"{p['rest'] / 1e9:.3f}; setup peak "
             f"{trace['setup_peak'] / 1e9:.3f} GB")
 
@@ -5520,27 +5622,61 @@ def dryrun_hbm_check(torch) -> str:
             f"PyTorch's allocator now): {(HBM_PER_CARD / usable - 1) * 100:+.2f}%")
 
 
+def dryrun_fsdp_check(trace: dict, ranks: list, smi: str) -> None:
+    """(b'): rank 0 of `[lm-mesh]` (d) traced against the card's rank 0:
+    its calls a step per op and the bytes held equal, its peak within
+    DRYRUN_TOL of the measured one."""
+    rank0 = ranks[0]
+    per_op = {k: v["count"] for k, v in trace["collectives"]["per_op"].items()}
+    held = trace["held"]
+    if per_op != {k: round(v) for k, v in rank0["per_op"].items()} \
+            or held != {"params": rank0["param_bytes"],
+                        "opt_state": rank0["opt_bytes"]}:
+        fail(f"dryrun (b'): the dry run's calls a step {per_op} and {held} "
+             f"bytes held, rank 0's {rank0['per_op']}, "
+             f"{rank0['param_bytes']} parameter and {rank0['opt_bytes']} "
+             "optimizer bytes")
+    gap = dryrun_gap("(b')", dryrun_peak(trace), rank0["peak"])
+    by_axis = ", ".join(f"{k} {v['count']} ({v['bytes'] / 1e9:.3f} GB)"
+                        for k, v in trace["collectives"]["per_axis"].items())
+    phase("dryrun", f"(b') {LM_MESH_ARCHS[0]} FSDP at (data={LM_MESH_DATA}, "
+          f"model={LM_MESH_MODEL}), rank 0 of a fake world of "
+          f"{LM_MESH_DATA * LM_MESH_MODEL} (the [lm-mesh] (d) run): calls a "
+          f"step {per_op} and {held['params'] / 1e9:.3f} / "
+          f"{held['opt_state'] / 1e9:.3f} GB of parameters / optimizer "
+          f"state held, equal to rank 0's on the card; dry-run peak "
+          f"{dryrun_peak(trace) / 1e9:.3f} GB against rank 0's "
+          f"{rank0['peak'] / 1e9:.3f} GB ({smi}; ranks "
+          + ", ".join(f"{r['peak'] / 1e9:.3f}" for r in ranks)
+          + f"): {gap * 100:+.2f}% (limit {DRYRUN_TOL * 100:.0f}%); "
+          f"{dryrun_breakdown(trace)}; by axis {by_axis}; traced in "
+          f"{trace['seconds']:.1f}s")
+
+
 def dryrun_phase(torch, smi, figures: dict) -> dict:
     """The dry run (`repro_torch.launch.dryrun`) held to the card: (a)
     `[lm-train]` (c)'s step traced on one rank against its measured
     ``max_memory_allocated``; (b) rank 0 of `[lm-mesh]` (a) traced in a
     fake world of its 4 ranks against rank 0's measured peak, its
     `torch.distributed` calls a step (equal) and the parameter and
-    optimizer bytes it held (equal); (c) qwen2.5-32b's three cells at 16 x
-    16, `run_cell` and `analyze` rows; (d) `HBM_PER_CARD` against the
-    card.  The traces run in spawned processes on the CPU, side by side;
-    every kernel's launch count must stay 0."""
+    optimizer bytes it held (equal); (b') the same for rank 0 of
+    `[lm-mesh]` (d) (FSDP), its calls per op equal; (c) qwen2.5-32b's
+    three cells at 16 x 16, placed (FSDP), `run_cell` and `analyze`
+    rows; (d) `HBM_PER_CARD` against the card.  The traces run in
+    spawned processes on the CPU, side by side; every kernel's launch
+    count must stay 0."""
     import concurrent.futures
     import multiprocessing
     t0 = time.perf_counter()
     zero_launches()
-    jobs = [("lm-train",), ("lm-mesh",)] + [("cell",) + c for c in DRYRUN_CELLS]
+    jobs = [("lm-train",), ("lm-mesh",), ("lm-mesh-fsdp",)] + [
+        ("cell",) + c for c in DRYRUN_CELLS]
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(len(jobs),
                                                 mp_context=ctx) as pool:
         futures = [pool.submit(dryrun_job, job) for job in jobs]
         done = [f.result(timeout=DRYRUN_TIMEOUT_S) for f in futures]
-    one, mesh, cells = done[0], done[1], done[2:]
+    one, mesh, placed, cells = done[0], done[1], done[2], done[3:]
 
     measured = figures["lm-train"]["peak"]
     gap = dryrun_gap("(a)", dryrun_peak(one), measured)
@@ -5576,6 +5712,7 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
           + f"): {gap * 100:+.2f}% (limit {DRYRUN_TOL * 100:.0f}%); "
           f"{dryrun_breakdown(mesh)}; calls {per_op}; traced in "
           f"{mesh['seconds']:.1f}s")
+    dryrun_fsdp_check(placed, figures["lm-mesh-fsdp"], smi)
     for (arch, shape), cell in zip(DRYRUN_CELLS, cells):
         row, roof = cell["row"], cell["roofline"]
         p = row["peak_bytes_per_device"]
@@ -5584,7 +5721,8 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
               f"peak {p['total'] / 1e9:.2f} GB a rank (parameters "
               f"{p['params'] / 1e9:.2f}, gradients {p['grads'] / 1e9:.2f}, "
               f"optimizer {p['opt_state'] / 1e9:.2f}, cache "
-              f"{p['cache'] / 1e9:.2f}, rest {p['rest'] / 1e9:.2f}), fit "
+              f"{p['cache'] / 1e9:.2f}, gathered {p['gathered'] / 1e9:.2f}, "
+              f"rest {p['rest'] / 1e9:.2f}), fit "
               f"{row['hbm_fit']}; {coll['n_ops']} calls, "
               f"{coll['total_bytes'] / 1e9:.2f} GB; "
               f"{row['traced_flops_per_device'] / 1e12:.1f} TFLOP; layout "

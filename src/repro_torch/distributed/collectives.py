@@ -24,6 +24,17 @@ a replicated activation meets a "model"-split weight:
   `reduce_from(x, axis)`  sum over the axis forward, identity backward
                           (each rank's partial result made whole)
 
+and the FSDP boundary of a parameter cut over "data" (ZeRO-3), which
+GSPMD inserts where an "embed"-sharded weight meets its use:
+
+  `gather_at_use(x, axis, dim)`  all-gather forward; the whole gradient
+                          reduce-scattered back to the slice as a sum
+                          backward (JAX transposes ``all_gather`` to a
+                          ``psum_scatter``)
+
+`sub_axis(axis, size)` is the line of `size` consecutive ranks of an
+axis through this rank (an MoE group that spans several data ranks).
+
 Transport: tensors go to the backend as they are, CUDA tensors included:
 with torch 2.11 on an H100, gloo takes CUDA tensors for every collective
 used here (`scripts/collective_probe.py` checks a machine), so nothing
@@ -161,3 +172,60 @@ def reduce_from(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     if axis is None or axis.size == 1:
         return x
     return _ReduceFrom.apply(x, axis)
+
+
+class _GatherAtUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.axis, ctx.dim), None, None
+
+
+def gather_at_use(x: torch.Tensor, axis: Optional[Axis],
+                  dim: int) -> torch.Tensor:
+    """The axis' slices of `x` all-gathered on `dim` (a new tensor); the
+    gradient of the whole is reduce-scattered back to each rank's slice
+    as a sum over the axis (a rank's slice is read by every rank)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _GatherAtUse.apply(x, axis, dim)
+
+
+_SUB_AXES: dict = {}
+
+
+def sub_axis(axis: Axis, size: int) -> Axis:
+    """The line of `size` consecutive ranks of `axis` through this rank
+    (`size` divides the axis).  Its process group is made on first use
+    by the line's members alone (``use_local_synchronization``), so each
+    line's ranks may ask for it independently; it is kept for the
+    axis' group."""
+    if size == axis.size:
+        return axis
+    if axis.size % size:
+        raise ValueError(f"sub_axis: {size} does not divide {axis.name}'s "
+                         f"{axis.size} ranks")
+    start = axis.index // size * size
+    ranks = tuple(axis.ranks[start:start + size])
+    # a line spanning the world has no group of its own: key it by the
+    # world's, so a later world in this process makes its own
+    owner = axis.group if axis.group is not None else dist.group.WORLD
+    key = (id(owner), ranks)
+    if key not in _SUB_AXES:
+        group = (dist.new_group(list(ranks), use_local_synchronization=True)
+                 if size > 1 else None)
+        # the owner is held beside its sub-lines, so its id is not reused
+        # while they are kept
+        _SUB_AXES[key] = (owner, Axis(f"{axis.name}/{size}", size,
+                                      axis.index - start, ranks, group))
+    return _SUB_AXES[key][1]
+
+
+def sub_axis_of(group) -> Optional[Axis]:
+    """The `sub_axis` line whose process group is `group`, or None."""
+    return next((line for _, line in _SUB_AXES.values()
+                 if line.group is group), None)

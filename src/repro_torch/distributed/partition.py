@@ -546,7 +546,7 @@ class MeshPlan:
         return tree_bytes(opt_state)
 
     def zero_reduce_grads(self, grads: dict, dims: dict, *,
-                          mean: bool = True) -> dict:
+                          mean: bool = True, sliced: bool = False) -> dict:
         """Cross-rank gradient mean, delivered pre-sliced for ZeRO:
         sharded leaves are averaged over "model", summed over "pod" and
         reduce-scattered over "data" (each rank receives only its
@@ -558,7 +558,11 @@ class MeshPlan:
         gradient is its part of a sum over the data ranks (the loss is
         the global mean) and each model rank holds its leaves' whole
         gradient already, so the leaves are summed over "data" only (at
-        one data rank: the gradients as they are)."""
+        one data rank: the gradients as they are).
+
+        ``sliced`` (FSDP, with ``mean=False``): the sharded leaves' are
+        this rank's slices already summed over "data" (the gather at
+        use's backward), so they are summed over "pod" alone."""
         n = self.data_size
         if not mean and n == 1:
             return dict(grads)
@@ -582,6 +586,9 @@ class MeshPlan:
             pod = self.pod_axis
             if pod is not None and pod.size > 1:
                 gs = _split_flat(collectives.all_reduce(_flat(gs), pod), gs)
+            if sliced:
+                out.update(zip(shard, gs))
+                return {k: out[k] for k in grads}
             nd = self.data_axis.size
             moved = [g.movedim(dims[k], 0) for k, g in zip(shard, gs)]
             table = torch.cat([m.reshape(nd, -1) for m in moved], dim=1)
@@ -614,6 +621,20 @@ class MeshPlan:
                 collectives.split_chunk(x, self.data_axis, dims[k])
                 for k, x in tree.items()}
 
+    def place_params_(self, model, param_axes=None) -> ModelLayout:
+        """The reference's production placement of an LM's parameters
+        (``param_shardings(kind="param")`` at ``in_shardings``, its
+        ``"embed": "data"`` rule: FSDP / ZeRO-3), in place: the model
+        split over "model" (`model_layout`), then each leaf cut over
+        "data" on the dim its "embed" axis resolves to, where the data
+        ranks divide that dim of the whole leaf (the rest stay whole, as
+        the reference's divisibility rule leaves them).  The owning
+        module records each cut (``fsdp_cut``) and gathers it at use
+        (`repro_torch.distributed.fsdp`); the layout goes on the model
+        (``mesh_layout``), where `MeshTrainStep` reads it.  Every rank
+        calls it on the same whole model."""
+        return _place_params(self, model, param_axes)
+
     def zero_gather(self, tree: dict, dims: dict) -> dict:
         """All-gather updated parameter slices back to full leaves (one
         collective for all sharded leaves)."""
@@ -633,6 +654,100 @@ class MeshPlan:
             out[k] = part.movedim(0, dims[k])
             start += size
         return out
+
+
+@dataclasses.dataclass
+class ModelLayout:
+    """How an LM's leaves lie on a plan's mesh (`model_layout`), by
+    parameter name: ``full`` the whole shapes, ``axes`` the logical
+    axes as the rank holds the leaf (a leaf whole over "model" loses
+    its model names), ``specs`` those resolved against the whole
+    shapes, ``model_dims`` / ``data_dims`` the dim cut over "model" and
+    the dim its "embed" axis resolves to over "data" (-1: none).
+    ``fsdp``: the leaves are cut over "data" at rest
+    (`MeshPlan.place_params_`)."""
+
+    plan: Any
+    full: dict
+    axes: dict
+    specs: dict
+    model_dims: dict
+    data_dims: dict
+    fsdp: bool = False
+
+
+def _split_dim(full: tuple, local: tuple) -> int:
+    """The one dim on which a leaf's local shape is cut from its full
+    shape, or -1 when it is whole."""
+    cut = [i for i, (a, b) in enumerate(zip(full, local)) if a != b]
+    if len(cut) > 1:
+        raise ValueError(f"a leaf of {full} cut to {local} on dims {cut}")
+    return cut[0] if cut else -1
+
+
+def _whole_over_model(axes: tuple, rules: Mapping) -> tuple:
+    """`axes` with every name the rules put on "model" dropped (a leaf
+    that stays whole on every model rank)."""
+    def on_model(name):
+        target = rules.get(name) if name is not None else None
+        return MODEL_AXIS in (target if isinstance(target, (tuple, list))
+                              else (target,))
+    return tuple(None if on_model(a) else a for a in axes)
+
+
+def model_layout(model, plan: "MeshPlan", param_axes=None) -> ModelLayout:
+    """Split `model` over the plan's "model" axis in place (tensor
+    parallelism: `DecoderLM.split_`; the other families stay whole on
+    every model rank) and return its `ModelLayout` (``param_axes``:
+    {name: logical axes}, the model's own declarations when None).
+    Raises ValueError where a leaf's split disagrees with its axes."""
+    from repro_torch.nn.layers import param_axes as declared_axes
+    axes = dict(param_axes if param_axes is not None
+                else declared_axes(model))
+    full = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    if plan.model_axis and hasattr(model, "split_"):
+        model.split_(plan.mesh.axes[MODEL_AXIS])
+    params = dict(model.named_parameters())
+    model_dims = {k: _split_dim(full[k], tuple(p.shape))
+                  for k, p in params.items()}
+    rules = plan.param_rules
+    held = {k: axes[k] if model_dims[k] >= 0
+            else _whole_over_model(axes[k], rules) for k in params}
+    ctx = plan._ctx()
+    specs = {k: ctx.resolve(held[k], rules, shape=full[k]) for k in params}
+    for k, spec in specs.items():
+        on_model = [i for i, e in enumerate(spec)
+                    if MODEL_AXIS in (e if isinstance(e, tuple) else (e,))]
+        if on_model != ([model_dims[k]] if model_dims[k] >= 0 else []):
+            raise ValueError(f"{k}: split on dim {model_dims[k]} but its "
+                             f"axes {held[k]} resolve to {spec}")
+    return ModelLayout(plan, full, held, specs, model_dims,
+                       {k: plan._spec_data_dim(s) for k, s in specs.items()})
+
+
+def _place_params(plan: "MeshPlan", model, param_axes=None) -> ModelLayout:
+    """`MeshPlan.place_params_`."""
+    if getattr(model, "mesh_layout", None) is not None:
+        raise ValueError("place_params_: the model is placed already")
+    layout = model_layout(model, plan, param_axes)
+    if not plan.zero_enabled():
+        layout.data_dims = {k: -1 for k in layout.data_dims}
+    axis = plan.data_axis
+    for name, dim in layout.data_dims.items():
+        if dim < 0:
+            continue
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        p = owner._parameters[leaf]
+        with torch.no_grad():
+            part = collectives.split_chunk(p.detach(), axis, dim).clone()
+        owner._parameters[leaf] = torch.nn.Parameter(
+            part, requires_grad=p.requires_grad)
+        owner.fsdp_cut = dict(getattr(owner, "fsdp_cut", {}),
+                              **{leaf: (dim, axis)})
+    layout.fsdp = True
+    model.mesh_layout = layout
+    return layout
 
 
 def _flat(tensors) -> torch.Tensor:

@@ -34,9 +34,13 @@ CPU and without allocating:
   axis; the products' FLOPs are counted by `FlopCounterMode`'s table.
 
 ``hbm_fit`` is the step's peak against `HBM_PER_CARD`.  Each row says
-which layout the port ran (``layout``): ZeRO-1, the parameters that
-stayed whole over "model", the KV cache cut by heads, and the cell's
-``"seq"`` overrides left unapplied.
+which layout the port ran (``layout``): FSDP (every cell's parameters
+cut over "data" at rest and gathered a layer at use, as the reference's
+``"embed": "data"`` rule places them; the "embed" leaves the data ranks
+do not divide stay whole), the parameters that stayed whole over
+"model", the KV cache cut by heads, and the cell's ``"seq"`` overrides
+left unapplied.  The whole parameters a layer gathers are counted in
+their own category, ``gathered``.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.distributed import collectives, fsdp
 from repro_torch.launch.specs import HBM_PER_CARD, cell_inputs, make_cell
 
 COLLECTIVE_OPS = ("all_reduce", "all_gather_into_tensor",
@@ -175,15 +180,15 @@ class MemoryTally(TorchDispatchMode):
         return live
 
     def breakdown(self, categories: dict) -> dict:
-        """The window's peak split by `categories` ({name: tensors}; a
-        storage goes to the first name that holds it), the remainder as
-        "rest"."""
+        """The window's peak split by `categories` ({name: tensors, or
+        the storage numbers of tensors gone since}; a storage goes to the
+        first name that holds it), the remainder as "rest"."""
         live = self.live_at_peak()
         out, seen = {}, set()
         for name, tensors in categories.items():
             total = 0
             for t in tensors:
-                seq = self.seq_of(t)
+                seq = t if isinstance(t, int) else self.seq_of(t)
                 if seq in live and seq not in seen:
                     seen.add(seq)
                     total += live[seq]
@@ -313,7 +318,7 @@ class CommTally:
         def call(*args, **kwargs):
             nbytes = _result_bytes(name, args, kwargs)
             group = kwargs.get("group")
-            axis = self.names.get(id(group), "world") if group is not None \
+            axis = self._axis_name(group) if group is not None \
                 else "world"
             for entry in (self.per_op[name],
                           self.per_axis.setdefault(
@@ -322,6 +327,16 @@ class CommTally:
                 entry["bytes"] += nbytes
             return fn(*args, **kwargs)
         return call
+
+    def _axis_name(self, group) -> str:
+        """The mesh axis a call's group is a line of: a named axis, a
+        line of consecutive ranks of one (`collectives.sub_axis`, named
+        ``axis/size``), or "world"."""
+        name = self.names.get(id(group))
+        if name is None:
+            line = collectives.sub_axis_of(group)
+            name = line.name if line is not None else "world"
+        return name
 
     def __enter__(self):
         self._real = {name: getattr(dist, name) for name in COLLECTIVE_OPS}
@@ -346,6 +361,16 @@ class CommTally:
 # one traced step
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _observing(fn: Callable):
+    """`fn` among `fsdp.observers` for the block."""
+    fsdp.observers.append(fn)
+    try:
+        yield
+    finally:
+        fsdp.observers.remove(fn)
+
+
 def _tensors(tree) -> list:
     out = []
     for leaf in tree_leaves(tree):
@@ -363,11 +388,15 @@ def trace_step(setup: Callable, *, mesh=None) -> dict:
     under `MemoryTally` (FLOPs counted in the step) and `CommTally`.  A
     setup that builds on the meta device allocates nothing.  Returns the
     peaks (the step's split into parameters, gradients, optimizer state,
-    cache and the rest), the step's collectives and FLOPs, the bytes held
-    between steps and the seconds taken."""
+    cache, the whole parameters gathered at use under FSDP — transient:
+    a layer's, forward or backward — and the rest), the step's
+    collectives and FLOPs, the bytes held between steps and the seconds
+    taken."""
     from repro_torch.distributed.partition import tree_bytes
     t0 = time.perf_counter()
-    with MemoryTally() as mem, CommTally(mesh) as comm:
+    gathered: set = set()
+    with MemoryTally() as mem, CommTally(mesh) as comm, \
+            _observing(lambda t: gathered.add(mem.seq_of(t))):
         fn, args, model, kind = setup()
         setup_peak = mem.peak
         mem.reset_peak()
@@ -385,7 +414,7 @@ def trace_step(setup: Callable, *, mesh=None) -> dict:
         peak = mem.breakdown({
             "params": params,
             "grads": [p.grad for p in params if p.grad is not None],
-            "opt_state": opt, "cache": cache})
+            "opt_state": opt, "cache": cache, "gathered": gathered})
         held = {"params": tree_bytes({k: p.detach() for k, p in
                                       model.named_parameters()}),
                 "opt_state": sum(int(t.numel()) * t.element_size()
@@ -398,11 +427,12 @@ def trace_step(setup: Callable, *, mesh=None) -> dict:
 
 def trace_train(cfg, optimizer, batch: dict, *, plan=None,
                 n_microbatches: int = 1, device="meta",
-                init: Callable | None = None) -> dict:
+                init: Callable | None = None, place: bool = False) -> dict:
     """`trace_step` of one LM train step of `cfg` (`make_train_step`; on
-    `plan`'s ranks `MeshTrainStep(zero1=True)`): the model built whole on
-    `device` (meta for the dry run; then `init(model)` where given: real
-    runs draw it), the
+    `plan`'s ranks `MeshTrainStep(zero1=True)`, over parameters placed
+    first by `MeshPlan.place_params_` (FSDP) with `place`): the model
+    built whole on `device` (meta for the dry run; then `init(model)`
+    where given: real runs draw it), the
     optimizer state made, and a step on zero tensors of `batch`'s
     {name: (shape, dtype)}.  Also returns the bytes a rank holds
     between steps (``held``)."""
@@ -413,6 +443,8 @@ def trace_train(cfg, optimizer, batch: dict, *, plan=None,
         model = build_model(cfg, device)
         if init is not None:
             init(model)
+        if place:
+            plan.place_params_(model)
         step = make_train_step(model, cfg, optimizer, plan=plan,
                                zero1=plan is not None,
                                n_microbatches=n_microbatches)
@@ -436,19 +468,29 @@ MODEL_RULED = ("heads", "kv_heads", "mlp", "vocab", "expert")
 
 
 def _layout(cell, plan, whole_shapes: dict) -> dict:
-    """What the port ran: ZeRO-1 (train), the parameter kinds that stayed
-    whole over "model" (block indices folded), how the cache is cut, and
-    the cell's overrides left unapplied."""
+    """What the port ran: FSDP and the "embed" leaves left whole over
+    "data", ZeRO-1 (train), the parameter kinds that stayed whole over
+    "model" (block indices folded), how the cache is cut, and the cell's
+    overrides left unapplied."""
     from repro_torch.nn.layers import param_axes
     axes = param_axes(cell.model)
+    placed = getattr(cell.model, "mesh_layout", None)
     whole = sorted({re.sub(r"\.\d+\.", ".*.", k)
                     for k, p in cell.model.named_parameters()
-                    if tuple(p.shape) == whole_shapes[k]
+                    if (placed.model_dims[k] < 0 if placed is not None
+                        else tuple(p.shape) == whole_shapes[k])
                     and any(a in MODEL_RULED for a in axes[k])})
     out = {"tensor_parallel": bool(plan.model_axis and hasattr(
                cell.model, "split_")),
            "whole_over_model": whole,
            "unapplied_overrides": dict(cell.rule_overrides)}
+    out["fsdp"] = bool(placed is not None and placed.fsdp
+                       and any(d >= 0 for d in placed.data_dims.values()))
+    if out["fsdp"]:
+        out["whole_over_data"] = sorted({
+            re.sub(r"\.\d+\.", ".*.", k)
+            for k, d in placed.data_dims.items()
+            if d < 0 and "embed" in axes[k]})
     if cell.kind == "train":
         out["zero1"] = bool(cell.fn.zero)
     if cell.kind != "train" and cell.cfg.family in ("dense", "moe", "vlm"):

@@ -168,25 +168,25 @@ def auto_microbatches(cfg: ArchConfig, shape: ShapeConfig,
     return n
 
 
-def train_state_bytes(params: dict, optimizer, *, plan=None,
-                      data_dims: dict | None = None) -> dict:
-    """Bytes a rank holds between steps: its parameters, their gradients
-    (the parameter dtype) and the optimizer state over its ZeRO slices
-    (``data_dims`` from `MeshTrainStep`), counted on meta copies."""
+def train_state_bytes(params: dict, optimizer) -> dict:
+    """Bytes a rank holds between steps: its parameters as it holds
+    them (under a plan, its slices), their gradients (the parameter
+    dtype) and the optimizer state over them, counted on meta copies."""
     meta = {k: _meta(p.shape, p.dtype) for k, p in params.items()}
     with _disable_current_modes():
-        sliced = (plan.zero_slice(meta, data_dims) if plan is not None
-                  and data_dims is not None else meta)
-        state = optimizer.init(sliced, stack_groups(sliced))
+        state = optimizer.init(meta, stack_groups(meta))
     pb = tree_bytes(meta)
     return {"params": pb, "grads": pb, "opt": tree_bytes(state)}
 
 
-def _split(model, plan) -> None:
-    """Tensor parallelism of a serving cell's model over the plan's
-    "model" axis (the families without `split_` stay whole)."""
-    if plan is not None and plan.model_axis and hasattr(model, "split_"):
-        model.split_(plan.mesh.axes[plan.model_axis])
+def _place(model, plan) -> None:
+    """A cell's model placed on the plan's mesh as the reference's
+    ``run_cell`` places every cell's parameters
+    (`MeshPlan.place_params_`): split over "model" (the families without
+    `split_` stay whole) and cut over "data" (FSDP), gathered a layer at
+    use."""
+    if plan is not None:
+        plan.place_params_(model)
 
 
 def _splits_rows(plan, rows: int) -> bool:
@@ -222,11 +222,12 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
     """The cell's step and inputs.  Without a plan the step is the
     one-device step (its microbatch budget counts the whole model's
     state on one card); with one (a `repro_torch.distributed.partition.
-    MeshPlan`) the train step is `MeshTrainStep(zero1=True)` and a
-    serving cell's model is split over the plan's "model" axis, its
-    step run on the rank's block of the batch.  The model is built on
-    the meta device (no memory), and the args are meta tensors of the
-    global shapes."""
+    MeshPlan`) every cell's model is placed as the reference's
+    ``run_cell`` places it (`_place`: split over "model", cut over
+    "data"), the train step is `MeshTrainStep` over those slices, and a
+    serving cell's step runs on the rank's block of the batch.  The
+    model is built on the meta device (no memory), and the args are
+    meta tensors of the global shapes."""
     from repro_torch.train.train_loop import make_train_step
     cfg = get_config(arch)
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
@@ -246,12 +247,12 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
         batch_specs, batch_axes = _token_batch_specs(
             cfg, shape.global_batch, shape.seq_len)
         if plan is not None:
-            # splits the model in place; the depth is set below
+            # places the model in place; the depth is set below
+            _place(model, plan)
             step = make_train_step(model, cfg, opt, plan=plan, zero1=True)
         if n_microbatches is None:
-            state = train_state_bytes(
-                dict(model.named_parameters()), opt, plan=plan,
-                data_dims=step.data_dims if plan is not None else None)
+            # the rank's parameters are its slices already
+            state = train_state_bytes(dict(model.named_parameters()), opt)
             n_microbatches = auto_microbatches(
                 cfg, shape, plan.data_size if plan is not None else 16,
                 state_bytes=sum(state.values()))
@@ -269,7 +270,7 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
     if shape.kind == "prefill":
         batch_specs, batch_axes = _token_batch_specs(
             cfg, shape.global_batch, shape.seq_len)
-        _split(model, plan)
+        _place(model, plan)
         if cfg.family == "audio":
             # encode full frames; decoder prefill of a short prompt
             def prefill_fn(params, batch):
@@ -295,7 +296,7 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
     with _disable_current_modes():
         meta_model = _cast_params(build_model(cfg, "meta"), cfg)
         cache_spec = _init_cache(meta_model, cfg, shape, b)
-    _split(model, plan)
+    _place(model, plan)
     tok_spec = _meta((b, 1), torch.int32)
 
     def decode_fn(params, tokens, cache):
@@ -324,8 +325,8 @@ def _init_cache(model, cfg: ArchConfig, shape: ShapeConfig, batch: int):
 
 def cell_inputs(cell: CellSpec, plan=None) -> tuple:
     """This rank's inputs to ``cell.fn``, meta tensors: the model's
-    own parameters; for a train cell the optimizer state over the rank's
-    ZeRO slices and the global batch (the step takes its block); for a
+    own parameters (its slices); for a train cell the optimizer state
+    over them and the global batch (the step takes its block); for a
     prefill the global batch; for a decode the global tokens and a cache
     of the rank's rows and kv heads."""
     params = dict(cell.model.named_parameters())

@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import shard_activation
+from repro_torch.distributed import fsdp
 from repro_torch.nn.layers import Embedding, LayerNorm, Linear
 from repro_torch.nn.ssm import RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.nn.transformer import (LMOutput, maybe_remat, torch_dtype,
@@ -68,9 +69,11 @@ class RWKV6LM(nn.Module):
                             kernel_axes=("embed", "vocab")))
 
     def _logits(self, x):
-        x = self.ln_out(x)
-        logits = self.head(x) if self.head is not None \
-            else self.embed.attend(x)
+        head = self.head if self.head is not None else self.embed
+        with fsdp.gathered(self.ln_out, head):
+            x = self.ln_out(x)
+            logits = self.head(x) if self.head is not None \
+                else self.embed.attend(x)
         return logits.to(torch.float32)
 
     def init_cache(self, batch: int, max_len: int = 0) -> RWKVCache:
@@ -92,13 +95,15 @@ class RWKV6LM(nn.Module):
                          ("layers", "batch", None), ())
 
     def _embed(self, tokens):
-        x = self.embed(tokens, dtype=torch_dtype(self.cfg.compute_dtype))
-        return self.ln_in(x)
+        with fsdp.gathered(self.embed, self.ln_in):
+            x = self.embed(tokens, dtype=torch_dtype(self.cfg.compute_dtype))
+            return self.ln_in(x)
 
     def _run(self, x, cache: RWKVCache, decode: bool, n_new: int):
         s_tm, wkv, s_cm = [], [], []
         for i, block in enumerate(self.blocks):
-            run = block.decode if decode else maybe_remat(block, self.cfg)
+            run = (fsdp.gathering(block.decode, block) if decode
+                   else maybe_remat(block, self.cfg))
             x, a, b, c = run(x, cache.shift_tm[i], cache.wkv[i],
                              cache.shift_cm[i])
             s_tm.append(a)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.sharding import shard_activation
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
                                       gqa_attention, sinusoidal_positions)
@@ -141,22 +142,27 @@ class WhisperModel(nn.Module):
         x = shard_activation(x, ("batch", "seq", None))
         for block in self.encoder:
             x = maybe_remat(block, self.cfg)(x)
-        return self.ln_enc(x)
+        with fsdp.gathered(self.ln_enc):
+            return self.ln_enc(x)
 
     def _cross_kvs(self, enc_out) -> list:
         """Every decoder layer's cross-attention (k, v) of the encoder
         output."""
-        return [block.cross_attn.cross_kv(enc_out) for block in self.decoder]
+        return [fsdp.gathering(block.cross_attn.cross_kv,
+                               block.cross_attn)(enc_out)
+                for block in self.decoder]
 
     def _decoder_embed(self, tokens, offset: int = 0):
         dtype = torch_dtype(self.cfg.compute_dtype)
-        x = self.embed(tokens, dtype=dtype)
+        with fsdp.gathered(self.embed):
+            x = self.embed(tokens, dtype=dtype)
         pos = decoder_positions(offset, tokens.shape[1], self.cfg.d_model,
                                 tokens.device)
         return x + pos.to(dtype)[None]
 
     def _logits(self, x):
-        return self.embed.attend(self.ln_dec(x)).to(torch.float32)
+        with fsdp.gathered(self.ln_dec, self.embed):
+            return self.embed.attend(self.ln_dec(x)).to(torch.float32)
 
     # ---- teacher forcing -----------------------------------------------------
 
@@ -208,7 +214,8 @@ class WhisperModel(nn.Module):
         cache = self.init_cache(b, max(max_len or s, s), enc_out.shape[1])
         dtype = cache.dec_k.dtype
         for layer, (block, kv) in enumerate(zip(self.decoder, kvs)):
-            x, (k, v) = block.prefill(x, kv)
+            with fsdp.gathered(block):
+                x, (k, v) = block.prefill(x, kv)
             cache.dec_k[layer, :, :s] = k.to(dtype)
             cache.dec_v[layer, :, :s] = v.to(dtype)
             cache.enc_k[layer] = kv[0].to(dtype)
@@ -221,10 +228,12 @@ class WhisperModel(nn.Module):
         place and returns the cache one token longer."""
         x = self._decoder_embed(tokens, offset=cache.length)
         for layer, block in enumerate(self.decoder):
-            x, _ = block.decode(
-                x, KVCache(cache.dec_k[layer], cache.dec_v[layer],
-                           cache.length),
-                cache.enc_k[layer], cache.enc_v[layer], cache.enc_valid)
+            with fsdp.gathered(block):
+                x, _ = block.decode(
+                    x, KVCache(cache.dec_k[layer], cache.dec_v[layer],
+                               cache.length),
+                    cache.enc_k[layer], cache.enc_v[layer],
+                    cache.enc_valid)
         return (LMOutput(self._logits(x), zero_aux(x.device)),
                 dataclasses.replace(cache,
                                     length=cache.length + tokens.shape[1]))

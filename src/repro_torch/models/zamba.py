@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.sharding import shard_activation
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.layers import Embedding, RMSNorm
@@ -94,8 +95,9 @@ class Zamba2LM(nn.Module):
                           ("layers", "batch", None, "mlp"), kv, kv, ())
 
     def _logits(self, x):
-        x = self.final_norm(x)
-        return self.embed.attend(x).to(torch.float32)
+        with fsdp.gathered(self.final_norm, self.embed):
+            x = self.final_norm(x)
+            return self.embed.attend(x).to(torch.float32)
 
     def _run_groups(self, x, cache: ZambaCache, mode: str):
         """mode: "train", "prefill" or "decode".  Returns (x, the new
@@ -107,29 +109,34 @@ class Zamba2LM(nn.Module):
             for block in self.mamba[layer:layer + size]:
                 state = Mamba2State(cache.ssm[layer], cache.conv[layer])
                 if mode == "decode":
-                    x, state = block.decode(x, state)
+                    with fsdp.gathered(block):
+                        x, state = block.decode(x, state)
                 elif mode == "train":
                     x, state = maybe_remat(block, self.cfg)(x, state)
                 else:
-                    x, state = block(x, state)
+                    with fsdp.gathered(block):
+                        x, state = block(x, state)
                 ssm.append(state.ssm)
                 conv.append(state.conv)
                 layer += 1
-            # shared attention block, application g
-            if mode == "train":
-                x, aux = self.shared(x)
-            elif mode == "prefill":
-                x, kv, aux = self.shared.prefill(x)
-                kvs.append(kv)
-            else:
-                x, _, aux = self.shared.decode(
-                    x, KVCache(cache.k[g], cache.v[g], cache.length))
+            # shared attention block, application g (gathered for each)
+            with fsdp.gathered(self.shared):
+                if mode == "train":
+                    x, aux = self.shared(x)
+                elif mode == "prefill":
+                    x, kv, aux = self.shared.prefill(x)
+                    kvs.append(kv)
+                else:
+                    x, _, aux = self.shared.decode(
+                        x, KVCache(cache.k[g], cache.v[g], cache.length))
             auxes.append(aux)
         return (x, torch.stack(ssm), torch.stack(conv), kvs,
                 sum_aux(auxes))
 
     def _embed(self, tokens):
-        return self.embed(tokens, dtype=torch_dtype(self.cfg.compute_dtype))
+        with fsdp.gathered(self.embed):
+            return self.embed(tokens,
+                              dtype=torch_dtype(self.cfg.compute_dtype))
 
     def backbone(self, tokens, **_):
         cache = self.init_cache(tokens.shape[0], max_len=0)

@@ -29,11 +29,19 @@ On a mesh (the counterpart of the reference's sharding constraints,
   * groups over "data" (the current `sharding.use_sharding` context's
     data-parallel ranks, `sharding.batch_axis`: pod x data on a mesh with
     pods): the group count and capacity are the reference's, from
-    the tokens of the whole (micro)batch, and a rank runs its contiguous
-    block of the groups — the block its rows hold.  The auxiliary values
-    are global means: sums and counts are all-reduced over the data axis
+    the tokens of the whole (micro)batch, and a group is consecutive
+    tokens of it.  Where the data ranks divide the groups, a rank runs
+    its contiguous block of them — the block its rows hold.  Where the
+    groups divide the ranks instead (16 groups over 2 pods x 16 data
+    ranks: the reference's rule puts them on "data" and GSPMD
+    replicates them over "pod"), each group spans ``share`` consecutive
+    ranks: a rank gathers the group's tokens from them
+    (`collectives.sub_axis`, `gather_at_use`), computes the group as they
+    all do, and keeps its own rows' outputs.  The auxiliary values are
+    global means: sums and counts are all-reduced over the data axis
     before the load-balance product (``e * sum(me * ce)`` is not
-    linear).  A group count the data ranks do not divide raises;
+    linear), a shared group's counted once (its ``share`` copies each
+    weighed 1 / share).  Any other group count raises;
   * experts over "model" (`split_`): a rank keeps its contiguous block
     of experts, runs them on the dispatched tokens of its groups and
     combines only their outputs; the combine is summed over the axis.
@@ -154,14 +162,21 @@ class MoELayer(nn.Module):
         g = self.n_groups
         while t_all % g:
             g //= 2
-        if g % shards:
+        share = 1
+        if g % shards and not shards % g:
+            share = shards // g  # ranks a group spans
+        elif g % shards:
             raise ValueError(
                 f"MoE: {g} groups of {t_all // g} tokens ({t_all} tokens, "
                 f"input {tuple(orig_shape)} a rank) do not split over "
                 f"{shards} data shards")
         tg = t_all // g
-        g //= shards  # this rank's groups
+        g = max(g // shards, 1)  # the groups this rank computes
         cap = self.capacity(tg)
+        line = None
+        if share > 1:
+            line = collectives.sub_axis(data, share)
+            xt = collectives.gather_at_use(xt, line, 0)
         xg = shard_activation(xt.reshape(g, tg, d),
                               ("moe_group", None, None))
 
@@ -221,19 +236,24 @@ class MoELayer(nn.Module):
         weight = (gates * mine).to(xt.dtype)
         y = (picked * weight[..., None]).reshape(g, tg, k, d).sum(2)
         y = reduce_from(y, self.axis)
-        y = shard_activation(y, ("moe_group", None, None)).reshape(t, d)
+        y = shard_activation(y, ("moe_group", None, None)).reshape(-1, d)
+        if line is not None:  # this rank's rows of its group
+            xt = xt.narrow(0, line.index * t, t)
+            y = y.narrow(0, line.index * t, t)
 
         if self.dense is not None:
             y = y + self.dense(xt)
 
-        aux = self._aux(probs, router_logits, onehot, keep, t_all, data)
+        aux = self._aux(probs, router_logits, onehot, keep, t_all, data,
+                        share)
         return y.reshape(orig_shape).to(x.dtype), aux
 
     def _aux(self, probs, router_logits, onehot, keep, t: int,
-             data: Axis | None) -> MoEAux:
+             data: Axis | None, share: int = 1) -> MoEAux:
         """The load-balance loss, router z-loss and drop fraction over
         all `t` tokens of the (micro)batch: over this rank's groups, or
-        with `data`, from sums and counts all-reduced over it first."""
+        with `data`, from sums and counts all-reduced over it first (a
+        group computed on `share` ranks weighed 1 / share on each)."""
         e, k = self.n_experts, self.top_k
         lse2 = torch.square(torch.logsumexp(router_logits, dim=-1))
         if data is None:
@@ -247,6 +267,8 @@ class MoELayer(nn.Module):
             counts = collectives.all_reduce(torch.cat([
                 onehot.sum((0, 1)).to(torch.float32),
                 keep.to(torch.float32).sum()[None]]), data)
+            if share > 1:
+                sums, counts = sums / share, counts / share
             me, z_loss = sums[:e] / t, sums[e] / t
             ce = counts[:e] / max(t * k, 1)
             dropped = 1.0 - counts[e] / (t * k)

@@ -28,6 +28,12 @@ kv heads (a whole layer's count where attention stayed whole), and
 `forward`, `prefill` and `decode_step` all-gather the vocabulary slices
 over the axis, so they return whole logits.  The cache is cut by heads,
 never by sequence.
+
+Placed by `MeshPlan.place_params_` (FSDP), the leaves are also cut over
+"data": each block gathers its own at its entry (`maybe_remat`, or
+`fsdp.gathered` around a prefill or decode step), the embedding table,
+the final norm and the head at their use (`repro_torch.distributed.
+fsdp`).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.collectives import Axis, all_gather, copy_to
 from repro_torch.distributed.sharding import shard_activation
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
@@ -81,20 +88,25 @@ def maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
     the outputs of the 2-D matmuls and recomputes the rest (selective
     checkpointing, `_dots_policy`); ``"none"`` is the plain call.  It
     checkpoints only while autograd records: serving runs `fn` as it
-    is."""
+    is.  A layer whose parameters are cut over "data" (FSDP) gathers
+    them around the call (`fsdp.gathering`), inside the checkpointed
+    function, so the recomputation gathers again and never saves a
+    whole weight."""
+    fn = fsdp.gathering(fn)
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("layer", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
+    body = fsdp.recomputed(fn)
 
     def run(*args, **kwargs):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
         if cfg.remat == "layer":
-            return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+            return _ckpt.checkpoint(body, *args, use_reentrant=False,
                                     **kwargs)
         return _ckpt.checkpoint(
-            fn, *args, use_reentrant=False,
+            body, *args, use_reentrant=False,
             context_fn=functools.partial(
                 _ckpt.create_selective_checkpoint_contexts, _dots_policy),
             **kwargs)
@@ -263,7 +275,8 @@ class DecoderLM(nn.Module):
 
     def _embed_inputs(self, tokens, patch_embeds=None):
         dtype = torch_dtype(self.cfg.compute_dtype)
-        x = self.embed(tokens, dtype=dtype)
+        with fsdp.gathered(self.embed):
+            x = self.embed(tokens, dtype=dtype)
         if self.cfg.num_patches and patch_embeds is not None:
             # vlm: the patches go first; decode has none (they were
             # consumed at prefill and live in the KV cache)
@@ -273,11 +286,13 @@ class DecoderLM(nn.Module):
     def _logits(self, x, whole: bool = False):
         """fp32 logits of this rank's vocabulary slice; with `whole`, the
         slices all-gathered over the model axis (serving)."""
-        x = self.final_norm(x)
-        if self.lm_head is not None:
-            logits = self.lm_head(copy_to(x, self.lm_head.axis))
-        else:
-            logits = self.embed.attend(x)
+        head = self.lm_head if self.lm_head is not None else self.embed
+        with fsdp.gathered(self.final_norm, head):
+            x = self.final_norm(x)
+            if self.lm_head is not None:
+                logits = self.lm_head(copy_to(x, self.lm_head.axis))
+            else:
+                logits = self.embed.attend(x)
         logits = shard_activation(logits, ("batch", None, "vocab"))
         shard = self.vocab_shard() if whole else None
         if shard is not None:
@@ -323,7 +338,8 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         auxes = []
         for layer, block in enumerate(self.blocks):
-            x, (k, v), aux = block.prefill(x)
+            with fsdp.gathered(block):
+                x, (k, v), aux = block.prefill(x)
             cache.k[layer, :, :s] = to_kv_dtype(k, dtype)
             cache.v[layer, :, :s] = to_kv_dtype(v, dtype)
             auxes.append(aux)
@@ -360,8 +376,10 @@ class DecoderLM(nn.Module):
         x = self._embed_inputs(tokens)
         auxes = []
         for layer, block in enumerate(self.blocks):
-            x, _, aux = block.decode(
-                x, KVCache(cache.k[layer], cache.v[layer], cache.length))
+            with fsdp.gathered(block):
+                x, _, aux = block.decode(
+                    x, KVCache(cache.k[layer], cache.v[layer],
+                               cache.length))
             auxes.append(aux)
         new_cache = KVCache(cache.k, cache.v,
                             cache.length + tokens.shape[1])

@@ -10,7 +10,9 @@ it fills by backward and which the optimizer's `update_` rewrites in
 place — the counterpart of the donated buffers.  With ``plan=`` (or
 ``mesh=``) it is the LM on the mesh, `MeshTrainStep`: the reference's
 one GSPMD program (`:176-206`) as explicit collectives over
-`torch.distributed` ranks, with the one-device step's numbers.
+`torch.distributed` ranks, with the one-device step's numbers, over
+parameters whole over "data" (ZeRO-1) or placed first by
+`MeshPlan.place_params_` (FSDP, the reference's production layout).
 
 The graph steps (the Trainer's step factories, `:218-306`): a plain
 step on one device, or under a mesh plan (``plan=``) the 2-D step of
@@ -34,7 +36,7 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph_tensor import GraphTensor
 from repro_torch.data.pipeline import prefetch
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, fsdp
 from repro_torch.distributed.collectives import Axis
 from repro_torch.nn import layers
 
@@ -125,13 +127,15 @@ def chunked_cross_entropy(apply_head: Callable, x: torch.Tensor,
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     den = torch.zeros((), dtype=torch.float32, device=x.device)
+    recomputed = fsdp.recomputed(body)
     for i in range(n):
         cut = slice(i * c, (i + 1) * c)
         mc = (mask[:, cut] if mask is not None
               else torch.ones((b, c), dtype=torch.float32, device=x.device))
         if torch.is_grad_enabled():
-            part, count = _ckpt.checkpoint(body, x[:, cut], labels[:, cut],
-                                           mc, use_reentrant=False)
+            part, count = _ckpt.checkpoint(recomputed, x[:, cut],
+                                           labels[:, cut], mc,
+                                           use_reentrant=False)
         else:
             part, count = body(x[:, cut], labels[:, cut], mc)
         tot, den = tot + part, den + count
@@ -196,8 +200,10 @@ def make_train_step(model, cfg: ArchConfig, optimizer, *,
 
     With ``plan`` (a `repro_torch.distributed.partition.MeshPlan`) or
     ``mesh`` (wrapped by `plan_for`) it is `MeshTrainStep` over the
-    mesh's ranks (ZeRO-1 with ``zero1``; ``param_axes``: {parameter
-    name: logical axes}, `layers.param_axes(model)` when None).
+    mesh's ranks (ZeRO-1 with ``zero1``; FSDP where the model was
+    placed by `MeshPlan.place_params_`, which the step reads from the
+    model; ``param_axes``: {parameter name: logical axes},
+    `layers.param_axes(model)` when None).
     Without either, ``zero1`` and ``param_axes`` change nothing, as in
     the reference, and the step runs on one device:
 
@@ -270,33 +276,24 @@ def _gradients(params: dict, n_microbatches: int) -> dict:
     return grads
 
 
-def _split_dim(full: tuple, local: tuple) -> int:
-    """The one dim on which a leaf's local shape is cut from its full
-    shape, or -1 when it is whole."""
-    cut = [i for i, (a, b) in enumerate(zip(full, local)) if a != b]
-    if len(cut) > 1:
-        raise ValueError(f"a leaf of {full} cut to {local} on dims {cut}")
-    return cut[0] if cut else -1
-
-
 class MeshTrainStep:
     """The LM train step on a (data, model) mesh of ranks: the
     reference's ``make_train_step(..., plan=, zero1=)``, one GSPMD
     program with the one-device step's numbers, as explicit collectives.
 
     * **Tensor parallelism** over "model": the step splits `model` in
-      place on construction (`DecoderLM.split_`; the other families stay
-      whole on every model rank), so read ``model.named_parameters()``
-      after building it.  A leaf split there holds its slice; its
-      logical axes keep their model names, and a whole leaf's lose them
-      (`axes`), so every spec below is what the rank holds.
+      place on construction (`partition.model_layout`: `DecoderLM.split_`;
+      the other families stay whole on every model rank), so read
+      ``model.named_parameters()`` after building it.  A leaf split
+      there holds its slice; its logical axes keep their model names,
+      and a whole leaf's lose them, so every spec is what the rank holds.
     * **Data parallelism**: every rank is handed the whole batch.  It is
       cut into microbatches first and each microbatch into the data
-      ranks' row blocks (over pod x data where the mesh has pods) (the reference constrains each microbatch over
-      "data"), so rank ``d`` runs block ``d`` of every microbatch.  The
-      loss is the microbatch's global mean (`make_loss_fn` with
-      ``data=``), and the MoE layers see the data axis through
-      `use_sharding`.
+      ranks' row blocks (over pod x data where the mesh has pods) (the
+      reference constrains each microbatch over "data"), so rank ``d``
+      runs block ``d`` of every microbatch.  The loss is the
+      microbatch's global mean (`make_loss_fn` with ``data=``), and the
+      MoE layers see the data axis through `use_sharding`.
     * **Gradients**: each rank's backward gives its part of the global
       gradient, whole over "model" for a whole leaf and its slice's for
       a split one, so they are summed over the data ranks only
@@ -307,6 +304,15 @@ class MeshTrainStep:
       reduce-scattered there, the update runs on the slices (the norm
       and Adafactor's statistics corrected over both axes), and the new
       slices are all-gathered.
+    * **FSDP** (ZeRO-3): where the model was placed first
+      (`MeshPlan.place_params_`, the reference's ``"embed": "data"`` at
+      rest), the step reads the layout from the model and splits
+      nothing.  The parameters are slices over "data"; each layer
+      gathers its own at use, and the gather's backward leaves each
+      rank's slice of the gradient, summed over "data", in ``.grad``.
+      Those are summed over "pod" alone (``sliced=True``), the whole
+      leaves over pod x data; the update runs on the slices in place, as
+      ZeRO-1's does, and nothing is gathered after it.
 
     The body runs under the plan's `dispatch_context()`.
     ``grad_compression`` is not ported on the mesh and raises."""
@@ -314,60 +320,52 @@ class MeshTrainStep:
     def __init__(self, model, cfg: ArchConfig, optimizer, plan, *,
                  n_microbatches: int = 1, grad_compression=None,
                  param_axes=None, zero1: bool = False):
-        from repro_torch.distributed.partition import MODEL_AXIS
+        from repro_torch.distributed.partition import MODEL_AXIS, model_layout
         if grad_compression is not None:
             raise NotImplementedError(
                 "make_train_step: grad_compression on the mesh is not "
                 "ported (ROADMAP.md queue 1)")
         self.optimizer, self.plan = optimizer, plan
         self.n_microbatches = n_microbatches
-        axes = dict(param_axes if param_axes is not None
-                    else layers.param_axes(model))
-        full = {k: tuple(p.shape) for k, p in model.named_parameters()}
         self.model_axis = (plan.mesh.axes[MODEL_AXIS] if plan.model_axis
                            else None)
-        if self.model_axis is not None and hasattr(model, "split_"):
-            model.split_(self.model_axis)
+        layout = getattr(model, "mesh_layout", None)
+        if layout is None:
+            layout = model_layout(model, plan, param_axes)
+        elif layout.plan is not plan:
+            raise ValueError("make_train_step: the model was placed by "
+                             "another plan")
+        self.layout, self.fsdp = layout, layout.fsdp
+        self.model_dims, self.axes = layout.model_dims, layout.axes
+        self.specs = layout.specs
+        self.zero = zero1 and plan.zero_enabled() and not self.fsdp
+        self.data_dims = (layout.data_dims if self.zero or self.fsdp
+                          else {k: -1 for k in layout.data_dims})
         params = dict(model.named_parameters())
-        self.model_dims = {k: _split_dim(full[k], tuple(p.shape))
-                           for k, p in params.items()}
-        rules = plan.param_rules
-        self.axes = {k: axes[k] if self.model_dims[k] >= 0
-                     else _whole_over_model(axes[k], rules)
-                     for k in params}
-        ctx = plan._ctx()
-        self.specs = {k: ctx.resolve(self.axes[k], rules, shape=full[k])
-                      for k in params}
-        for k, spec in self.specs.items():
-            on_model = [i for i, e in enumerate(spec)
-                        if MODEL_AXIS in (e if isinstance(e, tuple)
-                                          else (e,))]
-            if on_model != ([self.model_dims[k]] if self.model_dims[k] >= 0
-                            else []):
-                raise ValueError(
-                    f"{k}: split on dim {self.model_dims[k]} but its axes "
-                    f"{self.axes[k]} resolve to {spec}")
-        self.zero = zero1 and plan.zero_enabled()
-        self.data_dims = {k: plan._spec_data_dim(s) if self.zero else -1
-                          for k, s in self.specs.items()}
         self.groups = layers.stack_groups(params)
         self.data = plan.batch_axis if plan.data_size > 1 else None
         self.loss_fn = make_loss_fn(model, cfg, data=self.data)
 
     def init_opt_state(self, params: dict):
         """The optimizer's zero state for this rank: over its ZeRO slices
-        of `params` (this rank's model slices)."""
+        of `params` (this rank's model slices; under FSDP the slices it
+        holds)."""
         with torch.no_grad():
-            return self.optimizer.init(
-                self.plan.zero_slice({k: p.detach() for k, p in
-                                      params.items()}, self.data_dims),
-                self.groups)
+            mine = {k: p.detach() for k, p in params.items()}
+            if not self.fsdp:
+                mine = self.plan.zero_slice(mine, self.data_dims)
+            return self.optimizer.init(mine, self.groups)
 
     def gather_params(self, params: dict) -> dict:
         """Whole parameters from this rank's (a collective)."""
         with torch.no_grad():
-            return self.plan.gather_params(
-                {k: p.detach() for k, p in params.items()}, self.model_dims)
+            tree = {k: p.detach() for k, p in params.items()}
+            if self.fsdp:
+                tree = {k: collectives.all_gather(
+                    x, self.plan.data_axis, self.data_dims[k])
+                    if self.data_dims[k] >= 0 else x
+                    for k, x in tree.items()}
+            return self.plan.gather_params(tree, self.model_dims)
 
     def _microbatches(self, batch: dict) -> list:
         """Rank ``d``'s row block of every microbatch of `batch`."""
@@ -395,7 +393,7 @@ class MeshTrainStep:
         grads = _gradients(params, self.n_microbatches)
         with torch.no_grad():
             grads = plan.zero_reduce_grads(grads, self.data_dims,
-                                           mean=False)
+                                           mean=False, sliced=self.fsdp)
             mesh_kw = dict(model=self.model_axis, model_dims=self.model_dims,
                            groups=self.groups)
             if self.zero:
@@ -406,21 +404,14 @@ class MeshTrainStep:
                     shard_dims=self.data_dims, **mesh_kw)
                 for k, x in plan.zero_gather(mine, self.data_dims).items():
                     params[k].copy_(x)
-            else:
+            else:  # in place: whole over "data", or FSDP's slices
+                if self.fsdp:
+                    mesh_kw.update(group=plan.data_axis,
+                                   shard_dims=self.data_dims)
                 _, opt_state, opt_metrics = self.optimizer.update_(
                     grads, opt_state, params, **mesh_kw)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
-
-
-def _whole_over_model(axes: tuple, rules: dict) -> tuple:
-    """`axes` with every name the rules put on "model" dropped (a leaf
-    that stays whole on every model rank)."""
-    def on_model(name):
-        target = rules.get(name) if name is not None else None
-        return "model" in (target if isinstance(target, (tuple, list))
-                           else (target,))
-    return tuple(None if on_model(a) else a for a in axes)
 
 
 def make_eval_step(model, cfg: ArchConfig) -> Callable:

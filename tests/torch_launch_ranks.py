@@ -8,7 +8,9 @@ never JAX).
   a train case of `torch_lm_mesh_ranks` on (pod=2, data=1, model=2).
 * `tally_world` / `tally_fake`: one traced train step of the
   `TALLY_CASES` on (data=2, model=2), on real gloo ranks or on rank 0 of
-  a fake world of 4 (`repro_torch.launch.dryrun`).
+  a fake world of 4 (`repro_torch.launch.dryrun`), over parameters
+  placed by `MeshPlan.place_params_` with ``place``; `fsdp_tally_fake`
+  the placed step on meta and on real CPU tensors in one fake world.
 """
 from __future__ import annotations
 
@@ -45,10 +47,14 @@ def serve_inputs(cfg, seed: int = 3) -> dict:
     return out
 
 
-def serve_case(arch: str, initial: dict, *, split: bool = True) -> dict:
+def serve_case(arch: str, initial: dict, *, split: bool = True,
+               placed: bool = False) -> dict:
     """Prefill (max_len prompt + SERVE_STEPS + patches) and SERVE_STEPS
     greedy decode steps: each step's logits and the tokens, for this
-    rank's rows (all of them with ``split=False``, one rank alone)."""
+    rank's rows (all of them with ``split=False``, one rank alone).
+    ``placed``: the parameters placed by `MeshPlan.place_params_` (cut
+    over "data" too, gathered a layer at use) where ``split`` only
+    splits them over "model"; the bytes held a rank come back too."""
     from repro_torch.distributed import collectives, partition
     from repro_torch.distributed.sharding import use_sharding
     from repro_torch.models import registry
@@ -63,7 +69,10 @@ def serve_case(arch: str, initial: dict, *, split: bool = True) -> dict:
     plan = None
     if split:
         plan = partition.make_plan(model_parallel=2, device="cpu")
-        model.split_(plan.mesh.axes["model"])
+        if placed:
+            plan.place_params_(model)
+        else:
+            model.split_(plan.mesh.axes["model"])
         axis = plan.batch_axis
         width = SERVE_BATCH // axis.size
         rows = slice(axis.index * width, (axis.index + 1) * width)
@@ -85,7 +94,9 @@ def serve_case(arch: str, initial: dict, *, split: bool = True) -> dict:
             out, cache = model.decode_step(tok, cache)
         logits.append(out.logits[:, -1].numpy())
     return {"logits": np.stack(logits, 1), "tokens": np.concatenate(tokens, 1),
-            "rows": (rows.start, rows.stop), "kv_heads": kv_heads}
+            "rows": (rows.start, rows.stop), "kv_heads": kv_heads,
+            "param_bytes": partition.tree_bytes(
+                {k: p.detach() for k, p in model.named_parameters()})}
 
 
 def pod_case(initial: dict) -> dict:
@@ -106,49 +117,58 @@ def tally_batch(cfg) -> dict:
             "labels": ((TALLY_BATCH, TALLY_SEQ), torch.int64)}
 
 
-def tally_case(arch: str, *, fake: bool) -> dict:
+def tally_case(arch: str, *, fake: bool, place: bool = False,
+               remat: str | None = None, device: str | None = None) -> dict:
     """One traced train step of `arch`'s smoke config (AdamW, fp32) on
     this rank's (data=2, model=2) plan: the tally's figures, and on real
-    ranks the bytes held as the mesh counts them."""
+    ranks the bytes held as the mesh counts them.  ``place``: over
+    parameters placed first (FSDP); ``remat`` overrides the config's;
+    ``device``: where the tensors live ("meta" in a fake world, "cpu"
+    on real ranks, by default), drawn from seed 0 on the CPU."""
     from repro_torch.distributed import partition
     from repro_torch.launch.dryrun import trace_train
     from repro_torch.models import registry
     from repro_torch.nn.layers import init_params
     from repro_torch.train.optimizer import AdamW
     cfg = registry.get_config(arch + "-smoke")
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=1.0))
     plan = partition.make_plan(model_parallel=2, device="cpu")
     held = {}
+    device = device or ("meta" if fake else "cpu")
 
     def init(model):
-        if not fake:
+        if device != "meta":
             init_params(model, 0)
 
     t = trace_train(cfg, AdamW(learning_rate=1e-4), tally_batch(cfg),
                     plan=plan, n_microbatches=TALLY_MICRO,
-                    device="meta" if fake else "cpu", init=init)
+                    device=device, init=init, place=place)
     held.update(t["held"])
     return {"held": held, "collectives": t["collectives"],
             "peak": t["peak"], "setup_peak": t["setup_peak"],
             "flops": t["flops"]}
 
 
-def tally_world() -> dict:
+def tally_world(place: bool = False) -> dict:
     """Every tally case on this rank of a real gloo world of 4, with the
-    bytes the plan counts itself beside the tally's."""
+    bytes the plan counts itself beside the tally's (``place``: FSDP)."""
     from repro_torch.distributed import partition
     from repro_torch.models import registry
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.train_loop import make_train_step
     out = {}
     for name, arch in TALLY_CASES.items():
-        out[name] = tally_case(arch, fake=False)
+        out[name] = tally_case(arch, fake=False, place=place)
         # the same layout counted by the mesh's own functions
         cfg = registry.get_config(arch + "-smoke")
         model = registry.build_model(cfg, "cpu")
         plan = partition.make_plan(model_parallel=2, device="cpu")
+        if place:
+            plan.place_params_(model)
         step = make_train_step(model, cfg, AdamW(), plan=plan, zero1=True)
         params = dict(model.named_parameters())
         state = step.init_opt_state(params)
@@ -159,10 +179,32 @@ def tally_world() -> dict:
     return out
 
 
-def tally_fake() -> dict:
+def tally_fake(place: bool = False) -> dict:
     """Every tally case on rank 0 of a fake world of 4 (a spawned
     process with no process group of its own)."""
     from repro_torch.launch.dryrun import fake_world
     with fake_world(4):
-        return {name: tally_case(arch, fake=True)
+        return {name: tally_case(arch, fake=True, place=place)
                 for name, arch in TALLY_CASES.items()}
+
+
+# the FSDP tally on real CPU tensors against meta: one case per remat
+FSDP_TALLY = {"layer": "qwen1.5-4b", "dots": "granite-moe-3b-a800m",
+              "none": "qwen1.5-4b"}
+
+
+def fsdp_tally_fake() -> dict:
+    """Each `FSDP_TALLY` case traced over placed parameters on rank 0 of
+    a fake world of 4, on meta tensors and on real CPU tensors (the
+    collectives move nothing there; every storage is made and freed as
+    on a rank), and the placed tally cases on meta for the real ranks'
+    counts."""
+    from repro_torch.launch.dryrun import fake_world
+    with fake_world(4):
+        out = {f"{remat}/{device}": tally_case(arch, fake=True, place=True,
+                                               remat=remat, device=device)
+               for remat, arch in FSDP_TALLY.items()
+               for device in ("meta", "cpu")}
+        out.update({name: tally_case(arch, fake=True, place=True)
+                    for name, arch in TALLY_CASES.items()})
+    return out

@@ -37,6 +37,8 @@ def config(module, case: dict):
     """The case's smoke config from a registry module (the reference's
     or the port's)."""
     cfg = module.get_config(case["arch"] + "-smoke")
+    if "remat" in case:
+        cfg = dataclasses.replace(cfg, remat=case["remat"])
     if "capacity_factor" in case:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=case["capacity_factor"]))
@@ -87,12 +89,15 @@ def optimizer(case: dict):
 
 def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
                mesh: bool = True, steps: int = STEPS,
-               device: str = "cpu", pods: int = 1) -> dict:
+               device: str = "cpu", pods: int = 1,
+               placed: bool = False) -> dict:
     """The case on this rank's mesh (led by `pods` pods; or, with
     ``mesh=False``, the one-device step) from the reference's initial
     tree, on `device` (fp32, TF32 off): per-step metrics, the whole final parameters as the
     reference's flat tree, the bytes this rank holds of parameters and
-    of optimizer state."""
+    of optimizer state.  ``placed``: the parameters placed first
+    (`MeshPlan.place_params_`, FSDP over "data"); the case's ``remat``
+    overrides the config's."""
     from repro_torch.distributed import partition
     from repro_torch.distributed.partition import tree_bytes
     from repro_torch.models import registry
@@ -103,12 +108,15 @@ def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
     cfg = config(registry, case)
     model = layers.load_jax_lm_params(registry.build_model(cfg, device),
                                       nest(initial))
+    whole = {k: tuple(p.shape) for k, p in model.named_parameters()}
     opt = optimizer(case)
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in batch_np(cfg, case).items()}
     if mesh:
         plan = partition.make_plan(model_parallel=model_parallel,
                                    pods=pods, device=device)
+        if placed:
+            plan.place_params_(model)
         step = train_loop.make_train_step(
             model, cfg, opt, plan=plan, zero1=True,
             n_microbatches=case["n_micro"])
@@ -128,7 +136,9 @@ def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
             "params": flatten(layers.stack_lm_tree(full)),
             "param_bytes": tree_bytes({k: p.detach()
                                        for k, p in params.items()}),
-            "opt_bytes": tree_bytes(state)}
+            "opt_bytes": tree_bytes(state),
+            "whole_leaves": sorted(k for k, p in params.items()
+                                   if tuple(p.shape) == whole[k])}
 
 
 def train_cases(names: list, initial: dict) -> dict:
@@ -231,3 +241,203 @@ def pipeline_rank(ws: np.ndarray, x: np.ndarray, n_microbatches: int,
                      mesh.axes["stage"].ranks),
             "out": out.numpy(), "blocks": (got.numpy(), want.numpy()),
             "requires_grad": got.requires_grad}
+
+
+# ---------------------------------------------------------------------------
+# FSDP: the step over parameters placed by `MeshPlan.place_params_`
+# (`tests/test_torch_lm_fsdp.py`)
+# ---------------------------------------------------------------------------
+
+FSDP_CASES = {
+    # AdamW, two microbatches, the uneven loss mask; remat "layer"
+    "qwen": CASES["qwen"],
+    # remat "dots" (the config's), capacity factor 0.5: drops
+    "granite": CASES["granite"],
+    # remat "none": what autograd saves of a gathered weight is regathered
+    "qwen_none": dict(CASES["qwen"], remat="none"),
+}
+# the MoE layer at (pod=2, data=2, model=1) with 2 groups: each group
+# spans two batch ranks
+MOE_PODS = dict(dim=32, hidden=48, n_experts=4, top_k=2,
+                capacity_factor=1.0, n_groups=2, batch=4, seq=8)
+
+
+def placed_step(case: dict, initial: dict):
+    """(model, cfg, plan, step, params, batch): the case's model from the
+    reference's initial tree placed on this rank's (data=2, model=2)
+    plan, and its mesh step."""
+    from repro_torch.distributed import partition
+    from repro_torch.models import registry
+    from repro_torch.nn import layers
+    from repro_torch.train import train_loop
+    cfg = config(registry, case)
+    model = layers.load_jax_lm_params(registry.build_model(cfg, "cpu"),
+                                      nest(initial))
+    plan = partition.make_plan(model_parallel=2, device="cpu")
+    plan.place_params_(model)
+    step = train_loop.make_train_step(model, cfg, optimizer(case),
+                                      plan=plan, zero1=True,
+                                      n_microbatches=case["n_micro"])
+    batch = {k: torch.from_numpy(v) for k, v in batch_np(cfg, case).items()}
+    return model, cfg, plan, step, dict(model.named_parameters()), batch
+
+
+def fsdp_grads(case: dict, initial: dict) -> dict:
+    """The step's gradient at the initial parameters on this rank's
+    placed plan (the microbatches' mean, summed over the mesh, every
+    leaf whole) as the reference's flat tree."""
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.nn import layers
+    from repro_torch.train import train_loop
+    _, _, plan, step, params, batch = placed_step(case, initial)
+    with use_sharding(plan.mesh, plan.param_rules, plan.act_rules):
+        train_loop._backward_metrics(step.loss_fn, step._microbatches(batch))
+    grads = train_loop._gradients(params, case["n_micro"])
+    with torch.no_grad():
+        grads = plan.zero_reduce_grads(grads, step.data_dims, mean=False,
+                                       sliced=True)
+    return flatten(layers.stack_lm_tree(step.gather_params(grads)))
+
+
+def fsdp_liveness(case: dict, initial: dict) -> dict:
+    """One placed step with every whole tensor gathered watched
+    (`fsdp.observers`): the bytes of them alive when each microbatch's
+    forward returns, the most alive at once, and the largest unit a
+    forward gathers at once (a layer, or the embedding table, the
+    final norm and the head)."""
+    import weakref
+    from repro_torch.distributed import fsdp
+    from repro_torch.nn.layers import LAYER_STACKS
+    model, _, plan, step, params, batch = placed_step(case, initial)
+    refs, most = [], [0]
+
+    def alive() -> int:
+        return sum(n for r, n in refs if r() is not None)
+
+    def seen(t):
+        refs.append((weakref.ref(t), t.numel() * t.element_size()))
+        most[0] = max(most[0], alive())
+
+    after_forward = []
+    loss_fn = step.loss_fn
+
+    def watched(mb):
+        out = loss_fn(mb)
+        after_forward.append(alive())
+        return out
+
+    def unit_bytes(module) -> int:
+        return sum(p.numel() * p.element_size() * axis.size
+                   for mod, name, _, axis in fsdp.cut_leaves(module)
+                   for p in [mod._parameters[name]])
+
+    units = [unit_bytes(block) for key in LAYER_STACKS
+             for block in getattr(model, key, [])]
+    stacks = {id(b) for key in LAYER_STACKS
+              for b in getattr(model, key, [])}
+    units.append(sum(unit_bytes(m) for m in model.children()
+                     if id(m) not in stacks
+                     and not isinstance(m, torch.nn.ModuleList)))
+    step.loss_fn = watched
+    fsdp.observers.append(seen)
+    try:
+        state = step.init_opt_state(params)
+        step(params, state, batch)
+    finally:
+        fsdp.observers.remove(seen)
+    return {"after_forward": after_forward, "most": most[0],
+            "largest_unit": max(units), "gathers": len(refs)}
+
+
+def fsdp_case(case: dict, initial: dict) -> dict:
+    """`train_case` on the placed plan, its gradient at the start and
+    the liveness of what it gathers."""
+    out = train_case(case, initial, placed=True)
+    out["grads"] = fsdp_grads(case, initial)
+    out["liveness"] = fsdp_liveness(case, initial)
+    return out
+
+
+def gather_pieces(dim: int, size: int = 2) -> tuple:
+    """(slices, weights) of every rank of a data line of `size`, from a
+    seed: slice ``r`` is [3, 4] (cut on `dim` of the whole), weight ``r``
+    the whole's shape."""
+    rng = np.random.default_rng(11 + dim)
+    shape = [3, 4]
+    whole = list(shape)
+    whole[dim] *= size
+    return ([rng.standard_normal(shape).astype(np.float32)
+             for _ in range(size)],
+            [rng.standard_normal(whole).astype(np.float32)
+             for _ in range(size)])
+
+
+def gather_at_use_case() -> dict:
+    """`collectives.gather_at_use` on this rank's data line, on dims 0
+    and 1: the whole it gives, and its slice's gradient of
+    ``sum(whole * weight_r)`` (rank ``r``'s own weight)."""
+    from repro_torch.distributed import collectives, partition
+    plan = partition.make_plan(model_parallel=2, device="cpu")
+    axis = plan.data_axis
+    out = {"index": axis.index}
+    for dim in (0, 1):
+        parts, weights = gather_pieces(dim, axis.size)
+        x = torch.from_numpy(parts[axis.index]).requires_grad_(True)
+        y = collectives.gather_at_use(x, axis, dim)
+        (y * torch.from_numpy(weights[axis.index])).sum().backward()
+        out[dim] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def moe_pods_inputs() -> dict:
+    c = MOE_PODS
+    rng = np.random.default_rng(21)
+    shape = (c["batch"], c["seq"], c["dim"])
+    return {"x": rng.standard_normal(shape).astype(np.float32),
+            "r": rng.standard_normal(shape).astype(np.float32)}
+
+
+def moe_pods_case(tree: dict) -> dict:
+    """`MOE_PODS`' layer from the reference's tree on this rank's rows of
+    a (pod=2, data=2, model=1) mesh: its output, the auxiliary values,
+    the rows' input gradient and the parameters' gradient summed over
+    the batch ranks, of ``sum(y * r) + lb + z``."""
+    from repro_torch.distributed import collectives, partition
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.nn.layers import load_jax_params
+    from repro_torch.nn.moe import MoELayer
+    c = MOE_PODS
+    layer = load_jax_params(MoELayer(
+        c["dim"], c["hidden"], c["n_experts"], c["top_k"],
+        capacity_factor=c["capacity_factor"], n_groups=c["n_groups"]),
+        nest(tree))
+    plan = partition.make_plan(pods=2, device="cpu")
+    axis = plan.batch_axis
+    inputs = {k: collectives.split_chunk(torch.from_numpy(v), axis, 0)
+              for k, v in moe_pods_inputs().items()}
+    x = inputs["x"].requires_grad_(True)
+    with use_sharding(plan.mesh, plan.param_rules, plan.act_rules):
+        y, aux = layer(x)
+    loss = (y * inputs["r"]).sum() + aux.load_balance_loss \
+        + aux.router_z_loss
+    loss.backward()
+    grads = {k: collectives.all_reduce(p.grad, axis).numpy()
+             for k, p in layer.named_parameters()}
+    return {"index": axis.index, "y": y.detach().numpy(),
+            "aux": [float(a) for a in aux], "x_grad": x.grad.numpy(),
+            "grads": grads}
+
+
+def fsdp_world(initial: dict, moe_tree: dict) -> dict:
+    """What a rank of the 4-rank world of `tests/test_torch_lm_fsdp.py`
+    returns: every FSDP case, the gather Function, the placed serving
+    cases and the MoE over pods."""
+    import torch_launch_ranks as L
+    out = {name: fsdp_case(case, initial[name])
+           for name, case in FSDP_CASES.items()}
+    out["gather"] = gather_at_use_case()
+    out["serve"] = {name: L.serve_case(arch, initial["serve/" + name],
+                                       placed=True)
+                    for name, arch in L.SERVE_CASES.items()}
+    out["moe_pods"] = moe_pods_case(moe_tree)
+    return out
