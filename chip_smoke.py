@@ -145,19 +145,27 @@ head, 8 classes):
   parameters placed by `MeshPlan.place_params_` (FSDP / ZeRO-3: cut
   over "data" at rest, gathered a layer at use), against the same
   one-rank run at (a)'s limits, a rank's parameters at most 0.30 of the
-  model's and exactly its placement's reckoning.  Step ms,
-  `torch.distributed` calls (and, for (d), per op) and the host ms
-  inside them a step, and peak GB, a rank.  No kernel launches;
+  model's and exactly its placement's reckoning; (e) (d) again with the
+  plan's act rule "seq" -> "model" (sequence parallelism: the residual
+  stream a rank's slice of the sequence between blocks), at (a)'s
+  limits, then a prefill of 64 tokens and 8 greedy decode steps from
+  the one-rank run's final weights with the KV cache cut by sequence,
+  tokens equal to the one-rank run's and logits within rtol 1e-4 / atol
+  1e-5, the cache a rank holds against the whole.  Step ms,
+  `torch.distributed` calls (and, for (d) and (e), per op; for (e) per
+  mesh axis) and the host ms inside them a step, and peak GB, a rank.
+  No kernel launches;
 * the dry run (`[dryrun]`, `repro_torch.launch.dryrun`, traced on meta
   tensors in spawned processes on the CPU): (a) `[lm-train]` (c)'s step
   on one rank against that run's measured peak, (b) rank 0 of
   `[lm-mesh]` (a) in a fake world of 4 against rank 0's measured peak
   (both within 10%), its `torch.distributed` calls a step and the
   parameter and optimizer bytes it held (equal); (b') the same for rank
-  0 of `[lm-mesh]` (d), calls per op equal too; (c) qwen2.5-32b's
-  train_4k, prefill_32k and decode_32k at 16 x 16 (256 ranks), placed as
-  every cell is (FSDP), each cell's row and roofline; (d)
-  `HBM_PER_CARD` against the card.
+  0 of `[lm-mesh]` (d), calls per op equal too, and (b'') for (e); (c)
+  qwen2.5-32b's train_4k, prefill_32k and decode_32k and
+  command-r-plus-104b's train_4k at 16 x 16 (256 ranks), placed as
+  every cell is (FSDP), with their ``"seq"`` overrides applied, each
+  cell's row and roofline; (d) `HBM_PER_CARD` against the card.
 
 The run kernels fold in a fixed order on sorted ids, so `[kernels]`
 holds them to 20 bit-identical repeats and `[train]` two independent
@@ -312,6 +320,11 @@ LM_MESH_PARAM_SHARE = 0.55
 LM_MESH_FSDP_SHARE = 0.30   # (d): parameters cut over "data" too
 LM_MESH_OPT_SHRINK = 3.5
 LM_MESH_TIMEOUT_S = 600
+# (e): (d) with the act rule "seq" -> "model" (sequence parallelism), then
+# a prefill of LM_MESH_PROMPT tokens and LM_MESH_DECODE greedy steps from
+# the one-rank run's final weights, the KV cache cut by sequence
+LM_MESH_SEQ_RULES = {"seq": "model"}
+LM_MESH_PROMPT, LM_MESH_DECODE = 64, 8
 
 
 def fail(message: str) -> None:
@@ -3410,15 +3423,21 @@ MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
 
 
 @contextlib.contextmanager
-def collective_clock():
+def collective_clock(mesh=None):
     """Count the `torch.distributed` calls made inside the block and the
     host time spent inside them (a gloo call returns once its exchange
     is done, the copies of CUDA tensors to and from the host included):
-    {"calls": n, "ms": t, "per_op": {name: n}}."""
+    {"calls": n, "ms": t, "per_op": {name: n}, "per_axis": {axis: n}}
+    (the axis of `mesh` whose process group a call names, "world" for
+    the default group or one of no axis)."""
     import torch.distributed as dist
     seen = {"calls": 0, "ms": 0.0,
-            "per_op": {name: 0 for name in MESH_COLLECTIVES}}
+            "per_op": {name: 0 for name in MESH_COLLECTIVES},
+            "per_axis": {}}
     real = {name: getattr(dist, name) for name in MESH_COLLECTIVES}
+    names = {id(axis.group): name for name, axis in
+             (mesh.axes.items() if mesh is not None else ())
+             if axis.group is not None}
 
     def timed(name, fn):
         @functools.wraps(fn)
@@ -3430,6 +3449,8 @@ def collective_clock():
                 seen["ms"] += 1e3 * (time.perf_counter() - t0)
                 seen["calls"] += 1
                 seen["per_op"][name] += 1
+                axis = names.get(id(kwargs.get("group")), "world")
+                seen["per_axis"][axis] = seen["per_axis"].get(axis, 0) + 1
         return call
 
     for name, fn in real.items():
@@ -5135,11 +5156,13 @@ def lm_train_phase(torch, smi, figures: dict) -> dict:
 
 
 def lm_mesh_config(arch: str):
-    """`arch` at full width, LM_MESH_LAYERS layers, fp32 compute."""
+    """`arch` at full width, LM_MESH_LAYERS layers, fp32 compute and KV
+    cache (`[lm-mesh]` (e) serves it: a float8 cache would round K/V that
+    the split ranks sum in another order to another step)."""
     import dataclasses
     from repro_torch.models.registry import get_config
     return dataclasses.replace(get_config(arch), num_layers=LM_MESH_LAYERS,
-                               compute_dtype="float32")
+                               compute_dtype="float32", kv_cache_dtype="")
 
 
 def lm_mesh_batch(torch, cfg) -> dict:
@@ -5158,16 +5181,18 @@ def lm_mesh_batch(torch, cfg) -> dict:
 
 
 def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
-                  placed: bool = False) -> dict:
+                  placed: bool = False, serve: bool = False) -> dict:
     """`arch` (`lm_mesh_config`) drawn on the card from SEED and trained
     LM_MESH_STEPS steps with AdamW, on `plan`'s ranks (ZeRO-1; with
     `placed`, over parameters placed first by `MeshPlan.place_params_`:
     FSDP) or on this rank alone: metrics and ms a step, the bytes of
     parameters and optimizer state held, peak GB, `torch.distributed`
-    calls (per op too) and their host ms.  Alone, the final parameters
-    are saved to `ref_path`; on a plan, this rank's parameters are held
-    to that file's slices of them (rtol LM_MESH_RTOL, atol
-    LM_MESH_ATOL)."""
+    calls (per op and per mesh axis too) and their host ms.  Alone, the
+    final parameters are saved to `ref_path`; on a plan, this rank's
+    parameters are held to that file's slices of them (rtol
+    LM_MESH_RTOL, atol LM_MESH_ATOL).  With `serve`, a prefill and
+    greedy decode follow (`lm_mesh_serve`), on a plan from the one-rank
+    run's final weights."""
     from repro_torch.distributed.partition import tree_bytes
     from repro_torch.models.registry import build_model
     from repro_torch.nn.layers import init_params, stack_groups
@@ -5188,7 +5213,7 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
              else opt.init(params, stack_groups(params)))
     batch = lm_mesh_batch(torch, cfg)
     metrics, step_ms = [], []
-    with collective_clock() as coll:
+    with collective_clock(plan.mesh if plan is not None else None) as coll:
         for _ in range(LM_MESH_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5200,6 +5225,8 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
            "calls": coll["calls"] / LM_MESH_STEPS,
            "per_op": {k: v / LM_MESH_STEPS
                       for k, v in coll["per_op"].items()},
+           "per_axis": {k: v / LM_MESH_STEPS
+                        for k, v in coll["per_axis"].items()},
            "coll_ms": coll["ms"] / LM_MESH_STEPS,
            "param_bytes": tree_bytes({k: p.detach()
                                       for k, p in params.items()}),
@@ -5212,9 +5239,88 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
         out.update(lm_mesh_compare(torch, step, params, ref_path))
         if placed:
             out.update(lm_mesh_placement(step, params))
+    if serve:
+        if plan is not None:
+            lm_mesh_load_ref(torch, step, params, ref_path)
+        out["serve"] = lm_mesh_serve(torch, model, cfg, plan)
     del model, params, state, step, batch
     torch.cuda.empty_cache()
     return out
+
+
+def lm_mesh_ref_slice(step, name: str, want):
+    """This rank's slice of a whole leaf `want`: over "model" where the
+    step split it, and over "data" where FSDP cut it."""
+    dim = step.model_dims[name]
+    if dim >= 0:
+        axis = step.model_axis
+        width = want.shape[dim] // axis.size
+        want = want.narrow(dim, axis.index * width, width)
+    dim = step.data_dims[name] if step.fsdp else -1
+    if dim >= 0:
+        data = step.plan.data_axis
+        width = want.shape[dim] // data.size
+        want = want.narrow(dim, data.index * width, width)
+    return want
+
+
+def lm_mesh_load_ref(torch, step, params, ref_path) -> None:
+    """This rank's slices of the one-rank run's final parameters (from
+    `ref_path`) written into `params`."""
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(lm_mesh_ref_slice(step, k, ref[k]).to(DEVICE))
+
+
+def lm_mesh_serve(torch, model, cfg, plan=None) -> dict:
+    """A prefill of LM_MESH_PROMPT tokens (the global batch's rows, this
+    data rank's block of them on a plan) and LM_MESH_DECODE greedy
+    decode steps, under the plan's rules (with LM_MESH_SEQ_RULES the KV
+    cache is cut by sequence): the logits of every step and the tokens
+    on the host, the cache bytes held and the whole cache's for the same
+    rows, prefill ms and decode ms a step."""
+    import contextlib
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import use_sharding
+    rng = np.random.default_rng(SEED + 8)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_MESH_BATCH, LM_MESH_PROMPT))).to(DEVICE)
+    rows = (0, LM_MESH_BATCH)
+    ctx = contextlib.nullcontext()
+    if plan is not None:
+        axis = plan.batch_axis
+        tokens = collectives.split_chunk(tokens, axis, 0)
+        rows = (axis.index * tokens.shape[0],
+                (axis.index + 1) * tokens.shape[0])
+        ctx = use_sharding(plan.mesh, plan.param_rules, plan.act_rules)
+    max_len = LM_MESH_PROMPT + LM_MESH_DECODE
+    logits, picked, decode_ms = [], [], []
+    with torch.no_grad(), ctx:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = model.prefill(tokens, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        for _ in range(LM_MESH_DECODE):
+            last = out.logits[:, -1]
+            logits.append(last.cpu().numpy())
+            tok = torch.argmax(last, dim=-1)[:, None]
+            picked.append(tok.cpu().numpy())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, cache = model.decode_step(tok, cache)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(out.logits[:, -1].cpu().numpy())
+    item = cache.k.element_size()
+    whole = (2 * cfg.num_layers * tokens.shape[0] * max_len
+             * cfg.n_kv_heads * cfg.resolved_head_dim * item)
+    return {"logits": np.stack(logits, 1), "tokens": np.concatenate(picked, 1),
+            "rows": rows, "cache_bytes": 2 * cache.k.numel() * item,
+            "whole_cache_bytes": whole, "cut": cache.seq is not None,
+            "cache_shape": tuple(cache.k.shape), "prefill_ms": prefill_ms,
+            "decode_ms": statistics.median(decode_ms)}
 
 
 def lm_mesh_compare(torch, step, params, ref_path) -> dict:
@@ -5222,21 +5328,10 @@ def lm_mesh_compare(torch, step, params, ref_path) -> dict:
     (read from `ref_path` mapped, a leaf at a time): elements past the
     tolerance, the largest difference, and the split it checked."""
     ref = torch.load(ref_path, mmap=True, weights_only=True)
-    axis = step.model_axis
     misses, worst, split, where = 0, 0.0, 0, []
     for k, p in params.items():
-        want = ref[k]
-        dim = step.model_dims[k]
-        if dim >= 0:
-            width = want.shape[dim] // axis.size
-            want = want.narrow(dim, axis.index * width, width)
-            split += 1
-        dim = step.data_dims[k] if step.fsdp else -1
-        if dim >= 0:  # FSDP: this rank's slice over "data" too
-            data = step.plan.data_axis
-            width = want.shape[dim] // data.size
-            want = want.narrow(dim, data.index * width, width)
-        want = want.to(DEVICE)
+        split += step.model_dims[k] >= 0
+        want = lm_mesh_ref_slice(step, k, ref[k]).to(DEVICE)
         got = p.detach()
         diff = (got - want).abs()
         bad = diff > LM_MESH_ATOL + LM_MESH_RTOL * want.abs()
@@ -5332,7 +5427,8 @@ def lm_mesh_pipeline(torch, mesh=None) -> tuple:
 
 def lm_mesh_rank(paths: dict) -> dict:
     """What each spawned rank of `[lm-mesh]` runs: (a) and (b) on the
-    (data, model) plan, (d) on it over placed parameters, then (c) on
+    (data, model) plan, (d) on it over placed parameters, (e) as (d)
+    under the act rule "seq" -> "model" and its serving, then (c) on
     the stage mesh, with every kernel's launch count read (the path
     reaches none)."""
     import torch
@@ -5347,6 +5443,13 @@ def lm_mesh_rank(paths: dict) -> dict:
     torch.distributed.barrier()
     out["fsdp"] = lm_mesh_train(torch, LM_MESH_ARCHS[0], plan,
                                 paths[LM_MESH_ARCHS[0]], placed=True)
+    seq_plan = partition.make_plan(model_parallel=LM_MESH_MODEL,
+                                   device=DEVICE,
+                                   act_rules=LM_MESH_SEQ_RULES)
+    torch.distributed.barrier()
+    out["seq"] = lm_mesh_train(torch, LM_MESH_ARCHS[0], seq_plan,
+                               paths[LM_MESH_ARCHS[0]], placed=True,
+                               serve=True)
     mesh = partition.make_mesh(stages=LM_MESH_STAGES)
     torch.distributed.barrier()
     with collective_clock() as coll:
@@ -5414,6 +5517,76 @@ def lm_mesh_fsdp_check(world: list, want: dict, smi: str) -> None:
           f"{LM_MESH_FSDP_SHARE} of the model's a rank")
 
 
+def lm_mesh_seq_check(world: list, want: dict, fsdp: list, smi: str) -> None:
+    """(e): each rank's run under sequence parallelism against the
+    one-rank run of (a) at (a)'s limits, its calls a step per op and per
+    axis, step ms and peak beside (d)'s; then its prefill and greedy
+    decode from the one-rank run's final weights with the KV cache cut
+    by sequence: tokens equal to the one-rank run's, logits within
+    LM_MESH_RTOL / LM_MESH_ATOL, and the cache a rank holds against the
+    whole cache of its rows."""
+    keys = ("loss", "total_loss", "tokens", "grad_norm")
+    d_peak = {run["rank"]: run["peak"] for run in fsdp}
+    d_ms = {run["rank"]: statistics.median(run["step_ms"][1:])
+            for run in fsdp}
+    served = want["serve"]
+    for run in world:
+        got, r = run["seq"], run["rank"]
+        for s, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+            for k in keys:
+                if not abs(g[k] - w[k]) <= LM_MESH_RTOL * abs(w[k]) + 1e-7:
+                    fail(f"lm-mesh (e) rank {r} step {s + 1}: {k} {g[k]!r} "
+                         f"vs one rank's {w[k]!r} (rtol {LM_MESH_RTOL})")
+        if got["misses"]:
+            fail(f"lm-mesh (e) rank {r}: {got['misses']} parameter elements "
+                 f"past rtol {LM_MESH_RTOL} / atol {LM_MESH_ATOL} of one "
+                 f"rank's (largest difference {got['worst']:.3e}): "
+                 f"{'; '.join(got['where'])}")
+        if not got["per_axis"].get("model"):
+            fail(f"lm-mesh (e) rank {r}: no call on the model axis: "
+                 f"{got['per_axis']}")
+        sv = got["serve"]
+        rows = slice(*sv["rows"])
+        gap = float(np.abs(sv["logits"] - served["logits"][rows]).max())
+        if not sv["cut"] or not np.array_equal(sv["tokens"],
+                                               served["tokens"][rows]) \
+                or not np.allclose(sv["logits"], served["logits"][rows],
+                                   rtol=LM_MESH_RTOL, atol=LM_MESH_ATOL):
+            fail(f"lm-mesh (e) rank {r}: serving with the cache cut by "
+                 f"sequence ({sv['cut']}) gave tokens {sv['tokens'].tolist()}"
+                 f" against one rank's {served['tokens'][rows].tolist()}, "
+                 f"logits {gap:.3e} off (rtol {LM_MESH_RTOL} / atol "
+                 f"{LM_MESH_ATOL})")
+        per_op = ", ".join(f"{k} {v:.0f}" for k, v in got["per_op"].items()
+                           if v)
+        per_axis = ", ".join(f"{k} {v:.0f}"
+                             for k, v in sorted(got["per_axis"].items()))
+        med = statistics.median(got["step_ms"][1:])
+        phase("lm-mesh", lm_mesh_line(f"(e) FSDP + sequence parallel rank "
+                                      f"{r}", got, smi)
+              + f"; calls a step by op: {per_op}; by axis: {per_axis}; step "
+              f"{med / d_ms[r]:.2f}x (d)'s {d_ms[r]:.1f} ms, peak "
+              f"{got['peak'] / 1e9:.2f} GB against (d)'s "
+              f"{d_peak[r] / 1e9:.2f}; largest parameter difference "
+              f"{got['worst']:.2e}; served rows {sv['rows'][0]}-"
+              f"{sv['rows'][1] - 1}: prefill {LM_MESH_PROMPT} tokens "
+              f"{sv['prefill_ms']:.1f} ms (one rank {served['prefill_ms']:.1f}"
+              f"), decode {sv['decode_ms']:.1f} ms a step (one rank "
+              f"{served['decode_ms']:.1f}), {LM_MESH_DECODE} greedy tokens "
+              f"equal to one rank's, logits within {gap:.2e}; KV cache "
+              f"{tuple(sv['cache_shape'])} a layer stack, "
+              f"{sv['cache_bytes'] / 1e6:.2f} MB held against the whole "
+              f"{sv['whole_cache_bytes'] / 1e6:.2f} MB of its rows "
+              f"({sv['cache_bytes'] / sv['whole_cache_bytes']:.3f})")
+    phase("lm-mesh", f"(e) {LM_MESH_ARCHS[0]} FSDP with the act rule \"seq\" "
+          f"-> \"model\" at (data={LM_MESH_DATA}, model={LM_MESH_MODEL}) vs "
+          f"one rank: {', '.join(keys)} each step within rtol "
+          f"{LM_MESH_RTOL}, final parameters within rtol {LM_MESH_RTOL} / "
+          f"atol {LM_MESH_ATOL}; prefill and {LM_MESH_DECODE} greedy steps "
+          f"from the same weights with the cache cut by sequence: tokens "
+          f"equal")
+
+
 def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     """The LM on the mesh (module docstring, `[lm-mesh]`): the one-rank
     runs alone first, then one world of LM_MESH_DATA x LM_MESH_MODEL
@@ -5431,7 +5604,8 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     with tempfile.TemporaryDirectory(prefix="lm_mesh_") as tmp:
         paths = {a: os.path.join(tmp, f"{i}.pt")
                  for i, a in enumerate(LM_MESH_ARCHS)}
-        one = {a: lm_mesh_train(torch, a, None, paths[a])
+        one = {a: lm_mesh_train(torch, a, None, paths[a],
+                                serve=a == LM_MESH_ARCHS[0])
                for a in LM_MESH_ARCHS}
         pipe_want, pipe_one_ms = lm_mesh_pipeline(torch)
         gc.collect()
@@ -5446,6 +5620,9 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
         key=lambda r: r["rank"])
     figures["lm-mesh-fsdp"] = sorted(
         ({"rank": run["rank"], **run["fsdp"]} for run in world),
+        key=lambda r: r["rank"])
+    figures["lm-mesh-seq"] = sorted(
+        ({"rank": run["rank"], **run["seq"]} for run in world),
         key=lambda r: r["rank"])
     launches = read_launches()
     for run in world:
@@ -5508,6 +5685,8 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
               f"within rtol {LM_MESH_RTOL}, final parameters within rtol "
               f"{LM_MESH_RTOL} / atol {LM_MESH_ATOL}{extra}")
     lm_mesh_fsdp_check(world, one[LM_MESH_ARCHS[0]], smi)
+    lm_mesh_seq_check(world, one[LM_MESH_ARCHS[0]], figures["lm-mesh-fsdp"],
+                      smi)
     pipe = [run["pipeline"] for run in world]
     got = next(p["out"] for p in pipe if p["out"] is not None)
     gap = float(np.abs(got - pipe_want).max())
@@ -5539,7 +5718,8 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
 
 DRYRUN_TOL = 0.10           # a dry-run peak against the card's measured one
 DRYRUN_CELLS = (("qwen2.5-32b", "train_4k"), ("qwen2.5-32b", "prefill_32k"),
-                ("qwen2.5-32b", "decode_32k"))
+                ("qwen2.5-32b", "decode_32k"),
+                ("command-r-plus-104b", "train_4k"))
 DRYRUN_TIMEOUT_S = 900
 
 
@@ -5547,8 +5727,9 @@ def dryrun_job(job: tuple):
     """One trace of `[dryrun]`, in a spawned process on the CPU (nothing
     touches the card): ("lm-train",) traces `[lm-train]` (c)'s step on
     one rank; ("lm-mesh",) rank 0 of `[lm-mesh]` (a) in a fake world of
-    its ranks, ("lm-mesh-fsdp",) that of (d); ("cell", arch, shape) `run_cell` at 16 x 16 and its
-    `analyze` row."""
+    its ranks, ("lm-mesh-fsdp",) that of (d), ("lm-mesh-seq",) that of
+    (e); ("cell", arch, shape) `run_cell` at 16 x 16 (the cell's rule
+    overrides applied) and its `analyze` row."""
     import torch
     torch.set_num_threads(1)
     from repro_torch.launch.dryrun import fake_world, run_cell, trace_train
@@ -5559,7 +5740,7 @@ def dryrun_job(job: tuple):
         tokens = ((TRAIN_FULL_BATCH, TRAIN_FULL_SEQ), torch.int32)
         out = trace_train(cfg, pick_optimizer(cfg),
                           {"tokens": tokens, "labels": tokens})
-    elif job[0] in ("lm-mesh", "lm-mesh-fsdp"):
+    elif job[0] in ("lm-mesh", "lm-mesh-fsdp", "lm-mesh-seq"):
         from repro_torch.distributed import partition
         from repro_torch.train.optimizer import AdamW
         cfg = lm_mesh_config(LM_MESH_ARCHS[0])
@@ -5567,11 +5748,13 @@ def dryrun_job(job: tuple):
         batch = {"tokens": (shape, torch.int64), "labels": (shape, torch.int64),
                  "loss_mask": (shape, torch.float32)}
         with fake_world(LM_MESH_DATA * LM_MESH_MODEL):
-            plan = partition.make_plan(model_parallel=LM_MESH_MODEL,
-                                       device="cpu")
+            plan = partition.make_plan(
+                model_parallel=LM_MESH_MODEL, device="cpu",
+                act_rules=LM_MESH_SEQ_RULES if job[0] == "lm-mesh-seq"
+                else None)
             out = trace_train(cfg, AdamW(learning_rate=LM_MESH_LR), batch,
                               plan=plan, n_microbatches=LM_MESH_MICRO,
-                              place=job[0] == "lm-mesh-fsdp")
+                              place=job[0] != "lm-mesh")
     else:
         from repro_torch.launch.roofline import analyze
         row = run_cell(job[1], job[2], multi_pod=False, verbose=False)
@@ -5622,26 +5805,28 @@ def dryrun_hbm_check(torch) -> str:
             f"PyTorch's allocator now): {(HBM_PER_CARD / usable - 1) * 100:+.2f}%")
 
 
-def dryrun_fsdp_check(trace: dict, ranks: list, smi: str) -> None:
+def dryrun_fsdp_check(trace: dict, ranks: list, smi: str,
+                      label: str = "(b')", run: str = "(d)",
+                      layout: str = "FSDP") -> None:
     """(b'): rank 0 of `[lm-mesh]` (d) traced against the card's rank 0:
     its calls a step per op and the bytes held equal, its peak within
-    DRYRUN_TOL of the measured one."""
+    DRYRUN_TOL of the measured one ((b''): the same for (e))."""
     rank0 = ranks[0]
     per_op = {k: v["count"] for k, v in trace["collectives"]["per_op"].items()}
     held = trace["held"]
     if per_op != {k: round(v) for k, v in rank0["per_op"].items()} \
             or held != {"params": rank0["param_bytes"],
                         "opt_state": rank0["opt_bytes"]}:
-        fail(f"dryrun (b'): the dry run's calls a step {per_op} and {held} "
-             f"bytes held, rank 0's {rank0['per_op']}, "
+        fail(f"dryrun {label}: the dry run's calls a step {per_op} and "
+             f"{held} bytes held, rank 0's {rank0['per_op']}, "
              f"{rank0['param_bytes']} parameter and {rank0['opt_bytes']} "
              "optimizer bytes")
-    gap = dryrun_gap("(b')", dryrun_peak(trace), rank0["peak"])
+    gap = dryrun_gap(label, dryrun_peak(trace), rank0["peak"])
     by_axis = ", ".join(f"{k} {v['count']} ({v['bytes'] / 1e9:.3f} GB)"
                         for k, v in trace["collectives"]["per_axis"].items())
-    phase("dryrun", f"(b') {LM_MESH_ARCHS[0]} FSDP at (data={LM_MESH_DATA}, "
-          f"model={LM_MESH_MODEL}), rank 0 of a fake world of "
-          f"{LM_MESH_DATA * LM_MESH_MODEL} (the [lm-mesh] (d) run): calls a "
+    phase("dryrun", f"{label} {LM_MESH_ARCHS[0]} {layout} at (data="
+          f"{LM_MESH_DATA}, model={LM_MESH_MODEL}), rank 0 of a fake world "
+          f"of {LM_MESH_DATA * LM_MESH_MODEL} (the [lm-mesh] {run} run): calls a "
           f"step {per_op} and {held['params'] / 1e9:.3f} / "
           f"{held['opt_state'] / 1e9:.3f} GB of parameters / optimizer "
           f"state held, equal to rank 0's on the card; dry-run peak "
@@ -5660,23 +5845,26 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
     fake world of its 4 ranks against rank 0's measured peak, its
     `torch.distributed` calls a step (equal) and the parameter and
     optimizer bytes it held (equal); (b') the same for rank 0 of
-    `[lm-mesh]` (d) (FSDP), its calls per op equal; (c) qwen2.5-32b's
-    three cells at 16 x 16, placed (FSDP), `run_cell` and `analyze`
-    rows; (d) `HBM_PER_CARD` against the card.  The traces run in
+    `[lm-mesh]` (d) (FSDP), its calls per op equal; (b'') the same for
+    (e) (FSDP + sequence parallel); (c) qwen2.5-32b's three cells and
+    command-r-plus-104b's train_4k at 16 x 16, placed (FSDP), their
+    ``"seq"`` overrides applied, `run_cell` and `analyze` rows; (d)
+    `HBM_PER_CARD` against the card.  The traces run in
     spawned processes on the CPU, side by side; every kernel's launch
     count must stay 0."""
     import concurrent.futures
     import multiprocessing
     t0 = time.perf_counter()
     zero_launches()
-    jobs = [("lm-train",), ("lm-mesh",), ("lm-mesh-fsdp",)] + [
-        ("cell",) + c for c in DRYRUN_CELLS]
+    jobs = [("lm-train",), ("lm-mesh",), ("lm-mesh-fsdp",),
+            ("lm-mesh-seq",)] + [("cell",) + c for c in DRYRUN_CELLS]
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(len(jobs),
                                                 mp_context=ctx) as pool:
         futures = [pool.submit(dryrun_job, job) for job in jobs]
         done = [f.result(timeout=DRYRUN_TIMEOUT_S) for f in futures]
-    one, mesh, placed, cells = done[0], done[1], done[2], done[3:]
+    one, mesh, placed, seq, cells = (done[0], done[1], done[2], done[3],
+                                     done[4:])
 
     measured = figures["lm-train"]["peak"]
     gap = dryrun_gap("(a)", dryrun_peak(one), measured)
@@ -5713,6 +5901,8 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
           f"{dryrun_breakdown(mesh)}; calls {per_op}; traced in "
           f"{mesh['seconds']:.1f}s")
     dryrun_fsdp_check(placed, figures["lm-mesh-fsdp"], smi)
+    dryrun_fsdp_check(seq, figures["lm-mesh-seq"], smi, "(b'')", "(e)",
+                      "FSDP + sequence parallel")
     for (arch, shape), cell in zip(DRYRUN_CELLS, cells):
         row, roof = cell["row"], cell["roofline"]
         p = row["peak_bytes_per_device"]

@@ -32,6 +32,29 @@ GSPMD inserts where an "embed"-sharded weight meets its use:
                           backward (JAX transposes ``all_gather`` to a
                           ``psum_scatter``)
 
+and the two boundaries of a sequence-parallel region (Megatron's
+sequence parallelism: the residual stream held as each rank's slice of
+the sequence between blocks, the reference's ``"seq": "model"`` rule):
+
+  `gather_seq(x, axis, dim)`  the slices all-gathered on the sequence
+                          dim forward; the reduce-scatter sum backward
+                          (every rank's block reads the whole sequence
+                          and keeps only its slice of the output, so
+                          each position's gradient is spread over the
+                          ranks: a slice-only backward gives 1/M of it)
+  `reduce_scatter_seq(x, axis, dim)`  a row-parallel output's partial
+                          sums reduce-scattered on the sequence dim
+                          forward; the all-gather backward
+
+Inside the region (between the two) every rank's gradient of a tensor
+is its part of a sum over the axis.  A computation that every rank of
+the axis does alike there (a part whole over "model") either keeps its
+rank's slice of the output (`split_chunk`, whose gradient is zero off
+the slice) or carries 1/M of its gradient (`grad_share`); `first_only`
+turns a whole tensor into such a part (itself on the axis' first rank,
+zeros elsewhere).  `seq_observers` see every whole tensor `gather_seq`
+makes (the liveness tests use them).
+
 `sub_axis(axis, size)` is the line of `size` consecutive ranks of an
 axis through this rank (an MoE group that spans several data ranks).
 
@@ -193,6 +216,71 @@ def gather_at_use(x: torch.Tensor, axis: Optional[Axis],
     if axis is None or axis.size == 1:
         return x
     return _GatherAtUse.apply(x, axis, dim)
+
+
+seq_observers: list = []   # callables given each whole sequence gathered
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.axis, ctx.dim), None, None
+
+
+def gather_seq(x: torch.Tensor, axis: Optional[Axis],
+               dim: int = 1) -> torch.Tensor:
+    """The axis' slices of the sequence all-gathered on `dim`; the
+    gradient of the whole is reduce-scattered back to each rank's slice
+    as a sum over the axis (`gather_at_use`'s pair of collectives)."""
+    if axis is None or axis.size == 1:
+        return x
+    out = _GatherAtUse.apply(x, axis, dim)
+    for fn in seq_observers:
+        fn(out)
+    return out
+
+
+def reduce_scatter_seq(x: torch.Tensor, axis: Optional[Axis],
+                       dim: int = 1) -> torch.Tensor:
+    """This rank's slice on `dim` of the sum of `x` over the axis (each
+    rank holds a partial sum of the whole sequence); the gradient of the
+    slice is all-gathered back to the whole."""
+    if axis is None or axis.size == 1:
+        return x
+    return _ReduceScatterSeq.apply(x, axis, dim)
+
+
+class _GradShare(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.size, None
+
+
+def grad_share(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """`x` as it is; its gradient divided by the axis' size (every rank
+    of the axis computes the same `x`, and the gradients they give are
+    summed over the axis)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _GradShare.apply(x, axis.size)
+
+
+def first_only(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """`x` on the axis' first rank and zeros on the others: a whole
+    tensor as one part of a sum over the axis."""
+    if axis is None or axis.size == 1 or axis.index == 0:
+        return x
+    return torch.zeros_like(x)
 
 
 _SUB_AXES: dict = {}

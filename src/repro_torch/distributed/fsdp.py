@@ -27,8 +27,17 @@ Here is what a forward does with them:
   (`_Regather`): the backward gathers the slice again and replays the
   recipe when it reads the tensor.
 
+The same scope keeps a sequence-parallel block's gathered residual as
+its slice outside a checkpointed region (`saving_slices`, `keep_slice`:
+remat ``"none"``, zamba2's shared block): the backward gathers the
+sequence again, as Megatron's sequence parallelism does.  One scope
+serves a block, its weights and its residual alike (autograd takes the
+innermost saved-tensor hooks only).
+
 Observers (`observers`) see every whole tensor gathered, forward and
 backward: the dry run's memory tally files them as ``gathered`` bytes.
+A residual regathered in the backward is shown to
+`collectives.seq_observers` instead.
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ from repro_torch.distributed import collectives
 
 # process-wide, as the sharding context: the backward's recomputation
 # may run on autograd's device thread
-_state = types.SimpleNamespace(recompute=0)
+_state = types.SimpleNamespace(recompute=0, scope=None)
 observers: list = []   # callables given each whole tensor gathered
 
 
@@ -79,21 +88,50 @@ def gathered(*modules):
     if not leaves:
         yield
         return
-    saving = torch.is_grad_enabled() and _state.recompute == 0
-    regather = _Regather() if saving else contextlib.nullcontext()
     parts = [mod._parameters[name] for mod, name, _, _ in leaves]
-    with regather:
+    with saving_slices() as scope:
         try:
             for (mod, name, dim, axis), part in zip(leaves, parts):
                 w = collectives.gather_at_use(part, axis, dim)
                 _notify(w)
-                if saving:
-                    regather.root(w, part, axis, dim)
+                if scope is not None:
+                    scope.root(w, part, axis, dim)
                 mod._parameters[name] = w
             yield
         finally:
             for (mod, name, _, _), part in zip(leaves, parts):
                 mod._parameters[name] = part
+
+
+@contextlib.contextmanager
+def saving_slices():
+    """The scope (`_Regather`) under which what autograd saves of a
+    tensor rooted in it is kept as the slice it was gathered from: the
+    enclosing block's where there is one, a new one where autograd
+    records outside a checkpointed region, None otherwise (nothing is
+    saved, or the region recomputes the gather)."""
+    if _state.scope is not None:
+        yield _state.scope
+        return
+    if not torch.is_grad_enabled() or _state.recompute:
+        yield None
+        return
+    scope = _Regather()
+    _state.scope = scope
+    try:
+        with scope:
+            yield scope
+    finally:
+        _state.scope = None
+
+
+def keep_slice(scope, whole: torch.Tensor, part: torch.Tensor, axis,
+               dim: int) -> None:
+    """Within `saving_slices`: `whole` (the sequence `part` was gathered
+    into on `dim`) is saved as `part` and gathered again in the
+    backward.  Nothing without a scope."""
+    if scope is not None:
+        scope.root(whole, part, axis, dim, collectives.seq_observers)
 
 
 def gathering(fn, module: nn.Module | None = None):
@@ -142,9 +180,10 @@ def _build(recipe) -> torch.Tensor:
     """A tensor over a storage laid out as the recipe's was: the slice
     gathered again, then each op of the recipe replayed."""
     if recipe[0] == "root":
-        _, part, axis, dim = recipe
+        _, part, axis, dim, seen = recipe
         w = collectives.all_gather(part.detach(), axis, dim)
-        _notify(w)
+        for fn in seen:
+            fn(w)
         return w
     _, parent, (size, stride, offset), func, args, kwargs = recipe
     src = _build(parent).as_strided(size, stride, offset)
@@ -174,8 +213,11 @@ class _Regather(TorchDispatchMode):
         self._hooks = torch.autograd.graph.saved_tensors_hooks(self._pack,
                                                                _unpack)
 
-    def root(self, w: torch.Tensor, part, axis, dim) -> None:
-        self.recipes[w.untyped_storage()] = ("root", part, axis, dim)
+    def root(self, w: torch.Tensor, part, axis, dim,
+             seen: list = observers) -> None:
+        """`w` was gathered from `part` on `dim` over `axis`; `seen` are
+        told of each regather."""
+        self.recipes[w.untyped_storage()] = ("root", part, axis, dim, seen)
 
     def _pack(self, t: torch.Tensor):
         recipe = self.recipes.get(t.untyped_storage())

@@ -546,7 +546,8 @@ class MeshPlan:
         return tree_bytes(opt_state)
 
     def zero_reduce_grads(self, grads: dict, dims: dict, *,
-                          mean: bool = True, sliced: bool = False) -> dict:
+                          mean: bool = True, sliced: bool = False,
+                          model_sum=()) -> dict:
         """Cross-rank gradient mean, delivered pre-sliced for ZeRO:
         sharded leaves are averaged over "model", summed over "pod" and
         reduce-scattered over "data" (each rank receives only its
@@ -562,7 +563,20 @@ class MeshPlan:
 
         ``sliced`` (FSDP, with ``mean=False``): the sharded leaves' are
         this rank's slices already summed over "data" (the gather at
-        use's backward), so they are summed over "pod" alone."""
+        use's backward), so they are summed over "pod" alone.
+
+        ``model_sum`` (with ``mean=False``): names of leaves whose
+        gradient each model rank holds a part of (sequence parallelism:
+        a leaf whole over "model" sees only this rank's slice of the
+        sequence in some of its uses); they are summed over "model"
+        first, in one collective."""
+        if model_sum and self.model_axis:
+            grads = dict(grads)
+            names = [k for k in grads if k in set(model_sum)]
+            parts = [grads[k] for k in names]
+            buf = collectives.all_reduce(_flat(parts),
+                                         self.mesh.axes[MODEL_AXIS])
+            grads.update(zip(names, _split_flat(buf, parts)))
         n = self.data_size
         if not mean and n == 1:
             return dict(grads)

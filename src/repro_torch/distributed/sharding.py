@@ -21,7 +21,11 @@ shapes, so the reference's constraints on global arrays,
 `shard_activation` and `constrain_tree`, are the identity: they are
 called at the reference's sites so that a reader finds them, and the
 explicit collectives of the layers and the step do what GSPMD derives
-from them.
+from them.  Where the act rule of "seq" names a mesh axis (a cell's
+``"seq": "model"`` override), `seq_axis` gives the models that axis for
+a sequence it divides: they then hold the residual stream as the rank's
+slice of the sequence and cut their KV caches by sequence (sequence
+parallelism, `repro_torch.nn.transformer`).
 """
 from __future__ import annotations
 
@@ -218,6 +222,22 @@ def batch_axis():
     if axis is None:
         return mesh_axis("data")
     return axis if axis.size > 1 else None
+
+
+def seq_axis(length: int):
+    """This rank's `Axis` of the mesh axis the act rule of "seq" names,
+    for a sequence of `length` positions: None without a context, where
+    the rule names no axis of the mesh (or a line of several), where that
+    axis has one rank, or where it does not divide `length` (the
+    sequence stays whole, as the reference's resolver leaves a dim the
+    axis does not divide)."""
+    ctx = current_context()
+    if ctx is None:
+        return None
+    (name,) = ctx.resolve(("seq",), ctx.act_rules, shape=(length,))
+    if name is None or isinstance(name, tuple):
+        return None
+    return mesh_axis(name)
 
 
 def mesh_axis(name: str):

@@ -38,9 +38,13 @@ which layout the port ran (``layout``): FSDP (every cell's parameters
 cut over "data" at rest and gathered a layer at use, as the reference's
 ``"embed": "data"`` rule places them; the "embed" leaves the data ranks
 do not divide stay whole), the parameters that stayed whole over
-"model", the KV cache cut by heads, and the cell's ``"seq"`` overrides
-left unapplied.  The whole parameters a layer gathers are counted in
-their own category, ``gathered``.
+"model", how the KV cache is cut (by heads, or by sequence under the
+cell's ``"seq": "model"`` override, which `make_cell` applies to both
+rule tables of the cell's plan), the sequence cut applied
+(``seq_cut``: the residual stream and the caches), and what of the
+overrides stays unapplied.  The whole parameters a layer gathers are
+counted in their own category, ``gathered``; the gathers and
+reduce-scatters of the sequence cut are "model" calls in the tally.
 """
 from __future__ import annotations
 
@@ -467,12 +471,54 @@ def trace_train(cfg, optimizer, batch: dict, *, plan=None,
 MODEL_RULED = ("heads", "kv_heads", "mlp", "vocab", "expert")
 
 
+# the families whose residual stream the port cuts by sequence
+SEQ_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+
+
+def _seq_cut(cell, plan) -> tuple:
+    """({"residual": bool, "cache": bool}, {what stays unapplied: why}):
+    the parts of a cell the ``"seq"`` rule of its plan cuts over a mesh
+    axis, and those the reference cuts that the port does not (rwkv6's
+    and whisper's residual stream) or that the axis does not divide."""
+    from repro_torch.distributed.sharding import seq_axis, use_sharding
+    cut = {"residual": False, "cache": False}
+    if cell.rule_overrides.get("seq") is None:
+        return cut, {}
+    shape, cfg = cell.shape, cell.cfg
+    residual = shape.kind in ("train", "prefill")
+    length = shape.seq_len
+    if cfg.family == "vlm" and residual:
+        length = cfg.num_patches + max(shape.seq_len - cfg.num_patches, 8)
+    cache_len = {"prefill": shape.seq_len, "decode": shape.seq_len}.get(
+        shape.kind)
+    if cfg.family == "audio" and shape.kind != "train":
+        from repro_torch.launch.specs import WHISPER_DECODE_SELF_LEN
+        cache_len = WHISPER_DECODE_SELF_LEN
+    unapplied = {}
+    with use_sharding(plan.mesh, plan.param_rules, plan.act_rules):
+        if residual:
+            if cfg.family not in SEQ_FAMILIES:
+                unapplied["residual"] = (f"{cfg.family}: not ported "
+                                         "(ROADMAP.md follow-ups)")
+            elif seq_axis(length) is None:
+                unapplied["residual"] = f"{length} positions do not divide"
+            else:
+                cut["residual"] = True
+        if cache_len and cfg.family != "ssm":
+            if seq_axis(cache_len) is None:
+                unapplied["cache"] = f"{cache_len} positions do not divide"
+            else:
+                cut["cache"] = True
+    return cut, unapplied
+
+
 def _layout(cell, plan, whole_shapes: dict) -> dict:
     """What the port ran: FSDP and the "embed" leaves left whole over
     "data", ZeRO-1 (train), the parameter kinds that stayed whole over
-    "model" (block indices folded), how the cache is cut, and the cell's
-    overrides left unapplied."""
+    "model" (block indices folded), how the cache is cut, the sequence
+    cut applied and the cell's overrides left unapplied."""
     from repro_torch.nn.layers import param_axes
+    plan = cell.plan if cell.plan is not None else plan
     axes = param_axes(cell.model)
     placed = getattr(cell.model, "mesh_layout", None)
     whole = sorted({re.sub(r"\.\d+\.", ".*.", k)
@@ -480,10 +526,13 @@ def _layout(cell, plan, whole_shapes: dict) -> dict:
                     if (placed.model_dims[k] < 0 if placed is not None
                         else tuple(p.shape) == whole_shapes[k])
                     and any(a in MODEL_RULED for a in axes[k])})
+    cut, unapplied = _seq_cut(cell, plan)
     out = {"tensor_parallel": bool(plan.model_axis and hasattr(
                cell.model, "split_")),
            "whole_over_model": whole,
-           "unapplied_overrides": dict(cell.rule_overrides)}
+           "seq_cut": cut,
+           "unapplied_overrides": ({"seq": unapplied} if unapplied
+                                   else {})}
     out["fsdp"] = bool(placed is not None and placed.fsdp
                        and any(d >= 0 for d in placed.data_dims.values()))
     if out["fsdp"]:
@@ -495,8 +544,12 @@ def _layout(cell, plan, whole_shapes: dict) -> dict:
         out["zero1"] = bool(cell.fn.zero)
     if cell.kind != "train" and cell.cfg.family in ("dense", "moe", "vlm"):
         n_kv = cell.model.blocks[0].attn.n_kv
-        out["kv_cache"] = (f"by heads: {n_kv} of {cell.cfg.n_kv_heads} a "
-                           "rank, whole sequence")
+        m = plan.model_size
+        out["kv_cache"] = (
+            f"by sequence: 1/{m} of the positions a rank, all "
+            f"{cell.cfg.n_kv_heads} kv heads" if cut["cache"] else
+            f"by heads: {n_kv} of {cell.cfg.n_kv_heads} a rank, whole "
+            "sequence")
     return out
 
 
@@ -513,7 +566,7 @@ def trace_cell(arch: str, shape: str, plan) -> dict:
     def setup():
         cell = make_cell(arch, shape, plan=plan)
         held["cell"] = cell
-        return cell.fn, cell_inputs(cell, plan), cell.model, cell.kind
+        return cell.fn, cell_inputs(cell), cell.model, cell.kind
 
     t = trace_step(setup, mesh=plan.mesh)
     cell = held["cell"]

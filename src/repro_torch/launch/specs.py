@@ -13,10 +13,13 @@ dispatch mode the caller runs, so the dry run's tally does not count
 them.
 
 The optimizer policy by model scale (`pick_optimizer`) and the cells'
-sharding overrides are the reference's.  The port applies no ``"seq"``
-override: its layers cut heads, widths, vocabulary and experts over
-"model", never the sequence, and the dry run reports each such override
-as left unapplied.
+sharding overrides are the reference's.  Under a plan, `make_cell`
+applies a cell's overrides to both rule tables of its plan, as the
+reference's dry run does (`repro/launch/dryrun.py:99-100`): with
+``"seq": "model"`` the models cut the residual stream and the KV caches
+by sequence over "model" where it divides them (`repro_torch.nn.
+transformer`), and the dry run reports what stays unapplied (rwkv6's
+and whisper's residual stream).
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ class CellSpec(NamedTuple):
     donate: tuple = ()            # arguments updated in place
     rule_overrides: dict = {}     # logical->mesh overrides of the cell
     model: Any = None
+    plan: Any = None              # the plan with the overrides applied
 
 
 # The reference's per-cell sharding overrides (`"seq" -> "model"`:
@@ -204,17 +208,34 @@ def _rank_rows(plan, x: torch.Tensor) -> torch.Tensor:
     return collectives.split_chunk(x, plan.batch_axis, 0)
 
 
+def _plan_context(plan):
+    """The plan's sharding context (a null one without a plan)."""
+    import contextlib
+    from repro_torch.distributed.sharding import use_sharding
+    if plan is None:
+        return contextlib.nullcontext()
+    return use_sharding(plan.mesh, plan.param_rules, plan.act_rules)
+
+
 def _under_plan(plan, fn: Callable) -> Callable:
     """`fn` under the plan's sharding context (the MoE layers read the
-    data-parallel ranks from it), without autograd."""
+    data-parallel ranks from it, the models the ``"seq"`` rule), without
+    autograd."""
     def run(*args):
-        from repro_torch.distributed.sharding import use_sharding
-        with torch.no_grad():
-            if plan is None:
-                return fn(*args)
-            with use_sharding(plan.mesh, plan.param_rules, plan.act_rules):
-                return fn(*args)
+        with torch.no_grad(), _plan_context(plan):
+            return fn(*args)
     return run
+
+
+def with_overrides(plan, overrides: dict):
+    """`plan` with a cell's rule overrides in both of its tables (the
+    plan itself where there are none)."""
+    if plan is None or not overrides:
+        return plan
+    import dataclasses
+    return dataclasses.replace(
+        plan, param_rules=dict(plan.param_rules, **overrides),
+        act_rules=dict(plan.act_rules, **overrides))
 
 
 def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
@@ -222,12 +243,13 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
     """The cell's step and inputs.  Without a plan the step is the
     one-device step (its microbatch budget counts the whole model's
     state on one card); with one (a `repro_torch.distributed.partition.
-    MeshPlan`) every cell's model is placed as the reference's
-    ``run_cell`` places it (`_place`: split over "model", cut over
-    "data"), the train step is `MeshTrainStep` over those slices, and a
-    serving cell's step runs on the rank's block of the batch.  The
-    model is built on the meta device (no memory), and the args are
-    meta tensors of the global shapes."""
+    MeshPlan`) the cell's rule overrides go into both of its tables
+    (`with_overrides`; the cell's ``plan``), every cell's model is
+    placed as the reference's ``run_cell`` places it (`_place`: split
+    over "model", cut over "data"), the train step is `MeshTrainStep`
+    over those slices, and a serving cell's step runs on the rank's
+    block of the batch.  The model is built on the meta device (no
+    memory), and the args are meta tensors of the global shapes."""
     from repro_torch.train.train_loop import make_train_step
     cfg = get_config(arch)
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
@@ -237,6 +259,9 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
     model = _cast_params(build_model(cfg, "meta"), cfg)
     param_specs, param_axes = _params_specs(model)
     overrides = CELL_RULE_OVERRIDES.get((arch, shape.name), {})
+    if shape.kind == "decode":
+        overrides = dict({"seq": "model"}, **overrides)
+    plan = with_overrides(plan, overrides)
 
     if shape.kind == "train":
         opt = pick_optimizer(cfg)
@@ -265,7 +290,7 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
                         (param_specs, opt_state_specs, batch_specs),
                         (param_axes, opt_axes, batch_axes),
                         donate=(0, 1), rule_overrides=overrides,
-                        model=model)
+                        model=model, plan=plan)
 
     if shape.kind == "prefill":
         batch_specs, batch_axes = _token_batch_specs(
@@ -289,7 +314,7 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
         return CellSpec(cfg, shape, "prefill", _under_plan(plan, prefill_fn),
                         (param_specs, batch_specs),
                         (param_axes, batch_axes),
-                        rule_overrides=overrides, model=model)
+                        rule_overrides=overrides, model=model, plan=plan)
 
     # decode: one new token against a seq_len-deep cache
     b = shape.global_batch
@@ -306,9 +331,8 @@ def make_cell(arch: str, shape_name, *, n_microbatches: int | None = None,
     return CellSpec(cfg, shape, "decode", _under_plan(plan, decode_fn),
                     (param_specs, tok_spec, cache_spec),
                     (param_axes, ("batch", None), model.cache_axes()),
-                    donate=(2,),
-                    rule_overrides=dict({"seq": "model"}, **overrides),
-                    model=model)
+                    donate=(2,), rule_overrides=overrides, model=model,
+                    plan=plan)
 
 
 def _init_cache(model, cfg: ArchConfig, shape: ShapeConfig, batch: int):
@@ -328,7 +352,10 @@ def cell_inputs(cell: CellSpec, plan=None) -> tuple:
     own parameters (its slices); for a train cell the optimizer state
     over them and the global batch (the step takes its block); for a
     prefill the global batch; for a decode the global tokens and a cache
-    of the rank's rows and kv heads."""
+    of the rank's rows, cut as the cell's plan cuts it (by sequence
+    under its ``"seq"`` override, else by the rank's kv heads).
+    `plan` is the cell's (``cell.plan``) unless given."""
+    plan = cell.plan if plan is None else plan
     params = dict(cell.model.named_parameters())
 
     def zeros(tree):
@@ -349,7 +376,9 @@ def cell_inputs(cell: CellSpec, plan=None) -> tuple:
         rows //= plan.data_size
     tokens = torch.zeros(cell.args[1].shape, dtype=cell.args[1].dtype,
                          device="meta")
-    return params, tokens, _init_cache(cell.model, cell.cfg, cell.shape, rows)
+    with _plan_context(plan):
+        cache = _init_cache(cell.model, cell.cfg, cell.shape, rows)
+    return params, tokens, cache
 
 
 def input_specs(arch: str, shape_name: str):

@@ -6,7 +6,10 @@ The reference stacks its blocks and scans them; here they are an
 (`layers.load_jax_lm_params` splits the stack), each under
 `maybe_remat` outside decode, as the reference's scan body.  The cache
 holds each layer's token shifts and wkv state, stacked ``[L, B, ...]``
-in fp32.
+in fp32.  The state has no sequence dim, so the ``"seq": "model"``
+rule cuts nothing of it; the residual stream cut by sequence in
+training, which the reference does under that rule, is not ported:
+`backbone` raises under it (prefill keeps the residual whole).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import shard_activation
+from repro_torch.distributed.sharding import seq_axis, shard_activation
 from repro_torch.distributed import fsdp
 from repro_torch.nn.layers import Embedding, LayerNorm, Linear
 from repro_torch.nn.ssm import RWKV6ChannelMix, RWKV6TimeMix
@@ -113,6 +116,12 @@ class RWKV6LM(nn.Module):
                             torch.stack(s_cm), cache.length + n_new)
 
     def backbone(self, tokens, **_):
+        if seq_axis(tokens.shape[1]) is not None:
+            raise NotImplementedError(
+                "rwkv6: the residual stream cut by sequence (the "
+                '"seq": "model" rule) in training is not ported '
+                "(ROADMAP.md, follow-ups: sequence parallelism for rwkv6 "
+                "and whisper)")
         x = shard_activation(self._embed(tokens), ("batch", "seq", None))
         x, _ = self._run(x,
                          self.init_cache(tokens.shape[0]), False,

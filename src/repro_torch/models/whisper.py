@@ -14,19 +14,31 @@ The encoder and decoder stacks are `nn.ModuleList`s named ``encoder``
 and ``decoder`` (the reference's stacked trees, split by
 `layers.load_jax_lm_params`); their layers run under `maybe_remat`, as
 the reference's scan bodies (the cross K/V projections do not).
+
+Under the ``"seq": "model"`` rule (`sharding.seq_axis`) the caches are
+cut by sequence: the decoder's self-attention cache over its
+positions and the cross cache over the encoder's frames, each where the
+axis divides its length (`WhisperCache.seq` / ``enc_seq``), and decode
+merges the softmax over the axis (`attention.merged_gqa_attention`).
+The residual stream cut by sequence in training, which the reference
+does under the same rule, is not ported: `backbone` raises under it, and
+prefill keeps the encoder's and the decoder's residual whole.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import fsdp
-from repro_torch.distributed.sharding import shard_activation
+from repro_torch.distributed.collectives import Axis, split_chunk
+from repro_torch.distributed.sharding import seq_axis, shard_activation
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
-                                      gqa_attention, sinusoidal_positions)
+                                      cut_by, gqa_attention,
+                                      sinusoidal_positions, write_positions)
 from repro_torch.nn.layers import MLP, Embedding, LayerNorm
 from repro_torch.nn.transformer import (LMOutput, maybe_remat, torch_dtype,
                                         zero_aux)
@@ -44,6 +56,10 @@ class WhisperCache:
     enc_v: torch.Tensor
     enc_valid: int
     length: int
+    # dec_k / dec_v cut by sequence, enc_k / enc_v by frames, over these
+    # axes (`attention.cut_by`)
+    seq: ClassVar[Axis | None] = None
+    enc_seq: ClassVar[Axis | None] = None
 
 
 def decoder_positions(start: int, s: int, dim: int,
@@ -110,11 +126,13 @@ class DecoderBlockXAttn(nn.Module):
         x = x + self.cross_attn(self.ln2(x), kv=enc_kv)
         return x + self.mlp(self.ln3(x)), (k, v)
 
-    def decode(self, x, cache: KVCache, enc_k, enc_v, enc_valid):
+    def decode(self, x, cache: KVCache, enc_k, enc_v, enc_valid,
+               enc_seq: Axis | None = None):
         y, cache = self.self_attn.decode_step(self.ln1(x), cache)
         x = x + y
         x = x + self.cross_attn.cross_decode_step(self.ln2(x), enc_k, enc_v,
-                                                  kv_valid=enc_valid)
+                                                  kv_valid=enc_valid,
+                                                  seq=enc_seq)
         return x + self.mlp(self.ln3(x)), cache
 
 
@@ -167,6 +185,13 @@ class WhisperModel(nn.Module):
     # ---- teacher forcing -----------------------------------------------------
 
     def backbone(self, tokens, *, audio_embeds=None, **_):
+        if seq_axis(tokens.shape[1]) is not None or seq_axis(
+                audio_embeds.shape[1]) is not None:
+            raise NotImplementedError(
+                "whisper: the residual stream cut by sequence (the "
+                '"seq": "model" rule) in training is not ported '
+                "(ROADMAP.md, follow-ups: sequence parallelism for rwkv6 "
+                "and whisper)")
         kvs = self._cross_kvs(self.encode(audio_embeds))
         x = self._decoder_embed(tokens)
         for block, kv in zip(self.decoder, kvs):
@@ -184,17 +209,23 @@ class WhisperModel(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    enc_len: int = 0) -> WhisperCache:
+        """Zeros: `max_len` decoder positions and `enc_len` frames, each
+        this rank's of them where the ``"seq"`` rule cuts it."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         dev = self.embed.table.device
         l, kh, hd = self.dec_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+        seq = seq_axis(max_len)
+        enc_seq = seq_axis(enc_len) if enc_len else None
 
-        def zeros(n):
+        def zeros(n, cut):
+            n = n // cut.size if cut is not None else n
             return torch.zeros((l, batch, n, kh, hd), dtype=dtype,
                                device=dev)
-        return WhisperCache(zeros(max_len), zeros(max_len),
-                            zeros(max(enc_len, 1)), zeros(max(enc_len, 1)),
-                            0, 0)
+        return cut_by(WhisperCache(zeros(max_len, seq), zeros(max_len, seq),
+                                   zeros(max(enc_len, 1), enc_seq),
+                                   zeros(max(enc_len, 1), enc_seq), 0, 0),
+                      seq=seq, enc_seq=enc_seq)
 
     def cache_axes(self) -> WhisperCache:
         """The cache's logical axes (the reference's `cache_axes`)."""
@@ -216,8 +247,10 @@ class WhisperModel(nn.Module):
         for layer, (block, kv) in enumerate(zip(self.decoder, kvs)):
             with fsdp.gathered(block):
                 x, (k, v) = block.prefill(x, kv)
-            cache.dec_k[layer, :, :s] = k.to(dtype)
-            cache.dec_v[layer, :, :s] = v.to(dtype)
+            write_positions(cache.dec_k[layer], k, 0, cache.seq)
+            write_positions(cache.dec_v[layer], v, 0, cache.seq)
+            if cache.enc_seq is not None:  # this rank's frames
+                kv = tuple(split_chunk(t, cache.enc_seq, 1) for t in kv)
             cache.enc_k[layer] = kv[0].to(dtype)
             cache.enc_v[layer] = kv[1].to(dtype)
         cache.enc_valid, cache.length = enc_out.shape[1], s
@@ -230,10 +263,11 @@ class WhisperModel(nn.Module):
         for layer, block in enumerate(self.decoder):
             with fsdp.gathered(block):
                 x, _ = block.decode(
-                    x, KVCache(cache.dec_k[layer], cache.dec_v[layer],
-                               cache.length),
+                    x, cut_by(KVCache(cache.dec_k[layer], cache.dec_v[layer],
+                                      cache.length), seq=cache.seq),
                     cache.enc_k[layer], cache.enc_v[layer],
-                    cache.enc_valid)
+                    cache.enc_valid, cache.enc_seq)
         return (LMOutput(self._logits(x), zero_aux(x.device)),
-                dataclasses.replace(cache,
-                                    length=cache.length + tokens.shape[1]))
+                cut_by(dataclasses.replace(
+                    cache, length=cache.length + tokens.shape[1]),
+                    seq=cache.seq, enc_seq=cache.enc_seq))

@@ -10,22 +10,37 @@ runs under `maybe_remat`, and the shared block does not, as in the
 reference.  The KV cache is ``[G, B, max_len, K, D]`` in the compute
 dtype; its ``length`` is set by the serving engine as the dense
 decoder's is, so the reference engine's KV gap applies here too.
+
+Under the ``"seq": "model"`` rule (`sharding.seq_axis`) the family,
+whole over "model", is sequence parallel as `DecoderLM` is: the residual
+stream is this rank's slice of the sequence, each Mamba2 layer gathers
+the whole at its entry (inside its checkpointed region in training),
+scans it and keeps its slice, each application of the shared block runs
+as `DecoderBlock` does under the rule, and the shared attention's caches
+are cut by sequence (`KVCache.seq`; the SSM states have no sequence
+dim).  The head is whole on every rank: it reads the gathered, normed
+sequence and carries 1/M of its gradient.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import fsdp
-from repro_torch.distributed.sharding import shard_activation
-from repro_torch.nn.attention import KVCache
+from repro_torch.distributed.collectives import (Axis, all_gather,
+                                                 gather_seq, grad_share,
+                                                 split_chunk)
+from repro_torch.distributed.sharding import seq_axis, shard_activation
+from repro_torch.nn.attention import KVCache, cut_by, write_positions
 from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.ssm import Mamba2, Mamba2State
 from repro_torch.nn.transformer import (DecoderBlock, LMOutput,
-                                        maybe_remat, sum_aux, torch_dtype)
+                                        gather_block_input, maybe_remat,
+                                        sum_aux, torch_dtype)
 
 
 @dataclasses.dataclass
@@ -35,6 +50,8 @@ class ZambaCache:
     k: torch.Tensor     # [G, B, S, Kh, Dh]: one cache an application
     v: torch.Tensor
     length: int
+    # k / v cut by sequence over it (`attention.cut_by`, as KVCache.seq)
+    seq: ClassVar[Axis | None] = None
 
 
 class MambaResidualBlock(nn.Module):
@@ -45,9 +62,17 @@ class MambaResidualBlock(nn.Module):
         self.mamba = Mamba2(cfg.d_model, d_state=cfg.ssm_state,
                             head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand)
 
-    def forward(self, x, state: Mamba2State):
-        y, state = self.mamba(self.norm(x), state)
-        return x + y, state
+    def forward(self, x, state: Mamba2State, seq: Axis | None = None):
+        """``seq``: `x` is this rank's slice of a sequence cut over that
+        axis: the layer gathers the whole, scans it and keeps the slice
+        (the state is the whole sequence's)."""
+        if seq is None:
+            y, state = self.mamba(self.norm(x), state)
+            return x + y, state
+        with fsdp.saving_slices() as scope:
+            x = gather_block_input(x, seq, scope)
+            y, state = self.mamba(self.norm(x), state)
+            return split_chunk(x + y, seq, 1), state
 
     def decode(self, x, state: Mamba2State):
         y, state = self.mamba.decode_step(self.norm(x), state)
@@ -65,6 +90,9 @@ class Zamba2LM(nn.Module):
         self.shared = DecoderBlock(cfg)
         self.final_norm = RMSNorm(cfg.d_model)
         self.n_groups = max(1, cfg.num_layers // cfg.hybrid_attn_every)
+        # the axis the last `backbone`'s sequence was cut over (its output
+        # is then normed already), read by `apply_head`
+        self.head_seq: Axis | None = None
 
     def group_sizes(self) -> list[int]:
         l, g = self.cfg.num_layers, self.n_groups
@@ -73,20 +101,24 @@ class Zamba2LM(nn.Module):
         return [base + (1 if i < rem else 0) for i in range(g)]
 
     def init_cache(self, batch: int, max_len: int) -> ZambaCache:
+        """Zero states and K/V of `max_len` positions (this rank's of
+        them under sequence parallelism)."""
         cfg = self.cfg
         m = self.mamba[0].mamba
         dev = self.embed.table.device
         f32 = torch.float32
-        kv = (self.n_groups, batch, max_len, cfg.n_kv_heads,
+        seq = seq_axis(max_len) if max_len else None
+        held = max_len // seq.size if seq is not None else max_len
+        kv = (self.n_groups, batch, held, cfg.n_kv_heads,
               cfg.resolved_head_dim)
         dtype = torch_dtype(cfg.compute_dtype)
-        return ZambaCache(
+        return cut_by(ZambaCache(
             ssm=torch.zeros((cfg.num_layers, batch, m.n_heads, m.head_dim,
                              m.d_state), dtype=f32, device=dev),
             conv=torch.zeros((cfg.num_layers, batch, m.conv_kernel - 1,
                               m.conv_dim), dtype=f32, device=dev),
             k=torch.zeros(kv, dtype=dtype, device=dev),
-            v=torch.zeros(kv, dtype=dtype, device=dev), length=0)
+            v=torch.zeros(kv, dtype=dtype, device=dev), length=0), seq=seq)
 
     def cache_axes(self) -> ZambaCache:
         """The cache's logical axes (the reference's `cache_axes`)."""
@@ -94,13 +126,19 @@ class Zamba2LM(nn.Module):
         return ZambaCache(("layers", "batch", "heads", None, None),
                           ("layers", "batch", None, "mlp"), kv, kv, ())
 
-    def _logits(self, x):
+    def _logits(self, x, seq: Axis | None = None):
+        """fp32 logits; `seq`: `x` is normed and gathered over that axis
+        (`backbone`), and the head carries 1/M of its gradient."""
         with fsdp.gathered(self.final_norm, self.embed):
-            x = self.final_norm(x)
-            return self.embed.attend(x).to(torch.float32)
+            if seq is None:
+                x = self.final_norm(x)
+            logits = self.embed.attend(x)
+        return grad_share(logits, seq).to(torch.float32)
 
-    def _run_groups(self, x, cache: ZambaCache, mode: str):
-        """mode: "train", "prefill" or "decode".  Returns (x, the new
+    def _run_groups(self, x, cache: ZambaCache, mode: str,
+                    seq: Axis | None = None):
+        """mode: "train", "prefill" or "decode"; `seq`: `x` is this
+        rank's slice of a sequence cut over it.  Returns (x, the new
         ssm and conv states stacked [L, ...], the prefill's per-group
         (k, v), the summed aux)."""
         ssm, conv, kvs, auxes = [], [], [], []
@@ -112,40 +150,53 @@ class Zamba2LM(nn.Module):
                     with fsdp.gathered(block):
                         x, state = block.decode(x, state)
                 elif mode == "train":
-                    x, state = maybe_remat(block, self.cfg)(x, state)
+                    x, state = maybe_remat(block, self.cfg)(x, state,
+                                                            seq=seq)
                 else:
                     with fsdp.gathered(block):
-                        x, state = block(x, state)
+                        x, state = block(x, state, seq=seq)
                 ssm.append(state.ssm)
                 conv.append(state.conv)
                 layer += 1
             # shared attention block, application g (gathered for each)
             with fsdp.gathered(self.shared):
                 if mode == "train":
-                    x, aux = self.shared(x)
+                    x, aux = self.shared(x, seq=seq)
                 elif mode == "prefill":
-                    x, kv, aux = self.shared.prefill(x)
+                    x, kv, aux = self.shared.prefill(x, seq=seq)
                     kvs.append(kv)
                 else:
                     x, _, aux = self.shared.decode(
-                        x, KVCache(cache.k[g], cache.v[g], cache.length))
+                        x, cut_by(KVCache(cache.k[g], cache.v[g],
+                                          cache.length), seq=cache.seq))
             auxes.append(aux)
         return (x, torch.stack(ssm), torch.stack(conv), kvs,
                 sum_aux(auxes))
 
-    def _embed(self, tokens):
+    def _embed(self, tokens, seq: Axis | None = None):
+        """The embedded tokens; with `seq`, this rank's slice of them."""
         with fsdp.gathered(self.embed):
-            return self.embed(tokens,
-                              dtype=torch_dtype(self.cfg.compute_dtype))
+            x = self.embed(tokens,
+                           dtype=torch_dtype(self.cfg.compute_dtype))
+        return split_chunk(x, seq, 1) if seq is not None else x
 
     def backbone(self, tokens, **_):
+        """([B, S, d], aux); under sequence parallelism the final norm
+        runs on this rank's slice and the normed sequence is gathered
+        (``head_seq`` says so to `apply_head`)."""
+        seq = seq_axis(tokens.shape[1])
         cache = self.init_cache(tokens.shape[0], max_len=0)
-        x = shard_activation(self._embed(tokens), ("batch", "seq", None))
-        x, _, _, _, aux = self._run_groups(x, cache, "train")
+        x = shard_activation(self._embed(tokens, seq),
+                             ("batch", "seq", None))
+        x, _, _, _, aux = self._run_groups(x, cache, "train", seq)
+        if seq is not None:
+            with fsdp.gathered(self.final_norm):
+                x = gather_seq(self.final_norm(x), seq)
+        self.head_seq = seq
         return x, aux
 
     def apply_head(self, x):
-        return self._logits(x)
+        return self._logits(x, self.head_seq)
 
     def forward(self, tokens, **_) -> LMOutput:
         x, aux = self.backbone(tokens)
@@ -157,14 +208,19 @@ class Zamba2LM(nn.Module):
         and padded with zeros to `max_len` (never cut below the
         prompt)."""
         b, s = tokens.shape
+        seq = seq_axis(s)
         x, ssm, conv, kvs, aux = self._run_groups(
-            self._embed(tokens), self.init_cache(b, max_len=0), "prefill")
+            self._embed(tokens, seq), self.init_cache(b, max_len=0),
+            "prefill", seq)
         cache = self.init_cache(b, max(max_len or s, s))
         for g, (k, v) in enumerate(kvs):
-            cache.k[g, :, :s] = k.to(cache.k.dtype)
-            cache.v[g, :, :s] = v.to(cache.v.dtype)
+            write_positions(cache.k[g], k, 0, cache.seq)
+            write_positions(cache.v[g], v, 0, cache.seq)
         cache.ssm, cache.conv, cache.length = ssm, conv, s
-        return LMOutput(self._logits(x[:, -1:]), aux), cache
+        last = x[:, -1:]
+        if seq is not None:  # the last position is the last rank's
+            last = all_gather(last, seq, 1)[:, -1:]
+        return LMOutput(self._logits(last), aux), cache
 
     def decode_step(self, tokens, cache: ZambaCache):
         """Writes the new K/V into `cache`'s tensors in place and returns
@@ -172,5 +228,6 @@ class Zamba2LM(nn.Module):
         x, ssm, conv, _, aux = self._run_groups(self._embed(tokens), cache,
                                                 "decode")
         return (LMOutput(self._logits(x), aux),
-                ZambaCache(ssm, conv, cache.k, cache.v,
-                           cache.length + tokens.shape[1]))
+                cut_by(ZambaCache(ssm, conv, cache.k, cache.v,
+                                  cache.length + tokens.shape[1]),
+                       seq=cache.seq))

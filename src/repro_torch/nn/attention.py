@@ -6,7 +6,12 @@ GQA group reshaped to ``[B, S, K, G, D]`` so query head ``h`` reads kv
 head ``h // G`` without repeating k/v.  The decode path keeps a
 `KVCache` of static ``max_len``; new entries are written at ``length``
 with the start clamped as ``jax.lax.dynamic_update_slice`` clamps it, and
-masking handles validity.  With ``use_flash`` on, full-sequence
+masking handles validity.  A cache may be cut by sequence over a mesh
+axis (the reference's ``"seq": "model"`` rule on its cache axes): rank
+``r`` holds positions ``[r T / M, (r + 1) T / M)`` of every kv head, a
+new token's K/V is written on the rank that owns its position, and
+`merged_gqa_attention` merges the ranks' softmax terms over the axis.
+With ``use_flash`` on, full-sequence
 self-attention without a mask goes to the ported flash kernel
 (`repro_torch.kernels.flash_attention.ops`) on the condition of
 `repro/nn/attention.py:274-276`; everything else here is plain PyTorch,
@@ -16,11 +21,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import ClassVar
 
 import torch
 from torch import nn
 
-from repro_torch.distributed.collectives import Axis, copy_to
+from repro_torch.distributed.collectives import (Axis, all_gather, all_max,
+                                                 all_reduce, copy_to,
+                                                 split_chunk)
 from repro_torch.nn.layers import Linear, splits
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -88,38 +96,88 @@ def sinusoidal_positions(seq_len: int, dim: int,
 # KV cache
 # ---------------------------------------------------------------------------
 
+def seq_offset(held: int, seq: Axis | None) -> int:
+    """The first position of this rank's `held` positions of a sequence
+    cut over `seq` (0 when whole)."""
+    return 0 if seq is None else seq.index * held
+
+
+def write_positions(dst: torch.Tensor, src: torch.Tensor, start: int,
+                    seq: Axis | None = None) -> None:
+    """Write `src` [B, S, ...] at positions ``[start, start + S)`` of the
+    sequence `dst` [B, T, ...] holds: the whole of it, or with `seq` this
+    rank's slice of one cut over that axis (the part of `src` that falls
+    in it; nothing where none does)."""
+    held = dst.shape[1]
+    offset = seq_offset(held, seq)
+    lo = max(start, offset)
+    hi = min(start + src.shape[1], offset + held)
+    if lo < hi:
+        dst[:, lo - offset:hi - offset] = to_kv_dtype(
+            src[:, lo - start:hi - start], dst.dtype)
+
+
+def cut_by(cache, **axes):
+    """`cache` (a cache dataclass) with the axes its sequences are cut
+    over set (``seq=``, and whisper's ``enc_seq=``).  They are attributes
+    of the instance, not dataclass fields: the fields stay the
+    reference's."""
+    for name, axis in axes.items():
+        setattr(cache, name, axis)
+    return cache
+
+
 @dataclasses.dataclass
 class KVCache:
     """Static-size decode cache for one attention layer or a stacked set
     (a leading layer dimension).  ``length`` is a host int: the number of
     valid positions (the reference keeps an int32 scalar; a host int
-    spares the device a sync a step)."""
+    spares the device a sync a step).  ``seq`` (`cut_by`): the axis the
+    positions are cut over (module docstring), None when the cache is
+    whole."""
 
     k: torch.Tensor  # [B, max_len, K, D] (+ leading layer dim when stacked)
     v: torch.Tensor
     length: int
+    seq: ClassVar[Axis | None] = None
 
     @staticmethod
     def zeros(batch: int, max_len: int, n_kv: int, head_dim: int,
               dtype=torch.bfloat16, layers: int | None = None,
-              device=None) -> "KVCache":
-        shape = (batch, max_len, n_kv, head_dim)
+              device=None, seq: Axis | None = None) -> "KVCache":
+        """A cache of `max_len` positions; with `seq`, this rank's
+        ``max_len / seq.size`` of them."""
+        held = max_len // seq.size if seq is not None else max_len
+        shape = (batch, held, n_kv, head_dim)
         if layers is not None:
             shape = (layers,) + shape
-        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device), 0)
+        return cut_by(KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                              torch.zeros(shape, dtype=dtype, device=device),
+                              0), seq=seq)
+
+    @property
+    def max_len(self) -> int:
+        """Positions of the whole cache (every rank's, when cut)."""
+        return self.k.shape[-3] * (self.seq.size if self.seq else 1)
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer `i`'s view of a stacked cache."""
+        return cut_by(KVCache(self.k[i], self.v[i], self.length),
+                      seq=self.seq)
 
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
         """Write [B, S_new, K, D] at position ``length`` (one layer's
         view) and return the cache ``S_new`` longer.  The start clamps to
         ``[0, max_len - S_new]`` as ``dynamic_update_slice`` clamps it.
         Unlike the reference's, the write is in place (no copy of the
-        whole cache a step): the returned cache shares k and v."""
+        whole cache a step): the returned cache shares k and v.  A cache
+        cut by sequence writes only the positions this rank holds."""
         s_new = k_new.shape[1]
-        start = min(max(int(self.length), 0), self.k.shape[1] - s_new)
-        self.k[:, start:start + s_new] = to_kv_dtype(k_new, self.k.dtype)
-        self.v[:, start:start + s_new] = to_kv_dtype(v_new, self.v.dtype)
-        return KVCache(self.k, self.v, int(self.length) + s_new)
+        start = min(max(int(self.length), 0), self.max_len - s_new)
+        write_positions(self.k, k_new, start, self.seq)
+        write_positions(self.v, v_new, start, self.seq)
+        return cut_by(KVCache(self.k, self.v, int(self.length) + s_new),
+                      seq=self.seq)
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +271,31 @@ def chunked_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def merged_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         mask: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """`gqa_attention` over a kv sequence cut over `axis`: each rank holds
+    its positions of `k` and `v` (every kv head) and the whole `q`.  The
+    row maxima are reduced over the axis first (`all_max`), then each
+    rank's sums of the exponentials and of their product with V, so the
+    softmax is the whole sequence's; masked logits take
+    DEFAULT_MASK_VALUE as in `gqa_attention`.  ``mask`` broadcasts to
+    [B, 1, 1, Sq, Skv] over this rank's positions."""
+    b, sq, h, d = q.shape
+    kheads = k.shape[2]
+    g = h // kheads
+    qg = q.reshape(b, sq, kheads, g, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32)) * d ** -0.5
+    logits = torch.where(mask, logits, DEFAULT_MASK_VALUE)
+    top = all_max(logits.amax(dim=-1), axis)               # [B, K, G, Sq]
+    p = torch.exp(logits - top[..., None])
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, v.to(torch.float32))
+    sums = all_reduce(torch.cat([acc, p.sum(dim=-1)[..., None]], dim=-1),
+                      axis)
+    out = sums[..., :d] / sums[..., d:]                    # [B, K, G, Sq, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
 def causal_mask(sq: int, skv: int, q_offset: int = 0,
                 device=None) -> torch.Tensor:
     """[1, 1, 1, Sq, Skv]: query i attends kv j iff j <= i + q_offset."""
@@ -293,12 +376,16 @@ class Attention(nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, *, positions=None, mask=None,
-                kv: tuple[torch.Tensor, torch.Tensor] | None = None
-                ) -> torch.Tensor:
+                kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                reduce: bool = True) -> torch.Tensor:
         """Full-sequence (train / prefill) attention; kv: external (k, v)
-        for cross attention."""
+        for cross attention.  With ``reduce=False`` (inside a
+        sequence-parallel region: `x` the whole gathered sequence, its
+        gradient summed by the gather) a split layer reads `x` as it is
+        and gives this rank's part of ``wo``'s sum over the axis."""
         b, s, _ = x.shape
-        x = copy_to(x, self.axis)
+        if reduce:
+            x = copy_to(x, self.axis)
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if kv is None:
@@ -321,7 +408,7 @@ class Attention(nn.Module):
             if mask is None and self.causal and kv is None:
                 mask = causal_mask(s, skv, 0, x.device)
             out = gqa_attention(q, k, v, mask)
-        return self.wo(out.reshape(b, s, -1))
+        return self.wo(out.reshape(b, s, -1), reduce)
 
     def cross_kv(self, enc: torch.Tensor):
         """Cross-attention K/V from an encoder output."""
@@ -339,6 +426,8 @@ class Attention(nn.Module):
             positions = (cache.length + torch.arange(s, device=x.device)
                          )[None].expand(b, s)
         q, k, v = self._project(x, positions)
+        if cache.seq is not None:
+            return self._decode_cut(q, k, v, cache)
         cache = cache.update(k, v)
         skv = cache.k.shape[1]
         mask = (causal_mask(s, skv, cache.length - s, x.device)
@@ -346,11 +435,53 @@ class Attention(nn.Module):
         out = gqa_attention(q, cache.k, cache.v, mask)
         return self.wo(out.reshape(b, s, -1)), cache
 
+    def all_heads(self, *xs):
+        """[B, S, heads, D] tensors with every head: this rank's
+        all-gathered over the axis when the layer is split."""
+        if self.axis is None:
+            return xs
+        return tuple(all_gather(x, self.axis, 2) for x in xs)
+
+    def _merged_out(self, q, k, v, mask, seq: Axis) -> torch.Tensor:
+        """`merged_gqa_attention` of every head over a cache cut over
+        `seq`, then ``wo`` on this rank's heads (all of them when
+        whole)."""
+        b, s = q.shape[:2]
+        (q,) = self.all_heads(q)
+        out = merged_gqa_attention(q, k, v, mask, seq)
+        if self.axis is not None:
+            out = split_chunk(out, self.axis, 2)
+        return self.wo(out.reshape(b, s, -1))
+
+    def _decode_cut(self, q, k, v, cache: KVCache):
+        """`decode_step` over a cache cut by sequence, which holds every
+        kv head of its positions: the step's k/v are written on the rank
+        that owns their position, and every head's q attends to this
+        rank's positions under the causal and length masks."""
+        s = q.shape[1]
+        cache = cache.update(*self.all_heads(k, v))
+        held = cache.k.shape[1]
+        dev = q.device
+        qpos = cache.length - s + torch.arange(s, device=dev)
+        kpos = seq_offset(held, cache.seq) + torch.arange(held, device=dev)
+        mask = ((kpos[None, :] <= qpos[:, None])
+                & (kpos < cache.length)[None, :])[None, None, None]
+        return self._merged_out(q, cache.k, cache.v, mask, cache.seq), cache
+
     def cross_decode_step(self, x: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, *, kv_valid=None) -> torch.Tensor:
-        """Cross attention during decode over cached encoder K/V."""
+                          v: torch.Tensor, *, kv_valid=None,
+                          seq: Axis | None = None) -> torch.Tensor:
+        """Cross attention during decode over cached encoder K/V (with
+        `seq`, this rank's positions of a cross cache cut over it, every
+        kv head)."""
         b, s, _ = x.shape
         q = self.wq(x).reshape(b, s, self.n_heads, self.head_dim)
+        if seq is not None:
+            held = k.shape[1]
+            kpos = seq_offset(held, seq) + torch.arange(held, device=x.device)
+            valid = held * seq.size if kv_valid is None else kv_valid
+            mask = (kpos < valid)[None, None, None, None, :]
+            return self._merged_out(q, k, v, mask, seq)
         mask = (None if kv_valid is None
                 else length_mask(k.shape[1], kv_valid, x.device))
         out = gqa_attention(q, k, v, mask)

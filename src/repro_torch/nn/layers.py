@@ -99,10 +99,16 @@ class Linear(nn.Module):
             with torch.no_grad():
                 self.b.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reduce: bool = True) -> torch.Tensor:
+        """With ``reduce=False`` a row split gives this rank's part of
+        the sum over the axis, its bias on the axis' first rank alone (a
+        sequence-parallel block reduce-scatters the parts itself)."""
         y = torch.matmul(x, self.w.to(x.dtype))
         if self.split == "row":
-            y = reduce_from(y, self.axis)
+            if reduce:
+                y = reduce_from(y, self.axis)
+            elif self.axis.index:
+                return y
         if self.b is not None:
             y = y + self.b.to(x.dtype)
         return y
@@ -211,7 +217,10 @@ class Embedding(nn.Module):
         return None if self.axis is None else (self.axis, self.vocab_start)
 
     def forward(self, ids: torch.Tensor,
-                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                dtype: torch.dtype = torch.bfloat16,
+                reduce: bool = True) -> torch.Tensor:
+        """The rows of `ids`; when split, the sum over the axis of each
+        rank's (with ``reduce=False``, this rank's part of it)."""
         if self.axis is None:
             return self.table.to(dtype)[ids]
         rows = self.table.shape[0]
@@ -220,12 +229,17 @@ class Embedding(nn.Module):
         out = self.table.to(dtype)[local.clamp(0, rows - 1)]
         out = torch.where(inside[..., None], out,
                           torch.zeros((), dtype=dtype, device=out.device))
-        return reduce_from(out, self.axis)
+        return reduce_from(out, self.axis) if reduce else out
 
-    def attend(self, x: torch.Tensor) -> torch.Tensor:
+    def attend(self, x: torch.Tensor, reduce: bool = True) -> torch.Tensor:
         """Logits against the table (the tied softmax head), in x's
-        dtype: this rank's vocabulary slice when split."""
-        return torch.matmul(copy_to(x, self.axis), self.table.to(x.dtype).T)
+        dtype: this rank's vocabulary slice when split.  With
+        ``reduce=False`` (inside a sequence-parallel region) a split
+        table reads `x` as it is: the gather's backward sums its
+        gradient over the axis."""
+        if reduce:
+            x = copy_to(x, self.axis)
+        return torch.matmul(x, self.table.to(x.dtype).T)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -277,11 +291,15 @@ class MLP(nn.Module):
         self.axis = axis
         return True
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = copy_to(x, self.axis)
+    def forward(self, x: torch.Tensor, reduce: bool = True) -> torch.Tensor:
+        """With ``reduce=False`` (inside a sequence-parallel region) a
+        split MLP reads `x` as it is and gives this rank's part of the
+        sum over the axis (`Linear.forward`)."""
+        if reduce:
+            x = copy_to(x, self.axis)
         h = self.wi(x)
         h = self.act(self.wg(x)) * h if self.gated else self.act(h)
-        return self.wo(h)
+        return self.wo(h, reduce)
 
 
 class Dropout:

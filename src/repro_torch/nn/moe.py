@@ -47,7 +47,14 @@ On a mesh (the counterpart of the reference's sharding constraints,
     combines only their outputs; the combine is summed over the axis.
     The router and the routing stay whole on every rank; the dispatched
     tokens and the gates enter the rank's experts through
-    `collectives.copy_to`, so their gradients are summed over the axis.
+    `collectives.copy_to`, so their gradients are summed over the axis;
+  * inside a sequence-parallel block (``reduce=False``: the input is the
+    whole gathered sequence, each rank's gradient its part of a sum over
+    "model"): no `copy_to`, the output is this rank's part of the sum
+    (its experts' combine and its part of the dense MLP; a whole part
+    counted on the axis' first rank, `collectives.first_only`), and the
+    auxiliary values, which every model rank computes alike, carry 1/M of
+    their gradient (`collectives.grad_share`).
 """
 from __future__ import annotations
 
@@ -60,7 +67,8 @@ from torch import nn
 
 from repro_torch.distributed import collectives
 from repro_torch.distributed.collectives import Axis, copy_to, reduce_from
-from repro_torch.distributed.sharding import batch_axis, shard_activation
+from repro_torch.distributed.sharding import (batch_axis, mesh_axis,
+                                              shard_activation)
 from repro_torch.nn.layers import (ACTIVATIONS, MLP, Linear, rank_slice,
                                    lecun_normal_, splits)
 
@@ -150,7 +158,18 @@ class MoELayer(nn.Module):
         return max(self.capacity_multiple,
                    _round_up(c, self.capacity_multiple))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, MoEAux]:
+    def partial(self) -> bool:
+        """Whether ``forward(reduce=False)`` gives a part of a sum over
+        the model axis (the experts or the dense MLP are split) rather
+        than the whole output."""
+        return self.axis is not None or (self.dense is not None
+                                         and self.dense.axis is not None)
+
+    def forward(self, x: torch.Tensor, reduce: bool = True
+                ) -> tuple[torch.Tensor, MoEAux]:
+        """The output and the auxiliary values; ``reduce=False`` inside a
+        sequence-parallel block (module docstring)."""
+        entry = copy_to if reduce else (lambda t, axis: t)
         orig_shape = x.shape
         d = orig_shape[-1]
         xt = x.reshape(-1, d)
@@ -197,7 +216,7 @@ class MoELayer(nn.Module):
         token_ids = torch.arange(tg, device=x.device).repeat_interleave(k)
 
         # dispatch: the dropped go to row e * cap, which is cut off
-        gathered = copy_to(xg, self.axis)[:, token_ids]  # [G, N, d]
+        gathered = entry(xg, self.axis)[:, token_ids]  # [G, N, d]
         gathered = torch.where(keep[..., None], gathered,
                                torch.zeros((), dtype=xt.dtype,
                                            device=x.device))
@@ -229,23 +248,32 @@ class MoELayer(nn.Module):
         local = slots - first
         if self.axis is not None:
             mine = keep & (local >= 0) & (local < e_loc * cap)
-            gates = copy_to(gates, self.axis)
+            gates = entry(gates, self.axis)
         picked = torch.gather(
             out, 1, local.clamp(0, e_loc * cap - 1)[..., None]
             .expand(-1, -1, d))
         weight = (gates * mine).to(xt.dtype)
         y = (picked * weight[..., None]).reshape(g, tg, k, d).sum(2)
-        y = reduce_from(y, self.axis)
+        if reduce:
+            y = reduce_from(y, self.axis)
         y = shard_activation(y, ("moe_group", None, None)).reshape(-1, d)
         if line is not None:  # this rank's rows of its group
             xt = xt.narrow(0, line.index * t, t)
             y = y.narrow(0, line.index * t, t)
+        model = None if reduce else mesh_axis("model")
+        if not reduce and self.partial() and self.axis is None:
+            y = collectives.first_only(y, model)
 
         if self.dense is not None:
-            y = y + self.dense(xt)
+            dense = self.dense(xt, reduce)
+            if not reduce and self.partial() and self.dense.axis is None:
+                dense = collectives.first_only(dense, model)
+            y = y + dense
 
         aux = self._aux(probs, router_logits, onehot, keep, t_all, data,
                         share)
+        if model is not None:
+            aux = MoEAux(*(collectives.grad_share(a, model) for a in aux))
         return y.reshape(orig_shape).to(x.dtype), aux
 
     def _aux(self, probs, router_logits, onehot, keep, t: int,

@@ -26,8 +26,27 @@ without gathering them (`repro_torch.train.train_loop`).  A split model
 also serves: `prefill` and `init_cache` size the KV cache by the rank's
 kv heads (a whole layer's count where attention stayed whole), and
 `forward`, `prefill` and `decode_step` all-gather the vocabulary slices
-over the axis, so they return whole logits.  The cache is cut by heads,
-never by sequence.
+over the axis, so they return whole logits.
+
+Where the act rule of "seq" names the model axis (the reference's
+``"seq": "model"`` override, `sharding.seq_axis`), the model is also
+sequence parallel (Megatron's scheme, `repro_torch.distributed.
+collectives`): between blocks the residual stream is this rank's
+contiguous slice of the sequence.  The embedding's vocabulary-split sum
+is reduce-scattered along the sequence; a block runs its norms on the
+slice, gathers the normed sequence (`gather_seq`, inside the
+checkpointed function, so the saved carry is the slice), and its
+row-parallel outputs reduce-scatter instead of all-reducing (the
+parallel block sums both branches' parts in one); a part whole over
+"model" computes on the whole sequence and keeps the rank's slice.  The
+final norm runs on the slice, and the normed sequence is gathered again
+for the head and the loss (RoPE positions are the whole sequence's
+throughout).  Every leaf whole over "model" then sees only this rank's
+slice in some of its uses: `MeshTrainStep` sums its gradient over the
+axis.  Under the same rule the KV cache is cut by sequence (every kv
+head of this rank's positions; `attention.merged_gqa_attention` in
+decode), as the reference's cache axes resolve: a sequence the axis
+does not divide stays whole.
 
 Placed by `MeshPlan.place_params_` (FSDP), the leaves are also cut over
 "data": each block gathers its own at its entry (`maybe_remat`, or
@@ -46,11 +65,15 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import fsdp
-from repro_torch.distributed.collectives import Axis, all_gather, copy_to
-from repro_torch.distributed.sharding import shard_activation
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import (Axis, all_gather, copy_to,
+                                                 gather_seq, grad_share,
+                                                 reduce_scatter_seq,
+                                                 split_chunk)
+from repro_torch.distributed.sharding import seq_axis, shard_activation
 from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
-                                      chunked_gqa_attention, gqa_attention,
-                                      to_kv_dtype)
+                                      chunked_gqa_attention, cut_by,
+                                      gqa_attention, write_positions)
 from repro_torch.nn.layers import (MLP, Embedding, LayerNorm, Linear,
                                    RMSNorm, splits)
 from repro_torch.nn.moe import MoELayer
@@ -139,6 +162,31 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def seq_sum(parts: list, seq: Axis) -> torch.Tensor:
+    """This rank's slice of the sequence of the sum of a sequence-parallel
+    block's branch outputs, each ``(tensor, partial)`` over the whole
+    sequence: the parts of sums over the axis added and reduce-scattered
+    once, the whole outputs cut to the slice."""
+    partial = [y for y, is_part in parts if is_part]
+    whole = [y for y, is_part in parts if not is_part]
+    out = None
+    if partial:
+        out = reduce_scatter_seq(functools.reduce(torch.add, partial), seq)
+    if whole:
+        mine = split_chunk(functools.reduce(torch.add, whole), seq, 1)
+        out = mine if out is None else out + mine
+    return out
+
+
+def gather_block_input(h: torch.Tensor, seq: Axis, scope) -> torch.Tensor:
+    """The whole sequence of this rank's slice `h` (`gather_seq`), saved
+    as the slice where autograd keeps it outside a checkpointed region
+    (`fsdp.keep_slice`)."""
+    whole = gather_seq(h, seq)
+    fsdp.keep_slice(scope, whole, h, seq, 1)
+    return whole
+
+
 class DecoderBlock(nn.Module):
     """Pre-norm transformer block; sequential or parallel (command-r)."""
 
@@ -171,16 +219,22 @@ class DecoderBlock(nn.Module):
         self.attn.split_(axis)
         self.ffn.split_(axis)
 
-    def _ffn(self, h):
+    def _ffn(self, h, reduce: bool = True):
         """The FFN's output and its auxiliary values (an MoE layer's
         load-balance loss, router z-loss and drop fraction; zeros on the
-        host for a dense MLP)."""
+        host for a dense MLP).  ``reduce=False``: the output's part of a
+        sum over the model axis where the FFN is split (`ffn_partial`)."""
         if isinstance(self.ffn, MoELayer):
-            y, aux = self.ffn(h)
+            y, aux = self.ffn(h, reduce)
             return y, {"moe_lb_loss": aux.load_balance_loss,
                        "moe_z_loss": aux.router_z_loss,
                        "moe_drop_fraction": aux.drop_fraction}
-        return self.ffn(h), zero_aux()
+        return self.ffn(h, reduce), zero_aux()
+
+    def ffn_partial(self) -> bool:
+        if isinstance(self.ffn, MoELayer):
+            return self.ffn.partial()
+        return self.ffn.axis is not None
 
     def _residual(self, x, h, attn_out):
         """x plus the attention and FFN branches, in parallel (both read
@@ -192,16 +246,42 @@ class DecoderBlock(nn.Module):
         ffn_out, aux = self._ffn(self.norm2(x))
         return x + ffn_out, aux
 
-    def forward(self, x: torch.Tensor, *, positions=None):
+    def forward(self, x: torch.Tensor, *, positions=None,
+                seq: Axis | None = None):
+        """``seq``: `x` is this rank's slice of a sequence cut over that
+        axis, and so is the output (sequence parallelism, module
+        docstring); positions are then the whole sequence's."""
+        if seq is not None:
+            return self._seq_forward(x, seq, positions)
         h = self.norm1(x)
         x, aux = self._residual(x, h, self.attn(h, positions=positions))
         return shard_activation(x, ("batch", "seq", None)), aux
 
-    def prefill(self, x: torch.Tensor, *, positions=None):
-        """Like forward, and also returns this layer's (k, v).  Calls the
-        chunked or the einsum attention directly, never flash, as the
-        reference's does (`repro/nn/transformer.py:146-172`)."""
-        h = self.norm1(x)
+    def _seq_forward(self, x, seq: Axis, positions):
+        with fsdp.saving_slices() as scope:
+            h = gather_block_input(self.norm1(x), seq, scope)
+            branches = [(self.attn(h, positions=positions, reduce=False),
+                         self.attn.axis is not None)]
+            return self._seq_residual(x, h, branches, seq, scope)
+
+    def _seq_residual(self, x, h, branches: list, seq: Axis, scope):
+        """`_residual` on this rank's slice `x`, the attention branch
+        given over the whole sequence `h` (`seq_sum`)."""
+        if self.cfg.parallel_block:
+            y, aux = self._ffn(h, reduce=False)
+            x = x + seq_sum(branches + [(y, self.ffn_partial())], seq)
+            return shard_activation(x, ("batch", "seq", None)), aux
+        x = x + seq_sum(branches, seq)
+        h2 = gather_block_input(self.norm2(x), seq, scope)
+        y, aux = self._ffn(h2, reduce=False)
+        x = x + seq_sum([(y, self.ffn_partial())], seq)
+        return shard_activation(x, ("batch", "seq", None)), aux
+
+    def _prefill_attention(self, h, positions, reduce: bool = True):
+        """This layer's prefill attention over `h` (the whole sequence):
+        the chunked or the einsum attention, never flash, as the
+        reference's (`repro/nn/transformer.py:146-172`); (``wo``'s
+        output, (k, v))."""
         b, s, _ = h.shape
         attn = self.attn
         q, k, v = attn._project(h, positions if positions is not None
@@ -213,8 +293,24 @@ class DecoderBlock(nn.Module):
                 skip_masked_chunks=attn.skip_masked_chunks)
         else:
             out = gqa_attention(q, k, v, causal_mask(s, s, 0, h.device))
-        x, aux = self._residual(x, h, attn.wo(out.reshape(b, s, -1)))
-        return x, (k, v), aux
+        return attn.wo(out.reshape(b, s, -1), reduce), (k, v)
+
+    def prefill(self, x: torch.Tensor, *, positions=None,
+                seq: Axis | None = None):
+        """Like forward, and also returns this layer's (k, v) over the
+        whole sequence (this rank's kv heads where the attention is
+        split)."""
+        if seq is not None:
+            with fsdp.saving_slices() as scope:
+                h = gather_block_input(self.norm1(x), seq, scope)
+                out, kv = self._prefill_attention(h, positions, reduce=False)
+                x, aux = self._seq_residual(
+                    x, h, [(out, self.attn.axis is not None)], seq, scope)
+            return x, kv, aux
+        h = self.norm1(x)
+        out, kv = self._prefill_attention(h, positions)
+        x, aux = self._residual(x, h, out)
+        return x, kv, aux
 
     def decode(self, x: torch.Tensor, cache: KVCache, *, positions=None):
         h = self.norm1(x)
@@ -248,6 +344,9 @@ class DecoderLM(nn.Module):
             self.lm_head = Linear(cfg.d_model, cfg.vocab_size,
                                   use_bias=False,
                                   kernel_axes=("embed", "vocab"))
+        # the axis the last `backbone`'s sequence was cut over (its output
+        # is then normed already), read by `apply_head`
+        self.head_seq: Axis | None = None
 
     def split_(self, axis: Axis) -> None:
         """Tensor parallelism over `axis` (the mesh's "model" axis): every
@@ -273,26 +372,51 @@ class DecoderLM(nn.Module):
 
     # ---- shared pieces -----------------------------------------------------
 
-    def _embed_inputs(self, tokens, patch_embeds=None):
+    def _seq_len(self, tokens, patch_embeds=None) -> int:
+        """Positions of the residual stream for `tokens` (the patches
+        first, where given)."""
+        extra = (patch_embeds.shape[1] if self.cfg.num_patches
+                 and patch_embeds is not None else 0)
+        return tokens.shape[1] + extra
+
+    def _embed_inputs(self, tokens, patch_embeds=None,
+                      seq: Axis | None = None):
+        """The residual stream's input; with `seq`, this rank's slice of
+        its sequence (a split table's parts reduce-scattered)."""
         dtype = torch_dtype(self.cfg.compute_dtype)
         with fsdp.gathered(self.embed):
-            x = self.embed(tokens, dtype=dtype)
+            x = self.embed(tokens, dtype=dtype, reduce=seq is None)
+        split = seq is not None and self.embed.axis is not None
         if self.cfg.num_patches and patch_embeds is not None:
             # vlm: the patches go first; decode has none (they were
             # consumed at prefill and live in the KV cache)
-            x = torch.cat([patch_embeds.to(dtype), x], dim=1)
+            patches = patch_embeds.to(dtype)
+            if split:  # counted once in the sum over the axis
+                patches = collectives.first_only(patches, seq)
+            x = torch.cat([patches, x], dim=1)
+        if seq is not None:
+            x = (reduce_scatter_seq(x, seq) if split
+                 else split_chunk(x, seq, 1))
         return shard_activation(x, ("batch", "seq", None))
 
-    def _logits(self, x, whole: bool = False):
+    def _logits(self, x, whole: bool = False, seq: Axis | None = None):
         """fp32 logits of this rank's vocabulary slice; with `whole`, the
-        slices all-gathered over the model axis (serving)."""
+        slices all-gathered over the model axis (serving).  `seq`: `x` is
+        a sequence gathered over that axis and normed already
+        (`backbone`), each rank's gradient of it a part of a sum over
+        the axis: a split head reads it as it is, and a whole head, which
+        every rank computes alike, carries 1/M of its gradient."""
         head = self.lm_head if self.lm_head is not None else self.embed
         with fsdp.gathered(self.final_norm, head):
-            x = self.final_norm(x)
+            if seq is None:
+                x = self.final_norm(x)
             if self.lm_head is not None:
-                logits = self.lm_head(copy_to(x, self.lm_head.axis))
+                h = x if seq is not None else copy_to(x, self.lm_head.axis)
+                logits = self.lm_head(h)
             else:
-                logits = self.embed.attend(x)
+                logits = self.embed.attend(x, reduce=seq is None)
+        if seq is not None and self.vocab_shard() is None:
+            logits = grad_share(logits, seq)
         logits = shard_activation(logits, ("batch", None, "vocab"))
         shard = self.vocab_shard() if whole else None
         if shard is not None:
@@ -302,12 +426,20 @@ class DecoderLM(nn.Module):
     # ---- full sequence -----------------------------------------------------
 
     def backbone(self, tokens, *, patch_embeds=None):
-        """Full-sequence forward up to the head: ([B, S, d], aux)."""
-        x = self._embed_inputs(tokens, patch_embeds)
+        """Full-sequence forward up to the head: ([B, S, d], aux).  Under
+        sequence parallelism the blocks run on this rank's slice, and the
+        final norm too; the normed sequence is gathered for the head
+        (``head_seq`` says so to `apply_head`)."""
+        seq = seq_axis(self._seq_len(tokens, patch_embeds))
+        x = self._embed_inputs(tokens, patch_embeds, seq)
         auxes = []
         for block in self.blocks:
-            x, aux = maybe_remat(block, self.cfg)(x)
+            x, aux = maybe_remat(block, self.cfg)(x, seq=seq)
             auxes.append(aux)
+        if seq is not None:
+            with fsdp.gathered(self.final_norm):
+                x = gather_seq(self.final_norm(x), seq)
+        self.head_seq = seq
         if self.cfg.num_patches:
             x = x[:, self.cfg.num_patches:]
         return x, self._aux(auxes, x.device)
@@ -318,12 +450,14 @@ class DecoderLM(nn.Module):
         return sum_aux(auxes)
 
     def apply_head(self, x):
-        """Final norm and fp32 logits for a slice of positions."""
-        return self._logits(x)
+        """Final norm and fp32 logits for a slice of positions of the
+        last `backbone`'s output (normed already under sequence
+        parallelism)."""
+        return self._logits(x, seq=self.head_seq)
 
     def forward(self, tokens, *, patch_embeds=None) -> LMOutput:
         x, aux = self.backbone(tokens, patch_embeds=patch_embeds)
-        return LMOutput(self._logits(x, whole=True), aux)
+        return LMOutput(self._logits(x, whole=True, seq=self.head_seq), aux)
 
     # ---- prefill -----------------------------------------------------------
 
@@ -331,22 +465,25 @@ class DecoderLM(nn.Module):
                 patch_embeds=None) -> tuple[LMOutput, KVCache]:
         """Logits of the last position and the stacked cache, padded with
         zeros to `max_len` (never cut below the prompt)."""
-        x = self._embed_inputs(tokens, patch_embeds)
-        b, s, _ = x.shape
-        cache = self.init_cache(b, max(max_len or s, s))
-        dtype = cache.k.dtype
-        cfg = self.cfg
+        s = self._seq_len(tokens, patch_embeds)
+        seq = seq_axis(s)
+        x = self._embed_inputs(tokens, patch_embeds, seq)
+        cache = self.init_cache(x.shape[0], max(max_len or s, s))
+        attn = self.blocks[0].attn
         auxes = []
         for layer, block in enumerate(self.blocks):
             with fsdp.gathered(block):
-                x, (k, v), aux = block.prefill(x)
-            cache.k[layer, :, :s] = to_kv_dtype(k, dtype)
-            cache.v[layer, :, :s] = to_kv_dtype(v, dtype)
+                x, (k, v), aux = block.prefill(x, seq=seq)
+            if cache.seq is not None:  # every kv head of its positions
+                k, v = attn.all_heads(k, v)
+            write_positions(cache.k[layer], k, 0, cache.seq)
+            write_positions(cache.v[layer], v, 0, cache.seq)
             auxes.append(aux)
         cache.length = s
-        if cfg.num_patches:
-            x = x[:, cfg.num_patches:]
-        return (LMOutput(self._logits(x[:, -1:], whole=True),
+        last = x[:, -1:]
+        if seq is not None:  # the last position is the last rank's
+            last = all_gather(last, seq, 1)[:, -1:]
+        return (LMOutput(self._logits(last, whole=True),
                          self._aux(auxes, x.device)), cache)
 
     def kv_dtype(self) -> torch.dtype:
@@ -354,12 +491,15 @@ class DecoderLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int) -> KVCache:
         """Zeros for every layer, by this rank's kv heads (all of them
-        unless `split_` cut the attention)."""
+        unless `split_` cut the attention); under sequence parallelism
+        (`sharding.seq_axis` of `max_len`) every kv head of this rank's
+        positions."""
         cfg = self.cfg
-        return KVCache.zeros(batch, max_len, self.blocks[0].attn.n_kv,
-                             cfg.resolved_head_dim, dtype=self.kv_dtype(),
-                             layers=cfg.num_layers,
-                             device=self.embed.table.device)
+        seq = seq_axis(max_len)
+        n_kv = cfg.n_kv_heads if seq is not None else self.blocks[0].attn.n_kv
+        return KVCache.zeros(batch, max_len, n_kv, cfg.resolved_head_dim,
+                             dtype=self.kv_dtype(), layers=cfg.num_layers,
+                             device=self.embed.table.device, seq=seq)
 
     def cache_axes(self) -> KVCache:
         """The cache's logical axes (the reference's `cache_axes`)."""
@@ -377,11 +517,10 @@ class DecoderLM(nn.Module):
         auxes = []
         for layer, block in enumerate(self.blocks):
             with fsdp.gathered(block):
-                x, _, aux = block.decode(
-                    x, KVCache(cache.k[layer], cache.v[layer],
-                               cache.length))
+                x, _, aux = block.decode(x, cache.layer(layer))
             auxes.append(aux)
-        new_cache = KVCache(cache.k, cache.v,
-                            cache.length + tokens.shape[1])
+        new_cache = cut_by(KVCache(cache.k, cache.v,
+                                   cache.length + tokens.shape[1]),
+                           seq=cache.seq)
         return (LMOutput(self._logits(x, whole=True),
                          self._aux(auxes, x.device)), new_cache)

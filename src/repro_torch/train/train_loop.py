@@ -298,6 +298,13 @@ class MeshTrainStep:
       gradient, whole over "model" for a whole leaf and its slice's for
       a split one, so they are summed over the data ranks only
       (`MeshPlan.zero_reduce_grads(mean=False)`: "pod" and "data").
+    * **Sequence parallelism**: where the plan's act rule of "seq" cut
+      the step's sequence over "model" (the model's ``head_seq`` after
+      its forward), a leaf whole over "model" (a norm, a bias added
+      after a reduce-scatter, a whole attention or FFN, the router, a
+      whole head) holds only its part of the gradient on each model
+      rank: those are summed over "model" first (``model_sum``); a
+      split leaf's gradient is whole for its shard already.
     * **ZeRO-1** (``zero1`` and more than one data rank): the optimizer
       state holds this data rank's slice of each leaf on the dim its
       "embed" axis resolves to (`init_opt_state`); the gradient arrives
@@ -344,6 +351,7 @@ class MeshTrainStep:
         params = dict(model.named_parameters())
         self.groups = layers.stack_groups(params)
         self.data = plan.batch_axis if plan.data_size > 1 else None
+        self.model = model
         self.loss_fn = make_loss_fn(model, cfg, data=self.data)
 
     def init_opt_state(self, params: dict):
@@ -366,6 +374,13 @@ class MeshTrainStep:
                     if self.data_dims[k] >= 0 else x
                     for k, x in tree.items()}
             return self.plan.gather_params(tree, self.model_dims)
+
+    def model_sum(self) -> list:
+        """The leaves whose gradients are summed over "model": those
+        whole over it, when the last forward cut its sequence over it."""
+        if getattr(self.model, "head_seq", None) is None:
+            return []
+        return [k for k, d in self.model_dims.items() if d < 0]
 
     def _microbatches(self, batch: dict) -> list:
         """Rank ``d``'s row block of every microbatch of `batch`."""
@@ -393,7 +408,8 @@ class MeshTrainStep:
         grads = _gradients(params, self.n_microbatches)
         with torch.no_grad():
             grads = plan.zero_reduce_grads(grads, self.data_dims,
-                                           mean=False, sliced=self.fsdp)
+                                           mean=False, sliced=self.fsdp,
+                                           model_sum=self.model_sum())
             mesh_kw = dict(model=self.model_axis, model_dims=self.model_dims,
                            groups=self.groups)
             if self.zero:

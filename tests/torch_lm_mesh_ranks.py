@@ -35,10 +35,14 @@ LR = 1e-4
 
 def config(module, case: dict):
     """The case's smoke config from a registry module (the reference's
-    or the port's)."""
+    or the port's): its ``remat``, ``heads`` (query and kv heads) and
+    ``capacity_factor`` override the config's."""
     cfg = module.get_config(case["arch"] + "-smoke")
     if "remat" in case:
         cfg = dataclasses.replace(cfg, remat=case["remat"])
+    if "heads" in case:
+        cfg = dataclasses.replace(cfg, n_heads=case["heads"],
+                                  n_kv_heads=case["heads"])
     if "capacity_factor" in case:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=case["capacity_factor"]))
@@ -90,14 +94,15 @@ def optimizer(case: dict):
 def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
                mesh: bool = True, steps: int = STEPS,
                device: str = "cpu", pods: int = 1,
-               placed: bool = False) -> dict:
+               placed: bool = False, act_rules=None) -> dict:
     """The case on this rank's mesh (led by `pods` pods; or, with
     ``mesh=False``, the one-device step) from the reference's initial
     tree, on `device` (fp32, TF32 off): per-step metrics, the whole final parameters as the
     reference's flat tree, the bytes this rank holds of parameters and
     of optimizer state.  ``placed``: the parameters placed first
-    (`MeshPlan.place_params_`, FSDP over "data"); the case's ``remat``
-    overrides the config's."""
+    (`MeshPlan.place_params_`, FSDP over "data"); ``act_rules``: the
+    plan's activation rules over the defaults (``SEQ_RULES``: sequence
+    parallelism); the case's ``remat`` overrides the config's."""
     from repro_torch.distributed import partition
     from repro_torch.distributed.partition import tree_bytes
     from repro_torch.models import registry
@@ -114,7 +119,8 @@ def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
              for k, v in batch_np(cfg, case).items()}
     if mesh:
         plan = partition.make_plan(model_parallel=model_parallel,
-                                   pods=pods, device=device)
+                                   pods=pods, device=device,
+                                   act_rules=act_rules)
         if placed:
             plan.place_params_(model)
         step = train_loop.make_train_step(
@@ -440,4 +446,255 @@ def fsdp_world(initial: dict, moe_tree: dict) -> dict:
                                        placed=True)
                     for name, arch in L.SERVE_CASES.items()}
     out["moe_pods"] = moe_pods_case(moe_tree)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the plan's act rule "seq" -> "model"
+# (`tests/test_torch_lm_seq.py`)
+# ---------------------------------------------------------------------------
+
+SEQ_RULES = {"seq": "model"}
+SEQ_CASES = {
+    # the parallel block, LayerNorm, tied embeddings, Adafactor
+    "command_r": dict(CASES["command_r"], remat="layer"),
+    # the MoE under the cut (capacity factor 0.5: drops), remat "dots"
+    "granite": dict(CASES["granite"], remat="dots"),
+    # 5 heads on a model axis of 2: attention whole, the MLP split; two
+    # microbatches and the uneven mask
+    "heads5": dict(CASES["qwen"], heads=5),
+    # the hybrid family, whole over "model"
+    "zamba": dict(arch="zamba2-1.2b", opt="adamw", n_micro=1, batch=4,
+                  seq=32),
+}
+# prefill and greedy decode with the caches cut by sequence
+SEQ_SERVE = {"qwen": "qwen1.5-4b", "granite": "granite-moe-3b-a800m",
+             "phi": "phi-3-vision-4.2b", "zamba": "zamba2-1.2b",
+             "whisper": "whisper-medium"}
+SEQ_FRAMES = 32   # whisper's encoder frames
+SEQ_LIVENESS = {"layer": "qwen1.5-4b", "dots": "granite-moe-3b-a800m",
+                "none": "qwen1.5-4b"}
+SEQ_TALLY_ARCH = "command-r-plus-104b"
+
+
+def seq_plan():
+    from repro_torch.distributed import partition
+    return partition.make_plan(model_parallel=2, device="cpu",
+                               act_rules=SEQ_RULES)
+
+
+def seq_grads(case: dict, initial: dict) -> dict:
+    """The first step's gradient under the rule (the microbatches' mean,
+    summed over the mesh as the step sums it, every leaf whole) as the
+    reference's flat tree."""
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.models import registry
+    from repro_torch.nn import layers
+    from repro_torch.train import train_loop
+    cfg = config(registry, case)
+    model = layers.load_jax_lm_params(registry.build_model(cfg, "cpu"),
+                                      nest(initial))
+    plan = seq_plan()
+    step = train_loop.make_train_step(model, cfg, optimizer(case),
+                                      plan=plan, zero1=True,
+                                      n_microbatches=case["n_micro"])
+    params = dict(model.named_parameters())
+    batch = {k: torch.from_numpy(v) for k, v in batch_np(cfg, case).items()}
+    with use_sharding(plan.mesh, plan.param_rules, plan.act_rules):
+        train_loop._backward_metrics(step.loss_fn, step._microbatches(batch))
+    assert model.head_seq is not None, "the sequence was not cut"
+    grads = train_loop._gradients(params, case["n_micro"])
+    with torch.no_grad():
+        grads = plan.zero_reduce_grads(grads, {k: -1 for k in grads},
+                                       mean=False,
+                                       model_sum=step.model_sum())
+    return flatten(layers.stack_lm_tree(step.gather_params(grads)))
+
+
+def seq_serve_inputs(cfg) -> dict:
+    import torch_launch_ranks as L
+    out = L.serve_inputs(cfg)
+    if cfg.family == "audio":
+        rng = np.random.default_rng(4)
+        out["audio_embeds"] = rng.standard_normal(
+            (L.SERVE_BATCH, SEQ_FRAMES, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def seq_serve_case(arch: str, initial: dict) -> dict:
+    """Prefill and greedy decode of `arch`'s smoke model on this rank's
+    (data=2, model=2) plan under the rule (split over "model" where the
+    family splits): each step's logits and the tokens of this rank's
+    rows, and the shapes of the cache it holds and of the whole."""
+    import torch_launch_ranks as L
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.models import registry
+    from repro_torch.nn import layers
+    cfg = L.serve_config(registry, arch)
+    model = layers.load_jax_lm_params(registry.build_model(cfg, "cpu"),
+                                      nest(initial))
+    plan = seq_plan()
+    if hasattr(model, "split_"):
+        model.split_(plan.mesh.axes["model"])
+    axis = plan.batch_axis
+    width = L.SERVE_BATCH // axis.size
+    inputs = {k: collectives.split_chunk(torch.from_numpy(v), axis, 0)
+              for k, v in seq_serve_inputs(cfg).items()}
+    extras = {k: v for k, v in inputs.items() if k != "tokens"}
+    max_len = L.SERVE_PROMPT + L.SERVE_STEPS + cfg.num_patches
+    logits, tokens = [], []
+    with torch.no_grad(), use_sharding(plan.mesh, plan.param_rules,
+                                       plan.act_rules):
+        out, cache = model.prefill(inputs["tokens"], max_len=max_len,
+                                   **extras)
+        held = {k: tuple(v.shape) for k, v in vars(cache).items()
+                if isinstance(v, torch.Tensor)}
+        cuts = {k: v is not None for k, v in vars(cache).items()
+                if k in ("seq", "enc_seq")}
+        for _ in range(L.SERVE_STEPS):
+            last = out.logits[:, -1]
+            logits.append(last.numpy())
+            tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+            tokens.append(tok.numpy())
+            out, cache = model.decode_step(tok, cache)
+        logits.append(out.logits[:, -1].numpy())
+    # the whole cache of the rank's rows: every kv head, every position
+    whole = {k: tuple(v.shape) for k, v in vars(registry.build_model(
+        cfg, "meta").init_cache(width, max_len, **(
+            {"enc_len": SEQ_FRAMES} if cfg.family == "audio" else {}))
+    ).items() if isinstance(v, torch.Tensor)}
+    return {"logits": np.stack(logits, 1),
+            "tokens": np.concatenate(tokens, 1),
+            "rows": (axis.index * width, (axis.index + 1) * width),
+            "held": held, "whole": whole, "cuts": cuts}
+
+
+def seq_liveness(arch: str, remat: str) -> dict:
+    """One step of `arch`'s smoke model (fp32, remat `remat`, two
+    microbatches) under the rule with every whole sequence gathered
+    watched (`collectives.seq_observers`): the count of their storages
+    alive when
+    each microbatch's forward returns, the most alive at once during the
+    forwards, and the gathers made in all."""
+    import weakref
+    from repro_torch.distributed import collectives
+    from repro_torch.models import registry
+    from repro_torch.nn.layers import init_params
+    from repro_torch.train import train_loop
+    from repro_torch.train.optimizer import AdamW
+    case = dict(arch=arch, remat=remat, n_micro=2, batch=4, seq=32)
+    if arch.startswith("granite"):
+        case["capacity_factor"] = 1.0
+    cfg = config(registry, case)
+    model = init_params(registry.build_model(cfg, "cpu"), 0)
+    plan = seq_plan()
+    step = train_loop.make_train_step(model, cfg, AdamW(learning_rate=LR),
+                                      plan=plan, zero1=True, n_microbatches=2)
+    params = dict(model.named_parameters())
+    batch = {k: torch.from_numpy(v) for k, v in batch_np(cfg, case).items()}
+    refs, most, forward = [], [0], [False]
+
+    def alive() -> int:
+        return sum(r() is not None for r in refs)
+
+    def seen(t):
+        # the storage: autograd keeps views of a gathered tensor
+        refs.append(weakref.ref(t.untyped_storage()))
+        if forward[0]:
+            most[0] = max(most[0], alive())
+
+    after_forward = []
+    loss_fn = step.loss_fn
+
+    def watched(mb):
+        forward[0] = True
+        out = loss_fn(mb)
+        forward[0] = False
+        after_forward.append(alive())
+        return out
+
+    step.loss_fn = watched
+    collectives.seq_observers.append(seen)
+    try:
+        step(params, step.init_opt_state(params), batch)
+    finally:
+        collectives.seq_observers.remove(seen)
+    return {"after_forward": after_forward, "most": most[0],
+            "gathers": len(refs), "layers": cfg.num_layers}
+
+
+def seq_collectives_case() -> dict:
+    """`gather_seq` and `reduce_scatter_seq` on this rank's model axis
+    (dim 1 of [2, 3, 4] pieces from `gather_pieces`'s seeds): the whole
+    the gather gives and its slice's gradient of ``sum(whole *
+    weight_r)``; the slice the reduce-scatter gives of rank ``r``'s
+    whole-shaped part and its gradient of ``sum(slice * weight_r)``."""
+    from repro_torch.distributed import collectives
+    axis = seq_plan().mesh.axes["model"]
+    rng = np.random.default_rng(12)
+    parts = [rng.standard_normal((2, 3, 4)).astype(np.float32)
+             for _ in range(axis.size)]
+    weights = [rng.standard_normal((2, 3 * axis.size, 4)).astype(np.float32)
+               for _ in range(axis.size)]
+    halves = [rng.standard_normal((2, 3, 4)).astype(np.float32)
+              for _ in range(axis.size)]
+    x = torch.from_numpy(parts[axis.index]).requires_grad_(True)
+    y = collectives.gather_seq(x, axis)
+    (y * torch.from_numpy(weights[axis.index])).sum().backward()
+    z = torch.from_numpy(weights[axis.index]).requires_grad_(True)
+    w = collectives.reduce_scatter_seq(z, axis)
+    (w * torch.from_numpy(halves[axis.index])).sum().backward()
+    return {"index": axis.index,
+            "gather": (y.detach().numpy(), x.grad.numpy()),
+            "scatter": (w.detach().numpy(), z.grad.numpy()),
+            "inputs": (parts, weights, halves)}
+
+
+def seq_tally_case(*, fake: bool, device: str | None = None) -> dict:
+    """One traced train step of `SEQ_TALLY_ARCH`'s smoke config (AdamW,
+    fp32, two microbatches of 2 x 64) under the rule on this rank's
+    (data=2, model=2) plan (`repro_torch.launch.dryrun.trace_train`):
+    on meta tensors in a fake world, or on real CPU ones."""
+    import torch_launch_ranks as L
+    from repro_torch.launch.dryrun import trace_train
+    from repro_torch.models import registry
+    from repro_torch.nn.layers import init_params
+    from repro_torch.train.optimizer import AdamW
+    cfg = registry.get_config(SEQ_TALLY_ARCH + "-smoke")
+    device = device or ("meta" if fake else "cpu")
+
+    def init(model):
+        if device != "meta":
+            init_params(model, 0)
+
+    t = trace_train(cfg, AdamW(learning_rate=1e-4), L.tally_batch(cfg),
+                    plan=seq_plan(), n_microbatches=L.TALLY_MICRO,
+                    device=device, init=init)
+    return {k: t[k] for k in ("held", "collectives", "peak", "flops")}
+
+
+def seq_tally_fake() -> dict:
+    """`seq_tally_case` on rank 0 of a fake world of 4, on meta and on
+    real CPU tensors."""
+    from repro_torch.launch.dryrun import fake_world
+    with fake_world(4):
+        return {device: seq_tally_case(fake=True, device=device)
+                for device in ("meta", "cpu")}
+
+
+def seq_world(initial: dict, serve_initial: dict) -> dict:
+    """What a rank of the 4-rank world of `tests/test_torch_lm_seq.py`
+    returns: every case trained and its first gradient, the serving
+    cases, the liveness runs, the two collectives and the tally."""
+    out = {}
+    for name, case in SEQ_CASES.items():
+        out[name] = train_case(case, initial[name], act_rules=SEQ_RULES)
+        out[name]["grads"] = seq_grads(case, initial[name])
+    out["serve"] = {name: seq_serve_case(arch, serve_initial[name])
+                    for name, arch in SEQ_SERVE.items()}
+    out["liveness"] = {remat: seq_liveness(arch, remat)
+                       for remat, arch in SEQ_LIVENESS.items()}
+    out["collectives"] = seq_collectives_case()
+    out["tally"] = seq_tally_case(fake=False)
     return out
