@@ -151,17 +151,28 @@ head, 8 classes):
   limits, then a prefill of 64 tokens and 8 greedy decode steps from
   the one-rank run's final weights with the KV cache cut by sequence,
   tokens equal to the one-rank run's and logits within rtol 1e-4 / atol
-  1e-5, the cache a rank holds against the whole.  Step ms,
-  `torch.distributed` calls (and, for (d) and (e), per op; for (e) per
-  mesh axis) and the host ms inside them a step, and peak GB, a rank.
-  No kernel launches;
+  1e-5, the cache a rank holds against the whole; (f) rwkv6-3b,
+  zamba2-1.2b (2 Mamba2 layers, one application of the shared block)
+  and whisper-medium (2 + 2 layers over 32 frames) at full width split
+  over "model" (Mamba2 and the RWKV6 mixes by heads, the cross-rank
+  norms) and placed (FSDP), zamba2 also under "seq" -> "model", 3
+  steps of 4 x 256 tokens in one microbatch each, against one rank of
+  the card at (a)'s limits, the bytes a rank holds equal to its
+  layout's reckoning, then a prefill of 64 tokens and 8 greedy steps
+  from the one-rank run's weights with fp32 caches cut by heads (by
+  sequence under the rule): tokens equal, logits within rtol 1e-4 /
+  atol 1e-5.  Step ms, `torch.distributed` calls (and, for (d), (e)
+  and (f), per op; for (e) and (f) per mesh axis) and the host ms
+  inside them a step, and peak GB, a rank.  No kernel launches;
 * the dry run (`[dryrun]`, `repro_torch.launch.dryrun`, traced on meta
   tensors in spawned processes on the CPU): (a) `[lm-train]` (c)'s step
   on one rank against that run's measured peak, (b) rank 0 of
   `[lm-mesh]` (a) in a fake world of 4 against rank 0's measured peak
   (both within 10%), its `torch.distributed` calls a step and the
   parameter and optimizer bytes it held (equal); (b') the same for rank
-  0 of `[lm-mesh]` (d), calls per op equal too, and (b'') for (e); (c)
+  0 of `[lm-mesh]` (d), calls per op equal too, and (b'') for (e);
+  (b''') rank 0 of each `[lm-mesh]` (f) run: calls per op and per axis
+  and the bytes held equal, the traced peak beside the card's; (c)
   qwen2.5-32b's train_4k, prefill_32k and decode_32k and
   command-r-plus-104b's train_4k at 16 x 16 (256 ranks), placed as
   every cell is (FSDP), with their ``"seq"`` overrides applied, each
@@ -325,6 +336,14 @@ LM_MESH_TIMEOUT_S = 600
 # the one-rank run's final weights, the KV cache cut by sequence
 LM_MESH_SEQ_RULES = {"seq": "model"}
 LM_MESH_PROMPT, LM_MESH_DECODE = 64, 8
+# (f): the families split by heads, each against one rank; zamba2 again
+# under LM_MESH_SEQ_RULES.  One microbatch of 4 x 256: a microbatch's
+# FSDP gathers (forward, recompute, backward) are most of a step's gloo
+# time, and (d) and (e) cover microbatches
+LM_MESH_TP_RUNS = (("rwkv6-3b", None), ("zamba2-1.2b", None),
+                   ("zamba2-1.2b", LM_MESH_SEQ_RULES),
+                   ("whisper-medium", None))
+LM_MESH_TP_SEQ, LM_MESH_TP_MICRO, LM_MESH_TP_FRAMES = 256, 1, 32
 
 
 def fail(message: str) -> None:
@@ -5156,32 +5175,50 @@ def lm_train_phase(torch, smi, figures: dict) -> dict:
 
 
 def lm_mesh_config(arch: str):
-    """`arch` at full width, LM_MESH_LAYERS layers, fp32 compute and KV
-    cache (`[lm-mesh]` (e) serves it: a float8 cache would round K/V that
-    the split ranks sum in another order to another step)."""
+    """`arch` at full width, LM_MESH_LAYERS layers (whisper's encoder and
+    decoder each), fp32 compute and KV cache (`[lm-mesh]` (e) and (f)
+    serve it: a float8 cache would round K/V that the split ranks sum in
+    another order to another step)."""
     import dataclasses
     from repro_torch.models.registry import get_config
-    return dataclasses.replace(get_config(arch), num_layers=LM_MESH_LAYERS,
-                               compute_dtype="float32", kv_cache_dtype="")
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, num_layers=LM_MESH_LAYERS,
+        enc_layers=cfg.enc_layers and LM_MESH_LAYERS,
+        dec_layers=cfg.dec_layers and LM_MESH_LAYERS,
+        compute_dtype="float32", kv_cache_dtype="")
 
 
-def lm_mesh_batch(torch, cfg) -> dict:
+def lm_mesh_audio(torch, rows: int, cfg, seed: int):
+    """LM_MESH_TP_FRAMES frame embeddings for `rows` sequences (whisper's
+    stubbed front end), on the card."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (rows, LM_MESH_TP_FRAMES, cfg.d_model)).astype(np.float32)).to(DEVICE)
+
+
+def lm_mesh_batch(torch, cfg, seq: int = LM_MESH_SEQ) -> dict:
     """The global batch every rank is handed: tokens from the seed and a
     loss mask whose counts differ between the data halves of each of the
-    two microbatches (rows 1 and 2 cut)."""
+    two microbatches (rows 1 and 2 cut); frame embeddings for an audio
+    model."""
     rng = np.random.default_rng(SEED + 7)
-    b, s = LM_MESH_BATCH, LM_MESH_SEQ
+    b, s = LM_MESH_BATCH, seq
     toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int64)
     mask = np.ones((b, s), np.float32)
     mask[1, s // 4:] = 0.0
     mask[2, : s // 2] = 0.0
-    return {k: torch.from_numpy(v).to(DEVICE)
-            for k, v in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]),
-                         ("loss_mask", mask))}
+    out = {k: torch.from_numpy(v).to(DEVICE)
+           for k, v in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]),
+                        ("loss_mask", mask))}
+    if cfg.family == "audio":
+        out["audio_embeds"] = lm_mesh_audio(torch, b, cfg, SEED + 10)
+    return out
 
 
 def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
-                  placed: bool = False, serve: bool = False) -> dict:
+                  placed: bool = False, serve: bool = False,
+                  seq: int = LM_MESH_SEQ, micro: int = LM_MESH_MICRO) -> dict:
     """`arch` (`lm_mesh_config`) drawn on the card from SEED and trained
     LM_MESH_STEPS steps with AdamW, on `plan`'s ranks (ZeRO-1; with
     `placed`, over parameters placed first by `MeshPlan.place_params_`:
@@ -5192,7 +5229,8 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
     parameters are held to that file's slices of them (rtol
     LM_MESH_RTOL, atol LM_MESH_ATOL).  With `serve`, a prefill and
     greedy decode follow (`lm_mesh_serve`), on a plan from the one-rank
-    run's final weights."""
+    run's final weights.  `seq`: the tokens of a row; `micro`: the
+    microbatches of a step."""
     from repro_torch.distributed.partition import tree_bytes
     from repro_torch.models.registry import build_model
     from repro_torch.nn.layers import init_params, stack_groups
@@ -5207,11 +5245,11 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
         plan.place_params_(model)
     opt = AdamW(learning_rate=LM_MESH_LR)
     step = make_train_step(model, cfg, opt, plan=plan, zero1=True,
-                           n_microbatches=LM_MESH_MICRO)
+                           n_microbatches=micro)
     params = dict(model.named_parameters())
     state = (step.init_opt_state(params) if plan is not None
              else opt.init(params, stack_groups(params)))
-    batch = lm_mesh_batch(torch, cfg)
+    batch = lm_mesh_batch(torch, cfg, seq)
     metrics, step_ms = [], []
     with collective_clock(plan.mesh if plan is not None else None) as coll:
         for _ in range(LM_MESH_STEPS):
@@ -5249,13 +5287,10 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
 
 
 def lm_mesh_ref_slice(step, name: str, want):
-    """This rank's slice of a whole leaf `want`: over "model" where the
-    step split it, and over "data" where FSDP cut it."""
-    dim = step.model_dims[name]
-    if dim >= 0:
-        axis = step.model_axis
-        width = want.shape[dim] // axis.size
-        want = want.narrow(dim, axis.index * width, width)
+    """This rank's slice of a whole leaf `want`: its part over "model"
+    where the step split it (`ModelLayout.rank_part`: a fused leaf's
+    pieces), and its slice over "data" where FSDP cut it."""
+    want = step.layout.rank_part(name, want)
     dim = step.data_dims[name] if step.fsdp else -1
     if dim >= 0:
         data = step.plan.data_axis
@@ -5283,14 +5318,20 @@ def lm_mesh_serve(torch, model, cfg, plan=None) -> dict:
     import contextlib
     from repro_torch.distributed import collectives
     from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.models.registry import build_model
     rng = np.random.default_rng(SEED + 8)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (LM_MESH_BATCH, LM_MESH_PROMPT))).to(DEVICE)
+    extras = ({"audio_embeds": lm_mesh_audio(torch, LM_MESH_BATCH, cfg,
+                                             SEED + 11)}
+              if cfg.family == "audio" else {})
     rows = (0, LM_MESH_BATCH)
     ctx = contextlib.nullcontext()
     if plan is not None:
         axis = plan.batch_axis
         tokens = collectives.split_chunk(tokens, axis, 0)
+        extras = {k: collectives.split_chunk(v, axis, 0)
+                  for k, v in extras.items()}
         rows = (axis.index * tokens.shape[0],
                 (axis.index + 1) * tokens.shape[0])
         ctx = use_sharding(plan.mesh, plan.param_rules, plan.act_rules)
@@ -5299,7 +5340,7 @@ def lm_mesh_serve(torch, model, cfg, plan=None) -> dict:
     with torch.no_grad(), ctx:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, cache = model.prefill(tokens, max_len=max_len)
+        out, cache = model.prefill(tokens, max_len=max_len, **extras)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         for _ in range(LM_MESH_DECODE):
@@ -5313,14 +5354,25 @@ def lm_mesh_serve(torch, model, cfg, plan=None) -> dict:
             torch.cuda.synchronize()
             decode_ms.append(1e3 * (time.perf_counter() - t0))
         logits.append(out.logits[:, -1].cpu().numpy())
-    item = cache.k.element_size()
-    whole = (2 * cfg.num_layers * tokens.shape[0] * max_len
-             * cfg.n_kv_heads * cfg.resolved_head_dim * item)
+    # the same rows' cache on a whole model (meta tensors: no memory)
+    enc = ({"enc_len": LM_MESH_TP_FRAMES} if cfg.family == "audio" else {})
+    whole = build_model(cfg, "meta").init_cache(tokens.shape[0], max_len,
+                                                **enc)
+    first = next(v for v in vars(cache).values()
+                 if isinstance(v, torch.Tensor))
     return {"logits": np.stack(logits, 1), "tokens": np.concatenate(picked, 1),
-            "rows": rows, "cache_bytes": 2 * cache.k.numel() * item,
-            "whole_cache_bytes": whole, "cut": cache.seq is not None,
-            "cache_shape": tuple(cache.k.shape), "prefill_ms": prefill_ms,
+            "rows": rows, "cache_bytes": lm_cache_bytes(torch, cache),
+            "whole_cache_bytes": lm_cache_bytes(torch, whole),
+            "cut": any(getattr(cache, k, None) is not None
+                       for k in ("seq", "enc_seq")),
+            "cache_shape": tuple(first.shape), "prefill_ms": prefill_ms,
             "decode_ms": statistics.median(decode_ms)}
+
+
+def lm_cache_bytes(torch, cache) -> int:
+    """The bytes of every tensor a cache holds."""
+    return sum(v.numel() * v.element_size() for v in vars(cache).values()
+               if isinstance(v, torch.Tensor))
 
 
 def lm_mesh_compare(torch, step, params, ref_path) -> dict:
@@ -5347,23 +5399,25 @@ def lm_mesh_compare(torch, step, params, ref_path) -> dict:
 
 
 def lm_mesh_placement(step, params) -> dict:
-    """(d)'s placement checked on this rank: the bytes its parameters
-    hold against the reckoning of the layout's specs (each leaf's whole
-    size over the mesh axes its spec names), and the leaves that came
-    out whole on a dim the placement cut (must be none)."""
-    mesh = step.plan.mesh
+    """(d)'s and (f)'s placement checked on this rank: the bytes its
+    parameters hold against the layout's reckoning (each leaf's part
+    over "model", `ModelLayout.rank_part` of its whole shape on meta
+    tensors, over the data ranks where its "embed" dim is cut), and the
+    leaves that came out whole on a dim the placement cut (must be
+    none)."""
+    import torch
     layout = step.layout
+    data = step.plan.data_axis.size
     reckoned, uncut = 0, []
     for k, p in params.items():
-        n = int(np.prod(layout.full[k])) * p.element_size()
-        for entry in layout.specs[k]:
-            for name in (entry if isinstance(entry, tuple) else (entry,)):
-                if name is not None:
-                    n //= mesh.shape[name]
-        if not step.data_dims[k] < 0 and \
-                p.shape[step.data_dims[k]] == layout.full[k][
-                    step.data_dims[k]]:
-            uncut.append(k)
+        held = layout.rank_part(k, torch.empty(layout.full[k],
+                                               device="meta"))
+        n = held.numel() * p.element_size()
+        dim = step.data_dims[k]
+        if dim >= 0:
+            n //= data
+            if p.shape[dim] == held.shape[dim]:
+                uncut.append(k)
         reckoned += n
     cut = sum(1 for d in step.data_dims.values() if d >= 0)
     return {"reckoned": reckoned, "uncut": uncut, "cut": cut}
@@ -5428,9 +5482,9 @@ def lm_mesh_pipeline(torch, mesh=None) -> tuple:
 def lm_mesh_rank(paths: dict) -> dict:
     """What each spawned rank of `[lm-mesh]` runs: (a) and (b) on the
     (data, model) plan, (d) on it over placed parameters, (e) as (d)
-    under the act rule "seq" -> "model" and its serving, then (c) on
-    the stage mesh, with every kernel's launch count read (the path
-    reaches none)."""
+    under the act rule "seq" -> "model" and its serving, (f) each of
+    LM_MESH_TP_RUNS placed and served, then (c) on the stage mesh, with
+    every kernel's launch count read (the path reaches none)."""
     import torch
     from repro_torch.distributed import partition
     full_fp32(torch)
@@ -5450,6 +5504,13 @@ def lm_mesh_rank(paths: dict) -> dict:
     out["seq"] = lm_mesh_train(torch, LM_MESH_ARCHS[0], seq_plan,
                                paths[LM_MESH_ARCHS[0]], placed=True,
                                serve=True)
+    out["tp"] = {}
+    for arch, rules in LM_MESH_TP_RUNS:
+        torch.distributed.barrier()
+        out["tp"][lm_mesh_tp_label(arch, rules)] = lm_mesh_train(
+            torch, arch, seq_plan if rules else plan, paths[arch],
+            placed=True, serve=True, seq=LM_MESH_TP_SEQ,
+            micro=LM_MESH_TP_MICRO)
     mesh = partition.make_mesh(stages=LM_MESH_STAGES)
     torch.distributed.barrier()
     with collective_clock() as coll:
@@ -5587,6 +5648,98 @@ def lm_mesh_seq_check(world: list, want: dict, fsdp: list, smi: str) -> None:
           f"equal")
 
 
+def lm_mesh_tp_label(arch: str, rules) -> str:
+    return f"{arch} seq" if rules else arch
+
+
+def lm_mesh_tp_check(runs: dict, one: dict, smi: str) -> None:
+    """(f): each of LM_MESH_TP_RUNS on every rank against the one-rank
+    run of its arch at (a)'s limits, its parameter bytes equal to its
+    layout's reckoning with no leaf whole on a dim the placement cut;
+    then its prefill and greedy decode from the one-rank run's final
+    weights: tokens equal, logits within LM_MESH_RTOL / LM_MESH_ATOL,
+    the caches cut by heads (by sequence under the rule)."""
+    keys = ("loss", "total_loss", "tokens", "grad_norm")
+    for (arch, rules) in LM_MESH_TP_RUNS:
+        label = lm_mesh_tp_label(arch, rules)
+        want = one[arch]
+        served = want["serve"]
+        for got in runs[label]:
+            r = got["rank"]
+            for s, (g, w) in enumerate(zip(got["metrics"],
+                                           want["metrics"])):
+                for k in keys:
+                    if not abs(g[k] - w[k]) <= (LM_MESH_RTOL * abs(w[k])
+                                                + 1e-7):
+                        fail(f"lm-mesh (f) {label} rank {r} step {s + 1}: "
+                             f"{k} {g[k]!r} vs one rank's {w[k]!r} (rtol "
+                             f"{LM_MESH_RTOL})")
+            if got["misses"]:
+                fail(f"lm-mesh (f) {label} rank {r}: {got['misses']} "
+                     f"parameter elements past rtol {LM_MESH_RTOL} / atol "
+                     f"{LM_MESH_ATOL} of one rank's (largest difference "
+                     f"{got['worst']:.3e}): {'; '.join(got['where'])}")
+            if got["uncut"] or not got["cut"] or not got["split"] \
+                    or got["param_bytes"] != got["reckoned"]:
+                fail(f"lm-mesh (f) {label} rank {r}: {got['param_bytes']} "
+                     f"parameter bytes held against the layout's "
+                     f"{got['reckoned']}; {got['split']} leaves split over "
+                     f"model, {got['cut']} cut over data, whole where cut: "
+                     f"{got['uncut']}")
+            if not got["per_axis"].get("model"):
+                fail(f"lm-mesh (f) {label} rank {r}: no call on the model "
+                     f"axis: {got['per_axis']}")
+            sv = got["serve"]
+            rows = slice(*sv["rows"])
+            gap = float(np.abs(sv["logits"] - served["logits"][rows]).max())
+            if sv["cut"] != bool(rules) or not np.array_equal(
+                    sv["tokens"], served["tokens"][rows]) \
+                    or not np.allclose(sv["logits"], served["logits"][rows],
+                                       rtol=LM_MESH_RTOL, atol=LM_MESH_ATOL):
+                fail(f"lm-mesh (f) {label} rank {r}: serving (cut by "
+                     f"sequence: {sv['cut']}) gave tokens "
+                     f"{sv['tokens'].tolist()} against one rank's "
+                     f"{served['tokens'][rows].tolist()}, logits "
+                     f"{gap:.3e} off (rtol {LM_MESH_RTOL} / atol "
+                     f"{LM_MESH_ATOL})")
+            per_op = ", ".join(f"{k} {v:.0f}"
+                               for k, v in got["per_op"].items() if v)
+            per_axis = ", ".join(f"{k} {v:.0f}" for k, v in
+                                 sorted(got["per_axis"].items()))
+            med = statistics.median(got["step_ms"][1:])
+            one_ms = statistics.median(want["step_ms"][1:])
+            phase("lm-mesh", lm_mesh_line(f"(f) {label} rank {r}", got, smi)
+                  + f" ({got['param_bytes'] / want['param_bytes']:.3f} and "
+                  f"{got['opt_bytes'] / want['opt_bytes']:.3f} of one "
+                  f"rank's, the layout's reckoning); calls a step by op: "
+                  f"{per_op}; by axis: {per_axis}; step {med / one_ms:.1f}x "
+                  f"one rank's {one_ms:.1f} ms, peak against one rank's "
+                  f"{want['peak'] / 1e9:.2f} GB; {got['split']} of "
+                  f"{got['leaves']} leaves split over model, {got['cut']} "
+                  f"cut over data, largest parameter difference "
+                  f"{got['worst']:.2e}; served rows {sv['rows'][0]}-"
+                  f"{sv['rows'][1] - 1}: prefill {LM_MESH_PROMPT} tokens "
+                  f"{sv['prefill_ms']:.1f} ms (one rank "
+                  f"{served['prefill_ms']:.1f}), decode "
+                  f"{sv['decode_ms']:.1f} ms a step (one rank "
+                  f"{served['decode_ms']:.1f}), {LM_MESH_DECODE} greedy "
+                  f"tokens equal to one rank's, logits within {gap:.2e}; "
+                  f"cache {sv['cache_bytes'] / 1e6:.2f} MB held against "
+                  f"the whole {sv['whole_cache_bytes'] / 1e6:.2f} MB of its "
+                  f"rows ({sv['cache_bytes'] / sv['whole_cache_bytes']:.3f}"
+                  f", cut by {'sequence' if sv['cut'] else 'heads'})")
+        phase("lm-mesh", f"(f) {label} FSDP at (data={LM_MESH_DATA}, "
+              f"model={LM_MESH_MODEL}), split by heads"
+              + (", the act rule \"seq\" -> \"model\"" if rules else "")
+              + f", vs one rank ({LM_MESH_LAYERS} layers at full width, "
+              f"{LM_MESH_STEPS} steps of {LM_MESH_BATCH} x "
+              f"{LM_MESH_TP_SEQ}): {', '.join(keys)} each step within rtol "
+              f"{LM_MESH_RTOL}, final parameters within rtol "
+              f"{LM_MESH_RTOL} / atol {LM_MESH_ATOL}; prefill and "
+              f"{LM_MESH_DECODE} greedy steps from the same weights: "
+              f"tokens equal")
+
+
 def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     """The LM on the mesh (module docstring, `[lm-mesh]`): the one-rank
     runs alone first, then one world of LM_MESH_DATA x LM_MESH_MODEL
@@ -5601,12 +5754,17 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     torch.cuda.empty_cache()
     zero_launches()
     ranks = LM_MESH_DATA * LM_MESH_MODEL
+    tp_archs = tuple(dict.fromkeys(a for a, _ in LM_MESH_TP_RUNS))
     with tempfile.TemporaryDirectory(prefix="lm_mesh_") as tmp:
         paths = {a: os.path.join(tmp, f"{i}.pt")
-                 for i, a in enumerate(LM_MESH_ARCHS)}
+                 for i, a in enumerate(LM_MESH_ARCHS + tp_archs)}
         one = {a: lm_mesh_train(torch, a, None, paths[a],
                                 serve=a == LM_MESH_ARCHS[0])
                for a in LM_MESH_ARCHS}
+        one_tp = {a: lm_mesh_train(torch, a, None, paths[a], serve=True,
+                                   seq=LM_MESH_TP_SEQ,
+                                   micro=LM_MESH_TP_MICRO)
+                  for a in tp_archs}
         pipe_want, pipe_one_ms = lm_mesh_pipeline(torch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5624,6 +5782,10 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     figures["lm-mesh-seq"] = sorted(
         ({"rank": run["rank"], **run["seq"]} for run in world),
         key=lambda r: r["rank"])
+    figures["lm-mesh-tp"] = {
+        label: sorted(({"rank": run["rank"], **run["tp"][label]}
+                       for run in world), key=lambda r: r["rank"])
+        for label in world[0]["tp"]}
     launches = read_launches()
     for run in world:
         for k, v in run["launches"].items():
@@ -5687,6 +5849,7 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     lm_mesh_fsdp_check(world, one[LM_MESH_ARCHS[0]], smi)
     lm_mesh_seq_check(world, one[LM_MESH_ARCHS[0]], figures["lm-mesh-fsdp"],
                       smi)
+    lm_mesh_tp_check(figures["lm-mesh-tp"], one_tp, smi)
     pipe = [run["pipeline"] for run in world]
     got = next(p["out"] for p in pipe if p["out"] is not None)
     gap = float(np.abs(got - pipe_want).max())
@@ -5728,8 +5891,9 @@ def dryrun_job(job: tuple):
     touches the card): ("lm-train",) traces `[lm-train]` (c)'s step on
     one rank; ("lm-mesh",) rank 0 of `[lm-mesh]` (a) in a fake world of
     its ranks, ("lm-mesh-fsdp",) that of (d), ("lm-mesh-seq",) that of
-    (e); ("cell", arch, shape) `run_cell` at 16 x 16 (the cell's rule
-    overrides applied) and its `analyze` row."""
+    (e); ("lm-mesh-tp", arch, seq) that of an (f) run (under the "seq"
+    rule where `seq`); ("cell", arch, shape) `run_cell` at 16 x 16 (the
+    cell's rule overrides applied) and its `analyze` row."""
     import torch
     torch.set_num_threads(1)
     from repro_torch.launch.dryrun import fake_world, run_cell, trace_train
@@ -5755,6 +5919,23 @@ def dryrun_job(job: tuple):
             out = trace_train(cfg, AdamW(learning_rate=LM_MESH_LR), batch,
                               plan=plan, n_microbatches=LM_MESH_MICRO,
                               place=job[0] != "lm-mesh")
+    elif job[0] == "lm-mesh-tp":
+        from repro_torch.distributed import partition
+        from repro_torch.train.optimizer import AdamW
+        cfg = lm_mesh_config(job[1])
+        shape = (LM_MESH_BATCH, LM_MESH_TP_SEQ)
+        batch = {"tokens": (shape, torch.int64), "labels": (shape, torch.int64),
+                 "loss_mask": (shape, torch.float32)}
+        if cfg.family == "audio":
+            batch["audio_embeds"] = ((LM_MESH_BATCH, LM_MESH_TP_FRAMES,
+                                      cfg.d_model), torch.float32)
+        with fake_world(LM_MESH_DATA * LM_MESH_MODEL):
+            plan = partition.make_plan(
+                model_parallel=LM_MESH_MODEL, device="cpu",
+                act_rules=LM_MESH_SEQ_RULES if job[2] else None)
+            out = trace_train(cfg, AdamW(learning_rate=LM_MESH_LR), batch,
+                              plan=plan, n_microbatches=LM_MESH_TP_MICRO,
+                              place=True)
     else:
         from repro_torch.launch.roofline import analyze
         row = run_cell(job[1], job[2], multi_pod=False, verbose=False)
@@ -5838,6 +6019,38 @@ def dryrun_fsdp_check(trace: dict, ranks: list, smi: str,
           f"{trace['seconds']:.1f}s")
 
 
+def dryrun_tp_check(trace: dict, ranks: list, label: str, smi: str) -> None:
+    """(b'''): rank 0 of an `[lm-mesh]` (f) run traced against the card's
+    rank 0: its calls a step per op and per mesh axis and the bytes held
+    equal; the traced peak printed beside the measured one."""
+    rank0 = ranks[0]
+    coll = trace["collectives"]
+    per_op = {k: v["count"] for k, v in coll["per_op"].items()}
+    per_axis = {k: v["count"] for k, v in coll["per_axis"].items()}
+    held = trace["held"]
+    if per_op != {k: round(v) for k, v in rank0["per_op"].items()} \
+            or per_axis != {k: round(v) for k, v in
+                            rank0["per_axis"].items()} \
+            or held != {"params": rank0["param_bytes"],
+                        "opt_state": rank0["opt_bytes"]}:
+        fail(f"dryrun (b''') {label}: the dry run's calls a step {per_op}, "
+             f"by axis {per_axis} and {held} bytes held, rank 0's "
+             f"{rank0['per_op']}, {rank0['per_axis']}, "
+             f"{rank0['param_bytes']} parameter and {rank0['opt_bytes']} "
+             "optimizer bytes")
+    gap = dryrun_peak(trace) / rank0["peak"] - 1.0
+    phase("dryrun", f"(b''') {label} FSDP split by heads at (data="
+          f"{LM_MESH_DATA}, model={LM_MESH_MODEL}), rank 0 of a fake world "
+          f"of {LM_MESH_DATA * LM_MESH_MODEL} (the [lm-mesh] (f) run): calls "
+          f"a step {per_op}, by axis {per_axis}, and "
+          f"{held['params'] / 1e9:.3f} / {held['opt_state'] / 1e9:.3f} GB "
+          f"of parameters / optimizer state held, equal to rank 0's on the "
+          f"card; dry-run peak {dryrun_peak(trace) / 1e9:.3f} GB against "
+          f"rank 0's {rank0['peak'] / 1e9:.3f} GB ({smi}): "
+          f"{gap * 100:+.2f}% (reported, not held to a limit); "
+          f"{dryrun_breakdown(trace)}; traced in {trace['seconds']:.1f}s")
+
+
 def dryrun_phase(torch, smi, figures: dict) -> dict:
     """The dry run (`repro_torch.launch.dryrun`) held to the card: (a)
     `[lm-train]` (c)'s step traced on one rank against its measured
@@ -5846,7 +6059,9 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
     `torch.distributed` calls a step (equal) and the parameter and
     optimizer bytes it held (equal); (b') the same for rank 0 of
     `[lm-mesh]` (d) (FSDP), its calls per op equal; (b'') the same for
-    (e) (FSDP + sequence parallel); (c) qwen2.5-32b's three cells and
+    (e) (FSDP + sequence parallel); (b''') each (f) run (the families
+    split by heads), its calls per op and per axis equal; (c)
+    qwen2.5-32b's three cells and
     command-r-plus-104b's train_4k at 16 x 16, placed (FSDP), their
     ``"seq"`` overrides applied, `run_cell` and `analyze` rows; (d)
     `HBM_PER_CARD` against the card.  The traces run in
@@ -5856,15 +6071,17 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
     import multiprocessing
     t0 = time.perf_counter()
     zero_launches()
+    tp = [("lm-mesh-tp", arch, bool(rules))
+          for arch, rules in LM_MESH_TP_RUNS]
     jobs = [("lm-train",), ("lm-mesh",), ("lm-mesh-fsdp",),
-            ("lm-mesh-seq",)] + [("cell",) + c for c in DRYRUN_CELLS]
+            ("lm-mesh-seq",)] + tp + [("cell",) + c for c in DRYRUN_CELLS]
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(len(jobs),
                                                 mp_context=ctx) as pool:
         futures = [pool.submit(dryrun_job, job) for job in jobs]
         done = [f.result(timeout=DRYRUN_TIMEOUT_S) for f in futures]
-    one, mesh, placed, seq, cells = (done[0], done[1], done[2], done[3],
-                                     done[4:])
+    one, mesh, placed, seq = done[:4]
+    tp_traces, cells = done[4:4 + len(tp)], done[4 + len(tp):]
 
     measured = figures["lm-train"]["peak"]
     gap = dryrun_gap("(a)", dryrun_peak(one), measured)
@@ -5903,6 +6120,9 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
     dryrun_fsdp_check(placed, figures["lm-mesh-fsdp"], smi)
     dryrun_fsdp_check(seq, figures["lm-mesh-seq"], smi, "(b'')", "(e)",
                       "FSDP + sequence parallel")
+    for (arch, rules), trace in zip(LM_MESH_TP_RUNS, tp_traces):
+        label = lm_mesh_tp_label(arch, rules)
+        dryrun_tp_check(trace, figures["lm-mesh-tp"][label], label, smi)
     for (arch, shape), cell in zip(DRYRUN_CELLS, cells):
         row, roof = cell["row"], cell["roofline"]
         p = row["peak_bytes_per_device"]

@@ -24,6 +24,17 @@ a replicated activation meets a "model"-split weight:
   `reduce_from(x, axis)`  sum over the axis forward, identity backward
                           (each rank's partial result made whole)
 
+and two more of a region split by heads or channels:
+
+  `sum_over(x, axis)`     sum over the axis forward and backward (a
+                          statistic every rank reads for its own part:
+                          a norm's row sums over channels cut over the
+                          axis; the reference's ``psum`` transposes to
+                          itself)
+  `gather_from(x, axis, dim)`  all-gather forward, this rank's slice of
+                          the gradient backward (a split output made
+                          whole for a replicated use)
+
 and the FSDP boundary of a parameter cut over "data" (ZeRO-3), which
 GSPMD inserts where an "embed"-sharded weight meets its use:
 
@@ -151,6 +162,39 @@ def split_chunk(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     return x.narrow(dim, axis.index * width, width).contiguous()
 
 
+def fused_slice(x: torch.Tensor, dim: int, pieces, axis: Axis
+                ) -> torch.Tensor:
+    """This rank's part of a whole tensor fused on `dim` from `pieces`
+    ((width, cut) in order): its equal slice of each cut piece and all of
+    each other one (a contiguous copy)."""
+    parts, start = [], 0
+    for width, cut in pieces:
+        if cut:
+            step = width // axis.size
+            parts.append(x.narrow(dim, start + axis.index * step, step))
+        else:
+            parts.append(x.narrow(dim, start, width))
+        start += width
+    return torch.cat(parts, dim=dim).contiguous()
+
+
+def fused_gather(x: torch.Tensor, axis: Axis, dim: int,
+                 pieces) -> torch.Tensor:
+    """The whole tensor from each rank's `fused_slice` of it: every cut
+    piece concatenated over the axis, each other one from the axis'
+    first rank."""
+    if axis.size == 1:
+        return x
+    ranks = all_gather(x, axis, dim).chunk(axis.size, dim)
+    parts, start = [], 0
+    for width, cut in pieces:
+        held = width // axis.size if cut else width
+        parts += ([r.narrow(dim, start, held) for r in ranks] if cut
+                  else [ranks[0].narrow(dim, start, held)])
+        start += held
+    return torch.cat(parts, dim=dim)
+
+
 def all_max(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Elementwise maximum of `x` over the axis (a new tensor)."""
     if axis.size == 1:
@@ -195,6 +239,46 @@ def reduce_from(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     if axis is None or axis.size == 1:
         return x
     return _ReduceFrom.apply(x, axis)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.axis), None
+
+
+def sum_over(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The sum of `x` over the axis; each rank reads it for its own part
+    of a computation, so the gradient is summed over the axis too."""
+    if axis is None or axis.size == 1:
+        return x
+    return _SumOver.apply(x, axis)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_chunk(grad, ctx.axis, ctx.dim), None, None
+
+
+def gather_from(x: torch.Tensor, axis: Optional[Axis],
+                dim: int) -> torch.Tensor:
+    """The axis' slices of `x` all-gathered on `dim`; every rank uses the
+    whole alike, so each slice's gradient is this rank's part of the
+    whole's."""
+    if axis is None or axis.size == 1:
+        return x
+    return _GatherFrom.apply(x, axis, dim)
 
 
 class _GatherAtUse(torch.autograd.Function):
@@ -248,8 +332,9 @@ def gather_seq(x: torch.Tensor, axis: Optional[Axis],
 def reduce_scatter_seq(x: torch.Tensor, axis: Optional[Axis],
                        dim: int = 1) -> torch.Tensor:
     """This rank's slice on `dim` of the sum of `x` over the axis (each
-    rank holds a partial sum of the whole sequence); the gradient of the
-    slice is all-gathered back to the whole."""
+    rank holds a partial sum of the whole sequence, or of all channels in
+    RWKV6's split channel mix); the gradient of the slice is all-gathered
+    back to the whole."""
     if axis is None or axis.size == 1:
         return x
     return _ReduceScatterSeq.apply(x, axis, dim)

@@ -547,7 +547,7 @@ class MeshPlan:
 
     def zero_reduce_grads(self, grads: dict, dims: dict, *,
                           mean: bool = True, sliced: bool = False,
-                          model_sum=()) -> dict:
+                          model_sum=(), model_dup=None) -> dict:
         """Cross-rank gradient mean, delivered pre-sliced for ZeRO:
         sharded leaves are averaged over "model", summed over "pod" and
         reduce-scattered over "data" (each rank receives only its
@@ -568,15 +568,26 @@ class MeshPlan:
         ``model_sum`` (with ``mean=False``): names of leaves whose
         gradient each model rank holds a part of (sequence parallelism:
         a leaf whole over "model" sees only this rank's slice of the
-        sequence in some of its uses); they are summed over "model"
-        first, in one collective."""
-        if model_sum and self.model_axis:
+        sequence in some of its uses, or a layer split by heads reads it
+        for its heads alone); ``model_dup`` ({name: (dim, [(start,
+        stop)])}): the ranges of split leaves that every model rank holds
+        alike and reads for its part alone (`ModelLayout.dup`).  Both are
+        summed over "model" first, in one collective."""
+        if (model_sum or model_dup) and self.model_axis:
             grads = dict(grads)
             names = [k for k in grads if k in set(model_sum)]
-            parts = [grads[k] for k in names]
+            dups = [(k, dim, lo, hi) for k, (dim, ranges)
+                    in (model_dup or {}).items() for lo, hi in ranges]
+            parts = [grads[k] for k in names] + [
+                grads[k].narrow(dim, lo, hi - lo) for k, dim, lo, hi in dups]
             buf = collectives.all_reduce(_flat(parts),
                                          self.mesh.axes[MODEL_AXIS])
-            grads.update(zip(names, _split_flat(buf, parts)))
+            summed = _split_flat(buf, parts)
+            grads.update(zip(names, summed))
+            for k in {k for k, *_ in dups}:
+                grads[k] = grads[k].clone()
+            for (k, dim, lo, hi), x in zip(dups, summed[len(names):]):
+                grads[k].narrow(dim, lo, hi - lo).copy_(x)
         n = self.data_size
         if not mean and n == 1:
             return dict(grads)
@@ -619,14 +630,20 @@ class MeshPlan:
                 start += size
         return {k: out[k] for k in grads}
 
-    def gather_params(self, tree: dict, model_dims: dict) -> dict:
+    def gather_params(self, tree: dict, model_dims: dict,
+                      fused: dict | None = None) -> dict:
         """Whole leaves from this rank's model slices: each leaf split over
-        "model" (``model_dims[k] >= 0``) all-gathered on its dim, the rest
-        as they are (a collective: every rank calls it)."""
+        "model" (``model_dims[k] >= 0``) all-gathered on its dim, a leaf
+        cut by pieces (``fused``, `ModelLayout.fused`) rebuilt from them
+        (`collectives.fused_gather`), the rest as they are (a collective:
+        every rank calls it)."""
         if not self.model_axis:
             return dict(tree)
         model = self.mesh.axes[MODEL_AXIS]
-        return {k: collectives.all_gather(x, model, model_dims[k])
+        fused = fused or {}
+        return {k: (collectives.fused_gather(x, model, *fused[k])
+                    if k in fused else
+                    collectives.all_gather(x, model, model_dims[k]))
                 if model_dims[k] >= 0 else x for k, x in tree.items()}
 
     def zero_slice(self, tree: dict, dims: dict) -> dict:
@@ -679,7 +696,11 @@ class ModelLayout:
     shapes, ``model_dims`` / ``data_dims`` the dim cut over "model" and
     the dim its "embed" axis resolves to over "data" (-1: none).
     ``fsdp``: the leaves are cut over "data" at rest
-    (`MeshPlan.place_params_`)."""
+    (`MeshPlan.place_params_`).  ``fused``: {name: (dim, pieces)} of the
+    leaves a layer cut by heads within a fused dim (`Mamba2.fused_cuts`:
+    each piece cut over "model" or held whole by every rank); ``partial``
+    the leaves whole over "model" that a split layer reads in part
+    (`read_in_part`): each rank holds a part of their gradient."""
 
     plan: Any
     full: dict
@@ -688,6 +709,36 @@ class ModelLayout:
     model_dims: dict
     data_dims: dict
     fsdp: bool = False
+    fused: dict = dataclasses.field(default_factory=dict)
+    partial: tuple = ()
+
+    @property
+    def dup(self) -> dict:
+        """{name: (dim, [(start, stop)])}: the ranges of each fused leaf,
+        in this rank's slice, that every model rank holds alike."""
+        out = {}
+        for k, (dim, pieces) in self.fused.items():
+            size, start, ranges = self.plan.model_size, 0, []
+            for width, cut in pieces:
+                held = width // size if cut else width
+                if not cut:
+                    ranges.append((start, start + held))
+                start += held
+            out[k] = (dim, ranges)
+        return out
+
+    def rank_part(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This model rank's part of the whole leaf `name` (its slice on
+        the dim cut over "model", its pieces of a fused leaf)."""
+        dim = self.model_dims[name]
+        if dim < 0:
+            return whole
+        axis = self.plan.mesh.axes[MODEL_AXIS]
+        if name in self.fused:
+            return collectives.fused_slice(whole, dim, self.fused[name][1],
+                                           axis)
+        width = whole.shape[dim] // axis.size
+        return whole.narrow(dim, axis.index * width, width)
 
 
 def _split_dim(full: tuple, local: tuple) -> int:
@@ -709,26 +760,52 @@ def _whole_over_model(axes: tuple, rules: Mapping) -> tuple:
     return tuple(None if on_model(a) else a for a in axes)
 
 
+def _module_leaves(model, method: str) -> dict:
+    """{parameter name: value} of what each submodule's `method` gives
+    by its own leaf names ({leaf: value}, or a tuple of leaves)."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        if not hasattr(mod, method):
+            continue
+        got = getattr(mod, method)()
+        items = got.items() if isinstance(got, dict) else (
+            (leaf, None) for leaf in got)
+        for leaf, value in items:
+            out[f"{prefix}.{leaf}" if prefix else leaf] = value
+    return out
+
+
 def model_layout(model, plan: "MeshPlan", param_axes=None) -> ModelLayout:
     """Split `model` over the plan's "model" axis in place (tensor
-    parallelism: `DecoderLM.split_`; the other families stay whole on
-    every model rank) and return its `ModelLayout` (``param_axes``:
-    {name: logical axes}, the model's own declarations when None).
-    Raises ValueError where a leaf's split disagrees with its axes."""
+    parallelism: the model's ``split_``, every family's) and return its
+    `ModelLayout` (``param_axes``: {name: logical axes}, the model's own
+    declarations when None).  A fused leaf cut by heads (B and C whole
+    on every rank) is held to its axes as an even cut of its held width
+    would be.  Raises ValueError where a leaf's split disagrees with its
+    axes."""
     from repro_torch.nn.layers import param_axes as declared_axes
     axes = dict(param_axes if param_axes is not None
                 else declared_axes(model))
     full = {k: tuple(p.shape) for k, p in model.named_parameters()}
-    if plan.model_axis and hasattr(model, "split_"):
+    if plan.model_axis:
         model.split_(plan.mesh.axes[MODEL_AXIS])
     params = dict(model.named_parameters())
     model_dims = {k: _split_dim(full[k], tuple(p.shape))
                   for k, p in params.items()}
+    fused = _module_leaves(model, "fused_cuts")
     rules = plan.param_rules
     held = {k: axes[k] if model_dims[k] >= 0
             else _whole_over_model(axes[k], rules) for k in params}
     ctx = plan._ctx()
-    specs = {k: ctx.resolve(held[k], rules, shape=full[k]) for k in params}
+
+    def judged(k):  # the shape the spec is resolved against
+        if k not in fused:
+            return full[k]
+        shape = list(full[k])
+        shape[model_dims[k]] = params[k].shape[model_dims[k]] \
+            * plan.model_size
+        return tuple(shape)
+    specs = {k: ctx.resolve(held[k], rules, shape=judged(k)) for k in params}
     for k, spec in specs.items():
         on_model = [i for i, e in enumerate(spec)
                     if MODEL_AXIS in (e if isinstance(e, tuple) else (e,))]
@@ -736,7 +813,9 @@ def model_layout(model, plan: "MeshPlan", param_axes=None) -> ModelLayout:
             raise ValueError(f"{k}: split on dim {model_dims[k]} but its "
                              f"axes {held[k]} resolve to {spec}")
     return ModelLayout(plan, full, held, specs, model_dims,
-                       {k: plan._spec_data_dim(s) for k, s in specs.items()})
+                       {k: plan._spec_data_dim(s) for k, s in specs.items()},
+                       fused=fused,
+                       partial=tuple(_module_leaves(model, "read_in_part")))
 
 
 def _place_params(plan: "MeshPlan", model, param_axes=None) -> ModelLayout:

@@ -38,7 +38,10 @@ which layout the port ran (``layout``): FSDP (every cell's parameters
 cut over "data" at rest and gathered a layer at use, as the reference's
 ``"embed": "data"`` rule places them; the "embed" leaves the data ranks
 do not divide stay whole), the parameters that stayed whole over
-"model", how the KV cache is cut (by heads, or by sequence under the
+"model" (a layer whose heads the axis does not divide: rwkv6-3b's time
+mix at 16), those held partly alike on every model rank (Mamba2's fused
+projection and conv: B and C), how the KV cache and the SSM states are
+cut (by heads, or by sequence under the
 cell's ``"seq": "model"`` override, which `make_cell` applies to both
 rule tables of the cell's plan), the sequence cut applied
 (``seq_cut``: the residual stream and the caches), and what of the
@@ -527,9 +530,11 @@ def _layout(cell, plan, whole_shapes: dict) -> dict:
                         else tuple(p.shape) == whole_shapes[k])
                     and any(a in MODEL_RULED for a in axes[k])})
     cut, unapplied = _seq_cut(cell, plan)
-    out = {"tensor_parallel": bool(plan.model_axis and hasattr(
-               cell.model, "split_")),
+    alike = sorted({re.sub(r"\.\d+\.", ".*.", k)
+                    for k in (placed.fused if placed is not None else {})})
+    out = {"tensor_parallel": bool(plan.model_axis),
            "whole_over_model": whole,
+           "alike_over_model": alike,
            "seq_cut": cut,
            "unapplied_overrides": ({"seq": unapplied} if unapplied
                                    else {})}
@@ -542,14 +547,30 @@ def _layout(cell, plan, whole_shapes: dict) -> dict:
             if d < 0 and "embed" in axes[k]})
     if cell.kind == "train":
         out["zero1"] = bool(cell.fn.zero)
-    if cell.kind != "train" and cell.cfg.family in ("dense", "moe", "vlm"):
-        n_kv = cell.model.blocks[0].attn.n_kv
-        m = plan.model_size
-        out["kv_cache"] = (
-            f"by sequence: 1/{m} of the positions a rank, all "
-            f"{cell.cfg.n_kv_heads} kv heads" if cut["cache"] else
-            f"by heads: {n_kv} of {cell.cfg.n_kv_heads} a rank, whole "
-            "sequence")
+    if cell.kind != "train":
+        out["kv_cache"] = _cache_layout(cell, plan.model_size, cut["cache"])
+    return out
+
+
+def _cache_layout(cell, m: int, by_seq: bool) -> str:
+    """How a serving cell's cache lies on a rank: the KV caches by
+    sequence or by kv heads, the SSM states by heads."""
+    cfg, model = cell.cfg, cell.model
+    if cfg.family == "ssm":
+        h = model.blocks[0].tm.n_heads
+        return (f"wkv state by heads: {h} of "
+                f"{cfg.d_model // cfg.ssm_head_dim} a rank")
+    attn = (model.shared.attn if cfg.family == "hybrid" else
+            model.decoder[0].self_attn if cfg.family == "audio" else
+            model.blocks[0].attn)
+    out = (f"by sequence: 1/{m} of the positions a rank, all "
+           f"{cfg.n_kv_heads} kv heads" if by_seq else
+           f"by heads: {attn.n_kv} of {cfg.n_kv_heads} a rank, whole "
+           "sequence")
+    if cfg.family == "hybrid":
+        mamba = model.mamba[0].mamba
+        total = mamba.n_heads * (m if mamba.axis is not None else 1)
+        out += f"; ssm state by heads: {mamba.n_heads} of {total} a rank"
     return out
 
 

@@ -186,9 +186,8 @@ def train_state_bytes(params: dict, optimizer) -> dict:
 def _place(model, plan) -> None:
     """A cell's model placed on the plan's mesh as the reference's
     ``run_cell`` places every cell's parameters
-    (`MeshPlan.place_params_`): split over "model" (the families without
-    `split_` stay whole) and cut over "data" (FSDP), gathered a layer at
-    use."""
+    (`MeshPlan.place_params_`): split over "model" (every family's
+    ``split_``) and cut over "data" (FSDP), gathered a layer at use."""
     if plan is not None:
         plan.place_params_(model)
 
@@ -353,7 +352,8 @@ def cell_inputs(cell: CellSpec, plan=None) -> tuple:
     over them and the global batch (the step takes its block); for a
     prefill the global batch; for a decode the global tokens and a cache
     of the rank's rows, cut as the cell's plan cuts it (by sequence
-    under its ``"seq"`` override, else by the rank's kv heads).
+    under its ``"seq"`` override, else by the rank's kv heads; the SSM
+    states by the rank's heads).
     `plan` is the cell's (``cell.plan``) unless given."""
     plan = cell.plan if plan is None else plan
     params = dict(cell.model.named_parameters())

@@ -10,6 +10,14 @@ in fp32.  The state has no sequence dim, so the ``"seq": "model"``
 rule cuts nothing of it; the residual stream cut by sequence in
 training, which the reference does under that rule, is not ported:
 `backbone` raises under it (prefill keeps the residual whole).
+
+On a mesh `split_` splits the model over its "model" axis: each block's
+channel mix by its hidden width and its time mix by heads where the axis
+divides them (`repro_torch.nn.ssm`; rwkv6-3b's 40 heads stay whole at
+model 16), the embedding table and the untied head by vocabulary.  The
+head then gives this rank's logits for the split cross-entropy
+(`vocab_shard`), serving all-gathers them, and the cache holds this
+rank's heads of the wkv state.
 """
 from __future__ import annotations
 
@@ -19,12 +27,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import Axis, copy_to
 from repro_torch.distributed.sharding import seq_axis, shard_activation
 from repro_torch.distributed import fsdp
-from repro_torch.nn.layers import Embedding, LayerNorm, Linear
+from repro_torch.nn.layers import Embedding, LayerNorm, Linear, splits
 from repro_torch.nn.ssm import RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.nn.transformer import (LMOutput, maybe_remat, torch_dtype,
-                                        zero_aux)
+                                        vocab_shard, whole_vocab, zero_aux)
 
 
 @dataclasses.dataclass
@@ -71,24 +80,45 @@ class RWKV6LM(nn.Module):
                      Linear(cfg.d_model, cfg.vocab_size, use_bias=False,
                             kernel_axes=("embed", "vocab")))
 
-    def _logits(self, x):
+    def split_(self, axis: Axis) -> None:
+        """Tensor parallelism over `axis` (module docstring), each part
+        where the axis divides its count; the parameters become this
+        rank's slices in place."""
+        for block in self.blocks:
+            block.tm.split_(axis)
+            block.cm.split_(axis)
+        self.embed.split_(axis)
+        if self.head is not None and splits(self.cfg.vocab_size, axis):
+            self.head.split_("column", axis)
+
+    def vocab_shard(self) -> tuple | None:
+        """(axis, first id) of this rank's logits, or None when whole."""
+        return vocab_shard(self.embed, self.head)
+
+    def _logits(self, x, whole: bool = False):
+        """fp32 logits of this rank's vocabulary slice; with `whole`, all
+        of them (serving)."""
         head = self.head if self.head is not None else self.embed
         with fsdp.gathered(self.ln_out, head):
             x = self.ln_out(x)
-            logits = self.head(x) if self.head is not None \
-                else self.embed.attend(x)
+            logits = (self.head(copy_to(x, self.head.axis))
+                      if self.head is not None else self.embed.attend(x))
+        if whole:
+            logits = whole_vocab(logits, self.vocab_shard())
         return logits.to(torch.float32)
 
     def init_cache(self, batch: int, max_len: int = 0) -> RWKVCache:
-        """Zero states; `max_len` is unused (the state is O(1))."""
+        """Zero states (this rank's heads of the wkv state where the time
+        mix is split); `max_len` is unused (the state is O(1))."""
         del max_len
         cfg = self.cfg
         l, d, p = cfg.num_layers, cfg.d_model, cfg.ssm_head_dim
+        h = self.blocks[0].tm.n_heads
         dev = self.embed.table.device
         f32 = torch.float32
         return RWKVCache(
             torch.zeros((l, batch, d), dtype=f32, device=dev),
-            torch.zeros((l, batch, d // p, p, p), dtype=f32, device=dev),
+            torch.zeros((l, batch, h, p, p), dtype=f32, device=dev),
             torch.zeros((l, batch, d), dtype=f32, device=dev), 0)
 
     def cache_axes(self) -> RWKVCache:
@@ -133,7 +163,7 @@ class RWKV6LM(nn.Module):
 
     def forward(self, tokens, **_) -> LMOutput:
         x, aux = self.backbone(tokens)
-        return LMOutput(self.apply_head(x), aux)
+        return LMOutput(self._logits(x, whole=True), aux)
 
     def prefill(self, tokens, max_len: int | None = None, **_):
         """Logits of the last position and the states after the prompt
@@ -142,9 +172,10 @@ class RWKV6LM(nn.Module):
         x, cache = self._run(self._embed(tokens),
                              self.init_cache(tokens.shape[0]), False,
                              tokens.shape[1])
-        return LMOutput(self._logits(x[:, -1:]), zero_aux(x.device)), cache
+        return (LMOutput(self._logits(x[:, -1:], whole=True),
+                         zero_aux(x.device)), cache)
 
     def decode_step(self, tokens, cache: RWKVCache):
         x, cache = self._run(self._embed(tokens), cache, True,
                              tokens.shape[1])
-        return LMOutput(self._logits(x), zero_aux(x.device)), cache
+        return LMOutput(self._logits(x, whole=True), zero_aux(x.device)), cache

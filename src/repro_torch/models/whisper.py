@@ -15,6 +15,12 @@ and ``decoder`` (the reference's stacked trees, split by
 `layers.load_jax_lm_params`); their layers run under `maybe_remat`, as
 the reference's scan bodies (the cross K/V projections do not).
 
+On a mesh `split_` splits the encoder's and the decoder's attention and
+MLPs over the "model" axis (`Attention.split_`, `MLP.split_`, each where
+the axis divides its count) and the tied embedding table by vocabulary:
+the head gives this rank's logits (`vocab_shard`), serving all-gathers
+them, and the caches hold this rank's kv heads.
+
 Under the ``"seq": "model"`` rule (`sharding.seq_axis`) the caches are
 cut by sequence: the decoder's self-attention cache over its
 positions and the cross cache over the encoder's frames, each where the
@@ -41,7 +47,7 @@ from repro_torch.nn.attention import (Attention, KVCache, causal_mask,
                                       sinusoidal_positions, write_positions)
 from repro_torch.nn.layers import MLP, Embedding, LayerNorm
 from repro_torch.nn.transformer import (LMOutput, maybe_remat, torch_dtype,
-                                        zero_aux)
+                                        whole_vocab, zero_aux)
 
 # the decoder's position table: the reference slices rows of an
 # 8192-row sinusoidal table, its start clamped into the table
@@ -150,6 +156,22 @@ class WhisperModel(nn.Module):
         self.ln_enc = LayerNorm(cfg.d_model)
         self.ln_dec = LayerNorm(cfg.d_model)
 
+    def split_(self, axis: Axis) -> None:
+        """Tensor parallelism over `axis` (module docstring); the
+        parameters become this rank's slices in place."""
+        for block in self.encoder:
+            block.attn.split_(axis)
+            block.mlp.split_(axis)
+        for block in self.decoder:
+            block.self_attn.split_(axis)
+            block.cross_attn.split_(axis)
+            block.mlp.split_(axis)
+        self.embed.split_(axis)
+
+    def vocab_shard(self) -> tuple | None:
+        """(axis, first id) of this rank's logits, or None when whole."""
+        return self.embed.vocab_shard()
+
     # ---- encoder -----------------------------------------------------------
 
     def encode(self, audio_embeds):
@@ -178,9 +200,14 @@ class WhisperModel(nn.Module):
                                 tokens.device)
         return x + pos.to(dtype)[None]
 
-    def _logits(self, x):
+    def _logits(self, x, whole: bool = False):
+        """fp32 logits of this rank's vocabulary slice; with `whole`, all
+        of them (serving)."""
         with fsdp.gathered(self.ln_dec, self.embed):
-            return self.embed.attend(self.ln_dec(x)).to(torch.float32)
+            logits = self.embed.attend(self.ln_dec(x))
+        if whole:
+            logits = whole_vocab(logits, self.vocab_shard())
+        return logits.to(torch.float32)
 
     # ---- teacher forcing -----------------------------------------------------
 
@@ -203,28 +230,32 @@ class WhisperModel(nn.Module):
 
     def forward(self, tokens, *, audio_embeds=None, **_) -> LMOutput:
         x, aux = self.backbone(tokens, audio_embeds=audio_embeds)
-        return LMOutput(self.apply_head(x), aux)
+        return LMOutput(self._logits(x, whole=True), aux)
 
     # ---- serving -------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int,
                    enc_len: int = 0) -> WhisperCache:
         """Zeros: `max_len` decoder positions and `enc_len` frames, each
-        this rank's of them where the ``"seq"`` rule cuts it."""
+        this rank's of them and every kv head where the ``"seq"`` rule
+        cuts it, else all of them and this rank's kv heads."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         dev = self.embed.table.device
-        l, kh, hd = self.dec_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+        l, hd = self.dec_layers, cfg.resolved_head_dim
         seq = seq_axis(max_len)
         enc_seq = seq_axis(enc_len) if enc_len else None
+        block = self.decoder[0]
 
-        def zeros(n, cut):
+        def zeros(n, cut, attn):
             n = n // cut.size if cut is not None else n
+            kh = cfg.n_kv_heads if cut is not None else attn.n_kv
             return torch.zeros((l, batch, n, kh, hd), dtype=dtype,
                                device=dev)
-        return cut_by(WhisperCache(zeros(max_len, seq), zeros(max_len, seq),
-                                   zeros(max(enc_len, 1), enc_seq),
-                                   zeros(max(enc_len, 1), enc_seq), 0, 0),
+        dec = (max_len, seq, block.self_attn)
+        enc = (max(enc_len, 1), enc_seq, block.cross_attn)
+        return cut_by(WhisperCache(zeros(*dec), zeros(*dec), zeros(*enc),
+                                   zeros(*enc), 0, 0),
                       seq=seq, enc_seq=enc_seq)
 
     def cache_axes(self) -> WhisperCache:
@@ -247,14 +278,18 @@ class WhisperModel(nn.Module):
         for layer, (block, kv) in enumerate(zip(self.decoder, kvs)):
             with fsdp.gathered(block):
                 x, (k, v) = block.prefill(x, kv)
+            if cache.seq is not None:  # every kv head of its positions
+                k, v = block.self_attn.all_heads(k, v)
             write_positions(cache.dec_k[layer], k, 0, cache.seq)
             write_positions(cache.dec_v[layer], v, 0, cache.seq)
-            if cache.enc_seq is not None:  # this rank's frames
-                kv = tuple(split_chunk(t, cache.enc_seq, 1) for t in kv)
+            if cache.enc_seq is not None:  # every kv head of its frames
+                kv = tuple(split_chunk(t, cache.enc_seq, 1)
+                           for t in block.cross_attn.all_heads(*kv))
             cache.enc_k[layer] = kv[0].to(dtype)
             cache.enc_v[layer] = kv[1].to(dtype)
         cache.enc_valid, cache.length = enc_out.shape[1], s
-        return LMOutput(self._logits(x[:, -1:]), zero_aux(x.device)), cache
+        return (LMOutput(self._logits(x[:, -1:], whole=True),
+                         zero_aux(x.device)), cache)
 
     def decode_step(self, tokens, cache: WhisperCache):
         """Writes the new self-attention K/V into `cache`'s tensors in
@@ -267,7 +302,7 @@ class WhisperModel(nn.Module):
                                       cache.length), seq=cache.seq),
                     cache.enc_k[layer], cache.enc_v[layer],
                     cache.enc_valid, cache.enc_seq)
-        return (LMOutput(self._logits(x), zero_aux(x.device)),
+        return (LMOutput(self._logits(x, whole=True), zero_aux(x.device)),
                 cut_by(dataclasses.replace(
                     cache, length=cache.length + tokens.shape[1]),
                     seq=cache.seq, enc_seq=cache.enc_seq))

@@ -11,15 +11,25 @@ reference.  The KV cache is ``[G, B, max_len, K, D]`` in the compute
 dtype; its ``length`` is set by the serving engine as the dense
 decoder's is, so the reference engine's KV gap applies here too.
 
-Under the ``"seq": "model"`` rule (`sharding.seq_axis`) the family,
-whole over "model", is sequence parallel as `DecoderLM` is: the residual
-stream is this rank's slice of the sequence, each Mamba2 layer gathers
-the whole at its entry (inside its checkpointed region in training),
-scans it and keeps its slice, each application of the shared block runs
-as `DecoderBlock` does under the rule, and the shared attention's caches
-are cut by sequence (`KVCache.seq`; the SSM states have no sequence
-dim).  The head is whole on every rank: it reads the gathered, normed
-sequence and carries 1/M of its gradient.
+On a mesh `split_` splits the model over its "model" axis: each Mamba2
+layer by SSM heads (`repro_torch.nn.ssm`), the shared block as
+`DecoderBlock.split_` does, and the tied embedding table by vocabulary
+(the head then gives this rank's logits, `vocab_shard`; serving
+all-gathers them).  The SSM states are cut by heads, and the shared
+attention's caches by kv heads.
+
+Under the ``"seq": "model"`` rule (`sharding.seq_axis`) the family is
+sequence parallel as `DecoderLM` is: the residual stream is this rank's
+slice of the sequence; each Mamba2 layer norms its slice, gathers the
+normed sequence at its entry (inside its checkpointed region in
+training), scans it with this rank's heads and reduce-scatters
+``out_proj``'s parts along the sequence (a whole layer keeps its slice
+of its output); each application of the shared block runs as
+`DecoderBlock` does under the rule, and the shared attention's caches
+are cut by sequence (`KVCache.seq`; the SSM states have no sequence dim
+and stay cut by heads).  The head reads the gathered, normed sequence:
+a split table gives its vocabulary slice, a whole one carries 1/M of its
+gradient.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import fsdp
 from repro_torch.distributed.collectives import (Axis, all_gather,
                                                  gather_seq, grad_share,
+                                                 reduce_scatter_seq,
                                                  split_chunk)
 from repro_torch.distributed.sharding import seq_axis, shard_activation
 from repro_torch.nn.attention import KVCache, cut_by, write_positions
@@ -40,7 +51,8 @@ from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.ssm import Mamba2, Mamba2State
 from repro_torch.nn.transformer import (DecoderBlock, LMOutput,
                                         gather_block_input, maybe_remat,
-                                        sum_aux, torch_dtype)
+                                        seq_sum, sum_aux, torch_dtype,
+                                        whole_vocab)
 
 
 @dataclasses.dataclass
@@ -64,15 +76,17 @@ class MambaResidualBlock(nn.Module):
 
     def forward(self, x, state: Mamba2State, seq: Axis | None = None):
         """``seq``: `x` is this rank's slice of a sequence cut over that
-        axis: the layer gathers the whole, scans it and keeps the slice
-        (the state is the whole sequence's)."""
+        axis: the layer norms it, gathers the normed whole, scans it and
+        gives the slice of its output's sum (module docstring; the state
+        is the whole sequence's)."""
         if seq is None:
             y, state = self.mamba(self.norm(x), state)
             return x + y, state
         with fsdp.saving_slices() as scope:
-            x = gather_block_input(x, seq, scope)
-            y, state = self.mamba(self.norm(x), state)
-            return split_chunk(x + y, seq, 1), state
+            h = gather_block_input(self.norm(x), seq, scope)
+            y, state = self.mamba(h, state, reduce=False)
+            return (x + seq_sum([(y, self.mamba.axis is not None)], seq),
+                    state)
 
     def decode(self, x, state: Mamba2State):
         y, state = self.mamba.decode_step(self.norm(x), state)
@@ -94,6 +108,19 @@ class Zamba2LM(nn.Module):
         # is then normed already), read by `apply_head`
         self.head_seq: Axis | None = None
 
+    def split_(self, axis: Axis) -> None:
+        """Tensor parallelism over `axis` (module docstring), each part
+        where the axis divides its count; the parameters become this
+        rank's slices in place."""
+        for block in self.mamba:
+            block.mamba.split_(axis)
+        self.shared.split_(axis)
+        self.embed.split_(axis)
+
+    def vocab_shard(self) -> tuple | None:
+        """(axis, first id) of this rank's logits, or None when whole."""
+        return self.embed.vocab_shard()
+
     def group_sizes(self) -> list[int]:
         l, g = self.cfg.num_layers, self.n_groups
         base = l // g
@@ -101,16 +128,17 @@ class Zamba2LM(nn.Module):
         return [base + (1 if i < rem else 0) for i in range(g)]
 
     def init_cache(self, batch: int, max_len: int) -> ZambaCache:
-        """Zero states and K/V of `max_len` positions (this rank's of
-        them under sequence parallelism)."""
+        """Zero states (this rank's heads) and K/V of `max_len` positions:
+        this rank's kv heads, or under sequence parallelism every kv head
+        of this rank's positions."""
         cfg = self.cfg
         m = self.mamba[0].mamba
         dev = self.embed.table.device
         f32 = torch.float32
         seq = seq_axis(max_len) if max_len else None
         held = max_len // seq.size if seq is not None else max_len
-        kv = (self.n_groups, batch, held, cfg.n_kv_heads,
-              cfg.resolved_head_dim)
+        n_kv = cfg.n_kv_heads if seq is not None else self.shared.attn.n_kv
+        kv = (self.n_groups, batch, held, n_kv, cfg.resolved_head_dim)
         dtype = torch_dtype(cfg.compute_dtype)
         return cut_by(ZambaCache(
             ssm=torch.zeros((cfg.num_layers, batch, m.n_heads, m.head_dim,
@@ -126,14 +154,21 @@ class Zamba2LM(nn.Module):
         return ZambaCache(("layers", "batch", "heads", None, None),
                           ("layers", "batch", None, "mlp"), kv, kv, ())
 
-    def _logits(self, x, seq: Axis | None = None):
-        """fp32 logits; `seq`: `x` is normed and gathered over that axis
-        (`backbone`), and the head carries 1/M of its gradient."""
+    def _logits(self, x, seq: Axis | None = None, whole: bool = False):
+        """fp32 logits of this rank's vocabulary slice; with `whole`, all
+        of them (serving).  `seq`: `x` is normed and gathered over that
+        axis (`backbone`): a split table reads it as it is, and a whole
+        one, which every rank computes alike, carries 1/M of its
+        gradient."""
         with fsdp.gathered(self.final_norm, self.embed):
             if seq is None:
                 x = self.final_norm(x)
-            logits = self.embed.attend(x)
-        return grad_share(logits, seq).to(torch.float32)
+            logits = self.embed.attend(x, reduce=seq is None)
+        if self.vocab_shard() is None:
+            logits = grad_share(logits, seq)
+        elif whole:
+            logits = whole_vocab(logits, self.vocab_shard())
+        return logits.to(torch.float32)
 
     def _run_groups(self, x, cache: ZambaCache, mode: str,
                     seq: Axis | None = None):
@@ -174,11 +209,15 @@ class Zamba2LM(nn.Module):
                 sum_aux(auxes))
 
     def _embed(self, tokens, seq: Axis | None = None):
-        """The embedded tokens; with `seq`, this rank's slice of them."""
+        """The embedded tokens; with `seq`, this rank's slice of them (a
+        split table's parts reduce-scattered)."""
         with fsdp.gathered(self.embed):
-            x = self.embed(tokens,
-                           dtype=torch_dtype(self.cfg.compute_dtype))
-        return split_chunk(x, seq, 1) if seq is not None else x
+            x = self.embed(tokens, dtype=torch_dtype(self.cfg.compute_dtype),
+                           reduce=seq is None)
+        if seq is None:
+            return x
+        return (reduce_scatter_seq(x, seq) if self.embed.axis is not None
+                else split_chunk(x, seq, 1))
 
     def backbone(self, tokens, **_):
         """([B, S, d], aux); under sequence parallelism the final norm
@@ -200,7 +239,7 @@ class Zamba2LM(nn.Module):
 
     def forward(self, tokens, **_) -> LMOutput:
         x, aux = self.backbone(tokens)
-        return LMOutput(self.apply_head(x), aux)
+        return LMOutput(self._logits(x, self.head_seq, whole=True), aux)
 
     def prefill(self, tokens, max_len: int | None = None, **_):
         """Logits of the last position and the cache: the states after
@@ -214,20 +253,22 @@ class Zamba2LM(nn.Module):
             "prefill", seq)
         cache = self.init_cache(b, max(max_len or s, s))
         for g, (k, v) in enumerate(kvs):
+            if cache.seq is not None:  # every kv head of its positions
+                k, v = self.shared.attn.all_heads(k, v)
             write_positions(cache.k[g], k, 0, cache.seq)
             write_positions(cache.v[g], v, 0, cache.seq)
         cache.ssm, cache.conv, cache.length = ssm, conv, s
         last = x[:, -1:]
         if seq is not None:  # the last position is the last rank's
             last = all_gather(last, seq, 1)[:, -1:]
-        return LMOutput(self._logits(last), aux), cache
+        return LMOutput(self._logits(last, whole=True), aux), cache
 
     def decode_step(self, tokens, cache: ZambaCache):
         """Writes the new K/V into `cache`'s tensors in place and returns
         the cache with the new states, one token longer."""
         x, ssm, conv, _, aux = self._run_groups(self._embed(tokens), cache,
                                                 "decode")
-        return (LMOutput(self._logits(x), aux),
+        return (LMOutput(self._logits(x, whole=True), aux),
                 cut_by(ZambaCache(ssm, conv, cache.k, cache.v,
                                   cache.length + tokens.shape[1]),
                        seq=cache.seq))

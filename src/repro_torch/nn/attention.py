@@ -411,8 +411,10 @@ class Attention(nn.Module):
         return self.wo(out.reshape(b, s, -1), reduce)
 
     def cross_kv(self, enc: torch.Tensor):
-        """Cross-attention K/V from an encoder output."""
+        """Cross-attention K/V from an encoder output (this rank's kv heads
+        where the layer is split)."""
         b, s, _ = enc.shape
+        enc = copy_to(enc, self.axis)
         k = self.wk(enc).reshape(b, s, self.n_kv, self.head_dim)
         v = self.wv(enc).reshape(b, s, self.n_kv, self.head_dim)
         return k, v

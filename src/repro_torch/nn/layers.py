@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.collectives import Axis, copy_to, reduce_from
+from repro_torch.distributed.collectives import (Axis, copy_to, reduce_from,
+                                                 sum_over)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -143,7 +144,12 @@ class RMSNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm computed in fp32 and cast back, eps 1e-5 (as the
-    reference writes it out; no fused library call)."""
+    reference writes it out; no fused library call).
+
+    After `split_` the normalized dim is cut over a model axis (a layer
+    split by heads hands each rank its heads' channels): the row's mean
+    and centered variance sum over the axis (`sum_over`), and the scale
+    and bias stay whole, read at this rank's channels."""
 
     def __init__(self, dim: int, *, eps: float = 1e-5, use_bias: bool = True,
                  axis_name=None):
@@ -153,6 +159,12 @@ class LayerNorm(nn.Module):
         self.axis_name = axis_name
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+        self.axis: Axis | None = None
+
+    def split_(self, axis: Axis) -> None:
+        """Take this rank's equal slice of the normalized dim as input
+        (module docstring); the parameters stay whole."""
+        self.axis = axis
 
     def logical_axes(self) -> dict:
         return {"scale": (self.axis_name,), "bias": (self.axis_name,)}
@@ -167,12 +179,22 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
         x32 = x.to(torch.float32)
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
+        scale, bias = self.scale, self.bias
+        if self.axis is None:
+            mean = x32.mean(dim=-1, keepdim=True)
+            var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
+        else:
+            axis, width = self.axis, x.shape[-1]
+            mean = sum_over(x32.sum(dim=-1, keepdim=True), axis) / self.dim
+            var = sum_over(torch.square(x32 - mean).sum(dim=-1, keepdim=True),
+                           axis) / self.dim
+            scale = scale.narrow(0, axis.index * width, width)
+            if bias is not None:
+                bias = bias.narrow(0, axis.index * width, width)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.scale.to(torch.float32)
-        if self.bias is not None:
-            y = y + self.bias.to(torch.float32)
+        y = y * scale.to(torch.float32)
+        if bias is not None:
+            y = y + bias.to(torch.float32)
         return y.to(dtype)
 
 

@@ -13,6 +13,36 @@ lowered until it divides S (a prime S above the chunk runs chunks of
 compute dtype.  RWKV6 keeps chunk 16: its log-decay a step is clipped to
 at least -5, so the factored intra-chunk exponent stays within
 ``16 * 5 = 80 < log(fp32 max) ~ 88``.
+
+On a mesh each cell splits over the "model" axis (`split_`, tensor
+parallelism where the axis divides its heads), as the reference's rules
+place its "heads" and "mlp" leaves there:
+
+* `Mamba2` by SSM heads: the fused ``in_proj`` keeps this rank's heads'
+  columns of z, x and dt and all of B and C (one group: ``d_state``
+  columns each, computed on every rank), the conv its x channels and all
+  the B/C ones, ``out_proj`` its rows (the products summed over the
+  axis), the state its heads.  The reference cuts the fused columns
+  evenly at rest and regathers them around its split; this head-aligned
+  cut is the same function with B and C held on every rank
+  (`fused_cuts` records it for `partition.ModelLayout`).
+* `RWKV6TimeMix` by heads: r, k, v and g by columns, o by rows, the wkv
+  state and ``bonus_u`` by heads; the token-shift mix and the decay LoRA
+  stay whole (the decay read at this rank's channels).
+* `RWKV6ChannelMix` by its hidden width: k by columns, v by rows, and r
+  by columns too (the reference's ``("embed", "mlp")``): v's partial
+  sums are reduce-scattered to this rank's channels, multiplied by its
+  r, and all-gathered (2 calls forward, 2 backward, where a whole r
+  would take 1 and 1 and hold all of r on every rank).
+
+The gated norm of Mamba2 and RWKV6's ``ln_x`` normalize across heads a
+rank does not hold: their statistics sum over the axis
+(`LayerNorm.split_`).  A split cell copies its input into the region
+(`collectives.copy_to`), so the leaves it keeps whole but reads in part
+(`read_in_part`: the mixes, the LoRAs, ``A_log``, ``D``, ``dt_bias``,
+``bonus_u``, the norms' affine parameters) and B/C's columns hold a
+part of their gradient on each rank: `MeshTrainStep` sums them over
+"model".
 """
 from __future__ import annotations
 
@@ -22,7 +52,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.layers import LayerNorm, Linear
+from repro_torch.distributed.collectives import (Axis, copy_to,
+                                                 fused_slice, gather_from,
+                                                 reduce_scatter_seq)
+from repro_torch.nn.layers import LayerNorm, Linear, splits
 
 
 def chunk_length(chunk: int, s: int) -> int:
@@ -70,10 +103,66 @@ class Mamba2(nn.Module):
         self.D = nn.Parameter(torch.zeros(self.n_heads))
         self.dt_bias = nn.Parameter(torch.zeros(self.n_heads))
         self.norm = LayerNorm(self.d_inner, use_bias=False)
+        self.axis: Axis | None = None
+        self._pieces: dict = {}
 
     def logical_axes(self) -> dict:
         return {"conv_w": (None, "mlp"), "conv_b": ("mlp",),
                 "A_log": (None,), "D": (None,), "dt_bias": (None,)}
+
+    def split_(self, axis: Axis) -> bool:
+        """Split by SSM heads over the axis (module docstring); False
+        (the layer stays whole) where the axis does not divide them."""
+        if not splits(self.n_heads, axis):
+            return False
+        di, n, h = self.d_inner, self.d_state, self.n_heads
+        self._pieces = {"in_proj.w": (1, self._in_pieces()),
+                        "conv_w": (1, self._conv_pieces()),
+                        "conv_b": (0, self._conv_pieces())}
+        for name, (dim, pieces) in self._pieces.items():
+            owner, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(owner) if owner else self
+            p = mod._parameters[leaf]
+            with torch.no_grad():
+                part = fused_slice(p, dim, pieces, axis)
+            mod._parameters[leaf] = nn.Parameter(
+                part, requires_grad=p.requires_grad)
+        self.out_proj.split_("row", axis)
+        self.norm.split_(axis)
+        m = axis.size
+        self.n_heads, self.d_inner = h // m, di // m
+        self.proj_dims = (di // m, di // m, n, n, h // m)
+        self.conv_dim = di // m + 2 * n
+        self.axis = axis
+        return True
+
+    def _in_pieces(self) -> tuple:
+        di, n = self.d_inner, self.d_state
+        return ((di, True), (di, True), (n, False), (n, False),
+                (self.n_heads, True))
+
+    def _conv_pieces(self) -> tuple:
+        return ((self.d_inner, True), (self.d_state, False),
+                (self.d_state, False))
+
+    def fused_cuts(self) -> dict:
+        """{leaf: (dim, pieces)} of the leaves cut by heads within a
+        fused dim once split: each piece (width of the whole, cut over
+        the axis or held whole by every rank) in order."""
+        return dict(self._pieces)
+
+    def read_in_part(self) -> tuple:
+        """The leaves whole over the axis that a split layer reads at its
+        heads' entries alone (each rank holds a part of their gradient)."""
+        if self.axis is None:
+            return ()
+        return ("A_log", "D", "dt_bias", "norm.scale")
+
+    def _heads(self, p: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of a whole per-head leaf."""
+        if self.axis is None:
+            return p
+        return p.narrow(0, self.axis.index * self.n_heads, self.n_heads)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's constants (`repro/nn/ssm.py:55-69`): conv_w
@@ -83,7 +172,7 @@ class Mamba2(nn.Module):
             self.conv_w.normal_(0.0, 0.1, generator=generator)
             self.conv_b.zero_()
             self.A_log.copy_(torch.log(torch.linspace(
-                1.0, 16.0, self.n_heads, device=self.A_log.device)))
+                1.0, 16.0, self.A_log.shape[0], device=self.A_log.device)))
             self.D.fill_(1.0)
             self.dt_bias.zero_()
 
@@ -129,16 +218,22 @@ class Mamba2(nn.Module):
 
     # -- chunked (prefill) ---------------------------------------------------
 
-    def forward(self, x: torch.Tensor, state: Mamba2State | None = None):
-        """x [B, S, d_model] -> ([B, S, d_model], state)."""
+    def forward(self, x: torch.Tensor, state: Mamba2State | None = None,
+                reduce: bool = True):
+        """x [B, S, d_model] -> ([B, S, d_model], state).  With
+        ``reduce=False`` (inside a sequence-parallel region: `x` the
+        whole gathered sequence) a split layer reads `x` as it is and
+        gives this rank's part of ``out_proj``'s sum over the axis."""
         b, s, _ = x.shape
         if state is None:
             state = self.init_state(b, torch.float32, x.device)
+        if reduce:
+            x = copy_to(x, self.axis)
         z, xr, bmat, cmat, dt, conv_state = self._xbc(x, state)
         h, p, n = self.n_heads, self.head_dim, self.d_state
         f32 = torch.float32
-        dt = F.softplus(dt.to(f32) + self.dt_bias.to(f32))  # [B, S, H]
-        a = -torch.exp(self.A_log.to(f32))  # [H]
+        dt = F.softplus(dt.to(f32) + self._heads(self.dt_bias).to(f32))
+        a = -torch.exp(self._heads(self.A_log).to(f32))  # [H]
         xh = xr.reshape(b, s, h, p).to(f32)
 
         l = chunk_length(self.chunk, s)
@@ -173,29 +268,31 @@ class Mamba2(nn.Module):
             ssm = ssm * torch.exp(lcum[:, -1])[..., None, None] + upd
             ys.append(y_intra + y_inter)
         y = torch.stack(ys, dim=1).reshape(b, s, h, p)
-        y = y + xh * self.D.to(f32)[None, None, :, None]
+        y = y + xh * self._heads(self.D).to(f32)[None, None, :, None]
         y = y.reshape(b, s, self.d_inner).to(x.dtype)
         y = self._gated_norm(y, z)
-        return self.out_proj(y), Mamba2State(ssm, conv_state)
+        return self.out_proj(y, reduce), Mamba2State(ssm, conv_state)
 
     # -- recurrent decode ----------------------------------------------------
 
     def decode_step(self, x: torch.Tensor, state: Mamba2State):
         """x [B, 1, d_model] -> ([B, 1, d_model], state)."""
         b = x.shape[0]
-        z, xr, bv, cv, dt, conv_state = self._xbc(x, state)
+        z, xr, bv, cv, dt, conv_state = self._xbc(copy_to(x, self.axis),
+                                                  state)
         h, p, n = self.n_heads, self.head_dim, self.d_state
         f32 = torch.float32
         xr = xr.reshape(b, h, p).to(f32)
         bv = bv.reshape(b, n)
         cv = cv.reshape(b, n)
-        dt = F.softplus(dt.to(f32)[:, 0] + self.dt_bias.to(f32))  # [B, H]
-        a = -torch.exp(self.A_log.to(f32))
+        dt = F.softplus(dt.to(f32)[:, 0]
+                        + self._heads(self.dt_bias).to(f32))  # [B, H]
+        a = -torch.exp(self._heads(self.A_log).to(f32))
         decay = torch.exp(dt * a)  # [B, H]
         upd = torch.einsum("bhp,bn,bh->bhpn", xr, bv.to(f32), dt)
         ssm = state.ssm * decay[..., None, None] + upd
         y = torch.einsum("bn,bhpn->bhp", cv.to(f32), ssm)
-        y = y + xr * self.D.to(f32)[None, :, None]
+        y = y + xr * self._heads(self.D).to(f32)[None, :, None]
         y = y.reshape(b, 1, self.d_inner).to(x.dtype)
         y = self._gated_norm(y, z)
         return self.out_proj(y), Mamba2State(ssm, conv_state)
@@ -236,12 +333,42 @@ class RWKV6TimeMix(nn.Module):
         # one LayerNorm over all of d (the reference's, despite its
         # "per-head group norm" comment)
         self.ln_x = LayerNorm(d)
+        self.axis: Axis | None = None
 
     def logical_axes(self) -> dict:
         return {"mu_x": ("embed",), "mu": (None, "embed"),
                 "mix_a": ("embed", None), "mix_b": (None, None, "embed"),
                 "dec_a": ("embed", None), "dec_b": (None, "embed"),
                 "dec_base": ("embed",), "bonus_u": (None, None)}
+
+    def split_(self, axis: Axis) -> bool:
+        """Split by heads over the axis (module docstring); False (the
+        layer stays whole) where the axis does not divide them."""
+        if not splits(self.n_heads, axis):
+            return False
+        for lin in (self.r, self.k, self.v, self.g):
+            lin.split_("column", axis)
+        self.o.split_("row", axis)
+        self.ln_x.split_(axis)
+        self.n_heads //= axis.size
+        self.axis = axis
+        return True
+
+    def read_in_part(self) -> tuple:
+        """The leaves whole over the axis that a split layer reads for
+        its heads alone (each rank holds a part of their gradient)."""
+        if self.axis is None:
+            return ()
+        return ("mu_x", "mu", "mix_a", "mix_b", "dec_a", "dec_b",
+                "dec_base", "bonus_u", "ln_x.scale", "ln_x.bias")
+
+    def _mine(self, p: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's heads (dim 0 of ``bonus_u``) or channels of a whole
+        leaf."""
+        if self.axis is None:
+            return p
+        n = p.shape[dim] // self.axis.size
+        return p.narrow(dim, self.axis.index * n, n)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's constants (`repro/nn/ssm.py:227-247`): mu_x,
@@ -273,9 +400,9 @@ class RWKV6TimeMix(nn.Module):
         f32 = torch.float32
         lw = torch.matmul(torch.tanh(torch.matmul(xw.to(f32),
                                                   self.dec_a.to(f32))),
-                          self.dec_b.to(f32))
-        return -torch.exp(torch.clamp(self.dec_base.to(f32) + lw,
-                                      -20.0, 1.609))
+                          self._mine(self.dec_b, 1).to(f32))
+        return -torch.exp(torch.clamp(self._mine(self.dec_base, 0).to(f32)
+                                      + lw, -20.0, 1.609))
 
     def _proj_heads(self, xr, xk, xv, xg):
         b, s, _ = xr.shape
@@ -287,7 +414,7 @@ class RWKV6TimeMix(nn.Module):
         return r, k, v, g
 
     def _out(self, wkv_out: torch.Tensor, g: torch.Tensor, b: int, s: int):
-        y = self.ln_x(wkv_out.reshape(b, s, self.d))
+        y = self.ln_x(wkv_out.reshape(b, s, self.n_heads * self.head_dim))
         return self.o((y * g).to(g.dtype))
 
     def forward(self, x: torch.Tensor, shift_prev: torch.Tensor,
@@ -296,12 +423,13 @@ class RWKV6TimeMix(nn.Module):
         b, s, _ = x.shape
         h, p = self.n_heads, self.head_dim
         f32 = torch.float32
+        x = copy_to(x, self.axis)
         x_prev = torch.cat([shift_prev[:, None].to(x.dtype), x[:, :-1]],
                            dim=1)
         xr, xk, xv, xg, xw = self._mix(x, x_prev)
         r, k, v, g = self._proj_heads(xr, xk, xv, xg)
         logw = self._decay(xw).reshape(b, s, h, p)  # [B, S, H, dk]
-        u = self.bonus_u.to(f32)  # [H, dk]
+        u = self._mine(self.bonus_u, 0).to(f32)  # [H, dk]
 
         l = chunk_length(self.chunk, s)
         nc = s // l
@@ -343,11 +471,12 @@ class RWKV6TimeMix(nn.Module):
         b = x.shape[0]
         h, p = self.n_heads, self.head_dim
         f32 = torch.float32
+        x = copy_to(x, self.axis)
         x_prev = shift_prev[:, None].to(x.dtype)
         xr, xk, xv, xg, xw = self._mix(x, x_prev)
         r, k, v, g = self._proj_heads(xr, xk, xv, xg)
         logw = self._decay(xw).reshape(b, h, p)
-        u = self.bonus_u.to(f32)
+        u = self._mine(self.bonus_u, 0).to(f32)
         r1 = r[:, 0].to(f32)
         k1 = k[:, 0].to(f32)
         v1 = v[:, 0].to(f32)
@@ -372,9 +501,25 @@ class RWKV6ChannelMix(nn.Module):
                         kernel_axes=("mlp", "embed"))
         self.r = Linear(d_model, d_model, use_bias=False,
                         kernel_axes=("embed", "mlp"))
+        self.axis: Axis | None = None
 
     def logical_axes(self) -> dict:
         return {"mu_k": ("embed",), "mu_r": ("embed",)}
+
+    def split_(self, axis: Axis) -> bool:
+        """Split the hidden width and r's outputs over the axis (module
+        docstring); False (whole) where the axis does not divide both."""
+        if not (splits(self.hidden, axis) and splits(self.d, axis)):
+            return False
+        self.k.split_("column", axis)
+        self.v.split_("row", axis)
+        self.r.split_("column", axis)
+        self.axis = axis
+        return True
+
+    def read_in_part(self) -> tuple:
+        """The whole leaves a split layer reads for its part alone."""
+        return () if self.axis is None else ("mu_k", "mu_r")
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """mu_k and mu_r 0.5 (`repro/nn/ssm.py:371-377`)."""
@@ -384,11 +529,18 @@ class RWKV6ChannelMix(nn.Module):
             self.mu_r.fill_(0.5)
 
     def forward(self, x: torch.Tensor, shift_prev: torch.Tensor):
+        x = copy_to(x, self.axis)
         x_prev = torch.cat([shift_prev[:, None].to(x.dtype), x[:, :-1]],
                            dim=1)
         xx = x_prev - x
         xk = x + xx * self.mu_k.to(x.dtype)
         xr = x + xx * self.mu_r.to(x.dtype)
         kk = torch.square(torch.relu(self.k(xk)))
-        out = torch.sigmoid(self.r(xr)) * self.v(kk)
+        if self.axis is None:
+            out = torch.sigmoid(self.r(xr)) * self.v(kk)
+        else:  # this rank's channels of v's sum, then all of them
+            mine = reduce_scatter_seq(self.v(kk, reduce=False), self.axis,
+                                      -1)
+            out = gather_from(torch.sigmoid(self.r(xr)) * mine, self.axis,
+                              -1)
         return out, x[:, -1].to(shift_prev.dtype)

@@ -158,6 +158,24 @@ def sum_aux(auxes: list) -> dict[str, torch.Tensor]:
     return {k: torch.stack([a[k] for a in auxes]).sum() for k in auxes[0]}
 
 
+def vocab_shard(embed: Embedding, head: Linear | None = None
+                ) -> tuple | None:
+    """(axis, first id) of the vocabulary slice a split head gives on this
+    rank (the untied `head`'s columns, or the tied table's rows), or None
+    when it gives all of it."""
+    if head is None:
+        return embed.vocab_shard()
+    if head.split is None:
+        return None
+    return head.axis, head.axis.index * head.w.shape[1]
+
+
+def whole_vocab(logits: torch.Tensor, shard: tuple | None) -> torch.Tensor:
+    """Logits of every id: a vocabulary slice all-gathered over its axis
+    (serving returns whole logits)."""
+    return logits if shard is None else all_gather(logits, shard[0], -1)
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
@@ -363,12 +381,7 @@ class DecoderLM(nn.Module):
     def vocab_shard(self) -> tuple | None:
         """(axis, first id) of the vocabulary slice `apply_head` gives on
         this rank, or None when it gives all of it."""
-        if self.lm_head is None:
-            return self.embed.vocab_shard()
-        if self.lm_head.split is None:
-            return None
-        return self.lm_head.axis, (self.lm_head.axis.index
-                                   * self.lm_head.w.shape[1])
+        return vocab_shard(self.embed, self.lm_head)
 
     # ---- shared pieces -----------------------------------------------------
 
@@ -418,9 +431,8 @@ class DecoderLM(nn.Module):
         if seq is not None and self.vocab_shard() is None:
             logits = grad_share(logits, seq)
         logits = shard_activation(logits, ("batch", None, "vocab"))
-        shard = self.vocab_shard() if whole else None
-        if shard is not None:
-            logits = all_gather(logits, shard[0], -1)
+        if whole:
+            logits = whole_vocab(logits, self.vocab_shard())
         return logits.to(torch.float32)
 
     # ---- full sequence -----------------------------------------------------

@@ -6,7 +6,10 @@ takes this data rank's slices and a ``group`` (the data `Axis`) with
 clipping norm, Adafactor also in every mean over a sliced dimension.
 A leaf split over the "model" axis as well (tensor parallelism) comes
 with ``model`` (the model `Axis`) and ``model_dims``, and is corrected
-over that axis in the same places.
+over that axis in the same places.  ``model_dup`` names the ranges of a
+split leaf that every model rank holds alike (Mamba2's B and C columns
+of its fused projection): AdamW's norm counts them once; Adafactor
+refuses them.
 
 It is not `torch.optim.AdamW`, whose defaults and order differ: b2 is
 0.95 and eps 1e-8; the gradient is clipped to global norm 1.0 (with
@@ -92,9 +95,23 @@ def _sqnorms(leaves: list) -> list:
                                                dtype=torch.float32)]
 
 
+def _pieces(size: int, ranges) -> list:
+    """[(start, stop, alike)] covering ``[0, size)``: the `ranges` held
+    alike by every model rank, and the rest between them."""
+    out, at = [], 0
+    for lo, hi in sorted(ranges):
+        if lo > at:
+            out.append((at, lo, False))
+        out.append((lo, hi, True))
+        at = hi
+    if at < size:
+        out.append((at, size, False))
+    return out
+
+
 def global_norm(tree: Tree, *, group=None, shard_dims: dict | None = None,
-                model=None, model_dims: dict | None = None
-                ) -> torch.Tensor:
+                model=None, model_dims: dict | None = None,
+                model_dup: dict | None = None) -> torch.Tensor:
     """L2 norm over a gradient tree, each leaf's squared norm taken in
     fp32.
 
@@ -104,11 +121,13 @@ def global_norm(tree: Tree, *, group=None, shard_dims: dict | None = None,
     over the group, while replicated leaves count once — so every rank
     computes the exact full norm.  ``model`` and ``model_dims`` do the
     same for the leaves split over the model axis (a leaf split over
-    both is summed over both)."""
+    both is summed over both); ``model_dup`` ({name: (dim, [(start,
+    stop)])}) the ranges of such a leaf that every model rank holds
+    alike, counted once."""
     if group is None:
         shard_dims = None
     if model is None:
-        model_dims = None
+        model_dims = model_dup = None
     if shard_dims is None and model_dims is None:
         return torch.sqrt(sum(_sqnorms(list(tree.values()))))
     from repro_torch.distributed import collectives
@@ -116,11 +135,20 @@ def global_norm(tree: Tree, *, group=None, shard_dims: dict | None = None,
     def cut(dims, k):
         return dims is not None and dims[k] >= 0
 
+    items = []   # (tensor, sliced over data, split over model)
+    for k, x in tree.items():
+        d, m = cut(shard_dims, k), cut(model_dims, k)
+        dup = (model_dup or {}).get(k) if m else None
+        if dup is None:
+            items.append((x, d, m))
+            continue
+        dim, ranges = dup
+        for lo, hi, alike in _pieces(x.shape[dim], ranges):
+            items.append((x.narrow(dim, lo, hi - lo), d, not alike))
     device = next(iter(tree.values())).device
     zero = torch.zeros((), dtype=torch.float32, device=device)
     parts = {(d, m): sum(_sqnorms([
-        x for k, x in tree.items()
-        if cut(shard_dims, k) == d and cut(model_dims, k) == m]), zero)
+        x for x, xd, xm in items if xd == d and xm == m]), zero)
         for d in (False, True) for m in (False, True)}
     over_data = torch.stack([parts[True, False], parts[True, True]])
     if shard_dims is not None:
@@ -140,9 +168,11 @@ def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
 
 def clip_by_global_norm(tree: Tree, max_norm: float, *, group=None,
                         shard_dims: dict | None = None, model=None,
-                        model_dims: dict | None = None):
+                        model_dims: dict | None = None,
+                        model_dup: dict | None = None):
     norm = global_norm(tree, group=group, shard_dims=shard_dims,
-                       model=model, model_dims=model_dims)
+                       model=model, model_dims=model_dims,
+                       model_dup=model_dup)
     scale = clip_scale(norm, max_norm)
     # multiply in each leaf's own dtype, as the reference does
     return {k: g * scale.to(g.dtype) for k, g in tree.items()}, norm
@@ -233,7 +263,8 @@ class AdamW:
 
     def update(self, grads: Tree, state: AdamWState, params: Tree, *,
                group=None, shard_dims: dict | None = None, model=None,
-               model_dims: dict | None = None, groups: dict | None = None
+               model_dims: dict | None = None, groups: dict | None = None,
+               model_dup: dict | None = None
                ) -> tuple[Tree, AdamWState, dict]:
         """ZeRO-1: with ``group``/``shard_dims`` the inputs are this data
         rank's slices (and with ``model``/``model_dims`` this model
@@ -244,7 +275,8 @@ class AdamW:
                                            group=group,
                                            shard_dims=shard_dims,
                                            model=model,
-                                           model_dims=model_dims)
+                                           model_dims=model_dims,
+                                           model_dup=model_dup)
         step, bc1, bc2, lr = self._terms(state)
         out = {k: self._upd(params[k], grads[k], state.m[k], state.v[k],
                             bc1, bc2, lr)
@@ -256,7 +288,8 @@ class AdamW:
 
     def update_(self, grads: Tree, state: AdamWState, params: Tree, *,
                 group=None, shard_dims: dict | None = None, model=None,
-                model_dims: dict | None = None, groups: dict | None = None
+                model_dims: dict | None = None, groups: dict | None = None,
+                model_dup: dict | None = None
                 ) -> tuple[Tree, AdamWState, dict]:
         """`update` written into `params` and the state's moments in
         place, leaf by leaf, a leaf above CHUNKED_UPDATE_THRESHOLD in
@@ -266,7 +299,8 @@ class AdamW:
         `params` and a state holding the same moment tensors."""
         del groups
         gnorm = global_norm(grads, group=group, shard_dims=shard_dims,
-                            model=model, model_dims=model_dims)
+                            model=model, model_dims=model_dims,
+                            model_dup=model_dup)
         scale = clip_scale(gnorm, self.max_grad_norm)
         step, bc1, bc2, lr = self._terms(state)
         with torch.no_grad():
@@ -290,6 +324,14 @@ class AdamW:
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moment; for the >=100B archs)
 # ---------------------------------------------------------------------------
+
+def _refuse_dup(model, model_dup) -> None:
+    if model is not None and model_dup:
+        raise NotImplementedError(
+            "Adafactor on leaves held alike by every model rank "
+            f"({sorted(model_dup)}): its factored statistics would count "
+            "them once a rank (ROADMAP.md queue 1)")
+
 
 class AdafactorState(NamedTuple):
     step: torch.Tensor
@@ -342,7 +384,8 @@ class Adafactor:
 
     def update(self, grads: Tree, state: AdafactorState, params: Tree, *,
                group=None, shard_dims: dict | None = None, model=None,
-               model_dims: dict | None = None, groups: dict | None = None
+               model_dims: dict | None = None, groups: dict | None = None,
+               model_dup: dict | None = None
                ) -> tuple[Tree, AdafactorState, dict]:
         """ZeRO-1: with ``group``/``shard_dims`` ({name: dim of the
         port's tensor, -1 = replicated}; every layer of a stack on the
@@ -352,7 +395,10 @@ class Adafactor:
         over a sliced dimension (the column statistics and the RMS
         normalizers of a row-sliced 2-D leaf) is averaged over the axis
         it is sliced on, so every rank reproduces the replicated math.
-        ``groups``: the layer grouping (`init`)."""
+        ``groups``: the layer grouping (`init`).  Ranges held alike by
+        every model rank (``model_dup``) are refused: no config runs
+        Adafactor on a Mamba2 layer."""
+        _refuse_dup(model, model_dup)
         out: Tree = {}
 
         def put(name, index, value):
@@ -370,13 +416,15 @@ class Adafactor:
 
     def update_(self, grads: Tree, state: AdafactorState, params: Tree, *,
                 group=None, shard_dims: dict | None = None, model=None,
-                model_dims: dict | None = None, groups: dict | None = None
+                model_dims: dict | None = None, groups: dict | None = None,
+                model_dup: dict | None = None
                 ) -> tuple[Tree, AdafactorState, dict]:
         """`update`, each layer's new values written into `params` as
         soon as they are computed: no stack of a layer group is made
         (apart from the small ones of 1-D per-layer leaves), so the fp32
         temporaries cover one layer of a stack, or one unstacked leaf
         whole, as the reference's do."""
+        _refuse_dup(model, model_dup)
         def put(name, index, value):
             target = params[name]
             (target if index is None else target[index]).copy_(value)

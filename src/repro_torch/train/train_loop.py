@@ -282,11 +282,19 @@ class MeshTrainStep:
     program with the one-device step's numbers, as explicit collectives.
 
     * **Tensor parallelism** over "model": the step splits `model` in
-      place on construction (`partition.model_layout`: `DecoderLM.split_`;
-      the other families stay whole on every model rank), so read
-      ``model.named_parameters()`` after building it.  A leaf split
-      there holds its slice; its logical axes keep their model names,
-      and a whole leaf's lose them, so every spec is what the rank holds.
+      place on construction (`partition.model_layout`: the model's
+      ``split_``, every family's: `DecoderLM`, `RWKV6LM`, `Zamba2LM`,
+      `WhisperModel`), so read ``model.named_parameters()`` after
+      building it.  A leaf split there holds its slice; its logical axes
+      keep their model names, and a whole leaf's lose them, so every
+      spec is what the rank holds.  A layer split by heads that keeps a
+      leaf whole but reads it for its heads alone (RWKV6's mixes and
+      LoRAs, Mamba2's ``A_log``, the cross-rank norms' scales:
+      ``layout.partial``), or that holds some of a fused leaf alike on
+      every rank (Mamba2's B and C columns: ``layout.dup``), leaves a
+      part of their gradient on each model rank: those are summed over
+      "model" every step, and the clipping norm counts the alike ranges
+      once.
     * **Data parallelism**: every rank is handed the whole batch.  It is
       cut into microbatches first and each microbatch into the data
       ranks' row blocks (over pod x data where the mesh has pods) (the
@@ -373,14 +381,18 @@ class MeshTrainStep:
                     x, self.plan.data_axis, self.data_dims[k])
                     if self.data_dims[k] >= 0 else x
                     for k, x in tree.items()}
-            return self.plan.gather_params(tree, self.model_dims)
+            return self.plan.gather_params(tree, self.model_dims,
+                                           self.layout.fused)
 
     def model_sum(self) -> list:
-        """The leaves whose gradients are summed over "model": those
-        whole over it, when the last forward cut its sequence over it."""
-        if getattr(self.model, "head_seq", None) is None:
-            return []
-        return [k for k, d in self.model_dims.items() if d < 0]
+        """The leaves whose gradients are summed over "model": those a
+        split layer reads in part (``layout.partial``), and every leaf
+        whole over it when the last forward cut its sequence over it."""
+        names = list(self.layout.partial)
+        if getattr(self.model, "head_seq", None) is not None:
+            names += [k for k, d in self.model_dims.items()
+                      if d < 0 and k not in self.layout.partial]
+        return names
 
     def _microbatches(self, batch: dict) -> list:
         """Rank ``d``'s row block of every microbatch of `batch`."""
@@ -407,11 +419,13 @@ class MeshTrainStep:
                                         self._microbatches(batch))
         grads = _gradients(params, self.n_microbatches)
         with torch.no_grad():
-            grads = plan.zero_reduce_grads(grads, self.data_dims,
-                                           mean=False, sliced=self.fsdp,
-                                           model_sum=self.model_sum())
+            grads = plan.zero_reduce_grads(
+                grads, self.data_dims, mean=False, sliced=self.fsdp,
+                model_sum=self.model_sum(), model_dup=self.layout.dup)
             mesh_kw = dict(model=self.model_axis, model_dims=self.model_dims,
                            groups=self.groups)
+            if self.layout.dup:
+                mesh_kw["model_dup"] = self.layout.dup
             if self.zero:
                 current = {k: p.detach() for k, p in params.items()}
                 mine = plan.zero_slice(current, self.data_dims)

@@ -258,7 +258,11 @@ def test_seq_prefill_and_decode_match_reference(jax_seq, port_seq, name):
 @pytest.mark.parametrize("name", list(R.SEQ_SERVE))
 def test_seq_cache_is_half_of_the_whole_along_the_sequence(port_seq, name):
     """Every KV cache a rank holds has half the positions of the whole
-    one (all its kv heads); the SSM states stay whole."""
+    one (all its kv heads); the SSM states have no sequence dim and are
+    cut by heads as the split model holds them (zamba2's ssm state its
+    half of the heads, its conv buffer its half of the x channels and
+    all the B/C ones)."""
+    cfg = registry.get_config(R.SEQ_SERVE[name] + "-smoke")
     for world in port_seq:
         got = world["serve"][name]
         assert got["cuts"] and all(got["cuts"].values()), got["cuts"]
@@ -270,6 +274,13 @@ def test_seq_cache_is_half_of_the_whole_along_the_sequence(port_seq, name):
             if key in kv:
                 assert held[2] * 2 == whole[2], (key, held, whole)
                 assert held[:2] + held[3:] == whole[:2] + whole[3:]
+            elif key == "ssm":
+                assert held[2] * 2 == whole[2], (key, held, whole)
+                assert held[:2] + held[3:] == whole[:2] + whole[3:]
+            elif key == "conv":
+                n = 2 * cfg.ssm_state
+                assert held[3] == (whole[3] - n) // 2 + n, (held, whole)
+                assert held[:3] == whole[:3]
             else:
                 assert held == whole, (key, held, whole)
 

@@ -27,7 +27,8 @@ CASES = {
     # pick_optimizer's Adafactor (the full config's, >= 100B)
     "command_r": dict(arch="command-r-plus-104b", opt="pick", n_micro=1,
                       batch=4, seq=32),
-    # the family without tensor parallelism: data parallel + ZeRO-1
+    # the attention-free family, split by heads (time mix) and hidden
+    # width (channel mix) over "model", ZeRO-1 over "data"
     "rwkv": dict(arch="rwkv6-3b", opt="adamw", n_micro=1, batch=4, seq=32),
 }
 LR = 1e-4
@@ -50,6 +51,9 @@ def config(module, case: dict):
 
 
 def batch_np(cfg, case: dict, seed: int = 0) -> dict:
+    """Tokens and labels (and the case's uneven loss mask; an audio
+    model's frame embeddings, ``frames`` of them, from their own
+    generator)."""
     rng = np.random.default_rng(seed)
     b, s = case["batch"], case["seq"]
     toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
@@ -59,6 +63,9 @@ def batch_np(cfg, case: dict, seed: int = 0) -> dict:
         mask[1, s // 4:] = 0.0   # microbatch 0's second data half
         mask[2, : s // 2] = 0.0  # microbatch 1's first data half
         out["loss_mask"] = mask
+    if cfg.family == "audio":
+        out["audio_embeds"] = np.random.default_rng(seed + 1).standard_normal(
+            (b, case["frames"], cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -88,7 +95,7 @@ def optimizer(case: dict):
     from repro_torch.train import optimizer as opt
     if case["opt"] == "pick":
         return pick_optimizer(registry.get_config(case["arch"]))
-    return opt.AdamW(learning_rate=LR)
+    return opt.AdamW(learning_rate=case.get("lr", LR))
 
 
 def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
@@ -507,7 +514,8 @@ def seq_grads(case: dict, initial: dict) -> dict:
     with torch.no_grad():
         grads = plan.zero_reduce_grads(grads, {k: -1 for k in grads},
                                        mean=False,
-                                       model_sum=step.model_sum())
+                                       model_sum=step.model_sum(),
+                                       model_dup=step.layout.dup)
     return flatten(layers.stack_lm_tree(step.gather_params(grads)))
 
 
@@ -521,22 +529,23 @@ def seq_serve_inputs(cfg) -> dict:
     return out
 
 
-def seq_serve_case(arch: str, initial: dict) -> dict:
-    """Prefill and greedy decode of `arch`'s smoke model on this rank's
-    (data=2, model=2) plan under the rule (split over "model" where the
-    family splits): each step's logits and the tokens of this rank's
-    rows, and the shapes of the cache it holds and of the whole."""
+def seq_serve_case(arch: str, initial: dict, act_rules=SEQ_RULES) -> dict:
+    """Prefill and greedy decode of `arch`'s smoke model split over
+    "model" on this rank's (data=2, model=2) plan under the rule (or
+    under `act_rules` over the defaults): each step's logits and the
+    tokens of this rank's rows, and the shapes of the cache it holds and
+    of the whole."""
     import torch_launch_ranks as L
-    from repro_torch.distributed import collectives
+    from repro_torch.distributed import collectives, partition
     from repro_torch.distributed.sharding import use_sharding
     from repro_torch.models import registry
     from repro_torch.nn import layers
     cfg = L.serve_config(registry, arch)
     model = layers.load_jax_lm_params(registry.build_model(cfg, "cpu"),
                                       nest(initial))
-    plan = seq_plan()
-    if hasattr(model, "split_"):
-        model.split_(plan.mesh.axes["model"])
+    plan = partition.make_plan(model_parallel=2, device="cpu",
+                               act_rules=act_rules)
+    model.split_(plan.mesh.axes["model"])
     axis = plan.batch_axis
     width = L.SERVE_BATCH // axis.size
     inputs = {k: collectives.split_chunk(torch.from_numpy(v), axis, 0)
@@ -697,4 +706,188 @@ def seq_world(initial: dict, serve_initial: dict) -> dict:
                        for remat, arch in SEQ_LIVENESS.items()}
     out["collectives"] = seq_collectives_case()
     out["tally"] = seq_tally_case(fake=False)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism for rwkv6, zamba2 and whisper
+# (`tests/test_torch_lm_tp_families.py`)
+# ---------------------------------------------------------------------------
+
+TP_CASES = {
+    # the time mix split by heads (4 over 2), the channel mix by its
+    # hidden width, the head by vocabulary
+    "rwkv": CASES["rwkv"],
+    # Mamba2 by SSM heads (8 over 2), the shared block, the tied table
+    "zamba": dict(arch="zamba2-1.2b", opt="adamw", n_micro=1, batch=4,
+                  seq=32),
+    # the same placed (FSDP) under the "seq" rule, remat "layer", two
+    # microbatches and the uneven mask
+    "zamba_seq": dict(arch="zamba2-1.2b", opt="adamw", n_micro=2, batch=4,
+                      seq=32, remat="layer", mask=True),
+    # encoder and decoder attention and MLPs over 32 frames; lr 1e-5: the
+    # key biases' gradient is zero but for rounding (a softmax does not
+    # see a shift of its row), which Adam turns into steps of about the
+    # learning rate whose sign is the rounding's (at 1e-4 one element of
+    # the self-attention's wk.b ends 1.03e-5 off the reference's)
+    "whisper": dict(arch="whisper-medium", opt="adamw", n_micro=1, batch=4,
+                    seq=32, frames=32, lr=1e-5),
+}
+TP_RULES = {"zamba_seq": SEQ_RULES}   # a case's act rules over the defaults
+TP_PLACED = ("zamba_seq",)            # the cases placed by place_params_
+TP_SERVE = {"rwkv": "rwkv6-3b", "zamba": "zamba2-1.2b",
+            "whisper": "whisper-medium"}
+TP_TALLY_ARCH = "zamba2-1.2b"
+
+
+def tp_plan(name: str):
+    from repro_torch.distributed import partition
+    return partition.make_plan(model_parallel=2, device="cpu",
+                               act_rules=TP_RULES.get(name))
+
+
+def tp_grads(name: str, initial: dict) -> dict:
+    """The first step's gradient of `TP_CASES[name]` on this rank's plan
+    (the microbatches' mean, summed over the mesh as the step sums it,
+    every leaf whole) as the reference's flat tree."""
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.models import registry
+    from repro_torch.nn import layers
+    from repro_torch.train import train_loop
+    case = TP_CASES[name]
+    cfg = config(registry, case)
+    model = layers.load_jax_lm_params(registry.build_model(cfg, "cpu"),
+                                      nest(initial))
+    plan = tp_plan(name)
+    if name in TP_PLACED:
+        plan.place_params_(model)
+    step = train_loop.make_train_step(model, cfg, optimizer(case),
+                                      plan=plan, zero1=True,
+                                      n_microbatches=case["n_micro"])
+    params = dict(model.named_parameters())
+    batch = {k: torch.from_numpy(v) for k, v in batch_np(cfg, case).items()}
+    with use_sharding(plan.mesh, plan.param_rules, plan.act_rules):
+        train_loop._backward_metrics(step.loss_fn, step._microbatches(batch))
+    grads = train_loop._gradients(params, case["n_micro"])
+    with torch.no_grad():
+        dims = step.data_dims if step.fsdp else {k: -1 for k in grads}
+        grads = plan.zero_reduce_grads(
+            grads, dims, mean=False, sliced=step.fsdp,
+            model_sum=step.model_sum(), model_dup=step.layout.dup)
+    return flatten(layers.stack_lm_tree(step.gather_params(grads)))
+
+
+def tp_leaves_case(arch: str) -> dict:
+    """`arch`'s smoke model drawn from seed 5 and split on this rank's
+    (data=2, model=2) plan (`partition.model_layout`): the shape of each
+    leaf whole and held, the dim cut over "model", the fused leaves'
+    pieces, whether `gather_params` rebuilds every whole leaf bit for
+    bit, and whether `ModelLayout.rank_part` of each whole leaf is what
+    the rank holds."""
+    from repro_torch.distributed import partition
+    from repro_torch.models import registry
+    from repro_torch.nn import layers
+    cfg = registry.get_config(arch + "-smoke")
+    model = layers.init_params(registry.build_model(cfg, "cpu"), 5)
+    whole = {k: p.detach().clone() for k, p in model.named_parameters()}
+    plan = partition.make_plan(model_parallel=2, device="cpu")
+    layout = partition.model_layout(model, plan)
+    held = {k: p.detach() for k, p in model.named_parameters()}
+    back = plan.gather_params(held, layout.model_dims, layout.fused)
+    return {"whole": {k: tuple(v.shape) for k, v in whole.items()},
+            "held": {k: tuple(v.shape) for k, v in held.items()},
+            "model_dims": dict(layout.model_dims),
+            "fused": {k: (d, [tuple(p) for p in pieces])
+                      for k, (d, pieces) in layout.fused.items()},
+            "dup": layout.dup, "partial": list(layout.partial),
+            "gathered_equal": [k for k in whole
+                               if torch.equal(back[k], whole[k])],
+            "part_equal": [k for k in whole if torch.equal(
+                layout.rank_part(k, whole[k]), held[k])],
+            "index": plan.mesh.axes["model"].index}
+
+
+def split_norm_case() -> dict:
+    """One `LayerNorm` (48 channels, a drawn scale and bias) split over
+    this rank's model axis of a world of 2, against the whole one: each
+    rank's output channels, and the gradients of ``sum(y * w)`` (its
+    input channels', and the scale's and bias' summed over the axis)."""
+    from repro_torch.distributed import collectives, partition
+    from repro_torch.nn.layers import LayerNorm
+    plan = partition.make_plan(model_parallel=2, device="cpu")
+    axis = plan.mesh.axes["model"]
+    rng = np.random.default_rng(17)
+    x, w, scale, bias = (rng.standard_normal(shape).astype(np.float32)
+                         for shape in ((3, 5, 48), (3, 5, 48), 48, 48))
+    x = 3 * x + 1
+    out = {"index": axis.index, "x": x, "w": w}
+    for split in (False, True):
+        norm = LayerNorm(48)
+        with torch.no_grad():
+            norm.scale.copy_(torch.from_numpy(scale))
+            norm.bias.copy_(torch.from_numpy(bias))
+        xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+        if split:
+            norm.split_(axis)
+            xt = collectives.split_chunk(xt, axis, 2)
+            wt = collectives.split_chunk(wt, axis, 2)
+        xt.requires_grad_(True)
+        y = norm(xt)
+        (y * wt).sum().backward()
+        grads = [norm.scale.grad, norm.bias.grad]
+        if split:
+            grads = [collectives.all_reduce(g, axis) for g in grads]
+        out["split" if split else "whole"] = {
+            "y": y.detach().numpy(), "x_grad": xt.grad.numpy(),
+            "scale_grad": grads[0].numpy(), "bias_grad": grads[1].numpy()}
+    return out
+
+
+def tp_tally_case(*, fake: bool, device: str | None = None) -> dict:
+    """One traced train step of `TP_TALLY_ARCH`'s smoke config (AdamW,
+    fp32, two microbatches of 2 x 64), placed (FSDP) and under the
+    "seq" rule on this rank's (data=2, model=2) plan: on meta tensors in
+    a fake world, or on real CPU ones."""
+    import torch_launch_ranks as L
+    from repro_torch.launch.dryrun import trace_train
+    from repro_torch.models import registry
+    from repro_torch.nn.layers import init_params
+    from repro_torch.train.optimizer import AdamW
+    cfg = registry.get_config(TP_TALLY_ARCH + "-smoke")
+    device = device or ("meta" if fake else "cpu")
+
+    def init(model):
+        if device != "meta":
+            init_params(model, 0)
+
+    t = trace_train(cfg, AdamW(learning_rate=1e-4), L.tally_batch(cfg),
+                    plan=seq_plan(), n_microbatches=L.TALLY_MICRO,
+                    device=device, init=init, place=True)
+    return {k: t[k] for k in ("held", "collectives", "peak", "flops")}
+
+
+def tp_tally_fake() -> dict:
+    """`tp_tally_case` on rank 0 of a fake world of 4, on meta tensors."""
+    from repro_torch.launch.dryrun import fake_world
+    with fake_world(4):
+        return tp_tally_case(fake=True)
+
+
+def tp_world(initial: dict, serve_initial: dict) -> dict:
+    """What a rank of the 4-rank world of
+    `tests/test_torch_lm_tp_families.py` returns: every case trained and
+    its first gradient, the serving cases, each family's split leaves,
+    and the tally."""
+    out = {}
+    for name, case in TP_CASES.items():
+        out[name] = train_case(case, initial[name],
+                               placed=name in TP_PLACED,
+                               act_rules=TP_RULES.get(name))
+        out[name]["grads"] = tp_grads(name, initial[name])
+    out["serve"] = {name: seq_serve_case(arch, serve_initial[name],
+                                         act_rules=None)
+                    for name, arch in TP_SERVE.items()}
+    out["leaves"] = {name: tp_leaves_case(arch)
+                     for name, arch in TP_SERVE.items()}
+    out["tally"] = tp_tally_case(fake=False)
     return out
