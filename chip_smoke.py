@@ -161,9 +161,17 @@ head, 8 classes):
   layout's reckoning, then a prefill of 64 tokens and 8 greedy steps
   from the one-rank run's weights with fp32 caches cut by heads (by
   sequence under the rule): tokens equal, logits within rtol 1e-4 /
-  atol 1e-5.  Step ms, `torch.distributed` calls (and, for (d), (e)
-  and (f), per op; for (e) and (f) per mesh axis) and the host ms
-  inside them a step, and peak GB, a rank.  No kernel launches;
+  atol 1e-5; (g) granite-moe-3b-a800m at full width and 2 layers on 16
+  gloo ranks sharing the card at (data=1, model=16), the production
+  model axis, where its 40 experts and 24 / 8 heads do not divide: the
+  experts cut by their hidden width, attention's weights cut at rest by
+  fused columns and gathered at use, as the reference's resolver places
+  them; 3 steps of 1 x 256 against one rank at (a)'s limits, a rank's
+  parameter bytes equal to its layout's reckoning, the start-up of the
+  16 ranks timed.  Every run at lr 1e-5 (LM_MESH_LR).  Step ms,
+  `torch.distributed` calls (and, for (d) to (g), per op; for (e) to
+  (g) per mesh axis) and the host ms inside them a step, and peak GB, a
+  rank.  No kernel launches;
 * the dry run (`[dryrun]`, `repro_torch.launch.dryrun`, traced on meta
   tensors in spawned processes on the CPU): (a) `[lm-train]` (c)'s step
   on one rank against that run's measured peak, (b) rank 0 of
@@ -172,7 +180,9 @@ head, 8 classes):
   parameter and optimizer bytes it held (equal); (b') the same for rank
   0 of `[lm-mesh]` (d), calls per op equal too, and (b'') for (e);
   (b''') rank 0 of each `[lm-mesh]` (f) run: calls per op and per axis
-  and the bytes held equal, the traced peak beside the card's; (c)
+  and the bytes held equal, the traced peak beside the card's; (b'''')
+  rank 0 of `[lm-mesh]` (g) in a fake world of 16: calls per op and per
+  axis and the bytes held equal, the traced peak within 10%; (c)
   qwen2.5-32b's train_4k, prefill_32k and decode_32k and
   command-r-plus-104b's train_4k at 16 x 16 (256 ranks), placed as
   every cell is (FSDP), with their ``"seq"`` overrides applied, each
@@ -215,6 +225,7 @@ import io
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -315,11 +326,15 @@ MULTIHOST_RANKS = 2
 # the LM on the mesh (`[lm-mesh]`): (data=2, model=2) on 4 gloo ranks
 # sharing the card, full width cut to 2 layers, fp32 compute.  Adam's
 # first steps move a parameter by about its gradient's sign times the
-# rate, so a gradient element within rounding of zero, summed in another
-# order on the ranks, can land apart by a good part of the rate: at 1e-4
-# one element of qwen1.5-4b's 936.6 M ended 1.47e-5 off one rank's, past
-# rtol 1e-4 / atol 1e-5 (PERF.md §6, PR 26); at 1e-5 such a gap stays
-# under the tolerance while a parameter still moves by up to 3e-5
+# rate, so an element whose gradient is within rounding of zero, summed
+# in another order on the ranks, lands apart between two correct runs by
+# a good part of the rate.  At AdamW's default 1e-4 that happens in
+# leaves whose true gradient is not zero too: 1 to 9 elements a run of
+# embedding tables, Mamba2 and RWKV6 projections and rwkv6's bonus_u,
+# 1.47e-5 to 2.27e-5 off one rank's, past atol 1e-5 (PERF.md §6;
+# the key biases, whose true gradient is zero, were not among them).  So
+# the card runs at 1e-5, where such a gap stays under the tolerance
+# while a parameter still moves by up to 3e-5 (ROADMAP.md queue 3 item 8)
 LM_MESH_ARCHS = ("qwen1.5-4b", "granite-moe-3b-a800m")
 LM_MESH_DATA, LM_MESH_MODEL, LM_MESH_STAGES = 2, 2, 4
 LM_MESH_LAYERS = 2
@@ -344,6 +359,15 @@ LM_MESH_TP_RUNS = (("rwkv6-3b", None), ("zamba2-1.2b", None),
                    ("zamba2-1.2b", LM_MESH_SEQ_RULES),
                    ("whisper-medium", None))
 LM_MESH_TP_SEQ, LM_MESH_TP_MICRO, LM_MESH_TP_FRAMES = 256, 1, 32
+# (g): granite-moe at full width on (data=1, model=16), the production
+# model axis: its 40 experts and 24 / 8 heads do not divide 16, so the
+# experts are cut by their hidden width and attention's weights at rest
+# by fused columns (the reference resolver's fall-through); 16 gloo ranks
+# share the card, one intra-op thread each
+LM_MESH_UNEVEN_ARCH = "granite-moe-3b-a800m"
+LM_MESH_UNEVEN_MODEL = 16
+LM_MESH_UNEVEN_ROWS, LM_MESH_UNEVEN_SEQ = 1, 256
+LM_MESH_UNEVEN_TIMEOUT_S = 600
 
 
 def fail(message: str) -> None:
@@ -5197,17 +5221,19 @@ def lm_mesh_audio(torch, rows: int, cfg, seed: int):
         (rows, LM_MESH_TP_FRAMES, cfg.d_model)).astype(np.float32)).to(DEVICE)
 
 
-def lm_mesh_batch(torch, cfg, seq: int = LM_MESH_SEQ) -> dict:
+def lm_mesh_batch(torch, cfg, seq: int = LM_MESH_SEQ,
+                  rows: int = LM_MESH_BATCH) -> dict:
     """The global batch every rank is handed: tokens from the seed and a
     loss mask whose counts differ between the data halves of each of the
-    two microbatches (rows 1 and 2 cut); frame embeddings for an audio
-    model."""
+    two microbatches (rows 1 and 2 cut, where there are such rows); frame
+    embeddings for an audio model."""
     rng = np.random.default_rng(SEED + 7)
-    b, s = LM_MESH_BATCH, seq
+    b, s = rows, seq
     toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int64)
     mask = np.ones((b, s), np.float32)
-    mask[1, s // 4:] = 0.0
-    mask[2, : s // 2] = 0.0
+    if b > 2:
+        mask[1, s // 4:] = 0.0
+        mask[2, : s // 2] = 0.0
     out = {k: torch.from_numpy(v).to(DEVICE)
            for k, v in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]),
                         ("loss_mask", mask))}
@@ -5218,7 +5244,8 @@ def lm_mesh_batch(torch, cfg, seq: int = LM_MESH_SEQ) -> dict:
 
 def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
                   placed: bool = False, serve: bool = False,
-                  seq: int = LM_MESH_SEQ, micro: int = LM_MESH_MICRO) -> dict:
+                  seq: int = LM_MESH_SEQ, micro: int = LM_MESH_MICRO,
+                  rows: int = LM_MESH_BATCH, reckon: bool = False) -> dict:
     """`arch` (`lm_mesh_config`) drawn on the card from SEED and trained
     LM_MESH_STEPS steps with AdamW, on `plan`'s ranks (ZeRO-1; with
     `placed`, over parameters placed first by `MeshPlan.place_params_`:
@@ -5230,7 +5257,9 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
     LM_MESH_RTOL, atol LM_MESH_ATOL).  With `serve`, a prefill and
     greedy decode follow (`lm_mesh_serve`), on a plan from the one-rank
     run's final weights.  `seq`: the tokens of a row; `micro`: the
-    microbatches of a step."""
+    microbatches of a step; `rows`: the rows of the batch; `reckon`: the
+    bytes held against the layout's reckoning without a placement
+    (`lm_mesh_placement`)."""
     from repro_torch.distributed.partition import tree_bytes
     from repro_torch.models.registry import build_model
     from repro_torch.nn.layers import init_params, stack_groups
@@ -5249,7 +5278,7 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
     params = dict(model.named_parameters())
     state = (step.init_opt_state(params) if plan is not None
              else opt.init(params, stack_groups(params)))
-    batch = lm_mesh_batch(torch, cfg, seq)
+    batch = lm_mesh_batch(torch, cfg, seq, rows)
     metrics, step_ms = [], []
     with collective_clock(plan.mesh if plan is not None else None) as coll:
         for _ in range(LM_MESH_STEPS):
@@ -5275,7 +5304,7 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
                    ref_path)
     else:
         out.update(lm_mesh_compare(torch, step, params, ref_path))
-        if placed:
+        if placed or reckon:
             out.update(lm_mesh_placement(step, params))
     if serve:
         if plan is not None:
@@ -5420,7 +5449,8 @@ def lm_mesh_placement(step, params) -> dict:
                 uncut.append(k)
         reckoned += n
     cut = sum(1 for d in step.data_dims.values() if d >= 0)
-    return {"reckoned": reckoned, "uncut": uncut, "cut": cut}
+    return {"reckoned": reckoned, "uncut": uncut, "cut": cut,
+            "model_dims": dict(layout.model_dims)}
 
 
 def lm_mesh_expected_bytes(torch, arch: str) -> tuple:
@@ -5531,6 +5561,139 @@ def lm_mesh_line(label: str, run: dict, smi: str) -> str:
             f"{run['peak'] / 1e9:.2f} GB; {run['param_bytes'] / 1e9:.3f} GB "
             f"of parameters and {run['opt_bytes'] / 1e9:.3f} GB of "
             f"optimizer state held")
+
+
+def lm_mesh_uneven_rank(path: str) -> dict:
+    """What each of the 16 spawned ranks of `[lm-mesh]` (g) runs: the
+    granite run on (data=1, model=16), held to the one-rank run saved at
+    `path`, with the wall-clock times it entered and passed its first
+    barrier (the world's start-up) and every kernel's launch count."""
+    import torch
+    from repro_torch.distributed import partition
+    entered = time.time()
+    full_fp32(torch)
+    zero_launches()
+    plan = partition.make_plan(model_parallel=LM_MESH_UNEVEN_MODEL,
+                               device=DEVICE)
+    torch.distributed.barrier()
+    ready = time.time()
+    out = lm_mesh_train(torch, LM_MESH_UNEVEN_ARCH, plan, path,
+                        seq=LM_MESH_UNEVEN_SEQ, micro=1,
+                        rows=LM_MESH_UNEVEN_ROWS, reckon=True)
+    out.update(rank=plan.rank, entered=entered, ready=ready,
+               launches=read_launches())
+    return out
+
+
+# each leaf kind of (g) and the dim it must be cut on over "model": the
+# experts by hidden width, attention's weights at rest by fused columns
+LM_MESH_UNEVEN_DIMS = {"ffn.wi": 2, "ffn.wg": 2, "ffn.wo": 1,
+                       "attn.wq.w": 1, "attn.wk.w": 1, "attn.wv.w": 1,
+                       "attn.wo.w": 0}
+
+
+def lm_mesh_uneven(torch, smi, figures: dict, tmp: str) -> dict:
+    """(g): the one-rank run on the card alone, then the world of
+    LM_MESH_UNEVEN_MODEL gloo ranks sharing it (`lm_mesh_uneven_rank`):
+    every rank's metrics each step within LM_MESH_RTOL / LM_MESH_ATOL
+    of one rank's, its final parameters at (a)'s limits, its parameter
+    bytes equal to its layout's reckoning, each leaf kind of
+    LM_MESH_UNEVEN_DIMS cut on its dim, model-axis calls every step.
+    Returns every kernel's launches in the world (all must be 0); the
+    ranks' runs go into ``figures["lm-mesh-uneven"]`` for `[dryrun]`
+    (b'''')."""
+    import gc
+    from repro_torch.distributed.launch import run_ranks
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "uneven.pt")
+    one = lm_mesh_train(torch, LM_MESH_UNEVEN_ARCH, None, path,
+                        seq=LM_MESH_UNEVEN_SEQ, micro=1,
+                        rows=LM_MESH_UNEVEN_ROWS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.time()
+    world = run_ranks(lm_mesh_uneven_rank, LM_MESH_UNEVEN_MODEL,
+                      args=(path,), backend="gloo", device=DEVICE + ":0",
+                      threads=1, timeout_s=LM_MESH_UNEVEN_TIMEOUT_S)
+    world_s = time.time() - started
+    world.sort(key=lambda r: r["rank"])
+    figures["lm-mesh-uneven"] = world
+    keys = ("loss", "total_loss", "tokens", "grad_norm", "moe_lb_loss",
+            "moe_z_loss", "moe_drop_fraction")
+    label = (f"(g) {LM_MESH_UNEVEN_ARCH} (data=1, model="
+             f"{LM_MESH_UNEVEN_MODEL})")
+    for got in world:
+        r = got["rank"]
+        for step, (g, w) in enumerate(zip(got["metrics"], one["metrics"])):
+            for k in keys:
+                if not abs(g[k] - w[k]) <= LM_MESH_RTOL * abs(w[k]) \
+                        + LM_MESH_ATOL:
+                    fail(f"lm-mesh {label} rank {r} step {step + 1}: {k} "
+                         f"{g[k]!r} vs one rank's {w[k]!r} (rtol "
+                         f"{LM_MESH_RTOL} / atol {LM_MESH_ATOL})")
+        if got["misses"]:
+            fail(f"lm-mesh {label} rank {r}: {got['misses']} parameter "
+                 f"elements past rtol {LM_MESH_RTOL} / atol {LM_MESH_ATOL} "
+                 f"of one rank's (largest difference {got['worst']:.3e}): "
+                 f"{'; '.join(got['where'])}")
+        if got["uncut"] or got["param_bytes"] != got["reckoned"]:
+            fail(f"lm-mesh {label} rank {r}: {got['param_bytes']} parameter "
+                 f"bytes held against the layout's {got['reckoned']}, whole "
+                 f"where cut: {got['uncut']}")
+        dims = {k: d for k, d in got["model_dims"].items()
+                if any(k.endswith(s) for s in LM_MESH_UNEVEN_DIMS)}
+        wrong = {k: d for k, d in dims.items() if d != next(
+            v for s, v in LM_MESH_UNEVEN_DIMS.items() if k.endswith(s))}
+        if wrong or len(dims) != len(LM_MESH_UNEVEN_DIMS) * LM_MESH_LAYERS:
+            fail(f"lm-mesh {label} rank {r}: leaves cut on the wrong dim "
+                 f"over model: {wrong} (of {sorted(dims)})")
+        # at data=1 the model axis' line is the whole world: its calls
+        # name the default group ("world")
+        if got["per_axis"].get("world", 0) + got["per_axis"].get(
+                "model", 0) <= 1:
+            fail(f"lm-mesh {label} rank {r}: {got['per_axis']} calls a "
+                 "step by axis (the split needs model-axis calls)")
+    rank0 = world[0]
+    meds = [statistics.median(g["step_ms"][1:]) for g in world]
+    per_op = ", ".join(f"{k} {v:.0f}" for k, v in rank0["per_op"].items()
+                       if v)
+    per_axis = ", ".join(f"{k} {v:.0f}" for k, v in
+                         sorted(rank0["per_axis"].items()))
+    one_ms = statistics.median(one["step_ms"][1:])
+    entered = max(g["entered"] for g in world) - started
+    ready = max(g["ready"] for g in world) - started
+    whole = sorted({re.sub(r"\.\d+\.", ".*.", k)
+                    for k, d in rank0["model_dims"].items() if d < 0})
+    phase("lm-mesh", lm_mesh_line(f"{label} one rank", one, smi)
+          + f"; losses {[round(m['loss'], 5) for m in one['metrics']]}, "
+          f"moe_drop_fraction "
+          f"{[round(m['moe_drop_fraction'], 4) for m in one['metrics']]}")
+    phase("lm-mesh", lm_mesh_line(f"{label} rank 0", rank0, smi)
+          + f" ({rank0['param_bytes'] / one['param_bytes']:.3f} and "
+          f"{rank0['opt_bytes'] / one['opt_bytes']:.3f} of one rank's, the "
+          f"layout's reckoning); calls a step by op: {per_op}; by axis: "
+          f"{per_axis}; {rank0['split']} of {rank0['leaves']} leaves split "
+          f"over model (experts by hidden width, attention cut at rest), "
+          f"whole: {whole}; largest parameter difference "
+          f"{max(g['worst'] for g in world):.2e} over the ranks")
+    phase("lm-mesh", f"{label} vs one rank ({LM_MESH_LAYERS} layers at "
+          f"full width, {LM_MESH_STEPS} steps of {LM_MESH_UNEVEN_ROWS} x "
+          f"{LM_MESH_UNEVEN_SEQ}; the model axis is the world, its calls "
+          f"\"world\"): {', '.join(keys)} each step within rtol "
+          f"{LM_MESH_RTOL} / atol {LM_MESH_ATOL} and final parameters at "
+          f"(a)'s limits on all {len(world)} ranks; step "
+          f"{min(meds):.1f}-{max(meds):.1f} ms a rank ({smi}; one rank "
+          f"{one_ms:.1f}), peak {min(g['peak'] for g in world) / 1e9:.2f}-"
+          f"{max(g['peak'] for g in world) / 1e9:.2f} GB a rank (one rank "
+          f"{one['peak'] / 1e9:.2f}); start-up: the last rank entered "
+          f"{entered:.1f}s and passed its first barrier {ready:.1f}s after "
+          f"the spawn; world {world_s:.1f}s, (g) "
+          f"{time.perf_counter() - t0:.1f}s")
+    launches = read_launches()
+    for run in world:
+        for k, v in run["launches"].items():
+            launches[k] += v
+    return launches
 
 
 def lm_mesh_fsdp_check(world: list, want: dict, smi: str) -> None:
@@ -5743,9 +5906,10 @@ def lm_mesh_tp_check(runs: dict, one: dict, smi: str) -> None:
 def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     """The LM on the mesh (module docstring, `[lm-mesh]`): the one-rank
     runs alone first, then one world of LM_MESH_DATA x LM_MESH_MODEL
-    gloo ranks sharing the card for (a), (b) and (c).  Returns every
+    gloo ranks sharing the card for (a) to (f) and (c), then one of
+    LM_MESH_UNEVEN_MODEL for (g) (`lm_mesh_uneven`).  Returns every
     kernel's launches (all must be 0); each rank's (a) run goes into
-    ``figures["lm-mesh"]`` for `[dryrun]` (b)."""
+    ``figures["lm-mesh"]`` for `[dryrun]` (b), and so on."""
     import gc
     import tempfile
     from repro_torch.distributed.launch import run_ranks
@@ -5850,6 +6014,11 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     lm_mesh_seq_check(world, one[LM_MESH_ARCHS[0]], figures["lm-mesh-fsdp"],
                       smi)
     lm_mesh_tp_check(figures["lm-mesh-tp"], one_tp, smi)
+    with tempfile.TemporaryDirectory(prefix="lm_mesh_g_") as tmp:
+        for k, v in lm_mesh_uneven(torch, smi, figures, tmp).items():
+            launches[k] += v
+    if any(launches.values()):
+        fail(f"lm-mesh (g): a kernel of the port was launched: {launches}")
     pipe = [run["pipeline"] for run in world]
     got = next(p["out"] for p in pipe if p["out"] is not None)
     gap = float(np.abs(got - pipe_want).max())
@@ -5892,7 +6061,8 @@ def dryrun_job(job: tuple):
     one rank; ("lm-mesh",) rank 0 of `[lm-mesh]` (a) in a fake world of
     its ranks, ("lm-mesh-fsdp",) that of (d), ("lm-mesh-seq",) that of
     (e); ("lm-mesh-tp", arch, seq) that of an (f) run (under the "seq"
-    rule where `seq`); ("cell", arch, shape) `run_cell` at 16 x 16 (the
+    rule where `seq`); ("lm-mesh-uneven",) rank 0 of (g) in a fake world
+    of its 16 ranks; ("cell", arch, shape) `run_cell` at 16 x 16 (the
     cell's rule overrides applied) and its `analyze` row."""
     import torch
     torch.set_num_threads(1)
@@ -5936,6 +6106,18 @@ def dryrun_job(job: tuple):
             out = trace_train(cfg, AdamW(learning_rate=LM_MESH_LR), batch,
                               plan=plan, n_microbatches=LM_MESH_TP_MICRO,
                               place=True)
+    elif job[0] == "lm-mesh-uneven":
+        from repro_torch.distributed import partition
+        from repro_torch.train.optimizer import AdamW
+        cfg = lm_mesh_config(LM_MESH_UNEVEN_ARCH)
+        shape = (LM_MESH_UNEVEN_ROWS, LM_MESH_UNEVEN_SEQ)
+        batch = {"tokens": (shape, torch.int64), "labels": (shape, torch.int64),
+                 "loss_mask": (shape, torch.float32)}
+        with fake_world(LM_MESH_UNEVEN_MODEL):
+            plan = partition.make_plan(model_parallel=LM_MESH_UNEVEN_MODEL,
+                                       device="cpu")
+            out = trace_train(cfg, AdamW(learning_rate=LM_MESH_LR), batch,
+                              plan=plan, n_microbatches=1)
     else:
         from repro_torch.launch.roofline import analyze
         row = run_cell(job[1], job[2], multi_pod=False, verbose=False)
@@ -5961,11 +6143,14 @@ def dryrun_gap(label: str, predicted: int, measured: int) -> float:
 
 def dryrun_breakdown(trace: dict) -> str:
     p = trace["peak"]
+    parts = sorted(trace.get("rest_by_part", {}).items(),
+                   key=lambda kv: -kv[1])
+    by_part = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts[:4])
     return (f"step peak {p['total'] / 1e9:.3f} GB = parameters "
             f"{p['params'] / 1e9:.3f} + gradients {p['grads'] / 1e9:.3f} + "
             f"optimizer {p['opt_state'] / 1e9:.3f} + gathered "
             f"{p['gathered'] / 1e9:.3f} + the rest "
-            f"{p['rest'] / 1e9:.3f}; setup peak "
+            f"{p['rest'] / 1e9:.3f} (most of it: {by_part}); setup peak "
             f"{trace['setup_peak'] / 1e9:.3f} GB")
 
 
@@ -6051,6 +6236,41 @@ def dryrun_tp_check(trace: dict, ranks: list, label: str, smi: str) -> None:
           f"{dryrun_breakdown(trace)}; traced in {trace['seconds']:.1f}s")
 
 
+def dryrun_uneven_check(trace: dict, ranks: list, smi: str) -> None:
+    """(b''''): rank 0 of `[lm-mesh]` (g) traced against the card's rank
+    0: its calls a step per op and per mesh axis and the bytes held
+    equal, the traced peak within DRYRUN_TOL."""
+    rank0 = ranks[0]
+    coll = trace["collectives"]
+    per_op = {k: v["count"] for k, v in coll["per_op"].items()}
+    per_axis = {k: v["count"] for k, v in coll["per_axis"].items()}
+    held = trace["held"]
+    if per_op != {k: round(v) for k, v in rank0["per_op"].items()} \
+            or per_axis != {k: round(v) for k, v in
+                            rank0["per_axis"].items()} \
+            or held != {"params": rank0["param_bytes"],
+                        "opt_state": rank0["opt_bytes"]}:
+        fail(f"dryrun (b'''') (g): the dry run's calls a step {per_op}, by "
+             f"axis {per_axis} and {held} bytes held, rank 0's "
+             f"{rank0['per_op']}, {rank0['per_axis']}, "
+             f"{rank0['param_bytes']} parameter and {rank0['opt_bytes']} "
+             "optimizer bytes")
+    gap = dryrun_gap("(b'''')", dryrun_peak(trace), rank0["peak"])
+    phase("dryrun", f"(b'''') {LM_MESH_UNEVEN_ARCH} experts cut by hidden "
+          f"width, attention cut at rest, at (data=1, model="
+          f"{LM_MESH_UNEVEN_MODEL}), rank 0 of a fake world of "
+          f"{LM_MESH_UNEVEN_MODEL} (the [lm-mesh] (g) run): calls a step "
+          f"{per_op}, by axis {per_axis}, and {held['params'] / 1e9:.3f} / "
+          f"{held['opt_state'] / 1e9:.3f} GB of parameters / optimizer "
+          f"state held, equal to rank 0's on the card; dry-run peak "
+          f"{dryrun_peak(trace) / 1e9:.3f} GB against rank 0's "
+          f"{rank0['peak'] / 1e9:.3f} GB ({smi}; ranks "
+          f"{min(r['peak'] for r in ranks) / 1e9:.3f}-"
+          f"{max(r['peak'] for r in ranks) / 1e9:.3f}): {gap * 100:+.2f}% "
+          f"(limit {DRYRUN_TOL * 100:.0f}%); {dryrun_breakdown(trace)}; "
+          f"traced in {trace['seconds']:.1f}s")
+
+
 def dryrun_phase(torch, smi, figures: dict) -> dict:
     """The dry run (`repro_torch.launch.dryrun`) held to the card: (a)
     `[lm-train]` (c)'s step traced on one rank against its measured
@@ -6060,7 +6280,9 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
     optimizer bytes it held (equal); (b') the same for rank 0 of
     `[lm-mesh]` (d) (FSDP), its calls per op equal; (b'') the same for
     (e) (FSDP + sequence parallel); (b''') each (f) run (the families
-    split by heads), its calls per op and per axis equal; (c)
+    split by heads), its calls per op and per axis equal; (b'''') the
+    same for `[lm-mesh]` (g) (the experts cut by hidden width, attention
+    cut at rest, at model 16), its peak within DRYRUN_TOL too; (c)
     qwen2.5-32b's three cells and
     command-r-plus-104b's train_4k at 16 x 16, placed (FSDP), their
     ``"seq"`` overrides applied, `run_cell` and `analyze` rows; (d)
@@ -6074,14 +6296,16 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
     tp = [("lm-mesh-tp", arch, bool(rules))
           for arch, rules in LM_MESH_TP_RUNS]
     jobs = [("lm-train",), ("lm-mesh",), ("lm-mesh-fsdp",),
-            ("lm-mesh-seq",)] + tp + [("cell",) + c for c in DRYRUN_CELLS]
+            ("lm-mesh-seq",)] + tp + [("cell",) + c for c in DRYRUN_CELLS] \
+        + [("lm-mesh-uneven",)]
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(len(jobs),
                                                 mp_context=ctx) as pool:
         futures = [pool.submit(dryrun_job, job) for job in jobs]
         done = [f.result(timeout=DRYRUN_TIMEOUT_S) for f in futures]
     one, mesh, placed, seq = done[:4]
-    tp_traces, cells = done[4:4 + len(tp)], done[4 + len(tp):]
+    tp_traces = done[4:4 + len(tp)]
+    cells, uneven = done[4 + len(tp):-1], done[-1]
 
     measured = figures["lm-train"]["peak"]
     gap = dryrun_gap("(a)", dryrun_peak(one), measured)
@@ -6123,6 +6347,7 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
     for (arch, rules), trace in zip(LM_MESH_TP_RUNS, tp_traces):
         label = lm_mesh_tp_label(arch, rules)
         dryrun_tp_check(trace, figures["lm-mesh-tp"][label], label, smi)
+    dryrun_uneven_check(uneven, figures["lm-mesh-uneven"], smi)
     for (arch, shape), cell in zip(DRYRUN_CELLS, cells):
         row, roof = cell["row"], cell["roofline"]
         p = row["peak_bytes_per_device"]

@@ -43,6 +43,20 @@ GSPMD inserts where an "embed"-sharded weight meets its use:
                           backward (JAX transposes ``all_gather`` to a
                           ``psum_scatter``)
 
+and the same boundary over "model", for a weight cut there at rest whose
+layer computes whole on every model rank (heads the axis does not
+divide: the reference's resolver cuts their fused columns and GSPMD
+gathers them around the head reshape):
+
+  `gather_at_use(x, axis, dim, alike=True)`  all-gather forward; this
+                          rank's slice of the whole gradient backward
+                          (every rank runs the same whole layer on the
+                          same tokens and holds the same whole gradient,
+                          so a sum would count it M times; inside a
+                          sequence-parallel region, where each rank's
+                          gradient is its part of a sum, the default
+                          reduce-scatter is the right one)
+
 and the two boundaries of a sequence-parallel region (Megatron's
 sequence parallelism: the residual stream held as each rank's slice of
 the sequence between blocks, the reference's ``"seq": "model"`` rule):
@@ -292,13 +306,18 @@ class _GatherAtUse(torch.autograd.Function):
         return reduce_scatter(grad, ctx.axis, ctx.dim), None, None
 
 
-def gather_at_use(x: torch.Tensor, axis: Optional[Axis],
-                  dim: int) -> torch.Tensor:
+def gather_at_use(x: torch.Tensor, axis: Optional[Axis], dim: int, *,
+                  alike: bool = False) -> torch.Tensor:
     """The axis' slices of `x` all-gathered on `dim` (a new tensor); the
     gradient of the whole is reduce-scattered back to each rank's slice
-    as a sum over the axis (a rank's slice is read by every rank)."""
+    as a sum over the axis (a rank's slice is read by every rank).
+    ``alike``: every rank of the axis uses the whole alike and holds the
+    same whole gradient, so each slice's gradient is its part of it
+    (`gather_from`'s backward)."""
     if axis is None or axis.size == 1:
         return x
+    if alike:
+        return _GatherFrom.apply(x, axis, dim)
     return _GatherAtUse.apply(x, axis, dim)
 
 

@@ -34,6 +34,15 @@ sequence again, as Megatron's sequence parallelism does.  One scope
 serves a block, its weights and its residual alike (autograd takes the
 innermost saved-tensor hooks only).
 
+A leaf may also be cut over "model" at rest while its layer computes
+whole (`nn.layers.Linear` ``split_(..., at_rest=True)``: attention and
+RWKV6's time mix where the axis divides their fused heads x head_dim
+width but not their heads).  Such a layer gathers it over "model" at
+each use (`gather_cut` with ``alike``: every model rank runs the same
+layer, so each keeps its slice of the whole gradient), after `gathered`
+has made it whole over "data": a leaf cut over both is gathered over
+"data" at the layer's entry and over "model" at its use.
+
 Observers (`observers`) see every whole tensor gathered, forward and
 backward: the dry run's memory tally files them as ``gathered`` bytes.
 A residual regathered in the backward is shown to
@@ -79,6 +88,16 @@ def _notify(t: torch.Tensor) -> None:
         fn(t)
 
 
+def gather_cut(part: torch.Tensor, axis, dim: int, *,
+               alike: bool = False) -> torch.Tensor:
+    """`part` gathered whole over `axis` on `dim`
+    (`collectives.gather_at_use`, ``alike`` as there), shown to the
+    observers."""
+    w = collectives.gather_at_use(part, axis, dim, alike=alike)
+    _notify(w)
+    return w
+
+
 @contextlib.contextmanager
 def gathered(*modules):
     """The cut leaves of `modules` (None entries skipped) whole for the
@@ -92,8 +111,7 @@ def gathered(*modules):
     with saving_slices() as scope:
         try:
             for (mod, name, dim, axis), part in zip(leaves, parts):
-                w = collectives.gather_at_use(part, axis, dim)
-                _notify(w)
+                w = gather_cut(part, axis, dim)
                 if scope is not None:
                     scope.root(w, part, axis, dim)
                 mod._parameters[name] = w

@@ -777,9 +777,11 @@ def _module_leaves(model, method: str) -> dict:
 
 def model_layout(model, plan: "MeshPlan", param_axes=None) -> ModelLayout:
     """Split `model` over the plan's "model" axis in place (tensor
-    parallelism: the model's ``split_``, every family's) and return its
-    `ModelLayout` (``param_axes``: {name: logical axes}, the model's own
-    declarations when None).  A fused leaf cut by heads (B and C whole
+    parallelism: the model's ``split_``, every family's; a layer whose
+    heads or experts the axis does not divide takes the resolver's
+    fall-through: experts by hidden width, attention's weights cut at
+    rest by fused columns) and return its `ModelLayout` (``param_axes``:
+    {name: logical axes}, the model's own declarations when None).  A fused leaf cut by heads (B and C whole
     on every rank) is held to its axes as an even cut of its held width
     would be.  Raises ValueError where a leaf's split disagrees with its
     axes."""

@@ -31,7 +31,11 @@ CPU and without allocating:
   model built whole, split, the state made) and the step apart;
 * `CommTally` counts every `torch.distributed` call and its result
   bytes, per op (as the reference counts HLO result shapes) and per mesh
-  axis; the products' FLOPs are counted by `FlopCounterMode`'s table.
+  axis; the products' FLOPs are counted by `FlopCounterMode`'s table;
+* `PartTracker` files each storage by the layer part that allocated it,
+  so the peak's "rest" (what no other category holds) is broken down in
+  ``rest_by_part`` (`REST_PARTS`, each by phase: forward, recompute,
+  backward).
 
 ``hbm_fit`` is the step's peak against `HBM_PER_CARD`.  Each row says
 which layout the port ran (``layout``): FSDP (every cell's parameters
@@ -132,6 +136,8 @@ class MemoryTally(TorchDispatchMode):
         self._log: list = []
         self._peak_at = 0
         self._closed = False
+        self.parts: PartTracker | None = None
+        self._labels: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -157,6 +163,8 @@ class MemoryTally(TorchDispatchMode):
         seq = next(self._seq)
         nbytes = s.nbytes()
         self._ids[s] = seq
+        if self.parts is not None:
+            self._labels[seq] = self.parts.label()
         self.live += nbytes
         self._log.append((seq, nbytes))
         if self.live > self.peak:
@@ -202,7 +210,178 @@ class MemoryTally(TorchDispatchMode):
             out[name] = total
         out["rest"] = sum(live.values()) - sum(out.values())
         out["total"] = sum(live.values())
+        if self.parts is not None:
+            self.rest_by_part = self.parts.rest_by_part(
+                {k: v for k, v in live.items() if k not in seen},
+                self._labels)
         return out
+
+
+# the layer parts of a step's "rest": the carries a layer saves (each
+# block's output, the embedding's: the next block's input), the sequence
+# mixers (attention; RWKV6's time mix and Mamba2 as their families'
+# counterpart), the MoE's routing, dispatch and combine, its experts, the
+# dense MLPs (RWKV6's channel mix too), the norms, the head and the
+# cross-entropy of a chunk, the gradient reduction and the optimizer's
+# update, and whatever ran outside all of them
+REST_PARTS = ("carries", "attention", "moe_dispatch", "experts",
+              "dense_mlp", "norms", "ce_chunk", "optimizer", "other")
+
+
+class PartTracker:
+    """Which layer part is running, for `MemoryTally` to file each new
+    storage under (``label()``: ``"part/phase"``).
+
+    Module forward hooks (pre and post, process-wide while it is on) keep
+    a stack of the parts of the modules running (`part_of`: a module of
+    no part of its own, a `Linear` say, is in its enclosing one's), and
+    two functions of the step are wrapped the same way: the chunked
+    cross-entropy (``ce_chunk``) and the gradient reduction and update
+    (``optimizer``).  Backward allocations go to the part whose forward
+    made the autograd node running (`torch._C._current_autograd_node`):
+    at a part's exit the nodes its outputs reach that no part claimed
+    yet are tagged with it (``node.metadata``), and at its entry those
+    its inputs reach with the enclosing part.  A forward run again in the
+    backward (a checkpointed layer, `fsdp.recomputed`) is the recompute
+    phase.  Nothing here holds a tensor: the stack holds names, the
+    nodes a string, and a block's output is marked a carry by its
+    storage's number in the tally."""
+
+    def __init__(self, model, mem: "MemoryTally"):
+        from repro_torch.nn.layers import LAYER_STACKS
+        layer = re.compile(r"(%s)\.\d+" % "|".join(LAYER_STACKS))
+        self.mem = mem
+        self.parts = {id(m): self.part_of(n, m)
+                      for n, m in model.named_modules()}
+        self.carry_ids = {id(m) for n, m in model.named_modules()
+                          if layer.fullmatch(n) or n == "embed"}
+        self.stack: list = []
+        self.carries: set = set()
+        self._undo: list = []
+
+    @staticmethod
+    def part_of(name: str, module):
+        """A module's part, or None: it is in its enclosing one's."""
+        from repro_torch.nn.attention import Attention
+        from repro_torch.nn.layers import MLP, LayerNorm, RMSNorm
+        from repro_torch.nn.moe import Experts, MoELayer
+        from repro_torch.nn.ssm import Mamba2, RWKV6ChannelMix, RWKV6TimeMix
+        leaf = name.rpartition(".")[2]
+        kinds = ((Experts, "experts"), (MoELayer, "moe_dispatch"),
+                 ((Attention, Mamba2, RWKV6TimeMix), "attention"),
+                 ((MLP, RWKV6ChannelMix), "dense_mlp"),
+                 ((RMSNorm, LayerNorm), "norms"))
+        for kind, part in kinds:
+            if isinstance(module, kind):
+                return part
+        return "ce_chunk" if leaf in ("lm_head", "head") else None
+
+    def phase(self) -> str:
+        if torch._C._current_graph_task_id() < 0:
+            return "forward"
+        return "recompute" if fsdp._state.recompute else "backward"
+
+    def label(self) -> str:
+        phase = self.phase()
+        part = self._current(None)
+        if part is None and phase != "forward":
+            node = torch._C._current_autograd_node()
+            if node is not None:
+                part = node.metadata.get("part")
+        return f"{part or 'other'}/{phase}"
+
+    def _tag(self, tensors, part: str) -> None:
+        """Tag the autograd nodes `tensors` reach that no part holds yet
+        with `part` (a parameter's accumulator is nobody's)."""
+        todo = [t.grad_fn for t in tensors
+                if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+        while todo:
+            node = todo.pop()
+            if node is None or "part" in node.metadata \
+                    or type(node).__name__ == "AccumulateGrad":
+                continue
+            node.metadata["part"] = part
+            todo.extend(f for f, _ in node.next_functions)
+
+    def _current(self, default="other"):
+        """The innermost running part (`default` outside all)."""
+        return next((p for p in reversed(self.stack) if p is not None),
+                    default)
+
+    def enter(self, part, inputs) -> None:
+        self._tag(tree_leaves(inputs), self._current())
+        self.stack.append(part)
+
+    def exit(self, outputs) -> None:
+        part = self._current()
+        self.stack.pop()
+        self._tag(tree_leaves(outputs), part)
+
+    def _pre(self, module, args):
+        key = id(module)
+        if key in self.parts:
+            self.enter(self.parts[key], args)
+
+    def _post(self, module, args, out):
+        key = id(module)
+        if key not in self.parts:
+            return
+        self.exit(out)
+        if key in self.carry_ids and self.phase() == "forward":
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    seq = self.mem.seq_of(t)
+                    if seq is not None:
+                        self.carries.add(seq)
+
+    def _region(self, part: str, fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            self.enter(part, (args, kwargs))
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.stack.pop()
+            self._tag(tree_leaves(out), part)
+            return out
+        return run
+
+    def __enter__(self):
+        from torch.nn.modules import module as nn_module
+
+        from repro_torch.distributed.partition import MeshPlan
+        from repro_torch.train import optimizer, train_loop
+        self._undo = [nn_module.register_module_forward_pre_hook(self._pre),
+                      nn_module.register_module_forward_hook(self._post)]
+        patched = [(train_loop, "chunked_cross_entropy", "ce_chunk")]
+        patched += [(owner, name, "optimizer")
+                    for owner in (optimizer.AdamW, optimizer.Adafactor)
+                    for name in ("update", "update_")]
+        patched += [(MeshPlan, name, "optimizer")
+                    for name in ("zero_reduce_grads", "zero_gather")]
+        self._patched = []
+        for owner, name, part in patched:
+            fn = owner.__dict__[name]
+            self._patched.append((owner, name, fn))
+            setattr(owner, name, self._region(part, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for handle in self._undo:
+            handle.remove()
+        for owner, name, fn in self._patched:
+            setattr(owner, name, fn)
+        return False
+
+    def rest_by_part(self, live: dict, labels: dict) -> dict:
+        """{"part/phase": bytes} of the live storages `live` ({number:
+        bytes}) by their `labels`, carries apart."""
+        out: dict = {}
+        for seq, nbytes in live.items():
+            key = ("carries/forward" if seq in self.carries
+                   else labels.get(seq, "other/forward"))
+            out[key] = out.get(key, 0) + nbytes
+        return dict(sorted(out.items()))
 
 
 def _flat_args(args, kwargs):
@@ -389,7 +568,7 @@ def _tensors(tree) -> list:
     return out
 
 
-def trace_step(setup: Callable, *, mesh=None) -> dict:
+def trace_step(setup: Callable, *, mesh=None, parts: bool = True) -> dict:
     """``setup() -> (fn, args, model, kind)`` runs first (the setup window:
     build, split, state), then ``fn(*args)`` once (the step window),
     under `MemoryTally` (FLOPs counted in the step) and `CommTally`.  A
@@ -398,7 +577,8 @@ def trace_step(setup: Callable, *, mesh=None) -> dict:
     cache, the whole parameters gathered at use under FSDP — transient:
     a layer's, forward or backward — and the rest), the step's
     collectives and FLOPs, the bytes held between steps and the seconds
-    taken."""
+    taken; with `parts`, also the rest at the peak by layer part
+    (``rest_by_part``, `PartTracker`), which moves no byte."""
     from repro_torch.distributed.partition import tree_bytes
     t0 = time.perf_counter()
     gathered: set = set()
@@ -410,7 +590,11 @@ def trace_step(setup: Callable, *, mesh=None) -> dict:
         comm.reset()
         t1 = time.perf_counter()
         mem.flops = 0
-        out = fn(*args)
+        tracker = PartTracker(model, mem) if parts else \
+            contextlib.nullcontext()
+        with tracker:
+            mem.parts = tracker if parts else None
+            out = fn(*args)
         flops, mem.flops = mem.flops, None
         params = list(model.parameters())
         # train -> (params, opt_state, metrics); prefill -> (logits,
@@ -426,15 +610,20 @@ def trace_step(setup: Callable, *, mesh=None) -> dict:
                                       model.named_parameters()}),
                 "opt_state": sum(int(t.numel()) * t.element_size()
                                  for t in opt)}
-    return {"peak": peak, "setup_peak": setup_peak,
-            "collectives": comm.summary(),
-            "flops": float(flops), "held": held,
-            "setup_s": t1 - t0, "step_s": time.perf_counter() - t1}
+    mem.parts = None
+    out = {"peak": peak, "setup_peak": setup_peak,
+           "collectives": comm.summary(),
+           "flops": float(flops), "held": held,
+           "setup_s": t1 - t0, "step_s": time.perf_counter() - t1}
+    if parts:
+        out["rest_by_part"] = mem.rest_by_part
+    return out
 
 
 def trace_train(cfg, optimizer, batch: dict, *, plan=None,
                 n_microbatches: int = 1, device="meta",
-                init: Callable | None = None, place: bool = False) -> dict:
+                init: Callable | None = None, place: bool = False,
+                parts: bool = True) -> dict:
     """`trace_step` of one LM train step of `cfg` (`make_train_step`; on
     `plan`'s ranks `MeshTrainStep(zero1=True)`, over parameters placed
     first by `MeshPlan.place_params_` (FSDP) with `place`): the model
@@ -464,7 +653,8 @@ def trace_train(cfg, optimizer, batch: dict, *, plan=None,
         return step, args, model, "train"
 
     from repro_torch.nn.layers import stack_groups
-    return trace_step(setup, mesh=plan.mesh if plan is not None else None)
+    return trace_step(setup, mesh=plan.mesh if plan is not None else None,
+                      parts=parts)
 
 
 # ---------------------------------------------------------------------------
@@ -603,6 +793,7 @@ def trace_cell(arch: str, shape: str, plan) -> dict:
         "hbm_per_card": HBM_PER_CARD,
         "held_bytes_per_device": t["held"],
         "traced_flops_per_device": t["flops"],
+        "rest_by_part": t["rest_by_part"],
         "collectives": t["collectives"],
         "n_microbatches": getattr(cell.fn, "n_microbatches", 1),
         "layout": _layout(cell, plan, whole),

@@ -13,11 +13,13 @@ training, which the reference does under that rule, is not ported:
 
 On a mesh `split_` splits the model over its "model" axis: each block's
 channel mix by its hidden width and its time mix by heads where the axis
-divides them (`repro_torch.nn.ssm`; rwkv6-3b's 40 heads stay whole at
-model 16), the embedding table and the untied head by vocabulary.  The
-head then gives this rank's logits for the split cross-entropy
-(`vocab_shard`), serving all-gathers them, and the cache holds this
-rank's heads of the wkv state.
+divides them (`repro_torch.nn.ssm`; rwkv6-3b's 40 heads compute whole at
+model 16, their r, k, v, g and o cut at rest by the fused columns and
+gathered at use, the wkv state whole: the reference cuts it by value
+columns there, a follow-up in ROADMAP.md), the embedding table and the
+untied head by vocabulary.  The head then gives this rank's logits for
+the split cross-entropy (`vocab_shard`), serving all-gathers them, and
+the cache holds this rank's heads of the wkv state.
 """
 from __future__ import annotations
 

@@ -11,6 +11,19 @@ axis (the reference's ``"seq": "model"`` rule on its cache axes): rank
 ``r`` holds positions ``[r T / M, (r + 1) T / M)`` of every kv head, a
 new token's K/V is written on the rank that owns its position, and
 `merged_gqa_attention` merges the ranks' softmax terms over the axis.
+On a mesh, `Attention.split_` splits a layer by whole heads over the
+"model" axis where the axis divides its query and kv heads.  Where it
+does not (qwen1.5-4b's 20 heads, granite's 24 / 8, arctic's 56 / 8 at
+16), the layer computes whole on every model rank, as GSPMD runs the
+reference's, but its weights are still cut at rest as the reference's
+resolver cuts them: ``wq`` / ``wk`` / ``wv`` by the fused heads x
+head_dim columns and ``wo`` by those rows, wherever the axis divides
+that width.  Each call gathers the weights whole over the axis
+(`Linear` cut at rest) rather than the activations: at training token
+counts a layer's weights (4 d^2 at most) are fewer bytes than its
+[B, S, heads x head_dim] projections, and a gathered weight is alike on
+every rank, so its backward keeps the rank's slice of the gradient with
+no collective.
 With ``use_flash`` on, full-sequence
 self-attention without a mask goes to the ported flash kernel
 (`repro_torch.kernels.flash_attention.ops`) on the condition of
@@ -353,9 +366,18 @@ class Attention(nn.Module):
         """Split by whole heads over the axis: q, k and v by columns
         (this rank's query heads and the kv heads their GQA groups read,
         both contiguous), o by rows, its products summed over the axis.
-        False (the layer stays whole) when the query or kv heads do not
-        split evenly, which would cut a head or a group."""
+        False (the layer computes whole) when the query or kv heads do
+        not split evenly, which would cut a head or a group; its weights
+        are then cut at rest wherever the axis divides their fused
+        heads x head_dim width (module docstring, `cut_at_rest`)."""
         if not (splits(self.n_heads, axis) and splits(self.n_kv, axis)):
+            hd = self.head_dim
+            for lin, heads in ((self.wq, self.n_heads), (self.wk, self.n_kv),
+                               (self.wv, self.n_kv)):
+                if splits(heads * hd, axis):
+                    lin.split_("column", axis, at_rest=True)
+            if splits(self.n_heads * hd, axis):
+                self.wo.split_("row", axis, at_rest=True)
             return False
         for lin in (self.wq, self.wk, self.wv):
             lin.split_("column", axis)
@@ -365,11 +387,18 @@ class Attention(nn.Module):
         self.axis = axis
         return True
 
-    def _project(self, x: torch.Tensor, positions: torch.Tensor):
+    def cut_at_rest(self) -> Axis | None:
+        """The axis this whole layer's weights are cut over between
+        calls (`split_`), or None."""
+        cut = self.wq.rest_cut or self.wk.rest_cut
+        return cut[1] if cut is not None else None
+
+    def _project(self, x: torch.Tensor, positions: torch.Tensor,
+                 reduce: bool = True):
         b, s, _ = x.shape
-        q = self.wq(x).reshape(b, s, self.n_heads, self.head_dim)
-        k = self.wk(x).reshape(b, s, self.n_kv, self.head_dim)
-        v = self.wv(x).reshape(b, s, self.n_kv, self.head_dim)
+        q = self.wq(x, reduce).reshape(b, s, self.n_heads, self.head_dim)
+        k = self.wk(x, reduce).reshape(b, s, self.n_kv, self.head_dim)
+        v = self.wv(x, reduce).reshape(b, s, self.n_kv, self.head_dim)
         if self.rope:
             q = apply_rope(q, positions, self.rope_theta)
             k = apply_rope(k, positions, self.rope_theta)
@@ -389,9 +418,9 @@ class Attention(nn.Module):
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if kv is None:
-            q, k, v = self._project(x, positions)
+            q, k, v = self._project(x, positions, reduce)
         else:
-            q = self.wq(x).reshape(b, s, self.n_heads, self.head_dim)
+            q = self.wq(x, reduce).reshape(b, s, self.n_heads, self.head_dim)
             if self.rope:
                 q = apply_rope(q, positions, self.rope_theta)
             k, v = kv

@@ -16,7 +16,11 @@ places), and `param_axes(model)` gathers them by parameter name.
 mesh (`split_`): a column split cuts a weight's outputs, a row split its
 inputs and sums the partial products over the axis
 (`repro_torch.distributed.collectives.copy_to` / `reduce_from` are the
-region's boundaries).
+region's boundaries).  A `Linear` may instead be cut at rest only
+(``split_(kind, axis, at_rest=True)``): it holds its slice between
+calls, as the reference's resolver places the leaf, and gathers the
+whole weight at each call (`fsdp.gather_cut`), so the layer computes
+whole on every rank of the axis.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.collectives import (Axis, copy_to, reduce_from,
                                                  sum_over)
 
@@ -64,7 +69,9 @@ class Linear(nn.Module):
     After ``split_("column", axis)`` the layer holds this rank's columns
     (and bias entries) and gives this rank's outputs; after
     ``split_("row", axis)`` it holds its rows, reads this rank's inputs
-    and sums the products over the axis before the (whole) bias."""
+    and sums the products over the axis before the (whole) bias.  With
+    ``at_rest=True`` it holds the same slices but gathers them whole at
+    each call and computes as a whole layer (``rest_cut``)."""
 
     def __init__(self, in_dim: int, out_dim: int, *, use_bias: bool = True,
                  kernel_axes: tuple = (None, None)):
@@ -76,13 +83,16 @@ class Linear(nn.Module):
         self.b = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
         self.split: str | None = None
         self.axis: Axis | None = None
+        self.rest_cut: tuple | None = None   # (kind, Axis) when cut at rest
 
     def logical_axes(self) -> dict:
         return {"w": self.kernel_axes, "b": self.kernel_axes[-1:]}
 
-    def split_(self, kind: str, axis: Axis) -> None:
+    def split_(self, kind: str, axis: Axis, *, at_rest: bool = False
+               ) -> None:
         """Keep this rank's slice: "column" cuts the outputs, "row" the
-        inputs (both must divide by the axis size)."""
+        inputs (both must divide by the axis size).  ``at_rest``: only
+        the storage is cut; each call gathers the whole weight."""
         if kind == "column":
             self.w = rank_slice(self.w, 1, axis)
             if self.b is not None:
@@ -91,7 +101,26 @@ class Linear(nn.Module):
             self.w = rank_slice(self.w, 0, axis)
         else:
             raise ValueError(f"unknown split {kind!r}")
-        self.split, self.axis = kind, axis
+        if at_rest:
+            self.rest_cut = (kind, axis)
+        else:
+            self.split, self.axis = kind, axis
+
+    def whole(self, alike: bool = True) -> tuple:
+        """(w, b) whole: gathered over the axis where the layer is cut at
+        rest (``alike``: every rank of the axis computes this layer alike
+        and keeps its slice of the gradient; False inside a
+        sequence-parallel region, where each rank's gradient is its part
+        of a sum and the slices take the reduce-scatter of it)."""
+        if self.rest_cut is None:
+            return self.w, self.b
+        kind, axis = self.rest_cut
+        column = kind == "column"
+        w = fsdp.gather_cut(self.w, axis, 1 if column else 0, alike=alike)
+        b = self.b
+        if column and b is not None:
+            b = fsdp.gather_cut(b, axis, 0, alike=alike)
+        return w, b
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Lecun-normal (`lecun_normal_`); zero bias."""
@@ -103,15 +132,18 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor, reduce: bool = True) -> torch.Tensor:
         """With ``reduce=False`` a row split gives this rank's part of
         the sum over the axis, its bias on the axis' first rank alone (a
-        sequence-parallel block reduce-scatters the parts itself)."""
-        y = torch.matmul(x, self.w.to(x.dtype))
+        sequence-parallel block reduce-scatters the parts itself), and a
+        layer cut at rest gathers its weights for such a region
+        (`whole`)."""
+        w, b = self.whole(alike=reduce)
+        y = torch.matmul(x, w.to(x.dtype))
         if self.split == "row":
             if reduce:
                 y = reduce_from(y, self.axis)
             elif self.axis.index:
                 return y
-        if self.b is not None:
-            y = y + self.b.to(x.dtype)
+        if b is not None:
+            y = y + b.to(x.dtype)
         return y
 
 

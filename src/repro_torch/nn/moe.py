@@ -21,7 +21,9 @@ expert are counted within a group of tokens, each expert keeps at most
 
 The expert stacks ``wi`` / ``wg`` ``[E, d, h]`` and ``wo`` ``[E, h, d]``
 are each one parameter, cast to the compute dtype on every call as the
-reference casts them.
+reference casts them, and run by `Experts`, a module without parameters
+of its own (so a forward hook, such as the dry run's, sees the experts
+apart from the dispatch and combine around them).
 
 On a mesh (the counterpart of the reference's sharding constraints,
 `repro/nn/moe.py:112-165`):
@@ -48,6 +50,18 @@ On a mesh (the counterpart of the reference's sharding constraints,
     The router and the routing stay whole on every rank; the dispatched
     tokens and the gates enter the rank's experts through
     `collectives.copy_to`, so their gradients are summed over the axis;
+  * where the axis does not divide the experts but divides their hidden
+    width (granite's 40 experts of 512 at 16), the reference's resolver
+    falls through from "expert" to "mlp": each rank keeps every expert,
+    ``wi`` / ``wg`` cut on their hidden columns and ``wo`` on its rows
+    (``cut == "mlp"``).  Routing, capacity and drops are computed alike
+    on every rank (the same router on the same tokens), every rank
+    dispatches every assignment to its slice of each expert, and the
+    combine is a partial sum over the axis, reduced once where the
+    output is (`reduce_from`), as the dense `MLP`'s row split is.  The
+    dispatched tokens and the gates enter through `copy_to` as above,
+    so the router's gradient is whole and alike on every rank and the
+    auxiliary values, computed alike, are counted once;
   * inside a sequence-parallel block (``reduce=False``: the input is the
     whole gathered sequence, each rank's gradient its part of a sum over
     "model"): no `copy_to`, the output is this rank's part of the sum
@@ -91,6 +105,26 @@ def top_k(probs: torch.Tensor, k: int) -> tuple:
     return values[..., :k], indices[..., :k]
 
 
+class Experts(nn.Module):
+    """The experts' three batched products on a dispatch buffer
+    ``[G, E, cap, d]``, from the stacks the caller passes (`MoELayer`
+    owns them)."""
+
+    def __init__(self, act, gated: bool):
+        super().__init__()
+        self.act, self.gated = act, gated
+
+    def forward(self, buf, wi, wg, wo):
+        h = torch.einsum("gecd,edh->gech", buf, wi.to(buf.dtype))
+        if self.gated:
+            h = self.act(torch.einsum("gecd,edh->gech", buf,
+                                      wg.to(buf.dtype))) * h
+        else:
+            h = self.act(h)
+        h = shard_activation(h, ("moe_group", "expert", None, "mlp"))
+        return torch.einsum("gech,ehd->gecd", h, wo.to(buf.dtype))
+
+
 class MoELayer(nn.Module):
     """Top-k routed expert FFN, with an optional parallel dense MLP."""
 
@@ -116,10 +150,12 @@ class MoELayer(nn.Module):
         self.wg = (nn.Parameter(torch.zeros(n_experts, dim, hidden))
                    if gated else None)
         self.wo = nn.Parameter(torch.zeros(n_experts, hidden, dim))
+        self.experts = Experts(self.act, gated)
         self.dense = (MLP(dim, dense_residual_hidden, activation=activation,
                           gated=gated)
                       if dense_residual_hidden else None)
         self.axis: Axis | None = None
+        self.cut: str | None = None   # "expert" or "mlp" once split
         self.expert_start = 0
 
     def logical_axes(self) -> dict:
@@ -129,18 +165,24 @@ class MoELayer(nn.Module):
 
     def split_(self, axis: Axis) -> bool:
         """Keep this rank's block of experts when they split evenly over
-        the axis (the dense residual MLP splits on its own); False when
-        the experts stay whole."""
+        the axis, else this rank's slice of every expert's hidden width
+        when that splits (module docstring); the dense residual MLP
+        splits on its own.  False when the experts stay whole."""
         if self.dense is not None:
             self.dense.split_(axis)
-        if not splits(self.n_experts, axis):
+        if splits(self.n_experts, axis):
+            self.cut, dims = "expert", (0, 0)
+        elif splits(self.hidden, axis):
+            self.cut, dims = "mlp", (2, 1)
+        else:
             return False
-        self.wi = rank_slice(self.wi, 0, axis)
-        self.wo = rank_slice(self.wo, 0, axis)
+        self.wi = rank_slice(self.wi, dims[0], axis)
+        self.wo = rank_slice(self.wo, dims[1], axis)
         if self.wg is not None:
-            self.wg = rank_slice(self.wg, 0, axis)
+            self.wg = rank_slice(self.wg, dims[0], axis)
         self.axis = axis
-        self.expert_start = axis.index * self.wi.shape[0]
+        if self.cut == "expert":
+            self.expert_start = axis.index * self.wi.shape[0]
         return True
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -229,25 +271,18 @@ class MoELayer(nn.Module):
         buf = shard_activation(buf, ("moe_group", "expert", None, None))
 
         # the experts, their stacks cast a call
-        wi = self.wi.to(xt.dtype)
-        wo = self.wo.to(xt.dtype)
-        h = torch.einsum("gecd,edh->gech", buf, wi)
-        if self.gated:
-            wg = self.wg.to(xt.dtype)
-            h = self.act(torch.einsum("gecd,edh->gech", buf, wg)) * h
-        else:
-            h = self.act(h)
-        h = shard_activation(h, ("moe_group", "expert", None, "mlp"))
-        out = torch.einsum("gech,ehd->gecd", h, wo)
+        out = self.experts(buf, self.wi, self.wg, self.wo)
         out = shard_activation(out, ("moe_group", "expert", None, None))
         out = out.reshape(g, e_loc * cap, d)
 
         # combine: a token's k assignments are adjacent; on a split, only
-        # the assignments to this rank's experts, summed over the axis
+        # the assignments to this rank's experts (all of them, each a
+        # partial sum, when cut by hidden width), summed over the axis
         mine, gates = keep, gate_vals.reshape(g, -1)
         local = slots - first
         if self.axis is not None:
-            mine = keep & (local >= 0) & (local < e_loc * cap)
+            if self.cut == "expert":
+                mine = keep & (local >= 0) & (local < e_loc * cap)
             gates = entry(gates, self.axis)
         picked = torch.gather(
             out, 1, local.clamp(0, e_loc * cap - 1)[..., None]

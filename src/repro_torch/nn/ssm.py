@@ -28,7 +28,15 @@ place its "heads" and "mlp" leaves there:
   (`fused_cuts` records it for `partition.ModelLayout`).
 * `RWKV6TimeMix` by heads: r, k, v and g by columns, o by rows, the wkv
   state and ``bonus_u`` by heads; the token-shift mix and the decay LoRA
-  stay whole (the decay read at this rank's channels).
+  stay whole (the decay read at this rank's channels).  Where the axis
+  does not divide the heads (rwkv6-3b's 40 at 16) the mix computes
+  whole on every rank, its r, k, v and g still cut by columns and o by
+  rows at rest, as the reference's resolver places them, and gathered
+  whole at each call (`Linear` cut at rest: the weights, not the
+  activations, cross the axis; `repro_torch.nn.attention`).  The
+  reference also cuts the wkv state on its value dim there
+  (`repro/models/rwkv.py:95-101`); the port keeps it whole (ROADMAP.md
+  follow-ups).
 * `RWKV6ChannelMix` by its hidden width: k by columns, v by rows, and r
   by columns too (the reference's ``("embed", "mlp")``): v's partial
   sums are reduce-scattered to this rank's channels, multiplied by its
@@ -343,8 +351,13 @@ class RWKV6TimeMix(nn.Module):
 
     def split_(self, axis: Axis) -> bool:
         """Split by heads over the axis (module docstring); False (the
-        layer stays whole) where the axis does not divide them."""
+        layer computes whole) where the axis does not divide them, its
+        projections then cut at rest where it divides their width."""
         if not splits(self.n_heads, axis):
+            if splits(self.d, axis):
+                for lin in (self.r, self.k, self.v, self.g):
+                    lin.split_("column", axis, at_rest=True)
+                self.o.split_("row", axis, at_rest=True)
             return False
         for lin in (self.r, self.k, self.v, self.g):
             lin.split_("column", axis)

@@ -18,9 +18,14 @@ decode writes each layer's slice in place.
 
 On a mesh, `DecoderLM.split_` splits the model over its "model" axis
 (tensor parallelism, the leaves the reference's rules put on "model"):
-attention by whole heads, the MLP by its hidden width, the MoE experts,
-the embedding table and the head by vocabulary.  A part whose count the
-axis does not divide stays whole on every rank.  The head then gives
+attention by whole heads, the MLP by its hidden width, the MoE experts
+(each expert by its hidden width where the axis does not divide their
+count), the embedding table and the head by vocabulary.  Attention whose
+heads the axis does not divide computes whole on every rank, its
+weights cut at rest by the fused heads x head_dim columns and gathered
+at use (`repro_torch.nn.attention`), as the reference's resolver falls
+through to them; a table whose vocabulary the axis does not divide
+stays whole.  The head then gives
 this rank's logits (`vocab_shard`), and the loss reduces over the axis
 without gathering them (`repro_torch.train.train_loop`).  A split model
 also serves: `prefill` and `init_cache` size the KV cache by the rank's
@@ -303,7 +308,7 @@ class DecoderBlock(nn.Module):
         b, s, _ = h.shape
         attn = self.attn
         q, k, v = attn._project(h, positions if positions is not None
-                                else _positions(b, s, h.device))
+                                else _positions(b, s, h.device), reduce)
         if s >= attn.chunk_threshold:
             out = chunked_gqa_attention(
                 q, k, v, causal=True, q_chunk=attn.q_chunk,

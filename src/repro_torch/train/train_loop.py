@@ -287,7 +287,12 @@ class MeshTrainStep:
       `WhisperModel`), so read ``model.named_parameters()`` after
       building it.  A leaf split there holds its slice; its logical axes
       keep their model names, and a whole leaf's lose them, so every
-      spec is what the rank holds.  A layer split by heads that keeps a
+      spec is what the rank holds.  A layer whose heads the axis does
+      not divide computes whole on every model rank, its weights cut at
+      rest and gathered at use (`nn.layers.Linear` ``rest_cut``): each
+      rank keeps its slice of the whole gradient, which every rank
+      holds alike, so nothing sums it over "model" (under the cut
+      sequence the gather's reduce-scatter sums each rank's part).  A layer split by heads that keeps a
       leaf whole but reads it for its heads alone (RWKV6's mixes and
       LoRAs, Mamba2's ``A_log``, the cross-rank norms' scales:
       ``layout.partial``), or that holds some of a fused leaf alike on

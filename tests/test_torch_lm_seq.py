@@ -226,11 +226,18 @@ def test_seq_gradients_match_reference(jax_seq, port_seq, name):
 
 def test_whole_attention_case_keeps_its_attention_whole():
     """The 5-head case: the heads do not split over model=2, so the
-    attention's leaves stay whole (and take the model-axis sum)."""
+    attention computes whole on every rank; its weights are cut at rest
+    by the fused 5 x 32 columns (the reference resolver's fall-through)
+    and gathered at use, their gradient the reduce-scatter of each
+    rank's part under the cut sequence."""
     cfg = R.config(registry, R.SEQ_CASES["heads5"])
     model = registry.build_model(cfg, "meta")
     model.split_(Axis("model", 2, 0))
-    assert model.blocks[0].attn.axis is None
+    attn = model.blocks[0].attn
+    assert attn.axis is None and attn.n_heads == 5
+    assert attn.cut_at_rest() is not None
+    assert tuple(attn.wq.w.shape) == (cfg.d_model, 5 * 32 // 2)
+    assert tuple(attn.wo.w.shape) == (5 * 32 // 2, cfg.d_model)
     assert model.blocks[0].ffn.axis is not None
 
 
@@ -436,7 +443,8 @@ def test_reference_cuts_uneven_heads_at_rest_and_gathers_them():
     which the model axis divides: a 20-head wq at model 16 is cut 16 ways
     (1.25 heads a device), not replicated, and GSPMD all-gathers around
     the head reshape (no pad in the compiled program of a 5-head layer
-    at model 4).  The port keeps such attention whole over "model"."""
+    at model 4).  The port cuts such attention's weights the same way at
+    rest and gathers them whole at use."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath("src"),
                JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -450,4 +458,7 @@ def test_reference_cuts_uneven_heads_at_rest_and_gathers_them():
     assert got["ops"]["pad("] == 0 and got["ops"]["all-gather"] > 0
     model = registry.build_model(registry.get_config("qwen1.5-4b"), "meta")
     model.blocks[0].split_(Axis("model", 16, 0))
-    assert model.blocks[0].attn.axis is None   # whole in the port
+    attn = model.blocks[0].attn
+    assert attn.axis is None   # computed whole on every model rank
+    assert attn.cut_at_rest() is not None   # cut at rest as the reference
+    assert tuple(attn.wq.w.shape) == (2560, 20 * 128 // 16)

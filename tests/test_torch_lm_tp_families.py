@@ -7,18 +7,27 @@ the RWKV6 mixes and Whisper's attention and MLPs over that axis.  The
 port splits them by heads (`split_`): Mamba2 by SSM heads with B and C
 held on every rank, RWKV6's time mix by heads and its channel mix by
 hidden width, Whisper's blocks as the decoder's; the gated norm and
-RWKV6's ``ln_x`` take their statistics over the axis.  One JAX
-subprocess (4 host devices, a (data=2, model=2) mesh) runs the
+RWKV6's ``ln_x`` take their statistics over the axis.  Two JAX
+subprocesses side by side (4 host devices each, a (data=2, model=2)
+mesh; `JAX_SPLIT` shares the cases between them) run the
 reference's ``make_train_step(plan=, zero1=True)`` for 3 steps on each
 case of `torch_lm_mesh_ranks.TP_CASES` (rwkv6-3b; zamba2-1.2b; zamba2
 under ``"seq": "model"`` with remat "layer", two microbatches and an
 uneven mask, placed by FSDP on the port's side; whisper-medium over 32
-frames), the gradient of the first step, and the jitted prefill and
+frames; and two uneven splits as the reference's resolver takes them:
+granite-moe with 3 experts cut by their hidden width and 3 query heads
+over 1 kv head cut at rest by fused columns, placed, and rwkv6 with 3
+heads of 32, its time mix cut at rest), the gradient of the first step
+(the float64 judge runs each case's own config), and the jitted prefill and
 greedy decode of the three smoke models under the mesh.  One 4-rank
 gloo world runs the port on the same initial parameters:
 
 * (a) the step: per-step metrics and whole final parameters at rtol
-  1e-4 / atol 1e-5 on every rank;
+  1e-4 / atol 1e-5 on every rank, all at the default lr 1e-4; the one
+  exception is the leaves whose true gradient is zero (the key biases
+  of whisper's three attentions, `torch_lm_mesh_ranks.zero_grad_leaves`):
+  their reference gradient is rounding, which Adam turns into steps of
+  up to the rate, so they are held to ``steps x lr + 1e-5``;
 * (b) the first step's gradient, whole, within ``1e-6 + 1e-4 |g|`` of
   the reference's, an element that misses judged by the reference's
   float64 gradient (at most `MAX_MISSES` a leaf, as
@@ -77,7 +86,8 @@ JAX_TP = textwrap.dedent("""
                                                      tree)).items():
             arrays[f"{{prefix}}/{{k}}"] = v
 
-    for name, case in R.TP_CASES.items():
+    for name in {names!r}:
+        case = R.TP_CASES[name]
         plan = partition.plan_for(mesh, act_rules=R.TP_RULES.get(name))
         cfg = R.config(registry, case)
         model = registry.build_model(cfg)
@@ -106,7 +116,7 @@ JAX_TP = textwrap.dedent("""
             runs[name].append({{k: float(v) for k, v in m.items()}})
         save(f"{{name}}/final", params)
 
-    for name, arch in R.TP_SERVE.items():
+    for name, arch in (R.TP_SERVE.items() if {serve!r} else ()):
         cfg = L.serve_config(registry, arch)
         model = registry.build_model(cfg)
         params = split_params(model.init(jax.random.PRNGKey(2)))[0]
@@ -140,20 +150,41 @@ def _part(flat: dict, prefix: str) -> dict:
             if k.startswith(prefix)}
 
 
+# the reference's cases in two subprocesses run side by side (each
+# case's compile is most of its time), the serving with the second
+JAX_SPLIT = (("rwkv", "zamba", "zamba_seq", "granite_uneven"),
+             ("whisper", "rwkv_uneven"))
+
+
 @pytest.fixture(scope="module")
 def jax_tp(tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_tp") / "run.npz"
+    assert sorted(sum(JAX_SPLIT, ())) == sorted(R.TP_CASES)
+    tmp = tmp_path_factory.mktemp("jax_tp")
     tests = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.abspath("src"),
                JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    res = subprocess.run(
-        [sys.executable, "-c", JAX_TP.format(tests=tests, out=str(out))],
-        env=env, capture_output=True, text=True, timeout=500)
-    assert "JAX_TP" in res.stdout, (res.stdout[-2000:], res.stderr[-3000:])
-    runs = json.loads(res.stdout.split("JAX_TP", 1)[1])
-    with np.load(out) as data:
-        arrays = {k: data[k] for k in data.files}
+    procs = []
+    for i, names in enumerate(JAX_SPLIT):
+        out = tmp / f"run{i}.npz"
+        script = JAX_TP.format(tests=tests, out=str(out), names=names,
+                               serve=i == len(JAX_SPLIT) - 1)
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-c", script], env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+    arrays, runs = {}, {}
+    try:
+        for out, proc in procs:
+            stdout, stderr = proc.communicate(timeout=500)
+            assert "JAX_TP" in stdout, (stdout[-2000:], stderr[-3000:])
+            runs.update(json.loads(stdout.split("JAX_TP", 1)[1]))
+            with np.load(out) as data:
+                arrays.update({k: data[k] for k in data.files})
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return arrays, runs
 
 
@@ -178,6 +209,7 @@ def test_tp_step_matches_reference(jax_tp, port_tp, name):
     final = _part(arrays, f"{name}/final/")
     want = runs[name]
     assert len(want) == R.STEPS
+    bounds = _final_bounds(arrays, name, final)
     for rank, world in enumerate(port_tp):
         got = world[name]
         for step, (g, w) in enumerate(zip(got["metrics"], want)):
@@ -189,7 +221,7 @@ def test_tp_step_matches_reference(jax_tp, port_tp, name):
         assert sorted(got["params"]) == sorted(final)
         for k, v in final.items():
             np.testing.assert_allclose(got["params"][k], v, rtol=1e-4,
-                                       atol=1e-5,
+                                       atol=bounds[k],
                                        err_msg=f"{name} rank {rank} {k}")
         if rank:  # one set of parameters on every rank
             for k, v in port_tp[0][name]["params"].items():
@@ -198,6 +230,26 @@ def test_tp_step_matches_reference(jax_tp, port_tp, name):
         assert got["whole_leaves"] != sorted(got["params"]), name
     assert max(np.abs(final[k] - initial[k]).max() for k in final) > 1e-5
     assert want[-1]["loss"] < want[0]["loss"]
+
+
+def _final_bounds(arrays: dict, name: str, final: dict) -> dict:
+    """Each final leaf's atol: 1e-5, but ``STEPS x lr + 1e-5`` for the
+    leaves whose true gradient is zero (`R.zero_grad_leaves`: the key
+    bias of each of whisper's attentions, whose reference gradient is
+    rounding), where Adam moves by steps of up to the rate with the
+    rounding's sign in both packages."""
+    zero = R.zero_grad_leaves(final)
+    case = R.TP_CASES[name]
+    # whisper's encoder self, decoder self and decoder cross attention;
+    # no other case has a key bias, so no other leaf takes the bound
+    assert len(zero) == (3 if case["arch"] == "whisper-medium" else 0), zero
+    assert all(".wk." in k and "attn" in k for k in zero), zero
+    grads = _part(arrays, f"{name}/grads/")
+    scale = max(np.abs(g).max() for g in grads.values())
+    for k in zero:   # the rule's premise: their gradient is rounding
+        assert np.abs(grads[k]).max() <= 1e-6 * scale, (k, scale)
+    wide = R.STEPS * case.get("lr", R.LR) + 1e-5
+    return {k: wide if k in zero else 1e-5 for k in final}
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +272,11 @@ def test_tp_gradients_match_reference(jax_tp, port_tp, name):
     cfg = R.config(registry, case)
 
     def judge():
+        from repro.models import registry as j_registry
         g64 = reference_float64_grads(
             case["arch"], R.nest(_part(arrays, f"{name}/init/")),
-            R.batch_np(cfg, case), case["n_micro"])
+            R.batch_np(cfg, case), case["n_micro"],
+            cfg=R.config(j_registry, case))
         return {_dotted(k): v for k, v in g64.items()}
 
     for rank, world in enumerate(port_tp):

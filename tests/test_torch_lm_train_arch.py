@@ -106,11 +106,13 @@ class _Float64Numpy:
 
 
 def reference_float64_grads(arch: str, tree, batch: dict,
-                            n_micro: int = 1) -> dict:
+                            n_micro: int = 1, cfg=None) -> dict:
     """The reference's gradient of the same loss in float64 throughout
-    (with microbatches, the mean of theirs): independent of the port."""
+    (with microbatches, the mean of theirs): independent of the port.
+    `cfg`: the reference's config to run (``arch``'s smoke config by
+    default)."""
     mods = [importlib.import_module(m) for m in F64_MODULES]
-    cfg = dataclasses.replace(j_registry.get_config(arch + "-smoke"),
+    cfg = dataclasses.replace(cfg or j_registry.get_config(arch + "-smoke"),
                               compute_dtype="float64")
     saved = [m.jnp for m in mods]
     with jax.enable_x64(True):

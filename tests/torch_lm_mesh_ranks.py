@@ -36,18 +36,35 @@ LR = 1e-4
 
 def config(module, case: dict):
     """The case's smoke config from a registry module (the reference's
-    or the port's): its ``remat``, ``heads`` (query and kv heads) and
+    or the port's): its ``remat``, ``heads`` (query heads, and kv heads
+    unless ``kv_heads`` is given), ``d_model``, ``experts`` and
     ``capacity_factor`` override the config's."""
     cfg = module.get_config(case["arch"] + "-smoke")
     if "remat" in case:
         cfg = dataclasses.replace(cfg, remat=case["remat"])
     if "heads" in case:
         cfg = dataclasses.replace(cfg, n_heads=case["heads"],
-                                  n_kv_heads=case["heads"])
+                                  n_kv_heads=case.get("kv_heads",
+                                                      case["heads"]))
+    if "d_model" in case:
+        cfg = dataclasses.replace(cfg, d_model=case["d_model"])
+    if "experts" in case:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=case["experts"]))
     if "capacity_factor" in case:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=case["capacity_factor"]))
     return cfg
+
+
+def zero_grad_leaves(names) -> list:
+    """The leaves whose true gradient is zero, by rule: the key bias of
+    every attention (``wk.b``: ``q . b_k`` shifts a row of logits
+    alike, which the softmax does not see).  Their gradient is rounding,
+    which Adam turns into steps of up to the learning rate with the
+    rounding's sign, so two correct runs part by up to ``steps x lr``
+    there."""
+    return sorted(k for k in names if k.endswith("wk.b"))
 
 
 def batch_np(cfg, case: dict, seed: int = 0) -> dict:
@@ -725,16 +742,24 @@ TP_CASES = {
     # microbatches and the uneven mask
     "zamba_seq": dict(arch="zamba2-1.2b", opt="adamw", n_micro=2, batch=4,
                       seq=32, remat="layer", mask=True),
-    # encoder and decoder attention and MLPs over 32 frames; lr 1e-5: the
-    # key biases' gradient is zero but for rounding (a softmax does not
-    # see a shift of its row), which Adam turns into steps of about the
-    # learning rate whose sign is the rounding's (at 1e-4 one element of
-    # the self-attention's wk.b ends 1.03e-5 off the reference's)
+    # encoder and decoder attention and MLPs over 32 frames; its key
+    # biases are held by `zero_grad_leaves`' bound
     "whisper": dict(arch="whisper-medium", opt="adamw", n_micro=1, batch=4,
-                    seq=32, frames=32, lr=1e-5),
+                    seq=32, frames=32),
+    # uneven over model=2, placed (FSDP): 3 experts fall through to their
+    # hidden width (64), 3 query heads over 1 kv head of 32 to the fused
+    # columns (96 and 32), cut at rest and gathered at use; capacity
+    # factor 0.5, so tokens drop
+    "granite_uneven": dict(arch="granite-moe-3b-a800m", opt="adamw",
+                           n_micro=1, batch=4, seq=64, experts=3, heads=3,
+                           kv_heads=1, capacity_factor=0.5),
+    # 3 heads of 32 (d_model 96): the time mix computes whole, its r, k,
+    # v, g and o cut at rest by the fused columns
+    "rwkv_uneven": dict(arch="rwkv6-3b", opt="adamw", n_micro=1, batch=4,
+                        seq=32, d_model=96),
 }
 TP_RULES = {"zamba_seq": SEQ_RULES}   # a case's act rules over the defaults
-TP_PLACED = ("zamba_seq",)            # the cases placed by place_params_
+TP_PLACED = ("zamba_seq", "granite_uneven")  # placed by place_params_
 TP_SERVE = {"rwkv": "rwkv6-3b", "zamba": "zamba2-1.2b",
             "whisper": "whisper-medium"}
 TP_TALLY_ARCH = "zamba2-1.2b"
