@@ -102,7 +102,8 @@ head, 8 classes):
   with fp32-held and bf16-held weights (the same tokens), and the
   `lm_serve` twin at its defaults;
 * the other LM families (`[lm-families]`), one model on the card at a
-  time, each at full width and depth, fp32 weights drawn on the card
+  time, each at full width (the engine families at 8 layers, whisper at
+  full depth), fp32 weights drawn on the card
   from the seed, bf16 compute: granite-moe-3b-a800m (MoE), rwkv6-3b and
   zamba2-1.2b behind `ServeEngine` as `[lm]`'s decoder (8 requests over
   4 slots, the 1-slot engine against the hand-rolled loop bit for bit,
@@ -168,10 +169,23 @@ head, 8 classes):
   fused columns and gathered at use, as the reference's resolver places
   them; 3 steps of 1 x 256 against one rank at (a)'s limits, a rank's
   parameter bytes equal to its layout's reckoning, the start-up of the
-  16 ranks timed.  Every run at lr 1e-5 (LM_MESH_LR).  Step ms,
-  `torch.distributed` calls (and, for (d) to (g), per op; for (e) to
-  (g) per mesh axis) and the host ms inside them a step, and peak GB, a
-  rank.  No kernel launches;
+  16 ranks timed; (h) (f)'s rwkv6-3b and whisper-medium runs under
+  "seq" -> "model" (the residual a rank's slice of the sequence,
+  whisper's frames and tokens both; the token shifts, the wkv recurrence
+  and the cross K/V over the gathered sequence), against (f)'s one-rank
+  runs at (a)'s limits, then their prefill and greedy decode under the
+  rule (the prefill's residual cut, rwkv6's states the whole prompt's);
+  (i) (a) with `grad_compression`, `compress_int8_stateless` and then a
+  bound `ErrorFeedbackCompressor`, against one rank with the same
+  compressor: the scales of every step within 1e-6 + 1e-4 |s|, the
+  first step's codes equal but within 1e-3 of a rounding tie (at most 2
+  a leaf), the final parameters at (a)'s limits but where a step's
+  codes differed (held to 3 x lr + 1e-5 there), the `all_max` calls a
+  compression (at most 3) and the residual's bytes against the
+  gradient slice's reckoning.  Every run at lr 1e-5 (LM_MESH_LR).  Step
+  ms, `torch.distributed` calls (and, for (d) to (i), per op; for (e)
+  to (h) per mesh axis) and the host ms inside them a step, and peak
+  GB, a rank.  No kernel launches;
 * the dry run (`[dryrun]`, `repro_torch.launch.dryrun`, traced on meta
   tensors in spawned processes on the CPU): (a) `[lm-train]` (c)'s step
   on one rank against that run's measured peak, (b) rank 0 of
@@ -182,7 +196,9 @@ head, 8 classes):
   (b''') rank 0 of each `[lm-mesh]` (f) run: calls per op and per axis
   and the bytes held equal, the traced peak beside the card's; (b'''')
   rank 0 of `[lm-mesh]` (g) in a fake world of 16: calls per op and per
-  axis and the bytes held equal, the traced peak within 10%; (c)
+  axis and the bytes held equal, the traced peak within 10%; (b5) rank
+  0 of each `[lm-mesh]` (h) run in a fake world of 4: calls per op and
+  the bytes held equal, the traced peak within 10%; (c)
   qwen2.5-32b's train_4k, prefill_32k and decode_32k and
   command-r-plus-104b's train_4k at 16 x 16 (256 ranks), placed as
   every cell is (FSDP), with their ``"seq"`` overrides applied, each
@@ -368,6 +384,21 @@ LM_MESH_UNEVEN_ARCH = "granite-moe-3b-a800m"
 LM_MESH_UNEVEN_MODEL = 16
 LM_MESH_UNEVEN_ROWS, LM_MESH_UNEVEN_SEQ = 1, 256
 LM_MESH_UNEVEN_TIMEOUT_S = 600
+# (h): (f)'s rwkv6-3b and whisper-medium runs under LM_MESH_SEQ_RULES,
+# held to (f)'s one-rank runs
+LM_MESH_SEQ_FAMILIES = ("rwkv6-3b", "whisper-medium")
+# (i): (a) with each `grad_compression`, held to one rank with the same
+# compressor by the code rule: the first step's codes equal but within
+# LM_MESH_TIE of a rounding tie of the one rank's x / scale, at most
+# LM_MESH_MAX_MISSES in a leaf of up to LM_MESH_CAP_ELEMENTS (the CPU
+# tests' leaves); at full width a leaf of 10^6-10^8 elements holds tens
+# to a hundred codes that close to a tie where the two sums differ
+# (PERF.md §6), so there each differing code is held instead to
+# the two gradients' rule, |dx| <= 1e-6 + 1e-4 |x|, at the element; at
+# most LM_MESH_MAX_ALL_MAX `all_max` calls a compression
+LM_MESH_COMPRESSORS = ("int8", "int8_ef")
+LM_MESH_TIE, LM_MESH_MAX_MISSES, LM_MESH_MAX_ALL_MAX = 1e-3, 2, 3
+LM_MESH_CAP_ELEMENTS = 65536
 
 
 def fail(message: str) -> None:
@@ -4192,10 +4223,15 @@ def lm_phase(torch, smi) -> int:
 
 
 # ---------------------------------------------------------------------------
-# LM serving: the other families at full width and depth
+# LM serving: the other families at full width
 # ---------------------------------------------------------------------------
 
 FAMILY_ARCHS = ("granite-moe-3b-a800m", "rwkv6-3b", "zamba2-1.2b")
+# the engine families' depth: their 32 / 32 / 38 layers at full width
+# took 42 / 157 / 49 s of the script (NVIDIA H100 80GB HBM3, 700.00 W),
+# most of it per layer (rwkv6's Python-loop scans), so the script cuts
+# them to this many layers to stay inside its time limit
+FAMILY_LAYERS = 8
 WHISPER_ARCH = "whisper-medium"
 # Whisper's 30-second window is 1500 frames, but an encoder length at or
 # past the chunk threshold (1024) must be a multiple of its 512-query and
@@ -4223,8 +4259,13 @@ FAMILY_FP32_TOL = 1e-3
 
 
 def family_config(arch: str):
+    """`arch` at full width; an engine family at FAMILY_LAYERS layers."""
+    import dataclasses
     from repro_torch.models.registry import get_config
-    return get_config(arch)
+    cfg = get_config(arch)
+    if arch in FAMILY_ARCHS:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS)
+    return cfg
 
 
 def family_build(torch, arch: str) -> tuple:
@@ -4338,7 +4379,8 @@ def family_times(torch, cfg, model) -> dict:
 
 
 def family_serve(torch, smi, arch: str) -> None:
-    """One engine family at full width and depth: (1) ServeEngine, 8
+    """One engine family at full width (FAMILY_LAYERS layers): (1)
+    ServeEngine, 8
     requests over 4 slots; (2) at 1 slot the engine's greedy tokens
     equal to the hand-rolled prefill -> decode_step loop bit for bit;
     (3) decode after prefill against the full forward; (4) times."""
@@ -4493,8 +4535,9 @@ def whisper_serve(torch, smi) -> None:
 
 def lm_families_phase(torch, smi) -> dict:
     """granite-moe-3b-a800m, rwkv6-3b and zamba2-1.2b behind ServeEngine
-    and whisper-medium through prefill / decode_step, each at full width
-    and depth, one model on the card at a time; then the lm_serve twin at
+    (full width, FAMILY_LAYERS layers) and whisper-medium through prefill
+    / decode_step (full width and depth), one model on the card at a
+    time; then the lm_serve twin at
     `--arch rwkv6-3b-smoke`.  None of these families reaches a kernel of
     the port: every kernel's launches must stay 0 (returned by name)."""
     from repro_torch.orchestration import lm_serve
@@ -5242,10 +5285,141 @@ def lm_mesh_batch(torch, cfg, seq: int = LM_MESH_SEQ,
     return out
 
 
+def lm_mesh_compressor(kind: str | None):
+    """The ``grad_compression`` of an `[lm-mesh]` (i) run (None: none)."""
+    from repro_torch.distributed import compression
+    if kind is None:
+        return None
+    if kind == "int8":
+        return compression.compress_int8_stateless
+    return compression.ErrorFeedbackCompressor().bind()
+
+
+@contextlib.contextmanager
+def lm_mesh_code_log(torch, keep_ratio: bool = False):
+    """Every compression the train steps of the block make, recorded: a
+    list of {leaf: (int8 codes on the host, scale, flat indices of the
+    codes whose x / scale lies within LM_MESH_TIE of a half-integer,
+    x / scale there)} in the gradient's leaf order, with `keep_ratio`
+    the first compression's x / scale whole on the host ("ratio0"), and
+    the `all_max` calls each made."""
+    from repro_torch.distributed import collectives, compression
+    from repro_torch.train import train_loop
+    log = {"codes": [], "calls": [], "ratio0": []}
+    real = (train_loop._compress, compression.quantize_int8,
+            collectives.all_max)
+    quant = []
+
+    def quantize(x, amax=None):
+        q, scale = real[1](x, amax)
+        ratio = x / scale
+        tie = (ratio - torch.floor(ratio) - 0.5).abs() < LM_MESH_TIE
+        at = torch.nonzero(tie.reshape(-1))[:, 0]
+        quant.append((q.cpu(), float(scale), at.cpu(),
+                      ratio.reshape(-1)[at].cpu()))
+        if keep_ratio and not log["codes"]:
+            log["ratio0"].append(ratio.cpu())
+        return q, scale
+
+    def all_max(x, axis):
+        log["calls"][-1] += 1
+        return real[2](x, axis)
+
+    def compress(fn, grads, groups, whole_max=None):
+        quant.clear()
+        log["calls"].append(0)
+        compression.quantize_int8, collectives.all_max = quantize, all_max
+        try:
+            out = real[0](fn, grads, groups, whole_max)
+        finally:
+            compression.quantize_int8, collectives.all_max = real[1:]
+        if not log["codes"]:
+            log["ratio0"] = dict(zip(grads, log["ratio0"]))
+        log["codes"].append(dict(zip(grads, quant)))
+        return out
+
+    train_loop._compress = compress
+    try:
+        yield log
+    finally:
+        train_loop._compress = real[0]
+
+
+def lm_mesh_grad_slice(step, name: str, whole):
+    """This rank's slice of a whole gradient-shaped tensor: its part over
+    "model" (`ModelLayout.rank_part`), then its slice over "data" where
+    the step reduce-scatters the leaf (ZeRO-1) or FSDP cut it."""
+    part = step.layout.rank_part(name, whole)
+    dim = step.data_dims[name]
+    if dim >= 0:
+        data = step.plan.data_axis
+        width = part.shape[dim] // data.size
+        part = part.narrow(dim, data.index * width, width)
+    return part
+
+
+def lm_mesh_grad_bytes(torch, step) -> int:
+    """The fp32 bytes of this rank's gradient slices by the layout's
+    reckoning (what an error-feedback residual holds)."""
+    total = 0
+    for k, shape in step.layout.full.items():
+        held = lm_mesh_grad_slice(step, k, torch.empty(shape, device="meta"))
+        total += held.numel() * 4
+    return total
+
+
+def lm_mesh_code_check(torch, step, log: dict, ref_path: str) -> dict:
+    """(i) on a rank: its codes of every step against its slices of the
+    one-rank run's (saved beside `ref_path`): the scales within 1e-6 +
+    1e-4 |s|; the first step's differing codes each where the one
+    rank's x / scale lies within LM_MESH_TIE of a tie, at most
+    LM_MESH_MAX_MISSES in a leaf of up to LM_MESH_CAP_ELEMENTS, and in a
+    larger one each with the two x within 1e-6 + 1e-4 |x| of each other
+    (x = ratio x scale, each run's own); later steps' listed.  Returns
+    {leaf: mask} of the codes that differed in any step
+    (`lm_mesh_compare`'s exemption) and what it found."""
+    ref = torch.load(ref_path + ".codes", mmap=True, weights_only=True)
+    exempt, where, faults, largest = {}, [], [], 0
+    for i, (mine, theirs) in enumerate(zip(log["codes"], ref)):
+        for k, (q, scale, _, _) in mine.items():
+            q_ref, s_ref, ties, tie_ratio = theirs[k]
+            if not abs(scale - s_ref) <= 1e-6 + 1e-4 * abs(s_ref):
+                faults.append(f"step {i + 1} {k}: scale {scale!r} vs "
+                              f"{s_ref!r}")
+            miss = q != lm_mesh_grad_slice(step, k, q_ref)
+            n = int(miss.sum())
+            if not n:
+                continue
+            exempt[k] = exempt[k] | miss if k in exempt else miss
+            where.append(f"step {i + 1} {k}: {n} of {miss.numel()}")
+            if i:
+                continue
+            largest = max(largest, n)
+            # the one rank's x / scale at its ties (NaN elsewhere), sliced
+            at = torch.full((q_ref.numel(),), float("nan"))
+            at[ties] = tie_ratio
+            at = lm_mesh_grad_slice(step, k, at.reshape(q_ref.shape))[miss]
+            untied = int(torch.isnan(at).sum())
+            x_ref = at.double() * s_ref
+            x_got = log["ratio0"][k][miss].double() * scale
+            apart = int(((x_got - x_ref).abs()
+                         > 1e-6 + 1e-4 * x_ref.abs()).sum())
+            capped = (q_ref.numel() <= LM_MESH_CAP_ELEMENTS
+                      and n > LM_MESH_MAX_MISSES)
+            if untied or apart or capped:
+                faults.append(f"step 1 {k}: {n} of {q_ref.numel()} codes "
+                              f"differ, {untied} away from a tie, {apart} "
+                              "with gradients apart past the rule")
+    return {"exempt": exempt, "code_where": where, "code_faults": faults,
+            "code_misses": sum(int(m.sum()) for m in exempt.values()),
+            "first_most": largest}
+
+
 def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
                   placed: bool = False, serve: bool = False,
                   seq: int = LM_MESH_SEQ, micro: int = LM_MESH_MICRO,
-                  rows: int = LM_MESH_BATCH, reckon: bool = False) -> dict:
+                  rows: int = LM_MESH_BATCH, reckon: bool = False,
+                  compressor: str | None = None) -> dict:
     """`arch` (`lm_mesh_config`) drawn on the card from SEED and trained
     LM_MESH_STEPS steps with AdamW, on `plan`'s ranks (ZeRO-1; with
     `placed`, over parameters placed first by `MeshPlan.place_params_`:
@@ -5259,7 +5433,9 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
     run's final weights.  `seq`: the tokens of a row; `micro`: the
     microbatches of a step; `rows`: the rows of the batch; `reckon`: the
     bytes held against the layout's reckoning without a placement
-    (`lm_mesh_placement`)."""
+    (`lm_mesh_placement`); `compressor`: the ``grad_compression`` of (i)
+    (`lm_mesh_compressor`), its codes saved beside `ref_path` alone and
+    held to them on a plan (`lm_mesh_code_check`)."""
     from repro_torch.distributed.partition import tree_bytes
     from repro_torch.models.registry import build_model
     from repro_torch.nn.layers import init_params, stack_groups
@@ -5273,14 +5449,18 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
     if placed:
         plan.place_params_(model)
     opt = AdamW(learning_rate=LM_MESH_LR)
+    comp = lm_mesh_compressor(compressor)
     step = make_train_step(model, cfg, opt, plan=plan, zero1=True,
-                           n_microbatches=micro)
+                           n_microbatches=micro, grad_compression=comp)
     params = dict(model.named_parameters())
     state = (step.init_opt_state(params) if plan is not None
              else opt.init(params, stack_groups(params)))
     batch = lm_mesh_batch(torch, cfg, seq, rows)
     metrics, step_ms = [], []
-    with collective_clock(plan.mesh if plan is not None else None) as coll:
+    logging = (lm_mesh_code_log(torch, plan is not None)
+               if comp is not None else contextlib.nullcontext())
+    with collective_clock(plan.mesh if plan is not None else None) as coll, \
+            logging as log:
         for _ in range(LM_MESH_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5289,6 +5469,7 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
             step_ms.append(1e3 * (time.perf_counter() - t0))
             metrics.append({k: float(v) for k, v in m.items()})
     out = {"metrics": metrics, "step_ms": step_ms,
+           "seq_cut": getattr(model, "head_seq", None) is not None,
            "calls": coll["calls"] / LM_MESH_STEPS,
            "per_op": {k: v / LM_MESH_STEPS
                       for k, v in coll["per_op"].items()},
@@ -5299,18 +5480,34 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
                                       for k, p in params.items()}),
            "opt_bytes": tree_bytes(state),
            "peak": torch.cuda.max_memory_allocated()}
+    if comp is not None:
+        out["all_max"] = log["calls"]
+        if compressor == "int8_ef":
+            out["residual_bytes"] = sum(
+                r.numel() * r.element_size()
+                for r in comp.state.residual.values())
+            out["residual_reckoned"] = (
+                lm_mesh_grad_bytes(torch, step) if plan is not None
+                else sum(p.numel() * 4 for p in params.values()))
     if plan is None:
         torch.save({k: p.detach().cpu() for k, p in params.items()},
                    ref_path)
+        if comp is not None:
+            torch.save(log["codes"], ref_path + ".codes")
     else:
-        out.update(lm_mesh_compare(torch, step, params, ref_path))
+        exempt = None
+        if comp is not None:
+            found = lm_mesh_code_check(torch, step, log, ref_path)
+            exempt = found.pop("exempt")
+            out.update(found)
+        out.update(lm_mesh_compare(torch, step, params, ref_path, exempt))
         if placed or reckon:
             out.update(lm_mesh_placement(step, params))
     if serve:
         if plan is not None:
             lm_mesh_load_ref(torch, step, params, ref_path)
         out["serve"] = lm_mesh_serve(torch, model, cfg, plan)
-    del model, params, state, step, batch
+    del model, params, state, step, batch, comp
     torch.cuda.empty_cache()
     return out
 
@@ -5365,11 +5562,15 @@ def lm_mesh_serve(torch, model, cfg, plan=None) -> dict:
                 (axis.index + 1) * tokens.shape[0])
         ctx = use_sharding(plan.mesh, plan.param_rules, plan.act_rules)
     max_len = LM_MESH_PROMPT + LM_MESH_DECODE
-    logits, picked, decode_ms = [], [], []
+    logits, picked, decode_ms, gathers = [], [], [], []
     with torch.no_grad(), ctx:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, cache = model.prefill(tokens, max_len=max_len, **extras)
+        collectives.seq_observers.append(gathers.append)
+        try:
+            out, cache = model.prefill(tokens, max_len=max_len, **extras)
+        finally:
+            collectives.seq_observers.remove(gathers.append)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         for _ in range(LM_MESH_DECODE):
@@ -5395,7 +5596,8 @@ def lm_mesh_serve(torch, model, cfg, plan=None) -> dict:
             "cut": any(getattr(cache, k, None) is not None
                        for k in ("seq", "enc_seq")),
             "cache_shape": tuple(first.shape), "prefill_ms": prefill_ms,
-            "decode_ms": statistics.median(decode_ms)}
+            "decode_ms": statistics.median(decode_ms),
+            "prefill_gathers": len(gathers)}
 
 
 def lm_cache_bytes(torch, cache) -> int:
@@ -5404,18 +5606,38 @@ def lm_cache_bytes(torch, cache) -> int:
                if isinstance(v, torch.Tensor))
 
 
-def lm_mesh_compare(torch, step, params, ref_path) -> dict:
+def lm_mesh_compare(torch, step, params, ref_path, exempt=None) -> dict:
     """This rank's parameters against its slices of the one-rank run's
     (read from `ref_path` mapped, a leaf at a time): elements past the
-    tolerance, the largest difference, and the split it checked."""
+    tolerance, the largest difference, and the split it checked.
+    `exempt` ((i): {leaf: mask over this rank's gradient slice} of the
+    codes that differed): those elements are held to LM_MESH_STEPS x
+    LM_MESH_LR more, and a leaf ZeRO-1 reduce-scatters is checked on
+    this data rank's slice (the part its update wrote)."""
     ref = torch.load(ref_path, mmap=True, weights_only=True)
-    misses, worst, split, where = 0, 0.0, 0, []
+    misses, worst, split, where, wide = 0, 0.0, 0, [], 0
     for k, p in params.items():
         split += step.model_dims[k] >= 0
         want = lm_mesh_ref_slice(step, k, ref[k]).to(DEVICE)
         got = p.detach()
+        bound = None
+        if exempt is not None:
+            dim = step.data_dims[k] if step.zero else -1
+            if dim >= 0:
+                data = step.plan.data_axis
+                width = got.shape[dim] // data.size
+                got = got.narrow(dim, data.index * width, width)
+                want = want.narrow(dim, data.index * width, width)
+            if k in exempt:
+                mask = exempt[k].to(DEVICE)
+                strict = LM_MESH_ATOL + LM_MESH_RTOL * want.abs()
+                wide += int(((got - want).abs() > strict)[mask].sum())
+                bound = torch.where(mask, strict + LM_MESH_STEPS
+                                    * LM_MESH_LR, strict)
         diff = (got - want).abs()
-        bad = diff > LM_MESH_ATOL + LM_MESH_RTOL * want.abs()
+        if bound is None:
+            bound = LM_MESH_ATOL + LM_MESH_RTOL * want.abs()
+        bad = diff > bound
         if bad.any():
             i = int(torch.argmax(diff.masked_fill(~bad, 0)))
             where.append(f"{k}: {int(bad.sum())} of {bad.numel()}, "
@@ -5424,7 +5646,7 @@ def lm_mesh_compare(torch, step, params, ref_path) -> dict:
         misses += int(bad.sum())
         worst = max(worst, float(diff.max()))
     return {"misses": misses, "worst": worst, "split": split,
-            "leaves": len(params), "where": where}
+            "leaves": len(params), "where": where, "wide": wide}
 
 
 def lm_mesh_placement(step, params) -> dict:
@@ -5513,8 +5735,10 @@ def lm_mesh_rank(paths: dict) -> dict:
     """What each spawned rank of `[lm-mesh]` runs: (a) and (b) on the
     (data, model) plan, (d) on it over placed parameters, (e) as (d)
     under the act rule "seq" -> "model" and its serving, (f) each of
-    LM_MESH_TP_RUNS placed and served, then (c) on the stage mesh, with
-    every kernel's launch count read (the path reaches none)."""
+    LM_MESH_TP_RUNS placed and served, (h) each of LM_MESH_SEQ_FAMILIES
+    so under the rule, (i) (a) with each of LM_MESH_COMPRESSORS, then
+    (c) on the stage mesh, with every kernel's launch count read (the
+    path reaches none)."""
     import torch
     from repro_torch.distributed import partition
     full_fp32(torch)
@@ -5541,6 +5765,16 @@ def lm_mesh_rank(paths: dict) -> dict:
             torch, arch, seq_plan if rules else plan, paths[arch],
             placed=True, serve=True, seq=LM_MESH_TP_SEQ,
             micro=LM_MESH_TP_MICRO)
+    for arch in LM_MESH_SEQ_FAMILIES:
+        torch.distributed.barrier()
+        out["tp"][lm_mesh_tp_label(arch, LM_MESH_SEQ_RULES)] = lm_mesh_train(
+            torch, arch, seq_plan, paths[arch], placed=True, serve=True,
+            seq=LM_MESH_TP_SEQ, micro=LM_MESH_TP_MICRO)
+    out["compress"] = {}
+    for kind in LM_MESH_COMPRESSORS:
+        torch.distributed.barrier()
+        out["compress"][kind] = lm_mesh_train(
+            torch, LM_MESH_ARCHS[0], plan, paths[kind], compressor=kind)
     mesh = partition.make_mesh(stages=LM_MESH_STAGES)
     torch.distributed.barrier()
     with collective_clock() as coll:
@@ -5903,11 +6137,177 @@ def lm_mesh_tp_check(runs: dict, one: dict, smi: str) -> None:
               f"tokens equal")
 
 
+def lm_mesh_seq_families_check(runs: dict, one: dict, smi: str) -> None:
+    """(h): rwkv6-3b's and whisper-medium's (f) runs under the act rule
+    "seq" -> "model" against (f)'s one-rank runs at (a)'s limits: the
+    residual cut in training and in the prefill, the bytes held equal to
+    the layout's reckoning, calls on the model axis; then the prefill
+    and greedy decode: tokens equal, logits within LM_MESH_RTOL /
+    LM_MESH_ATOL, whisper's caches cut by sequence (rwkv6's state has
+    no sequence dim)."""
+    keys = ("loss", "total_loss", "tokens", "grad_norm")
+    for arch in LM_MESH_SEQ_FAMILIES:
+        label = lm_mesh_tp_label(arch, LM_MESH_SEQ_RULES)
+        want = one[arch]
+        served = want["serve"]
+        whole_f = {r["rank"]: r for r in runs[arch]}
+        for got in runs[label]:
+            r = got["rank"]
+            for s, (g, w) in enumerate(zip(got["metrics"],
+                                           want["metrics"])):
+                for k in keys:
+                    if not abs(g[k] - w[k]) <= (LM_MESH_RTOL * abs(w[k])
+                                                + 1e-7):
+                        fail(f"lm-mesh (h) {label} rank {r} step {s + 1}: "
+                             f"{k} {g[k]!r} vs one rank's {w[k]!r} (rtol "
+                             f"{LM_MESH_RTOL})")
+            if got["misses"]:
+                fail(f"lm-mesh (h) {label} rank {r}: {got['misses']} "
+                     f"parameter elements past rtol {LM_MESH_RTOL} / atol "
+                     f"{LM_MESH_ATOL} of one rank's (largest difference "
+                     f"{got['worst']:.3e}): {'; '.join(got['where'])}")
+            sv = got["serve"]
+            if not got["seq_cut"] or not sv["prefill_gathers"]:
+                fail(f"lm-mesh (h) {label} rank {r}: the residual was not "
+                     f"cut by sequence (training {got['seq_cut']}, "
+                     f"{sv['prefill_gathers']} gathers in the prefill)")
+            if got["uncut"] or not got["cut"] or not got["split"] \
+                    or got["param_bytes"] != got["reckoned"]:
+                fail(f"lm-mesh (h) {label} rank {r}: {got['param_bytes']} "
+                     f"parameter bytes held against the layout's "
+                     f"{got['reckoned']}; whole where cut: {got['uncut']}")
+            if not got["per_axis"].get("model"):
+                fail(f"lm-mesh (h) {label} rank {r}: no call on the model "
+                     f"axis: {got['per_axis']}")
+            rows = slice(*sv["rows"])
+            gap = float(np.abs(sv["logits"] - served["logits"][rows]).max())
+            has_kv = arch != "rwkv6-3b"
+            if sv["cut"] != has_kv or not np.array_equal(
+                    sv["tokens"], served["tokens"][rows]) \
+                    or not np.allclose(sv["logits"], served["logits"][rows],
+                                       rtol=LM_MESH_RTOL, atol=LM_MESH_ATOL):
+                fail(f"lm-mesh (h) {label} rank {r}: serving (caches cut by "
+                     f"sequence: {sv['cut']}) gave tokens "
+                     f"{sv['tokens'].tolist()} against one rank's "
+                     f"{served['tokens'][rows].tolist()}, logits "
+                     f"{gap:.3e} off (rtol {LM_MESH_RTOL} / atol "
+                     f"{LM_MESH_ATOL})")
+            per_op = ", ".join(f"{k} {v:.0f}"
+                               for k, v in got["per_op"].items() if v)
+            per_axis = ", ".join(f"{k} {v:.0f}" for k, v in
+                                 sorted(got["per_axis"].items()))
+            med = statistics.median(got["step_ms"][1:])
+            f_run = whole_f[r]
+            f_ms = statistics.median(f_run["step_ms"][1:])
+            phase("lm-mesh", lm_mesh_line(f"(h) {label} rank {r}", got, smi)
+                  + f"; calls a step by op: {per_op}; by axis: {per_axis}; "
+                  f"step {med / f_ms:.2f}x (f)'s {f_ms:.1f} ms without the "
+                  f"rule, peak against (f)'s {f_run['peak'] / 1e9:.2f} GB; "
+                  f"largest parameter difference {got['worst']:.2e}; "
+                  f"served rows {sv['rows'][0]}-{sv['rows'][1] - 1}: "
+                  f"prefill {LM_MESH_PROMPT} tokens {sv['prefill_ms']:.1f} "
+                  f"ms ({sv['prefill_gathers']} sequence gathers; one rank "
+                  f"{served['prefill_ms']:.1f}), decode "
+                  f"{sv['decode_ms']:.1f} ms a step (one rank "
+                  f"{served['decode_ms']:.1f}), {LM_MESH_DECODE} greedy "
+                  f"tokens equal to one rank's, logits within {gap:.2e}; "
+                  f"cache {sv['cache_bytes'] / 1e6:.2f} MB held against "
+                  f"the whole {sv['whole_cache_bytes'] / 1e6:.2f} MB of its "
+                  f"rows")
+        phase("lm-mesh", f"(h) {label}: FSDP, split by heads, the act rule "
+              f"\"seq\" -> \"model\" at (data={LM_MESH_DATA}, model="
+              f"{LM_MESH_MODEL}) vs one rank ({LM_MESH_LAYERS} layers at full "
+              f"width, {LM_MESH_STEPS} steps of {LM_MESH_BATCH} x "
+              f"{LM_MESH_TP_SEQ}): {', '.join(keys)} each step within rtol "
+              f"{LM_MESH_RTOL}, final parameters within rtol {LM_MESH_RTOL} "
+              f"/ atol {LM_MESH_ATOL}, the residual cut in training and "
+              f"prefill; {LM_MESH_DECODE} greedy tokens equal")
+
+
+def lm_mesh_compress_check(world: list, one: dict, plain: dict,
+                           smi: str) -> None:
+    """(i): (a) with each of LM_MESH_COMPRESSORS on every rank against
+    one rank with the same compressor: metrics at (a)'s limits, the code
+    rule (`lm_mesh_code_check`), the final parameters at (a)'s limits
+    but where a step's codes differed, at most LM_MESH_MAX_ALL_MAX
+    `all_max` calls a compression, an error-feedback residual of the
+    rank's gradient slices' bytes."""
+    keys = ("loss", "total_loss", "tokens", "grad_norm")
+    plain_ms = statistics.median(plain["step_ms"][1:])
+    for kind in LM_MESH_COMPRESSORS:
+        want = one[kind]
+        one_ms = statistics.median(want["step_ms"][1:])
+        for run in world:
+            got, r = run["compress"][kind], run["rank"]
+            for s, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+                for k in keys:
+                    if not abs(g[k] - w[k]) <= LM_MESH_RTOL * abs(w[k]) + 1e-7:
+                        fail(f"lm-mesh (i) {kind} rank {r} step {s + 1}: {k} "
+                             f"{g[k]!r} vs one rank's {w[k]!r} (rtol "
+                             f"{LM_MESH_RTOL})")
+            if got["code_faults"]:
+                fail(f"lm-mesh (i) {kind} rank {r}: the code rule: "
+                     f"{'; '.join(got['code_faults'][:10])}")
+            if got["misses"]:
+                fail(f"lm-mesh (i) {kind} rank {r}: {got['misses']} "
+                     f"parameter elements past rtol {LM_MESH_RTOL} / atol "
+                     f"{LM_MESH_ATOL} of one rank's (STEPS x lr more where "
+                     f"a code differed; largest difference "
+                     f"{got['worst']:.3e}): {'; '.join(got['where'])}")
+            calls = got["all_max"]
+            if len(calls) != LM_MESH_STEPS or not all(
+                    0 < n <= LM_MESH_MAX_ALL_MAX for n in calls):
+                fail(f"lm-mesh (i) {kind} rank {r}: all_max calls a "
+                     f"compression {calls} (1 to {LM_MESH_MAX_ALL_MAX})")
+            residual = ""
+            if kind == "int8_ef":
+                if got["residual_bytes"] != got["residual_reckoned"]:
+                    fail(f"lm-mesh (i) {kind} rank {r}: the residual holds "
+                         f"{got['residual_bytes']} bytes, its gradient "
+                         f"slices {got['residual_reckoned']}")
+                residual = (f"; residual {got['residual_bytes'] / 1e9:.3f} "
+                            f"GB = the gradient slices' reckoning (one rank "
+                            f"{want['residual_bytes'] / 1e9:.3f})")
+            where = got["code_where"]
+            med = statistics.median(got["step_ms"][1:])
+            own = run.get(LM_MESH_ARCHS[0])   # this rank's (a) run
+            versus = (f"{med / statistics.median(own['step_ms'][1:]):.2f}x "
+                      f"this rank's uncompressed (a) step" if own else
+                      f"one rank uncompressed {plain_ms:.1f} ms")
+            phase("lm-mesh", lm_mesh_line(f"(i) {kind} rank {r}", got, smi)
+                  + f" (with the codes copied to the host each step); "
+                  f"step {versus}, one rank compressed {one_ms:.1f} ms; "
+                  f"all_max calls a compression {calls}"
+                  f"{residual}; {got['code_misses']} codes differ from one "
+                  f"rank's over {LM_MESH_STEPS} steps ("
+                  + ("; ".join(where[:8]) + (f"; and {len(where) - 8} more"
+                                             if len(where) > 8 else "")
+                     if where else "none")
+                  + f"), at most {got['first_most']} in a leaf on the "
+                  f"first step, {got['wide']} of them past the strict "
+                  f"parameter tolerance; largest parameter difference "
+                  f"{got['worst']:.2e}")
+        phase("lm-mesh", f"(i) {LM_MESH_ARCHS[0]} {kind} (data={LM_MESH_DATA}"
+              f", model={LM_MESH_MODEL}) vs one rank with the same "
+              f"compressor: {', '.join(keys)} each step within rtol "
+              f"{LM_MESH_RTOL}; scales within 1e-6 + 1e-4 |s|, the first "
+              f"step's codes equal but within {LM_MESH_TIE} of a tie (at "
+              f"most {LM_MESH_MAX_MISSES} in a leaf of up to "
+              f"{LM_MESH_CAP_ELEMENTS} elements, each in a larger one with "
+              f"the two gradients within 1e-6 + 1e-4 |x|); final "
+              f"parameters within "
+              f"rtol {LM_MESH_RTOL} / atol {LM_MESH_ATOL} but {LM_MESH_STEPS}"
+              f" x lr more where a code differed; one rank {one_ms:.1f} ms a "
+              f"step (the codes copied to the host each step) against "
+              f"{plain_ms:.1f} uncompressed ({smi})")
+
+
 def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     """The LM on the mesh (module docstring, `[lm-mesh]`): the one-rank
     runs alone first, then one world of LM_MESH_DATA x LM_MESH_MODEL
-    gloo ranks sharing the card for (a) to (f) and (c), then one of
-    LM_MESH_UNEVEN_MODEL for (g) (`lm_mesh_uneven`).  Returns every
+    gloo ranks sharing the card for (a) to (f), (h), (i) and (c), then one of
+    LM_MESH_UNEVEN_MODEL for (g) (`lm_mesh_uneven`); (h) and (i) run in
+    the first world, against one-rank runs of theirs.  Returns every
     kernel's launches (all must be 0); each rank's (a) run goes into
     ``figures["lm-mesh"]`` for `[dryrun]` (b), and so on."""
     import gc
@@ -5920,8 +6320,8 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     ranks = LM_MESH_DATA * LM_MESH_MODEL
     tp_archs = tuple(dict.fromkeys(a for a, _ in LM_MESH_TP_RUNS))
     with tempfile.TemporaryDirectory(prefix="lm_mesh_") as tmp:
-        paths = {a: os.path.join(tmp, f"{i}.pt")
-                 for i, a in enumerate(LM_MESH_ARCHS + tp_archs)}
+        paths = {a: os.path.join(tmp, f"{i}.pt") for i, a in enumerate(
+            LM_MESH_ARCHS + tp_archs + LM_MESH_COMPRESSORS)}
         one = {a: lm_mesh_train(torch, a, None, paths[a],
                                 serve=a == LM_MESH_ARCHS[0])
                for a in LM_MESH_ARCHS}
@@ -5929,6 +6329,9 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
                                    seq=LM_MESH_TP_SEQ,
                                    micro=LM_MESH_TP_MICRO)
                   for a in tp_archs}
+        one_comp = {kind: lm_mesh_train(torch, LM_MESH_ARCHS[0], None,
+                                        paths[kind], compressor=kind)
+                    for kind in LM_MESH_COMPRESSORS}
         pipe_want, pipe_one_ms = lm_mesh_pipeline(torch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -6014,6 +6417,8 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     lm_mesh_seq_check(world, one[LM_MESH_ARCHS[0]], figures["lm-mesh-fsdp"],
                       smi)
     lm_mesh_tp_check(figures["lm-mesh-tp"], one_tp, smi)
+    lm_mesh_seq_families_check(figures["lm-mesh-tp"], one_tp, smi)
+    lm_mesh_compress_check(world, one_comp, one[LM_MESH_ARCHS[0]], smi)
     with tempfile.TemporaryDirectory(prefix="lm_mesh_g_") as tmp:
         for k, v in lm_mesh_uneven(torch, smi, figures, tmp).items():
             launches[k] += v
@@ -6053,6 +6458,7 @@ DRYRUN_CELLS = (("qwen2.5-32b", "train_4k"), ("qwen2.5-32b", "prefill_32k"),
                 ("qwen2.5-32b", "decode_32k"),
                 ("command-r-plus-104b", "train_4k"))
 DRYRUN_TIMEOUT_S = 900
+DRYRUN_WORKERS = 6          # trace processes beside [lm-mesh]
 
 
 def dryrun_job(job: tuple):
@@ -6173,10 +6579,12 @@ def dryrun_hbm_check(torch) -> str:
 
 def dryrun_fsdp_check(trace: dict, ranks: list, smi: str,
                       label: str = "(b')", run: str = "(d)",
-                      layout: str = "FSDP") -> None:
+                      layout: str = "FSDP",
+                      arch: str = LM_MESH_ARCHS[0]) -> None:
     """(b'): rank 0 of `[lm-mesh]` (d) traced against the card's rank 0:
     its calls a step per op and the bytes held equal, its peak within
-    DRYRUN_TOL of the measured one ((b''): the same for (e))."""
+    DRYRUN_TOL of the measured one ((b''): the same for (e); (b5) for
+    each (h) run of `arch`)."""
     rank0 = ranks[0]
     per_op = {k: v["count"] for k, v in trace["collectives"]["per_op"].items()}
     held = trace["held"]
@@ -6190,7 +6598,7 @@ def dryrun_fsdp_check(trace: dict, ranks: list, smi: str,
     gap = dryrun_gap(label, dryrun_peak(trace), rank0["peak"])
     by_axis = ", ".join(f"{k} {v['count']} ({v['bytes'] / 1e9:.3f} GB)"
                         for k, v in trace["collectives"]["per_axis"].items())
-    phase("dryrun", f"{label} {LM_MESH_ARCHS[0]} {layout} at (data="
+    phase("dryrun", f"{label} {arch} {layout} at (data="
           f"{LM_MESH_DATA}, model={LM_MESH_MODEL}), rank 0 of a fake world "
           f"of {LM_MESH_DATA * LM_MESH_MODEL} (the [lm-mesh] {run} run): calls a "
           f"step {per_op} and {held['params'] / 1e9:.3f} / "
@@ -6271,7 +6679,35 @@ def dryrun_uneven_check(trace: dict, ranks: list, smi: str) -> None:
           f"traced in {trace['seconds']:.1f}s")
 
 
-def dryrun_phase(torch, smi, figures: dict) -> dict:
+def dryrun_jobs() -> list:
+    """`[dryrun]`'s traces, in the order `dryrun_phase` reads them."""
+    tp = [("lm-mesh-tp", arch, bool(rules))
+          for arch, rules in LM_MESH_TP_RUNS]
+    fam = [("lm-mesh-tp", arch, True) for arch in LM_MESH_SEQ_FAMILIES]
+    return [("lm-train",), ("lm-mesh",), ("lm-mesh-fsdp",),
+            ("lm-mesh-seq",)] + tp + [("cell",) + c for c in DRYRUN_CELLS] \
+        + [("lm-mesh-uneven",)] + fam
+
+
+def dryrun_start():
+    """Start `[dryrun]`'s traces (`dryrun_jobs`) in DRYRUN_WORKERS
+    spawned processes on the CPU, the production cells (the longest)
+    first: they read nothing of the card or of the phases' results, so
+    they run beside `[lm-mesh]`, leaving host cores to its gloo ranks,
+    and `dryrun_phase` collects them.  Returns (pool, futures in
+    `dryrun_jobs` order, start)."""
+    import concurrent.futures
+    import multiprocessing
+    jobs = dryrun_jobs()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        min(len(jobs), DRYRUN_WORKERS),
+        mp_context=multiprocessing.get_context("spawn"))
+    order = sorted(range(len(jobs)), key=lambda i: jobs[i][0] != "cell")
+    futures = {i: pool.submit(dryrun_job, jobs[i]) for i in order}
+    return pool, [futures[i] for i in range(len(jobs))], time.perf_counter()
+
+
+def dryrun_phase(torch, smi, figures: dict, started=None) -> dict:
     """The dry run (`repro_torch.launch.dryrun`) held to the card: (a)
     `[lm-train]` (c)'s step traced on one rank against its measured
     ``max_memory_allocated``; (b) rank 0 of `[lm-mesh]` (a) traced in a
@@ -6282,29 +6718,29 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
     (e) (FSDP + sequence parallel); (b''') each (f) run (the families
     split by heads), its calls per op and per axis equal; (b'''') the
     same for `[lm-mesh]` (g) (the experts cut by hidden width, attention
-    cut at rest, at model 16), its peak within DRYRUN_TOL too; (c)
+    cut at rest, at model 16), its peak within DRYRUN_TOL too; (b5) as
+    (b'') for each `[lm-mesh]` (h) run; (c)
     qwen2.5-32b's three cells and
     command-r-plus-104b's train_4k at 16 x 16, placed (FSDP), their
     ``"seq"`` overrides applied, `run_cell` and `analyze` rows; (d)
     `HBM_PER_CARD` against the card.  The traces run in
     spawned processes on the CPU, side by side; every kernel's launch
-    count must stay 0."""
-    import concurrent.futures
-    import multiprocessing
+    count must stay 0.  ``started``: the traces `dryrun_start` began
+    earlier (else they start here)."""
     t0 = time.perf_counter()
     zero_launches()
-    tp = [("lm-mesh-tp", arch, bool(rules))
-          for arch, rules in LM_MESH_TP_RUNS]
-    jobs = [("lm-train",), ("lm-mesh",), ("lm-mesh-fsdp",),
-            ("lm-mesh-seq",)] + tp + [("cell",) + c for c in DRYRUN_CELLS] \
-        + [("lm-mesh-uneven",)]
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(len(jobs),
-                                                mp_context=ctx) as pool:
-        futures = [pool.submit(dryrun_job, job) for job in jobs]
+    pool, futures, begun = started or dryrun_start()
+    with pool:
         done = [f.result(timeout=DRYRUN_TIMEOUT_S) for f in futures]
+    tp = [job for job in dryrun_jobs() if job[0] == "lm-mesh-tp"]
+    tp, fam = tp[:len(LM_MESH_TP_RUNS)], tp[len(LM_MESH_TP_RUNS):]
+    phase("dryrun", f"the traces' results {time.perf_counter() - t0:.1f}s "
+          f"after this phase began, {time.perf_counter() - begun:.1f}s "
+          "after they were started")
     one, mesh, placed, seq = done[:4]
     tp_traces = done[4:4 + len(tp)]
+    fam_traces = done[len(done) - len(fam):]
+    done = done[:len(done) - len(fam)]
     cells, uneven = done[4 + len(tp):-1], done[-1]
 
     measured = figures["lm-train"]["peak"]
@@ -6348,6 +6784,11 @@ def dryrun_phase(torch, smi, figures: dict) -> dict:
         label = lm_mesh_tp_label(arch, rules)
         dryrun_tp_check(trace, figures["lm-mesh-tp"][label], label, smi)
     dryrun_uneven_check(uneven, figures["lm-mesh-uneven"], smi)
+    for arch, trace in zip(LM_MESH_SEQ_FAMILIES, fam_traces):
+        label = lm_mesh_tp_label(arch, LM_MESH_SEQ_RULES)
+        dryrun_fsdp_check(trace, figures["lm-mesh-tp"][label], smi, "(b5)",
+                          "(h)", "FSDP split by heads + sequence parallel",
+                          arch=arch)
     for (arch, shape), cell in zip(DRYRUN_CELLS, cells):
         row, roof = cell["row"], cell["roofline"]
         p = row["peak_bytes_per_device"]
@@ -6458,9 +6899,10 @@ def main() -> int:
     figures: dict = {}
     for name, n in lm_train_phase(torch, smi, figures).items():
         records[name]["lm_train_launches"] = n
+    traces = dryrun_start()   # on the CPU beside [lm-mesh]
     for name, n in lm_mesh_phase(torch, smi, figures).items():
         records[name]["lm_mesh_launches"] = n
-    for name, n in dryrun_phase(torch, smi, figures).items():
+    for name, n in dryrun_phase(torch, smi, figures, traces).items():
         records[name]["dryrun_launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

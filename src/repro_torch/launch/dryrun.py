@@ -76,7 +76,8 @@ from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.distributed import collectives, fsdp
-from repro_torch.launch.specs import HBM_PER_CARD, cell_inputs, make_cell
+from repro_torch.launch.specs import (DEC_FRACTION, HBM_PER_CARD, cell_inputs,
+                                     make_cell)
 
 COLLECTIVE_OPS = ("all_reduce", "all_gather_into_tensor",
                   "reduce_scatter_tensor", "broadcast", "barrier")
@@ -664,15 +665,16 @@ def trace_train(cfg, optimizer, batch: dict, *, plan=None,
 MODEL_RULED = ("heads", "kv_heads", "mlp", "vocab", "expert")
 
 
-# the families whose residual stream the port cuts by sequence
-SEQ_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+# the families whose residual stream the port cuts by sequence: all
+SEQ_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
 def _seq_cut(cell, plan) -> tuple:
     """({"residual": bool, "cache": bool}, {what stays unapplied: why}):
     the parts of a cell the ``"seq"`` rule of its plan cuts over a mesh
-    axis, and those the reference cuts that the port does not (rwkv6's
-    and whisper's residual stream) or that the axis does not divide."""
+    axis, and those the reference cuts that the port does not or that
+    the axis does not divide (whisper's training cuts its frames and
+    its decoder tokens together, `WhisperModel.seq_axes`)."""
     from repro_torch.distributed.sharding import seq_axis, use_sharding
     cut = {"residual": False, "cache": False}
     if cell.rule_overrides.get("seq") is None:
@@ -695,6 +697,11 @@ def _seq_cut(cell, plan) -> tuple:
                                          "(ROADMAP.md follow-ups)")
             elif seq_axis(length) is None:
                 unapplied["residual"] = f"{length} positions do not divide"
+            elif (cfg.family == "audio" and shape.kind == "train"
+                  and seq_axis(max(length // DEC_FRACTION, 8)) is None):
+                unapplied["residual"] = (
+                    f"{max(length // DEC_FRACTION, 8)} decoder positions "
+                    "do not divide")
             else:
                 cut["residual"] = True
         if cache_len and cfg.family != "ssm":

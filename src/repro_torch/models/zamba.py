@@ -42,17 +42,15 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import fsdp
 from repro_torch.distributed.collectives import (Axis, all_gather,
-                                                 gather_seq, grad_share,
-                                                 reduce_scatter_seq,
-                                                 split_chunk)
+                                                 gather_seq, grad_share)
 from repro_torch.distributed.sharding import seq_axis, shard_activation
 from repro_torch.nn.attention import KVCache, cut_by, write_positions
 from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.ssm import Mamba2, Mamba2State
 from repro_torch.nn.transformer import (DecoderBlock, LMOutput,
                                         gather_block_input, maybe_remat,
-                                        seq_sum, sum_aux, torch_dtype,
-                                        whole_vocab)
+                                        seq_sum, slice_embedded, sum_aux,
+                                        torch_dtype, whole_vocab)
 
 
 @dataclasses.dataclass
@@ -214,10 +212,7 @@ class Zamba2LM(nn.Module):
         with fsdp.gathered(self.embed):
             x = self.embed(tokens, dtype=torch_dtype(self.cfg.compute_dtype),
                            reduce=seq is None)
-        if seq is None:
-            return x
-        return (reduce_scatter_seq(x, seq) if self.embed.axis is not None
-                else split_chunk(x, seq, 1))
+        return x if seq is None else slice_embedded(x, self.embed, seq)
 
     def backbone(self, tokens, **_):
         """([B, S, d], aux); under sequence parallelism the final norm

@@ -439,13 +439,14 @@ class Attention(nn.Module):
             out = gqa_attention(q, k, v, mask)
         return self.wo(out.reshape(b, s, -1), reduce)
 
-    def cross_kv(self, enc: torch.Tensor):
+    def cross_kv(self, enc: torch.Tensor, reduce: bool = True):
         """Cross-attention K/V from an encoder output (this rank's kv heads
-        where the layer is split)."""
+        where the layer is split); ``reduce=False`` as in `forward`."""
         b, s, _ = enc.shape
-        enc = copy_to(enc, self.axis)
-        k = self.wk(enc).reshape(b, s, self.n_kv, self.head_dim)
-        v = self.wv(enc).reshape(b, s, self.n_kv, self.head_dim)
+        if reduce:
+            enc = copy_to(enc, self.axis)
+        k = self.wk(enc, reduce).reshape(b, s, self.n_kv, self.head_dim)
+        v = self.wv(enc, reduce).reshape(b, s, self.n_kv, self.head_dim)
         return k, v
 
     def decode_step(self, x: torch.Tensor, cache: KVCache, *,

@@ -51,6 +51,16 @@ rank does not hold: their statistics sum over the axis
 ``bonus_u``, the norms' affine parameters) and B/C's columns hold a
 part of their gradient on each rank: `MeshTrainStep` sums them over
 "model".
+
+Inside a sequence-parallel region (``reduce=False``: the input is the
+whole sequence gathered from the ranks' slices, `repro_torch.models`)
+each rank's gradient is its part of a sum over the axis: a split cell
+reads its input as it is (the gather's backward sums it), a weight cut
+at rest is gathered with the reduce-scatter backward, and the RWKV6
+channel mix's channel gather reduce-scatters its gradient too (each
+rank keeps only its slice of the sequence of the output).  The cells
+see the whole sequence, so their token shifts and recurrences are the
+whole sequence's.
 """
 from __future__ import annotations
 
@@ -61,7 +71,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.collectives import (Axis, copy_to,
-                                                 fused_slice, gather_from,
+                                                 fused_slice, gather_at_use,
                                                  reduce_scatter_seq)
 from repro_torch.nn.layers import LayerNorm, Linear, splits
 
@@ -417,30 +427,36 @@ class RWKV6TimeMix(nn.Module):
         return -torch.exp(torch.clamp(self._mine(self.dec_base, 0).to(f32)
                                       + lw, -20.0, 1.609))
 
-    def _proj_heads(self, xr, xk, xv, xg):
+    def _proj_heads(self, xr, xk, xv, xg, reduce: bool = True):
         b, s, _ = xr.shape
         h, p = self.n_heads, self.head_dim
-        r = self.r(xr).reshape(b, s, h, p)
-        k = self.k(xk).reshape(b, s, h, p)
-        v = self.v(xv).reshape(b, s, h, p)
-        g = F.silu(self.g(xg))
+        r = self.r(xr, reduce).reshape(b, s, h, p)
+        k = self.k(xk, reduce).reshape(b, s, h, p)
+        v = self.v(xv, reduce).reshape(b, s, h, p)
+        g = F.silu(self.g(xg, reduce))
         return r, k, v, g
 
-    def _out(self, wkv_out: torch.Tensor, g: torch.Tensor, b: int, s: int):
+    def _out(self, wkv_out: torch.Tensor, g: torch.Tensor, b: int, s: int,
+             reduce: bool = True):
         y = self.ln_x(wkv_out.reshape(b, s, self.n_heads * self.head_dim))
-        return self.o((y * g).to(g.dtype))
+        return self.o((y * g).to(g.dtype), reduce)
 
     def forward(self, x: torch.Tensor, shift_prev: torch.Tensor,
-                wkv_prev: torch.Tensor):
-        """Chunked form.  x [B, S, d] -> (out, last token, wkv state)."""
+                wkv_prev: torch.Tensor, reduce: bool = True):
+        """Chunked form.  x [B, S, d] -> (out, last token, wkv state).
+        With ``reduce=False`` (inside a sequence-parallel region: `x` the
+        whole gathered sequence, so the token shift and the recurrence
+        see every earlier position) a split layer reads `x` as it is and
+        gives this rank's part of ``o``'s sum over the axis."""
         b, s, _ = x.shape
         h, p = self.n_heads, self.head_dim
         f32 = torch.float32
-        x = copy_to(x, self.axis)
+        if reduce:
+            x = copy_to(x, self.axis)
         x_prev = torch.cat([shift_prev[:, None].to(x.dtype), x[:, :-1]],
                            dim=1)
         xr, xk, xv, xg, xw = self._mix(x, x_prev)
-        r, k, v, g = self._proj_heads(xr, xk, xv, xg)
+        r, k, v, g = self._proj_heads(xr, xk, xv, xg, reduce)
         logw = self._decay(xw).reshape(b, s, h, p)  # [B, S, H, dk]
         u = self._mine(self.bonus_u, 0).to(f32)  # [H, dk]
 
@@ -475,7 +491,7 @@ class RWKV6TimeMix(nn.Module):
                      + torch.einsum("bshd,bshe->bhde", kk * dec_end, vk))
             ys.append(y)
         y = torch.stack(ys, dim=1).reshape(b, s, h, p).to(x.dtype)
-        out = self._out(y, g, b, s)
+        out = self._out(y, g, b, s, reduce)
         return out, x[:, -1].to(shift_prev.dtype), state
 
     def decode_step(self, x: torch.Tensor, shift_prev: torch.Tensor,
@@ -541,8 +557,16 @@ class RWKV6ChannelMix(nn.Module):
             self.mu_k.fill_(0.5)
             self.mu_r.fill_(0.5)
 
-    def forward(self, x: torch.Tensor, shift_prev: torch.Tensor):
-        x = copy_to(x, self.axis)
+    def forward(self, x: torch.Tensor, shift_prev: torch.Tensor,
+                reduce: bool = True):
+        """x [B, S, d] -> (out, last token).  With ``reduce=False``
+        (inside a sequence-parallel region: `x` the whole gathered
+        sequence) a split layer reads `x` as it is, and its output, whole
+        on every rank, takes the gradient of each rank's part: its
+        channels' gather reduce-scatters the gradient back (each rank
+        keeps only its slice of the sequence of the output)."""
+        if reduce:
+            x = copy_to(x, self.axis)
         x_prev = torch.cat([shift_prev[:, None].to(x.dtype), x[:, :-1]],
                            dim=1)
         xx = x_prev - x
@@ -554,6 +578,6 @@ class RWKV6ChannelMix(nn.Module):
         else:  # this rank's channels of v's sum, then all of them
             mine = reduce_scatter_seq(self.v(kk, reduce=False), self.axis,
                                       -1)
-            out = gather_from(torch.sigmoid(self.r(xr)) * mine, self.axis,
-                              -1)
+            out = gather_at_use(torch.sigmoid(self.r(xr)) * mine,
+                                self.axis, -1, alike=reduce)
         return out, x[:, -1].to(shift_prev.dtype)

@@ -201,6 +201,15 @@ def seq_sum(parts: list, seq: Axis) -> torch.Tensor:
     return out
 
 
+def slice_embedded(x: torch.Tensor, embed: Embedding,
+                   seq: Axis) -> torch.Tensor:
+    """This rank's slice of the sequence of tokens `embed` looked up with
+    ``reduce=False``: a split table's parts reduce-scattered, a whole
+    table's rows cut."""
+    return (reduce_scatter_seq(x, seq) if embed.axis is not None
+            else split_chunk(x, seq, 1))
+
+
 def gather_block_input(h: torch.Tensor, seq: Axis, scope) -> torch.Tensor:
     """The whole sequence of this rank's slice `h` (`gather_seq`), saved
     as the slice where autograd keeps it outside a checkpointed region
@@ -413,8 +422,7 @@ class DecoderLM(nn.Module):
                 patches = collectives.first_only(patches, seq)
             x = torch.cat([patches, x], dim=1)
         if seq is not None:
-            x = (reduce_scatter_seq(x, seq) if split
-                 else split_chunk(x, seq, 1))
+            x = slice_embedded(x, self.embed, seq)
         return shard_activation(x, ("batch", "seq", None))
 
     def _logits(self, x, whole: bool = False, seq: Axis | None = None):

@@ -214,8 +214,9 @@ def make_train_step(model, cfg: ArchConfig, optimizer, *,
     that dtype and the metrics averaged, as the reference accumulates.
     An unused parameter gets a zero gradient, as `jax.grad` gives it.
     ``grad_compression`` (a ``grads -> grads`` callable, e.g.
-    `ErrorFeedbackCompressor.bind`) sees the gradients before the
-    optimizer's in-place `update_`, with the layer grouping of the
+    `ErrorFeedbackCompressor.bind`; on the mesh see `MeshTrainStep`)
+    sees the gradients before the optimizer's in-place `update_`, with
+    the layer grouping of the
     model's parameters (`layers.stack_groups`, Adafactor's; pass the same
     to ``optimizer.init``).  The raw gradients stay in ``.grad`` until
     the next step clears them."""
@@ -237,13 +238,29 @@ def make_train_step(model, cfg: ArchConfig, optimizer, *,
             loss_fn, _split_microbatches(batch, n_microbatches))
         grads = _gradients(params, n_microbatches)
         if grad_compression is not None:
-            grads = grad_compression(grads)
+            grads = _compress(grad_compression, grads, groups)
         params, opt_state, opt_metrics = optimizer.update_(
             grads, opt_state, params, groups=groups)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
     return train_step
+
+
+def _compress(fn, grads: dict, groups: dict, whole_max=None) -> dict:
+    """``grad_compression`` `fn` of `grads`: the repo's compressors
+    (`compression.takes_max_over`) take each leaf's scale over its layer
+    stack (`compression.stacked_max`, the reference's stacked leaf) and,
+    through `whole_max`, over the ranks holding its slices; any other
+    callable sees the gradients as they are."""
+    from repro_torch.distributed import compression
+    if not compression.takes_max_over(fn):
+        return fn(grads)
+
+    def max_over(amax):
+        amax = compression.stacked_max(amax, groups)
+        return amax if whole_max is None else whole_max(amax)
+    return fn(grads, max_over=max_over)
 
 
 def _backward_metrics(loss_fn, batches: list) -> dict:
@@ -334,17 +351,26 @@ class MeshTrainStep:
       leaves over pod x data; the update runs on the slices in place, as
       ZeRO-1's does, and nothing is gathered after it.
 
-    The body runs under the plan's `dispatch_context()`.
-    ``grad_compression`` is not ported on the mesh and raises."""
+    * **Gradient compression** (``grad_compression``): after the
+      reduction above and before the update, as the reference compresses
+      the reduced gradient inside its step (`repro/train/train_loop.py:
+      169-170`).  Each rank holds its slices of the gradient, so the
+      repo's compressors (`compression.takes_max_over`:
+      `compress_int8_stateless`, `ErrorFeedbackCompressor.bind`) take each
+      leaf's scale over the whole leaf (`whole_max`) and code their own
+      slice with it (a layer's scale its stack's, as the reference
+      stacks layers); a bound compressor's residual is the rank's
+      gradient slice (sized from the first gradient).  Any other
+      ``grads -> grads`` callable is called on the rank's slices as they
+      are.
+
+    The body runs under the plan's `dispatch_context()`."""
 
     def __init__(self, model, cfg: ArchConfig, optimizer, plan, *,
                  n_microbatches: int = 1, grad_compression=None,
                  param_axes=None, zero1: bool = False):
         from repro_torch.distributed.partition import MODEL_AXIS, model_layout
-        if grad_compression is not None:
-            raise NotImplementedError(
-                "make_train_step: grad_compression on the mesh is not "
-                "ported (ROADMAP.md queue 1)")
+        self.grad_compression = grad_compression
         self.optimizer, self.plan = optimizer, plan
         self.n_microbatches = n_microbatches
         self.model_axis = (plan.mesh.axes[MODEL_AXIS] if plan.model_axis
@@ -399,6 +425,33 @@ class MeshTrainStep:
                       if d < 0 and k not in self.layout.partial]
         return names
 
+    def whole_max(self, amax: dict) -> dict:
+        """{name: max |x| over the whole leaf} from each leaf's maximum
+        over this rank's slice of its gradient: the maxima of the leaves
+        cut over "model" taken over that axis in one `all_max`, then
+        those of the leaves cut over "data" (ZeRO-1's or FSDP's slices,
+        a leaf cut over both carrying its model maximum) over "data" in
+        one more.  A leaf held alike on every rank of an axis (whole, or
+        a fused leaf's columns every model rank holds) needs nothing
+        there: a maximum counts it once."""
+        out = dict(amax)
+        cuts = ((self.model_axis, self.model_dims),
+                (self.plan.data_axis, self.data_dims))
+        for axis, dims in cuts:
+            names = [k for k in out if dims[k] >= 0]
+            if axis is None or axis.size == 1 or not names:
+                continue
+            both = collectives.all_max(torch.stack([out[k] for k in names]),
+                                       axis)
+            out.update(zip(names, both.unbind(0)))
+        return out
+
+    def compress(self, grads: dict) -> dict:
+        """``grad_compression`` of this rank's reduced gradient slices
+        (class docstring)."""
+        return _compress(self.grad_compression, grads, self.groups,
+                         self.whole_max)
+
     def _microbatches(self, batch: dict) -> list:
         """Rank ``d``'s row block of every microbatch of `batch`."""
         data = self.data
@@ -427,6 +480,8 @@ class MeshTrainStep:
             grads = plan.zero_reduce_grads(
                 grads, self.data_dims, mean=False, sliced=self.fsdp,
                 model_sum=self.model_sum(), model_dup=self.layout.dup)
+            if self.grad_compression is not None:
+                grads = self.compress(grads)
             mesh_kw = dict(model=self.model_axis, model_dims=self.model_dims,
                            groups=self.groups)
             if self.layout.dup:

@@ -61,7 +61,7 @@ from repro_torch.nn import layers  # noqa: E402
 from repro_torch.train import optimizer as t_opt  # noqa: E402
 from repro_torch.train import train_loop  # noqa: E402
 
-WORLD_TIMEOUT_S = 240
+WORLD_TIMEOUT_S = 480
 
 
 def reference(module: str):
@@ -296,6 +296,56 @@ JAX_LM_MESH = textwrap.dedent("""
         for k, v in R.flatten(jax.tree_util.tree_map(
                 np.asarray, params)).items():
             arrays[f"{{name}}/final/{{k}}"] = v
+
+    # the compressed step, its gradient before each compression caught by
+    # a callback (one run: R.COMPRESS_CASES start from the qwen case)
+    from repro.distributed import compression as comp
+    case = R.CASES["qwen"]
+    cfg = R.config(registry, case)
+    model = registry.build_model(cfg)
+    params = split_params(model.init(jax.random.PRNGKey(0)))[0]
+    caught = []
+
+    def catching(grads):
+        jax.debug.callback(lambda g: caught.append(
+            jax.tree_util.tree_map(np.asarray, g)), grads)
+        return comp.compress_int8_stateless(grads)
+
+    o = opt.AdamW(learning_rate=R.LR)
+    step = train_loop.make_train_step(
+        model, cfg, o, plan=plan, zero1=True,
+        n_microbatches=case["n_micro"], grad_compression=catching)
+    state = o.init(params)
+    batch = {{k: jnp.asarray(v) for k, v in R.batch_np(cfg, case).items()}}
+    metrics["compress"] = []
+    for _ in range(R.STEPS):
+        params, state, m = step(params, state, batch)
+        metrics["compress"].append({{k: float(v) for k, v in m.items()}})
+    jax.effects_barrier()
+    assert len(caught) == R.STEPS, len(caught)
+    for i, grads in enumerate(caught):
+        for k, v in R.flatten(grads).items():
+            arrays[f"compress/x{{i}}/{{k}}"] = v
+    for k, v in R.flatten(jax.tree_util.tree_map(np.asarray,
+                                                 params)).items():
+        arrays[f"compress/final/{{k}}"] = v
+
+    # the compressors on each piece's whole stacked trees
+    for name in R.COMPRESS_PIECES:
+        trees = [{{k: jnp.asarray(v) for k, v in R.stack_np(t).items()}}
+                 for t in R.compress_trees(name)]
+
+        def put(tag, tree):
+            for k, v in tree.items():
+                arrays[f"pieces/{{name}}/{{tag}}/{{k}}"] = np.asarray(v)
+
+        put("stateless", comp.compress_int8_stateless(trees[0]))
+        ef = comp.ErrorFeedbackCompressor()
+        ef_state = ef.init(trees[0])
+        for i, tree in enumerate(trees):
+            out, ef_state = ef.compress(tree, ef_state)
+            put(f"ef{{i}}", out)
+            put(f"res{{i}}", ef_state.residual)
     np.savez({out!r}, **arrays)
     print("JAX_LM_MESH", json.dumps(metrics))
 """)
@@ -311,16 +361,25 @@ def jax_lm_mesh(tmp_path_factory):
                JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     res = subprocess.run([sys.executable, "-c", script], env=env,
-                         capture_output=True, text=True, timeout=400)
+                         capture_output=True, text=True, timeout=600)
     assert "JAX_LM_MESH" in res.stdout, (res.stdout[-2000:],
                                          res.stderr[-3000:])
     metrics = json.loads(res.stdout.split("JAX_LM_MESH", 1)[1])
     with np.load(out) as data:
         arrays = {k: data[k] for k in data.files}
     split = {name: ({}, {}) for name in R.CASES}
+    split["compress"] = {}
+    pieces = {name: {} for name in R.COMPRESS_PIECES}
     for key, v in arrays.items():
         name, when, leaf = key.split("/", 2)
-        split[name][when == "final"][leaf] = v
+        if name == "compress":
+            split[name].setdefault(when, {})[leaf] = v
+        elif name == "pieces":
+            tag, leaf = leaf.split("/", 1)
+            pieces[when].setdefault(tag, {})[leaf] = v
+        else:
+            split[name][when == "final"][leaf] = v
+    split["pieces"] = pieces
     return split, metrics
 
 
@@ -328,7 +387,8 @@ def jax_lm_mesh(tmp_path_factory):
 def port_lm_mesh(jax_lm_mesh):
     trees, _ = jax_lm_mesh
     initial = {name: trees[name][0] for name in R.CASES}
-    return run_ranks(R.lm_mesh_world, 4, args=(list(R.CASES), initial),
+    return run_ranks(R.lm_mesh_world, 4,
+                     args=(list(R.CASES), initial, trees["pieces"]),
                      threads=1, timeout_s=WORLD_TIMEOUT_S)
 
 
@@ -414,9 +474,87 @@ def test_mesh_and_plan_arguments_give_one_step():
                                       mesh=plan.mesh)
     assert isinstance(step, train_loop.MeshTrainStep)
     assert step.plan.mesh is plan.mesh
-    with pytest.raises(NotImplementedError, match="grad_compression"):
-        train_loop.make_train_step(model, cfg, t_opt.AdamW(), plan=plan,
-                                   grad_compression=lambda g: g)
+    # a plan with grad_compression builds a step
+    compressed = train_loop.make_train_step(
+        model, cfg, t_opt.AdamW(), plan=plan, grad_compression=lambda g: g)
+    assert isinstance(compressed, train_loop.MeshTrainStep)
+    assert compressed.grad_compression is not None
+
+
+# ---------------------------------------------------------------------------
+# gradient compression on the mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(R.COMPRESS_CASES))
+def test_compressed_mesh_step_matches_reference(jax_lm_mesh, port_lm_mesh,
+                                                name):
+    """The step with ``compress_int8_stateless`` against the reference's
+    compressed mesh step: metrics at rtol 1e-4 / atol 1e-5; each step's
+    scales within ``1e-6 + 1e-4 |s|``; the first step's codes equal but
+    where the reference's ``x / scale`` lies within 1e-3 of a
+    half-integer (the two sums of the gradient may round to either side
+    there), at most `MAX_MISSES` a leaf; the final parameters at rtol
+    1e-4 / atol 1e-5 but at the elements whose codes differed in a
+    step, which are held to ``STEPS x LR + 1e-5``."""
+    from test_torch_lm_train_arch import MAX_MISSES
+    trees, metrics = jax_lm_mesh
+    ref = trees["compress"]
+    want = metrics["compress"]
+    got = port_lm_mesh[0]["compress"][name]
+    for step, (g, w) in enumerate(zip(got["metrics"], want)):
+        assert set(g) == set(w)
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{name} step {step + 1} {k}")
+    differed = {}
+    for step in range(R.STEPS):
+        x_got, out_got = got["grads"][step]
+        for k, miss in R.code_misses(ref[f"x{step}"], x_got, out_got,
+                                     f"{name} step {step + 1}",
+                                     MAX_MISSES if step == 0
+                                     else None).items():
+            differed[k] = differed.get(k, False) | miss
+    for rank, world in enumerate(port_lm_mesh):
+        params = world["compress"][name]["params"]
+        R.final_within(params, ref["final"], differed, f"{name} rank {rank}")
+        if rank:
+            for k, v in port_lm_mesh[0]["compress"][name]["params"].items():
+                np.testing.assert_array_equal(params[k], v)
+    assert want[-1]["loss"] < want[0]["loss"]
+
+
+@pytest.mark.parametrize("name", list(R.COMPRESS_PIECES))
+def test_compressor_on_slices_matches_reference_exactly(port_lm_mesh, name):
+    """Each rank's compressed slices (stateless) and its error-feedback
+    output and residual over `COMPRESS_CALLS` calls equal its slices of
+    the reference's compressors on the whole stacked trees, bit for
+    bit."""
+    for rank, world in enumerate(port_lm_mesh):
+        got = world["compress_pieces"][name]
+        assert len(got["mismatch"]) == 1 + 2 * R.COMPRESS_CALLS
+        for tag, leaves in got["mismatch"].items():
+            bad = {k: n for k, n in leaves.items() if n}
+            assert not bad, (name, rank, tag, bad)
+        assert got["elements"] > 0
+
+
+def test_compressor_pieces_cover_every_leaf_kind(port_lm_mesh):
+    for world in port_lm_mesh:
+        kinds = {k for got in world["compress_pieces"].values()
+                 for k in got["kinds"]}
+        assert kinds >= set(R.COMPRESS_KINDS), kinds
+
+
+def test_compression_takes_at_most_three_all_max_calls(port_lm_mesh):
+    """One vector of maxima per set of cut axes: an `all_max` over
+    "model", then one over "data" (at most 3 a step, 2 here)."""
+    for world in port_lm_mesh:
+        counts = [n for got in world["compress"].values()
+                  for n in got["calls"]]
+        counts += [n for got in world["compress_pieces"].values()
+                   for n in got["calls"]]
+        assert counts and all(0 < n <= 3 for n in counts), counts
+        print("all_max calls a compression:", sorted(set(counts)))
 
 
 def test_moe_groups_must_split_over_the_data_ranks():

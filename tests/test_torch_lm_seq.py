@@ -13,37 +13,43 @@ block, LayerNorm, tied embeddings and Adafactor, remat "layer";
 granite-moe at capacity factor 0.5, remat "dots"; qwen1.5-4b with 5
 heads, so that attention stays whole over "model" and its leaves take
 the model-axis gradient sum, two microbatches and an uneven mask;
-zamba2-1.2b), the gradient of the first step, and the jitted prefill and
-greedy decode of the dense, MoE, vlm, zamba2 and whisper smoke models.
+zamba2-1.2b; rwkv6-3b split by heads, and with 3 heads cut at rest;
+whisper-medium over 32 frames and 32 tokens), the gradient of the first
+step, and the jitted prefill and greedy decode of the dense, MoE, vlm,
+zamba2, whisper and rwkv6 smoke models.
 One 4-rank gloo world runs the port on the same initial parameters:
 
 * the step: per-step metrics and whole final parameters at rtol 1e-4 /
   atol 1e-5 on every rank; the first step's gradient, whole, within
   ``1e-6 + 1e-4 |g|`` of the reference's;
 * prefill and decode: logits at rtol 1e-4 / atol 1e-5 and greedy tokens
-  equal, every KV cache a rank holds half of the whole along the
-  sequence (whisper's cross cache along the frames);
+  equal (rwkv6's decode reads the token shifts and wkv state its cut
+  prefill left), every KV cache a rank holds half of the whole along
+  the sequence (whisper's cross cache along the frames), and every
+  prefill gathers the residual (it held the rank's slice);
 * no whole gathered residual outlives its block under remat "layer",
-  "dots" and "none": when a microbatch's forward returns, the one whole
-  sequence alive is the head's input;
+  "dots" and "none" (and in rwkv6 under "none", whisper under "dots"):
+  when a microbatch's forward returns, the one whole sequence alive is
+  the head's input;
 * `gather_seq` / `reduce_scatter_seq` forward and backward against
   their definitions;
 * the dry run's trace of the command-r smoke step under the rule, on
   rank 0 of a fake world of 4: its calls and bytes per op equal the real
   ranks', its peak on real CPU tensors equal to that on meta tensors.
 
-rwkv6 and whisper training under the rule raise NotImplementedError.
+whisper's key biases have a true gradient of zero
+(`torch_lm_mesh_ranks.zero_grad_leaves`): their final values are held
+to ``STEPS x LR + 1e-5``, as `tests/test_torch_lm_tp_families.py` holds
+them.
 """
 import json
 import os
 import subprocess
 import sys
 import textwrap
-import types
 
 import numpy as np
 import pytest
-import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -51,12 +57,9 @@ import torch_lm_mesh_ranks as R  # noqa: E402 — its directory is on the path
 
 from repro_torch.distributed.collectives import Axis  # noqa: E402
 from repro_torch.distributed.launch import run_ranks  # noqa: E402
-from repro_torch.distributed.sharding import use_sharding  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
-from repro_torch.nn.layers import init_params  # noqa: E402
-from repro_torch.train import train_loop  # noqa: E402
 
-WORLD_TIMEOUT_S = 300
+WORLD_TIMEOUT_S = 600
 
 JAX_SEQ = textwrap.dedent("""
     import json, sys
@@ -156,7 +159,7 @@ def jax_seq(tmp_path_factory):
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     res = subprocess.run(
         [sys.executable, "-c", JAX_SEQ.format(tests=tests, out=str(out))],
-        env=env, capture_output=True, text=True, timeout=500)
+        env=env, capture_output=True, text=True, timeout=700)
     assert "JAX_SEQ" in res.stdout, (res.stdout[-2000:], res.stderr[-3000:])
     runs = json.loads(res.stdout.split("JAX_SEQ", 1)[1])
     with np.load(out) as data:
@@ -185,6 +188,7 @@ def test_seq_step_matches_reference(jax_seq, port_seq, name):
     final = _part(arrays, f"{name}/final/")
     want = runs[name]
     assert len(want) == R.STEPS
+    bounds = _final_bounds(arrays, name, final)
     for rank, world in enumerate(port_seq):
         got = world[name]
         for step, (g, w) in enumerate(zip(got["metrics"], want)):
@@ -196,7 +200,7 @@ def test_seq_step_matches_reference(jax_seq, port_seq, name):
         assert sorted(got["params"]) == sorted(final)
         for k, v in final.items():
             np.testing.assert_allclose(got["params"][k], v, rtol=1e-4,
-                                       atol=1e-5,
+                                       atol=bounds[k],
                                        err_msg=f"{name} rank {rank} {k}")
         if rank:  # one set of parameters on every rank
             for k, v in port_seq[0][name]["params"].items():
@@ -206,6 +210,25 @@ def test_seq_step_matches_reference(jax_seq, port_seq, name):
     assert want[-1]["loss"] < want[0]["loss"]
     if name == "granite":
         assert all(m["moe_drop_fraction"] > 0.05 for m in want)
+
+
+def _final_bounds(arrays: dict, name: str, final: dict) -> dict:
+    """Each final leaf's atol: 1e-5, but ``STEPS x LR + 1e-5`` for the
+    leaves whose true gradient is zero (`R.zero_grad_leaves`: the key
+    bias of each of whisper's attentions, whose reference gradient is
+    rounding), where Adam moves by steps of up to the rate with the
+    rounding's sign in both packages."""
+    if R.SEQ_CASES[name]["arch"] != "whisper-medium":
+        return {k: 1e-5 for k in final}   # no leaf takes the bound
+    zero = R.zero_grad_leaves(final)
+    # the encoder's self, the decoder's self and cross attention
+    assert len(zero) == 3, zero
+    grads = _part(arrays, f"{name}/grads/")
+    scale = max(np.abs(g).max() for g in grads.values())
+    for k in zero:   # the rule's premise: their gradient is rounding
+        assert np.abs(grads[k]).max() <= 1e-6 * scale, (k, scale)
+    wide = R.STEPS * R.LR + 1e-5
+    return {k: wide if k in zero else 1e-5 for k in final}
 
 
 @pytest.mark.parametrize("name", list(R.SEQ_CASES))
@@ -268,20 +291,24 @@ def test_seq_cache_is_half_of_the_whole_along_the_sequence(port_seq, name):
     one (all its kv heads); the SSM states have no sequence dim and are
     cut by heads as the split model holds them (zamba2's ssm state its
     half of the heads, its conv buffer its half of the x channels and
-    all the B/C ones)."""
+    all the B/C ones; rwkv6's wkv state its half of the heads, its token
+    shifts whole, and no KV cache)."""
     cfg = registry.get_config(R.SEQ_SERVE[name] + "-smoke")
     for world in port_seq:
         got = world["serve"][name]
-        assert got["cuts"] and all(got["cuts"].values()), got["cuts"]
         kv = [k for k in got["held"]
               if k in ("k", "v", "dec_k", "dec_v", "enc_k", "enc_v")]
-        assert kv, got["held"]
+        if cfg.family == "ssm":
+            assert not got["cuts"] and not kv, got
+        else:
+            assert got["cuts"] and all(got["cuts"].values()), got["cuts"]
+            assert kv, got["held"]
         for key, held in got["held"].items():
             whole = got["whole"][key]
             if key in kv:
                 assert held[2] * 2 == whole[2], (key, held, whole)
                 assert held[:2] + held[3:] == whole[:2] + whole[3:]
-            elif key == "ssm":
+            elif key in ("ssm", "wkv"):
                 assert held[2] * 2 == whole[2], (key, held, whole)
                 assert held[:2] + held[3:] == whole[:2] + whole[3:]
             elif key == "conv":
@@ -290,6 +317,18 @@ def test_seq_cache_is_half_of_the_whole_along_the_sequence(port_seq, name):
                 assert held[:3] == whole[:3]
             else:
                 assert held == whole, (key, held, whole)
+
+
+@pytest.mark.parametrize("name", list(R.SEQ_SERVE))
+def test_seq_prefill_holds_the_residual_cut(port_seq, name):
+    """The prefill under the rule gathers its residual (every block's
+    normed input, and whisper's encoder frames), so between blocks a
+    rank held its slice of the prompt."""
+    cfg = registry.get_config(R.SEQ_SERVE[name] + "-smoke")
+    layers = (cfg.enc_layers + cfg.dec_layers if cfg.family == "audio"
+              else cfg.num_layers)
+    for world in port_seq:
+        assert world["serve"][name]["prefill_gathers"] >= layers, name
 
 
 # ---------------------------------------------------------------------------
@@ -367,37 +406,6 @@ def test_seq_tally_on_real_tensors_equals_meta(seq_tally_fake):
     assert real["peak"] == meta["peak"]
     assert real["collectives"] == meta["collectives"]
     assert real["held"] == meta["held"]
-
-
-# ---------------------------------------------------------------------------
-# the families whose residual is not cut
-# ---------------------------------------------------------------------------
-
-def _rule_mesh():
-    """A (data=1, model=2) mesh as rank 0 sees it; nothing here calls a
-    collective before the refusal."""
-    model = Axis("model", 2, 0, (0, 1))
-    return types.SimpleNamespace(axis_names=("data", "model"),
-                                 shape={"data": 1, "model": 2},
-                                 axes={"data": Axis("data", 1, 0, (0,)),
-                                       "model": model})
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "whisper-medium"])
-def test_training_under_the_rule_raises_for_rwkv6_and_whisper(arch):
-    cfg = registry.get_config(arch + "-smoke")
-    model = init_params(registry.build_model(cfg, "cpu"), 0)
-    rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    if cfg.family == "audio":
-        batch["audio_embeds"] = torch.from_numpy(rng.standard_normal(
-            (2, 16, cfg.d_model)).astype(np.float32))
-    loss_fn = train_loop.make_loss_fn(model, cfg)
-    with use_sharding(_rule_mesh(), act_rules=R.SEQ_RULES):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            loss_fn(batch)
-    loss_fn(batch)  # without the rule it trains as before
 
 
 # ---------------------------------------------------------------------------

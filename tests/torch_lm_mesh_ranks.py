@@ -232,11 +232,20 @@ def optimizer_pieces() -> dict:
             "norm": (float(norm), float(opt.global_norm(grads)))}
 
 
-def lm_mesh_world(names: list, initial: dict) -> dict:
+def lm_mesh_world(names: list, initial: dict,
+                  compress_ref: dict | None = None) -> dict:
     """What a rank of the 4-rank world of `tests/test_torch_lm_mesh.py`
-    returns: every named case trained, and the optimizer pieces."""
+    returns: every named case trained, and the optimizer pieces; with
+    `compress_ref` ({piece name: the reference's compressed trees}), the
+    compressed step of every `COMPRESS_CASES` case (from the qwen case's
+    initial parameters) and the compressor on every piece's slices."""
     out = train_cases(names, initial)
     out["pieces"] = optimizer_pieces()
+    if compress_ref is not None:
+        out["compress"] = {n: compress_case(c, initial["qwen"])
+                           for n, c in COMPRESS_CASES.items()}
+        out["compress_pieces"] = {n: compress_pieces_case(n, ref)
+                                  for n, ref in compress_ref.items()}
     return out
 
 
@@ -490,14 +499,30 @@ SEQ_CASES = {
     # the hybrid family, whole over "model"
     "zamba": dict(arch="zamba2-1.2b", opt="adamw", n_micro=1, batch=4,
                   seq=32),
+    # the attention-free family, its time mix split by heads (4 over 2):
+    # the token shifts and the wkv recurrence over the gathered sequence
+    "rwkv": dict(CASES["rwkv"]),
+    # 3 heads of 32 over 2: the time mix whole, cut at rest
+    "rwkv_uneven": dict(arch="rwkv6-3b", opt="adamw", n_micro=1, batch=4,
+                        seq=32, d_model=96),
+    # the encoder's frames and the decoder's tokens both cut, the cross
+    # K/V over the gathered frames; its key biases held as in
+    # `zero_grad_leaves`
+    "whisper": dict(arch="whisper-medium", opt="adamw", n_micro=1, batch=4,
+                    seq=32, frames=32),
 }
-# prefill and greedy decode with the caches cut by sequence
+# prefill and greedy decode with the caches cut by sequence (rwkv6's
+# state has no sequence dim: its prefill's residual is cut)
 SEQ_SERVE = {"qwen": "qwen1.5-4b", "granite": "granite-moe-3b-a800m",
              "phi": "phi-3-vision-4.2b", "zamba": "zamba2-1.2b",
-             "whisper": "whisper-medium"}
+             "whisper": "whisper-medium", "rwkv": "rwkv6-3b"}
 SEQ_FRAMES = 32   # whisper's encoder frames
-SEQ_LIVENESS = {"layer": "qwen1.5-4b", "dots": "granite-moe-3b-a800m",
-                "none": "qwen1.5-4b"}
+# the liveness runs: (arch, remat)
+SEQ_LIVENESS = {"layer": ("qwen1.5-4b", "layer"),
+                "dots": ("granite-moe-3b-a800m", "dots"),
+                "none": ("qwen1.5-4b", "none"),
+                "rwkv_none": ("rwkv6-3b", "none"),
+                "whisper_dots": ("whisper-medium", "dots")}
 SEQ_TALLY_ARCH = "command-r-plus-104b"
 
 
@@ -569,11 +594,15 @@ def seq_serve_case(arch: str, initial: dict, act_rules=SEQ_RULES) -> dict:
               for k, v in seq_serve_inputs(cfg).items()}
     extras = {k: v for k, v in inputs.items() if k != "tokens"}
     max_len = L.SERVE_PROMPT + L.SERVE_STEPS + cfg.num_patches
-    logits, tokens = [], []
+    logits, tokens, gathers = [], [], []
     with torch.no_grad(), use_sharding(plan.mesh, plan.param_rules,
                                        plan.act_rules):
-        out, cache = model.prefill(inputs["tokens"], max_len=max_len,
-                                   **extras)
+        collectives.seq_observers.append(gathers.append)
+        try:
+            out, cache = model.prefill(inputs["tokens"], max_len=max_len,
+                                       **extras)
+        finally:
+            collectives.seq_observers.remove(gathers.append)
         held = {k: tuple(v.shape) for k, v in vars(cache).items()
                 if isinstance(v, torch.Tensor)}
         cuts = {k: v is not None for k, v in vars(cache).items()
@@ -593,7 +622,8 @@ def seq_serve_case(arch: str, initial: dict, act_rules=SEQ_RULES) -> dict:
     return {"logits": np.stack(logits, 1),
             "tokens": np.concatenate(tokens, 1),
             "rows": (axis.index * width, (axis.index + 1) * width),
-            "held": held, "whole": whole, "cuts": cuts}
+            "held": held, "whole": whole, "cuts": cuts,
+            "prefill_gathers": len(gathers)}
 
 
 def seq_liveness(arch: str, remat: str) -> dict:
@@ -609,7 +639,8 @@ def seq_liveness(arch: str, remat: str) -> dict:
     from repro_torch.nn.layers import init_params
     from repro_torch.train import train_loop
     from repro_torch.train.optimizer import AdamW
-    case = dict(arch=arch, remat=remat, n_micro=2, batch=4, seq=32)
+    case = dict(arch=arch, remat=remat, n_micro=2, batch=4, seq=32,
+                frames=SEQ_FRAMES)
     if arch.startswith("granite"):
         case["capacity_factor"] = 1.0
     cfg = config(registry, case)
@@ -719,8 +750,8 @@ def seq_world(initial: dict, serve_initial: dict) -> dict:
         out[name]["grads"] = seq_grads(case, initial[name])
     out["serve"] = {name: seq_serve_case(arch, serve_initial[name])
                     for name, arch in SEQ_SERVE.items()}
-    out["liveness"] = {remat: seq_liveness(arch, remat)
-                       for remat, arch in SEQ_LIVENESS.items()}
+    out["liveness"] = {name: seq_liveness(arch, remat)
+                       for name, (arch, remat) in SEQ_LIVENESS.items()}
     out["collectives"] = seq_collectives_case()
     out["tally"] = seq_tally_case(fake=False)
     return out
@@ -916,3 +947,287 @@ def tp_world(initial: dict, serve_initial: dict) -> dict:
                      for name, arch in TP_SERVE.items()}
     out["tally"] = tp_tally_case(fake=False)
     return out
+
+
+# ---------------------------------------------------------------------------
+# gradient compression on the mesh (`tests/test_torch_lm_mesh.py`)
+# ---------------------------------------------------------------------------
+
+# the compressed step against the reference's ``make_train_step(...,
+# plan=, zero1=True, grad_compression=compress_int8_stateless)``: the
+# qwen case under ZeRO-1 and placed (FSDP); both are held to the one
+# reference run (its placement changes no value)
+COMPRESS_CASES = {"qwen_int8": dict(CASES["qwen"]),
+                  "qwen_int8_placed": dict(CASES["qwen"], placed=True)}
+# the compressor on slices: models whose leaves on the (data=2, model=2)
+# plan cover every kind `COMPRESS_KINDS` names
+COMPRESS_PIECES = {
+    # attention split by heads, whole norms, ZeRO-1 slices
+    "qwen": dict(arch="qwen1.5-4b"),
+    # Mamba2's fused in_proj cut by pieces, B and C alike on every rank
+    "zamba": dict(arch="zamba2-1.2b"),
+    # 3 experts cut by hidden width, 3 heads cut at rest, placed (FSDP)
+    "granite_uneven": dict(TP_CASES["granite_uneven"], placed=True),
+}
+COMPRESS_KINDS = ("whole", "heads", "rank_part", "rest_cut", "moe_mlp",
+                  "dup", "zero1", "fsdp")
+COMPRESS_CALLS = 3   # error-feedback calls held to the reference's
+
+
+def int8_codes(x: np.ndarray) -> tuple:
+    """The reference's int8 rule in fp32 numpy: (codes, scale, x / scale)
+    (`np.round` rounds half to even, as `jnp.round`)."""
+    scale = np.float32(max(np.abs(x).max(), np.float32(1e-12))) \
+        / np.float32(127.0)
+    ratio = x / scale
+    return np.clip(np.round(ratio), -127, 127), scale, ratio
+
+
+def code_misses(x_ref: dict, x_got: dict, out_got: dict, label: str,
+                max_misses: int | None) -> dict:
+    """The code rule of a compressed gradient against the reference's
+    (flat trees: the reference's gradient before compression, the port's
+    before and after): every scale within ``1e-6 + 1e-4 |s|``, the
+    port's output its codes times its scale exactly, and (given
+    `max_misses`: the first step's gradient) the codes equal but where
+    the reference's ``x / scale`` lies within 1e-3 of a half-integer, at
+    most `max_misses` a leaf.  A later step's gradient follows
+    parameters a differing code has moved, so its differing codes are
+    listed only.  Returns {leaf: mask of the codes that differ} for the
+    leaves with any."""
+    assert sorted(x_got) == sorted(x_ref)
+    differed = {}
+    for k, x in x_ref.items():
+        q_ref, s_ref, ratio = int8_codes(x)
+        _, s_got, _ = int8_codes(x_got[k])
+        assert abs(s_got - s_ref) <= 1e-6 + 1e-4 * abs(s_ref), (label, k)
+        q_got = np.round(out_got[k] / s_got)
+        np.testing.assert_array_equal(
+            (q_got.astype(np.float32) * s_got).astype(np.float32),
+            out_got[k], err_msg=f"{label} {k}")
+        miss = q_got != q_ref
+        if not miss.any():
+            continue
+        if max_misses is not None:
+            tie = np.abs(np.abs(ratio - np.floor(ratio)) - 0.5) < 1e-3
+            assert tie[miss].all(), (
+                f"{label} {k}: a code differs away from a rounding tie")
+            assert miss.sum() <= max_misses, (label, k, int(miss.sum()))
+        print(f"{label} {k}: {int(miss.sum())} of {miss.size} codes differ, "
+              f"at {np.argwhere(miss).tolist()}")
+        differed[k] = miss
+    return differed
+
+
+def final_within(got: dict, want: dict, differed: dict, label: str) -> None:
+    """Final parameters at rtol 1e-4 / atol 1e-5, but ``STEPS x LR +
+    1e-5`` at the elements whose codes differed in a step."""
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        atol = np.full(v.shape, 1e-5)
+        if k in differed:
+            atol[differed[k]] = STEPS * LR + 1e-5
+        bad = np.abs(got[k] - v) > atol + 1e-4 * np.abs(v)
+        assert not bad.any(), (label, k, np.argwhere(bad).tolist()[:5])
+
+
+def compress_names(name: str) -> dict:
+    """{parameter name: whole shape} of `COMPRESS_PIECES[name]`'s model
+    (built on meta tensors)."""
+    from repro_torch.models import registry
+    model = registry.build_model(config(registry, COMPRESS_PIECES[name]),
+                                 "meta")
+    return {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+
+def compress_trees(name: str) -> list:
+    """`COMPRESS_CALLS` whole gradient trees ({parameter name: fp32
+    array}) for `COMPRESS_PIECES[name]`'s model, from a seed; each leaf
+    has its own magnitude, so a layer's and its stack's maxima differ."""
+    rng = np.random.default_rng(31)
+    shapes = compress_names(name)
+    return [{k: (rng.standard_normal(s) * (0.5 + (i % 7))).astype(np.float32)
+             for i, (k, s) in enumerate(shapes.items())}
+            for _ in range(COMPRESS_CALLS)]
+
+
+def stack_np(tree: dict) -> dict:
+    """The port's per-layer tree as the reference's stacked one (numpy)."""
+    from repro_torch.nn.layers import stack_groups
+    return {key: (np.stack([tree[k] for k in members])
+                  if not isinstance(members, str) else tree[members])
+            for key, members in stack_groups(list(tree)).items()}
+
+
+def unstack_np(flat: dict, names) -> dict:
+    """The reference's stacked tree as the port's per-layer leaves."""
+    from repro_torch.nn.layers import stack_groups
+    out = {}
+    for key, members in stack_groups(list(names)).items():
+        if isinstance(members, str):
+            out[members] = flat[key]
+        else:
+            out.update((k, flat[key][i]) for i, k in enumerate(members))
+    return out
+
+
+def _leaf_kinds(model, step) -> dict:
+    """{parameter name: the `COMPRESS_KINDS` it falls under}."""
+    from repro_torch.nn.layers import Linear
+    from repro_torch.nn.moe import MoELayer
+    layout, out = step.layout, {}
+    dup = {k for k, (_, ranges) in layout.dup.items() if ranges}
+    for k in dict(model.named_parameters()):
+        owner_name = k.rpartition(".")[0]
+        owner = model.get_submodule(owner_name)
+        kinds = set()
+        if layout.model_dims[k] < 0 and step.data_dims[k] < 0:
+            kinds.add("whole")
+        if isinstance(owner, Linear) and owner.rest_cut is not None:
+            kinds.add("rest_cut")
+        elif (isinstance(owner, Linear) and owner.split is not None
+              and "attn" in owner_name):
+            kinds.add("heads")
+        if isinstance(owner, MoELayer) and owner.cut == "mlp":
+            kinds.add("moe_mlp")
+        if k in layout.fused:
+            kinds.add("rank_part")
+        if k in dup:
+            kinds.add("dup")
+        if step.data_dims[k] >= 0:
+            kinds.add("fsdp" if step.fsdp else "zero1")
+        out[k] = sorted(kinds)
+    return out
+
+
+def compress_pieces_case(name: str, ref: dict) -> dict:
+    """`COMPRESS_PIECES[name]` split (and placed) on this rank's (data=2,
+    model=2) plan: the step's `compress` of this rank's slices of
+    `compress_trees(name)`, stateless and then through a bound
+    error-feedback compressor for `COMPRESS_CALLS` calls, against this
+    rank's slices of the reference's compressors on the whole stacked
+    trees (`ref`: {"stateless" | "ef{i}" | "res{i}": stacked tree}).
+    Returns the unequal elements of each (call, leaf), the leaf kinds
+    covered and the `all_max` calls of each compression."""
+    from repro_torch.distributed import collectives, compression, partition
+    from repro_torch.models import registry
+    from repro_torch.train import train_loop
+    from repro_torch.train.optimizer import AdamW
+    case = COMPRESS_PIECES[name]
+    cfg = config(registry, case)
+    model = registry.build_model(cfg, "cpu")
+    plan = partition.make_plan(model_parallel=2, device="cpu")
+    if case.get("placed"):
+        plan.place_params_(model)
+    step = train_loop.make_train_step(model, cfg, AdamW(), plan=plan,
+                                      zero1=True)
+    names = list(dict(model.named_parameters()))
+
+    def mine(whole: dict) -> dict:
+        out = {}
+        for k in names:
+            x = step.layout.rank_part(k, torch.from_numpy(
+                np.ascontiguousarray(whole[k])))
+            if step.data_dims[k] >= 0:
+                x = collectives.split_chunk(x, plan.data_axis,
+                                            step.data_dims[k])
+            out[k] = x.contiguous()
+        return out
+
+    calls, real = [], collectives.all_max
+
+    def counted(x, axis):
+        calls[-1] += 1
+        return real(x, axis)
+
+    def run(grads):
+        calls.append(0)
+        collectives.all_max = counted
+        try:
+            return step.compress(grads)
+        finally:
+            collectives.all_max = real
+
+    def unequal(got: dict, want: dict) -> dict:
+        return {k: int((got[k] != want[k]).sum()) for k in names}
+
+    trees = compress_trees(name)
+    mismatch = {}
+    step.grad_compression = compression.compress_int8_stateless
+    mismatch["stateless"] = unequal(run(mine(trees[0])),
+                                    mine(unstack_np(ref["stateless"], names)))
+    bound = compression.ErrorFeedbackCompressor().bind()
+    step.grad_compression = bound
+    for i, tree in enumerate(trees):
+        mismatch[f"ef{i}"] = unequal(run(mine(tree)),
+                                     mine(unstack_np(ref[f"ef{i}"], names)))
+        mismatch[f"res{i}"] = unequal(
+            bound.state.residual, mine(unstack_np(ref[f"res{i}"], names)))
+    kinds = sorted({kind for ks in _leaf_kinds(model, step).values()
+                    for kind in ks})
+    return {"mismatch": mismatch, "kinds": kinds, "calls": calls,
+            "elements": sum(x.numel() for x in mine(trees[0]).values())}
+
+
+def _whole_tree(step, tree: dict) -> dict:
+    """The whole leaves (as the reference's flat stacked tree) from this
+    rank's gradient slices (collectives: every rank calls it)."""
+    from repro_torch.nn import layers
+    plan = step.plan
+    tree = plan.zero_gather({k: v.detach() for k, v in tree.items()},
+                            step.data_dims)
+    tree = plan.gather_params(tree, step.model_dims, step.layout.fused)
+    return flatten(layers.stack_lm_tree(tree))
+
+
+def compress_case(case: dict, initial: dict) -> dict:
+    """`train_case` of `case` with ``grad_compression=
+    compress_int8_stateless`` on this rank's (data=2, model=2) plan
+    (placed first where the case says so): per-step metrics, the whole
+    final parameters, and on rank 0 each step's whole gradient before
+    and after the compression; every rank's `all_max` calls a
+    compression."""
+    from repro_torch.distributed import collectives, compression, partition
+    from repro_torch.models import registry
+    from repro_torch.nn import layers
+    from repro_torch.train import train_loop
+    cfg = config(registry, case)
+    model = layers.load_jax_lm_params(registry.build_model(cfg, "cpu"),
+                                      nest(initial))
+    plan = partition.make_plan(model_parallel=2, device="cpu")
+    if case.get("placed"):
+        plan.place_params_(model)
+    step = train_loop.make_train_step(
+        model, cfg, optimizer(case), plan=plan, zero1=True,
+        n_microbatches=case["n_micro"],
+        grad_compression=compression.compress_int8_stateless)
+    params = dict(model.named_parameters())
+    state = step.init_opt_state(params)
+    batch = {k: torch.from_numpy(v) for k, v in batch_np(cfg, case).items()}
+    seen, calls, real = [], [], collectives.all_max
+    inner = step.compress
+
+    def counted(x, axis):
+        calls[-1] += 1
+        return real(x, axis)
+
+    def spy(grads):
+        calls.append(0)
+        collectives.all_max = counted
+        try:
+            out = inner(grads)
+        finally:
+            collectives.all_max = real
+        pair = (_whole_tree(step, grads), _whole_tree(step, out))
+        seen.append(pair if plan.rank == 0 else None)
+        return out
+
+    step.compress = spy
+    metrics = []
+    for _ in range(STEPS):
+        params, state, m = step(params, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    full = step.gather_params(params)
+    return {"metrics": metrics,
+            "params": flatten(layers.stack_lm_tree(full)),
+            "grads": seen, "calls": calls}
