@@ -35,13 +35,16 @@ serves a block, its weights and its residual alike (autograd takes the
 innermost saved-tensor hooks only).
 
 A leaf may also be cut over "model" at rest while its layer computes
-whole (`nn.layers.Linear` ``split_(..., at_rest=True)``: attention and
-RWKV6's time mix where the axis divides their fused heads x head_dim
-width but not their heads).  Such a layer gathers it over "model" at
-each use (`gather_cut` with ``alike``: every model rank runs the same
-layer, so each keeps its slice of the whole gradient), after `gathered`
-has made it whole over "data": a leaf cut over both is gathered over
-"data" at the layer's entry and over "model" at its use.
+whole (`nn.layers.Linear` ``split_(..., at_rest=True)``: attention
+where the axis divides its fused heads x head_dim width but not its
+heads).  Such a layer gathers it over "model" at each use (`gather_cut`
+with ``alike``: every model rank runs the same layer, so each keeps its
+slice of the whole gradient), after `gathered` has made it whole over
+"data": a leaf cut over both is gathered over "data" at the layer's
+entry and over "model" at its use.  RWKV6's time mix cut by value
+columns gathers its weights so too, without ``alike``: each rank
+computes its value columns, so each holds a part of the whole
+gradient and the gather's backward sums them.
 
 Observers (`observers`) see every whole tensor gathered, forward and
 backward: the dry run's memory tally files them as ``gathered`` bytes.

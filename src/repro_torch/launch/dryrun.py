@@ -42,10 +42,11 @@ which layout the port ran (``layout``): FSDP (every cell's parameters
 cut over "data" at rest and gathered a layer at use, as the reference's
 ``"embed": "data"`` rule places them; the "embed" leaves the data ranks
 do not divide stay whole), the parameters that stayed whole over
-"model" (a layer whose heads the axis does not divide: rwkv6-3b's time
-mix at 16), those held partly alike on every model rank (Mamba2's fused
-projection and conv: B and C), how the KV cache and the SSM states are
-cut (by heads, or by sequence under the
+"model" (a layer whose heads the axis does not divide and that is not
+cut otherwise), those held partly alike on every model rank (Mamba2's
+fused projection and conv: B and C), how the KV cache and the SSM states
+are cut (by heads, rwkv6-3b's wkv state at 16 by value columns, or by
+sequence under the
 cell's ``"seq": "model"`` override, which `make_cell` applies to both
 rule tables of the cell's plan), the sequence cut applied
 (``seq_cut``: the residual stream and the caches), and what of the
@@ -751,11 +752,15 @@ def _layout(cell, plan, whole_shapes: dict) -> dict:
 
 def _cache_layout(cell, m: int, by_seq: bool) -> str:
     """How a serving cell's cache lies on a rank: the KV caches by
-    sequence or by kv heads, the SSM states by heads."""
+    sequence or by kv heads, the SSM states by heads (the wkv state by
+    value columns where its time mix is so cut)."""
     cfg, model = cell.cfg, cell.model
     if cfg.family == "ssm":
-        h = model.blocks[0].tm.n_heads
-        return (f"wkv state by heads: {h} of "
+        tm = model.blocks[0].tm
+        if tm.cut == "value":
+            return (f"wkv state by value columns: {tm.value_dim} of "
+                    f"{tm.head_dim} a head a rank, all {tm.n_heads} heads")
+        return (f"wkv state by heads: {tm.n_heads} of "
                 f"{cfg.d_model // cfg.ssm_head_dim} a rank")
     attn = (model.shared.attn if cfg.family == "hybrid" else
             model.decoder[0].self_attn if cfg.family == "audio" else

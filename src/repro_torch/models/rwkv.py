@@ -10,13 +10,14 @@ in fp32.
 
 On a mesh `split_` splits the model over its "model" axis: each block's
 channel mix by its hidden width and its time mix by heads where the axis
-divides them (`repro_torch.nn.ssm`; rwkv6-3b's 40 heads compute whole at
-model 16, their r, k, v, g and o cut at rest by the fused columns and
-gathered at use, the wkv state whole: the reference cuts it by value
-columns there, a follow-up in ROADMAP.md), the embedding table and the
-untied head by vocabulary.  The head then gives this rank's logits for
-the split cross-entropy (`vocab_shard`), serving all-gathers them, and
-the cache holds this rank's heads of the wkv state.
+divides them, else by value columns (`repro_torch.nn.ssm`; rwkv6-3b's 40
+heads of 64 at model 16: 4 value columns of every head a rank, r, k, v,
+g and o cut at rest by the fused columns and gathered at use, as the
+reference's resolver places them and cuts the wkv state), the embedding
+table and the untied head by vocabulary.  The head then gives this
+rank's logits for the split cross-entropy (`vocab_shard`), serving
+all-gathers them, and the cache holds this rank's heads of the wkv
+state, or its value columns of every head.
 
 Under the ``"seq": "model"`` rule (`sharding.seq_axis`) the family is
 sequence parallel in training and prefill, as `DecoderLM` is: between
@@ -29,11 +30,12 @@ scan over the whole sequence does; the time mix's ``o`` (split by
 heads) reduce-scatters its parts along the sequence, and a part whole
 over "model" (the channel mix, whose channel gather then reduce-scatters
 its gradient; a time mix computed whole) keeps the rank's slice of its
-output.  The final norm runs on the slice and the normed sequence is
-gathered for the head (``head_seq``).  The states a prefill returns are
-the whole sequence's last (every rank computes them from the gathered
-sequence), so every rank's cache holds them.  The state has no sequence
-dim, so the rule cuts nothing of the cache.
+output; a time mix cut by value columns reduce-scatters its ``o`` parts
+as one cut by heads does.  The final norm runs on the slice and the
+normed sequence is gathered for the head (``head_seq``).  The states a
+prefill returns are the whole sequence's last (every rank computes them
+from the gathered sequence), so every rank's cache holds them.  The
+state has no sequence dim, so the rule cuts nothing of the cache.
 """
 from __future__ import annotations
 
@@ -158,16 +160,18 @@ class RWKV6LM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int = 0) -> RWKVCache:
         """Zero states (this rank's heads of the wkv state where the time
-        mix is split); `max_len` is unused (the state is O(1))."""
+        mix is split by heads, its value columns of every head where it
+        is cut by them); `max_len` is unused (the state is O(1))."""
         del max_len
         cfg = self.cfg
         l, d, p = cfg.num_layers, cfg.d_model, cfg.ssm_head_dim
-        h = self.blocks[0].tm.n_heads
+        tm = self.blocks[0].tm
         dev = self.embed.table.device
         f32 = torch.float32
         return RWKVCache(
             torch.zeros((l, batch, d), dtype=f32, device=dev),
-            torch.zeros((l, batch, h, p, p), dtype=f32, device=dev),
+            torch.zeros((l, batch, tm.n_heads, p, tm.value_dim), dtype=f32,
+                        device=dev),
             torch.zeros((l, batch, d), dtype=f32, device=dev), 0)
 
     def cache_axes(self) -> RWKVCache:

@@ -176,12 +176,16 @@ class RMSNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm computed in fp32 and cast back, eps 1e-5 (as the
-    reference writes it out; no fused library call).
+    reference writes it out; no fused library call).  A float64 input
+    is computed in float64, where the reference stays in fp32: only
+    float64 callers (the CPU tests' exact checks) see a difference;
+    fp32, bf16 and fp16 inputs compute in fp32 as before.
 
     After `split_` the normalized dim is cut over a model axis (a layer
-    split by heads hands each rank its heads' channels): the row's mean
-    and centered variance sum over the axis (`sum_over`), and the scale
-    and bias stay whole, read at this rank's channels."""
+    split by heads hands each rank its heads' channels; one cut by value
+    columns, ``groups`` of them, its slice of each head's): the row's
+    mean and centered variance sum over the axis (`sum_over`), and the
+    scale and bias stay whole, read at this rank's channels."""
 
     def __init__(self, dim: int, *, eps: float = 1e-5, use_bias: bool = True,
                  axis_name=None):
@@ -192,11 +196,19 @@ class LayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
         self.axis: Axis | None = None
+        self.groups = 1
 
-    def split_(self, axis: Axis) -> None:
-        """Take this rank's equal slice of the normalized dim as input
-        (module docstring); the parameters stay whole."""
-        self.axis = axis
+    def split_(self, axis: Axis, groups: int = 1) -> None:
+        """Take this rank's equal slice of each of `groups` equal groups
+        of the normalized dim as input (module docstring); the
+        parameters stay whole."""
+        self.axis, self.groups = axis, groups
+
+    def _mine(self, p: torch.Tensor) -> torch.Tensor:
+        """This rank's channels of a whole affine parameter."""
+        width = self.dim // self.groups // self.axis.size
+        return p.reshape(self.groups, -1).narrow(
+            1, self.axis.index * width, width).reshape(-1)
 
     def logical_axes(self) -> dict:
         return {"scale": (self.axis_name,), "bias": (self.axis_name,)}
@@ -210,23 +222,24 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
-        x32 = x.to(torch.float32)
+        acc = torch.promote_types(dtype, torch.float32)
+        x32 = x.to(acc)
         scale, bias = self.scale, self.bias
         if self.axis is None:
             mean = x32.mean(dim=-1, keepdim=True)
             var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
         else:
-            axis, width = self.axis, x.shape[-1]
+            axis = self.axis
             mean = sum_over(x32.sum(dim=-1, keepdim=True), axis) / self.dim
             var = sum_over(torch.square(x32 - mean).sum(dim=-1, keepdim=True),
                            axis) / self.dim
-            scale = scale.narrow(0, axis.index * width, width)
+            scale = self._mine(scale)
             if bias is not None:
-                bias = bias.narrow(0, axis.index * width, width)
+                bias = self._mine(bias)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        y = y * scale.to(torch.float32)
+        y = y * scale.to(acc)
         if bias is not None:
-            y = y + bias.to(torch.float32)
+            y = y + bias.to(acc)
         return y.to(dtype)
 
 

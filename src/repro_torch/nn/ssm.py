@@ -10,9 +10,10 @@ Each has two forms, as in the reference:
 The chunk length is the reference's rule: ``l = min(chunk, S)``, then
 lowered until it divides S (a prime S above the chunk runs chunks of
 1).  Decays, the recurrences and their states are fp32 under any
-compute dtype.  RWKV6 keeps chunk 16: its log-decay a step is clipped to
-at least -5, so the factored intra-chunk exponent stays within
-``16 * 5 = 80 < log(fp32 max) ~ 88``.
+compute dtype (RWKV6's float64 under float64).  RWKV6 keeps chunk 16:
+its log-decay a step is clipped to at least -5, so the factored
+intra-chunk exponent stays within ``16 * 5 = 80 < log(fp32 max) ~
+88``.
 
 On a mesh each cell splits over the "model" axis (`split_`, tensor
 parallelism where the axis divides its heads), as the reference's rules
@@ -26,26 +27,35 @@ place its "heads" and "mlp" leaves there:
   evenly at rest and regathers them around its split; this head-aligned
   cut is the same function with B and C held on every rank
   (`fused_cuts` records it for `partition.ModelLayout`).
-* `RWKV6TimeMix` by heads: r, k, v and g by columns, o by rows, the wkv
-  state and ``bonus_u`` by heads; the token-shift mix and the decay LoRA
-  stay whole (the decay read at this rank's channels).  Where the axis
-  does not divide the heads (rwkv6-3b's 40 at 16) the mix computes
-  whole on every rank, its r, k, v and g still cut by columns and o by
-  rows at rest, as the reference's resolver places them, and gathered
-  whole at each call (`Linear` cut at rest: the weights, not the
-  activations, cross the axis; `repro_torch.nn.attention`).  The
-  reference also cuts the wkv state on its value dim there
-  (`repro/models/rwkv.py:95-101`); the port keeps it whole (ROADMAP.md
-  follow-ups).
+* `RWKV6TimeMix` by heads (``cut == "heads"``): r, k, v and g by
+  columns, o by rows, the wkv state and ``bonus_u`` by heads; the
+  token-shift mix and the decay LoRA stay whole (the decay read at this
+  rank's channels).  Where the axis does not divide the heads but does
+  ``head_dim`` (rwkv6-3b's 40 heads of 64 at 16) it is cut by value
+  columns (``cut == "value"``), as the reference cuts the wkv state
+  there (its value dim, "mlp" -> "model", `repro/models/rwkv.py:95-101`):
+  r, k, v, g and o stay cut at rest by the fused columns and rows the
+  reference's resolver gives them, and are gathered whole at each call
+  (`Linear` ``rest_cut``); each rank takes columns ``[j q, (j + 1) q)``
+  of every head (``q = head_dim / M``, ``value_dim``) of v and g, the
+  same rows of o, and keeps the state ``[B, H, dk, q]``.  r, k, the
+  decay and ``bonus_u`` are read whole, so every gradient but v's, g's
+  and o's columns is a part of a sum over the value columns: the
+  weights cut at rest take the gather's reduce-scatter backward, and
+  the whole leaves are summed over "model" (`read_in_part`).  Where the
+  axis divides neither, the mix computes whole on every rank, its
+  weights still cut at rest where the axis divides their width (the
+  weights, not the activations, cross the axis;
+  `repro_torch.nn.attention`).
 * `RWKV6ChannelMix` by its hidden width: k by columns, v by rows, and r
   by columns too (the reference's ``("embed", "mlp")``): v's partial
   sums are reduce-scattered to this rank's channels, multiplied by its
   r, and all-gathered (2 calls forward, 2 backward, where a whole r
   would take 1 and 1 and hold all of r on every rank).
 
-The gated norm of Mamba2 and RWKV6's ``ln_x`` normalize across heads a
-rank does not hold: their statistics sum over the axis
-(`LayerNorm.split_`).  A split cell copies its input into the region
+The gated norm of Mamba2 and RWKV6's ``ln_x`` normalize across heads
+(or value columns) a rank does not hold: their statistics sum over the
+axis (`LayerNorm.split_`).  A split cell copies its input into the region
 (`collectives.copy_to`), so the leaves it keeps whole but reads in part
 (`read_in_part`: the mixes, the LoRAs, ``A_log``, ``D``, ``dt_bias``,
 ``bonus_u``, the norms' affine parameters) and B/C's columns hold a
@@ -72,6 +82,7 @@ from torch import nn
 
 from repro_torch.distributed.collectives import (Axis, copy_to,
                                                  fused_slice, gather_at_use,
+                                                 reduce_from,
                                                  reduce_scatter_seq)
 from repro_torch.nn.layers import LayerNorm, Linear, splits
 
@@ -352,6 +363,8 @@ class RWKV6TimeMix(nn.Module):
         # "per-head group norm" comment)
         self.ln_x = LayerNorm(d)
         self.axis: Axis | None = None
+        self.cut: str | None = None    # "heads" or "value" once split
+        self.value_dim = head_dim      # value columns of a head a rank
 
     def logical_axes(self) -> dict:
         return {"mu_x": ("embed",), "mu": (None, "embed"),
@@ -360,26 +373,33 @@ class RWKV6TimeMix(nn.Module):
                 "dec_base": ("embed",), "bonus_u": (None, None)}
 
     def split_(self, axis: Axis) -> bool:
-        """Split by heads over the axis (module docstring); False (the
-        layer computes whole) where the axis does not divide them, its
+        """Split by heads over the axis, else by value columns where it
+        divides ``head_dim`` (module docstring; ``cut`` says which);
+        False (the layer computes whole) where it divides neither, its
         projections then cut at rest where it divides their width."""
         if not splits(self.n_heads, axis):
             if splits(self.d, axis):
                 for lin in (self.r, self.k, self.v, self.g):
                     lin.split_("column", axis, at_rest=True)
                 self.o.split_("row", axis, at_rest=True)
-            return False
+            if not splits(self.head_dim, axis):
+                return False
+            self.ln_x.split_(axis, groups=self.n_heads)
+            self.value_dim = self.head_dim // axis.size
+            self.axis, self.cut = axis, "value"
+            return True
         for lin in (self.r, self.k, self.v, self.g):
             lin.split_("column", axis)
         self.o.split_("row", axis)
         self.ln_x.split_(axis)
         self.n_heads //= axis.size
-        self.axis = axis
+        self.axis, self.cut = axis, "heads"
         return True
 
     def read_in_part(self) -> tuple:
         """The leaves whole over the axis that a split layer reads for
-        its heads alone (each rank holds a part of their gradient)."""
+        its heads or value columns alone (each rank holds a part of their
+        gradient)."""
         if self.axis is None:
             return ()
         return ("mu_x", "mu", "mix_a", "mix_b", "dec_a", "dec_b",
@@ -387,11 +407,20 @@ class RWKV6TimeMix(nn.Module):
 
     def _mine(self, p: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's heads (dim 0 of ``bonus_u``) or channels of a whole
-        leaf."""
-        if self.axis is None:
+        leaf (all of it under the value cut: every rank reads every
+        head's keys)."""
+        if self.cut != "heads":
             return p
         n = p.shape[dim] // self.axis.size
         return p.narrow(dim, self.axis.index * n, n)
+
+    def _values(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's value columns of each head of `t`'s dim `dim`
+        (heads x head_dim channels) under the value cut."""
+        dim %= t.ndim
+        q = self.value_dim
+        return t.unflatten(dim, (self.n_heads, self.head_dim)).narrow(
+            dim + 1, self.axis.index * q, q).flatten(dim, dim + 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's constants (`repro/nn/ssm.py:227-247`): mu_x,
@@ -420,26 +449,44 @@ class RWKV6TimeMix(nn.Module):
     def _decay(self, xw: torch.Tensor) -> torch.Tensor:
         """The log-decay, fp32: -exp(clip(base + lora(xw), -20, 1.609)),
         in [-5, 0)."""
-        f32 = torch.float32
+        f32 = torch.promote_types(xw.dtype, torch.float32)
         lw = torch.matmul(torch.tanh(torch.matmul(xw.to(f32),
                                                   self.dec_a.to(f32))),
                           self._mine(self.dec_b, 1).to(f32))
         return -torch.exp(torch.clamp(self._mine(self.dec_base, 0).to(f32)
                                       + lw, -20.0, 1.609))
 
+    def _proj(self, lin: Linear, x: torch.Tensor, reduce: bool,
+              values: bool = False) -> torch.Tensor:
+        """`lin` (no bias) on `x`; under the value cut its whole weight
+        is gathered with the reduce-scatter backward (each rank's
+        gradient is its value columns' part of a sum over the axis), and
+        with `values` this rank's value columns of it are taken."""
+        if self.cut != "value":
+            return lin(x, reduce)
+        w, _ = lin.whole(alike=False)
+        if values:
+            w = self._values(w, 1)
+        return torch.matmul(x, w.to(x.dtype))
+
     def _proj_heads(self, xr, xk, xv, xg, reduce: bool = True):
         b, s, _ = xr.shape
-        h, p = self.n_heads, self.head_dim
-        r = self.r(xr, reduce).reshape(b, s, h, p)
-        k = self.k(xk, reduce).reshape(b, s, h, p)
-        v = self.v(xv, reduce).reshape(b, s, h, p)
-        g = F.silu(self.g(xg, reduce))
+        h, p, q = self.n_heads, self.head_dim, self.value_dim
+        r = self._proj(self.r, xr, reduce).reshape(b, s, h, p)
+        k = self._proj(self.k, xk, reduce).reshape(b, s, h, p)
+        v = self._proj(self.v, xv, reduce, values=True).reshape(b, s, h, q)
+        g = F.silu(self._proj(self.g, xg, reduce, values=True))
         return r, k, v, g
 
     def _out(self, wkv_out: torch.Tensor, g: torch.Tensor, b: int, s: int,
              reduce: bool = True):
-        y = self.ln_x(wkv_out.reshape(b, s, self.n_heads * self.head_dim))
-        return self.o((y * g).to(g.dtype), reduce)
+        y = self.ln_x(wkv_out.reshape(b, s, self.n_heads * self.value_dim))
+        y = (y * g).to(g.dtype)
+        if self.cut != "value":
+            return self.o(y, reduce)
+        w, _ = self.o.whole(alike=False)
+        y = torch.matmul(y, self._values(w, 0).to(y.dtype))
+        return reduce_from(y, self.axis) if reduce else y
 
     def forward(self, x: torch.Tensor, shift_prev: torch.Tensor,
                 wkv_prev: torch.Tensor, reduce: bool = True):
@@ -449,8 +496,8 @@ class RWKV6TimeMix(nn.Module):
         see every earlier position) a split layer reads `x` as it is and
         gives this rank's part of ``o``'s sum over the axis."""
         b, s, _ = x.shape
-        h, p = self.n_heads, self.head_dim
-        f32 = torch.float32
+        h, p, q = self.n_heads, self.head_dim, self.value_dim
+        f32 = torch.promote_types(x.dtype, torch.float32)
         if reduce:
             x = copy_to(x, self.axis)
         x_prev = torch.cat([shift_prev[:, None].to(x.dtype), x[:, :-1]],
@@ -464,13 +511,13 @@ class RWKV6TimeMix(nn.Module):
         nc = s // l
         rf = r.reshape(b, nc, l, h, p).to(f32)
         kf = k.reshape(b, nc, l, h, p).to(f32)
-        vf = v.reshape(b, nc, l, h, p).to(f32)
+        vf = v.reshape(b, nc, l, h, q).to(f32)
         wf = logw.reshape(b, nc, l, h, p)
         strict = torch.ones((l, l), dtype=torch.bool,
                             device=x.device).tril(-1)[None, None]
         zero = torch.zeros((), dtype=f32, device=x.device)
 
-        state = wkv_prev.to(f32)
+        state = wkv_prev.to(f32)   # [B, H, dk, q]
         ys = []
         for c in range(nc):
             rk, kk, vk, wk = rf[:, c], kf[:, c], vf[:, c], wf[:, c]
@@ -490,16 +537,17 @@ class RWKV6TimeMix(nn.Module):
             state = (state * torch.exp(lcum[:, -1])[..., None]
                      + torch.einsum("bshd,bshe->bhde", kk * dec_end, vk))
             ys.append(y)
-        y = torch.stack(ys, dim=1).reshape(b, s, h, p).to(x.dtype)
+        y = torch.stack(ys, dim=1).reshape(b, s, h, q).to(x.dtype)
         out = self._out(y, g, b, s, reduce)
         return out, x[:, -1].to(shift_prev.dtype), state
 
     def decode_step(self, x: torch.Tensor, shift_prev: torch.Tensor,
                     wkv_prev: torch.Tensor):
-        """x [B, 1, d]."""
+        """x [B, 1, d]; the state [B, H, dk, q] (this rank's value
+        columns under the value cut)."""
         b = x.shape[0]
         h, p = self.n_heads, self.head_dim
-        f32 = torch.float32
+        f32 = torch.promote_types(x.dtype, torch.float32)
         x = copy_to(x, self.axis)
         x_prev = shift_prev[:, None].to(x.dtype)
         xr, xk, xv, xg, xw = self._mix(x, x_prev)

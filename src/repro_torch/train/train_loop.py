@@ -309,10 +309,12 @@ class MeshTrainStep:
       rest and gathered at use (`nn.layers.Linear` ``rest_cut``): each
       rank keeps its slice of the whole gradient, which every rank
       holds alike, so nothing sums it over "model" (under the cut
-      sequence the gather's reduce-scatter sums each rank's part).  A layer split by heads that keeps a
-      leaf whole but reads it for its heads alone (RWKV6's mixes and
-      LoRAs, Mamba2's ``A_log``, the cross-rank norms' scales:
-      ``layout.partial``), or that holds some of a fused leaf alike on
+      sequence, and in RWKV6's time mix cut by value columns, the
+      gather's reduce-scatter sums each rank's part).  A layer split by
+      heads (or value columns) that keeps a leaf whole but reads it for
+      its part alone (RWKV6's mixes and LoRAs, Mamba2's ``A_log``, the
+      cross-rank norms' scales: ``layout.partial``), or that holds some
+      of a fused leaf alike on
       every rank (Mamba2's B and C columns: ``layout.dup``), leaves a
       part of their gradient on each model rank: those are summed over
       "model" every step, and the clipping norm counts the alike ranges

@@ -13,7 +13,8 @@ block, LayerNorm, tied embeddings and Adafactor, remat "layer";
 granite-moe at capacity factor 0.5, remat "dots"; qwen1.5-4b with 5
 heads, so that attention stays whole over "model" and its leaves take
 the model-axis gradient sum, two microbatches and an uneven mask;
-zamba2-1.2b; rwkv6-3b split by heads, and with 3 heads cut at rest;
+zamba2-1.2b; rwkv6-3b split by heads, and with 3 heads of 32 by value
+columns, its weights cut at rest;
 whisper-medium over 32 frames and 32 tokens), the gradient of the first
 step, and the jitted prefill and greedy decode of the dense, MoE, vlm,
 zamba2, whisper and rwkv6 smoke models.

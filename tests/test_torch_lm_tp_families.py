@@ -17,9 +17,10 @@ uneven mask, placed by FSDP on the port's side; whisper-medium over 32
 frames; and two uneven splits as the reference's resolver takes them:
 granite-moe with 3 experts cut by their hidden width and 3 query heads
 over 1 kv head cut at rest by fused columns, placed, and rwkv6 with 3
-heads of 32, its time mix cut at rest), the gradient of the first step
-(the float64 judge runs each case's own config), and the jitted prefill and
-greedy decode of the three smoke models under the mesh.  One 4-rank
+heads of 32, its time mix by value columns with its weights cut at
+rest), the gradient of the first step (the float64 judge runs each
+case's own config), and the jitted prefill and greedy decode of the
+three smoke models and of rwkv6 with 3 heads of 32 under the mesh.  One 4-rank
 gloo world runs the port on the same initial parameters:
 
 * (a) the step: per-step metrics and whole final parameters at rtol
@@ -33,7 +34,8 @@ gloo world runs the port on the same initial parameters:
   float64 gradient (at most `MAX_MISSES` a leaf, as
   `tests/test_torch_lm_train_arch.py` judges them);
 * (c) prefill and decode: logits at rtol 1e-4 / atol 1e-5 and greedy
-  tokens equal, each cache a rank holds cut by heads;
+  tokens equal, each cache a rank holds cut by heads (rwkv6's with 3
+  heads of 32 by value columns);
 * (d) each split leaf holds its share, the fused ``in_proj`` its heads'
   share plus B and C, and `gather_params` rebuilds the whole tree bit
   for bit;
@@ -116,8 +118,8 @@ JAX_TP = textwrap.dedent("""
             runs[name].append({{k: float(v) for k, v in m.items()}})
         save(f"{{name}}/final", params)
 
-    for name, arch in (R.TP_SERVE.items() if {serve!r} else ()):
-        cfg = L.serve_config(registry, arch)
+    for name in (R.TP_SERVE if {serve!r} else ()):
+        cfg = R.tp_serve_config(registry, name)
         model = registry.build_model(cfg)
         params = split_params(model.init(jax.random.PRNGKey(2)))[0]
         save(f"serve/{{name}}/init", params)
@@ -314,16 +316,20 @@ CACHE_HEAD_DIMS = {"wkv": 2, "ssm": 2, "k": 3, "v": 3, "dec_k": 3,
 @pytest.mark.parametrize("name", list(R.TP_SERVE))
 def test_tp_caches_are_cut_by_heads(port_tp, name):
     """Each cache a rank holds is its half of the heads (the conv buffer
-    its x channels and all the B/C ones); nothing is cut by sequence
-    (the rules leave "seq" whole); token shifts stay whole."""
-    cfg = registry.get_config(R.TP_SERVE[name] + "-smoke")
+    its x channels and all the B/C ones; rwkv6's wkv state, where its
+    heads do not split, its half of every head's value columns, as the
+    reference's resolver cuts it); nothing is cut by sequence (the rules
+    leave "seq" whole); token shifts stay whole."""
+    cfg = R.tp_serve_config(registry, name)
+    heads = cfg.d_model // cfg.ssm_head_dim if cfg.family == "ssm" else 0
+    dims = dict(CACHE_HEAD_DIMS, wkv=2 if heads % 2 == 0 else 4)
     for world in port_tp:
         got = world["serve"][name]
         assert not any(got["cuts"].values()), got["cuts"]
         assert set(got["held"]) & set(CACHE_HEAD_DIMS), got["held"]
         for key, held in got["held"].items():
             whole = got["whole"][key]
-            dim = CACHE_HEAD_DIMS.get(key)
+            dim = dims.get(key)
             if dim is None:
                 assert held == whole, (key, held, whole)
                 continue
@@ -340,7 +346,7 @@ def test_tp_caches_are_cut_by_heads(port_tp, name):
 
 @pytest.mark.parametrize("name", list(R.TP_SERVE))
 def test_split_leaves_hold_their_share(port_tp, name):
-    cfg = registry.get_config(R.TP_SERVE[name] + "-smoke")
+    cfg = R.tp_serve_config(registry, name)
     for world in port_tp:
         got = world["leaves"][name]
         split = [k for k, d in got["model_dims"].items() if d >= 0]
@@ -371,10 +377,13 @@ def test_split_leaves_hold_their_share(port_tp, name):
         assert got["held"][key][1] == di // 2 * 2 + 2 * n + h // 2
         assert got["dup"][key] == (1, [(di, di + n), (di + n, di + 2 * n)])
         assert "mamba.0.mamba.A_log" in got["partial"]
-    if name == "rwkv":
+    if name in ("rwkv", "rwkv_uneven"):
         got = port_tp[0]["leaves"][name]
         assert "blocks.0.tm.bonus_u" in got["partial"]
         assert got["model_dims"]["blocks.0.cm.r.w"] == 1
+        # by value columns: v and g cut at rest by fused columns, o by rows
+        assert got["model_dims"]["blocks.0.tm.v.w"] == 1
+        assert got["model_dims"]["blocks.0.tm.o.w"] == 0
 
 
 # ---------------------------------------------------------------------------

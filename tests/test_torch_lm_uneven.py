@@ -8,8 +8,10 @@ divide falls through to the next one that does: granite's 40 experts at
 divide (qwen1.5-4b's 20, granite's 24 / 8, arctic's 56 / 8) are cut by
 their fused heads x head_dim columns.  The port places every leaf so
 (`MeshPlan.place_params_`): an MoE layer cut by width computes partial
-sums over the axis, and attention or an RWKV6 time mix cut at rest
-gathers its weights whole at each call.
+sums over the axis, attention cut at rest gathers its weights whole at
+each call, and an RWKV6 time mix whose heads do not divide (rwkv6-3b's
+40 at 16) gathers its weights so and runs by value columns, its wkv
+state cut on its value dim as the reference's.
 
 * (a) every leaf of every arch `build_model` builds, on meta tensors at
   16 x 16 and 2 x 16 x 16: the spec the port's placement gives (its
@@ -17,23 +19,33 @@ gathers its weights whole at each call.
   the reference's ``resolve(axes, DEFAULT_PARAM_RULES, shape=...)`` of
   the reference's own axes and whole shape.  The resolver reads only
   ``axis_names`` and ``devices.shape``, so a stand-in mesh serves.
-  The one known difference is listed by name (`KNOWN_GAPS`): rwkv6's
-  wkv cache, which the reference cuts on its value dim at 16;
+  A known difference would be listed by name (`KNOWN_GAPS`); none is
+  left: rwkv6-3b's wkv cache is cut on its value dim at 16 in both
+  packages (the port's time mix by value columns);
 * (b) one `MoELayer` cut by hidden width on a stand-in `Axis` of 3
   ranks (no process group: ``reduce=False`` gives each rank's part and
   nothing is reduced), the parts summed by hand, against the whole
   layer: the output, the auxiliary values (alike on every rank, bit for
   bit) and the gradients of the router, the experts and the input;
+* (b') one `RWKV6TimeMix` cut by value columns on a stand-in `Axis` of
+  2 ranks, the ranks' forwards side by side in threads that hand each
+  other their tensors (`_lockstep`: the gathers of the weights cut at
+  rest and ``ln_x``'s statistics), the parts summed by hand, against
+  the whole layer in float64 at 1e-10: output, state, every gradient,
+  and a decode step;
 * (c) the dry run's ``rest_by_part`` on a ``-smoke`` cell sums to its
   ``rest``, and the peak and every category are byte-equal with and
   without the breakdown.
 
 The step held to the reference's on a JAX CPU mesh (granite with 3
-experts and 3 heads over 1 kv head, rwkv6 with 3 heads, at (data=2,
-model=2)) is in `tests/test_torch_lm_tp_families.py`.
+experts and 3 heads over 1 kv head, rwkv6 with 3 heads of 32 by value
+columns, at (data=2, model=2), and rwkv6's serving from its cache cut
+by value columns) is in `tests/test_torch_lm_tp_families.py`; the same
+rwkv6 case under the "seq" rule in `tests/test_torch_lm_seq.py`.
 """
 import dataclasses
 import re
+import threading
 import types
 
 import jax
@@ -46,23 +58,19 @@ from repro.distributed.sharding import (DEFAULT_ACT_RULES, DEFAULT_PARAM_RULES,
 from repro.models import registry as j_registry
 from repro.nn.module import split_params
 
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.collectives import Axis
 from repro_torch.distributed.partition import Mesh, plan_for
 from repro_torch.models import registry
 from repro_torch.nn import layers as t_layers
 from repro_torch.nn import moe as t_moe
+from repro_torch.nn import ssm as t_ssm
 
 MESHES = {"16x16": 1, "2x16x16": 2}
 
 # where the port's layout knowingly differs from the reference's: name ->
-# why (ROADMAP.md, queue 1 follow-ups)
-KNOWN_GAPS = {
-    "rwkv6-3b wkv cache": (
-        "the reference cuts the wkv state [L, B, 40, 64, 64] on its value "
-        "dim at 16 (heads -> mlp, repro/models/rwkv.py:95-101) and runs "
-        "the time mix by value columns; the port's time mix computes "
-        "whole there (its weights cut at rest) and keeps the state whole"),
-}
+# why (ROADMAP.md, queue 1 follow-ups); none is left
+KNOWN_GAPS: dict = {}
 
 
 def stand_in_plan(pods: int):
@@ -147,26 +155,43 @@ def test_placement_spec_equals_the_reference_resolver(arch, mesh):
 
 
 def test_known_gap_rwkv6_wkv_cache():
-    """`KNOWN_GAPS`: the reference cuts rwkv6-3b's wkv state on its value
-    dim at 16; the port's time mix (40 heads) computes whole with its
-    weights cut at rest, so its state is whole.  A port that closes the
-    gap must take it off the list."""
+    """The gap this test once pinned is closed: the reference cuts
+    rwkv6-3b's wkv state on its value dim at 16 (its 40 heads do not
+    divide: heads -> mlp, `repro/models/rwkv.py:95-101`), and so does
+    the port, whose time mix runs by value columns there, at 16x16 and
+    2x16x16: its cache holds 4 of 64 value columns of every head a
+    rank.  `KNOWN_GAPS` is empty."""
     from repro.models.rwkv import RWKV6LM as JRWKV
     cfg = j_registry.get_config("rwkv6-3b")
-    ctx = ShardingContext(types.SimpleNamespace(
-        axis_names=("data", "model"), devices=np.empty((16, 16))),
-        DEFAULT_PARAM_RULES, DEFAULT_ACT_RULES)
     h, p = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
     wkv_axes = JRWKV(cfg).cache_axes().wkv
-    spec = ctx.resolve(wkv_axes, ctx.act_rules,
-                       shape=(cfg.num_layers, 16, h, p, p))
-    assert spec[2] is None and spec[4] == "model", spec
-    model = registry.build_model(registry.get_config("rwkv6-3b"), "meta")
-    model.split_(Axis("model", 16, 0))
-    tm = model.blocks[0].tm
-    assert tm.axis is None and tm.n_heads == h
-    assert tm.r.rest_cut is not None and tm.o.rest_cut is not None
-    assert list(KNOWN_GAPS) == ["rwkv6-3b wkv cache"]
+    for pods in MESHES.values():
+        names = (("pod",) if pods > 1 else ()) + ("data", "model")
+        ctx = ShardingContext(types.SimpleNamespace(
+            axis_names=names,
+            devices=np.empty(((pods,) if pods > 1 else ()) + (16, 16))),
+            DEFAULT_PARAM_RULES, DEFAULT_ACT_RULES)
+        batch = 16 * pods
+        spec = tuple(ctx.resolve(wkv_axes, ctx.act_rules,
+                                 shape=(cfg.num_layers, batch, h, p, p)))
+        assert spec[2] is None and spec[4] == "model", spec
+        model = registry.build_model(registry.get_config("rwkv6-3b"),
+                                     "meta")
+        layout = stand_in_plan(pods).place_params_(model)
+        tm = model.blocks[0].tm
+        assert tm.axis is not None and tm.cut == "value"
+        assert tm.n_heads == h and tm.value_dim == p // 16
+        assert tm.r.rest_cut is not None and tm.o.rest_cut is not None
+        assert "blocks.0.tm.bonus_u" in layout.partial
+        whole = tuple(JRWKV(cfg).init_cache(batch).wkv.shape)
+        held = tuple(model.init_cache(batch).wkv.shape)
+        # "model" on each dim a rank holds 1/16 of (the batch dim is
+        # the caller's rows)
+        port = tuple("model" if w == 16 * g else None
+                     for w, g in zip(whole, held))
+        assert port == (None, None, None, None, "model"), (whole, held)
+        assert port[2:] == spec[2:], (pods, port, spec)
+    assert KNOWN_GAPS == {}
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +241,146 @@ def test_moe_cut_by_width_sums_to_the_whole_layer():
         torch.testing.assert_close(got, g0[name], rtol=1e-5, atol=1e-6)
 
 
+# ---------------------------------------------------------------------------
+# (b') an RWKV6 time mix cut by value columns, the parts summed by hand
+# ---------------------------------------------------------------------------
+
+def _lockstep(ranks: int):
+    """Stand-ins of the two collectives a value-cut time mix calls with
+    ``reduce=False`` (`fsdp.gather_cut`, `layers.sum_over`), for `ranks`
+    threads that run the ranks' forwards side by side with no process
+    group: each call hands every thread every rank's tensor, so one
+    autograd graph joins the ranks.  A gather's backward is then the sum
+    of every rank's gradient of the whole (``alike``: this rank's
+    alone), a sum's the sum of every rank's, as the collectives'."""
+    slots, barrier = [None] * ranks, threading.Barrier(ranks)
+
+    def exchange(t, axis):
+        slots[axis.index] = t
+        barrier.wait()
+        got = list(slots)
+        barrier.wait()
+        return got
+
+    def gather_cut(part, axis, dim, *, alike=False):
+        parts = exchange(part, axis)
+        if alike:
+            parts = [q if j == axis.index else q.detach()
+                     for j, q in enumerate(parts)]
+        return torch.cat(parts, dim)
+
+    def sum_over(t, axis):
+        return torch.stack(exchange(t, axis)).sum(0)
+    return gather_cut, sum_over
+
+
+def test_rwkv6_time_mix_by_value_columns_sums_to_the_whole_layer(
+        monkeypatch):
+    """3 heads of 32 on a stand-in `Axis` of 2 ranks: the heads do not
+    split, so each rank takes 16 value columns of every head
+    (``reduce=False``: its part of ``o``'s sum); r, k, v, g and o stay
+    cut at rest and are gathered whole, ``ln_x`` takes its statistics
+    over the parts.  Against the whole layer in float64 at 1e-10: the
+    output, the final state (the ranks' columns side by side), the
+    gradients of every leaf (a whole leaf's summed over the ranks, a
+    leaf cut at rest concatenated), of the input and of the initial
+    state; then one decode step from the parts' states."""
+    ranks, d, p, q = 2, 96, 32, 16
+    rng = np.random.default_rng(34)
+    x_np, w_np = (rng.standard_normal((2, 20, d)) for _ in range(2))
+    shift_np = rng.standard_normal((2, d))
+    wkv_np, ws_np = (0.3 * rng.standard_normal((2, 3, p, p))
+                     for _ in range(2))
+    tok_np = rng.standard_normal((2, 1, d))
+    noise = {}
+
+    def layer():
+        mod = t_layers.init_params(t_ssm.RWKV6TimeMix(d, head_dim=p), 9)
+        with torch.no_grad():  # mu, mu_x and bonus_u start at zero
+            for k, t in mod.named_parameters():
+                if k not in noise:
+                    noise[k] = 0.1 * rng.standard_normal(tuple(t.shape))
+                t.add_(torch.from_numpy(noise[k]).to(t.dtype))
+        return mod.double()
+
+    def cols(t, i):
+        return t[..., i * q:(i + 1) * q]
+
+    def run(mod, i=None):
+        x = torch.from_numpy(x_np).requires_grad_(True)
+        wkv = torch.from_numpy(wkv_np if i is None else
+                               cols(wkv_np, i).copy()).requires_grad_(True)
+        y, last, state = mod(x, torch.from_numpy(shift_np), wkv,
+                             reduce=i is None)
+        return x, wkv, y, last, state
+
+    whole = layer()
+    x0, wkv0, y0, last0, state0 = run(whole)
+    ((y0 * torch.from_numpy(w_np)).sum()
+     + (state0 * torch.from_numpy(ws_np)).sum()).backward()
+    mods = [layer() for _ in range(ranks)]
+    for i, mod in enumerate(mods):
+        assert mod.split_(Axis("model", ranks, i))
+        assert mod.cut == "value" and mod.value_dim == q
+        assert mod.n_heads == 3 and mod.r.w.shape == (d, d // 2)
+        assert mod.o.w.shape == (d // 2, d)
+    gather_cut, sum_over = _lockstep(ranks)
+    monkeypatch.setattr(fsdp, "gather_cut", gather_cut)
+    monkeypatch.setattr(t_layers, "sum_over", sum_over)
+    outs = [None] * ranks
+
+    def rank(i):
+        outs[i] = run(mods[i], i)
+
+    threads = [threading.Thread(target=rank, args=(i,))
+               for i in range(ranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert all(o is not None for o in outs)
+    y = sum(o[2] for o in outs)
+    state = torch.cat([o[4] for o in outs], dim=-1)
+    ((y * torch.from_numpy(w_np)).sum()
+     + (state * torch.from_numpy(ws_np)).sum()).backward()
+    tol = dict(rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(y, y0, **tol)
+    torch.testing.assert_close(state, state0, **tol)
+    for o in outs:
+        torch.testing.assert_close(o[3], last0, **tol)
+    torch.testing.assert_close(sum(o[0].grad for o in outs), x0.grad, **tol)
+    torch.testing.assert_close(torch.cat([o[1].grad for o in outs], -1),
+                               wkv0.grad, **tol)
+    cut = {"r.w": 1, "k.w": 1, "v.w": 1, "g.w": 1, "o.w": 0}
+    grads = [dict(m.named_parameters()) for m in mods]
+    for k, g in whole.named_parameters():
+        parts = [r[k].grad for r in grads]
+        got = (torch.cat(parts, cut[k]) if k in cut
+               else torch.stack(parts).sum(0))
+        torch.testing.assert_close(got, g.grad, **tol, msg=k)
+        assert g.grad.abs().max() > 0, k
+    # one decode step from the parts' states, o's parts summed by hand
+    monkeypatch.setattr(t_ssm, "reduce_from", lambda t, axis: t)
+    monkeypatch.setattr(t_ssm, "copy_to", lambda t, axis: t)
+    tok = torch.from_numpy(tok_np)
+    with torch.no_grad():
+        want = whole.decode_step(tok, last0, state0)
+        steps = [None] * ranks
+
+        def decode(i):
+            steps[i] = mods[i].decode_step(tok, outs[i][3], outs[i][4])
+
+        threads = [threading.Thread(target=decode, args=(i,))
+                   for i in range(ranks)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    torch.testing.assert_close(sum(s[0] for s in steps), want[0], **tol)
+    torch.testing.assert_close(torch.cat([s[2] for s in steps], -1),
+                               want[2], **tol)
+
+
 def test_moe_split_prefers_experts_then_width():
     mod = t_moe.MoELayer(16, 24, 4, 2)
     assert mod.split_(Axis("model", 2, 1)) and mod.cut == "expert"
@@ -263,7 +428,8 @@ def test_the_step_cases_fall_through_at_model_two():
     """`torch_lm_mesh_ranks.TP_CASES`' uneven cases, which
     `tests/test_torch_lm_tp_families.py` holds to the reference's mesh
     step: at model=2 granite's 3 experts are cut by their hidden width
-    and its 3 / 1 heads at rest, rwkv6's 3 heads at rest."""
+    and its 3 / 1 heads at rest, rwkv6's 3 heads of 32 by value columns
+    (16 a rank), their weights at rest."""
     import torch_lm_mesh_ranks as R
     axis = Axis("model", 2, 1)
     granite = registry.build_model(
@@ -279,6 +445,8 @@ def test_the_step_cases_fall_through_at_model_two():
         R.config(registry, R.TP_CASES["rwkv_uneven"]), "meta")
     rwkv.split_(axis)
     tm = rwkv.blocks[0].tm
-    assert tm.axis is None and tm.n_heads == 3
+    assert tm.axis is axis and tm.cut == "value" and tm.n_heads == 3
+    assert tm.value_dim == 16
     assert tm.r.w.shape == (96, 48) and tm.o.w.shape == (48, 96)
+    assert tm.r.rest_cut == ("column", axis)
     assert rwkv.blocks[0].cm.axis is not None

@@ -502,7 +502,8 @@ SEQ_CASES = {
     # the attention-free family, its time mix split by heads (4 over 2):
     # the token shifts and the wkv recurrence over the gathered sequence
     "rwkv": dict(CASES["rwkv"]),
-    # 3 heads of 32 over 2: the time mix whole, cut at rest
+    # 3 heads of 32 over 2: the time mix by value columns, its weights
+    # cut at rest, its ``o`` parts reduce-scattered along the sequence
     "rwkv_uneven": dict(arch="rwkv6-3b", opt="adamw", n_micro=1, batch=4,
                         seq=32, d_model=96),
     # the encoder's frames and the decoder's tokens both cut, the cross
@@ -571,18 +572,19 @@ def seq_serve_inputs(cfg) -> dict:
     return out
 
 
-def seq_serve_case(arch: str, initial: dict, act_rules=SEQ_RULES) -> dict:
-    """Prefill and greedy decode of `arch`'s smoke model split over
-    "model" on this rank's (data=2, model=2) plan under the rule (or
-    under `act_rules` over the defaults): each step's logits and the
-    tokens of this rank's rows, and the shapes of the cache it holds and
-    of the whole."""
+def seq_serve_case(arch: str, initial: dict, act_rules=SEQ_RULES,
+                   over: dict | None = None) -> dict:
+    """Prefill and greedy decode of `arch`'s smoke model (its config
+    fields `over` replaced) split over "model" on this rank's (data=2,
+    model=2) plan under the rule (or under `act_rules` over the
+    defaults): each step's logits and the tokens of this rank's rows,
+    and the shapes of the cache it holds and of the whole."""
     import torch_launch_ranks as L
     from repro_torch.distributed import collectives, partition
     from repro_torch.distributed.sharding import use_sharding
     from repro_torch.models import registry
     from repro_torch.nn import layers
-    cfg = L.serve_config(registry, arch)
+    cfg = dataclasses.replace(L.serve_config(registry, arch), **(over or {}))
     model = layers.load_jax_lm_params(registry.build_model(cfg, "cpu"),
                                       nest(initial))
     plan = partition.make_plan(model_parallel=2, device="cpu",
@@ -784,15 +786,20 @@ TP_CASES = {
     "granite_uneven": dict(arch="granite-moe-3b-a800m", opt="adamw",
                            n_micro=1, batch=4, seq=64, experts=3, heads=3,
                            kv_heads=1, capacity_factor=0.5),
-    # 3 heads of 32 (d_model 96): the time mix computes whole, its r, k,
-    # v, g and o cut at rest by the fused columns
+    # 3 heads of 32 (d_model 96): the heads do not split over 2, so the
+    # time mix runs by value columns (16 of every head a rank, the wkv
+    # state so cut), its r, k, v, g and o cut at rest by the fused
+    # columns and gathered at use
     "rwkv_uneven": dict(arch="rwkv6-3b", opt="adamw", n_micro=1, batch=4,
                         seq=32, d_model=96),
 }
 TP_RULES = {"zamba_seq": SEQ_RULES}   # a case's act rules over the defaults
 TP_PLACED = ("zamba_seq", "granite_uneven")  # placed by place_params_
 TP_SERVE = {"rwkv": "rwkv6-3b", "zamba": "zamba2-1.2b",
-            "whisper": "whisper-medium"}
+            "whisper": "whisper-medium", "rwkv_uneven": "rwkv6-3b"}
+# a serving case's config fields over the smoke config's: rwkv_uneven
+# served from its cache cut by value columns
+TP_SERVE_OVER = {"rwkv_uneven": dict(d_model=96)}
 TP_TALLY_ARCH = "zamba2-1.2b"
 
 
@@ -833,17 +840,25 @@ def tp_grads(name: str, initial: dict) -> dict:
     return flatten(layers.stack_lm_tree(step.gather_params(grads)))
 
 
-def tp_leaves_case(arch: str) -> dict:
-    """`arch`'s smoke model drawn from seed 5 and split on this rank's
-    (data=2, model=2) plan (`partition.model_layout`): the shape of each
-    leaf whole and held, the dim cut over "model", the fused leaves'
-    pieces, whether `gather_params` rebuilds every whole leaf bit for
-    bit, and whether `ModelLayout.rank_part` of each whole leaf is what
-    the rank holds."""
+def tp_serve_config(module, name: str):
+    """`TP_SERVE[name]`'s smoke config from a registry module, with its
+    `TP_SERVE_OVER` fields."""
+    import torch_launch_ranks as L
+    return dataclasses.replace(L.serve_config(module, TP_SERVE[name]),
+                               **TP_SERVE_OVER.get(name, {}))
+
+
+def tp_leaves_case(name: str) -> dict:
+    """`TP_SERVE[name]`'s smoke model (`tp_serve_config`) drawn from
+    seed 5 and split on this rank's (data=2, model=2) plan
+    (`partition.model_layout`): the shape of each leaf whole and held,
+    the dim cut over "model", the fused leaves' pieces, whether
+    `gather_params` rebuilds every whole leaf bit for bit, and whether
+    `ModelLayout.rank_part` of each whole leaf is what the rank holds."""
     from repro_torch.distributed import partition
     from repro_torch.models import registry
     from repro_torch.nn import layers
-    cfg = registry.get_config(arch + "-smoke")
+    cfg = tp_serve_config(registry, name)
     model = layers.init_params(registry.build_model(cfg, "cpu"), 5)
     whole = {k: p.detach().clone() for k, p in model.named_parameters()}
     plan = partition.make_plan(model_parallel=2, device="cpu")
@@ -941,10 +956,10 @@ def tp_world(initial: dict, serve_initial: dict) -> dict:
                                act_rules=TP_RULES.get(name))
         out[name]["grads"] = tp_grads(name, initial[name])
     out["serve"] = {name: seq_serve_case(arch, serve_initial[name],
-                                         act_rules=None)
+                                         act_rules=None,
+                                         over=TP_SERVE_OVER.get(name))
                     for name, arch in TP_SERVE.items()}
-    out["leaves"] = {name: tp_leaves_case(arch)
-                     for name, arch in TP_SERVE.items()}
+    out["leaves"] = {name: tp_leaves_case(name) for name in TP_SERVE}
     out["tally"] = tp_tally_case(fake=False)
     return out
 
