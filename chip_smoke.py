@@ -142,7 +142,13 @@ head, 8 classes):
   its bytes against the reckoning of its split, since its vocabulary
   stays whole); (c) `pipeline_apply` over 4 stage ranks, one qwen1.5-4b
   `DecoderBlock` a stage, 4 microbatches of 1 x 512, against the blocks
-  in sequence (rtol 1e-4); (d) (a)'s model and steps again over
+  in sequence (rtol 1e-4), its forward alone under `torch.no_grad()`,
+  then the forward and backward of a seeded cotangent's dot with the
+  output: the input's gradient on every stage and each stage's block's
+  within 1e-6 + 1e-4 |g| of the one-rank stack's, an element past it
+  judged by the same stack in float64 (the one-rank stack off float64
+  by more than the rule and the pipeline no further than it), the ms,
+  calls and peak of each part; (d) (a)'s model and steps again over
   parameters placed by `MeshPlan.place_params_` (FSDP / ZeRO-3: cut
   over "data" at rest, gathered a layer at use), against the same
   one-rank run at (a)'s limits, a rank's parameters at most 0.30 of the
@@ -162,7 +168,9 @@ head, 8 classes):
   layout's reckoning, then a prefill of 64 tokens and 8 greedy steps
   from the one-rank run's weights with fp32 caches cut by heads (by
   sequence under the rule): tokens equal, logits within rtol 1e-4 /
-  atol 1e-5; (g) granite-moe-3b-a800m and rwkv6-3b at full width and 2
+  atol 1e-5; and zamba2-1.2b placed and split again, trained with
+  Adafactor (its factored statistics counting the B and C columns every
+  model rank holds alike once) against one rank with Adafactor; (g) granite-moe-3b-a800m and rwkv6-3b at full width and 2
   layers on 16 gloo ranks sharing the card at (data=1, model=16), the
   production model axis, where granite's 40 experts and 24 / 8 heads
   and rwkv6's 40 heads do not divide: granite's experts cut by their
@@ -188,18 +196,20 @@ head, 8 classes):
   a leaf), the final parameters at (a)'s limits but where a step's
   codes differed (held to 3 x lr + 1e-5 there), the `all_max` calls a
   compression (at most 3) and the residual's bytes against the
-  gradient slice's reckoning.  Every run at AdamW's lr 1e-4
-  (LM_MESH_LR) but those of LM_MESH_LR_KEPT (rwkv6-3b's (f) and (h),
-  zamba2-1.2b's two (f) runs, granite-moe-3b-a800m's (g), at 1e-5); a
+  gradient slice's reckoning.  Every run at lr 1e-4 (LM_MESH_LR); a
   parameter element past the strict tolerance (but where (i)'s codes
-  differed) in the slice a rank's update wrote passes only where its
-  gradients, the rank's and the one-rank run's (the one-rank run keeps
-  the elements where its gradient is small at some step, and every
-  element of a small leaf; a rank records its own at those), are
-  within 1e-6 + 1e-4 |g| of each other at every step and it is within
-  3 x lr of the strict tolerance; one a rank all-gathered from another
-  data rank (ZeRO-1) only where it equals that rank's copy bit for bit
-  (`lm_mesh_compare`).  Step
+  differed) in the slice a rank's update wrote passes, within 3 x lr of
+  the strict tolerance, only where its gradients, the rank's and the
+  one-rank run's (the one-rank run keeps the elements where its
+  gradient is small at some step, every element of a small leaf, every
+  step-1 root candidate and what it feeds; a rank records its own at
+  those), are within 1e-6 + 1e-4 |g| of each other at every step; or
+  at step 1, both non-zero and within 1e-6 of zero (a root: Adam's
+  first step parts the runs there); or at step 1 but not later, where
+  a root of the run feeds it (a knock-on: the root's table row, or its
+  RWKV6 time-mix head); one a rank all-gathered from another data rank
+  (ZeRO-1) only where it equals that rank's copy bit for bit
+  (`lm_mesh_compare`, `lm_mesh_verdicts`).  Step
   ms, `torch.distributed` calls (and, for (d) to (i), per op; for (e)
   to (h) per mesh axis) and the host ms inside them a step, and peak
   GB, a rank.  No kernel launches;
@@ -364,10 +374,15 @@ MULTIHOST_RANKS = 2
 # between two correct runs by a good part of the rate: 1 to 9 elements a
 # run of 10^8-10^9, 1.47e-5 to 2.27e-5 off one rank's, past atol 1e-5
 # (PERF.md §6, PR 31).  So a parameter element past the strict
-# tolerance is judged by its gradients (`lm_mesh_judge`): the one-rank
+# tolerance is judged by its gradients (`lm_mesh_verdicts`): the one-rank
 # run's and this rank's at that element, step by step, each within
-# 1e-6 + 1e-4 |g| of the one rank's, and its drift within LM_MESH_STEPS
-# x lr + the strict tolerance (what Adam's sign steps can add); every
+# 1e-6 + 1e-4 |g| of the one rank's; or a root, parted at step 1 (its
+# step-1 gradients within that rule, both non-zero and within 1e-6 of
+# zero: Adam's first step g / (|g| + 1e-8) may differ), its later steps
+# not held; or a knock-on of such a root (its step-1 gradients within
+# the rule, later ones not, in the root's table row or RWKV6 time-mix
+# head, PERF.md §6, PR 34); each with its drift within LM_MESH_STEPS x
+# lr + the strict tolerance (what Adam's sign steps can add); every
 # other element keeps the strict bound.  A one-rank run does not repeat
 # bit for bit (atomic sums: the MoE, the embedding), so its gradients
 # are kept as it runs
@@ -377,29 +392,6 @@ LM_MESH_LAYERS = 2
 LM_MESH_BATCH, LM_MESH_SEQ, LM_MESH_MICRO = 4, 512, 2
 LM_MESH_STEPS = 3
 LM_MESH_LR = 1e-4
-# the runs that keep lr 1e-5, by (part, arch), where the gradient rule
-# does not account for an element at 1e-4 (PERF.md §6, PR 34): an
-# element whose step-1 gradient is within rounding of zero takes a first
-# Adam step that parts the two runs (g / (|g| + 1e-8) differs), and its
-# later gradients, at parameters that differ, differ by more than
-# 1e-4 |g|; so can those of elements that read what it feeds.  (h)'s
-# runs are held to (f)'s one-rank runs, so they take (f)'s rate.
-# rwkv6-3b's (f) and (h), every rank, all in head 4 of layer 1:
-# blocks.1.tm.bonus_u[264] (step 1 -1.8e-7 against -7.4e-7 alone, step 2
-# -6.78e-3 against -6.23e-3), bonus_u[287] (step 1 -2.36550e-3 against
-# -2.36579e-3, within the rule; step 2 2.62e-4 against 5.06e-4) and, on
-# rank 2, g.w[5089577] (column 297; its one-rank gradient not kept);
-# zamba2-1.2b's (f), rank 1: embed.table[58798946], step 1 4.7e-8
-# against 1.6e-8, step 2 -1.29583e-3 against -1.29299e-3;
-# granite-moe-3b-a800m's (g), every rank: embed.table[52871481], step 1
-# -1.0e-8 against -4.0e-8, step 2 8.62090e-3 against 8.62441e-3
-LM_MESH_LR_KEPT = {("f", "rwkv6-3b"): 1e-5, ("f", "zamba2-1.2b"): 1e-5,
-                   ("g", "granite-moe-3b-a800m"): 1e-5}
-# CHIP_SMOKE_LR_KEPT=none runs these at LM_MESH_LR too, to see which
-# still miss (every run of the first world is listed with its elements
-# before its checks fail)
-if os.environ.get("CHIP_SMOKE_LR_KEPT") == "none":
-    LM_MESH_LR_KEPT = {}
 LM_MESH_RTOL, LM_MESH_ATOL = 1e-4, 1e-5
 LM_MESH_GRAD_RTOL, LM_MESH_GRAD_ATOL = 1e-4, 1e-6   # the gradient rule
 # a one-rank run keeps its gradient each step at the elements where it is
@@ -408,7 +400,8 @@ LM_MESH_GRAD_RTOL, LM_MESH_GRAD_ATOL = 1e-4, 1e-6   # the gradient rule
 # Adam's sign steps has a gradient near rounding; one past the tolerance
 # whose one-rank gradient was never kept fails.  A leaf of at most
 # LM_MESH_CAP_ELEMENTS elements (norms, biases, rwkv6's bonus_u) is kept
-# whole
+# whole, and so are every step-1 root candidate (its |g| in (0,
+# LM_MESH_GRAD_ATOL]) and what it feeds (`lm_mesh_grad_store`)
 LM_MESH_GRAD_SMALL = 1e-2
 LM_MESH_PARAM_SHARE = 0.55
 LM_MESH_FSDP_SHARE = 0.30   # (d): parameters cut over "data" too
@@ -427,6 +420,11 @@ LM_MESH_TP_RUNS = (("rwkv6-3b", None), ("zamba2-1.2b", None),
                    ("zamba2-1.2b", LM_MESH_SEQ_RULES),
                    ("whisper-medium", None))
 LM_MESH_TP_SEQ, LM_MESH_TP_MICRO, LM_MESH_TP_FRAMES = 256, 1, 32
+# (f) also trains this arch with Adafactor (`make_optimizer("adafactor")`'s
+# optimizer at LM_MESH_LR), placed, without the "seq" rule: its factored
+# statistics over Mamba2's fused in_proj and conv leaves count the B and
+# C columns every model rank holds alike once (`ModelLayout.dup`)
+LM_MESH_ADAFACTOR = "zamba2-1.2b"
 # (g): granite-moe and rwkv6-3b at full width on (data=1, model=16),
 # the production model axis: granite's 40 experts and 24 / 8 heads do
 # not divide 16, so the experts are cut by their hidden width and
@@ -454,12 +452,6 @@ LM_MESH_SEQ_FAMILIES = ("rwkv6-3b", "whisper-medium")
 LM_MESH_COMPRESSORS = ("int8", "int8_ef")
 LM_MESH_TIE, LM_MESH_MAX_MISSES, LM_MESH_MAX_ALL_MAX = 1e-3, 2, 3
 LM_MESH_CAP_ELEMENTS = 65536
-
-
-def lm_mesh_lr(part: str, arch: str) -> float:
-    """The rate of `[lm-mesh]` part `part`'s runs of `arch`
-    (LM_MESH_LR_KEPT, else LM_MESH_LR)."""
-    return LM_MESH_LR_KEPT.get((part, arch), LM_MESH_LR)
 
 
 def fail(message: str) -> None:
@@ -5486,16 +5478,18 @@ class LoggedOptimizer:
     nonzero elements, found on the card; every element of a leaf of at
     most LM_MESH_CAP_ELEMENTS), and ``log["ms"]``, the host time that
     took, is taken off the step's.  On a plan, `picks` ({leaf: flat
-    indices into this rank's gradient slice, int32 on the host}: the
-    elements the one-rank run kept, `lm_mesh_grad_picks`) are gathered
-    on the card after the update, a leaf at a time, and copied to the
-    host (``log["picked"]``): no whole gradient copied, no barrier, and
-    the card holds nothing of it past the update's peak; the step's
-    time includes it."""
+    indices into this rank's gradient slice, int32 on the host, or None
+    for the whole slice}: the elements the one-rank run kept every step,
+    `lm_mesh_grad_picks`) are gathered on the card after the update, a
+    leaf at a time, and copied to the host (``log["picked"]``), and at
+    step 1 those of `picks1` too (what it kept of step 1 alone,
+    ``log["picked1"]``): no barrier, and the card holds nothing of it
+    past the update's peak; the step's time includes it."""
 
     def __init__(self, torch, opt):
-        self.torch, self.opt, self.picks = torch, opt, None
-        self.log = {"steps": [], "small": [], "picked": [], "held": {},
+        self.torch, self.opt, self.picks, self.picks1 = torch, opt, None, {}
+        self.log = {"steps": [], "small": [], "picked": [], "picks": {},
+                    "picks1": {}, "picked1": {},
                     "ms": 0.0}
 
     def __getattr__(self, name):
@@ -5505,9 +5499,15 @@ class LoggedOptimizer:
         torch = self.torch
         if self.picks is not None:
             out = self.opt.update_(grads, *args, **kwargs)
-            self.log["picked"].append({
-                k: grads[k].detach().reshape(-1).index_select(
-                    0, idx.to(DEVICE)).cpu() for k, idx in self.picks.items()})
+
+            def take(picks):
+                return {k: grads[k].detach().reshape(-1).cpu() if idx is None
+                        else grads[k].detach().reshape(-1).index_select(
+                            0, idx.to(DEVICE)).cpu()
+                        for k, idx in picks.items()}
+            if not self.log["picked"]:
+                self.log["picked1"] = take(self.picks1)
+            self.log["picked"].append(take(self.picks))
             return out
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5529,33 +5529,159 @@ class LoggedOptimizer:
         return self.opt.update_(grads, *args, **kwargs)
 
 
-def lm_mesh_grad_store(torch, log: dict) -> dict:
+def lm_mesh_feeds(model, shapes: dict) -> dict:
+    """Which elements a step-1 root feeds, per leaf, from the layer's
+    layout (`lm_mesh_verdicts`): {leaf: ("row", row size)} for an
+    embedding table (its row), {leaf: ("head", layer, dim, unit)} for
+    the leaves of an RWKV6 time mix that `RWKV6TimeMix.split_` reads by
+    head (r, k, v and g by columns, o by rows, ``bonus_u`` by its head
+    dim, ``ln_x``, the decay's ``dec_b`` and ``dec_base`` by channels;
+    the head of an element is its index on `dim` // `unit`); any other
+    leaf is absent (an element feeds itself alone).  `shapes`: {leaf:
+    whole shape}."""
+    from repro_torch.nn.layers import Embedding
+    from repro_torch.nn.ssm import RWKV6TimeMix
+    out = {}
+    for name, mod in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, Embedding):
+            out[pre + "table"] = ("row", int(np.prod(
+                shapes[pre + "table"][1:])))
+        elif isinstance(mod, RWKV6TimeMix):
+            hd = mod.head_dim
+            for leaf, dim, unit in (
+                    ("r.w", 1, hd), ("k.w", 1, hd), ("v.w", 1, hd),
+                    ("g.w", 1, hd), ("o.w", 0, hd), ("bonus_u", 0, 1),
+                    ("ln_x.scale", 0, hd), ("ln_x.bias", 0, hd),
+                    ("dec_b", 1, hd), ("dec_base", 0, hd)):
+                if pre + leaf in shapes:
+                    out[pre + leaf] = ("head", name, dim, unit)
+    return out
+
+
+def lm_mesh_coord(whole, shape, dim: int):
+    """The index on `dim` of flat indices `whole` into a leaf of
+    `shape` (numpy or torch integers)."""
+    stride = int(np.prod(shape[dim + 1:]))
+    return (whole // stride) % shape[dim]
+
+
+def lm_mesh_feed_keys(name: str, whole, shape, feeds: dict) -> list:
+    """The feed key of each element at flat indices `whole` (numpy) of
+    leaf `name` (`lm_mesh_feeds`): a root feeds the elements of its
+    key."""
+    kind = feeds.get(name)
+    if kind is None:
+        return [("element", name, int(w)) for w in whole]
+    if kind[0] == "row":
+        return [("row", name, int(r)) for r in whole // kind[1]]
+    _, layer, dim, unit = kind
+    return [("head", layer, int(h))
+            for h in lm_mesh_coord(whole, shape, dim) // unit]
+
+
+def lm_mesh_grad_store(torch, log: dict, feeds: dict) -> tuple:
     """What a one-rank run keeps of its gradients for `lm_mesh_compare`:
-    {leaf: (sorted flat indices of the elements small at some step
-    (`LoggedOptimizer`), their gradient each step [steps, n])}.  A
-    compressed run ((i)) keeps nothing: its gradients are int8 codes
-    times a scale, never near rounding, and its elements past the
-    tolerance are where a code differed, held by the code rule."""
-    store = {}
-    for k in (log["steps"][0] if log["steps"] else ()):
-        idx = torch.unique(torch.cat([s[k] for s in log["small"]]))
-        store[k] = (idx, torch.stack([s[k].reshape(-1)[idx]
-                                      for s in log["steps"]]))
-    return store
+    ``{"all": {leaf: (idx, gradient each step [steps, n])}, "first":
+    {leaf: (idx, step-1 gradient [1, n])}}``, idx the sorted flat indices
+    (int32 where they fit), or None for the whole leaf; and
+    (candidates, elements kept).  Every step is kept of the elements
+    small at some step (`LoggedOptimizer`) and of what a step-1 root
+    candidate (its own |g| in (0, LM_MESH_GRAD_ATOL] at step 1) feeds
+    (`lm_mesh_feeds`: its table row, its time-mix head in every leaf of
+    the layer read by head: a knock-on is judged by its later steps);
+    a candidate that feeds itself alone keeps its step-1 gradient (a
+    root's later steps are not held).  A compressed run ((i)) keeps
+    nothing: its gradients are int8 codes times a scale, never near
+    rounding, and its elements past the tolerance are where a code
+    differed, held by the code rule."""
+    steps = log["steps"]
+    store = {"all": {}, "first": {}}
+    if not steps:
+        return store, (0, 0)
+    first = steps[0]
+    shapes = {k: tuple(g.shape) for k, g in first.items()}
+    cand = {}
+    for k, g in first.items():
+        a = g.abs().reshape(-1)
+        cand[k] = torch.nonzero((a > 0) & (a <= LM_MESH_GRAD_ATOL))[:, 0]
+    heads = {}   # time-mix layer -> the heads holding a candidate
+    for k, idx in cand.items():
+        kind = feeds.get(k)
+        if kind is not None and kind[0] == "head" and idx.numel():
+            heads.setdefault(kind[1], set()).update(
+                (lm_mesh_coord(idx, shapes[k], kind[2]) // kind[3]).tolist())
+
+    def kept_at(mask, grads):
+        """(idx, [len(grads), n]) of the flat `grads` at `mask`."""
+        if mask.all():
+            return None, torch.stack(grads)
+        idx = torch.nonzero(mask)[:, 0]
+        return (idx.to(torch.int32) if mask.numel() < 2 ** 31 else idx,
+                torch.stack([g[idx] for g in grads]))
+
+    kept = 0
+    for k in first:
+        shape = shapes[k]
+        mask = torch.zeros(first[k].numel(), dtype=torch.bool)
+        mask[torch.cat([s[k] for s in log["small"]])] = True
+        kind = feeds.get(k)
+        if kind is None:
+            alone = torch.zeros_like(mask)
+            alone[cand[k]] = True
+            alone &= ~mask
+            if alone.any():
+                store["first"][k] = kept_at(alone, [first[k].reshape(-1)])
+                kept += store["first"][k][1].shape[-1]
+        elif kind[0] == "row" and cand[k].numel():
+            rows = torch.zeros(shape[0], dtype=torch.bool)
+            rows[torch.unique(cand[k] // kind[1])] = True
+            mask |= rows.repeat_interleave(kind[1])
+        elif kind[0] == "head" and heads.get(kind[1]):
+            _, layer, dim, unit = kind
+            fed = torch.isin(torch.arange(shape[dim]) // unit,
+                             torch.tensor(sorted(heads[layer])))
+            view = [1] * len(shape)
+            view[dim] = -1
+            mask |= fed.reshape(view).expand(shape).reshape(-1)
+        store["all"][k] = kept_at(mask, [s[k].reshape(-1) for s in steps])
+        kept += store["all"][k][1].shape[-1]
+    return store, (sum(int(c.numel()) for c in cand.values()), kept)
 
 
 def lm_mesh_grad_picks(torch, step, ref_path: str, opt) -> None:
     """Point `opt` (a `LoggedOptimizer` on a plan) at the elements of this
     rank's gradient slices that the one-rank run kept (its store beside
-    `ref_path`, `lm_mesh_grad_store`): ``opt.picks`` {leaf: their flat
-    indices into the slice, int32}, and ``opt.log["held"]``
-    {leaf: their positions in the store's index, ascending}."""
+    `ref_path`, `lm_mesh_grad_store`): ``opt.picks`` (every step) and
+    ``opt.picks1`` (step 1 alone), also in ``opt.log``, each {leaf:
+    their flat indices into the slice, ascending, int32 on the host, or
+    None for the whole slice, where the store keeps the whole leaf or at
+    least half the slice}.  The store's indices mark a mask of the whole
+    leaf on the card, cut as the rank holds it (`lm_mesh_slice_coords`)."""
     store = torch.load(ref_path + ".grads", mmap=True, weights_only=True)
-    opt.picks = {}
-    for k, (idx, _) in store.items():
-        local, held = lm_mesh_local_index(torch, step, k, idx)
-        opt.picks[k] = local[held].to(torch.int32)
-        opt.log["held"][k] = torch.nonzero(held)[:, 0].numpy()
+    opt.picks, opt.picks1 = opt.log["picks"], opt.log["picks1"]
+    for part, picks in (("all", opt.picks), ("first", opt.picks1)):
+        for k, (idx, _) in store[part].items():
+            picks[k] = None if idx is None else \
+                lm_mesh_local_picks(torch, step, k, idx)
+
+
+def lm_mesh_local_picks(torch, step, name: str, idx):
+    """The flat indices into this rank's gradient slice of leaf `name` of
+    the whole leaf's elements at `idx`, ascending, int32 on the host (None
+    where they are half the slice or more: the whole slice is copied)."""
+    full = step.layout.full[name]
+    mask = torch.zeros(int(np.prod(full)), dtype=torch.bool, device=DEVICE)
+    for lo in range(0, idx.numel(), 1 << 24):
+        mask[idx[lo:lo + (1 << 24)].to(DEVICE).long()] = True
+    mask = mask.reshape(full)
+    for d, v in enumerate(lm_mesh_slice_coords(torch, step, name)):
+        if v.numel() != full[d]:
+            mask = mask.index_select(d, v.to(DEVICE))
+    mask = mask.reshape(-1)
+    if 2 * int(mask.sum()) >= mask.numel():
+        return None
+    return torch.nonzero(mask)[:, 0].to(torch.int32).cpu()
 
 
 def lm_mesh_slice_coords(torch, step, name: str, data_slice: bool = True):
@@ -5596,37 +5722,16 @@ def lm_mesh_whole_index(torch, step, name: str, flat, data_slice=True):
     return whole
 
 
-def lm_mesh_local_index(torch, step, name: str, whole):
-    """The inverse of `lm_mesh_whole_index` on this rank's gradient slice:
-    for flat indices `whole` into the whole leaf, their flat indices into
-    the slice and whether the slice holds them (where not, the index is
-    0)."""
-    full = step.layout.full[name]
-    vecs = lm_mesh_slice_coords(torch, step, name)
-    local = torch.zeros_like(whole)
-    held = torch.ones(whole.shape, dtype=torch.bool)
-    rest = whole.clone()
-    coords = []
-    for n in reversed(full):
-        coords.append(rest % n)
-        rest = rest // n
-    for d, c in enumerate(reversed(coords)):
-        inverse = torch.full((full[d],), -1, dtype=torch.int64)
-        inverse[vecs[d]] = torch.arange(vecs[d].numel())
-        at = inverse[c]
-        held &= at >= 0
-        local = local * vecs[d].numel() + at.clamp(min=0)
-    return torch.where(held, local, 0), held
-
-
 def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
                   placed: bool = False, serve: bool = False,
                   seq: int = LM_MESH_SEQ, micro: int = LM_MESH_MICRO,
                   rows: int = LM_MESH_BATCH, reckon: bool = False,
                   compressor: str | None = None,
-                  lr: float = LM_MESH_LR) -> dict:
+                  lr: float = LM_MESH_LR, optimizer: str = "adamw") -> dict:
     """`arch` (`lm_mesh_config`) drawn on the card from SEED and trained
-    LM_MESH_STEPS steps with AdamW at `lr`, on `plan`'s ranks (ZeRO-1; with
+    LM_MESH_STEPS steps with `optimizer` ("adamw", or "adafactor": no
+    weight decay, as the reference's default) at `lr`, on `plan`'s ranks
+    (ZeRO-1; with
     `placed`, over parameters placed first by `MeshPlan.place_params_`:
     FSDP) or on this rank alone: metrics and ms a step, the bytes of
     parameters and optimizer state held, peak GB, `torch.distributed`
@@ -5642,14 +5747,14 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
     (`lm_mesh_compressor`), its codes saved beside `ref_path` alone and
     held to them on a plan (`lm_mesh_code_check`).  Each step's
     gradient is recorded (`LoggedOptimizer`): alone, the elements where
-    it is small at some step go beside `ref_path` (`lm_mesh_grad_store`);
-    on a plan, this rank's gradient at those elements, by which the
-    parameter elements past the tolerance are judged
-    (`lm_mesh_compare`)."""
+    it is small at some step, every step-1 root candidate and what each
+    feeds go beside `ref_path` (`lm_mesh_grad_store`); on a plan, this
+    rank's gradient at those elements, by which the parameter elements
+    past the tolerance are judged (`lm_mesh_compare`)."""
     from repro_torch.distributed.partition import tree_bytes
     from repro_torch.models.registry import build_model
     from repro_torch.nn.layers import init_params, stack_groups
-    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.optimizer import Adafactor, AdamW
     from repro_torch.train.train_loop import make_train_step
     cfg = lm_mesh_config(arch)
     torch.cuda.empty_cache()
@@ -5658,16 +5763,20 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
         model = init_params(build_model(cfg, DEVICE), SEED)
     if placed:
         plan.place_params_(model)
-    opt = AdamW(learning_rate=lr)
-    grads = {"steps": [], "small": [], "picked": [], "held": {}, "ms": 0.0}
+    opt = {"adamw": AdamW, "adafactor": Adafactor}[optimizer](
+        learning_rate=lr)
+    grads = {"steps": [], "small": [], "picked": [], "picks": {},
+             "picks1": {}, "picked1": {}, "ms": 0.0}
     if compressor is None:   # (i) keeps nothing: see lm_mesh_grad_store
         opt = LoggedOptimizer(torch, opt)
         grads = opt.log
     comp = lm_mesh_compressor(compressor)
     step = make_train_step(model, cfg, opt, plan=plan, zero1=True,
                            n_microbatches=micro, grad_compression=comp)
+    picks_s = time.perf_counter()
     if plan is not None and compressor is None:
         lm_mesh_grad_picks(torch, step, ref_path, opt)
+    picks_s = time.perf_counter() - picks_s
     params = dict(model.named_parameters())
     state = (step.init_opt_state(params) if plan is not None
              else opt.init(params, stack_groups(params)))
@@ -5687,6 +5796,7 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
                            - (grads["ms"] - copied))
             metrics.append({k: float(v) for k, v in m.items()})
     out = {"metrics": metrics, "step_ms": step_ms, "lr": lr,
+           "optimizer": optimizer,
            "seq_cut": getattr(model, "head_seq", None) is not None,
            "calls": coll["calls"] / LM_MESH_STEPS,
            "per_op": {k: v / LM_MESH_STEPS
@@ -5700,7 +5810,8 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
            "peak": torch.cuda.max_memory_allocated(),
            "grad_log_bytes": sum(g.numel() * g.element_size()
                                  for s in grads["steps"] + grads["picked"]
-                                 for g in s.values())}
+                                 + [grads["picked1"]] for g in s.values()),
+           "picks_s": picks_s}
     if comp is not None:
         out["all_max"] = log["calls"]
         if compressor == "int8_ef":
@@ -5713,11 +5824,13 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
     if plan is None:
         torch.save({k: p.detach().cpu() for k, p in params.items()},
                    ref_path)
-        store = lm_mesh_grad_store(torch, grads)
+        t0 = time.perf_counter()
+        store, (out["grad_candidates"], out["grad_store_elements"]) = \
+            lm_mesh_grad_store(torch, grads, lm_mesh_feeds(model, {
+                k: tuple(p.shape) for k, p in params.items()}))
         torch.save(store, ref_path + ".grads")
         out["grad_store"] = os.path.getsize(ref_path + ".grads")
-        out["grad_store_elements"] = sum(i.numel()
-                                         for i, _ in store.values())
+        out["store_s"] = time.perf_counter() - t0
         del store
         if comp is not None:
             torch.save(log["codes"], ref_path + ".codes")
@@ -5727,8 +5840,11 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
             found = lm_mesh_code_check(torch, step, log, ref_path)
             exempt = found.pop("exempt")
             out.update(found)
+        t0 = time.perf_counter()
         out.update(lm_mesh_compare(torch, step, params, ref_path, exempt,
-                                   grads, lr))
+                                   grads, lr,
+                                   lm_mesh_feeds(model, step.layout.full)))
+        out["compare_s"] = time.perf_counter() - t0
         if placed or reckon:
             out.update(lm_mesh_placement(step, params))
         out["time_mix"] = {
@@ -5741,6 +5857,7 @@ def lm_mesh_train(torch, arch: str, plan=None, ref_path=None,
         out["serve"] = lm_mesh_serve(torch, model, cfg, plan)
     grads["steps"].clear()
     grads["picked"].clear()
+    grads["picked1"].clear()
     del model, params, state, step, batch, comp, grads, opt
     torch.cuda.empty_cache()
     return out
@@ -5848,7 +5965,8 @@ def lm_cache_bytes(torch, cache) -> int:
 
 
 def lm_mesh_compare(torch, step, params, ref_path, exempt=None,
-                    grads=None, lr: float = LM_MESH_LR) -> dict:
+                    grads=None, lr: float = LM_MESH_LR,
+                    feeds: dict | None = None) -> dict:
     """This rank's parameters, every leaf whole as it holds it, against
     its slices of the one-rank run's (read from `ref_path` mapped, a leaf
     at a time): elements past the tolerance, the largest difference, and
@@ -5856,22 +5974,24 @@ def lm_mesh_compare(torch, step, params, ref_path, exempt=None,
     (`lm_mesh_grad_slice`), `exempt` ((i): {leaf: mask over the slice}
     of the codes that differed) holds those elements to LM_MESH_STEPS x
     `lr` (the run's) more, and every other element past the strict
-    tolerance is judged by its gradients (`lm_mesh_judge`, this rank's
-    recorded in `grads`, the `LoggedOptimizer`'s log): ``misses``
-    counts those that fail, ``judged`` those that pass
-    (``judged_leaves`` by leaf), ``past`` all past the tolerance.  Where
+    tolerance is judged by its gradients (`lm_mesh_readings`, this
+    rank's recorded in `grads`, the `LoggedOptimizer`'s log, then
+    `lm_mesh_verdicts` over the whole run, `feeds` its
+    `lm_mesh_feeds`): ``misses`` counts those that fail, ``judged``
+    those that pass by every step's rule, ``roots`` and ``knock_ons``
+    those that pass as parted at step 1 or fed by such (``judged_leaves``
+    all that pass, by leaf), ``past`` all past the tolerance.  Where
     ZeRO-1's all-gather brought the rest of a leaf from the other data
     ranks, an element there past the strict tolerance passes only where
     it equals, bit for bit, the copy of the data rank that wrote it, one
     past the strict tolerance there too (its own verdict is that rank's):
     ``mirrored`` counts those; any other is a miss (a stale or broken
-    all-gather)."""
+    all-gather, `lm_mesh_mirror`)."""
     ref = torch.load(ref_path, mmap=True, weights_only=True)
     store = torch.load(ref_path + ".grads", mmap=True, weights_only=True)
-    misses, worst, split, where, wide = 0, 0.0, 0, [], 0
-    past, judged, by_leaf, mirrored = 0, 0, {}, 0
+    worst, split, where, wide, past = 0.0, 0, [], 0, 0
     data = step.plan.data_axis
-    mine, theirs = {}, []
+    mine, theirs, records = {}, [], []
     for k, p in params.items():
         split += step.model_dims[k] >= 0
         want = lm_mesh_ref_slice(step, k, ref[k]).to(DEVICE)
@@ -5892,8 +6012,8 @@ def lm_mesh_compare(torch, step, params, ref_path, exempt=None,
             if out.any():
                 at = torch.nonzero(out)[:, 0]
                 theirs.append((k, lm_mesh_whole_index(
-                    torch, step, k, at.cpu(), data_slice=False),
-                    got.reshape(-1)[at].cpu()))
+                    torch, step, k, at.cpu(), data_slice=False).tolist(),
+                    got.reshape(-1)[at].cpu().tolist()))
             got, want, diff, strict = (t.narrow(dim, lo, width)
                                        for t in (got, want, diff, strict))
         over = (diff > strict).reshape(-1)
@@ -5912,15 +6032,13 @@ def lm_mesh_compare(torch, step, params, ref_path, exempt=None,
         if not bad.any():
             continue
         past += int(bad.sum())
-        found = lm_mesh_judge(torch, step, k, torch.nonzero(
-            bad.reshape(-1))[:, 0], got, want, grads, store, lr)
-        judged += found["judged"]
-        if found["judged"]:
-            by_leaf[k] = found["judged"]
-        if found["failed"]:
-            misses += found["failed"]
-            where.append(f"{k}: {found['failed']} of {bad.numel()}, "
-                         + "; ".join(found["faults"]))
+        records.append(lm_mesh_readings(torch, step, k, torch.nonzero(
+            bad.reshape(-1))[:, 0], got, want, grads, store))
+    found = lm_mesh_verdicts(records, feeds or {}, lr)
+    misses = found["failed"]
+    where += [f"{k}: {n} of {total}, " + "; ".join(faults)
+              for k, (n, total, faults) in found["faults"].items()]
+    mirrored = 0
     if step.zero and data.size > 1:
         axes = step.plan.mesh.axes
         column = axes["model"].index if "model" in axes else 0
@@ -5928,86 +6046,198 @@ def lm_mesh_compare(torch, step, params, ref_path, exempt=None,
         torch.distributed.all_gather_object(everyone, (column, mine))
         owned = {key: v for c, held in everyone if c == column
                  for key, v in held.items()}
-        for k, whole, values in theirs:
-            faults = []
-            for w, v in zip(whole.tolist(), values.tolist()):
-                if owned.get((k, w)) == v:
-                    mirrored += 1
-                    continue
-                faults.append(f"{k}[{w}]: {v!r}, the writing data rank's "
-                              + (f"{owned[(k, w)]!r}" if (k, w) in owned
-                                 else "within the tolerance"))
-            if faults:
-                misses += len(faults)
-                where.append(f"{k}: {len(faults)} all-gathered from another "
-                             f"data rank, " + "; ".join(faults[:4]))
+        mirrored, faults = lm_mesh_mirror(theirs, owned)
+        for k, lines in faults.items():
+            misses += len(lines)
+            where.append(f"{k}: {len(lines)} all-gathered from another "
+                         f"data rank, " + "; ".join(lines[:4]))
     return {"misses": misses, "worst": worst, "split": split,
             "leaves": len(params), "where": where, "wide": wide,
-            "past": past, "judged": judged, "judged_leaves": by_leaf,
-            "mirrored": mirrored}
+            "past": past, "judged": found["judged"],
+            "roots": found["roots"], "knock_ons": found["knock_ons"],
+            "judged_leaves": found["by_leaf"], "mirrored": mirrored}
 
 
-def lm_mesh_judge(torch, step, name: str, flat, got, want, grads,
-                  store, lr: float) -> dict:
-    """The elements at `flat` (flat indices) of this rank's slice of leaf
-    `name`, past the strict tolerance, judged by their gradients: this
-    rank's each step (``grads["picked"]``, recorded where the one-rank
-    run kept its, `LoggedOptimizer`) against the one-rank run's
-    (`store`, its `lm_mesh_grad_store`); an element passes where every
-    step's two gradients are within LM_MESH_GRAD_ATOL +
-    LM_MESH_GRAD_RTOL |g| of each other (g the one rank's) and its
-    parameter is within LM_MESH_STEPS x `lr` of the strict tolerance.
-    An element the one-rank run did not keep (its gradient was never
-    small there) fails.  Returns the counts that passed and failed, and
-    the first failures."""
+def lm_mesh_mirror(theirs: list, owned: dict) -> tuple:
+    """The elements past the strict tolerance that ZeRO-1's all-gather
+    brought from another data rank (`theirs`: [(leaf, whole flat
+    indices, values)]) against the writing rank's copies of the elements
+    it found past it (`owned`: {(leaf, whole flat index): value}): each
+    passes only equal bit for bit.  Returns (how many passed, {leaf:
+    the faults})."""
+    mirrored, faults = 0, {}
+    for k, whole, values in theirs:
+        for w, v in zip(whole, values):
+            if owned.get((k, w)) == v:
+                mirrored += 1
+                continue
+            faults.setdefault(k, []).append(
+                f"{k}[{w}]: {v!r}, the writing data rank's "
+                + (f"{owned[(k, w)]!r}" if (k, w) in owned
+                   else "within the tolerance"))
+    return mirrored, faults
+
+
+def lm_mesh_readings(torch, step, name: str, flat, got, want, grads,
+                     store) -> dict:
+    """What `lm_mesh_verdicts` reads of the elements at `flat` (flat
+    indices) of this rank's slice of leaf `name`, past the strict
+    tolerance: their whole flat indices and the leaf's whole shape,
+    parameters (``got``, the one-rank run's ``want``), and gradients
+    each step, this rank's (``mine``, recorded where the one-rank run
+    kept its, `LoggedOptimizer`) and the one-rank run's (``one``,
+    `store`, its `lm_mesh_grad_store`), with ``kept`` where both were
+    kept (``first_only`` where only step 1 was, later steps NaN; ``why``
+    says why none were)."""
     at = flat.cpu()
     whole = lm_mesh_whole_index(torch, step, name, at).numpy()
-    if grads is None or not grads["picked"] or name not in store:
-        return {"judged": 0, "failed": len(at),   # (i) keeps none
-                "faults": [f"{name}[{int(i)}]: no gradient kept (a "
-                           "compressed run)" for i in whole[:4]]}
-    idx, values = (t.numpy() for t in store[name])
-    held = grads["held"][name]
-    kept = np.zeros(len(whole), bool)
-    pos = np.zeros(len(whole), np.int64)
-    mine = np.zeros((len(grads["picked"]), len(whole)))
-    one = np.zeros_like(mine)
-    if len(held):
-        pos = np.minimum(np.searchsorted(idx, whole), len(idx) - 1)
-        at = np.minimum(np.searchsorted(held, pos), len(held) - 1)
-        kept = (idx[pos] == whole) & (held[at] == pos)
-        mine = np.stack([s[name].numpy()[at] for s in grads["picked"]]
-                        ).astype(np.float64)
-        one = values[:, pos].astype(np.float64)
-    got = got.reshape(-1)[flat].cpu().numpy().astype(np.float64)
-    want = want.reshape(-1)[flat].cpu().numpy().astype(np.float64)
-    rule = (np.abs(mine - one) <= LM_MESH_GRAD_ATOL
-            + LM_MESH_GRAD_RTOL * np.abs(one)).all(axis=0)
-    ok = kept & rule & (np.abs(got - want) <= LM_MESH_ATOL + LM_MESH_RTOL
-                        * np.abs(want) + LM_MESH_STEPS * lr)
-    faults = [f"{name}[{int(whole[j])}]: {got[j]!r} vs {want[j]!r}, "
-              + (f"gradients {mine[:, j].tolist()} vs one rank's "
-                 f"{one[:, j].tolist()}" if kept[j] else
-                 "one rank's gradient not kept (never within "
-                 f"{LM_MESH_GRAD_SMALL} x its leaf's mean)")
-              for j in np.nonzero(~ok)[0][:4]]
-    return {"judged": int(ok.sum()), "failed": int((~ok).sum()),
-            "faults": faults}
+    steps = max(len(grads["picked"]) if grads is not None else 0, 1)
+    n = len(whole)
+    rec = {"leaf": name, "whole": whole,
+           "shape": tuple(step.layout.full[name]),
+           "got": got.reshape(-1)[flat].cpu().numpy().astype(np.float64),
+           "want": want.reshape(-1)[flat].cpu().numpy().astype(np.float64),
+           "kept": np.zeros(n, bool), "first_only": np.zeros(n, bool),
+           "mine": np.full((steps, n), np.nan),
+           "one": np.full((steps, n), np.nan), "why": None}
+    if grads is None or not grads["picked"]:
+        rec["why"] = "no gradient kept (a compressed run)"
+        return rec
+    local = at.numpy()
+
+    def find(sorted_idx, keys):
+        """(positions of `keys` in `sorted_idx`, found); None: every key
+        at its own place."""
+        if sorted_idx is None:
+            return keys, np.ones(len(keys), bool)
+        sorted_idx = sorted_idx.numpy()
+        if not len(sorted_idx):
+            return np.zeros(len(keys), np.int64), np.zeros(len(keys), bool)
+        pos = np.minimum(np.searchsorted(sorted_idx, keys),
+                         len(sorted_idx) - 1)
+        return pos, sorted_idx[pos] == keys
+
+    for part, picks, picked in (
+            ("all", grads["picks"], [s.get(name) for s in grads["picked"]]),
+            ("first", grads["picks1"], [grads["picked1"].get(name)])):
+        if name not in store[part] or picked[0] is None:
+            continue
+        idx, values = store[part][name]
+        there, mine_kept = find(picks[name], local)
+        pos, one_kept = find(idx, whole)
+        use = mine_kept & one_kept & ~rec["kept"]
+        if not use.any():
+            continue
+        values = values.numpy()
+        rec["mine"][:len(picked), use] = np.stack(
+            [g.numpy()[there[use]] for g in picked])
+        rec["one"][:len(picked), use] = values[:, pos[use]]
+        rec["kept"] |= use
+        if part == "first":
+            rec["first_only"] |= use
+    return rec
+
+
+def lm_mesh_verdicts(records: list, feeds: dict, lr: float) -> dict:
+    """The verdict on one rank's run of every parameter element past the
+    strict tolerance, from its `lm_mesh_readings` (`records`, one a
+    leaf).  An element whose gradients were not kept fails; one kept
+    passes, its drift within LM_MESH_STEPS x `lr` of the strict
+    tolerance, as
+      * judged, where every step's two gradients are within
+        LM_MESH_GRAD_ATOL + LM_MESH_GRAD_RTOL |g| of each other (g the
+        one rank's);
+      * a root, where its step-1 gradients are, and are both non-zero
+        and within LM_MESH_GRAD_ATOL of zero: there Adam's first step
+        ``g / (|g| + eps)`` may part the runs, so its later steps are
+        not held;
+      * a knock-on, where its step-1 gradients are within the rule and
+        later ones are not, and a root of this run feeds it (the same
+        key, `lm_mesh_feed_keys`: its table row, its time-mix head, or
+        itself).
+    Any other fails; so does one of which only the step-1 gradients were
+    kept (``first_only``: a step-1 candidate that feeds itself alone)
+    where it is not a root.  Returns the counts, the roots [(leaf, whole
+    flat index, this rank's step-1 gradient, one rank's)], the knock-ons
+    [(leaf, index)], those that passed by leaf, and {leaf: (failed,
+    past, first faults)}."""
+    looked, root_keys = [], set()
+    for r in records:
+        mine, one, kept = r["mine"], r["one"], r["kept"]
+        with np.errstate(invalid="ignore"):   # steps not kept are NaN
+            within = np.abs(mine - one) <= LM_MESH_GRAD_ATOL \
+                + LM_MESH_GRAD_RTOL * np.abs(one)
+        drift = np.abs(r["got"] - r["want"]) <= LM_MESH_ATOL \
+            + LM_MESH_RTOL * np.abs(r["want"]) + LM_MESH_STEPS * lr
+        near = (mine[0] != 0) & (one[0] != 0) \
+            & (np.abs(mine[0]) <= LM_MESH_GRAD_ATOL) \
+            & (np.abs(one[0]) <= LM_MESH_GRAD_ATOL)
+        root = kept & within[0] & near & drift
+        judged = kept & within.all(axis=0) & drift & ~root
+        knock = kept & within[0] & ~within.all(axis=0) & drift & ~root
+        keys = lm_mesh_feed_keys(r["leaf"], r["whole"], r["shape"], feeds)
+        root_keys.update(keys[j] for j in np.nonzero(root)[0])
+        looked.append((r, keys, within, drift, root, judged, knock))
+    out = {"judged": 0, "roots": [], "knock_ons": [], "failed": 0,
+           "by_leaf": {}, "faults": {}}
+    for r, keys, within, drift, root, judged, knock in looked:
+        name, whole = r["leaf"], r["whole"]
+        fed = np.array([k in root_keys for k in keys], bool)
+        ok = root | judged | (knock & fed)
+        out["judged"] += int(judged.sum())
+        out["roots"] += [(name, int(whole[j]), float(r["mine"][0, j]),
+                          float(r["one"][0, j]))
+                         for j in np.nonzero(root)[0]]
+        out["knock_ons"] += [(name, int(whole[j]))
+                             for j in np.nonzero(knock & fed)[0]]
+        if ok.any():
+            out["by_leaf"][name] = int(ok.sum())
+        bad = np.nonzero(~ok)[0]
+        if not len(bad):
+            continue
+        out["failed"] += len(bad)
+        faults = []
+        for j in bad[:4]:
+            if not r["kept"][j]:
+                why = r["why"] or ("one rank's gradient not kept (never "
+                                   f"within {LM_MESH_GRAD_SMALL} x its "
+                                   "leaf's mean, nor fed by a step-1 root "
+                                   "candidate)")
+            elif not drift[j]:
+                why = f"drift past {LM_MESH_STEPS} x lr more"
+            elif not within[0, j]:
+                why = "step-1 gradients apart past the rule"
+            elif "first_only" in r and r["first_only"][j]:
+                why = ("only its step-1 gradients kept (a step-1 candidate"
+                       " feeding itself alone), and not a root")
+            else:
+                why = "later gradients apart past the rule, no root feeding it"
+            faults.append(f"{name}[{int(whole[j])}]: {float(r['got'][j])!r}"
+                          f" vs {float(r['want'][j])!r}, {why}"
+                          + (f"; gradients {r['mine'][:, j].tolist()} vs "
+                             f"one rank's {r['one'][:, j].tolist()}"
+                             if r["kept"][j] else ""))
+        out["faults"][name] = (len(bad), len(whole), faults)
+    return out
 
 
 def lm_mesh_judged_lines(runs: list, smi: str) -> None:
     """Each run's parameter elements past the strict tolerance
-    (`lm_mesh_compare`), a line a run with any: those judged by their
-    gradients, by leaf, those all-gathered equal to the writing data
-    rank's, and those that failed; then the bytes kept for it: each
-    one-rank run's host copies while it ran and its store on disk, the
+    (`lm_mesh_compare`), a line a run with any: those judged by every
+    step's gradients, by leaf, the roots (parted at step 1: each with
+    its two step-1 gradients) and the knock-ons they feed, those
+    all-gathered equal to the writing data rank's, and those that
+    failed; then what was kept for it: each one-rank run's host copies
+    while it ran, its step-1 root candidates and its store on disk, the
     ranks' recorded gradients: `runs` [(label, rank, its run, the
     one-rank run)]."""
-    total, failed, mirrored = 0, 0, 0
+    total, failed, mirrored, roots, knocks = 0, 0, 0, 0, 0
     for label, rank, run, one in runs:
         total += run["judged"]
         failed += run["misses"]
         mirrored += run["mirrored"]
+        roots += len(run["roots"])
+        knocks += len(run["knock_ons"])
         if run["past"] or run["mirrored"] or run["misses"]:
             phase("lm-mesh", f"{label} rank {rank} (lr {run['lr']}): "
                   f"{run['past']} parameter elements of its update slice "
@@ -6015,7 +6245,14 @@ def lm_mesh_judged_lines(runs: list, smi: str) -> None:
                   f"{run['judged']} judged by their gradients (each "
                   f"step's within {LM_MESH_GRAD_ATOL} + {LM_MESH_GRAD_RTOL}"
                   f" |g| of one rank's, drift within {LM_MESH_STEPS} x lr "
-                  f"more)"
+                  f"more), {len(run['roots'])} roots (step 1 within the "
+                  f"rule and within {LM_MESH_GRAD_ATOL} of zero on both, "
+                  f"this rank's and one rank's)"
+                  + "".join(f", {k}[{w}] {g:.3e} vs {o:.3e}"
+                            for k, w, g, o in run["roots"][:8])
+                  + f", {len(run['knock_ons'])} knock-ons fed by a root"
+                  + "".join(f", {k}[{w}]" for k, w in run["knock_ons"][:8])
+                  + "; passed by leaf"
                   + "".join(f", {k} {n}"
                             for k, n in run["judged_leaves"].items())
                   + f"; {run['mirrored']} all-gathered past it, equal to "
@@ -6024,7 +6261,8 @@ def lm_mesh_judged_lines(runs: list, smi: str) -> None:
                      if run["misses"] else ""))
     kept = {id(one): one for _, _, _, one in runs}.values()
     phase("lm-mesh", f"judged by their gradients: {total} parameter elements "
-          f"over {len(runs)} rank runs, {mirrored} all-gathered copies of "
+          f"by every step, {roots} roots, {knocks} knock-ons over "
+          f"{len(runs)} rank runs, {mirrored} all-gathered copies of "
           f"such equal to the writing rank's, {failed} not accounted for; "
           f"kept for it: each one-rank run's gradient each step on the "
           f"host while it ran, "
@@ -6032,14 +6270,21 @@ def lm_mesh_judged_lines(runs: list, smi: str) -> None:
           f"{max(one['grad_log_bytes'] for one in kept) / 1e9:.3f} GB, "
           f"and on disk its elements within {LM_MESH_GRAD_SMALL} x the "
           f"mean |g| at some step (every element of a leaf of at most "
-          f"{LM_MESH_CAP_ELEMENTS}), "
+          f"{LM_MESH_CAP_ELEMENTS}), its step-1 root candidates (|g| in "
+          f"(0, {LM_MESH_GRAD_ATOL}]) and what each feeds (its table row, "
+          f"its time-mix head): "
           + ", ".join(f"{one['grad_store'] / 1e6:.1f} MB "
-                      f"({one['grad_store_elements']} elements)"
+                      f"({one['grad_store_elements']} elements, "
+                      f"{one['grad_candidates']} candidates, "
+                      f"{one['store_s']:.1f}s)"
                       for one in kept)
           + "; a rank's gradient at those elements of its slices, "
           f"{min(r['grad_log_bytes'] for _, _, r, _ in runs) / 1e6:.1f}-"
           f"{max(r['grad_log_bytes'] for _, _, r, _ in runs) / 1e6:.1f} MB "
-          f"a run on the host ({smi})")
+          f"a run on the host, its picks "
+          f"{sum(r['picks_s'] for _, _, r, _ in runs):.1f}s and its "
+          f"comparison {sum(r['compare_s'] for _, _, r, _ in runs):.1f}s "
+          f"over the rank runs ({smi})")
 
 
 def lm_mesh_placement(step, params) -> dict:
@@ -6080,48 +6325,201 @@ def lm_mesh_expected_bytes(torch, arch: str) -> tuple:
     return whole, sum(p.numel() * 4 for p in model.parameters())
 
 
-def lm_mesh_pipeline(torch, mesh=None) -> tuple:
-    """`pipeline_apply` over `mesh`'s stage ranks (one full-width
+def lm_mesh_pipeline(torch, mesh=None, ref_path: str | None = None) -> dict:
+    """(c): `pipeline_apply` over `mesh`'s stage ranks (one full-width
     qwen1.5-4b DecoderBlock a stage, fp32, drawn from SEED + 100 +
     stage), or with no mesh the LM_MESH_STAGES blocks in sequence on
     this rank, a microbatch at a time (the pipeline's shapes, so the
-    same products): (output on the host, ms)."""
+    same products).  First the forward under `torch.no_grad()` (what a
+    caller that wants no gradient pays), then the forward and backward
+    of ``sum(out * ct)`` for a cotangent drawn from SEED + 10: its
+    gradient in the input and in every block's parameters.  Alone, those
+    gradients are saved to `ref_path`; on a mesh, this rank's (the
+    input's, its stage's block's) are held to that file's under
+    LM_MESH_GRAD_ATOL + LM_MESH_GRAD_RTOL |g|, and the elements past it
+    returned ({leaf: (flat indices, this rank's, one rank's)}) for
+    `lm_mesh_pipeline_judge`.  Returns the output on the host and each
+    part's ms, `torch.distributed` calls and host ms inside them, and the
+    gradient run's peak bytes."""
     from repro_torch.distributed.pipeline_parallel import pipeline_apply
-    from repro_torch.nn.layers import init_params
-    from repro_torch.nn.transformer import DecoderBlock
     cfg = lm_mesh_config("qwen1.5-4b")
-    rng = np.random.default_rng(SEED + 9)
-    x = torch.from_numpy(rng.standard_normal(
-        (LM_MESH_STAGES, LM_MESH_SEQ, cfg.d_model)).astype(np.float32)
-    ).to(DEVICE)
-
-    def block(stage):
-        with torch.device(DEVICE):
-            return init_params(DecoderBlock(cfg), SEED + 100 + stage)
-
+    stages = (range(LM_MESH_STAGES) if mesh is None
+              else [mesh.axes["stage"].index])
+    x, ct, mine = lm_mesh_pipeline_inputs(torch, cfg, torch.float32, stages)
     if mesh is None:
-        blocks = [block(stage) for stage in range(LM_MESH_STAGES)]
-
         def run(x):
             outs = []
             for h in x.split(1):  # LM_MESH_STAGES microbatches of one row
-                for blk in blocks:
+                for blk in mine.values():
                     h = blk(h)[0]
                 outs.append(h)
             return torch.cat(outs)
     else:
-        mine = [block(mesh.axes["stage"].index)]
         pipe = pipeline_apply(lambda blk, y: blk(y)[0], mesh,
                               n_microbatches=LM_MESH_STAGES)
 
         def run(x):
-            return pipe(mine, x)
+            return pipe(list(mine.values()), x)
+    res = {}
+
+    def timed(key, fn):
+        with collective_clock() as coll:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+        res.update({f"{key}ms": 1e3 * (time.perf_counter() - t0),
+                    f"{key}calls": coll["calls"],
+                    f"{key}coll_ms": coll["ms"]})
+        return got
+
     with torch.no_grad():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        h = run(x)
-        torch.cuda.synchronize()
-    return h.cpu().numpy(), 1e3 * (time.perf_counter() - t0)
+        run(x)   # warm: the first call's handles and buffers
+        out = timed("", lambda: run(x))
+    res["out"] = out.cpu().numpy()
+    del out
+    warm = x.clone().requires_grad_(True)   # and the gradient's path
+    (run(warm) * ct).sum().backward()
+    for blk in mine.values():
+        blk.zero_grad(set_to_none=True)
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x = x.clone().requires_grad_(True)
+    y = timed("fwd_", lambda: run(x))
+    timed("bwd_", lambda: (y * ct).sum().backward())
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["same"] = bool(torch.equal(y.detach().cpu(),
+                                   torch.from_numpy(res["out"])))
+    grads = {"x": x.grad}
+    for s, blk in mine.items():
+        grads.update({f"{s}.{k}": p.grad for k, p in blk.named_parameters()})
+    if mesh is None:
+        torch.save({k: g.cpu() for k, g in grads.items()}, ref_path)
+        return res
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    res["misses"], res["checked"] = {}, 0
+    for k, g in grads.items():
+        want = ref[k].to(DEVICE)
+        res["checked"] += g.numel()
+        bad = ((g - want).abs() > LM_MESH_GRAD_ATOL
+               + LM_MESH_GRAD_RTOL * want.abs()).reshape(-1)
+        if bad.any():
+            at = torch.nonzero(bad)[:, 0]
+            res["misses"][k] = (at.cpu().numpy(),
+                                g.reshape(-1)[at].cpu().numpy(),
+                                want.reshape(-1)[at].cpu().numpy())
+    return res
+
+
+def lm_mesh_pipeline_inputs(torch, cfg, dtype, stages) -> tuple:
+    """(c)'s input [LM_MESH_STAGES, LM_MESH_SEQ, d] (SEED + 9), cotangent
+    (SEED + 10) and {stage: DecoderBlock (SEED + 100 + stage)} of
+    `stages` on the card, in `dtype`."""
+    from repro_torch.nn.layers import init_params
+    from repro_torch.nn.transformer import DecoderBlock
+    shape = (LM_MESH_STAGES, LM_MESH_SEQ, cfg.d_model)
+    x, ct = (torch.from_numpy(np.random.default_rng(SEED + seed)
+                              .standard_normal(shape).astype(np.float32)
+                              ).to(DEVICE, dtype) for seed in (9, 10))
+    blocks = {}
+    for stage in stages:
+        with torch.device(DEVICE):
+            blocks[stage] = init_params(DecoderBlock(cfg),
+                                        SEED + 100 + stage).to(dtype)
+    return x, ct, blocks
+
+
+def lm_mesh_pipeline_judge(torch, misses: dict) -> dict:
+    """(c)'s gradient elements past the rule (`misses`: {leaf: (flat
+    indices, the pipeline's, the one-rank stack's)}, leaf "x" or
+    "{stage}.{name}") judged against the same stack in float64 on this
+    rank, as `tests/test_torch_lm_train_arch.py` judges by a float64
+    gradient: an element passes where the one-rank stack is off float64
+    by more than the rule and the pipeline no further than it plus the
+    rule.  Returns {leaf: (elements, passed, the first faults)}."""
+    cfg = lm_mesh_config("qwen1.5-4b")
+    x, ct, blocks = lm_mesh_pipeline_inputs(torch, cfg, torch.float64,
+                                            range(LM_MESH_STAGES))
+    x.requires_grad_(True)
+    h = x
+    for blk in blocks.values():
+        h = blk(h)[0]
+    (h * ct).sum().backward()
+    exact = {"x": x.grad}
+    for s, blk in blocks.items():
+        exact.update({f"{s}.{k}": p.grad for k, p in blk.named_parameters()})
+    out = {}
+    for k, (at, got, want) in misses.items():
+        t = exact[k].reshape(-1)[torch.from_numpy(at).to(DEVICE)].cpu().numpy()
+        rule = LM_MESH_GRAD_ATOL + LM_MESH_GRAD_RTOL * np.abs(t)
+        off = np.abs(want - t)
+        ok = (off > rule) & (np.abs(got - t) <= off + rule)
+        out[k] = (len(at), int(ok.sum()), [
+            f"{k}[{int(at[j])}]: {float(got[j])!r}, one rank's "
+            f"{float(want[j])!r}, float64 {float(t[j])!r}"
+            for j in np.nonzero(~ok)[0][:4]])
+    del exact, blocks, x, h
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_pipeline_check(torch, pipe: list, one: dict, smi: str) -> None:
+    """(c): every stage's output within (a)'s limits of the blocks in
+    sequence and the same on every stage, the gradient run's output equal
+    to the forward alone's; every stage's gradients (the input's whole,
+    its block's) within LM_MESH_GRAD_ATOL + LM_MESH_GRAD_RTOL |g| of the
+    one-rank stack's, an element past it judged by the float64 stack
+    (`lm_mesh_pipeline_judge`)."""
+    want = one["out"]
+    got = next(p["out"] for p in pipe if p["out"] is not None)
+    gap = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=LM_MESH_RTOL, atol=LM_MESH_ATOL) \
+            or len({p["sum"] for p in pipe}) != 1 \
+            or not all(p["same"] for p in pipe):
+        fail(f"lm-mesh (c): the pipeline's output is {gap:.3e} off the "
+             f"blocks in sequence (rtol {LM_MESH_RTOL} / atol "
+             f"{LM_MESH_ATOL}), or differs between stages: "
+             f"{[p['sum'] for p in pipe]}, or with the gradient from the "
+             f"forward alone: {[p['same'] for p in pipe]}")
+    misses = {}
+    for p in pipe:
+        for k, (at, g, w) in p["misses"].items():
+            if k in misses:   # the input's gradient, held on every stage
+                at, g, w = (np.concatenate([a, b]) for a, b in
+                            zip(misses[k], (at, g, w)))
+            misses[k] = (at, g, w)
+    judged = lm_mesh_pipeline_judge(torch, misses) if misses else {}
+    faults = [f"{k}: {n - ok} of {n} past the rule not accounted for by "
+              f"float64: {'; '.join(lines)}"
+              for k, (n, ok, lines) in judged.items() if ok < n]
+    if faults:
+        fail("lm-mesh (c) gradient: " + " | ".join(faults))
+    past = sum(n for n, _, _ in judged.values())
+    checked = sum(p["checked"] for p in pipe)
+    peaks = ", ".join(f"{p['peak'] / 1e9:.2f}" for p in pipe)
+    phase("lm-mesh", f"(c) pipeline_apply over {LM_MESH_STAGES} stages, one "
+          f"qwen1.5-4b DecoderBlock a stage, {LM_MESH_STAGES} microbatches "
+          f"of 1 x {LM_MESH_SEQ}: within {gap:.2e} of the blocks in "
+          f"sequence on each microbatch (rtol {LM_MESH_RTOL} / atol "
+          f"{LM_MESH_ATOL}), every stage the same output; the gradient of "
+          f"sum(out * ct) (the input's on every stage, each stage's "
+          f"block's, {checked} elements) within {LM_MESH_GRAD_ATOL} + "
+          f"{LM_MESH_GRAD_RTOL} |g| of the one-rank stack's but {past}, "
+          f"each judged by the float64 stack"
+          + "".join(f", {k} {n}" for k, (n, _, _) in judged.items())
+          + f"; forward alone (no_grad) {max(p['ms'] for p in pipe):.1f} ms"
+          f" and {pipe[0]['calls']} torch.distributed calls "
+          f"({max(p['coll_ms'] for p in pipe):.1f} host ms inside them) "
+          f"against {one['ms']:.1f} ms in sequence on one rank; with the "
+          f"gradient: forward {max(p['fwd_ms'] for p in pipe):.1f} ms, "
+          f"{pipe[0]['fwd_calls']} calls ({max(p['fwd_coll_ms'] for p in pipe):.1f}"
+          f" host ms), backward {max(p['bwd_ms'] for p in pipe):.1f} ms, "
+          f"{pipe[0]['bwd_calls']} calls ({max(p['bwd_coll_ms'] for p in pipe):.1f}"
+          f" host ms), against {one['fwd_ms']:.1f} / {one['bwd_ms']:.1f} ms"
+          f" on one rank; peak {peaks} GB a rank against "
+          f"{one['peak'] / 1e9:.2f} GB on one rank "
+          f"({smi})")
 
 
 def lm_mesh_rank(paths: dict) -> dict:
@@ -6157,14 +6555,16 @@ def lm_mesh_rank(paths: dict) -> dict:
         out["tp"][lm_mesh_tp_label(arch, rules)] = lm_mesh_train(
             torch, arch, seq_plan if rules else plan, paths[arch],
             placed=True, serve=True, seq=LM_MESH_TP_SEQ,
-            micro=LM_MESH_TP_MICRO,
-            lr=lm_mesh_lr("f", arch))
+            micro=LM_MESH_TP_MICRO)
+    torch.distributed.barrier()
+    out["adafactor"] = lm_mesh_train(
+        torch, LM_MESH_ADAFACTOR, plan, paths["adafactor"], placed=True,
+        seq=LM_MESH_TP_SEQ, micro=LM_MESH_TP_MICRO, optimizer="adafactor")
     for arch in LM_MESH_SEQ_FAMILIES:
         torch.distributed.barrier()
         out["tp"][lm_mesh_tp_label(arch, LM_MESH_SEQ_RULES)] = lm_mesh_train(
             torch, arch, seq_plan, paths[arch], placed=True, serve=True,
-            seq=LM_MESH_TP_SEQ, micro=LM_MESH_TP_MICRO,
-            lr=lm_mesh_lr("f", arch))
+            seq=LM_MESH_TP_SEQ, micro=LM_MESH_TP_MICRO)
     out["compress"] = {}
     for kind in LM_MESH_COMPRESSORS:
         torch.distributed.barrier()
@@ -6172,11 +6572,11 @@ def lm_mesh_rank(paths: dict) -> dict:
             torch, LM_MESH_ARCHS[0], plan, paths[kind], compressor=kind)
     mesh = partition.make_mesh(stages=LM_MESH_STAGES)
     torch.distributed.barrier()
-    with collective_clock() as coll:
-        pipe, pipe_ms = lm_mesh_pipeline(torch, mesh)
-    out["pipeline"] = {"out": pipe if plan.rank == 0 else None,
-                       "sum": float(np.abs(pipe).sum()), "ms": pipe_ms,
-                       "calls": coll["calls"], "coll_ms": coll["ms"]}
+    pipe = lm_mesh_pipeline(torch, mesh, paths["pipeline"])
+    pipe["sum"] = float(np.abs(pipe["out"]).sum())
+    if plan.rank:
+        pipe["out"] = None
+    out["pipeline"] = pipe
     out["launches"] = read_launches()
     out["rank"] = plan.rank
     return out
@@ -6213,8 +6613,7 @@ def lm_mesh_uneven_rank(paths: dict) -> dict:
         out[arch] = lm_mesh_train(torch, arch, plan, paths[arch],
                                   seq=LM_MESH_UNEVEN_SEQ, micro=1,
                                   rows=LM_MESH_UNEVEN_ROWS, reckon=True,
-                                  serve=arch in LM_MESH_UNEVEN_SERVED,
-                                  lr=lm_mesh_lr("g", arch))
+                                  serve=arch in LM_MESH_UNEVEN_SERVED)
     out.update(rank=plan.rank, entered=entered, ready=ready,
                launches=read_launches())
     return out
@@ -6401,8 +6800,7 @@ def lm_mesh_uneven(torch, smi, figures: dict, tmp: str) -> dict:
     one = {arch: lm_mesh_train(torch, arch, None, paths[arch],
                                seq=LM_MESH_UNEVEN_SEQ, micro=1,
                                rows=LM_MESH_UNEVEN_ROWS,
-                               serve=arch in LM_MESH_UNEVEN_SERVED,
-                               lr=lm_mesh_lr("g", arch))
+                               serve=arch in LM_MESH_UNEVEN_SERVED)
            for arch in LM_MESH_UNEVEN_ARCHS}
     gc.collect()
     torch.cuda.empty_cache()
@@ -6639,6 +7037,57 @@ def lm_mesh_tp_check(runs: dict, one: dict, smi: str) -> None:
               f"tokens equal")
 
 
+def lm_mesh_adafactor_check(world: list, one: dict, smi: str) -> None:
+    """(f) with Adafactor: LM_MESH_ADAFACTOR placed at (data, model) on
+    every rank against its one-rank Adafactor run at (a)'s limits (the
+    loss, total loss and tokens each step within rtol, the final
+    parameters by `lm_mesh_compare`'s rule), its parameter bytes equal to
+    its layout's reckoning with no leaf whole on a dim the placement
+    cut, calls on the model axis."""
+    keys = ("loss", "total_loss", "tokens")
+    label = f"(f) {LM_MESH_ADAFACTOR} adafactor"
+    for run in world:
+        got, r = run["adafactor"], run["rank"]
+        for s, (g, w) in enumerate(zip(got["metrics"], one["metrics"])):
+            for k in keys:
+                if not abs(g[k] - w[k]) <= LM_MESH_RTOL * abs(w[k]) + 1e-7:
+                    fail(f"lm-mesh {label} rank {r} step {s + 1}: {k} "
+                         f"{g[k]!r} vs one rank's {w[k]!r} (rtol "
+                         f"{LM_MESH_RTOL})")
+        if got["misses"]:
+            fail(f"lm-mesh {label} rank {r}: {got['misses']} parameter "
+                 f"elements past rtol {LM_MESH_RTOL} / atol {LM_MESH_ATOL} "
+                 f"of one rank's (largest difference {got['worst']:.3e}): "
+                 f"{'; '.join(got['where'])}")
+        if got["uncut"] or not got["cut"] or not got["split"] \
+                or got["param_bytes"] != got["reckoned"] \
+                or not got["per_axis"].get("model"):
+            fail(f"lm-mesh {label} rank {r}: {got['param_bytes']} parameter "
+                 f"bytes held against the layout's {got['reckoned']}; "
+                 f"{got['split']} leaves split over model, {got['cut']} cut "
+                 f"over data, whole where cut: {got['uncut']}; calls by "
+                 f"axis {got['per_axis']}")
+        med = statistics.median(got["step_ms"][1:])
+        one_ms = statistics.median(one["step_ms"][1:])
+        phase("lm-mesh", lm_mesh_line(f"{label} rank {r}", got, smi)
+              + f" ({got['param_bytes'] / one['param_bytes']:.3f} and "
+              f"{got['opt_bytes'] / one['opt_bytes']:.3f} of one rank's); "
+              f"step {med / one_ms:.1f}x one rank's {one_ms:.1f} ms, peak "
+              f"against one rank's {one['peak'] / 1e9:.2f} GB; largest "
+              f"parameter difference {got['worst']:.2e}")
+    if not one["metrics"][-1]["loss"] < one["metrics"][0]["loss"]:
+        fail(f"lm-mesh {label}: one rank's loss did not fall: "
+             f"{[m['loss'] for m in one['metrics']]}")
+    phase("lm-mesh", f"{label} FSDP at (data={LM_MESH_DATA}, model="
+          f"{LM_MESH_MODEL}), split by heads, B and C alike on every model "
+          f"rank, vs one rank with Adafactor (lr {LM_MESH_LR}, "
+          f"{LM_MESH_STEPS} steps of {LM_MESH_BATCH} x {LM_MESH_TP_SEQ}): "
+          f"{', '.join(keys)} each step within rtol {LM_MESH_RTOL}, final "
+          f"parameters within rtol {LM_MESH_RTOL} / atol {LM_MESH_ATOL} or "
+          f"judged by their gradients; losses "
+          f"{[round(m['loss'], 5) for m in one['metrics']]}")
+
+
 def lm_mesh_seq_families_check(runs: dict, one: dict, smi: str) -> None:
     """(h): rwkv6-3b's and whisper-medium's (f) runs under the act rule
     "seq" -> "model" against (f)'s one-rank runs at (a)'s limits: the
@@ -6823,19 +7272,23 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     tp_archs = tuple(dict.fromkeys(a for a, _ in LM_MESH_TP_RUNS))
     with tempfile.TemporaryDirectory(prefix="lm_mesh_") as tmp:
         paths = {a: os.path.join(tmp, f"{i}.pt") for i, a in enumerate(
-            LM_MESH_ARCHS + tp_archs + LM_MESH_COMPRESSORS)}
+            LM_MESH_ARCHS + tp_archs + LM_MESH_COMPRESSORS
+            + ("adafactor", "pipeline"))}
         one = {a: lm_mesh_train(torch, a, None, paths[a],
                                 serve=a == LM_MESH_ARCHS[0])
                for a in LM_MESH_ARCHS}
         one_tp = {a: lm_mesh_train(torch, a, None, paths[a], serve=True,
                                    seq=LM_MESH_TP_SEQ,
-                                   micro=LM_MESH_TP_MICRO,
-                                   lr=lm_mesh_lr("f", a))
+                                   micro=LM_MESH_TP_MICRO)
                   for a in tp_archs}
+        one_ada = lm_mesh_train(torch, LM_MESH_ADAFACTOR, None,
+                                paths["adafactor"], seq=LM_MESH_TP_SEQ,
+                                micro=LM_MESH_TP_MICRO,
+                                optimizer="adafactor")
         one_comp = {kind: lm_mesh_train(torch, LM_MESH_ARCHS[0], None,
                                         paths[kind], compressor=kind)
                     for kind in LM_MESH_COMPRESSORS}
-        pipe_want, pipe_one_ms = lm_mesh_pipeline(torch)
+        pipe_one = lm_mesh_pipeline(torch, None, paths["pipeline"])
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
@@ -6857,6 +7310,8 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
                   for a, rules in LM_MESH_TP_RUNS]
                  + [("h", a, lm_mesh_tp_label(a, LM_MESH_SEQ_RULES))
                     for a in LM_MESH_SEQ_FAMILIES]]
+        runs.append((f"(f) {LM_MESH_ADAFACTOR} adafactor", r,
+                     run["adafactor"], one_ada))
         runs += [(f"(i) {kind}", r, run["compress"][kind], one_comp[kind])
                  for kind in LM_MESH_COMPRESSORS]
     lm_mesh_judged_lines(runs, smi)
@@ -6937,6 +7392,7 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
     lm_mesh_seq_check(world, one[LM_MESH_ARCHS[0]], figures["lm-mesh-fsdp"],
                       smi)
     lm_mesh_tp_check(figures["lm-mesh-tp"], one_tp, smi)
+    lm_mesh_adafactor_check(world, one_ada, smi)
     lm_mesh_seq_families_check(figures["lm-mesh-tp"], one_tp, smi)
     lm_mesh_compress_check(world, one_comp, one[LM_MESH_ARCHS[0]], smi)
     with tempfile.TemporaryDirectory(prefix="lm_mesh_g_") as tmp:
@@ -6944,25 +7400,8 @@ def lm_mesh_phase(torch, smi, figures: dict) -> dict:
             launches[k] += v
     if any(launches.values()):
         fail(f"lm-mesh (g): a kernel of the port was launched: {launches}")
-    pipe = [run["pipeline"] for run in world]
-    got = next(p["out"] for p in pipe if p["out"] is not None)
-    gap = float(np.abs(got - pipe_want).max())
-    if not np.allclose(got, pipe_want, rtol=LM_MESH_RTOL, atol=LM_MESH_ATOL) \
-            or len({p["sum"] for p in pipe}) != 1:
-        fail(f"lm-mesh (c): the pipeline's output is {gap:.3e} off the "
-             f"blocks in sequence (rtol {LM_MESH_RTOL} / atol "
-             f"{LM_MESH_ATOL}), or differs between stages: "
-             f"{[p['sum'] for p in pipe]}")
-    phase("lm-mesh", f"(c) pipeline_apply over {LM_MESH_STAGES} stages, one "
-          f"qwen1.5-4b DecoderBlock a stage, {LM_MESH_STAGES} microbatches "
-          f"of 1 x {LM_MESH_SEQ}: within {gap:.2e} of the blocks in "
-          f"sequence on each microbatch (rtol {LM_MESH_RTOL} / atol "
-          f"{LM_MESH_ATOL}), every stage the same output; "
-          f"{max(p['ms'] for p in pipe):.1f} ms against "
-          f"{pipe_one_ms:.1f} ms in sequence on one rank, "
-          f"{pipe[0]['calls']} torch.distributed calls "
-          f"and {max(p['coll_ms'] for p in pipe):.1f} host ms inside them "
-          f"({smi})")
+    lm_mesh_pipeline_check(torch, [run["pipeline"] for run in world],
+                           pipe_one, smi)
     phase("lm-mesh", f"kernel launches 0 (none on this path); world "
           f"{world_s:.1f}s, phase {time.perf_counter() - t0:.1f}s")
     return launches

@@ -82,13 +82,15 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """x [B, S, H, D]; positions [B, S] absolute token positions.  Half
-    split (the first D/2 features rotate with the last D/2), fp32 angles,
-    the result in x's dtype."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)
-    angles = positions[..., None].to(torch.float32) * freqs  # [B, S, D/2]
+    split (the first D/2 features rotate with the last D/2), fp32 angles
+    (float64 under a float64 x, from the same fp32 frequencies), the
+    result in x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    freqs = rope_frequencies(x.shape[-1], theta, x.device).to(acc)
+    angles = positions[..., None].to(acc) * freqs  # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(acc), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -200,7 +202,8 @@ class KVCache:
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   scale: float | None = None) -> torch.Tensor:
-    """Grouped-query attention in fp32, the result in q's dtype.
+    """Grouped-query attention in fp32 (float64 under float64 inputs),
+    the result in q's dtype.
 
     q [B, Sq, H, D]; k, v [B, Skv, K, D] with H = K * G; query head h
     reads kv head h // G.  mask: broadcastable to [B, 1, 1, Sq, Skv]
@@ -209,13 +212,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kheads = k.shape[2]
     g = h // kheads
     scale = scale if scale is not None else d ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(b, sq, kheads, g, d)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
-                          k.to(torch.float32)) * scale
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(acc),
+                          k.to(acc)) * scale
     if mask is not None:
         logits = torch.where(mask, logits, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(acc))
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
@@ -231,7 +235,8 @@ def chunked_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q [B, Sq, H, D]; k, v [B, Skv, K, D].  q_offset: the absolute position
     of q[0] relative to kv[0].  kv_valid: keys at or past it are masked.
     skip_masked_chunks: with causal, skip kv chunks wholly above the
-    diagonal (the reference's `lax.cond`)."""
+    diagonal (the reference's `lax.cond`).  fp32 (float64 under float64
+    inputs), the result in q's dtype."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -243,10 +248,11 @@ def chunked_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"must be multiples of their chunks {qc}, {kc}")
     nq, nk = sq // qc, skv // kc
     dev = q.device
+    f32 = torch.promote_types(q.dtype, torch.float32)
     # the scale multiplies in q's dtype, then fp32 (as the reference)
-    qg = (q.reshape(b, nq, qc, kh, g, d) * scale).to(torch.float32)
-    kf = k.reshape(b, nk, kc, kh, d).to(torch.float32)
-    vf = v.reshape(b, nk, kc, kh, d).to(torch.float32)
+    qg = (q.reshape(b, nq, qc, kh, g, d) * scale).to(f32)
+    kf = k.reshape(b, nk, kc, kh, d).to(f32)
+    vf = v.reshape(b, nk, kc, kh, d).to(f32)
     qpos = (torch.arange(sq, device=dev) + q_offset).reshape(nq, qc)
     kpos = torch.arange(skv, device=dev).reshape(nk, kc)
     first_k = [kc * j for j in range(nk)]
@@ -255,11 +261,9 @@ def chunked_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = []
     for i in range(nq):
         qi, qp = qg[:, i], qpos[i]
-        m = torch.full((b, kh, g, qc), -math.inf, dtype=torch.float32,
-                       device=dev)
-        l_sum = torch.zeros((b, kh, g, qc), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, kh, g, qc, d), dtype=torch.float32,
-                          device=dev)
+        m = torch.full((b, kh, g, qc), -math.inf, dtype=f32, device=dev)
+        l_sum = torch.zeros((b, kh, g, qc), dtype=f32, device=dev)
+        acc = torch.zeros((b, kh, g, qc, d), dtype=f32, device=dev)
         for j in range(nk):
             if causal and skip_masked_chunks and first_k[j] > last_q[i]:
                 continue

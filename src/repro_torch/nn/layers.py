@@ -148,8 +148,8 @@ class Linear(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm computed in fp32 and cast back, eps 1e-6, a `scale`
-    parameter (`repro/nn/layers.py:45-63`)."""
+    """RMSNorm computed in fp32 (float64 under a float64 input) and cast
+    back, eps 1e-6, a `scale` parameter (`repro/nn/layers.py:45-63`)."""
 
     def __init__(self, dim: int, *, eps: float = 1e-6, axis_name=None):
         super().__init__()
@@ -168,10 +168,11 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
-        x32 = x.to(torch.float32)
+        acc = torch.promote_types(dtype, torch.float32)
+        x32 = x.to(acc)
         var = torch.square(x32).mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + self.eps)
-        return (y * self.scale.to(torch.float32)).to(dtype)
+        return (y * self.scale.to(acc)).to(dtype)
 
 
 class LayerNorm(nn.Module):

@@ -8,8 +8,8 @@ A leaf split over the "model" axis as well (tensor parallelism) comes
 with ``model`` (the model `Axis`) and ``model_dims``, and is corrected
 over that axis in the same places.  ``model_dup`` names the ranges of a
 split leaf that every model rank holds alike (Mamba2's B and C columns
-of its fused projection): AdamW's norm counts them once; Adafactor
-refuses them.
+of its fused projection): AdamW's norm, and Adafactor's statistics and
+update RMS, count them once.
 
 It is not `torch.optim.AdamW`, whose defaults and order differ: b2 is
 0.95 and eps 1e-8; the gradient is clipped to global norm 1.0 (with
@@ -325,14 +325,6 @@ class AdamW:
 # Adafactor (factored second moment; for the >=100B archs)
 # ---------------------------------------------------------------------------
 
-def _refuse_dup(model, model_dup) -> None:
-    if model is not None and model_dup:
-        raise NotImplementedError(
-            "Adafactor on leaves held alike by every model rank "
-            f"({sorted(model_dup)}): its factored statistics would count "
-            "them once a rank (ROADMAP.md queue 1)")
-
-
 class AdafactorState(NamedTuple):
     step: torch.Tensor
     vr: Tree  # row second moment (or the full v of a leaf under 2-D)
@@ -395,10 +387,10 @@ class Adafactor:
         over a sliced dimension (the column statistics and the RMS
         normalizers of a row-sliced 2-D leaf) is averaged over the axis
         it is sliced on, so every rank reproduces the replicated math.
-        ``groups``: the layer grouping (`init`).  Ranges held alike by
-        every model rank (``model_dup``) are refused: no config runs
-        Adafactor on a Mamba2 layer."""
-        _refuse_dup(model, model_dup)
+        ``groups``: the layer grouping (`init`).  ``model_dup``: the
+        ranges of a split leaf that every model rank holds alike
+        (`global_norm`); a mean over that dim, and the RMS of the update,
+        count them once, as the logical leaf does."""
         out: Tree = {}
 
         def put(name, index, value):
@@ -411,7 +403,7 @@ class Adafactor:
         state, metrics = self._update(
             grads, state, params, put, dict(
                 group=group, shard_dims=shard_dims, model=model,
-                model_dims=model_dims), groups)
+                model_dims=model_dims, model_dup=model_dup), groups)
         return out, state, metrics
 
     def update_(self, grads: Tree, state: AdafactorState, params: Tree, *,
@@ -424,7 +416,6 @@ class Adafactor:
         (apart from the small ones of 1-D per-layer leaves), so the fp32
         temporaries cover one layer of a stack, or one unstacked leaf
         whole, as the reference's do."""
-        _refuse_dup(model, model_dup)
         def put(name, index, value):
             target = params[name]
             (target if index is None else target[index]).copy_(value)
@@ -432,7 +423,7 @@ class Adafactor:
         state, metrics = self._update(
             grads, state, params, put, dict(
                 group=group, shard_dims=shard_dims, model=model,
-                model_dims=model_dims), groups)
+                model_dims=model_dims, model_dup=model_dup), groups)
         return params, state, metrics
 
     def _update(self, grads, state, params, put, mesh, groups):
@@ -455,6 +446,9 @@ class Adafactor:
             (mesh["group"], mesh["shard_dims"]),
             (mesh["model"], mesh["model_dims"]))
             if axis is not None and dims is not None)
+        model_axis = mesh["model"]
+        dups = (mesh["model_dup"] or {}) if model_axis is not None \
+            and mesh["model_dims"] is not None else {}
         if self.max_grad_norm is not None:
             grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm,
                                                **mesh)
@@ -469,25 +463,75 @@ class Adafactor:
             from repro_torch.distributed import collectives
 
         # cuts: ((axis, dim), ...), the dims of this leaf sliced over each
-        # axis (slices are equal-sized, so the mean of means is the mean)
+        # axis (slices are equal-sized, so the mean of means is the mean);
+        # dup: (dim, [(start, stop)]), the ranges of the leaf's model dim
+        # that every model rank holds alike, or None
         def corr(x, cuts, over_dim):
             for axis, dim in cuts:
                 if dim == over_dim:
                     x = collectives.all_reduce(x, axis) / axis.size
             return x
 
-        def moments(g32, vr, vc, ndim, cuts):
+        def own_mask(x, dup):
+            """1 over the ranges of dup's dim this rank holds for its
+            part alone, 0 over those held alike, shaped to broadcast."""
+            dim, ranges = dup
+            w = torch.zeros(x.shape[dim], dtype=f32, device=x.device)
+            n_own = 0
+            for lo, hi, alike in _pieces(x.shape[dim], ranges):
+                if not alike:
+                    w[lo:hi] = 1.0
+                    n_own += hi - lo
+            shape = [1] * x.ndim
+            shape[dim] = -1
+            return w.reshape(shape), n_own
+
+        def mean_over(x, dim, cuts, dup, keepdim=False):
+            """The logical leaf's mean over `dim` of this rank's part."""
+            if dup is None or dup[0] != dim:
+                return corr(x.mean(dim=dim, keepdim=keepdim), cuts, dim)
+            w, n_own = own_mask(x, dup)
+            own = collectives.all_reduce((x * w).sum(dim=dim,
+                                                     keepdim=keepdim),
+                                         model_axis)
+            alike = (x * (1.0 - w)).sum(dim=dim, keepdim=keepdim)
+            n_alike = x.shape[dim] - n_own
+            return (own + alike) / (n_own * model_axis.size + n_alike)
+
+        def sq_parts(u, dup):
+            """(sum of u^2 over the ranges held for this rank's part
+            alone, over those held alike) and their element counts."""
+            w, n_own = own_mask(u, dup)
+            sq = torch.square(u)
+            per = u.numel() // u.shape[dup[0]]
+            return (torch.stack([(sq * w).sum(), (sq * (1.0 - w)).sum()]),
+                    n_own * per, (u.shape[dup[0]] - n_own) * per)
+
+        def dup_msq(sums, n_own, n_alike, cuts):
+            """The logical leaf's mean of u^2 from `sq_parts` sums."""
+            for axis, _ in cuts:
+                if axis is model_axis:
+                    sums = torch.stack([collectives.all_reduce(sums[0],
+                                                               axis),
+                                        sums[1]])
+                    n_own *= axis.size
+                else:
+                    sums = collectives.all_reduce(sums, axis)
+                    n_own, n_alike = n_own * axis.size, n_alike * axis.size
+            return sums.sum() / (n_own + n_alike)
+
+        def moments(g32, vr, vc, ndim, cuts, dup):
             g2 = torch.square(g32) + self.eps
             if ndim >= 2:
-                return (beta2 * vr + (1 - beta2) * corr(
-                            g2.mean(dim=-1), cuts, ndim - 1),
-                        beta2 * vc + (1 - beta2) * corr(
-                            g2.mean(dim=-2), cuts, ndim - 2))
+                return (beta2 * vr + (1 - beta2) * mean_over(
+                            g2, ndim - 1, cuts, dup),
+                        beta2 * vc + (1 - beta2) * mean_over(
+                            g2, ndim - 2, cuts, dup))
             return beta2 * vr + (1 - beta2) * g2, vc
 
-        def direction(g32, vr_n, vc_n, ndim, cuts):
+        def direction(g32, vr_n, vc_n, ndim, cuts, dup):
             if ndim >= 2:
-                rbar = corr(vr_n.mean(dim=-1, keepdim=True), cuts, ndim - 2)
+                rbar = mean_over(vr_n, ndim - 2, cuts, dup, keepdim=True)
                 denom = (vr_n / torch.clamp(rbar, min=self.eps))[..., None] \
                     * vc_n[..., None, :]
                 return g32 * torch.rsqrt(denom + self.eps)
@@ -501,31 +545,44 @@ class Adafactor:
             new_p = (p.to(f32) - lr * (u + self.weight_decay * p.to(f32)))
             return new_p.to(p.dtype)
 
-        def whole(p, g, vr, vc, cuts=()):
+        def whole(p, g, vr, vc, cuts=(), dup=None):
             g32 = g.to(f32)
-            vr_n, vc_n = moments(g32, vr, vc, p.ndim, cuts)
-            u = direction(g32, vr_n, vc_n, p.ndim, cuts)
-            return apply(p, u, torch.mean(torch.square(u)), cuts), \
+            vr_n, vc_n = moments(g32, vr, vc, p.ndim, cuts, dup)
+            u = direction(g32, vr_n, vc_n, p.ndim, cuts, dup)
+            if dup is None:
+                return apply(p, u, torch.mean(torch.square(u)), cuts), \
+                    vr_n, vc_n
+            return apply(p, u, dup_msq(*sq_parts(u, dup), cuts), ()), \
                 vr_n, vc_n
 
-        def by_slice(ps, gs, vr, vc, targets, cuts, per_slice):
+        def by_slice(ps, gs, vr, vc, targets, cuts, per_slice, dup):
             # ps[i], gs[i]: the stacked leaf's slice i, of >= 2 dims
             vr_n, vc_n = torch.empty_like(vr), torch.empty_like(vc)
             total = torch.zeros((), dtype=f32, device=vr.device)
+            counts = [0, 0]
             for i, (p, g) in enumerate(zip(ps, gs)):
                 g32 = g.to(f32)
-                vr_n[i], vc_n[i] = moments(g32, vr[i], vc[i], p.ndim, cuts)
-                u = direction(g32, vr_n[i], vc_n[i], p.ndim, cuts)
+                vr_n[i], vc_n[i] = moments(g32, vr[i], vc[i], p.ndim, cuts,
+                                           dup)
+                u = direction(g32, vr_n[i], vc_n[i], p.ndim, cuts, dup)
                 if per_slice:
                     put(*targets[i], apply(p, u, torch.mean(torch.square(u)),
                                            ()))
-                else:
+                elif dup is None:
                     total += torch.sum(torch.square(u))
+                else:
+                    sums, n_own, n_alike = sq_parts(u, dup)
+                    total = total + sums
+                    counts = [counts[0] + n_own, counts[1] + n_alike]
             if not per_slice:
-                msq = total / sum(p.numel() for p in ps)
+                if dup is None:
+                    msq, over = total / sum(p.numel() for p in ps), cuts
+                else:
+                    msq, over = dup_msq(total, *counts, cuts), ()
                 for i, (p, g) in enumerate(zip(ps, gs)):
-                    u = direction(g.to(f32), vr_n[i], vc_n[i], p.ndim, cuts)
-                    put(*targets[i], apply(p, u, msq, cuts))
+                    u = direction(g.to(f32), vr_n[i], vc_n[i], p.ndim, cuts,
+                                  dup)
+                    put(*targets[i], apply(p, u, msq, over))
             return vr_n, vc_n
 
         vr, vc = {}, {}
@@ -540,6 +597,15 @@ class Adafactor:
                 dim = at.pop()
                 if dim >= 0:
                     cuts.append((axis, dim))
+            dup = dups.get(members[0])
+            if any(dups.get(n) != dup for n in members):
+                raise ValueError(f"{key}: layers held alike in other "
+                                 "ranges")
+            if dup is not None and any(dim == dup[0] for axis, dim in cuts
+                                       if axis is not model_axis):
+                raise ValueError(f"{key}: ranges held alike over "
+                                 f"\"model\" on a dim sliced over "
+                                 "\"data\" too")
             ps = [params[n] for n in members]
             gs = [grads[n] for n in members]
             numel = sum(p.numel() for p in ps)
@@ -547,20 +613,22 @@ class Adafactor:
             if isinstance(names, str):
                 p = ps[0]
                 if cuts or p.ndim < 3 or numel <= CHUNKED_UPDATE_THRESHOLD:
-                    new, vr[key], vc[key] = whole(p, gs[0], *args, cuts)
+                    new, vr[key], vc[key] = whole(p, gs[0], *args, cuts,
+                                                  dup)
                     put(names, None, new)
                 else:  # the reference's `_maybe_chunked`
                     vr[key], vc[key] = by_slice(
                         p.unbind(0), gs[0].unbind(0), *args,
-                        [(names, i) for i in range(len(p))], (), True)
+                        [(names, i) for i in range(len(p))], (), True, None)
             elif ps[0].ndim >= 2:
                 vr[key], vc[key] = by_slice(
                     ps, gs, *args, [(n, None) for n in names], cuts,
-                    not cuts and numel > CHUNKED_UPDATE_THRESHOLD)
+                    not cuts and numel > CHUNKED_UPDATE_THRESHOLD, dup)
             else:  # [L, ...] of small leaves: stacked, as the reference
                 new, vr[key], vc[key] = whole(
                     torch.stack(ps), torch.stack(gs), *args,
-                    [(axis, dim + 1) for axis, dim in cuts])
+                    [(axis, dim + 1) for axis, dim in cuts],
+                    None if dup is None else (dup[0] + 1, dup[1]))
                 for n, v in zip(names, new.unbind(0)):
                     put(n, None, v)
         return (AdafactorState(step, vr, vc),

@@ -11,7 +11,9 @@ RWKV6's ``ln_x`` take their statistics over the axis.  Two JAX
 subprocesses side by side (4 host devices each, a (data=2, model=2)
 mesh; `JAX_SPLIT` shares the cases between them) run the
 reference's ``make_train_step(plan=, zero1=True)`` for 3 steps on each
-case of `torch_lm_mesh_ranks.TP_CASES` (rwkv6-3b; zamba2-1.2b; zamba2
+case of `torch_lm_mesh_ranks.TP_CASES` (rwkv6-3b; zamba2-1.2b, with
+AdamW and again with Adafactor, whose factored statistics count the B
+and C columns every model rank holds alike once; zamba2
 under ``"seq": "model"`` with remat "layer", two microbatches and an
 uneven mask, placed by FSDP on the port's side; whisper-medium over 32
 frames; and two uneven splits as the reference's resolver takes them:
@@ -23,8 +25,10 @@ case's own config), and the jitted prefill and greedy decode of the
 three smoke models and of rwkv6 with 3 heads of 32 under the mesh.  One 4-rank
 gloo world runs the port on the same initial parameters:
 
-* (a) the step: per-step metrics and whole final parameters at rtol
-  1e-4 / atol 1e-5 on every rank, all at the default lr 1e-4; the one
+* (a) the step (each case's optimizer, `torch_lm_mesh_ranks.
+  case_optimizer`, on both sides): per-step metrics and whole final
+  parameters at rtol 1e-4 / atol 1e-5 on every rank, all at the default
+  lr 1e-4; the one
   exception is the leaves whose true gradient is zero (the key biases
   of whisper's three attentions, `torch_lm_mesh_ranks.zero_grad_leaves`):
   their reference gradient is rounding, which Adam turns into steps of
@@ -107,7 +111,7 @@ JAX_TP = textwrap.dedent("""
 
         with use_sharding(mesh, plan.param_rules, plan.act_rules):
             save(f"{{name}}/grads", jax.jit(jax.grad(mean_loss))(params))
-        o = opt.AdamW(learning_rate=case.get("lr", R.LR))
+        o = R.case_optimizer(opt, case)
         step = train_loop.make_train_step(
             model, cfg, o, plan=plan, zero1=True,
             n_microbatches=case["n_micro"])
@@ -155,7 +159,7 @@ def _part(flat: dict, prefix: str) -> dict:
 # the reference's cases in two subprocesses run side by side (each
 # case's compile is most of its time), the serving with the second
 JAX_SPLIT = (("rwkv", "zamba", "zamba_seq", "granite_uneven"),
-             ("whisper", "rwkv_uneven"))
+             ("whisper", "rwkv_uneven", "zamba_adafactor"))
 
 
 @pytest.fixture(scope="module")

@@ -5,10 +5,14 @@ microbatches, a ``tanh(h @ w)`` layer): one JAX subprocess (4 host
 devices) draws the weights and input with `jax.random` and runs the
 reference's `pipeline_apply`; the port's output on every rank is held
 to it at rtol 2e-4 (the reference's own tolerance against the layers in
-sequence).  The same world runs one qwen1.5-4b-smoke `DecoderBlock` a
+sequence), and so is the gradient of ``sum(out * ct)`` for a seeded
+cotangent, ``jax.grad`` through the reference's GPipe loop: each rank's
+stage slice of the weights' gradient, and the whole input gradient on
+every rank.  The same world runs one qwen1.5-4b-smoke `DecoderBlock` a
 stage over 4 microbatches against the 4 blocks in sequence (rtol 1e-5,
-fp32), and checks the stage mesh's axes.  The pipeline is forward
-only: its output carries no gradient.
+fp32), its gradient in the input and in each stage's block against the
+sequence's (rtol 1e-4 / atol 1e-6), the forward alone under
+`torch.no_grad()`, and checks the stage mesh's axes.
 """
 import json
 import os
@@ -39,10 +43,15 @@ JAX_PIPELINE = textwrap.dedent("""
     def body(w, h):
         return jnp.tanh(h @ w)
 
+    ct = jax.random.normal(jax.random.PRNGKey(2), (8, D))
+    fn = pipeline_apply(body, mesh, n_microbatches=4)
     with mesh:
-        out = jax.jit(pipeline_apply(body, mesh, n_microbatches=4))(ws, x)
+        out = jax.jit(fn)(ws, x)
+        g_ws, g_x = jax.jit(jax.grad(lambda w, v: jnp.sum(fn(w, v) * ct),
+                                     argnums=(0, 1)))(ws, x)
     np.savez({out!r}, ws=np.asarray(ws), x=np.asarray(x),
-             out=np.asarray(out))
+             out=np.asarray(out), ct=np.asarray(ct), g_ws=np.asarray(g_ws),
+             g_x=np.asarray(g_x))
     print("JAX_PIPELINE", json.dumps(list(out.shape)))
 """)
 
@@ -66,7 +75,8 @@ def jax_pipeline(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port_pipeline(jax_pipeline):
     return run_ranks(R.pipeline_rank, 4,
-                     args=(jax_pipeline["ws"], jax_pipeline["x"], 4, 4),
+                     args=(jax_pipeline["ws"], jax_pipeline["x"], 4, 4,
+                           jax_pipeline["ct"]),
                      threads=1, timeout_s=180)
 
 
@@ -77,12 +87,51 @@ def test_pipeline_matches_reference(jax_pipeline, port_pipeline):
                                    err_msg=f"rank {rank}")
 
 
+def test_pipeline_gradient_matches_reference(jax_pipeline, port_pipeline):
+    """``jax.grad`` through the reference's loop: each stage's slice of
+    the weights' gradient (the rest of it zero on that rank) and the
+    whole input gradient on every rank."""
+    width = len(jax_pipeline["ws"]) // len(port_pipeline)
+    for rank, res in enumerate(port_pipeline):
+        got = res["grads"]
+        want = jax_pipeline["g_ws"][rank * width:(rank + 1) * width]
+        np.testing.assert_allclose(got["ws"], want, rtol=2e-4, atol=2e-4,
+                                   err_msg=f"rank {rank}")
+        assert got["ws_rest"] == 0.0
+        np.testing.assert_allclose(got["x"], jax_pipeline["g_x"],
+                                   rtol=2e-4, atol=2e-4,
+                                   err_msg=f"rank {rank}")
+    assert np.abs(jax_pipeline["g_x"]).max() > 1e-2
+
+
 def test_pipeline_of_decoder_blocks_matches_sequence(port_pipeline):
     for rank, res in enumerate(port_pipeline):
         got, want = res["blocks"]
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
                                    err_msg=f"rank {rank}")
-        assert not res["requires_grad"]
+        # the output carries the pipeline's gradient; under no_grad the
+        # forward alone runs and gives the same values
+        assert res["requires_grad"]
+        quiet, quiet_grad = res["quiet"]
+        assert not quiet_grad
+        np.testing.assert_array_equal(quiet, got)
+
+
+def test_pipeline_of_decoder_blocks_gradient_matches_sequence(
+        port_pipeline):
+    """Each stage's block gradient and the input's against the blocks in
+    sequence, in fp32: within ``1e-6 + 1e-4 |g|``, an element that
+    misses judged by the sequence in float64 as
+    `test_torch_lm_train_arch.check_grads` judges (at most `MAX_MISSES`
+    a leaf, each where the fp32 sequence is off float64 by more than the
+    rule and the pipeline no further)."""
+    from test_torch_lm_train_arch import check_grads
+    for rank, res in enumerate(port_pipeline):
+        got, want = res["block_grads"]
+        assert sorted(got) == sorted(want) and len(got) > 1
+        check_grads(got, want, lambda: res["block_grads64"], f"rank {rank}")
+        for k in want:
+            assert np.abs(want[k]).max() > 0, (rank, k)
 
 
 def test_stage_mesh_axes(port_pipeline):

@@ -10,6 +10,7 @@ subprocess of that file runs the same table.  Parameter trees travel as
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -106,13 +107,20 @@ def flatten(tree, prefix: str = "") -> dict:
     return {prefix: np.asarray(tree)}
 
 
+def case_optimizer(module, case: dict):
+    """The case's ``opt`` ("adamw" or "adafactor") at its rate from an
+    optimizer module (the reference's or the port's)."""
+    kind = {"adamw": module.AdamW, "adafactor": module.Adafactor}
+    return kind[case["opt"]](learning_rate=case.get("lr", LR))
+
+
 def optimizer(case: dict):
     from repro_torch.launch.specs import pick_optimizer
     from repro_torch.models import registry
     from repro_torch.train import optimizer as opt
     if case["opt"] == "pick":
         return pick_optimizer(registry.get_config(case["arch"]))
-    return opt.AdamW(learning_rate=case.get("lr", LR))
+    return case_optimizer(opt, case)
 
 
 def train_case(case: dict, initial: dict, *, model_parallel: int = 2,
@@ -185,6 +193,17 @@ PIECE_DATA = {"w": 0, "b": -1, "blocks.0.k": 0, "blocks.1.k": 0, "e": 1,
               "n": -1, "blocks.0.s": 0, "blocks.1.s": 0}
 PIECE_MODEL = {"w": 1, "b": 0, "blocks.0.k": 1, "blocks.1.k": 1, "e": 0,
                "n": 0, "blocks.0.s": -1, "blocks.1.s": -1}
+# leaves fused on their model dim as Mamba2's in_proj and conv bias are:
+# (dim, pieces of (width, cut over "model")), the uncut piece held alike
+# by every model rank (`ModelLayout.dup`); a 2-D one cut over "data" on
+# its rows, and a layer stack of 1-D ones (2-D once stacked)
+FUSED = ((4, True), (2, False), (4, True))
+PIECE_SHAPES.update({"f": (8, 10), "blocks.0.c": (10,), "blocks.1.c": (10,)})
+PIECE_DATA.update({"f": 0, "blocks.0.c": -1, "blocks.1.c": -1})
+PIECE_MODEL.update({"f": 1, "blocks.0.c": 0, "blocks.1.c": 0})
+PIECE_FUSED = {"f": (1, FUSED), "blocks.0.c": (0, FUSED),
+               "blocks.1.c": (0, FUSED)}
+PIECE_DUP = {k: (dim, [(2, 4)]) for k, (dim, _) in PIECE_FUSED.items()}
 
 
 def _normal(shape, seed, scale=1.0):
@@ -195,9 +214,10 @@ def _normal(shape, seed, scale=1.0):
 
 def optimizer_pieces() -> dict:
     """Three Adafactor updates and one global norm on this rank's slices
-    of `PIECE_SHAPES` (cut over both axes of a (data=2, model=2) mesh),
-    against the same on the whole tree; returns both, this rank's slices
-    of the whole result beside its own."""
+    of `PIECE_SHAPES` (cut over both axes of a (data=2, model=2) mesh;
+    the `PIECE_FUSED` leaves by their pieces, the alike ranges
+    `PIECE_DUP`), against the same on the whole tree; returns both, this
+    rank's slices of the whole result beside its own."""
     from repro_torch.distributed import collectives, partition
     from repro_torch.nn.layers import stack_groups
     from repro_torch.train import optimizer as opt
@@ -207,8 +227,10 @@ def optimizer_pieces() -> dict:
     def mine(tree):
         out = {}
         for k, x in tree.items():
+            if k in PIECE_FUSED:
+                x = collectives.fused_slice(x, *PIECE_FUSED[k], model)
             for axis, dims in ((data, PIECE_DATA), (model, PIECE_MODEL)):
-                if dims[k] >= 0:
+                if dims[k] >= 0 and not (axis is model and k in PIECE_FUSED):
                     x = collectives.split_chunk(x, axis, dims[k])
             out[k] = x.clone()
         return out
@@ -219,14 +241,15 @@ def optimizer_pieces() -> dict:
     groups = stack_groups(full)
     s_full, s_part = ada.init(full, groups), ada.init(part, groups)
     kw = dict(group=data, shard_dims=PIECE_DATA, model=model,
-              model_dims=PIECE_MODEL, groups=groups)
+              model_dims=PIECE_MODEL, groups=groups, model_dup=PIECE_DUP)
     for step in range(3):
         grads = {k: _normal(s, 50 + 10 * step + i, 0.5)
                  for i, (k, s) in enumerate(PIECE_SHAPES.items())}
         full, s_full, _ = ada.update(grads, s_full, full, groups=groups)
         part, s_part, _ = ada.update(mine(grads), s_part, part, **kw)
     norm = opt.global_norm(mine(grads), group=data, shard_dims=PIECE_DATA,
-                           model=model, model_dims=PIECE_MODEL)
+                           model=model, model_dims=PIECE_MODEL,
+                           model_dup=PIECE_DUP)
     return {"params": ({k: v.numpy() for k, v in part.items()},
                        {k: v.numpy() for k, v in mine(full).items()}),
             "norm": (float(norm), float(opt.global_norm(grads)))}
@@ -250,10 +273,15 @@ def lm_mesh_world(names: list, initial: dict,
 
 
 def pipeline_rank(ws: np.ndarray, x: np.ndarray, n_microbatches: int,
-                  stages: int) -> dict:
+                  stages: int, ct: np.ndarray | None = None) -> dict:
     """`pipeline_apply` of the reference's test body (``tanh(h @ w)``)
-    over a "stage" mesh of this world's ranks, and a DecoderBlock stage
-    a rank (qwen1.5-4b-smoke, fp32) against the blocks in sequence."""
+    over a "stage" mesh of this world's ranks, and with `ct` the
+    gradient of ``sum(out * ct)`` in ``ws`` (this stage's slice) and
+    ``x``; then a DecoderBlock stage a rank (qwen1.5-4b-smoke, fp32)
+    against the blocks in sequence (a microbatch at a time, and whole in
+    float64 for the judge): the output, its gradient in the input and in
+    this stage's block for a seeded cotangent, and the output again
+    under `torch.no_grad()`."""
     from repro_torch.distributed import partition
     from repro_torch.distributed.pipeline_parallel import (pipeline_apply,
                                                            stage_layers)
@@ -261,25 +289,71 @@ def pipeline_rank(ws: np.ndarray, x: np.ndarray, n_microbatches: int,
     from repro_torch.nn.layers import init_params
     from repro_torch.nn.transformer import DecoderBlock
     mesh = partition.make_mesh(stages=stages)
+    stage = mesh.axes["stage"].index
     fn = pipeline_apply(lambda w, h: torch.tanh(h @ w), mesh,
                         n_microbatches=n_microbatches)
-    out = fn(stage_layers(torch.from_numpy(ws), mesh), torch.from_numpy(x))
+    ws_t = torch.from_numpy(ws).requires_grad_(ct is not None)
+    x_t = torch.from_numpy(x).requires_grad_(ct is not None)
+    out = fn(stage_layers(ws_t, mesh), x_t)
+    grads = None
+    if ct is not None:
+        (out * torch.from_numpy(ct)).sum().backward()
+        width = len(ws) // stages
+        rows = slice(stage * width, (stage + 1) * width)
+        grads = {"ws": ws_t.grad[rows].numpy(), "x": x_t.grad.numpy(),
+                 "ws_rest": float(ws_t.grad.abs().sum()
+                                  - ws_t.grad[rows].abs().sum())}
 
     cfg = registry.get_config("qwen1.5-4b-smoke")
     blocks = [init_params(DecoderBlock(cfg), 10 + i) for i in range(stages)]
-    h = torch.from_numpy(np.random.default_rng(5).standard_normal(
-        (4, 16, cfg.d_model)).astype(np.float32))
+    rng = np.random.default_rng(5)
+    h_np = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    ct_b = torch.from_numpy(rng.standard_normal(h_np.shape).astype(
+        np.float32))
     run = pipeline_apply(lambda block, y: block(y)[0], mesh,
                          n_microbatches=4)
+    h = torch.from_numpy(h_np).requires_grad_(True)
     got = run(stage_layers(blocks, mesh), h)
+    requires_grad = got.requires_grad
+    (got * ct_b).sum().backward()
+    mine = blocks[stage]
+    got_grads = {k: p.grad.numpy() for k, p in mine.named_parameters()}
     with torch.no_grad():
-        want = h
+        quiet = run(stage_layers(blocks, mesh), h)
+    # the blocks in sequence a microbatch (row) at a time: the pipeline's
+    # products, so a gradient differs from it only in the order its
+    # microbatches' parts are summed
+    h2 = torch.from_numpy(h_np).requires_grad_(True)
+    want = []
+    for row in h2.split(1):
         for block in blocks:
-            want = block(want)[0]
+            row = block(row)[0]
+        want.append(row)
+    want = torch.cat(want)
+    names = [k for k, _ in mine.named_parameters()]
+    found = torch.autograd.grad((want * ct_b).sum(),
+                                [h2] + list(mine.parameters()))
+    # the judge of an element that misses: the sequence in float64
+    wide = [copy.deepcopy(block).double() for block in blocks]
+    h64 = torch.from_numpy(h_np).double().requires_grad_(True)
+    y64 = h64
+    for block in wide:
+        y64 = block(y64)[0]
+    exact = torch.autograd.grad((y64 * ct_b.double()).sum(),
+                                [h64] + list(wide[stage].parameters()))
     return {"mesh": (mesh.axis_names, dict(mesh.shape),
                      mesh.axes["stage"].ranks),
-            "out": out.numpy(), "blocks": (got.numpy(), want.numpy()),
-            "requires_grad": got.requires_grad}
+            "out": out.detach().numpy(), "grads": grads,
+            "blocks": (got.detach().numpy(), want.detach().numpy()),
+            "block_grads": ({"x": h.grad.numpy(), **got_grads},
+                            {"x": found[0].numpy(),
+                             **{k: g.numpy() for k, g in zip(names,
+                                                             found[1:])}}),
+            "block_grads64": {"x": exact[0].numpy(),
+                              **{k: g.numpy() for k, g in zip(names,
+                                                              exact[1:])}},
+            "quiet": (quiet.numpy(), quiet.requires_grad),
+            "requires_grad": requires_grad}
 
 
 # ---------------------------------------------------------------------------
@@ -771,6 +845,11 @@ TP_CASES = {
     # Mamba2 by SSM heads (8 over 2), the shared block, the tied table
     "zamba": dict(arch="zamba2-1.2b", opt="adamw", n_micro=1, batch=4,
                   seq=32),
+    # the same with Adafactor: its factored statistics and update RMS
+    # over the fused in_proj, conv_w and the stacked conv_b count the B
+    # and C ranges every model rank holds alike once
+    "zamba_adafactor": dict(arch="zamba2-1.2b", opt="adafactor", n_micro=1,
+                            batch=4, seq=32),
     # the same placed (FSDP) under the "seq" rule, remat "layer", two
     # microbatches and the uneven mask
     "zamba_seq": dict(arch="zamba2-1.2b", opt="adamw", n_micro=2, batch=4,
